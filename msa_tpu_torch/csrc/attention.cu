@@ -1,0 +1,186 @@
+// attention_block for Hopper: one encoder layer's attention block,
+//   out = concat_h( softmax(q_h·k_hᵀ·scale + mask_bias) · v_h ) · Woᵀ + bo,
+// with q/k/v = x·Wqkvᵀ + bqkv, in bf16 with f32 accumulation.
+//
+// Replaces msa_tpu/ops/pallas/attention.py:attention_block, bf16/f32
+// variant (pallas_call at :819, body _attn_block_body :574-695). Same
+// rounding points: q, k and v are projected in f32 (+ f32 bias) and rounded
+// to bf16; scores accumulate in f32; the mask adds −1e9 (not −inf), so a row
+// whose keys are all masked stays finite (it averages every key, exactly as
+// the TPU kernel does); P = exp(s − rowmax) is summed in f32 and rounded to
+// bf16 for P·V; the division by the denominator comes after P·V, and o/denom
+// is rounded to bf16 before the output projection.
+//
+// Three launches, all hand-written: the WMMA GEMM of gemm.cuh for the fused
+// QKV projection, one attention kernel per (64-row query tile, head, batch
+// row), and the GEMM again for Wo.
+//
+// What bounds it on the card: at B=2, T_pad=512, d 768 it is ~6.4 GFLOP
+// (QKV 3.6, scores 0.8, P·V 0.8, Wo 1.2) over ~7.9 MB of compulsory traffic:
+// tensor-core bound. The design keeps the whole score row block of a tile
+// (64 × T_pad f32, ≤ 130 KB) in shared memory so the softmax statistics are
+// exact over the full row, as in the TPU kernel, instead of an online
+// softmax whose rescaling would round P differently. The q/k/v and
+// attention-output tensors make one round trip through device memory
+// between the launches; fusing them away is work still to come.
+#include "gemm.cuh"
+
+namespace {
+
+constexpr int AQ = 64;            // query rows per block
+constexpr int AK = 64;            // keys per shared-memory chunk
+constexpr int DH = 64;            // head dim (the wrapper checks it)
+constexpr int LDH = DH + 8;       // padded bf16 row, 144 bytes
+constexpr int ATHREADS = 128;     // 4 warps, 16 query rows each
+
+size_t attn_smem_bytes(int T) {
+  return (size_t)3 * AQ * LDH * sizeof(bf16)   // sQ, sKV, sP
+         + (size_t)AQ * (T + 4) * sizeof(float)  // sS: scores, then P, then staging
+         + (size_t)T * sizeof(float)             // additive mask bias
+         + (size_t)AQ * sizeof(float);           // row denominators
+}
+
+__global__ void __launch_bounds__(ATHREADS)
+attn_core_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask, bf16* __restrict__ attn,
+                 int T, int DM, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sKV = sQ + AQ * LDH;
+  bf16* sP = sKV + AK * LDH;
+  const int LDS = T + 4;
+  float* sS = reinterpret_cast<float*>(sP + AQ * LDH);
+  float* sBias = sS + AQ * LDS;
+  float* sDen = sBias + T;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * AQ, h = blockIdx.y, b = blockIdx.z;
+  const size_t ld = 3 * (size_t)DM;  // qkv row stride
+  const bf16* base = qkv + (size_t)b * T * ld;
+
+  for (int i = tid; i < T; i += ATHREADS) sBias[i] = mask[(size_t)b * T + i] > 0.f ? 0.f : -1e9f;
+  for (int i = tid; i < AQ * DH / 8; i += ATHREADS) {
+    const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
+    *reinterpret_cast<uint4*>(sQ + r * LDH + c) =
+        *reinterpret_cast<const uint4*>(base + (size_t)(q0 + r) * ld + h * DH + c);
+  }
+
+  // S = Q·Kᵀ (raw f32 dots) for this warp's 16 rows, one 64-key chunk at a time
+  float* sSw = sS + warp * 16 * LDS;
+  for (int kc = 0; kc < T; kc += AK) {
+    __syncthreads();
+    for (int i = tid; i < AK * DH / 8; i += ATHREADS) {
+      const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
+      *reinterpret_cast<uint4*>(sKV + r * LDH + c) =
+          *reinterpret_cast<const uint4*>(base + (size_t)(kc + r) * ld + DM + h * DH + c);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < AK / 16; ++j) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.0f);
+#pragma unroll
+      for (int kk = 0; kk < DH; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kt;
+        wmma::load_matrix_sync(a, sQ + warp * 16 * LDH + kk, LDH);
+        wmma::load_matrix_sync(kt, sKV + j * 16 * LDH + kk, LDH);
+        wmma::mma_sync(acc, a, kt, acc);
+      }
+      wmma::store_matrix_sync(sSw + kc + j * 16, acc, LDS, wmma::mem_row_major);
+    }
+  }
+  __syncwarp();
+
+  // softmax statistics over the full row, in f32: s = S·scale + bias,
+  // P = exp(s − max), denom = Σ P (P kept unrounded in sS)
+  for (int r = 0; r < 16; ++r) {
+    float* row = sSw + r * LDS;
+    float m = -3.402823466e38f;  // -FLT_MAX
+    for (int c = lane; c < T; c += 32) {
+      const float s = row[c] * scale + sBias[c];
+      row[c] = s;
+      m = fmaxf(m, s);
+    }
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int c = lane; c < T; c += 32) {
+      const float p = expf(row[c] - m);
+      row[c] = p;
+      sum += p;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) sDen[warp * 16 + r] = sum;
+  }
+  __syncwarp();
+
+  // O = P_bf16 · V, 64 keys at a time
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[DH / 16];
+#pragma unroll
+  for (int j = 0; j < DH / 16; ++j) wmma::fill_fragment(o[j], 0.0f);
+  bf16* sPw = sP + warp * 16 * LDH;
+  for (int kc = 0; kc < T; kc += AK) {
+    __syncthreads();  // every warp is done with sKV
+    for (int i = tid; i < AK * DH / 8; i += ATHREADS) {
+      const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
+      *reinterpret_cast<uint4*>(sKV + r * LDH + c) =
+          *reinterpret_cast<const uint4*>(base + (size_t)(kc + r) * ld + 2 * DM + h * DH + c);
+    }
+    for (int i = lane; i < 16 * AK; i += 32) {
+      const int r = i / AK, c = i % AK;
+      sPw[r * LDH + c] = __float2bfloat16(sSw[r * LDS + kc + c]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < AK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> p;
+      wmma::load_matrix_sync(p, sPw + kk, LDH);
+#pragma unroll
+      for (int j = 0; j < DH / 16; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> v;
+        wmma::load_matrix_sync(v, sKV + kk * LDH + j * 16, LDH);
+        wmma::mma_sync(o[j], p, v, o[j]);
+      }
+    }
+  }
+
+  // o / denom → bf16, written at this head's columns of attn [B·T, DM]
+#pragma unroll
+  for (int j = 0; j < DH / 16; ++j) wmma::store_matrix_sync(sSw + j * 16, o[j], LDS, wmma::mem_row_major);
+  __syncwarp();
+  for (int i = lane; i < 16 * DH / 8; i += 32) {
+    const int r = i / (DH / 8), c = (i % (DH / 8)) * 8;
+    const float den = sDen[warp * 16 + r];
+    __align__(16) bf16 v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(sSw[r * LDS + c + e] / den);
+    *reinterpret_cast<uint4*>(attn + ((size_t)b * T + q0 + warp * 16 + r) * DM + h * DH + c) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+}  // namespace
+
+// x [B·T, DM] bf16, wqkv [3·DM, DM] bf16, bqkv [3·DM] f32, wout [DM, DM] bf16,
+// bout [DM] f32, mask [B, T] f32; scratch qkv [B·T, 3·DM] and attn [B·T, DM]
+// bf16; out [B·T, DM] bf16. T % 64 == 0 and DM == H·64.
+extern "C" int msa_attention_block(const void* x, const void* wqkv, const void* bqkv, const void* wout,
+                                   const void* bout, const void* mask, void* qkv, void* attn, void* out, int B,
+                                   int T, int DM, int H, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = B * T;
+  cudaError_t e = launch_gemm_nt<false, float>(static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+                                               static_cast<const float*>(bqkv), static_cast<bf16*>(qkv), M,
+                                               3 * DM, DM, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t smem = attn_smem_bytes(T);
+  e = cudaFuncSetAttribute(attn_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(T / AQ, H, B);
+  attn_core_kernel<<<grid, ATHREADS, smem, s>>>(static_cast<const bf16*>(qkv), static_cast<const float*>(mask),
+                                                static_cast<bf16*>(attn), T, DM, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = launch_gemm_nt<false, float>(static_cast<const bf16*>(attn), static_cast<const bf16*>(wout),
+                                   static_cast<const float*>(bout), static_cast<bf16*>(out), M, DM, DM, s);
+  return static_cast<int>(e);
+}

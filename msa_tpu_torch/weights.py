@@ -1,0 +1,78 @@
+"""flax param trees (nested dicts of numpy arrays) → this package's modules.
+
+The port's modules use the flax tree's names, so one walk maps every leaf:
+
+- ``kernel`` → ``weight``: a Dense kernel ``[in, out]`` becomes a Linear
+  weight ``[out, in]``; a Conv kernel ``[k…, in, out]`` (NWC/NHWC) becomes
+  ``[out, in, k…]`` (NCW/NCHW); a 1×1 conv kernel feeding a Linear head is
+  reshaped to ``[out, in]``;
+- ``scale`` → ``weight`` (LayerNorm/GroupNorm), ``embedding`` → ``weight``;
+- ``bias`` and scalar leaves keep their names.
+
+Values are cast to each parameter's own dtype (bf16 encoder matrices round
+to nearest even, as JAX's ``astype`` does). Also here: the random trunk
+draw that stands in for the flax init, which cannot be reproduced without
+JAX.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+_RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+
+
+def _convert(name: str, value: np.ndarray, target: torch.Tensor) -> torch.Tensor:
+    v = np.asarray(value)
+    if name == "kernel":
+        if v.ndim == 2:
+            v = v.T
+        else:  # [k..., in, out] → [out, in, k...]
+            v = np.transpose(v, (v.ndim - 1, v.ndim - 2) + tuple(range(v.ndim - 2)))
+        if v.shape != tuple(target.shape) and v.size == target.numel():
+            v = v.reshape(target.shape)  # 1×1 conv head applied as a Linear
+    if v.shape != tuple(target.shape):
+        raise ValueError(f"{name}: flax shape {np.shape(value)} does not fit {tuple(target.shape)}")
+    return torch.from_numpy(np.array(v)).to(device=target.device, dtype=target.dtype)
+
+
+@torch.no_grad()
+def load_flax_tree(module: nn.Module, tree: Mapping[str, Any], prefix: str = "") -> None:
+    """Copy every leaf of ``tree`` into the same-named parameter of
+    ``module``. Raises on a leaf without a parameter or a shape mismatch."""
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            child = getattr(module, key, None)
+            if not isinstance(child, nn.Module):
+                raise KeyError(f"{prefix}{key}: no such submodule in {type(module).__name__}")
+            load_flax_tree(child, value, f"{prefix}{key}.")
+            continue
+        target = getattr(module, _RENAME.get(key, key), None)
+        if not isinstance(target, torch.Tensor):
+            raise KeyError(f"{prefix}{key}: no such parameter in {type(module).__name__}")
+        target.copy_(_convert(key, value, target))
+
+
+@torch.no_grad()
+def draw_random_(module: nn.Module, generator: torch.Generator) -> None:
+    """Fill ``module`` with random weights at flax's init scales: matrices
+    and conv kernels lecun-normal over their fan-in (truncated at ±2σ),
+    norm scales 1, biases 0. Drawn in f32 on the module's device, then
+    cast to each parameter's dtype."""
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "weight" and p.dim() >= 2:
+            fan_in = p[0].numel()
+            std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+            w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+            p.copy_(w)
+        elif leaf == "weight":
+            p.fill_(1.0)
+        elif leaf == "bias":
+            p.zero_()

@@ -1,0 +1,37 @@
+"""Import hygiene of the port: ``msa_tpu_torch`` and ``chip_smoke.py`` run
+where there is no JAX, so they import nothing of jax, flax, msgpack, optax
+or the JAX package."""
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "msa_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+BANNED = {"jax", "jaxlib", "flax", "msgpack", "optax", "msa_tpu"}
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_side_imports(path):
+    bad = sorted(m for m in _imports(path) if m.split(".")[0] in BANNED)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_port_is_there():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for want in (
+        "chip_smoke.py",
+        "msa_tpu_torch/ops/kernels/attention.py",
+        "msa_tpu_torch/ops/kernels/ffn.py",
+        "msa_tpu_torch/pipeline/graph.py",
+    ):
+        assert want in names

@@ -1,0 +1,77 @@
+"""Shared helpers for the ``tests/test_torch_*.py`` parity tests: the same
+numpy inputs and the same parameters go through a ``msa_tpu`` (JAX)
+function and its ``msa_tpu_torch`` counterpart on the CPU.
+
+The small configs keep ``d_model`` at 128 so that the JAX encoders reach
+their Pallas kernels (taken only when ``d_model % 128 == 0``; they run in
+interpret mode on the CPU), unlike ``EncoderConfig.tiny()``.
+"""
+
+from __future__ import annotations
+
+import jax
+import numpy as np
+import torch
+
+ENC = dict(num_layers=2, d_model=128, num_heads=4, d_ff=256)
+FACE = dict(
+    backbone_channels=(4, 8),
+    cnn_channels=(4, 8),
+    frame_size=32,
+    emotion_weights=None,
+    landmark_weights=None,
+)
+AUDIO = dict(
+    conv_channels=(32, 32),
+    conv_kernels=(10, 8),
+    conv_strides=(5, 4),
+    pool_hidden=16,
+    pos_conv_kernel=16,  # even kernel: exercises the one-frame trim
+    pos_conv_groups=4,
+    head_weights=None,
+)
+TEXT = dict(vocab_size=128, max_positions=64, head_weights=None)
+
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def to_numpy(tree):
+    """A JAX param tree with numpy leaves (what ``weights.py`` takes)."""
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def jax_encoder_cfg(dtype: str, kernels: bool = True):
+    from msa_tpu.models.transformer import EncoderConfig
+
+    impl = dict(attention_impl="pallas", ffn_impl="pallas") if kernels else {}
+    return EncoderConfig(compute_dtype=dtype, **impl, **ENC)
+
+
+def port_encoder_cfg(dtype: str, kernels: bool = True):
+    from msa_tpu_torch.models.transformer import EncoderConfig
+
+    impl = dict(attention_impl="kernel", ffn_impl="kernel") if kernels else {}
+    return EncoderConfig(compute_dtype=dtype, **impl, **ENC)
+
+
+def t(x, dtype=None) -> torch.Tensor:
+    """numpy/JAX array → CPU tensor (bf16 via f32, which is exact)."""
+    a = np.asarray(jax.numpy.asarray(x).astype(np.float32)) if dtype is torch.bfloat16 else np.asarray(x)
+    out = torch.from_numpy(np.array(a))
+    return out.to(dtype) if dtype is not None else out
+
+
+def f32(x) -> np.ndarray:
+    """JAX array or tensor → float32 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jax.numpy.asarray(x).astype(np.float32))
+
+
+def bf16_bound(ref: np.ndarray) -> float:
+    """The bf16 bound these tests state: 5 bf16 steps (2^-8 each) of the
+    largest magnitude in the compared group, plus 1e-3 for groups near 0.
+    Both sides round to bf16 at the same points; what is left is f32
+    summation order flipping the last bit of a rounded value, which later
+    layers carry forward."""
+    return 5 * 2.0**-8 * float(np.abs(ref).max()) + 1e-3
