@@ -1,6 +1,6 @@
 """The configuration fields the segment graph reads (port of
-``SystemConfig.audio`` of ``msa_tpu/core/config.py``; same names and
-defaults)."""
+``SystemConfig.audio`` and ``SystemConfig.pipeline.segment_samples`` of
+``msa_tpu/core/config.py``; same names and defaults)."""
 
 from __future__ import annotations
 
@@ -15,5 +15,11 @@ class AudioAnalysisConfig:
 
 
 @dataclass(frozen=True)
+class PipelineConfig:
+    segment_samples: int = 80_000  # 5 s @ 16 kHz
+
+
+@dataclass(frozen=True)
 class SystemConfig:
     audio: AudioAnalysisConfig = field(default_factory=AudioAnalysisConfig)
+    pipeline: PipelineConfig = field(default_factory=PipelineConfig)

@@ -23,7 +23,19 @@
 // softmax whose rescaling would round P differently. The q/k/v and
 // attention-output tensors make one round trip through device memory
 // between the launches; fusing them away is work still to come.
-#include "gemm.cuh"
+//
+// msa_attention_block_int8 replaces the W8A8 variant (attention_block(
+// int8=True), pallas_call at :779, body _attn_block_body :574-695, wrapper
+// :760-815) with five launches: quantize the rows of x (quant.cu); the int8
+// QKV GEMM of gemm_s8.cuh with the epilogue acc·xs·s + b (acc·s·xs + b for
+// K, as on the TPU), rounded to bf16; the same attention core as above
+// (score and P·V dots stay bf16, as on the TPU); quantize the rows of the
+// bf16 attention output over all heads (its row amax needs every head, so
+// it sits between the core and the Wo GEMM); the int8 Wo GEMM with
+// acc·as·so + bo, rounded to bf16. At B=2, T_pad=512 the projections are
+// 4.8 G int8 operations and the two attention dots 3.2 GFLOP of bf16:
+// tensor-core bound, at 1,979 TOPS and 989 TFLOP/s respectively.
+#include "gemm_s8.cuh"
 
 namespace {
 
@@ -182,5 +194,40 @@ extern "C" int msa_attention_block(const void* x, const void* wqkv, const void* 
   if (e != cudaSuccess) return static_cast<int>(e);
   e = launch_gemm_nt<false, float>(static_cast<const bf16*>(attn), static_cast<const bf16*>(wout),
                                    static_cast<const float*>(bout), static_cast<bf16*>(out), M, DM, DM, s);
+  return static_cast<int>(e);
+}
+
+// x [B·T, DM] bf16; wqkv [3·DM, DM] int8 with per-row (output channel)
+// scales sqkv [3·DM] f32 and bias bqkv [3·DM] f32; wout [DM, DM] int8 with
+// sout [DM] f32 and bout [DM] f32; mask [B, T] f32. Scratch: xq [B·T, DM]
+// int8, xs [B·T] f32, qkv [B·T, 3·DM] bf16, attn [B·T, DM] bf16, aq
+// [B·T, DM] int8, as [B·T] f32. out [B·T, DM] bf16. T % 64 == 0, DM == H·64,
+// DM % 128 == 0.
+extern "C" int msa_attention_block_int8(const void* x, const void* wqkv, const void* sqkv, const void* bqkv,
+                                        const void* wout, const void* sout, const void* bout, const void* mask,
+                                        void* xq, void* xs, void* qkv, void* attn, void* aq, void* as, void* out,
+                                        int B, int T, int DM, int H, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = B * T;
+  int rc = msa_quantize_rows(x, 1, xq, xs, M, DM, stream);
+  if (rc) return rc;
+  cudaError_t e = launch_gemm_s8<false, bf16>(static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wqkv),
+                                              static_cast<const float*>(xs), static_cast<const float*>(sqkv),
+                                              static_cast<const float*>(bqkv), static_cast<bf16*>(qkv), M, 3 * DM,
+                                              DM, s, DM, 2 * DM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const size_t smem = attn_smem_bytes(T);
+  e = cudaFuncSetAttribute(attn_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  attn_core_kernel<<<dim3(T / AQ, H, B), ATHREADS, smem, s>>>(static_cast<const bf16*>(qkv),
+                                                              static_cast<const float*>(mask),
+                                                              static_cast<bf16*>(attn), T, DM, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rc = msa_quantize_rows(attn, 1, aq, as, M, DM, stream);
+  if (rc) return rc;
+  e = launch_gemm_s8<false, bf16>(static_cast<const int8_t*>(aq), static_cast<const int8_t*>(wout),
+                                  static_cast<const float*>(as), static_cast<const float*>(sout),
+                                  static_cast<const float*>(bout), static_cast<bf16*>(out), M, DM, DM, s);
   return static_cast<int>(e);
 }

@@ -12,7 +12,19 @@
 // design runs two launches of the shared WMMA GEMM (gemm.cuh) and lets the
 // hidden tile [N, d_ff] make a round trip through device memory (L2 holds
 // it at these sizes). Keeping it on chip is the redesign still to come.
-#include "gemm.cuh"
+//
+// msa_ffn_fused_int8 replaces msa_tpu/ops/pallas/ffn.py:ffn_fused_int8
+// (pallas_call at :166, body _ffn_int8_kernel :106-133) with four launches:
+// quantize the rows of x (quant.cu); the int8 fc_in GEMM of gemm_s8.cuh
+// with the epilogue acc·xs·s1 + b1 and the GELU, writing an f32 hidden tile
+// (the TPU kernel quantizes the f32 GELU output, not a bf16 rounding of
+// it); quantize the rows of the hidden tile over all d_ff columns (a row
+// spans every block of the fc_in grid, so this is a second pass); the int8
+// fc_out GEMM with acc·hs·s2 + b2, rounded to bf16. At N=1024 that is
+// 9.7 G int8 operations against ~7 MB of compulsory traffic: tensor-core
+// bound at 1,979 TOPS. The f32 hidden tile (12.6 MB at N=1024) makes a
+// round trip through device memory (L2 holds it).
+#include "gemm_s8.cuh"
 
 extern "C" int msa_ffn_fused(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                              void* hidden, void* out, int M, int D, int F, void* stream) {
@@ -23,6 +35,28 @@ extern "C" int msa_ffn_fused(const void* x, const void* w1, const void* b1, cons
   if (e != cudaSuccess) return static_cast<int>(e);
   e = launch_gemm_nt<false, bf16>(static_cast<const bf16*>(hidden), static_cast<const bf16*>(w2),
                                   static_cast<const bf16*>(b2), static_cast<bf16*>(out), M, D, F, s);
+  return static_cast<int>(e);
+}
+
+// x [M, D] bf16; w1 [F, D] int8, s1 [F] f32, b1 [F] f32; w2 [D, F] int8,
+// s2 [D] f32, b2 [D] f32. Scratch: xq [M, D] int8, xs [M] f32, hidden
+// [M, F] f32, hq [M, F] int8, hs [M] f32. out [M, D] bf16.
+extern "C" int msa_ffn_fused_int8(const void* x, const void* w1, const void* s1, const void* b1, const void* w2,
+                                  const void* s2, const void* b2, void* xq, void* xs, void* hidden, void* hq,
+                                  void* hs, void* out, int M, int D, int F, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = msa_quantize_rows(x, 1, xq, xs, M, D, stream);
+  if (rc) return rc;
+  cudaError_t e = launch_gemm_s8<true, float>(static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w1),
+                                              static_cast<const float*>(xs), static_cast<const float*>(s1),
+                                              static_cast<const float*>(b1), static_cast<float*>(hidden), M, F, D,
+                                              s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rc = msa_quantize_rows(hidden, 0, hq, hs, M, F, stream);
+  if (rc) return rc;
+  e = launch_gemm_s8<false, bf16>(static_cast<const int8_t*>(hq), static_cast<const int8_t*>(w2),
+                                  static_cast<const float*>(hs), static_cast<const float*>(s2),
+                                  static_cast<const float*>(b2), static_cast<bf16*>(out), M, D, F, s);
   return static_cast<int>(e);
 }
 

@@ -10,7 +10,13 @@ JAX ``"pallas"``) runs the hand-written CUDA kernels of
 :mod:`msa_tpu_torch.ops.kernels` — their plain versions on the CPU — and
 needs ``d_model`` and ``d_ff`` to be multiples of 128: otherwise it raises
 (JAX falls back to its packed-QKV kernel and a dense FFN there, which are
-not ported); ``"einsum"``/``"dense"`` is the plain PyTorch path. Parameter names
+not ported); ``"einsum"``/``"dense"`` is the plain PyTorch path. With
+``quantize="int8"`` the kernel paths run the W8A8 kernels.
+
+The encoder matrices are f32 masters, as flax's params are. Each layer
+derives what its path consumes (int8 codes and scales, or compute-dtype
+copies) in ``derive_weights_``, which :mod:`msa_tpu_torch.weights` runs
+after a load or a random draw. Parameter names
 follow the flax tree (``qkv``, ``attn_out``, ``fc_in``, ``fc_out``,
 ``attn_ln``, ``ffn_ln``, ``layer_{i}``) so :mod:`msa_tpu_torch.weights`
 maps them one to one. Inference only: there is no dropout.
@@ -25,8 +31,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from msa_tpu_torch.ops.kernels.attention import attention_block
-from msa_tpu_torch.ops.kernels.ffn import ffn_fused
+from msa_tpu_torch.ops.kernels.attention import attention_block, attention_block_int8
+from msa_tpu_torch.ops.kernels.ffn import ffn_fused, ffn_fused_int8
+from msa_tpu_torch.ops.quant import quantize_weight_axis
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -41,7 +48,8 @@ class EncoderConfig:
     compute_dtype: str = "float32"
     attention_impl: str = "einsum"  # "einsum" | "kernel"
     ffn_impl: str = "dense"  # "dense" | "kernel"
-    # "none" | "int8"; the W8A8 kernels are not ported yet (next slice)
+    # "none" | "int8": W8A8 projections and FFN on the kernel paths (the
+    # plain paths ignore it, as in JAX); attention's own dots stay bf16
     quantize: str = "none"
 
     @property
@@ -75,25 +83,47 @@ class LayerNorm(nn.Module):
         return (xf - mean) * mul + self.bias
 
 
+@torch.no_grad()
+def _derive(module: nn.Module, linears, int8: bool, dt: torch.dtype, biases: bool = False) -> None:
+    """Register what a path consumes from each named f32 master Linear as
+    non-persistent buffers: ``w_{name}_q`` int8 codes and ``s_{name}`` f32
+    per-output-channel scales (JAX quantizes its f32 params alike on every
+    call), else ``w_{name}_c`` (and ``b_{name}_c``) in the compute dtype."""
+    for name, lin in linears:
+        if int8:
+            w_q, s = quantize_weight_axis(lin.weight, axis=1)
+            module.register_buffer(f"w_{name}_q", w_q, persistent=False)
+            module.register_buffer(f"s_{name}", s[:, 0].contiguous(), persistent=False)
+        else:
+            module.register_buffer(f"w_{name}_c", lin.weight.detach().to(dt), persistent=False)
+            if biases:
+                module.register_buffer(f"b_{name}_c", lin.bias.detach().to(dt), persistent=False)
+
+
 class SelfAttention(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_model
-        # weights held in the compute dtype (every path consumes them so);
-        # biases in f32 (the kernel path adds them in f32)
-        self.qkv = nn.Linear(d, 3 * d).to(cfg.dtype)
-        self.attn_out = nn.Linear(d, d).to(cfg.dtype)
-        self.qkv.bias.data = self.qkv.bias.data.float()
-        self.attn_out.bias.data = self.attn_out.bias.data.float()
+        # f32 masters (flax's param dtype); what a path consumes is derived
+        # from them by derive_weights_()
+        self.qkv = nn.Linear(d, 3 * d)
+        self.attn_out = nn.Linear(d, d)
+        self.derive_weights_()
+
+    def derive_weights_(self) -> None:
+        """Derive the weights this path consumes from the f32 masters: int8
+        on the int8 kernel path, else the compute dtype. Run after the
+        masters change."""
+        cfg = self.cfg
+        int8 = cfg.attention_impl == "kernel" and cfg.quantize == "int8"
+        _derive(self, (("qkv", self.qkv), ("out", self.attn_out)), int8, cfg.dtype)
 
     def forward(self, x: torch.Tensor, attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
         dt = cfg.dtype
         b, t, d = x.shape
         if cfg.attention_impl == "kernel":
-            if cfg.quantize == "int8":
-                raise NotImplementedError("the int8 attention_block kernel is not ported yet")
             if d % 128:
                 raise NotImplementedError("kernel attention needs d_model % 128 == 0 (the packed-QKV kernel is not ported)")
             key_mask = (
@@ -101,19 +131,23 @@ class SelfAttention(nn.Module):
                 if attention_mask is None
                 else (attention_mask > 0).float()
             )
+            if cfg.quantize == "int8":
+                return attention_block_int8(
+                    x.to(dt), self.w_qkv_q, self.s_qkv, self.qkv.bias, self.w_out_q, self.s_out,
+                    self.attn_out.bias, key_mask, cfg.num_heads,
+                )
             return attention_block(
-                x.to(dt), self.qkv.weight, self.qkv.bias, self.attn_out.weight, self.attn_out.bias,
-                key_mask, cfg.num_heads,
+                x.to(dt), self.w_qkv_c, self.qkv.bias, self.w_out_c, self.attn_out.bias, key_mask, cfg.num_heads
             )
         h, dh = cfg.num_heads, cfg.head_dim
-        qkv = F.linear(x.to(dt), self.qkv.weight, self.qkv.bias.to(dt)).view(b, t, 3, h, dh)
+        qkv = F.linear(x.to(dt), self.w_qkv_c, self.qkv.bias.to(dt)).view(b, t, 3, h, dh)
         q, k, v = qkv.unbind(dim=2)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (1.0 / float(dh) ** 0.5)
         if attention_mask is not None:
             logits = logits + torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9).float()
         probs = torch.softmax(logits, dim=-1).to(dt)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, t, d)
-        return F.linear(out, self.attn_out.weight, self.attn_out.bias.to(dt))
+        return F.linear(out, self.w_out_c, self.attn_out.bias.to(dt))
 
 
 class EncoderLayer(nn.Module):
@@ -124,27 +158,39 @@ class EncoderLayer(nn.Module):
         self.cfg = cfg
         self.attention = SelfAttention(cfg)
         self.attn_ln = LayerNorm(cfg.d_model, cfg.layer_norm_eps, fast=True)
-        self.fc_in = nn.Linear(cfg.d_model, cfg.d_ff).to(cfg.dtype)
-        self.fc_out = nn.Linear(cfg.d_ff, cfg.d_model).to(cfg.dtype)
+        self.fc_in = nn.Linear(cfg.d_model, cfg.d_ff)  # f32 masters, as in SelfAttention
+        self.fc_out = nn.Linear(cfg.d_ff, cfg.d_model)
         self.ffn_ln = LayerNorm(cfg.d_model, cfg.layer_norm_eps, fast=True)
+        self.derive_weights_()
+
+    def derive_weights_(self) -> None:
+        """The FFN's counterpart of :meth:`SelfAttention.derive_weights_`.
+        The int8 kernel adds the f32 biases; every other path adds them in
+        the compute dtype, as JAX does."""
+        cfg = self.cfg
+        int8 = cfg.ffn_impl == "kernel" and cfg.quantize == "int8"
+        _derive(self, (("in", self.fc_in), ("out", self.fc_out)), int8, cfg.dtype, biases=True)
 
     def forward(self, x: torch.Tensor, attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
         dt = cfg.dtype
         attn = self.attention(x, attention_mask)
         x = self.attn_ln(x + attn).to(dt)
+        b, t, d = x.shape
         if cfg.ffn_impl == "kernel":
-            if cfg.quantize == "int8":
-                raise NotImplementedError("the int8 ffn_fused kernel is not ported yet")
             if cfg.d_model % 128 or cfg.d_ff % 128:
                 raise NotImplementedError("kernel FFN needs d_model % 128 == 0 and d_ff % 128 == 0")
-            b, t, d = x.shape
-            h = ffn_fused(
-                x.reshape(b * t, d), self.fc_in.weight, self.fc_in.bias, self.fc_out.weight, self.fc_out.bias
-            ).reshape(b, t, d)
+            if cfg.quantize == "int8":
+                h = ffn_fused_int8(
+                    x.reshape(b * t, d), self.w_in_q, self.s_in, self.fc_in.bias, self.w_out_q, self.s_out,
+                    self.fc_out.bias,
+                )
+            else:
+                h = ffn_fused(x.reshape(b * t, d), self.w_in_c, self.b_in_c, self.w_out_c, self.b_out_c)
+            h = h.reshape(b, t, d)
         else:
-            h = F.gelu(self.fc_in(x))
-            h = self.fc_out(h)
+            h = F.gelu(F.linear(x, self.w_in_c, self.b_in_c))
+            h = F.linear(h, self.w_out_c, self.b_out_c)
         return self.ffn_ln(x + h).to(dt)
 
 

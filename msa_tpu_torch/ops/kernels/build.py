@@ -1,6 +1,7 @@
 """Build and bind the port's CUDA kernels.
 
-One ``nvcc`` call compiles every ``msa_tpu_torch/csrc/*.cu`` into one shared
+One ``nvcc`` call compiles every ``msa_tpu_torch/csrc/*.cu`` (with the
+``*.cuh`` headers they include) into one shared
 library with a plain C interface, which is loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -35,6 +36,13 @@ _SIGNATURES = {
     "msa_ffn_fused": (_P,) * 7 + (_I,) * 3 + (_P,),
     # x, wqkv, bqkv, wout, bout, mask, qkv, attn, out, B, T, DM, H, scale, stream
     "msa_attention_block": (_P,) * 9 + (_I,) * 4 + (_F, _P),
+    # x, x_is_bf16, q, scale, rows, cols, stream
+    "msa_quantize_rows": (_P, _I, _P, _P, _I, _I, _P),
+    # x, w1, s1, b1, w2, s2, b2, xq, xs, hidden, hq, hs, out, M, D, F, stream
+    "msa_ffn_fused_int8": (_P,) * 13 + (_I,) * 3 + (_P,),
+    # x, wqkv, sqkv, bqkv, wout, sout, bout, mask, xq, xs, qkv, attn, aq, as,
+    # out, B, T, DM, H, scale, stream
+    "msa_attention_block_int8": (_P,) * 15 + (_I,) * 4 + (_F, _P),
 }
 
 

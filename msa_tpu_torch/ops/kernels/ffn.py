@@ -10,6 +10,14 @@ Rounding points, shared by the kernel and :func:`ffn_plain`: both dots
 accumulate in f32, bias and GELU run in f32 (A&S 7.1.26 erf, as on the
 TPU), the hidden tile is rounded to the compute dtype before the second
 dot, and the output is rounded once at the end.
+
+:func:`ffn_fused_int8` is the W8A8 variant, replacing
+``msa_tpu/ops/pallas/ffn.py:ffn_fused_int8`` (``pl.pallas_call`` at :166,
+body ``_ffn_int8_kernel`` :106-133). Its weights come quantized per output
+channel from the f32 masters (``w1_q [d_ff, d]`` int8 with ``s1 [d_ff]``,
+``w2_q [d, d_ff]`` with ``s2 [d]``) and its biases are f32. x and the f32
+GELU output are quantized per row; the dots dequantize as ``acc·xs·s1 +
+b1`` and ``acc·hs·s2 + b2`` in f32 (``ffn.py:123,131``).
 """
 
 from __future__ import annotations
@@ -18,8 +26,10 @@ import math
 
 import torch
 
+from msa_tpu_torch.ops import quant as Q
 from msa_tpu_torch.ops.kernels import build
 from msa_tpu_torch.ops.kernels._common import require
+from msa_tpu_torch.ops.kernels.quant import quantize_rows
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
@@ -74,3 +84,52 @@ def ffn_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
 
 
 ffn_fused.launches = 0  # kernel launches since the last reset (the smoke reads it)
+
+
+def ffn_int8_plain(x, w1_q, s1, b1, w2_q, s2, b2) -> torch.Tensor:
+    """Plain PyTorch version of the int8 kernel (same rounding points)."""
+    xq, xs = Q.quantize_rows(x)
+    h = Q.int8_matmul(xq, w1_q) * xs * s1.float() + b1.float()
+    hq, hs = Q.quantize_rows(gelu_as(h))
+    o = Q.int8_matmul(hq, w2_q) * hs * s2.float() + b2.float()
+    return o.to(x.dtype)
+
+
+def ffn_fused_int8(x, w1_q, s1, b1, w2_q, s2, b2) -> torch.Tensor:
+    """x [N, d] → [N, d], W8A8. CPU tensors take :func:`ffn_int8_plain`;
+    CUDA tensors launch the kernel (bf16 x; d % 128 == 0, d_ff % 128 == 0)."""
+    if x.device.type == "cpu":
+        return ffn_int8_plain(x, w1_q, s1, b1, w2_q, s2, b2)
+    n, d = x.shape
+    f = w1_q.shape[0]
+    if d % 128 or f % 128:
+        raise ValueError(f"ffn_fused_int8 kernel needs d and d_ff multiples of 128, got {d}, {f}")
+    dev, bf16, f32, i8 = x.device, torch.bfloat16, torch.float32, torch.int8
+    for name, t, dtype, shape in (
+        ("x", x, bf16, (n, d)),
+        ("w1_q", w1_q, i8, (f, d)),
+        ("s1", s1, f32, (f,)),
+        ("b1", b1, f32, (f,)),
+        ("w2_q", w2_q, i8, (d, f)),
+        ("s2", s2, f32, (d,)),
+        ("b2", b2, f32, (d,)),
+    ):
+        require(t, name, dtype, shape, dev)
+    xq = torch.empty((n, d), dtype=i8, device=dev)
+    hidden = torch.empty((n, f), dtype=f32, device=dev)
+    hq = torch.empty((n, f), dtype=i8, device=dev)
+    xs, hs = (torch.empty((n,), dtype=f32, device=dev) for _ in range(2))
+    out = torch.empty((n, d), dtype=bf16, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = build.library().msa_ffn_fused_int8(
+        x.data_ptr(), w1_q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2_q.data_ptr(), s2.data_ptr(),
+        b2.data_ptr(), xq.data_ptr(), xs.data_ptr(), hidden.data_ptr(), hq.data_ptr(), hs.data_ptr(),
+        out.data_ptr(), n, d, f, stream,
+    )
+    build.check(rc, "ffn_fused_int8")
+    ffn_fused_int8.launches += 1
+    quantize_rows.launches += 2  # x and the hidden tile, launched from C
+    return out
+
+
+ffn_fused_int8.launches = 0  # kernel launches since the last reset (the smoke reads it)

@@ -9,9 +9,17 @@ hostpack of ``_forward_host``).
 
 PyTorch runs eagerly, so the JAX ``jit`` has no counterpart here; each
 branch is batched tensor code where JAX ``vmap``-ed a per-segment function.
-The encoders run the serving recipe of ``quantize="none"``: bf16 matmuls
-through the hand-written ``attention_block`` and ``ffn_fused`` CUDA kernels;
-the feature math and the fusion MLP stay f32 with TF32 off.
+The encoders run the serving recipe, as in JAX: bf16 activations with W8A8
+projections and FFN through the hand-written ``attention_block_int8`` and
+``ffn_fused_int8`` CUDA kernels by default (``quantize="int8"``), or bf16
+matmuls through ``attention_block`` and ``ffn_fused`` under
+``quantize="none"`` / ``MSA_QUANTIZE=none``. The feature math and the fusion
+MLP stay f32 with TF32 off.
+
+Two entry points run the graph: :meth:`SegmentPipeline.run_host` on a
+batch of :class:`SegmentInputs`, and :meth:`SegmentPipeline.run_stream` on
+one streaming window packed by :func:`pack_stream_inputs` into a single
+uint8 buffer.
 
 Movement state: landmarks are shifted by one segment along the batch, with
 an explicit carry for the first row, so B=1 streaming and B=n offline share
@@ -23,6 +31,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Tuple
 
@@ -47,6 +56,8 @@ from msa_tpu_torch.models.transformer import EncoderConfig
 from msa_tpu_torch.ops import audio_features as AF
 from msa_tpu_torch.ops import face_features as FF
 from msa_tpu_torch.ops.normalization import normalize_audio, normalize_face, normalize_text
+
+QUANTIZE_MODES = ("none", "int8")
 
 # The shipped checkpoints are data files of the JAX package; they are read
 # by path (config defaults are "checkpoints/<name>", relative to msa_tpu/).
@@ -83,8 +94,11 @@ class PipelineModels:
     loaded: Dict[str, str] = dataclasses.field(default_factory=dict)
 
     @staticmethod
-    def serving_encoder(quantize: str = "none") -> EncoderConfig:
-        """The production encoder recipe: bf16 through the fused kernels."""
+    def serving_encoder(quantize: str = "int8") -> EncoderConfig:
+        """The production encoder recipe: bf16 through the fused kernels,
+        W8A8 under ``quantize="int8"``."""
+        if quantize not in QUANTIZE_MODES:
+            raise ValueError(f"quantize={quantize!r}: expected one of {QUANTIZE_MODES}")
         return EncoderConfig(
             compute_dtype="bfloat16", attention_impl="kernel", ffn_impl="kernel", quantize=quantize
         )
@@ -111,9 +125,11 @@ class PipelineModels:
     def with_encoders(self, **changes) -> "PipelineModels":
         """A copy whose text and audio encoders run
         ``dataclasses.replace(encoder_cfg, **changes)`` — e.g. the plain
-        ``attention_impl="einsum", ffn_impl="dense"`` path. It shares every
-        weight tensor with this one, unless ``compute_dtype`` changes: then
-        it holds a copy cast to the new dtype."""
+        ``attention_impl="einsum", ffn_impl="dense"`` path, or another
+        ``quantize``. It shares every parameter with this one (the encoders'
+        f32 masters included) and derives its encoders' int8 or
+        compute-dtype weights from those masters; if ``compute_dtype``
+        changes, it holds a copy of the parameters cast to the new dtype."""
 
         def swap(model):
             cfg = dataclasses.replace(model.cfg, encoder=dataclasses.replace(model.cfg.encoder, **changes))
@@ -121,6 +137,7 @@ class PipelineModels:
             with torch.device("meta" if share else self.device):
                 new = type(model)(cfg)
             new.load_state_dict(model.state_dict(), assign=share)
+            weights.derive_weights_(new)
             return new.eval().requires_grad_(False)
 
         return dataclasses.replace(self, audio=swap(self.audio), text=swap(self.text))
@@ -132,7 +149,7 @@ class PipelineModels:
         face_cfg: Optional[FaceModelConfig] = None,
         audio_cfg: Optional[AudioModelConfig] = None,
         text_cfg: Optional[TextModelConfig] = None,
-        quantize: str = "int8",
+        quantize: Optional[str] = None,
         device: "str | torch.device" = "cuda",
     ) -> "PipelineModels":
         """Models with the shipped checkpoints (landmark net, face CNN, audio
@@ -148,12 +165,12 @@ class PipelineModels:
         raises; one configured as ``None`` leaves the component random.
         ``models.loaded`` names every checkpoint that was loaded.
 
-        ``quantize`` mirrors JAX's default ``"int8"``, whose W8A8 kernels are
-        not ported yet: pass ``"none"`` for the bf16 recipe."""
-        if quantize != "none":
-            raise NotImplementedError(
-                f"quantize={quantize!r}: the int8 serving kernels are not ported yet; pass quantize='none'"
-            )
+        ``quantize`` resolves as in JAX (``msa_tpu/pipeline/graph.py:114-117``):
+        the argument, then ``MSA_QUANTIZE``, then ``"int8"`` (W8A8 through
+        the int8 kernels); ``"none"`` is the bf16 recipe. The JAX package's
+        f32 parity mode for imported trunks is not ported (the kernels take
+        bf16 only)."""
+        quantize = quantize or os.environ.get("MSA_QUANTIZE") or "int8"
         enc = cls.serving_encoder(quantize)
         face_cfg = face_cfg or FaceModelConfig()
         audio_cfg = audio_cfg or AudioModelConfig(encoder=enc)
@@ -312,6 +329,34 @@ for _name, _d in _PACK_FIELDS:
 def unpack_hostpack(pack) -> Dict[str, Any]:
     """[B, 1715] → named column views."""
     return {name: pack[:, sl] for name, sl in PACK_SLICES.items()}
+
+
+def pack_stream_inputs(
+    frames_u8: np.ndarray,
+    audio_i16: np.ndarray,
+    token_ids: np.ndarray,
+    token_mask: np.ndarray,
+    face_avail: bool,
+    audio_avail: bool,
+    text_avail: bool,
+    completeness: float,
+    relevance: float,
+) -> np.ndarray:
+    """One uint8 host buffer for a B=1 streaming window, the inverse of
+    :meth:`SegmentPipeline.run_stream`'s unpacking (the JAX package's byte
+    layout, ``msa_tpu/pipeline/graph.py:392-420``): frames u8 [S, S, 3] |
+    audio i16 [samples] | ids i32 [L] | mask i32 [L] | f32 scalars
+    (face_avail, audio_avail, text_avail, completeness, relevance)."""
+    scalars = np.asarray([face_avail, audio_avail, text_avail, completeness, relevance], np.float32)
+    return np.concatenate(
+        [
+            np.ascontiguousarray(frames_u8, np.uint8).reshape(-1),
+            np.ascontiguousarray(audio_i16, np.int16).view(np.uint8).reshape(-1),
+            np.ascontiguousarray(token_ids, np.int32).view(np.uint8).reshape(-1),
+            np.ascontiguousarray(token_mask, np.int32).view(np.uint8).reshape(-1),
+            scalars.view(np.uint8),
+        ]
+    )
 
 
 @contextlib.contextmanager
@@ -483,3 +528,44 @@ class SegmentPipeline:
             "detected": out["face"]["detected"],
         }
         return slim, carry
+
+    def run_stream(self, packed, prev_landmarks, has_prev):
+        """One packed streaming window (see :func:`pack_stream_inputs`) through
+        the :meth:`run_host` graph at B=1. The buffer is copied to the
+        device once and its regions are bit-cast back there; the token
+        bucket is inferred from its length. ``prev_landmarks`` [478, 3] and
+        ``has_prev`` are the carry (the previous window's, or zeros and
+        False), and may stay on the device between windows."""
+        s = self.models.landmark.cfg.frame_size
+        n_frames = s * s * 3
+        samples = self.config.pipeline.segment_samples
+        n_audio = 2 * samples
+        buf = torch.as_tensor(packed).to(self.models.device)
+        if buf.dtype != torch.uint8 or buf.dim() != 1:
+            raise TypeError(f"packed window: expected a 1-D uint8 buffer, got {buf.dtype} {tuple(buf.shape)}")
+        n_tokens = (buf.shape[0] - n_frames - n_audio - 20) // 8
+        if n_tokens <= 0 or n_frames + n_audio + 8 * n_tokens + 20 != buf.shape[0]:
+            raise ValueError(f"packed window of {buf.shape[0]} bytes does not fit {s}² frames and {samples} samples")
+
+        def region(start: int, stop: int, dtype: torch.dtype) -> torch.Tensor:
+            r = buf[start:stop]
+            if start % dtype.itemsize:  # view(dtype) needs an aligned offset
+                r = r.clone()
+            return r.view(dtype)
+
+        off = n_frames + n_audio
+        sc = region(off + 8 * n_tokens, buf.shape[0], torch.float32)
+        inp = SegmentInputs(
+            frames=buf[:n_frames].reshape(1, s, s, 3),
+            audio=region(n_frames, off, torch.int16).reshape(1, samples),
+            token_ids=region(off, off + 4 * n_tokens, torch.int32).reshape(1, n_tokens),
+            token_mask=region(off + 4 * n_tokens, off + 8 * n_tokens, torch.int32).reshape(1, n_tokens),
+            face_avail=sc[0:1] > 0.5,
+            audio_avail=sc[1:2] > 0.5,
+            text_avail=sc[2:3] > 0.5,
+            completeness=sc[3:4],
+            relevance=sc[4:5],
+            prev_landmarks=prev_landmarks,
+            has_prev=has_prev,
+        )
+        return self.run_host(inp)

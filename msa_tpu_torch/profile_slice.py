@@ -1,9 +1,10 @@
 """Where the time of one serving forward goes, on the card.
 
-    python3 -m msa_tpu_torch.profile_slice [--tokens 512] [--batch 2] [--steps 3]
+    python3 -m msa_tpu_torch.profile_slice [--tokens 512] [--batch 2] [--steps 3] [--quantize int8|none]
 
-Builds the full-width models (``PipelineModels.initialize(quantize="none")``),
-warms ``SegmentPipeline.run_host`` up, then records ``--steps`` forwards with
+Builds the full-width models (``PipelineModels.initialize``, by default in
+the int8 serving recipe; ``--quantize none`` for the bf16 one), warms
+``SegmentPipeline.run_host`` up, then records ``--steps`` forwards with
 ``torch.profiler`` (CPU + CUDA activities) and prints: the wall time per
 forward (host clock around work that ends in ``synchronize``), the device's
 busy time per forward (sum of kernel durations, from the trace) and its idle
@@ -28,6 +29,7 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--quantize", choices=("int8", "none"), default="int8")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_slice: needs a CUDA device", file=sys.stderr)
@@ -43,7 +45,7 @@ def main(argv=None) -> int:
         ).stdout.strip(),
         flush=True,
     )
-    models = G.PipelineModels.initialize(seed=0, quantize="none", device="cuda")
+    models = G.PipelineModels.initialize(seed=0, quantize=args.quantize, device="cuda")
     pipe = G.SegmentPipeline(models)
     rng = np.random.default_rng(0)
     b, tokens = args.batch, args.tokens
@@ -75,11 +77,11 @@ def main(argv=None) -> int:
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     wall_ms = 1e3 * float(np.median(walls))
-    print(f"B={b} tokens={tokens}: wall {wall_ms:.3f} ms/forward (median of {args.steps}), "
+    print(f"quantize={args.quantize} B={b} tokens={tokens}: wall {wall_ms:.3f} ms/forward (median of {args.steps}), "
           f"device busy {busy_ms:.3f} ms/forward, idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
     for us, n, key in rows[: args.top]:
         print(f"  {us / 1e3:9.4f} ms  {n:5d}x  {100 * us / 1e3 / busy_ms:5.1f}%  {key[:90]}", flush=True)
-    print(json.dumps({"batch": b, "tokens": tokens, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    print(json.dumps({"quantize": args.quantize, "batch": b, "tokens": tokens, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
                       "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 

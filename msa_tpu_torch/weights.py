@@ -9,10 +9,12 @@ The port's modules use the flax tree's names, so one walk maps every leaf:
 - ``scale`` → ``weight`` (LayerNorm/GroupNorm), ``embedding`` → ``weight``;
 - ``bias`` and scalar leaves keep their names.
 
-Values are cast to each parameter's own dtype (bf16 encoder matrices round
-to nearest even, as JAX's ``astype`` does). Also here: the random trunk
-draw that stands in for the flax init, which cannot be reproduced without
-JAX.
+Values are cast to each parameter's own dtype (bf16 conv kernels round to
+nearest even, as JAX's ``astype`` does; the encoder matrices are f32
+masters). Also here: the random trunk draw that stands in for the flax
+init, which cannot be reproduced without JAX. Both end in
+:func:`derive_weights_`, so each encoder layer's int8 or compute-dtype
+weights follow its masters.
 """
 
 from __future__ import annotations
@@ -41,16 +43,29 @@ def _convert(name: str, value: np.ndarray, target: torch.Tensor) -> torch.Tensor
     return torch.from_numpy(np.array(v)).to(device=target.device, dtype=target.dtype)
 
 
+def derive_weights_(module: nn.Module) -> None:
+    """Re-derive what each layer under ``module`` consumes from its f32
+    masters (int8 codes and scales, or compute-dtype copies)."""
+    for m in module.modules():
+        if hasattr(m, "derive_weights_"):
+            m.derive_weights_()
+
+
 @torch.no_grad()
-def load_flax_tree(module: nn.Module, tree: Mapping[str, Any], prefix: str = "") -> None:
+def load_flax_tree(module: nn.Module, tree: Mapping[str, Any]) -> None:
     """Copy every leaf of ``tree`` into the same-named parameter of
     ``module``. Raises on a leaf without a parameter or a shape mismatch."""
+    _load(module, tree, "")
+    derive_weights_(module)
+
+
+def _load(module: nn.Module, tree: Mapping[str, Any], prefix: str) -> None:
     for key, value in tree.items():
         if isinstance(value, Mapping):
             child = getattr(module, key, None)
             if not isinstance(child, nn.Module):
                 raise KeyError(f"{prefix}{key}: no such submodule in {type(module).__name__}")
-            load_flax_tree(child, value, f"{prefix}{key}.")
+            _load(child, value, f"{prefix}{key}.")
             continue
         target = getattr(module, _RENAME.get(key, key), None)
         if not isinstance(target, torch.Tensor):
@@ -76,3 +91,4 @@ def draw_random_(module: nn.Module, generator: torch.Generator) -> None:
             p.fill_(1.0)
         elif leaf == "bias":
             p.zero_()
+    derive_weights_(module)

@@ -32,6 +32,8 @@ def test_the_port_is_there():
         "chip_smoke.py",
         "msa_tpu_torch/ops/kernels/attention.py",
         "msa_tpu_torch/ops/kernels/ffn.py",
+        "msa_tpu_torch/ops/kernels/quant.py",
+        "msa_tpu_torch/ops/quant.py",
         "msa_tpu_torch/pipeline/graph.py",
     ):
         assert want in names

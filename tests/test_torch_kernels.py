@@ -11,6 +11,8 @@ sides round at the same points, so the median error is also asserted to
 be 0 (only f32 summation order can flip a last bit).
 """
 
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -103,16 +105,48 @@ def test_polynomial_gelu_tracks_exact_gelu():
     )
 
 
-def test_kernel_sources_and_build_command():
+def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
     """One nvcc call over every csrc/*.cu, for sm_90a, into a C-ABI .so
-    (no PyTorch headers, no cpp_extension)."""
+    (no PyTorch headers, no cpp_extension, no fast math); the library name
+    hashes every source, the included .cuh headers too."""
     from msa_tpu_torch.ops.kernels import build
 
     names = {p.name for p in build._sources()}
-    assert {"attention.cu", "ffn.cu"} <= names
+    assert names == {"attention.cu", "ffn.cu", "quant.cu"}
+    assert {p.name for p in build.CSRC.glob("*.cuh")} == {"gemm.cuh", "gemm_s8.cuh"}
     assert build.ARCH_FLAGS == ("-gencode", "arch=compute_90a,code=sm_90a")
-    assert "-shared" in build.NVCC_FLAGS
+    assert "-shared" in build.NVCC_FLAGS and not any("fast_math" in f for f in build.NVCC_FLAGS)
     for p in build.CSRC.glob("*.cu*"):
         src = p.read_text()
         assert "torch/extension.h" not in src and "cublas" not in src.lower()
-    assert set(build._SIGNATURES) == {"msa_ffn_fused", "msa_attention_block"}
+    assert set(build._SIGNATURES) == {
+        "msa_ffn_fused",
+        "msa_attention_block",
+        "msa_quantize_rows",
+        "msa_ffn_fused_int8",
+        "msa_attention_block_int8",
+    }
+    for name in build._SIGNATURES:  # every bound entry point is defined in a source
+        assert any(f'extern "C" int {name}(' in p.read_text() for p in build._sources()), name
+
+    # the one command: every .cu, and a name that moves with any .cu or .cuh
+    calls = []
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build.subprocess, "run", lambda cmd, **kw: calls.append(cmd) or _Done())
+    monkeypatch.setattr(build.os, "replace", lambda src, dst: None)
+    lib, _ = build.build()
+    assert len(calls) == 1 and calls[0][0] == "nvcc"
+    assert sorted(a for a in calls[0] if a.endswith(".cu")) == sorted(str(p) for p in build._sources())
+    digest = build._digest()
+    assert lib.name == f"libmsa_kernels_{digest}.so"
+    copy = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, copy)
+    monkeypatch.setattr(build, "CSRC", copy)
+    assert build._digest() == digest
+    (copy / "gemm_s8.cuh").write_text((copy / "gemm_s8.cuh").read_text() + "//\n")
+    assert build._digest() != digest
+
+
+class _Done:
+    returncode, stdout, stderr = 0, "", ""

@@ -145,15 +145,21 @@ def test_mean_pool_matches_jax(rng):
 
 
 @pytest.mark.parametrize(
-    "impl,d_model,d_ff",
-    [("attention_impl", 96, 256), ("ffn_impl", 128, 192), ("ffn_impl", 96, 256)],
+    "impl,d_model,d_ff,quantize",
+    [
+        ("attention_impl", 96, 256, "none"),
+        ("ffn_impl", 128, 192, "none"),
+        ("ffn_impl", 96, 256, "none"),
+        ("attention_impl", 96, 256, "int8"),
+        ("ffn_impl", 128, 192, "int8"),
+    ],
 )
-def test_kernel_paths_refuse_widths_they_cannot_take(impl, d_model, d_ff):
+def test_kernel_paths_refuse_widths_they_cannot_take(impl, d_model, d_ff, quantize):
     """A kernel path asked for at widths its kernel cannot take raises; it
     never gives way to the plain version."""
     from msa_tpu_torch.models.transformer import EncoderConfig
 
-    cfg = EncoderConfig(num_layers=1, d_model=d_model, num_heads=4, d_ff=d_ff, **{impl: "kernel"})
+    cfg = EncoderConfig(num_layers=1, d_model=d_model, num_heads=4, d_ff=d_ff, quantize=quantize, **{impl: "kernel"})
     enc = PEncoder(cfg)
     with pytest.raises(NotImplementedError):
         enc(torch.zeros(1, 8, d_model), torch.ones(1, 8))

@@ -3,13 +3,16 @@ JAX SegmentPipeline.run_host on the same weights and inputs.
 
 The JAX models come from PipelineModels.initialize with 128-wide encoders
 (attention_impl="pallas", ffn_impl="pallas", so the Pallas kernels run, in
-interpret mode), small face/audio/fusion configs and quantize="none"; the
+interpret mode), small face/audio/fusion configs, and three recipes: f32,
+bf16 (quantize="none") and int8 (bf16 with W8A8 projections and FFN); the
 port gets the very same parameters through msa_tpu_torch.weights. The batch
 has a row without text (an empty transcript: all-zero token mask), a row
 without face and a row without audio.
 
-Bounds per _PACK_FIELDS group: ≤ 1e-3 in float32; in bfloat16 the bound
-of torch_parity.bf16_bound (5 bf16 steps of the group's largest value).
+Bounds per _PACK_FIELDS group: ≤ 1e-3 in float32; in bfloat16 and int8
+the bound of torch_parity.bf16_bound (5 bf16 steps of the group's largest
+value): the int8 kernels' plain versions quantize bit for bit as JAX does
+and their int32 sums are exact, so int8 rounds at the same points as bf16.
 """
 
 import numpy as np
@@ -50,19 +53,22 @@ def _inputs(jax_models):
     return inp
 
 
-@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+RECIPES = {"float32": ("float32", "none"), "bfloat16": ("bfloat16", "none"), "int8": ("bfloat16", "int8")}
+
+
+@pytest.fixture(scope="module", params=sorted(RECIPES))
 def runs(request):
-    dtype = request.param
-    jenc = jax_encoder_cfg(dtype)
+    dtype, quantize = RECIPES[request.param]
+    jenc = jax_encoder_cfg(dtype, quantize=quantize)
     jm = JG.PipelineModels.initialize(
         0,
         face_cfg=JFaceCfg(**FACE),
         audio_cfg=JAudioCfg(positional="conv", encoder=jenc, **AUDIO),
         text_cfg=JTextCfg(encoder=jenc, **TEXT),
         fusion=JFusion(hidden_dim=64),
-        quantize="none",
+        quantize=quantize,
     )
-    penc = port_encoder_cfg(dtype)
+    penc = port_encoder_cfg(dtype, quantize=quantize)
     pm = PG.PipelineModels.from_flax(
         to_numpy(jm.params_tree()),
         FaceModelConfig(**FACE),
@@ -147,9 +153,56 @@ def test_initialize_raises_on_a_shipped_checkpoint_it_cannot_load(head_weights, 
         )
 
 
-def test_initialize_refuses_the_unported_int8_recipe():
-    with pytest.raises(NotImplementedError):
-        PG.PipelineModels.initialize(device="cpu")
+def test_initialize_builds_the_int8_recipe_by_default(monkeypatch):
+    """No ``quantize`` and no MSA_QUANTIZE: JAX's production default, W8A8
+    encoders at full width, with every shipped checkpoint loaded; the bf16
+    recipe derives its weights from the same f32 masters."""
+    monkeypatch.delenv("MSA_QUANTIZE", raising=False)
+    models = PG.PipelineModels.initialize(device="cpu")
+    assert sorted(models.loaded) == ["audio_head", "face_cnn", "fusion", "landmark", "text_heads"]
+    for enc in (models.text.encoder, models.audio.encoder):
+        assert enc.cfg.quantize == "int8" and enc.cfg.compute_dtype == "bfloat16"
+        assert enc.cfg.attention_impl == enc.cfg.ffn_impl == "kernel"
+    layer = models.text.encoder.layer_11
+    assert layer.fc_in.weight.dtype == torch.float32 and layer.w_in_q.dtype == torch.int8
+    assert layer.attention.w_qkv_q.shape == (3 * 768, 768) and layer.attention.s_qkv.shape == (3 * 768,)
+    bf16 = models.with_encoders(quantize="none")
+    blayer = bf16.text.encoder.layer_11
+    assert blayer.fc_in.weight.data_ptr() == layer.fc_in.weight.data_ptr()  # the same masters
+    assert torch.equal(blayer.w_in_c, layer.fc_in.weight.to(torch.bfloat16))
+    back = bf16.with_encoders(quantize="int8").text.encoder.layer_11
+    assert torch.equal(back.w_in_q, layer.w_in_q) and torch.equal(back.attention.s_out, layer.attention.s_out)
+
+
+class _Built(Exception):
+    pass
+
+
+@pytest.mark.parametrize(
+    "arg,env,want",
+    [(None, None, "int8"), (None, "none", "none"), (None, "int8", "int8"), ("int8", "none", "int8"), ("none", None, "none")],
+)
+def test_quantize_resolves_like_jax(monkeypatch, arg, env, want):
+    """The argument, then MSA_QUANTIZE, then "int8" (msa_tpu/pipeline/graph.py:114-117)."""
+    if env is None:
+        monkeypatch.delenv("MSA_QUANTIZE", raising=False)
+    else:
+        monkeypatch.setenv("MSA_QUANTIZE", env)
+    seen = []
+
+    def build(cls, face_cfg, audio_cfg, text_cfg, fusion_dims, device):
+        seen.append((audio_cfg.encoder.quantize, text_cfg.encoder.quantize))
+        raise _Built
+
+    monkeypatch.setattr(PG.PipelineModels, "_build", classmethod(build))
+    with pytest.raises(_Built):
+        PG.PipelineModels.initialize(quantize=arg, device="cpu")
+    assert seen == [(want, want)]
+
+
+def test_unknown_quantize_mode_raises():
+    with pytest.raises(ValueError):
+        PG.PipelineModels.serving_encoder("int4")
 
 
 def test_pad_segment_inputs_pads_with_unavailable_rows():

@@ -40,18 +40,18 @@ def to_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def jax_encoder_cfg(dtype: str, kernels: bool = True):
+def jax_encoder_cfg(dtype: str, kernels: bool = True, quantize: str = "none"):
     from msa_tpu.models.transformer import EncoderConfig
 
     impl = dict(attention_impl="pallas", ffn_impl="pallas") if kernels else {}
-    return EncoderConfig(compute_dtype=dtype, **impl, **ENC)
+    return EncoderConfig(compute_dtype=dtype, quantize=quantize, **impl, **ENC)
 
 
-def port_encoder_cfg(dtype: str, kernels: bool = True):
+def port_encoder_cfg(dtype: str, kernels: bool = True, quantize: str = "none"):
     from msa_tpu_torch.models.transformer import EncoderConfig
 
     impl = dict(attention_impl="kernel", ffn_impl="kernel") if kernels else {}
-    return EncoderConfig(compute_dtype=dtype, **impl, **ENC)
+    return EncoderConfig(compute_dtype=dtype, quantize=quantize, **impl, **ENC)
 
 
 def t(x, dtype=None) -> torch.Tensor:
