@@ -8,7 +8,10 @@ Phases, one line each with its seconds:
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, and time both with CUDA events: the bf16
      attention_block and ffn_fused, the row-quantize kernel (exactly: codes
-     and scales equal), attention_block_int8 and ffn_fused_int8;
+     and scales equal), attention_block_int8 and ffn_fused_int8, and the
+     attention-only kernels packed_qkv_attention and flash_attention (o and
+     lse, with a ragged T and a row with no valid key), beside one
+     scaled_dot_product_attention call on the same inputs as yardstick;
   4. the bf16 recipe at full width: PipelineModels.initialize(
      quantize="none") → SegmentPipeline.run_host at B=2, at the 512-token and
      the 32-token bucket; check that every shipped checkpoint loaded, the
@@ -24,12 +27,24 @@ Phases, one line each with its seconds:
      bf16 ones; the same checks as phase 4, against the same path run
      through the int8 kernels' plain versions, with the f32 run of the same
      masters as yardstick and the last head's V rows zeroed as the fault;
-  6. run_stream at B=1: one packed window at the 128-token bucket, equal to
+  6. the init: the seconds of the full-size initialize(), and a few of its
+     leaves (text word embeddings and layer-0 QKV, audio layer-0 fc_in) and
+     the int8 codes derived from one, against the same init run on the CPU;
+  7. run_stream at B=1: one packed window at the 128-token bucket, equal to
      run_host on the same window bit for bit, with its carry; 24 launches
      of each int8 kernel per window;
-  7. timings: run_host per forward (both recipes, both buckets) and
-     run_stream per window.
-Counts are set to 0 just before each path runs and read just after.
+  8. 15 s segments at full width (segment_samples=240_000): run_host at
+     B=2, bucket 512, in both recipes; the audio encoder runs at T = 749,
+     so each of its 12 layers takes the dense projections and
+     flash_attention; 12 flash launches per forward, 12 of the text's
+     attention kernel, 24 of the FFN kernel; the same checks as phases 4
+     and 5, and the forward's wall and device time;
+  9. a custom-width encoder (2 layers, d_model 96, 4 heads, d_ff 256) in
+     the bf16 and int8 recipes: 2 packed_qkv_attention launches and the
+     dense FFN, held against its plain path; then PipelineModels.tiny() on
+     the card, which launches no kernel, against the same models on the CPU;
+Phases 4, 5 and 8 also time run_host per forward, phase 7 run_stream per
+window. Counts are set to 0 just before each path runs and read just after.
 The line before the last is a JSON object with each kernel's numbers; the
 last line is the JSON contract line. Any failure exits nonzero.
 """
@@ -87,6 +102,16 @@ HOSTPACK_NOISE_RATIO, HOSTPACK_NOISE_SHARE = 2.0, 0.1
 # hostpack one failed on that 2.032 and is now 3.0, 1.48x the largest sound
 # reading and 5.4x under the smallest fault reading.
 INT8_ENCODER_RATIO, INT8_HOSTPACK_RATIO = 1.1, 3.0
+# the lse of rows 5 and 6 against their plain versions: f32 on both sides
+# from the same bf16 scores, so only summation order differs (the CPU tests
+# hold the plain versions to JAX's lse at 2e-5 and 3e-5)
+LSE_ATOL = 1e-3
+# the rebuilt flax init on the card against the same function on the CPU:
+# the ulp contract it holds against JAX (tests/test_torch_flax_init.py)
+INIT_ULP_BOUND = 4
+# PipelineModels.tiny() on the card against the CPU: f32 with TF32 off,
+# the BASELINE.json parity contract
+TINY_ATOL = 1e-3
 SHIPPED = ["audio_head", "face_cnn", "fusion", "landmark", "text_heads"]
 
 
@@ -192,6 +217,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}", flush=True)
     phase("device", t0, name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
+    from msa_tpu_torch import flax_init
+    from msa_tpu_torch.core.config import PipelineConfig, SystemConfig
     from msa_tpu_torch.models import transformer as T
     from msa_tpu_torch.ops import quant as Q
     from msa_tpu_torch.ops.kernels import attention as A
@@ -206,6 +233,8 @@ def main() -> int:
         "attention_block_int8": A.attention_block_int8,
         "ffn_fused_int8": F.ffn_fused_int8,
         "quantize_rows": KQ.quantize_rows,
+        "packed_qkv_attention": A.packed_qkv_attention,
+        "flash_attention": A.flash_attention,
     }
 
     def reset_counts():
@@ -360,15 +389,51 @@ def main() -> int:
         bms, by = bound_ms(2 * 2 * n * dm + 2 * dm * dff + 4 * 2 * (dm + dff), int8=2 * 2 * n * dm * dff)
         report(f"ffn_fused_int8 N={n}", err, rel, bnd, tm, bms, by)
         record("ffn_fused_int8", err, n == 1024, tm, bms, by)
+
+    def sdpa(qkv, mask):
+        """One PyTorch call computing the same attention (no lse; a row with
+        no valid key averages the real keys only): the yardstick."""
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)  # [B, H, T, D] views
+        bias = torch.where(mask > 0, 0.0, -1e9).to(qkv.dtype)[:, None, None, :]
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+    # the attention-only kernels: row 5 at the custom-width encoder's shape
+    # and the full-width training shape, row 6 at 15 s and 30 s of audio;
+    # ragged T everywhere, and a row with no valid key where B=2
+    for name, kernel, plain, main_shape, shapes in (
+        ("packed_qkv_attention", A.packed_qkv_attention, A.packed_qkv_attention_plain, (2, 40, 4, 24),
+         ((2, 40, 4, 24), (2, 512, 12, 64))),
+        ("flash_attention", A.flash_attention, A.flash_attention_plain, (2, 749, 12, 64),
+         ((2, 749, 12, 64), (1, 1499, 12, 64))),
+    ):
+        for b, T_, h, d in shapes:
+            qkv = rand(b, T_, 3, h, d)
+            mask = torch.ones(b, T_, device=dev)
+            mask[0, T_ * 2 // 3 :] = 0.0  # a ragged valid length
+            if b == 2:
+                mask[1] = 0.0  # a row with no valid key
+            (o, lse), (po, plse) = kernel(qkv, mask), plain(qkv, mask)
+            err, rel, bnd = compare(f"{name} B={b} T={T_} H={h} D={d}", o, po)
+            lse_err = (lse - plse).abs().max().item()
+            check(bool(torch.isfinite(lse).all()) and lse_err <= LSE_ATOL, f"{name}: lse max abs err {lse_err:.3e} > {LSE_ATOL}")
+            tm = timings(lambda: kernel(qkv, mask), lambda: plain(qkv, mask))
+            lib_ms, lib_call_ms = device_ms(lambda: sdpa(qkv, mask)), time_ms(lambda: sdpa(qkv, mask))
+            nbytes = 2 * 3 * b * T_ * h * d + 4 * b * T_ + 2 * b * T_ * h * d + 4 * b * h * T_
+            bms, by = bound_ms(nbytes, bf16=4 * b * h * T_ * T_ * d)
+            report(f"{name} B={b} T={T_} (T_pad={-(-T_ // 128) * 128}) H={h} D={d} lse_max_abs_err={lse_err:.3e}", err, rel, bnd, tm, bms, by)
+            print(f"    sdpa (library) ms={lib_ms:.4f} (device) call_ms={lib_call_ms:.4f}", flush=True)
+            record(name, err, (b, T_, h, d) == main_shape, tm, bms, by)
+            if (b, T_, h, d) == main_shape:
+                results[name]["library_ms"] = lib_ms
     phase("kernels", t0)
 
     # --- shared by the two recipes' main paths ----------------------------------
     rng = np.random.default_rng(0)
 
-    def inputs(models, tokens: int) -> "G.SegmentInputs":
-        inp = G.SegmentInputs.zeros(models, 2, samples=80_000, tokens=tokens)
+    def inputs(models, tokens: int, samples: int = SystemConfig().pipeline.segment_samples) -> "G.SegmentInputs":
+        inp = G.SegmentInputs.zeros(models, 2, samples=samples, tokens=tokens)
         inp.frames = rng.integers(0, 256, size=inp.frames.shape, dtype=np.uint8)
-        inp.audio = (0.1 * rng.standard_normal((2, 80_000))).astype(np.float32)
+        inp.audio = (0.1 * rng.standard_normal((2, samples))).astype(np.float32)
         inp.token_ids = rng.integers(1, models.text.cfg.vocab_size, size=(2, tokens)).astype(np.int32)
         inp.token_mask[0] = 1
         if tokens >= 512:
@@ -489,6 +554,7 @@ def main() -> int:
     t0 = time.perf_counter()
     models = G.PipelineModels.initialize(seed=0, quantize="none", device=dev)
     torch.cuda.synchronize()
+    init_s = {"bf16": time.perf_counter() - t0}
     n_params = sum(p.numel() for m in models.modules() for p in m.parameters())
     phase("initialize_bf16", t0, params=n_params, loaded=",".join(sorted(models.loaded)))
     check(sorted(models.loaded) == SHIPPED, f"shipped checkpoints loaded: {sorted(models.loaded)}, expected {SHIPPED}")
@@ -531,6 +597,7 @@ def main() -> int:
     t0 = time.perf_counter()
     models8 = G.PipelineModels.initialize(seed=0, device=dev)
     torch.cuda.synchronize()
+    init_s["int8"] = time.perf_counter() - t0
     phase("initialize_int8", t0, loaded=",".join(sorted(models8.loaded)))
     check(sorted(models8.loaded) == SHIPPED, f"shipped checkpoints loaded: {sorted(models8.loaded)}, expected {SHIPPED}")
     for enc in (models8.text.encoder, models8.audio.encoder):
@@ -570,7 +637,48 @@ def main() -> int:
     phase("int8_forward_timing", t1)
     phase("int8_main_path", t0)
 
-    # --- 6. run_stream at B=1 -------------------------------------------------------------
+    # --- 6. the init: the card's leaves against the same function on the CPU ---------------
+    t0 = time.perf_counter()
+    for recipe, secs in init_s.items():
+        print(f"  PipelineModels.initialize() at full width, {recipe} recipe: {secs:.3f} s (the card, build excluded)", flush=True)
+
+    def ulp_distance(a, b):
+        def ordered(x):
+            i = x.detach().float().contiguous().view(torch.int32).long()
+            return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+        return (ordered(a) - ordered(b)).abs()
+
+    def card_leaf(module, path):
+        return next((leaf, p) for leaf, p in flax_init.leaves(module) if leaf.path == path)
+
+    cpu_qkv = None
+    for label, module, seed, path in (
+        ("text word_embeddings", models8.text, 3, ("embeddings", "word_embeddings", "embedding")),
+        ("text layer_0 qkv", models8.text, 3, ("encoder", "layer_0", "attention", "qkv", "kernel")),
+        ("audio layer_0 fc_in", models8.audio, 2, ("encoder", "layer_0", "fc_in", "kernel")),
+    ):
+        leaf, p = card_leaf(module, path)
+        t1 = time.perf_counter()
+        cpu = flax_init.to_port(leaf, flax_init.leaf_values(leaf, seed, "cpu"), p.cpu())
+        d = ulp_distance(p.cpu(), cpu)
+        print(
+            f"  init leaf {label} {tuple(p.shape)}: card vs CPU max {int(d.max())} f32 ulp, "
+            f"{int((d > 0).sum())} of {d.numel()} elements differ (CPU {time.perf_counter() - t1:.2f} s)",
+            flush=True,
+        )
+        check(int(d.max()) <= INIT_ULP_BOUND, f"init leaf {label}: {int(d.max())} ulp between the card and the CPU")
+        if label == "text layer_0 qkv":
+            cpu_qkv = cpu
+    q_cpu, s_cpu = Q.quantize_weight_axis(cpu_qkv, axis=1)
+    layer0 = models8.text.encoder.layer_0.attention
+    n_codes = int((layer0.w_qkv_q.cpu() != q_cpu).sum())
+    n_scales = int((layer0.s_qkv.cpu() != s_cpu[:, 0]).sum())
+    print(f"  int8 codes of text layer_0 qkv, card vs CPU init: {n_codes} of {q_cpu.numel()} codes and {n_scales} scales differ", flush=True)
+    check(n_codes == 0 and n_scales == 0, f"text layer_0 qkv: {n_codes} int8 codes, {n_scales} scales differ from the CPU init")
+    phase("init_vs_cpu", t0, initialize_bf16_s=f"{init_s['bf16']:.3f}", initialize_int8_s=f"{init_s['int8']:.3f}")
+
+    # --- 7. run_stream at B=1 -------------------------------------------------------------
     t0 = time.perf_counter()
     s = models8.landmark.cfg.frame_size
     tokens = 128
@@ -643,6 +751,104 @@ def main() -> int:
     print(f"  run_stream B=1 bucket{tokens}: {ms:.3f} ms/window (median of 10, CUDA events; upload included)", flush=True)
     phase("run_stream", t0)
 
+    # --- 8. 15 s segments at full width: the flash kernel in every audio layer --------------
+    t0 = time.perf_counter()
+    long_cfg = SystemConfig(pipeline=PipelineConfig(segment_samples=240_000))
+    long_runs = [(512, inputs(models, 512, long_cfg.pipeline.segment_samples))]
+    real_flash = A.flash_attention
+
+    def flash_skip_last_head(qkv, mask):
+        q = qkv.clone()
+        q[:, :, 2, -1] = 0  # the last head's V: its output stays 0
+        return real_flash(q, mask)
+
+    long_counts = {}
+    for label, mods, expect_counts, plain_of, fault_key, fault, enc_bound, pack_bound in (
+        (
+            "long_bf16", models, {**zero, "attention_block": 12, "flash_attention": 12, "ffn_fused": 24},
+            lambda pipe: (G.SegmentPipeline(mods.with_encoders(attention_impl="einsum", ffn_impl="dense"), long_cfg), None),
+            "skip_last_head", {"attention_block": skip_last_head, "flash_attention": flash_skip_last_head},
+            ENCODER_NOISE_RATIO, HOSTPACK_NOISE_RATIO,
+        ),
+        (
+            "long_int8", models8,
+            {**zero, "attention_block_int8": 12, "flash_attention": 12, "ffn_fused_int8": 24, "quantize_rows": 72},
+            lambda pipe: (pipe, {
+                "attention_block_int8": A.attention_block_int8_plain,
+                "ffn_fused_int8": F.ffn_int8_plain,
+                "flash_attention": A.flash_attention_plain,
+            }),
+            "zero_last_head_v", {"attention_block_int8": zero_last_head_v, "flash_attention": flash_skip_last_head},
+            INT8_ENCODER_RATIO, INT8_HOSTPACK_RATIO,
+        ),
+    ):
+        t1 = time.perf_counter()
+        pipe_l = G.SegmentPipeline(mods, long_cfg)
+        got = drive(label, pipe_l, long_runs, expect_counts)
+        long_counts = {k: long_counts.get(k, 0) + v for k, v in got.items()}
+        exact_l = G.SegmentPipeline(mods.with_encoders(attention_impl="einsum", ffn_impl="dense", compute_dtype="float32"), long_cfg)
+        vs_plain(label, long_runs, (pipe_l, None), plain_of(pipe_l), (exact_l, None), {fault_key: (pipe_l, fault)}, fault_key, enc_bound, pack_bound)
+        del exact_l
+        time_forwards(label, pipe_l, long_runs)
+        dev_ms = device_ms(lambda: pipe_l.run_host(long_runs[0][1]), reps=3)
+        print(f"  {label} run_host B=2 bucket512 at 15 s: {dev_ms:.3f} ms of device time per forward (profiler)", flush=True)
+        phase(label, t1)
+    phase("long_segments", t0)
+
+    # --- 9. a custom-width encoder (row 5), then PipelineModels.tiny() --------------------------
+    t0 = time.perf_counter()
+    x_c = rand(2, 40, 96)
+    mask_c = torch.ones(2, 40, device=dev)
+    mask_c[1, 25:] = 0.0
+    custom_counts = {name: 0 for name in counters}
+    for quantize in ("none", "int8"):
+        cfg = T.EncoderConfig(
+            num_layers=2, d_model=96, num_heads=4, d_ff=256, compute_dtype="bfloat16",
+            attention_impl="kernel", ffn_impl="kernel", quantize=quantize,
+        )
+        with torch.device(dev):
+            enc = flax_init.init_module_(T.TransformerEncoder(cfg).eval().requires_grad_(False), 0)
+        reset_counts()
+        with torch.inference_mode():
+            got = enc(x_c, mask_c)
+        torch.cuda.synchronize()
+        c = counts()
+        custom_counts = {k: custom_counts[k] + v for k, v in c.items()}
+        check(c == {**zero, "packed_qkv_attention": 2}, f"custom-width encoder ({quantize}): launches {c}, expected 2 packed_qkv_attention")
+        with swapped(T, packed_qkv_attention=A.packed_qkv_attention_plain), torch.inference_mode():
+            want = enc(x_c, mask_c)
+        err, rel, bnd = compare(f"custom-width encoder ({quantize})", got, want)
+        print(f"  custom-width encoder d_model 96, quantize={quantize}: launches {c} vs plain path max_abs_err={err:.4e} bound={bnd:.4e}", flush=True)
+
+    tiny_card = G.PipelineModels.tiny(seed=0, device=dev)
+    tiny_cpu = G.PipelineModels.tiny(seed=0, device="cpu")
+    worst = max(
+        int(ulp_distance(a.cpu(), b).max())
+        for mc, mh in zip(tiny_card.modules(), tiny_cpu.modules())
+        for a, b in zip(mc.parameters(), mh.parameters())
+    )
+    inp_t = G.SegmentInputs.zeros(tiny_card, 2, samples=8000, tokens=32)
+    inp_t.frames = rng.integers(0, 256, size=inp_t.frames.shape, dtype=np.uint8)
+    inp_t.audio = (0.1 * rng.standard_normal((2, 8000))).astype(np.float32)
+    inp_t.token_ids = rng.integers(1, tiny_card.text.cfg.vocab_size, size=(2, 32)).astype(np.int32)
+    inp_t.token_mask[0] = 1
+    inp_t.token_mask[1, :20] = 1
+    reset_counts()
+    out_card, _ = G.SegmentPipeline(tiny_card).run_host(inp_t)
+    torch.cuda.synchronize()
+    c = counts()
+    check(c == zero, f"PipelineModels.tiny() launched kernels: {c}")
+    out_cpu, _ = G.SegmentPipeline(tiny_cpu).run_host(inp_t)
+    tiny_err = (out_card["hostpack"].cpu() - out_cpu["hostpack"]).abs().max().item()
+    print(
+        f"  PipelineModels.tiny() on the card: params vs CPU max {worst} f32 ulp; launches {sum(c.values())}; "
+        f"hostpack {tuple(out_card['hostpack'].shape)} vs CPU max abs diff {tiny_err:.3e} (bound {TINY_ATOL})",
+        flush=True,
+    )
+    check(worst <= INIT_ULP_BOUND, f"tiny(): parameters {worst} ulp from the CPU's")
+    check(bool(torch.isfinite(out_card["hostpack"]).all()) and tiny_err <= TINY_ATOL, f"tiny(): hostpack {tiny_err:.3e} from the CPU's")
+    phase("custom_width_and_tiny", t0)
+
     kernels = [
         {
             "name": name,
@@ -659,6 +865,8 @@ def main() -> int:
             ("attention_block_int8", "msa_tpu_torch/csrc/attention.cu", "msa_tpu/ops/pallas/attention.py:779", int8_counts),
             ("ffn_fused_int8", "msa_tpu_torch/csrc/ffn.cu", "msa_tpu/ops/pallas/ffn.py:166", int8_counts),
             ("quantize_rows", "msa_tpu_torch/csrc/quant.cu", "msa_tpu/ops/quant.py:47", int8_counts),
+            ("packed_qkv_attention", "msa_tpu_torch/csrc/attention_packed.cu", "msa_tpu/ops/pallas/attention.py:489", custom_counts),
+            ("flash_attention", "msa_tpu_torch/csrc/attention_flash.cu", "msa_tpu/ops/pallas/attention.py:948", long_counts),
         )
     ]
     phase("total", t_all)

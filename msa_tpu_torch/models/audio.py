@@ -1,10 +1,12 @@
-"""Audio emotion encoder, wav2vec2-style (port of ``msa_tpu/models/audio.py``,
-the ``positional="conv"`` architecture the serving graph runs):
+"""Audio emotion encoder, wav2vec2-style (port of ``msa_tpu/models/audio.py``):
 
 conv extractor (7 convs, GroupNorm after conv0, exact GELU) →
-``post_extract_ln`` → ``proj`` → ``x + pos_conv(x)`` → ``encoder_pre_ln`` →
-transformer encoder (no mask) → attentive-stats pool → 4-class head, whose
-probabilities are duplicated to the 8-dim contract (D7).
+``post_extract_ln`` → ``proj`` → positions → transformer encoder (no mask)
+→ attentive-stats pool → 4-class head, whose probabilities are duplicated
+to the 8-dim contract (D7). Positions are ``x + pos_conv(x)`` then
+``encoder_pre_ln`` under ``positional="conv"`` (the serving graph's), or a
+fixed sinusoidal table added to x under ``positional="sinusoidal"`` (the
+tiny test config's).
 
 The convs run in the encoder's compute dtype with f32 GroupNorm/LayerNorm,
 as in JAX; tensors are NCW inside the convs and [B, T, C] elsewhere.
@@ -15,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -35,11 +38,37 @@ class AudioModelConfig:
     conv_strides: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
     num_classes: int = 4
     pool_hidden: int = 128
+    positional: str = "conv"  # "conv" | "sinusoidal"
     pos_conv_kernel: int = 128
     pos_conv_groups: int = 16
     # prosody-trained pool + head over the JAX package's deterministic trunk
     head_weights: Optional[str] = "checkpoints/audio_emotion_head.msgpack"
     encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
+
+    @classmethod
+    def tiny(cls) -> "AudioModelConfig":
+        """Small config for tests (``msa_tpu/models/audio.py:68``); no head
+        checkpoint, which would not fit the tiny trunk."""
+        return cls(
+            conv_channels=(8, 8),
+            conv_kernels=(10, 8),
+            conv_strides=(5, 4),
+            pool_hidden=8,
+            positional="sinusoidal",
+            head_weights=None,
+            encoder=EncoderConfig.tiny(),
+        )
+
+
+def sinusoidal_positions(t: int, d: int) -> np.ndarray:
+    """[t, d] f32 table: sin on even, cos on odd columns (float64 inside)."""
+    pos = np.arange(t)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * dim / d)
+    out = np.zeros((t, d), np.float32)
+    out[:, 0::2] = np.sin(angle)
+    out[:, 1::2] = np.cos(angle)
+    return out
 
 
 class ConvFeatureExtractor(nn.Module):
@@ -90,8 +119,11 @@ class AudioEmotionModel(nn.Module):
         self.feature_extractor = ConvFeatureExtractor(cfg)
         self.post_extract_ln = LayerNorm(cfg.conv_channels[-1], 1e-5, fast=False)
         self.proj = nn.Linear(cfg.conv_channels[-1], d)
-        self.pos_conv = ConvPositionalEmbedding(d, cfg.pos_conv_kernel, cfg.pos_conv_groups, cfg.encoder.dtype)
-        self.encoder_pre_ln = LayerNorm(d, 1e-5, fast=False)
+        if cfg.positional == "conv":
+            self.pos_conv = ConvPositionalEmbedding(d, cfg.pos_conv_kernel, cfg.pos_conv_groups, cfg.encoder.dtype)
+            self.encoder_pre_ln = LayerNorm(d, 1e-5, fast=False)
+        elif cfg.positional != "sinusoidal":
+            raise ValueError(f"positional={cfg.positional!r}: expected 'conv' or 'sinusoidal'")
         self.encoder = TransformerEncoder(cfg.encoder)
         self.pool = AttentiveStatsPool(d, cfg.pool_hidden)
         self.emotion_head = nn.Linear(2 * d, cfg.num_classes)
@@ -99,7 +131,10 @@ class AudioEmotionModel(nn.Module):
     def forward(self, wav: torch.Tensor) -> Dict[str, torch.Tensor]:
         feats = self.post_extract_ln(self.feature_extractor(wav))  # f32
         x = self.proj(feats)
-        x = self.encoder_pre_ln(x + self.pos_conv(x))
+        if self.cfg.positional == "conv":
+            x = self.encoder_pre_ln(x + self.pos_conv(x))
+        else:
+            x = x + torch.from_numpy(sinusoidal_positions(x.shape[1], x.shape[2])).to(x.device)
         hidden = self.encoder(x, None)
         pooled = self.pool(hidden)
         logits = self.emotion_head(pooled.float())

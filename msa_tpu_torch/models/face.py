@@ -25,6 +25,12 @@ class FaceModelConfig:
     emotion_weights: Optional[str] = "checkpoints/face_emotion_cnn.msgpack"
     landmark_weights: Optional[str] = "checkpoints/landmark_net.msgpack"
 
+    @classmethod
+    def tiny(cls) -> "FaceModelConfig":
+        """Small nets for tests (``msa_tpu/models/face.py:59``); no
+        checkpoints, which would not fit them."""
+        return cls(backbone_channels=(4, 8), cnn_channels=(4, 8), frame_size=32, emotion_weights=None, landmark_weights=None)
+
 
 def _same_pad(size: int, k: int, s: int) -> Tuple[int, int]:
     """flax/XLA "SAME" padding (the extra pixel goes after)."""

@@ -22,6 +22,12 @@ class TextModelConfig:
     head_weights: Optional[str] = "checkpoints/text_heads.msgpack"
     encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
 
+    @classmethod
+    def tiny(cls) -> "TextModelConfig":
+        """Small config for tests (``msa_tpu/models/text.py:58``); no head
+        checkpoint, which would not fit the tiny trunk."""
+        return cls(vocab_size=128, max_positions=64, head_weights=None, encoder=EncoderConfig.tiny())
+
 
 class BertEmbeddings(nn.Module):
     def __init__(self, cfg: TextModelConfig):

@@ -8,15 +8,22 @@ E[x²]−E[x]², eps 1e-12), an additive −1e9 key mask, matmuls in
 ``attention_impl``/``ffn_impl`` pick the path, as in JAX: ``"kernel"`` (the
 JAX ``"pallas"``) runs the hand-written CUDA kernels of
 :mod:`msa_tpu_torch.ops.kernels` — their plain versions on the CPU — and
-needs ``d_model`` and ``d_ff`` to be multiples of 128: otherwise it raises
-(JAX falls back to its packed-QKV kernel and a dense FFN there, which are
-not ported); ``"einsum"``/``"dense"`` is the plain PyTorch path. With
-``quantize="int8"`` the kernel paths run the W8A8 kernels.
+``"einsum"``/``"dense"`` the plain PyTorch path. The kernel paths dispatch
+as JAX's (``msa_tpu/models/transformer.py:86-156``, ``:204-239``):
+
+- attention: ``attention_block`` (``attention_block_int8`` under
+  ``quantize="int8"``) where ``d_model % 128 == 0`` and T ≤ 512; otherwise
+  a dense QKV projection in the compute dtype (never int8, as JAX's
+  ``nn.Dense`` ignores ``quantize``), the packed-QKV attention kernel at
+  T ≤ 512 or the flash kernel beyond, and a dense output projection;
+- FFN: ``ffn_fused`` (``ffn_fused_int8``) where ``d_model`` and ``d_ff``
+  are multiples of 128, at any T; otherwise dense → exact GELU → dense in
+  the compute dtype.
 
 The encoder matrices are f32 masters, as flax's params are. Each layer
-derives what its path consumes (int8 codes and scales, or compute-dtype
-copies) in ``derive_weights_``, which :mod:`msa_tpu_torch.weights` runs
-after a load or a random draw. Parameter names
+derives what its paths consume (int8 codes and scales, compute-dtype
+copies) in ``derive_weights_``, which :mod:`msa_tpu_torch.weights` and
+:mod:`msa_tpu_torch.flax_init` run after a load or an init. Parameter names
 follow the flax tree (``qkv``, ``attn_out``, ``fc_in``, ``fc_out``,
 ``attn_ln``, ``ffn_ln``, ``layer_{i}``) so :mod:`msa_tpu_torch.weights`
 maps them one to one. Inference only: there is no dropout.
@@ -31,7 +38,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from msa_tpu_torch.ops.kernels.attention import attention_block, attention_block_int8
+from msa_tpu_torch.ops.kernels.attention import (
+    SINGLE_PASS_MAX_T,
+    attention_block,
+    attention_block_int8,
+    flash_attention,
+    packed_qkv_attention,
+)
 from msa_tpu_torch.ops.kernels.ffn import ffn_fused, ffn_fused_int8
 from msa_tpu_torch.ops.quant import quantize_weight_axis
 
@@ -60,6 +73,22 @@ class EncoderConfig:
     def dtype(self) -> torch.dtype:
         return _DTYPES[self.compute_dtype]
 
+    @property
+    def block_kernel(self) -> bool:
+        """Whether the kernel attention path can take ``attention_block``
+        (at T ≤ 512)."""
+        return self.attention_impl == "kernel" and self.d_model % 128 == 0
+
+    @property
+    def ffn_kernel(self) -> bool:
+        """Whether the FFN runs ``ffn_fused[_int8]``."""
+        return self.ffn_impl == "kernel" and self.d_model % 128 == 0 and self.d_ff % 128 == 0
+
+    @classmethod
+    def tiny(cls) -> "EncoderConfig":
+        """Small config for tests (``msa_tpu/models/transformer.py:67-70``)."""
+        return cls(num_layers=2, d_model=32, num_heads=2, d_ff=64)
+
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm`` numerics over the last axis, computed in f32:
@@ -84,20 +113,20 @@ class LayerNorm(nn.Module):
 
 
 @torch.no_grad()
-def _derive(module: nn.Module, linears, int8: bool, dt: torch.dtype, biases: bool = False) -> None:
-    """Register what a path consumes from each named f32 master Linear as
-    non-persistent buffers: ``w_{name}_q`` int8 codes and ``s_{name}`` f32
-    per-output-channel scales (JAX quantizes its f32 params alike on every
-    call), else ``w_{name}_c`` (and ``b_{name}_c``) in the compute dtype."""
+def _derive(module: nn.Module, linears, int8: bool, dense: bool, dt: torch.dtype) -> None:
+    """Register what the paths consume from each named f32 master Linear as
+    non-persistent buffers: with ``int8``, ``w_{name}_q`` int8 codes and
+    ``s_{name}`` f32 per-output-channel scales (JAX quantizes its f32 params
+    alike on every call); with ``dense``, ``w_{name}_c`` and ``b_{name}_c``
+    in the compute dtype."""
     for name, lin in linears:
         if int8:
             w_q, s = quantize_weight_axis(lin.weight, axis=1)
             module.register_buffer(f"w_{name}_q", w_q, persistent=False)
             module.register_buffer(f"s_{name}", s[:, 0].contiguous(), persistent=False)
-        else:
+        if dense:
             module.register_buffer(f"w_{name}_c", lin.weight.detach().to(dt), persistent=False)
-            if biases:
-                module.register_buffer(f"b_{name}_c", lin.bias.detach().to(dt), persistent=False)
+            module.register_buffer(f"b_{name}_c", lin.bias.detach().to(dt), persistent=False)
 
 
 class SelfAttention(nn.Module):
@@ -112,42 +141,45 @@ class SelfAttention(nn.Module):
         self.derive_weights_()
 
     def derive_weights_(self) -> None:
-        """Derive the weights this path consumes from the f32 masters: int8
-        on the int8 kernel path, else the compute dtype. Run after the
-        masters change."""
+        """Derive the weights the paths consume from the f32 masters: int8
+        for ``attention_block_int8``, and compute-dtype copies for every
+        other path (the dense projections around rows 5 and 6 included,
+        which even the int8 recipe takes at T > 512). Run after the masters
+        change."""
         cfg = self.cfg
-        int8 = cfg.attention_impl == "kernel" and cfg.quantize == "int8"
-        _derive(self, (("qkv", self.qkv), ("out", self.attn_out)), int8, cfg.dtype)
+        int8 = cfg.block_kernel and cfg.quantize == "int8"
+        _derive(self, (("qkv", self.qkv), ("out", self.attn_out)), int8, True, cfg.dtype)
 
     def forward(self, x: torch.Tensor, attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
         dt = cfg.dtype
         b, t, d = x.shape
+        h, dh = cfg.num_heads, cfg.head_dim
         if cfg.attention_impl == "kernel":
-            if d % 128:
-                raise NotImplementedError("kernel attention needs d_model % 128 == 0 (the packed-QKV kernel is not ported)")
             key_mask = (
                 torch.ones((b, t), dtype=torch.float32, device=x.device)
                 if attention_mask is None
                 else (attention_mask > 0).float()
             )
-            if cfg.quantize == "int8":
-                return attention_block_int8(
-                    x.to(dt), self.w_qkv_q, self.s_qkv, self.qkv.bias, self.w_out_q, self.s_out,
-                    self.attn_out.bias, key_mask, cfg.num_heads,
-                )
-            return attention_block(
-                x.to(dt), self.w_qkv_c, self.qkv.bias, self.w_out_c, self.attn_out.bias, key_mask, cfg.num_heads
-            )
-        h, dh = cfg.num_heads, cfg.head_dim
-        qkv = F.linear(x.to(dt), self.w_qkv_c, self.qkv.bias.to(dt)).view(b, t, 3, h, dh)
+            if cfg.block_kernel and t <= SINGLE_PASS_MAX_T:
+                if cfg.quantize == "int8":
+                    return attention_block_int8(
+                        x.to(dt), self.w_qkv_q, self.s_qkv, self.qkv.bias, self.w_out_q, self.s_out,
+                        self.attn_out.bias, key_mask, h,
+                    )
+                return attention_block(x.to(dt), self.w_qkv_c, self.qkv.bias, self.w_out_c, self.attn_out.bias, key_mask, h)
+            qkv = F.linear(x.to(dt), self.w_qkv_c, self.b_qkv_c).view(b, t, 3, h, dh)
+            attend = packed_qkv_attention if t <= SINGLE_PASS_MAX_T else flash_attention
+            out, _ = attend(qkv, key_mask)
+            return F.linear(out, self.w_out_c, self.b_out_c)
+        qkv = F.linear(x.to(dt), self.w_qkv_c, self.b_qkv_c).view(b, t, 3, h, dh)
         q, k, v = qkv.unbind(dim=2)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (1.0 / float(dh) ** 0.5)
         if attention_mask is not None:
             logits = logits + torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9).float()
         probs = torch.softmax(logits, dim=-1).to(dt)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, t, d)
-        return F.linear(out, self.w_out_c, self.attn_out.bias.to(dt))
+        return F.linear(out, self.w_out_c, self.b_out_c)
 
 
 class EncoderLayer(nn.Module):
@@ -168,8 +200,8 @@ class EncoderLayer(nn.Module):
         The int8 kernel adds the f32 biases; every other path adds them in
         the compute dtype, as JAX does."""
         cfg = self.cfg
-        int8 = cfg.ffn_impl == "kernel" and cfg.quantize == "int8"
-        _derive(self, (("in", self.fc_in), ("out", self.fc_out)), int8, cfg.dtype, biases=True)
+        int8 = cfg.ffn_kernel and cfg.quantize == "int8"
+        _derive(self, (("in", self.fc_in), ("out", self.fc_out)), int8, not int8, cfg.dtype)
 
     def forward(self, x: torch.Tensor, attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
@@ -177,9 +209,7 @@ class EncoderLayer(nn.Module):
         attn = self.attention(x, attention_mask)
         x = self.attn_ln(x + attn).to(dt)
         b, t, d = x.shape
-        if cfg.ffn_impl == "kernel":
-            if cfg.d_model % 128 or cfg.d_ff % 128:
-                raise NotImplementedError("kernel FFN needs d_model % 128 == 0 and d_ff % 128 == 0")
+        if cfg.ffn_kernel:
             if cfg.quantize == "int8":
                 h = ffn_fused_int8(
                     x.reshape(b * t, d), self.w_in_q, self.s_in, self.fc_in.bias, self.w_out_q, self.s_out,

@@ -30,6 +30,25 @@ int8 with ``s_out [dm]``. x and the attention output are quantized per row;
 the projections dequantize in f32 in the TPU kernel's order of products,
 ``acc·xs·s + b`` for q and v and ``acc·s·xs + b`` for k (``:605-657``),
 ``acc·as·so + bo`` for the output; the attention core is the bf16 one.
+
+Two attention-only kernels serve the shapes ``attention_block`` does not
+take (the encoder then projects QKV and the output in plain PyTorch, as
+JAX does in XLA). Both read ``qkv [B, T, 3, H, D]``, the free view of the
+fused projection, and return ``(o [B, T, H·D], lse [B, H, T])``:
+
+- :func:`packed_qkv_attention` (``d_model % 128 ≠ 0`` at T ≤ 512) replaces
+  ``_packed_qkv_attention_lse`` (``pl.pallas_call`` at :489, kernel
+  :425-462); CUDA in ``csrc/attention_packed.cu``. Exact row max over all
+  keys, P normalised *before* P·V: ``(p/denom)`` is rounded to qkv's dtype.
+- :func:`flash_attention` (T > 512) replaces ``_flash_attention_lse``
+  (``pl.pallas_call`` at :948, kernel :880-926), which JAX's encoder reaches
+  through ``attention_with_vjp``; CUDA in ``csrc/attention_flash.cu``.
+  Online softmax over 128-key blocks: the *unnormalised* p is rounded for
+  P·V, ``acc = acc·α + pv``, and ``o = acc / max(l, 1e-30)`` at the end.
+
+Both pad T to a multiple of 128 with zero rows under masked keys, so a row
+with no valid key averages V over all padded rows, as on the TPU; the lse
+is ``max + log(denom)`` in f32.
 """
 
 from __future__ import annotations
@@ -215,3 +234,113 @@ def attention_block_int8(
 
 
 attention_block_int8.launches = 0  # kernel launches since the last reset (the smoke reads it)
+
+
+# --- attention on the packed QKV projection (rows 5 and 6) ---------------------
+
+FLASH_BLOCK_K = 128  # the TPU kernel's key block: the online softmax rescales per block
+
+
+def _pad_packed(qkv: torch.Tensor, key_mask: torch.Tensor):
+    """Pad T of qkv [B, T, 3, H, D] and key_mask [B, T] to a multiple of 128
+    with zero rows under masked keys. → (qkv, key_mask, T_pad)."""
+    t = qkv.shape[1]
+    t_pad = -(-t // LANE) * LANE
+    if t_pad != t:
+        qkv = F.pad(qkv, (0, 0, 0, 0, 0, 0, 0, t_pad - t))
+        key_mask = F.pad(key_mask, (0, t_pad - t))
+    return qkv, key_mask, t_pad
+
+
+def _mask_bias(key_mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(key_mask > 0, 0.0, -1e9).float()
+
+
+def packed_qkv_attention_plain(qkv: torch.Tensor, key_mask: torch.Tensor):
+    """Plain PyTorch version of the row-5 kernel (same rounding points)."""
+    b, t, _, h, d = qkv.shape
+    dt = qkv.dtype
+    qkv, key_mask, t_pad = _pad_packed(qkv, key_mask)
+    q, k, v = qkv.float().unbind(dim=2)  # [b, t_pad, h, d]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * _scale(d) + _mask_bias(key_mask)[:, None, None, :]
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bkhd->bqhd", (p / denom).to(dt).float(), v).to(dt)
+    lse = (m + torch.log(denom))[..., 0]
+    return o.reshape(b, t_pad, h * d)[:, :t], lse[:, :, :t]
+
+
+def flash_attention_plain(qkv: torch.Tensor, key_mask: torch.Tensor):
+    """Plain PyTorch version of the row-6 kernel: the same online softmax
+    over the same 128-key blocks, in the same order of operations."""
+    b, t, _, h, d = qkv.shape
+    dt = qkv.dtype
+    qkv, key_mask, t_pad = _pad_packed(qkv, key_mask)
+    q, k, v = qkv.float().permute(2, 0, 3, 1, 4).unbind(0)  # [b, h, t_pad, d]
+    bias = _mask_bias(key_mask)
+    m = torch.full((b, h, t_pad, 1), -1e30, device=qkv.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, h, t_pad, d), device=qkv.device)
+    for k0 in range(0, t_pad, FLASH_BLOCK_K):
+        kb = slice(k0, k0 + FLASH_BLOCK_K)
+        s = q @ k[:, :, kb].transpose(-1, -2) * _scale(d) + bias[:, None, None, kb]
+        m_cur = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_cur)
+        p = torch.exp(s - m_cur)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p.to(dt).float() @ v[:, :, kb]
+        m = m_cur
+    l = torch.clamp_min(l, 1e-30)
+    o = (acc / l).to(dt).permute(0, 2, 1, 3).reshape(b, t_pad, h * d)
+    return o[:, :t], (m + torch.log(l))[..., 0][:, :, :t]
+
+
+def _launch_packed(entry: str, what: str, qkv: torch.Tensor, key_mask: torch.Tensor):
+    """Check the inputs of a packed-QKV kernel and launch it on the card."""
+    b, t, three, h, d = qkv.shape
+    if three != 3 or d % 8 or not 8 <= d <= 128:
+        raise ValueError(f"{what} kernel needs qkv [B, T, 3, H, D] with D % 8 == 0 and D ≤ 128, got {tuple(qkv.shape)}")
+    dev = qkv.device
+    require(qkv, "qkv", torch.bfloat16, (b, t, 3, h, d), dev)
+    require(key_mask, "key_mask", torch.float32, (b, t), dev)
+    o = torch.empty((b, t, h * d), dtype=torch.bfloat16, device=dev)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = getattr(build.library(), entry)(
+        qkv.data_ptr(), key_mask.data_ptr(), o.data_ptr(), lse.data_ptr(), b, t, h, d, _scale(d), stream
+    )
+    build.check(rc, what)
+    return o, lse
+
+
+def packed_qkv_attention(qkv: torch.Tensor, key_mask: torch.Tensor):
+    """qkv [B, T ≤ 512, 3, H, D], key_mask [B, T] f32 (1 = attend) →
+    (o [B, T, H·D] in qkv's dtype, lse [B, H, T] f32). CPU tensors take
+    :func:`packed_qkv_attention_plain`; CUDA tensors launch the kernel
+    (bf16, D % 8 == 0, D ≤ 128)."""
+    if qkv.device.type == "cpu":
+        return packed_qkv_attention_plain(qkv, key_mask)
+    if qkv.shape[1] > SINGLE_PASS_MAX_T:
+        raise ValueError(f"packed_qkv_attention covers T ≤ {SINGLE_PASS_MAX_T}, got {qkv.shape[1]}")
+    out = _launch_packed("msa_packed_qkv_attention", "packed_qkv_attention", qkv, key_mask)
+    packed_qkv_attention.launches += 1
+    return out
+
+
+packed_qkv_attention.launches = 0  # kernel launches since the last reset (the smoke reads it)
+
+
+def flash_attention(qkv: torch.Tensor, key_mask: torch.Tensor):
+    """Blockwise attention for any T: qkv [B, T, 3, H, D], key_mask [B, T]
+    → (o [B, T, H·D], lse [B, H, T]). CPU tensors take
+    :func:`flash_attention_plain`; CUDA tensors launch the kernel (bf16,
+    D % 8 == 0, D ≤ 128)."""
+    if qkv.device.type == "cpu":
+        return flash_attention_plain(qkv, key_mask)
+    out = _launch_packed("msa_flash_attention", "flash_attention", qkv, key_mask)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0  # kernel launches since the last reset (the smoke reads it)

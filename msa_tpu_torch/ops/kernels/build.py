@@ -43,6 +43,9 @@ _SIGNATURES = {
     # x, wqkv, sqkv, bqkv, wout, sout, bout, mask, xq, xs, qkv, attn, aq, as,
     # out, B, T, DM, H, scale, stream
     "msa_attention_block_int8": (_P,) * 15 + (_I,) * 4 + (_F, _P),
+    # qkv, mask, o, lse, B, T, H, D, scale, stream
+    "msa_packed_qkv_attention": (_P,) * 4 + (_I,) * 4 + (_F, _P),
+    "msa_flash_attention": (_P,) * 4 + (_I,) * 4 + (_F, _P),
 }
 
 

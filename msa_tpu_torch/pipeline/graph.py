@@ -31,6 +31,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import logging
 import os
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Tuple
@@ -38,7 +39,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from msa_tpu_torch import weights
+from msa_tpu_torch import flax_init, weights
 from msa_tpu_torch.checkpoints import flax_msgpack
 from msa_tpu_torch.core import emotions
 from msa_tpu_torch.core.config import SystemConfig
@@ -71,13 +72,47 @@ def resolve_asset(rel: str) -> Path:
     raise FileNotFoundError(f"shipped asset {rel} not found (looked in . and {_ASSET_ROOT})")
 
 
-def _load_shipped(module: torch.nn.Module, tree: Mapping[str, Any], path: Path) -> None:
-    """Load a shipped tree; one that does not fit the configured module
-    raises (the JAX loaders fall back to random weights instead)."""
+logger = logging.getLogger(__name__)
+
+_FUSION_DIMS = ("face_dim", "audio_dim", "text_dim", "hidden_dim", "output_dim")
+# what a missing, unreadable or misfit checkpoint raises: the file
+# (OSError), the msgpack/JSON reader and the loader's shape check
+# (ValueError), a missing leaf or key (KeyError), a tree of the wrong kind
+# (TypeError)
+_LOAD_ERRORS = (OSError, KeyError, ValueError, TypeError)
+
+
+def _read_fusion(rel: str):
+    """The dims and param tree of a fusion checkpoint, checked by loading
+    it into a CPU module of those dims. Raises on a missing, unreadable or
+    misfit file."""
+    path = resolve_asset(rel)
+    payload = flax_msgpack.load(path)
+    meta = json.loads(payload["meta_json"])
+    dims = {k: meta[k] for k in _FUSION_DIMS}
+    with torch.device("cpu"):
+        weights.load_flax_tree(FusionMLP(**dims), payload["params"])
+    return path, dims, payload["params"]
+
+
+def _init_then_load(models: "PipelineModels", name: str, module: torch.nn.Module, seed: int, rel, shape_tree=None):
+    """JAX's init of ``module`` from ``seed`` (:mod:`msa_tpu_torch.flax_init`),
+    then the configured checkpoint ``rel`` on top. A checkpoint that is
+    missing or does not fit logs a warning and leaves the init, as
+    ``msa_tpu/pipeline/graph.py:161-271`` does; ``models.loaded`` records
+    only what loaded."""
+    flax_init.init_module_(module, seed)
+    if rel is None:  # configured without a checkpoint
+        return
     try:
-        weights.load_flax_tree(module, tree)
-    except (KeyError, ValueError) as e:
-        raise ValueError(f"{path} does not fit this config: {e}") from e
+        path = resolve_asset(rel)
+        tree = flax_msgpack.load(path)
+        weights.load_flax_tree(module, shape_tree(tree) if shape_tree else tree)
+    except _LOAD_ERRORS as e:
+        logger.warning("%s checkpoint %s does not fit this config (%s); keeping the init from seed %d", name, rel, e, seed)
+        flax_init.init_module_(module, seed)  # a failed load may have written some leaves
+        return
+    models.loaded[name] = str(path)
 
 
 @dataclasses.dataclass
@@ -149,21 +184,28 @@ class PipelineModels:
         face_cfg: Optional[FaceModelConfig] = None,
         audio_cfg: Optional[AudioModelConfig] = None,
         text_cfg: Optional[TextModelConfig] = None,
+        fusion: Optional[Mapping[str, int]] = None,
+        fusion_checkpoint: Optional[str] = None,
         quantize: Optional[str] = None,
         device: "str | torch.device" = "cuda",
     ) -> "PipelineModels":
-        """Models with the shipped checkpoints (landmark net, face CNN, audio
-        pool+head, text heads, fusion) and random text/audio trunks.
+        """The JAX package's ``PipelineModels.initialize``
+        (``msa_tpu/pipeline/graph.py:75-285``), on ``device``.
 
-        The JAX package's trunks are flax inits from ``PRNGKey(seed+3)`` and
-        ``PRNGKey(seed+2)``, which only JAX can reproduce; here they are drawn
-        from ``torch.Generator`` seeded alike, on ``device``. The shipped
-        heads were trained over the JAX trunks, so their outputs differ; use
-        :meth:`from_flax` to run the JAX trunks themselves.
+        Every module starts from JAX's flax init, rebuilt without JAX
+        (:mod:`msa_tpu_torch.flax_init`), with JAX's seeds: the fusion MLP
+        and the landmark net ``seed``, the face CNN ``seed+1``, the audio
+        trunk ``seed+2`` and the text trunk ``seed+3``. The shipped
+        checkpoints load on top: the landmark net, the face CNN, the audio
+        pool and head and the text heads (trained over those very trunks).
+        A configured checkpoint that is missing or does not fit logs a
+        warning and leaves the init; one configured as ``None`` is not
+        looked for. ``models.loaded`` names every checkpoint that loaded.
 
-        A configured checkpoint that is missing or does not fit its module
-        raises; one configured as ``None`` leaves the component random.
-        ``models.loaded`` names every checkpoint that was loaded.
+        The fusion MLP: ``fusion`` (its dims, as ``FusionMLP``'s keyword
+        arguments) builds one from the init alone; otherwise
+        ``fusion_checkpoint`` is tried, then the shipped
+        ``checkpoints/fusion.msgpack``, then the default dims from the init.
 
         ``quantize`` resolves as in JAX (``msa_tpu/pipeline/graph.py:114-117``):
         the argument, then ``MSA_QUANTIZE``, then ``"int8"`` (W8A8 through
@@ -176,36 +218,47 @@ class PipelineModels:
         audio_cfg = audio_cfg or AudioModelConfig(encoder=enc)
         text_cfg = text_cfg or TextModelConfig(encoder=enc)
 
-        path = resolve_asset("checkpoints/fusion.msgpack")
-        payload = flax_msgpack.load(path)
-        meta = json.loads(payload["meta_json"])
-        fusion_dims = {k: meta[k] for k in ("face_dim", "audio_dim", "text_dim", "hidden_dim", "output_dim")}
+        fusion_ckpt = None
+        if fusion is None:
+            for rel in (fusion_checkpoint, "checkpoints/fusion.msgpack"):
+                if not rel:
+                    continue
+                try:
+                    fusion_ckpt = _read_fusion(rel)
+                    break
+                except _LOAD_ERRORS as e:
+                    logger.warning("fusion checkpoint %s failed to load (%s); trying next", rel, e)
+        fusion_dims = fusion_ckpt[1] if fusion_ckpt else dict(fusion or {})
         models = cls._build(face_cfg, audio_cfg, text_cfg, fusion_dims, device)
-        _load_shipped(models.fusion, payload["params"], path)
-        models.loaded["fusion"] = str(path)
+        if fusion_ckpt:
+            weights.load_flax_tree(models.fusion, fusion_ckpt[2])
+            models.loaded["fusion"] = str(fusion_ckpt[0])
+        else:
+            flax_init.init_module_(models.fusion, seed)
 
-        def gen(offset: int) -> torch.Generator:
-            return torch.Generator(device=models.device).manual_seed(seed + offset)
+        def audio_head(tree):
+            return tree if "pool" in tree else {"emotion_head": tree}  # bare linear head format
 
-        weights.draw_random_(models.audio, gen(2))
-        weights.draw_random_(models.text, gen(3))
-        for name, module, rel, offset in (
-            ("landmark", models.landmark, face_cfg.landmark_weights, 0),
-            ("face_cnn", models.face_cnn, face_cfg.emotion_weights, 1),
-            ("audio_head", models.audio, audio_cfg.head_weights, None),
-            ("text_heads", models.text, text_cfg.head_weights, None),
-        ):
-            if rel is None:  # configured without a checkpoint: random weights
-                if offset is not None:
-                    weights.draw_random_(module, gen(offset))
-                continue
-            path = resolve_asset(rel)
-            tree = flax_msgpack.load(path)
-            if name == "audio_head" and "pool" not in tree:  # bare linear head format
-                tree = {"emotion_head": tree}
-            _load_shipped(module, tree, path)
-            models.loaded[name] = str(path)
+        _init_then_load(models, "landmark", models.landmark, seed, face_cfg.landmark_weights)
+        _init_then_load(models, "face_cnn", models.face_cnn, seed + 1, face_cfg.emotion_weights)
+        _init_then_load(models, "audio_head", models.audio, seed + 2, audio_cfg.head_weights, audio_head)
+        _init_then_load(models, "text_heads", models.text, seed + 3, text_cfg.head_weights)
         return models
+
+    @classmethod
+    def tiny(cls, seed: int = 0, device: "str | torch.device" = "cuda") -> "PipelineModels":
+        """Test-scale models, the same graph (``msa_tpu/pipeline/graph.py:287``):
+        the tiny face, audio and text configs and a 64-wide fusion MLP, all
+        from the init alone. Their encoders are the plain f32 path, so no
+        kernel runs."""
+        return cls.initialize(
+            seed,
+            face_cfg=FaceModelConfig.tiny(),
+            audio_cfg=AudioModelConfig.tiny(),
+            text_cfg=TextModelConfig.tiny(),
+            fusion={"hidden_dim": 64},
+            device=device,
+        )
 
     @classmethod
     def from_flax(

@@ -11,15 +11,13 @@ The port's modules use the flax tree's names, so one walk maps every leaf:
 
 Values are cast to each parameter's own dtype (bf16 conv kernels round to
 nearest even, as JAX's ``astype`` does; the encoder matrices are f32
-masters). Also here: the random trunk draw that stands in for the flax
-init, which cannot be reproduced without JAX. Both end in
-:func:`derive_weights_`, so each encoder layer's int8 or compute-dtype
-weights follow its masters.
+masters). A load ends in :func:`derive_weights_`, so each encoder layer's
+int8 or compute-dtype weights follow its masters. JAX's flax init itself is
+rebuilt in :mod:`msa_tpu_torch.flax_init`, which walks the same names.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Any, Mapping
 
 import numpy as np
@@ -71,24 +69,3 @@ def _load(module: nn.Module, tree: Mapping[str, Any], prefix: str) -> None:
         if not isinstance(target, torch.Tensor):
             raise KeyError(f"{prefix}{key}: no such parameter in {type(module).__name__}")
         target.copy_(_convert(key, value, target))
-
-
-@torch.no_grad()
-def draw_random_(module: nn.Module, generator: torch.Generator) -> None:
-    """Fill ``module`` with random weights at flax's init scales: matrices
-    and conv kernels lecun-normal over their fan-in (truncated at ±2σ),
-    norm scales 1, biases 0. Drawn in f32 on the module's device, then
-    cast to each parameter's dtype."""
-    for name, p in module.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "weight" and p.dim() >= 2:
-            fan_in = p[0].numel()
-            std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
-            w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
-            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
-            p.copy_(w)
-        elif leaf == "weight":
-            p.fill_(1.0)
-        elif leaf == "bias":
-            p.zero_()
-    derive_weights_(module)

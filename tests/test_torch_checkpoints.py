@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from msa_tpu_torch import weights
+from msa_tpu_torch import flax_init, weights
 from msa_tpu_torch.checkpoints import flax_msgpack
 from msa_tpu_torch.models import face as PFace
 from msa_tpu_torch.models.fusion import FusionMLP
@@ -102,9 +102,11 @@ def test_loader_rejects_mismatched_trees():
 
 
 def test_random_draw_is_seeded_and_scaled():
+    """The rebuilt flax init (lecun_normal: truncated at ±2σ, σ = 1/√fan_in
+    over 0.8796) is a function of the seed alone."""
     a, b = torch.nn.Linear(256, 64), torch.nn.Linear(256, 64)
-    weights.draw_random_(a, torch.Generator().manual_seed(5))
-    weights.draw_random_(b, torch.Generator().manual_seed(5))
+    flax_init.init_module_(a, 5)
+    flax_init.init_module_(b, 5)
     torch.testing.assert_close(a.weight, b.weight, rtol=0, atol=0)
     assert not a.bias.any()
     assert a.weight.abs().max() <= 2 / 16 / 0.8796 + 1e-6  # truncated at 2σ, σ = 1/√fan_in/0.88

@@ -33,7 +33,7 @@ from msa_tpu.models.transformer import TransformerEncoder as JEncoder
 from msa_tpu.ops import quant as JQ
 from msa_tpu.ops.pallas.attention import attention_block as jax_attention_block
 from msa_tpu.ops.pallas.ffn import ffn_fused_int8 as jax_ffn_fused_int8
-from msa_tpu_torch import weights
+from msa_tpu_torch import flax_init, weights
 from msa_tpu_torch.models.transformer import TransformerEncoder as PEncoder
 from msa_tpu_torch.ops import quant as PQ
 from msa_tpu_torch.ops.kernels import attention as A
@@ -188,10 +188,10 @@ def test_int8_encoder_matches_jax(rng):
 
 
 def test_int8_weights_follow_the_masters():
-    """A new random draw re-derives the int8 weights; the bf16 recipe
-    derives its copies from the same f32 masters."""
+    """A new init re-derives the int8 weights; the bf16 recipe derives its
+    copies from the same f32 masters."""
     enc = PEncoder(port_encoder_cfg("bfloat16", quantize="int8"))
-    weights.draw_random_(enc, torch.Generator().manual_seed(1))
+    flax_init.init_module_(enc, 1)
     att = enc.layer_1.attention
     q, s = PQ.quantize_weight_axis(att.qkv.weight, axis=1)
     assert torch.equal(att.w_qkv_q, q) and torch.equal(att.s_qkv, s[:, 0])

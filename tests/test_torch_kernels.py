@@ -112,7 +112,7 @@ def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
     from msa_tpu_torch.ops.kernels import build
 
     names = {p.name for p in build._sources()}
-    assert names == {"attention.cu", "ffn.cu", "quant.cu"}
+    assert names == {"attention.cu", "attention_flash.cu", "attention_packed.cu", "ffn.cu", "quant.cu"}
     assert {p.name for p in build.CSRC.glob("*.cuh")} == {"gemm.cuh", "gemm_s8.cuh"}
     assert build.ARCH_FLAGS == ("-gencode", "arch=compute_90a,code=sm_90a")
     assert "-shared" in build.NVCC_FLAGS and not any("fast_math" in f for f in build.NVCC_FLAGS)
@@ -125,6 +125,8 @@ def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
         "msa_quantize_rows",
         "msa_ffn_fused_int8",
         "msa_attention_block_int8",
+        "msa_packed_qkv_attention",
+        "msa_flash_attention",
     }
     for name in build._SIGNATURES:  # every bound entry point is defined in a source
         assert any(f'extern "C" int {name}(' in p.read_text() for p in build._sources()), name

@@ -154,12 +154,19 @@ def test_mean_pool_matches_jax(rng):
         ("ffn_impl", 128, 192, "int8"),
     ],
 )
-def test_kernel_paths_refuse_widths_they_cannot_take(impl, d_model, d_ff, quantize):
-    """A kernel path asked for at widths its kernel cannot take raises; it
-    never gives way to the plain version."""
-    from msa_tpu_torch.models.transformer import EncoderConfig
-
-    cfg = EncoderConfig(num_layers=1, d_model=d_model, num_heads=4, d_ff=d_ff, quantize=quantize, **{impl: "kernel"})
-    enc = PEncoder(cfg)
-    with pytest.raises(NotImplementedError):
-        enc(torch.zeros(1, 8, d_model), torch.ones(1, 8))
+def test_kernel_paths_refuse_widths_they_cannot_take(rng, impl, d_model, d_ff, quantize):
+    """A kernel path asked for at widths its fused kernel cannot take serves
+    them as JAX does: attention through the dense QKV projection and the
+    packed-QKV kernel (row 5, head dim 24 at d_model 96), the FFN through
+    nn.Dense → GELU → nn.Dense. Both sides in f32, so the bound is 1e-3."""
+    jimpl = {impl: "pallas"}
+    jcfg = dataclasses.replace(jax_encoder_cfg("float32", kernels=False), num_layers=1, d_model=d_model, num_heads=4, d_ff=d_ff, quantize=quantize, **jimpl)
+    pcfg = dataclasses.replace(port_encoder_cfg("float32", kernels=False), num_layers=1, d_model=d_model, num_heads=4, d_ff=d_ff, quantize=quantize, **{impl: "kernel"})
+    x = rng.normal(size=(1, 8, d_model)).astype(np.float32)
+    mask = np.ones((1, 8), np.int32)
+    mask[0, 6:] = 0
+    jenc = JEncoder(jcfg)
+    params = jenc.init(jax.random.PRNGKey(0), x, mask)["params"]
+    penc = PEncoder(pcfg)
+    weights.load_flax_tree(penc, to_numpy(params))
+    _assert_close(penc(torch.from_numpy(x), torch.from_numpy(mask)), jenc.apply({"params": params}, x, mask), "float32")

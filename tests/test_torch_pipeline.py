@@ -24,6 +24,8 @@ from msa_tpu.models.face import FaceModelConfig as JFaceCfg
 from msa_tpu.models.fusion import FusionMLP as JFusion
 from msa_tpu.models.text import TextModelConfig as JTextCfg
 from msa_tpu.pipeline import graph as JG
+from msa_tpu_torch import flax_init
+from msa_tpu_torch.models import text as PText
 from msa_tpu_torch.models.audio import AudioModelConfig
 from msa_tpu_torch.models.face import FaceModelConfig
 from msa_tpu_torch.models.text import TextModelConfig
@@ -137,20 +139,29 @@ def test_initialize_loads_the_shipped_checkpoints_on_cpu():
 
 @pytest.mark.parametrize(
     "head_weights,error",
-    [("checkpoints/text_heads.msgpack", ValueError), ("checkpoints/no_such_heads.msgpack", FileNotFoundError)],
+    [("checkpoints/text_heads.msgpack", "does not fit"), ("checkpoints/no_such_heads.msgpack", "no_such_heads")],
 )
-def test_initialize_raises_on_a_shipped_checkpoint_it_cannot_load(head_weights, error):
+def test_initialize_raises_on_a_shipped_checkpoint_it_cannot_load(caplog, head_weights, error):
     """A configured checkpoint that does not fit (768-wide heads on a
-    128-wide trunk) or is missing raises instead of leaving random weights."""
+    128-wide trunk) or is missing no longer raises: as in JAX
+    (msa_tpu/pipeline/graph.py:161-271) it logs a warning, the module keeps
+    the flax init from its seed, and ``loaded`` leaves it out."""
     enc = port_encoder_cfg("bfloat16")
-    with pytest.raises(error):
-        PG.PipelineModels.initialize(
+    text_cfg = TextModelConfig(encoder=enc, **{**TEXT, "head_weights": head_weights})
+    with caplog.at_level("WARNING", logger="msa_tpu_torch.pipeline.graph"):
+        models = PG.PipelineModels.initialize(
+            seed=4,
             face_cfg=FaceModelConfig(**FACE),
             audio_cfg=AudioModelConfig(encoder=enc, **AUDIO),
-            text_cfg=TextModelConfig(encoder=enc, **{**TEXT, "head_weights": head_weights}),
+            text_cfg=text_cfg,
             quantize="none",
             device="cpu",
         )
+    assert error in caplog.text
+    assert "text_heads" not in models.loaded and "fusion" in models.loaded
+    want = flax_init.init_module_(PText.TextModel(text_cfg), 4 + 3)
+    for (n, a), (_, b) in zip(models.text.named_parameters(), want.named_parameters()):
+        assert torch.equal(a, b), n
 
 
 def test_initialize_builds_the_int8_recipe_by_default(monkeypatch):
