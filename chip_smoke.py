@@ -43,6 +43,27 @@ Phases, one line each with its seconds:
      the bf16 and int8 recipes: 2 packed_qkv_attention launches and the
      dense FFN, held against its plain path; then PipelineModels.tiny() on
      the card, which launches no kernel, against the same models on the CPU;
+ 10. the training kernels against their plain versions, timed beside the
+     library: mha_attention (row 2, o and lse) beside one
+     scaled_dot_product_attention call, and the backward's two kernels
+     attention_bwd_dq and attention_bwd_dkv (rows 3 and 4) at the training
+     shapes beside the backward kernels autograd runs for one
+     scaled_dot_product_attention call; ragged masks, and a row with no
+     valid key where B=2, held at its own scale apart from the valid row;
+ 11. the two differentiable wrappers, packed_qkv_attention_with_vjp (T =
+     512, T = 749 through row 6, and the custom width H=4 D=24 at T = 40)
+     and attention_with_vjp (T = 512 and T = 749): their gradients against
+     autograd through an f32 einsum attention, in units of the plain bf16
+     einsum path's error, with the last head's dV zeroed as the fault;
+ 12. the full-width training step (msa_tpu_torch.training) on the bf16
+     models of phase 4 with dropout 0: the text model at B=8, bucket 512,
+     and the audio model at 5 s (B=8) and 15 s (B=2). Exact launches per
+     step (12 of row 5 or row 6, 12 of each backward kernel, no serving
+     kernel); each gradient group (per layer qkv, attn_out, fc_in, fc_out,
+     LayerNorms; the embeddings or the audio front end; the heads) held
+     against the plain bf16 einsum path with an f32 run as yardstick and
+     the dV fault planted; three AdamW steps on each path, whose losses
+     stay finite and together; ms per step and the device-busy share.
 Phases 4, 5 and 8 also time run_host per forward, phase 7 run_stream per
 window. Counts are set to 0 just before each path runs and read just after.
 The line before the last is a JSON object with each kernel's numbers; the
@@ -52,6 +73,7 @@ last line is the JSON contract line. Any failure exits nonzero.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import statistics
 import subprocess
@@ -113,10 +135,33 @@ INIT_ULP_BOUND = 4
 # the BASELINE.json parity contract
 TINY_ATOL = 1e-3
 SHIPPED = ["audio_head", "face_cnn", "fusion", "landmark", "text_heads"]
+# the training path, in the RMS-ratio statistic of phases 4-5: the kernel
+# path's gradient error against an f32 run over the plain bf16 einsum
+# path's. Both round in bf16 at about as many points (the kernels keep
+# dO·Vᵀ in f32 where the einsum path rounds it), so a sound run should read
+# about 1; the planted fault (the last head's dV zeroed in the backward)
+# wipes a twelfth of a V gradient. Both bounds were set before any reading:
+# 1.5 and 2.0. On an H100 (PERF.md) sound runs read at most 0.5470 on the
+# wrappers and 1.0478 on a gradient group; the fault read at least 64.94
+# on the wrappers' dV, but only 1.6420 in an audio qkv group (the 5 s
+# audio gradients carry bf16 noise of about 23% of their RMS on both
+# paths), under 2.0. The group bound is now 1.25, as the encoders' forward
+# one: 1.19x the largest sound reading, under the smallest fault reading.
+WRAPPER_NOISE_RATIO = 1.5  # the attention wrappers' dq, dk, dv (phase 11)
+GRAD_NOISE_RATIO = 1.25  # each gradient group of a training step (phase 12)
+# three AdamW steps (lr 1e-3) on the kernel and the plain bf16 path: each
+# loss within this share of the plain path's
+LOSS_TRACK_RTOL = 0.1
 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+# the run each kernel's launch count in the kernels line comes from
+ON_BF16 = "phase 4: run_host in the bf16 recipe, B=2, one forward at bucket 512 and one at bucket 32"
+ON_INT8 = "phase 5: run_host in the int8 recipe, B=2, one forward at bucket 512 and one at bucket 32"
+ON_TRAIN = "phase 12: one text training step, B=8, bucket 512"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -158,22 +203,28 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
 def device_ms(fn, reps: int = 20) -> float:
     """Device time of one call: the durations of the kernels that ``reps``
     calls ran, from the profiler's trace, over ``reps``. Unlike
-    :func:`time_ms` it leaves out the host's time between launches."""
+    :func:`time_ms` it leaves out the host's time between launches. Late in
+    a long process the trace can lose a few kernels (18 of 20 recorded,
+    where a fresh process records all 20): each kernel name then counts its
+    mean recorded duration times its launches per call, rounded."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(
-        getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    check(us > 0, "the profiler recorded no device time")
-    return us / reps / 1e3
+    for _ in range(3):  # a trace that recorded nothing is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per_call = 0.0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+            # a user annotation (the optimizer's step) spans kernels counted on their own
+            if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False) and e.count and us:
+                per_call += us / e.count * max(1, round(e.count / reps))
+        if per_call > 0:
+            return per_call / 1e3
+    raise SmokeFailure("the profiler recorded no device time, three times")
 
 
 def bound_ms(nbytes: float, **ops: float):
@@ -218,6 +269,7 @@ def main() -> int:
     phase("device", t0, name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     from msa_tpu_torch import flax_init
+    from msa_tpu_torch import training as TR
     from msa_tpu_torch.core.config import PipelineConfig, SystemConfig
     from msa_tpu_torch.models import transformer as T
     from msa_tpu_torch.ops import quant as Q
@@ -235,6 +287,9 @@ def main() -> int:
         "quantize_rows": KQ.quantize_rows,
         "packed_qkv_attention": A.packed_qkv_attention,
         "flash_attention": A.flash_attention,
+        "mha_attention": A.mha_attention,
+        "attention_bwd_dq": A.attention_bwd_dq,
+        "attention_bwd_dkv": A.attention_bwd_dkv,
     }
 
     def reset_counts():
@@ -277,15 +332,21 @@ def main() -> int:
         check(err <= bound, f"{name}: max abs err {err:.4e} > bound {bound:.4e}")
         return err, err / scale, bound
 
+    def burst_ms(kernel):
+        """CUDA-event ms per call over 20 calls back to back: beside
+        :func:`device_ms`, whose trace can lose kernels late in the run."""
+        return time_ms(lambda: [kernel() for _ in range(20)], reps=5) / 20
+
     def timings(kernel, plain):
         """Device ms per call (profiler) of the kernel's wrapper and of its
-        plain version, and the CUDA-event ms of one call each, which also
-        holds the host's time to launch it."""
+        plain version, the CUDA-event ms of one call each, which also holds
+        the host's time to launch it, and the kernel's burst ms."""
         return {
             "ms": device_ms(kernel),
             "plain_ms": device_ms(plain),
             "call_ms": time_ms(kernel),
             "plain_call_ms": time_ms(plain),
+            "burst_ms": burst_ms(kernel),
         }
 
     def record(name, err, keep, tm, bms, by):
@@ -298,7 +359,7 @@ def main() -> int:
         return (
             f"kernel_ms={tm['ms']:.4f} plain_ms={tm['plain_ms']:.4f} (device) "
             f"call_ms={tm['call_ms']:.4f} plain_call_ms={tm['plain_call_ms']:.4f} (CUDA events, one call) "
-            f"bound_ms={bms:.5f} ({by})"
+            f"burst_ms={tm['burst_ms']:.4f} (CUDA events, 20 calls back to back) bound_ms={bms:.5f} ({by})"
         )
 
     def report(label, err, rel, bnd, tm, bms, by):
@@ -849,6 +910,287 @@ def main() -> int:
     check(bool(torch.isfinite(out_card["hostpack"]).all()) and tiny_err <= TINY_ATOL, f"tiny(): hostpack {tiny_err:.3e} from the CPU's")
     phase("custom_width_and_tiny", t0)
 
+    # --- 10. the training kernels against their plain versions ----------------------------
+    t0 = time.perf_counter()
+
+    def key_mask(b, T_, no_valid_key=True):
+        m = torch.ones(b, T_, device=dev)
+        m[0, T_ * 2 // 3 :] = 0.0  # a ragged valid length
+        if b == 2 and no_valid_key:
+            m[1] = 0.0  # a row with no valid key
+        return m
+
+    def compare_rows(name, got, want):
+        """:func:`compare` per batch row where B=2: the second row has no
+        valid key, and its gradient, spread over every key, is ~100× the
+        valid row's, so each row is held at its own scale."""
+        if got.shape[0] != 2:
+            return compare(name, got, want)
+        valid = compare(f"{name} valid row", got[:1], want[:1])
+        empty = compare(f"{name} no-valid-key row", got[1:], want[1:])
+        print(
+            f"    {name}: valid row max_abs_err={valid[0]:.4e} bound={valid[2]:.4e}; "
+            f"no-valid-key row max_abs_err={empty[0]:.4e} bound={empty[2]:.4e}",
+            flush=True,
+        )
+        return max(valid, empty)
+
+    def sdpa_heads_first(q, k, v, mask):
+        """The library's attention on [B, H, T, D] with the additive −1e9
+        mask: the yardstick of rows 2-4."""
+        bias = torch.where(mask > 0, 0.0, -1e9).to(q.dtype)[:, None, None, :]
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+    for b, T_, h, d in ((2, 512, 12, 64), (2, 100, 3, 32)):
+        q, k, v = (rand(b, h, T_, d) for _ in range(3))
+        mask = key_mask(b, T_)
+        (o, lse), (po, plse) = A.mha_attention(q, k, v, mask), A.mha_attention_plain(q, k, v, mask)
+        err, rel, bnd = compare(f"mha_attention B={b} T={T_} H={h} D={d}", o, po)
+        lse_err = (lse - plse).abs().max().item()
+        check(bool(torch.isfinite(lse).all()) and lse_err <= LSE_ATOL, f"mha_attention: lse max abs err {lse_err:.3e} > {LSE_ATOL}")
+        tm = timings(lambda: A.mha_attention(q, k, v, mask), lambda: A.mha_attention_plain(q, k, v, mask))
+        lib_ms, lib_call_ms = device_ms(lambda: sdpa_heads_first(q, k, v, mask)), time_ms(lambda: sdpa_heads_first(q, k, v, mask))
+        bms, by = bound_ms(2 * 4 * b * h * T_ * d + 4 * b * T_ + 4 * b * h * T_, bf16=4 * b * h * T_ * T_ * d)
+        report(f"mha_attention B={b} T={T_} (T_pad={-(-T_ // 128) * 128}) H={h} D={d} lse_max_abs_err={lse_err:.3e}", err, rel, bnd, tm, bms, by)
+        print(f"    sdpa (library) ms={lib_ms:.4f} (device) call_ms={lib_call_ms:.4f}", flush=True)
+        record("mha_attention", err, (b, T_, h, d) == (2, 512, 12, 64), tm, bms, by)
+        if (b, T_, h, d) == (2, 512, 12, 64):
+            results["mha_attention"]["library_ms"] = lib_ms
+
+    # rows 3 and 4 at the training step's shapes: text (B=8, bucket 512),
+    # audio at 5 s (B=8) and 15 s (B=2), the custom width (B=2, D=24)
+    for b, T_, h, d in ((8, 512, 12, 64), (8, 250, 12, 64), (2, 749, 12, 64), (2, 40, 4, 24)):
+        q, k, v, go = (rand(b, h, T_, d) for _ in range(4))
+        mask = key_mask(b, T_)
+        forward = A.flash_attention if T_ > A.SINGLE_PASS_MAX_T else A.packed_qkv_attention
+        o, lse = forward(A._to_packed(q, k, v), mask)
+        o = A._heads_first(o, h).contiguous()
+        delta = A._delta(o, go)
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+
+        def run_dq():
+            A.attention_bwd_dq(q, k, v, go, lse, delta, mask, dq)
+
+        def run_dkv():
+            A.attention_bwd_dkv(q, k, v, go, lse, delta, mask, dk, dv)
+
+        def plain():
+            return A.attention_bwd_plain(q, k, v, mask, lse, o, go)
+
+        run_dq()
+        run_dkv()
+        want = dict(zip(("dq", "dk", "dv"), plain()))
+        errs = {n: compare_rows(f"attention_bwd {n} B={b} T={T_} H={h} D={d}", got, want[n]) for n, got in (("dq", dq), ("dk", dk), ("dv", dv))}
+        plain_ms, plain_call_ms = device_ms(plain), time_ms(plain)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        lib_out = sdpa_heads_first(*leaves, mask)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, leaves, go, retain_graph=True)
+
+        lib_ms, lib_call_ms = device_ms(lib_bwd), time_ms(lib_bwd)
+        main = (b, T_, h, d) == (8, 512, 12, 64)
+        one = 2 * b * h * T_ * d  # bytes of one bf16 [B, H, T, D] tensor
+        stats = 2 * 4 * b * h * T_ + 4 * b * T_  # lse, Δ and the key mask
+        for name, run, n_out, ops, outs in (
+            ("attention_bwd_dq", run_dq, 1, 6, ("dq",)),
+            ("attention_bwd_dkv", run_dkv, 2, 8, ("dk", "dv")),
+        ):
+            tm = {"ms": device_ms(run), "plain_ms": plain_ms, "call_ms": time_ms(run), "plain_call_ms": plain_call_ms, "burst_ms": burst_ms(run)}
+            # what the kernel reads (q, k, v, dO, lse, Δ and the mask; Δ is
+            # made before it from o and dO) and the gradients it writes
+            bms, by = bound_ms(4 * one + stats + n_out * one, bf16=ops * b * h * T_ * T_ * d)
+            err, rel, bnd = max(errs[n] for n in outs)
+            report(f"{name} B={b} T={T_} H={h} D={d} (plain ms: dq, dk and dv together)", err, rel, bnd, tm, bms, by)
+            record(name, err, main, tm, bms, by)
+            if main:
+                results[name]["library_ms"] = lib_ms
+        print(f"    sdpa backward (library, autograd's kernels for dq, dk, dv) ms={lib_ms:.4f} (device) call_ms={lib_call_ms:.4f}", flush=True)
+    phase("training_kernels", t0)
+
+    # --- 11. the differentiable wrappers' gradients -------------------------------------
+    t0 = time.perf_counter()
+    real_bwd_into = A._attention_bwd_into
+
+    def zero_last_head_dv(q, k, v, key_mask_, lse, o, g_, dq, dk, dv):
+        real_bwd_into(q, k, v, key_mask_, lse, o, g_, dq, dk, dv)
+        dv[:, -1].zero_()  # the last head's dV, as a head loop one short would leave it
+
+    def einsum_attention(q, k, v, mask):
+        """The encoders' plain attention on [B, H, T, D]: f32 scores from
+        the operands' dtype, f32 softmax, P rounded for P·V."""
+        s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * (1.0 / float(q.shape[-1]) ** 0.5)
+        p = torch.softmax(s + torch.where(mask > 0, 0.0, -1e9)[:, None, None, :], dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+    def packed_ref(qkv, mask):
+        b, t, _, h, d = qkv.shape
+        q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+        return einsum_attention(q, k, v, mask).transpose(1, 2).reshape(b, t, h * d)
+
+    wrapper_counts = {name: 0 for name in counters}
+    mha_counts = dict(zero)
+    for label, kernel_fn, ref_fn, shape, expect_counts in (
+        ("packed_qkv_attention_with_vjp", A.packed_qkv_attention_with_vjp, packed_ref, (2, 512, 3, 12, 64),
+         {"packed_qkv_attention": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}),
+        ("packed_qkv_attention_with_vjp", A.packed_qkv_attention_with_vjp, packed_ref, (2, 749, 3, 12, 64),
+         {"flash_attention": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}),
+        ("packed_qkv_attention_with_vjp", A.packed_qkv_attention_with_vjp, packed_ref, (2, 40, 3, 4, 24),
+         {"packed_qkv_attention": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}),
+        ("attention_with_vjp", A.attention_with_vjp, einsum_attention, (2, 12, 512, 64),
+         {"mha_attention": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}),
+        ("attention_with_vjp", A.attention_with_vjp, einsum_attention, (2, 12, 749, 64),
+         {"flash_attention": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}),
+    ):
+        if len(shape) == 5:
+            _, T_, _, h_, d_ = shape
+        else:
+            _, h_, T_, d_ = shape
+        tag = f"{label} B=2 T={T_} H={h_} D={d_}"
+        mask = key_mask(2, T_, no_valid_key=False)  # the einsum path spreads an empty row over real keys only
+        xs = [rand(*shape) for _ in range(1 if len(shape) == 5 else 3)]
+        out_shape = (2, T_, h_ * d_) if len(shape) == 5 else shape
+        go = rand(*out_shape)
+
+        def grads(fn, dtype=bf16):
+            leaves = [x.detach().to(dtype).requires_grad_(True) for x in xs]
+            return [g_.float() for g_ in torch.autograd.grad(fn(*leaves, mask), leaves, go.to(dtype))]
+
+        reset_counts()
+        g_k = grads(kernel_fn)
+        torch.cuda.synchronize()
+        c = counts()
+        wrapper_counts = {n: wrapper_counts[n] + v for n, v in c.items()}
+        if "mha_attention" in expect_counts:
+            mha_counts = c  # row 2's own path: one attention_with_vjp call at T ≤ 512
+        check(c == {**zero, **expect_counts}, f"{tag}: launches {c}, expected {expect_counts}")
+        g_p = grads(ref_fn)
+        with G.exact_fp32():
+            g_r = grads(ref_fn, f32)
+        with swapped(A, _attention_bwd_into=zero_last_head_dv):
+            g_f = grads(kernel_fn)
+        parts = lambda gs: gs[0].unbind(2) if len(gs) == 1 else gs  # noqa: E731 (the q, k and v parts)
+        for part, k_, p_, r_, f_ in zip(("dq", "dk", "dv"), parts(g_k), parts(g_p), parts(g_r), parts(g_f)):
+            e_p, ratio, fault = noise_ratios(k_, p_, r_, {"zero_last_head_dv": f_})
+            print(
+                f"  {tag} {part}: rms(f32)={rms(r_):.4e} rms_err_vs_f32 plain={e_p:.4e} kernel={rms(k_ - r_):.4e} "
+                f"kernel/plain={ratio:.4f} fault:zero_last_head_dv/plain={fault['zero_last_head_dv']:.4f} bound={WRAPPER_NOISE_RATIO}",
+                flush=True,
+            )
+            expect(ratio <= WRAPPER_NOISE_RATIO, f"{tag} {part}: kernel/plain noise ratio {ratio:.4f} > {WRAPPER_NOISE_RATIO}")
+            if part == "dv":
+                expect(fault["zero_last_head_dv"] > WRAPPER_NOISE_RATIO, f"{tag}: the planted dV fault passes the check")
+    phase("wrapper_gradients", t0, **{k: v for k, v in wrapper_counts.items() if v})
+
+    # --- 12. the full-width training step ----------------------------------------------
+    t0 = time.perf_counter()
+
+    def trainable(pm):
+        for m in (pm.text, pm.audio):
+            m.requires_grad_(True)
+        return pm
+
+    kern_m = trainable(models.with_encoders(dropout=0.0))
+    plain_m = trainable(models.with_encoders(attention_impl="einsum", ffn_impl="dense", dropout=0.0))
+    f32_m = trainable(models.with_encoders(attention_impl="einsum", ffn_impl="dense", dropout=0.0, compute_dtype="float32"))
+    text_len = torch.tensor([512, 480, 400, 300, 200, 128, 64, 16], device=dev)
+    text_batch = (
+        torch.from_numpy(rng.integers(1, models.text.cfg.vocab_size, size=(8, 512))).to(dev),
+        (torch.arange(512, device=dev)[None, :] < text_len[:, None]).int(),
+        {h_: torch.from_numpy(rng.integers(0, n, size=8)).to(dev) for h_, n in zip(TR.TEXT_HEADS, (7, 2, 2, 3))},
+    )
+
+    def audio_batch(b, samples):
+        wav = torch.from_numpy((0.1 * rng.standard_normal((b, samples))).astype(np.float32)).to(dev)
+        return wav, torch.from_numpy(rng.integers(0, 4, size=b)).to(dev)
+
+    def group_of(name):
+        parts = name.split(".")
+        if parts[0] == "encoder":
+            sub = parts[3] if parts[2] == "attention" else parts[2]
+            return f"{parts[1]}.{'ln' if sub.endswith('_ln') else sub}"
+        if parts[0].endswith("_head") or parts[0] == "pool":
+            return "heads"
+        return "embeddings" if parts[0] == "embeddings" else "front_end"
+
+    def step_grads(model, loss_fn, batch):
+        names, params = zip(*model.named_parameters())
+        loss = loss_fn(model, *batch)
+        return loss.item(), dict(zip(names, torch.autograd.grad(loss, params)))
+
+    def group_rms(grads, group, ref=None):
+        """RMS over a group's gradients (of the difference to ``ref``)."""
+        sq = n = 0
+        for name, g_ in grads.items():
+            if group_of(name) == group:
+                d_ = g_.float() - (ref[name].float() if ref is not None else 0)
+                sq, n = sq + d_.square().sum().item(), n + d_.numel()
+        return (sq / n) ** 0.5
+
+    train_counts = {}
+    step_ms = {}
+    for label, attr, loss_fn, batch, fwd_kernel in (
+        ("text B=8 bucket512", "text", TR.text_loss, text_batch, "packed_qkv_attention"),
+        ("audio 5s B=8", "audio", TR.audio_loss, audio_batch(8, 80_000), "packed_qkv_attention"),
+        ("audio 15s B=2", "audio", TR.audio_loss, audio_batch(2, 240_000), "flash_attention"),
+    ):
+        t1 = time.perf_counter()
+        km, pm_, fm = getattr(kern_m, attr), getattr(plain_m, attr), getattr(f32_m, attr)
+        reset_counts()
+        loss_k, g_k = step_grads(km, loss_fn, batch)
+        torch.cuda.synchronize()
+        c = counts()
+        n_layers = km.cfg.encoder.num_layers
+        want_counts = {**zero, fwd_kernel: n_layers, "attention_bwd_dq": n_layers, "attention_bwd_dkv": n_layers}
+        phase(f"train_step {label}", t1, **{k: v for k, v in c.items() if v})
+        check(c == want_counts, f"training step {label}: launches {c}, expected {want_counts}")
+        if attr == "text":
+            train_counts = c
+        loss_p, g_p = step_grads(pm_, loss_fn, batch)
+        with G.exact_fp32():
+            loss_r, g_r = step_grads(fm, loss_fn, batch)
+        with swapped(A, _attention_bwd_into=zero_last_head_dv):
+            _, g_f = step_grads(km, loss_fn, batch)
+        print(f"  {label}: loss kernel={loss_k:.6f} plain={loss_p:.6f} f32={loss_r:.6f}", flush=True)
+        check(all(np.isfinite(x) for x in (loss_k, loss_p, loss_r)), f"{label}: non-finite loss")
+        check(all(bool(torch.isfinite(g_).all()) for g_ in g_k.values()), f"{label}: non-finite gradient")
+        for group in dict.fromkeys(group_of(n) for n in g_k):
+            e_p = group_rms(g_p, group, g_r)
+            over = lambda e: e / e_p if e_p else (0.0 if e == 0 else float("inf"))  # noqa: E731
+            ratio, fault = over(group_rms(g_k, group, g_r)), over(group_rms(g_f, group, g_r))
+            print(
+                f"  {label} grad {group:16s} rms(f32)={group_rms(g_r, group):.4e} rms_err_vs_f32 plain={e_p:.4e} "
+                f"kernel/plain={ratio:.4f} fault:zero_last_head_dv/plain={fault:.4f} bound={GRAD_NOISE_RATIO}",
+                flush=True,
+            )
+            expect(ratio <= GRAD_NOISE_RATIO, f"{label} grad {group}: kernel/plain noise ratio {ratio:.4f} > {GRAD_NOISE_RATIO}")
+            if group.endswith(".qkv"):  # where the zeroed dV lands, in every layer
+                expect(fault > GRAD_NOISE_RATIO, f"{label} grad {group}: the planted dV fault passes the check ({fault:.4f})")
+        del g_k, g_p, g_r, g_f
+
+        # three AdamW steps on copies of the kernel and the plain path
+        runs = {}
+        for path, model in (("kernel", km), ("plain", pm_)):
+            m_ = copy.deepcopy(model)
+            opt = TR.adamw(m_.parameters())
+            runs[path] = (m_, opt, [TR.train_step(m_, loss_fn, opt, *batch).item() for _ in range(3)])
+        lk, lp = runs["kernel"][2], runs["plain"][2]
+        print(f"  {label}: AdamW losses kernel={[f'{x:.6f}' for x in lk]} plain={[f'{x:.6f}' for x in lp]} rtol={LOSS_TRACK_RTOL}", flush=True)
+        check(all(np.isfinite(lk + lp)), f"{label}: a non-finite loss in the AdamW steps")
+        for a_, b_ in zip(lk, lp):
+            expect(abs(a_ - b_) <= LOSS_TRACK_RTOL * abs(b_), f"{label}: AdamW loss {a_:.6f} vs plain {b_:.6f}")
+        m_, opt, _ = runs["kernel"]
+        step_ms[label] = time_ms(lambda: TR.train_step(m_, loss_fn, opt, *batch), reps=5, warmup=1)
+        busy = device_ms(lambda: TR.train_step(m_, loss_fn, opt, *batch), reps=3)
+        print(
+            f"  {label}: {step_ms[label]:.3f} ms/step (median of 5, CUDA events; forward, backward, AdamW) "
+            f"device busy {busy:.3f} ms/step (profiler), busy share {busy / step_ms[label]:.3f}",
+            flush=True,
+        )
+        del runs, m_, opt
+        phase(f"training {label}", t1)
+    phase("training", t0)
+
     kernels = [
         {
             "name": name,
@@ -856,17 +1198,31 @@ def main() -> int:
             "source": source,
             "replaces": replaces,
             "launches": launch_counts[name],
+            "launches_on": launches_on,
             "library_ms": None,
             **results[name],
         }
-        for name, source, replaces, launch_counts in (
-            ("attention_block", "msa_tpu_torch/csrc/attention.cu", "msa_tpu/ops/pallas/attention.py:819", bf16_counts),
-            ("ffn_fused", "msa_tpu_torch/csrc/ffn.cu", "msa_tpu/ops/pallas/ffn.py:89", bf16_counts),
-            ("attention_block_int8", "msa_tpu_torch/csrc/attention.cu", "msa_tpu/ops/pallas/attention.py:779", int8_counts),
-            ("ffn_fused_int8", "msa_tpu_torch/csrc/ffn.cu", "msa_tpu/ops/pallas/ffn.py:166", int8_counts),
-            ("quantize_rows", "msa_tpu_torch/csrc/quant.cu", "msa_tpu/ops/quant.py:47", int8_counts),
-            ("packed_qkv_attention", "msa_tpu_torch/csrc/attention_packed.cu", "msa_tpu/ops/pallas/attention.py:489", custom_counts),
-            ("flash_attention", "msa_tpu_torch/csrc/attention_flash.cu", "msa_tpu/ops/pallas/attention.py:948", long_counts),
+        for name, source, replaces, launch_counts, launches_on in (
+            ("attention_block", "msa_tpu_torch/csrc/attention.cu", "msa_tpu/ops/pallas/attention.py:819", bf16_counts, ON_BF16),
+            ("ffn_fused", "msa_tpu_torch/csrc/ffn.cu", "msa_tpu/ops/pallas/ffn.py:89", bf16_counts, ON_BF16),
+            ("attention_block_int8", "msa_tpu_torch/csrc/attention.cu", "msa_tpu/ops/pallas/attention.py:779", int8_counts, ON_INT8),
+            ("ffn_fused_int8", "msa_tpu_torch/csrc/ffn.cu", "msa_tpu/ops/pallas/ffn.py:166", int8_counts, ON_INT8),
+            ("quantize_rows", "msa_tpu_torch/csrc/quant.cu", "msa_tpu/ops/quant.py:47", int8_counts, ON_INT8),
+            (
+                "packed_qkv_attention", "msa_tpu_torch/csrc/attention_packed.cu", "msa_tpu/ops/pallas/attention.py:489",
+                custom_counts, "phase 9: one forward of the custom-width encoder (d_model 96) in each recipe",
+            ),
+            (
+                "flash_attention", "msa_tpu_torch/csrc/attention_flash.cu", "msa_tpu/ops/pallas/attention.py:948",
+                long_counts, "phase 8: one run_host at 15 s (B=2) in each recipe",
+            ),
+            (
+                "mha_attention", "msa_tpu_torch/csrc/attention_packed.cu", "msa_tpu/ops/pallas/attention.py:150", mha_counts,
+                "phase 11: one attention_with_vjp forward and backward at B=2 T=512; a training step launches it "
+                "0 times (the encoders take packed_qkv_attention_with_vjp)",
+            ),
+            ("attention_bwd_dq", "msa_tpu_torch/csrc/attention_bwd.cu", "msa_tpu/ops/pallas/attention.py:370", train_counts, ON_TRAIN),
+            ("attention_bwd_dkv", "msa_tpu_torch/csrc/attention_bwd.cu", "msa_tpu/ops/pallas/attention.py:395", train_counts, ON_TRAIN),
         )
     ]
     phase("total", t_all)

@@ -1,0 +1,354 @@
+// attention_bwd for Hopper: the flash-style attention backward from the
+// forward's row logsumexp, as two kernels. With L = lse, Δ = rowsum(dO∘O)
+// and P = exp(S·scale + bias − L) recomputed per tile (never stored):
+//   dV = Pᵀ·dO,   dS = P ∘ (dO·Vᵀ − Δ),   dQ = scale·dS·K,   dK = scale·dSᵀ·Q.
+//
+// Replaces msa_tpu/ops/pallas/attention.py:attention_bwd (:343-421): the dQ
+// kernel (pallas_call at :370, body _bwd_dq_kernel :256-293) and the dK/dV
+// kernel (pallas_call at :395, body _bwd_dkv_kernel :296-340). JAX's
+// packed_qkv_attention, attention_with_vjp and so every training step of
+// its encoders (attention_impl="pallas", no dropout) run this backward
+// after rows 2, 5 or 6.
+//
+// The TPU kernels carry f32 accumulators in scratch across a sequential
+// grid axis. Here the split is the same and each output tile is owned by
+// one block, so no sum crosses blocks (no atomics; deterministic):
+// - msa_attention_bwd_dq: one block per (64-query tile, head, batch row),
+//   looping over 64-key chunks; dQ accumulates in WMMA fragments.
+// - msa_attention_bwd_dkv: one block per (64-key tile, head, batch row),
+//   looping over 64-query chunks; dK and dV accumulate in fragments.
+// 4 warps, each owning 16 rows of the block's tile.
+//
+// Same rounding points as the TPU kernels: S and dO·Vᵀ in f32 from bf16
+// operands; s = S·scale + bias with −1e9 on masked keys (each product and
+// sum rounded once, no fused multiply-add, as the plain version computes
+// it); P = exp(s − L) in f32; dS = P·(dP − Δ) in f32; dS is rounded to bf16
+// before the dS·K product, Pᵀ before Pᵀ·dO and dSᵀ before dSᵀ·Q; the f32
+// sums are multiplied by scale at the end (dQ, dK) and rounded once.
+//
+// Rows and keys past T are neither loaded nor written. In the TPU kernel a
+// padded query row has q = dO = 0 and L = Δ = 0, and a padded key has
+// k = v = 0, so both add exact zeros; leaving them out computes the same
+// sums. A row with no valid key has L ≈ −1e9 + log T_pad (the forward's),
+// so its P is about 1 on every key, as in JAX.
+//
+// q, k, v, dq, dk and dv are addressed by one set of element strides
+// (batch, head, time; D contiguous), dO by another: the same kernels read
+// the packed projection [B, T, 3, H, D] with dO [B, T, H·D] and write dqkv
+// in that layout, or take [B, H, T, D] throughout. lse and Δ are
+// [B, H, T] f32, the key mask [B, T] f32 (1 = attend). D is any multiple of
+// 8 up to 128, zero-padded to DP (32, 64 or 128) in shared memory.
+//
+// What bounds it on the card: per (row, head) the dQ kernel does 6·T²·D
+// operations (S, dO·Vᵀ, dS·K) and the dK/dV kernel 8·T²·D (Sᵀ, Pᵀ·dO,
+// V·dOᵀ, dSᵀ·Q), on 4·T·D·2 bytes in and T·D·2 (dQ) or 2·T·D·2 (dK, dV)
+// out. At the text training shape (B=8, T=512, H=12, D=64) that is 9.7 and
+// 12.9 GFLOP (9.8 and 13.0 µs at 989 TFLOP/s) over ~25 MB (7.5 µs at
+// 3.35 TB/s): bound by operations. This first design stages every score
+// tile through shared memory in f32 (WMMA fragments cannot be indexed by
+// row and column), loads without cp.async overlap, and recomputes P in
+// both kernels, as the TPU kernels do; wgmma with register-resident
+// scores is later work.
+#include "gemm.cuh"
+
+namespace {
+
+constexpr int BR = 64;        // rows a block owns (queries for dQ, keys for dK/dV)
+constexpr int BC = 64;        // rows of the other side per loop step
+constexpr int BTHREADS = 128; // 4 warps, 16 owned rows each
+constexpr int LB = BC + 8;    // padded bf16 row of a P / dS tile
+
+template <int DP>
+struct Tiles {
+  static constexpr int LD = DP + 8;                 // padded bf16 row of a q/k/v/dO tile
+  static constexpr int LS = (DP > BC ? DP : BC) + 4;  // padded f32 row: scores, then the output
+  static constexpr size_t bytes = (size_t)4 * 64 * LD * sizeof(bf16)  // two owned tiles, two streamed
+                                  + (size_t)2 * BR * LS * sizeof(float)  // S and dP (or their transposes)
+                                  + (size_t)2 * BR * LB * sizeof(bf16)   // P and dS in bf16
+                                  + (size_t)3 * 64 * sizeof(float);      // lse, Δ, mask bias
+};
+
+// rows [r0, r0 + nrows) of head h of batch row b of src into smem
+// [nrows × LD] bf16: D columns, zero past D and past T
+template <int DP>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, Strides st, int b, int h, int r0,
+                                          int nrows, int T, int D, int tid) {
+  constexpr int LD = Tiles<DP>::LD;
+  constexpr int vecs = DP / 8;
+  for (int i = tid; i < nrows * vecs; i += BTHREADS) {
+    const int r = i / vecs, c = (i % vecs) * 8, t = r0 + r;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (t < T && c < D) v = *reinterpret_cast<const uint4*>(src + st.at(b, h, t) + c);
+    *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
+  }
+}
+
+// one warp: out[16 × BC] (f32, ld LS) = A[16 × DP] · Bᵀ, B [BC × DP]: both
+// tiles bf16 with row length LD
+template <int DP>
+__device__ __forceinline__ void dots_nt(float* out, const bf16* a, const bf16* b) {
+  constexpr int LD = Tiles<DP>::LD, LS = Tiles<DP>::LS;
+#pragma unroll
+  for (int j = 0; j < BC / 16; ++j) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.0f);
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+      wmma::load_matrix_sync(fa, a + kk, LD);
+      wmma::load_matrix_sync(fb, b + j * 16 * LD + kk, LD);
+      wmma::mma_sync(acc, fa, fb, acc);
+    }
+    wmma::store_matrix_sync(out + j * 16, acc, LS, wmma::mem_row_major);
+  }
+}
+
+// one warp: acc[16 × DP] += A[16 × BC] (bf16, ld LB) · B[BC × DP] (bf16, ld LD)
+template <int DP>
+__device__ __forceinline__ void dots_nn(wmma::fragment<wmma::accumulator, 16, 16, 16, float>* acc, const bf16* a,
+                                        const bf16* b) {
+  constexpr int LD = Tiles<DP>::LD;
+#pragma unroll
+  for (int kk = 0; kk < BC; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+    wmma::load_matrix_sync(fa, a + kk, LB);
+#pragma unroll
+    for (int j = 0; j < DP / 16; ++j) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+      wmma::load_matrix_sync(fb, b + kk * LD + j * 16, LD);
+      wmma::mma_sync(acc[j], fa, fb, acc[j]);
+    }
+  }
+}
+
+// one warp: acc·mul → bf16 rows [t0, t0 + 16) of dst (t < T, c < D), staged
+// through the warp's f32 rows of stage
+template <int DP>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, Strides st, int b, int h, int t0, int T, int D,
+                                           const wmma::fragment<wmma::accumulator, 16, 16, 16, float>* acc,
+                                           float mul, float* stage, int lane) {
+  constexpr int LS = Tiles<DP>::LS;
+#pragma unroll
+  for (int j = 0; j < DP / 16; ++j) wmma::store_matrix_sync(stage + j * 16, acc[j], LS, wmma::mem_row_major);
+  __syncwarp();
+  for (int i = lane; i < 16 * (D / 8); i += 32) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8, t = t0 + r;
+    if (t >= T) continue;
+    __align__(16) bf16 v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(__fmul_rn(stage[r * LS + c + e], mul));
+    *reinterpret_cast<uint4*>(dst + st.at(b, h, t) + c) = *reinterpret_cast<const uint4*>(v);
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ float key_bias(const float* __restrict__ mask, int b, int t, int T) {
+  return (t < T && mask[(size_t)b * T + t] > 0.f) ? 0.f : -1e9f;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(BTHREADS)
+bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, Strides sx,
+              const bf16* __restrict__ dout, Strides so, const float* __restrict__ lse,
+              const float* __restrict__ delta, const float* __restrict__ mask, bf16* __restrict__ dq, int T, int H,
+              int D, float scale) {
+  using L = Tiles<DP>;
+  constexpr int LD = L::LD, LS = L::LS;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sG = sQ + 64 * LD;  // dO
+  bf16* sK = sG + 64 * LD;
+  bf16* sV = sK + 64 * LD;
+  float* sS = reinterpret_cast<float*>(sV + 64 * LD);
+  float* sDP = sS + BR * LS;
+  bf16* sDS = reinterpret_cast<bf16*>(sDP + BR * LS);
+  float* sLse = reinterpret_cast<float*>(sDS + 2 * BR * LB);  // the P tile's room is unused here
+  float* sDelta = sLse + 64;
+  float* sBias = sDelta + 64;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
+  const size_t row0 = ((size_t)b * H + h) * T;
+
+  load_tile<DP>(sQ, q, sx, b, h, q0, BR, T, D, tid);
+  load_tile<DP>(sG, dout, so, b, h, q0, BR, T, D, tid);
+  for (int i = tid; i < BR; i += BTHREADS) {
+    const int t = q0 + i;
+    sLse[i] = t < T ? lse[row0 + t] : 0.f;
+    sDelta[i] = t < T ? delta[row0 + t] : 0.f;
+  }
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[DP / 16];
+#pragma unroll
+  for (int j = 0; j < DP / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
+  float* sSw = sS + warp * 16 * LS;
+  float* sDPw = sDP + warp * 16 * LS;
+  bf16* sDSw = sDS + warp * 16 * LB;
+
+  for (int k0 = 0; k0 < T; k0 += BC) {
+    __syncthreads();  // every warp is done with the previous chunk
+    load_tile<DP>(sK, k, sx, b, h, k0, BC, T, D, tid);
+    load_tile<DP>(sV, v, sx, b, h, k0, BC, T, D, tid);
+    for (int i = tid; i < BC; i += BTHREADS) sBias[i] = key_bias(mask, b, k0 + i, T);
+    __syncthreads();
+
+    dots_nt<DP>(sSw, sQ + warp * 16 * LD, sK);   // S = Q·Kᵀ
+    dots_nt<DP>(sDPw, sG + warp * 16 * LD, sV);  // dP = dO·Vᵀ
+    __syncwarp();
+    for (int i = lane; i < 16 * BC; i += 32) {
+      const int r = i / BC, c = i % BC;
+      const float s = __fadd_rn(__fmul_rn(sSw[r * LS + c], scale), sBias[c]);
+      const float p = expf(__fsub_rn(s, sLse[warp * 16 + r]));
+      const float ds = __fmul_rn(p, __fsub_rn(sDPw[r * LS + c], sDelta[warp * 16 + r]));
+      sDSw[r * LB + c] = __float2bfloat16(ds);
+    }
+    __syncwarp();
+    dots_nn<DP>(acc, sDSw, sK);  // dQ += bf16(dS)·K
+  }
+  store_rows<DP>(dq, sx, b, h, q0 + warp * 16, T, D, acc, scale, sSw, lane);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(BTHREADS)
+bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, Strides sx,
+               const bf16* __restrict__ dout, Strides so, const float* __restrict__ lse,
+               const float* __restrict__ delta, const float* __restrict__ mask, bf16* __restrict__ dk,
+               bf16* __restrict__ dv, int T, int H, int D, float scale) {
+  using L = Tiles<DP>;
+  constexpr int LD = L::LD, LS = L::LS;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + 64 * LD;
+  bf16* sQ = sV + 64 * LD;
+  bf16* sG = sQ + 64 * LD;  // dO
+  float* sST = reinterpret_cast<float*>(sG + 64 * LD);
+  float* sDPT = sST + BR * LS;
+  bf16* sPT = reinterpret_cast<bf16*>(sDPT + BR * LS);
+  bf16* sDST = sPT + BR * LB;
+  float* sLse = reinterpret_cast<float*>(sDST + BR * LB);
+  float* sDelta = sLse + 64;
+  float* sBias = sDelta + 64;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int k0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
+  const size_t row0 = ((size_t)b * H + h) * T;
+
+  load_tile<DP>(sK, k, sx, b, h, k0, BR, T, D, tid);
+  load_tile<DP>(sV, v, sx, b, h, k0, BR, T, D, tid);
+  for (int i = tid; i < BR; i += BTHREADS) sBias[i] = key_bias(mask, b, k0 + i, T);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_k[DP / 16], acc_v[DP / 16];
+#pragma unroll
+  for (int j = 0; j < DP / 16; ++j) {
+    wmma::fill_fragment(acc_k[j], 0.0f);
+    wmma::fill_fragment(acc_v[j], 0.0f);
+  }
+  float* sSTw = sST + warp * 16 * LS;
+  float* sDPTw = sDPT + warp * 16 * LS;
+  bf16* sPTw = sPT + warp * 16 * LB;
+  bf16* sDSTw = sDST + warp * 16 * LB;
+
+  for (int q0 = 0; q0 < T; q0 += BC) {
+    __syncthreads();  // every warp is done with the previous chunk
+    load_tile<DP>(sQ, q, sx, b, h, q0, BC, T, D, tid);
+    load_tile<DP>(sG, dout, so, b, h, q0, BC, T, D, tid);
+    for (int i = tid; i < BC; i += BTHREADS) {
+      const int t = q0 + i;
+      sLse[i] = t < T ? lse[row0 + t] : 0.f;
+      sDelta[i] = t < T ? delta[row0 + t] : 0.f;
+    }
+    __syncthreads();
+
+    dots_nt<DP>(sSTw, sK + warp * 16 * LD, sQ);   // Sᵀ = K·Qᵀ
+    dots_nt<DP>(sDPTw, sV + warp * 16 * LD, sG);  // dPᵀ = V·dOᵀ
+    __syncwarp();
+    for (int i = lane; i < 16 * BC; i += 32) {
+      const int r = i / BC, c = i % BC;  // r: this warp's key, c: the chunk's query
+      const float s = __fadd_rn(__fmul_rn(sSTw[r * LS + c], scale), sBias[warp * 16 + r]);
+      const float p = expf(__fsub_rn(s, sLse[c]));
+      const float ds = __fmul_rn(p, __fsub_rn(sDPTw[r * LS + c], sDelta[c]));
+      sPTw[r * LB + c] = __float2bfloat16(p);
+      sDSTw[r * LB + c] = __float2bfloat16(ds);
+    }
+    __syncwarp();
+    dots_nn<DP>(acc_v, sPTw, sG);   // dV += bf16(Pᵀ)·dO
+    dots_nn<DP>(acc_k, sDSTw, sQ);  // dK += bf16(dSᵀ)·Q
+  }
+  store_rows<DP>(dk, sx, b, h, k0 + warp * 16, T, D, acc_k, scale, sSTw, lane);
+  store_rows<DP>(dv, sx, b, h, k0 + warp * 16, T, D, acc_v, 1.0f, sSTw, lane);
+}
+
+struct BwdArgs {
+  const bf16 *q, *k, *v, *dout;
+  Strides sx, so;
+  const float *lse, *delta, *mask;
+  bf16 *dq, *dk, *dv;
+  int B, T, H, D;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int DP>
+cudaError_t launch_dq(const BwdArgs& a) {
+  constexpr size_t smem = Tiles<DP>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  bwd_dq_kernel<DP><<<dim3((a.T + BR - 1) / BR, a.H, a.B), BTHREADS, smem, a.stream>>>(
+      a.q, a.k, a.v, a.sx, a.dout, a.so, a.lse, a.delta, a.mask, a.dq, a.T, a.H, a.D, a.scale);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_dkv(const BwdArgs& a) {
+  constexpr size_t smem = Tiles<DP>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(bwd_dkv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  bwd_dkv_kernel<DP><<<dim3((a.T + BR - 1) / BR, a.H, a.B), BTHREADS, smem, a.stream>>>(
+      a.q, a.k, a.v, a.sx, a.dout, a.so, a.lse, a.delta, a.mask, a.dk, a.dv, a.T, a.H, a.D, a.scale);
+  return cudaGetLastError();
+}
+
+BwdArgs bwd_args(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
+                 const void* mask, void* dq, void* dk, void* dv, int B, int T, int H, int D, int sx_b, int sx_h,
+                 int sx_t, int so_b, int so_h, int so_t, float scale, void* stream) {
+  return BwdArgs{static_cast<const bf16*>(q),     static_cast<const bf16*>(k),
+                 static_cast<const bf16*>(v),     static_cast<const bf16*>(dout),
+                 Strides{sx_b, sx_h, sx_t},       Strides{so_b, so_h, so_t},
+                 static_cast<const float*>(lse),  static_cast<const float*>(delta),
+                 static_cast<const float*>(mask), static_cast<bf16*>(dq),
+                 static_cast<bf16*>(dk),          static_cast<bf16*>(dv),
+                 B,                               T,
+                 H,                               D,
+                 scale,                           static_cast<cudaStream_t>(stream)};
+}
+
+bool bad_shape(int T, int D) { return T < 1 || D % 8 || D < 8 || D > 128; }
+
+}  // namespace
+
+// q, k, v, dq: bf16 with element strides (sx_b, sx_h, sx_t), D contiguous;
+// dout: bf16 with strides (so_b, so_h, so_t); lse, delta [B, H, T] f32;
+// mask [B, T] f32. Every row 16-byte aligned. Any T ≥ 1; D % 8 == 0, D ≤ 128.
+extern "C" int msa_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                                    const void* delta, const void* mask, void* dq, int B, int T, int H, int D,
+                                    int sx_b, int sx_h, int sx_t, int so_b, int so_h, int so_t, float scale,
+                                    void* stream) {
+  if (bad_shape(T, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs a = bwd_args(q, k, v, dout, lse, delta, mask, dq, nullptr, nullptr, B, T, H, D, sx_b, sx_h, sx_t,
+                             so_b, so_h, so_t, scale, stream);
+  const cudaError_t e = D <= 32 ? launch_dq<32>(a) : D <= 64 ? launch_dq<64>(a) : launch_dq<128>(a);
+  return static_cast<int>(e);
+}
+
+// as msa_attention_bwd_dq; dk and dv take the strides of q, k and v
+extern "C" int msa_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                                     const void* delta, const void* mask, void* dk, void* dv, int B, int T, int H,
+                                     int D, int sx_b, int sx_h, int sx_t, int so_b, int so_h, int so_t, float scale,
+                                     void* stream) {
+  if (bad_shape(T, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs a = bwd_args(q, k, v, dout, lse, delta, mask, nullptr, dk, dv, B, T, H, D, sx_b, sx_h, sx_t, so_b,
+                             so_h, so_t, scale, stream);
+  const cudaError_t e = D <= 32 ? launch_dkv<32>(a) : D <= 64 ? launch_dkv<64>(a) : launch_dkv<128>(a);
+  return static_cast<int>(e);
+}

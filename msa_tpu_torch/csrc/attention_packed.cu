@@ -1,17 +1,27 @@
-// packed_qkv_attention for Hopper: attention straight on the fused QKV
-// projection, qkv [B, T, 3, H, D] bf16 → o [B, T, H·D] bf16 and the row
-// logsumexp lse [B, H, T] f32, for T ≤ 512.
+// packed_qkv_attention and mha_attention for Hopper: single-pass attention,
+// T ≤ 512, bf16 → o bf16 and the row logsumexp lse [B, H, T] f32, on one
+// core that reads q, k and v and writes o through element strides (batch,
+// head, time; D contiguous). Two C entry points:
 //
-// Replaces msa_tpu/ops/pallas/attention.py:_packed_qkv_attention_lse
-// (pallas_call at :489, kernel _packed_qkv_kernel :425-462), which JAX's
-// encoder takes where attention_block cannot: d_model % 128 ≠ 0. Same
-// rounding points: scores accumulate in f32 from bf16 q and k, s = S·scale
-// + bias with bias −1e9 on masked keys (a row with no valid key stays
-// finite and averages V over every padded row); the exact row max and
-// denom = Σ exp(s − max) over all T_pad keys; P is normalised BEFORE the
-// P·V product, (p / denom) rounded to bf16 (attention_block rounds the
-// unnormalised P and divides after); o accumulates in f32 and is rounded
-// once; lse = max + log(denom).
+// - msa_packed_qkv_attention (row 5): q, k and v strided out of the fused
+//   QKV projection, qkv [B, T, 3, H, D], and o [B, T, H·D]. Replaces
+//   msa_tpu/ops/pallas/attention.py:_packed_qkv_attention_lse (pallas_call
+//   at :489, kernel _packed_qkv_kernel :425-462), which JAX's encoder takes
+//   where attention_block cannot (d_model % 128 ≠ 0) and in training at
+//   T ≤ 512.
+// - msa_mha_attention (row 2): q, k, v and o [B, H, T, D]. Replaces
+//   _mha_attention_lse (pallas_call at :150, kernel _mha_kernel :87-128),
+//   the forward of attention_with_vjp at T ≤ 512. It computes the same
+//   function as row 5 in another layout (JAX copies Kᵀ to [B, H, D, T] for
+//   the TPU's matrix unit; here K is read in place).
+//
+// Same rounding points as the TPU kernels: scores accumulate in f32 from
+// bf16 q and k, s = S·scale + bias with bias −1e9 on masked keys (a row with
+// no valid key stays finite and averages V over every padded row); the
+// exact row max and denom = Σ exp(s − max) over all T_pad keys; P is
+// normalised BEFORE the P·V product, (p / denom) rounded to bf16
+// (attention_block rounds the unnormalised P and divides after); o
+// accumulates in f32 and is rounded once; lse = max + log(denom).
 //
 // T is padded to a multiple of 128 inside the kernel: rows past T read as
 // zeros under masked keys, and the query rows past T are not written. D is
@@ -50,25 +60,26 @@ size_t packed_smem_bytes(int T_pad) {
          + (size_t)2 * PQ * sizeof(float);            // row max, row denom
 }
 
-// rows [r0, r0 + nrows) of one of q/k/v (which = 0/1/2) for head h of batch
-// row b into smem [nrows × LD] bf16: D columns, zero past D and past T
+// rows [r0, r0 + nrows) of head h of batch row b of src into smem
+// [nrows × LD] bf16: D columns, zero past D and past T
 template <int DP>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ qkv, int b, int r0, int nrows,
-                                          int which, int h, int T, int H, int D, int tid) {
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, Strides st, int b, int r0,
+                                          int nrows, int h, int T, int D, int tid) {
   constexpr int LD = DP + 8;
   const int vecs = DP / 8;
   for (int i = tid; i < nrows * vecs; i += PTHREADS) {
     const int r = i / vecs, c = (i % vecs) * 8, t = r0 + r;
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (t < T && c < D) v = *reinterpret_cast<const uint4*>(qkv + (((size_t)b * T + t) * 3 + which) * H * D + h * D + c);
+    if (t < T && c < D) v = *reinterpret_cast<const uint4*>(src + st.at(b, h, t) + c);
     *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
   }
 }
 
 template <int DP>
 __global__ void __launch_bounds__(PTHREADS)
-packed_qkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask, bf16* __restrict__ out,
-                  float* __restrict__ lse, int T, int T_pad, int H, int D, float scale) {
+packed_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, Strides lin,
+                  const float* __restrict__ mask, bf16* __restrict__ out, Strides lout, float* __restrict__ lse,
+                  int T, int T_pad, int H, int D, float scale) {
   constexpr int LD = DP + 8;
   constexpr int NF = DP / 16;  // 16-wide output fragments per warp
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -85,13 +96,13 @@ packed_qkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask, 
   const int q0 = blockIdx.x * PQ, h = blockIdx.y, b = blockIdx.z;
 
   for (int i = tid; i < T_pad; i += PTHREADS) sBias[i] = (i < T && mask[(size_t)b * T + i] > 0.f) ? 0.f : -1e9f;
-  load_rows<DP>(sQ, qkv, b, q0, PQ, 0, h, T, H, D, tid);
+  load_rows<DP>(sQ, q, lin, b, q0, PQ, h, T, D, tid);
 
   // S = Q·Kᵀ (raw f32 dots) for this warp's 16 rows, one 64-key chunk at a time
   float* sSw = sS + warp * 16 * LDS;
   for (int kc = 0; kc < T_pad; kc += PK) {
     __syncthreads();
-    load_rows<DP>(sKV, qkv, b, kc, PK, 1, h, T, H, D, tid);
+    load_rows<DP>(sKV, k, lin, b, kc, PK, h, T, D, tid);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < PK / 16; ++j) {
@@ -142,7 +153,7 @@ packed_qkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask, 
   bf16* sPw = sP + warp * 16 * PLP;
   for (int kc = 0; kc < T_pad; kc += PK) {
     __syncthreads();  // every warp is done with sKV
-    load_rows<DP>(sKV, qkv, b, kc, PK, 2, h, T, H, D, tid);
+    load_rows<DP>(sKV, v, lin, b, kc, PK, h, T, D, tid);
     for (int i = lane; i < 16 * PK; i += 32) {
       const int r = i / PK, c = i % PK;
       sPw[r * PLP + c] = __float2bfloat16(sSw[r * LDS + kc + c] / sDen[warp * 16 + r]);
@@ -154,24 +165,24 @@ packed_qkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask, 
       wmma::load_matrix_sync(p, sPw + kk, PLP);
 #pragma unroll
       for (int j = 0; j < NF; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> v;
-        wmma::load_matrix_sync(v, sKV + kk * LD + j * 16, LD);
-        wmma::mma_sync(o[j], p, v, o[j]);
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
+        wmma::load_matrix_sync(vf, sKV + kk * LD + j * 16, LD);
+        wmma::mma_sync(o[j], p, vf, o[j]);
       }
     }
   }
 
-  // o → bf16 at this head's D columns of out [B, T, H·D]; lse per row
+  // o → bf16 at this head's D columns of out; lse per row
 #pragma unroll
   for (int j = 0; j < NF; ++j) wmma::store_matrix_sync(sSw + j * 16, o[j], LDS, wmma::mem_row_major);
   __syncwarp();
   for (int i = lane; i < 16 * (D / 8); i += 32) {
     const int r = i / (D / 8), c = (i % (D / 8)) * 8, t = q0 + warp * 16 + r;
     if (t >= T) continue;
-    __align__(16) bf16 v[8];
+    __align__(16) bf16 o8[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(sSw[r * LDS + c + e]);
-    *reinterpret_cast<uint4*>(out + ((size_t)b * T + t) * H * D + h * D + c) = *reinterpret_cast<const uint4*>(v);
+    for (int e = 0; e < 8; ++e) o8[e] = __float2bfloat16(sSw[r * LDS + c + e]);
+    *reinterpret_cast<uint4*>(out + lout.at(b, h, t) + c) = *reinterpret_cast<const uint4*>(o8);
   }
   if (lane < 16) {
     const int t = q0 + warp * 16 + lane;
@@ -180,15 +191,33 @@ packed_qkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask, 
 }
 
 template <int DP>
-cudaError_t launch_packed(const bf16* qkv, const float* mask, bf16* out, float* lse, int B, int T, int H, int D,
-                          float scale, cudaStream_t s) {
+cudaError_t launch_packed(const bf16* q, const bf16* k, const bf16* v, Strides lin, const float* mask, bf16* out,
+                          Strides lout, float* lse, int B, int T, int H, int D, float scale, cudaStream_t s) {
   const int T_pad = (T + 127) / 128 * 128;
   const size_t smem = packed_smem_bytes<DP>(T_pad);
   cudaError_t e =
       cudaFuncSetAttribute(packed_qkv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  packed_qkv_kernel<DP><<<dim3(T_pad / PQ, H, B), PTHREADS, smem, s>>>(qkv, mask, out, lse, T, T_pad, H, D, scale);
+  packed_qkv_kernel<DP><<<dim3(T_pad / PQ, H, B), PTHREADS, smem, s>>>(q, k, v, lin, mask, out, lout, lse, T, T_pad, H,
+                                                                       D, scale);
   return cudaGetLastError();
+}
+
+int attend(const void* q, const void* k, const void* v, Strides lin, const void* mask, void* out, Strides lout,
+           void* lse, int B, int T, int H, int D, float scale, void* stream) {
+  if (T < 1 || T > 512 || D % 8 || D < 8 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  auto qp = static_cast<const bf16*>(q);
+  auto kp = static_cast<const bf16*>(k);
+  auto vp = static_cast<const bf16*>(v);
+  auto m = static_cast<const float*>(mask);
+  auto o = static_cast<bf16*>(out);
+  auto l = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // D is zero-padded to 32, 64 or 128 columns in shared memory
+  const cudaError_t e = D <= 32   ? launch_packed<32>(qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s)
+                        : D <= 64 ? launch_packed<64>(qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s)
+                                  : launch_packed<128>(qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s);
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -197,15 +226,15 @@ cudaError_t launch_packed(const bf16* qkv, const float* mask, bf16* out, float* 
 // out [B, T, H·D] bf16, lse [B, H, T] f32. T ≤ 512, D % 8 == 0, D ≤ 128.
 extern "C" int msa_packed_qkv_attention(const void* qkv, const void* mask, void* out, void* lse, int B, int T, int H,
                                         int D, float scale, void* stream) {
-  if (T < 1 || T > 512 || D % 8 || D < 8 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
-  auto q = static_cast<const bf16*>(qkv);
-  auto m = static_cast<const float*>(mask);
-  auto o = static_cast<bf16*>(out);
-  auto l = static_cast<float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // D is zero-padded to 32, 64 or 128 columns in shared memory
-  const cudaError_t e = D <= 32   ? launch_packed<32>(q, m, o, l, B, T, H, D, scale, s)
-                        : D <= 64 ? launch_packed<64>(q, m, o, l, B, T, H, D, scale, s)
-                                  : launch_packed<128>(q, m, o, l, B, T, H, D, scale, s);
-  return static_cast<int>(e);
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const Strides lin{3 * T * H * D, D, 3 * H * D}, lout{T * H * D, D, H * D};
+  return attend(q, q + H * D, q + 2 * H * D, lin, mask, out, lout, lse, B, T, H, D, scale, stream);
+}
+
+// q, k, v, out [B, H, T, D] bf16 (contiguous), mask [B, T] f32 (1 = attend);
+// lse [B, H, T] f32. T ≤ 512, D % 8 == 0, D ≤ 128.
+extern "C" int msa_mha_attention(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse,
+                                 int B, int T, int H, int D, float scale, void* stream) {
+  const Strides st{H * T * D, T * D, D};
+  return attend(q, k, v, st, mask, out, st, lse, B, T, H, D, scale, stream);
 }

@@ -1,6 +1,7 @@
 // Shared pieces of the port's CUDA kernels: a tiled bf16 GEMM with f32
 // accumulation and a fused bias (+ optional GELU) epilogue, the A&S 7.1.26
-// erf that the TPU FFN kernel uses, and warp reductions.
+// erf that the TPU FFN kernel uses, warp reductions, and the strides the
+// attention kernels address q, k and v by.
 //
 // The GEMM is "NT": C[M, N] = A[M, K] · W[N, K]ᵀ + bias[N], with W in
 // PyTorch's Linear layout ([out, in], row-major). Tensor cores are reached
@@ -54,6 +55,15 @@ __device__ __forceinline__ float erf_as(float z) {
 __device__ __forceinline__ float gelu_as(float x) {
   return 0.5f * x * (1.0f + erf_as(x * 0.70710678118654752f));
 }
+
+// element strides of a [batch, head, time, D] view with D contiguous: the
+// attention kernels read q, k, v and write their outputs through these
+struct Strides {
+  int b, h, t;
+  __device__ __forceinline__ size_t at(int bi, int hi, int ti) const {
+    return (size_t)bi * b + (size_t)hi * h + (size_t)ti * t;
+  }
+};
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll

@@ -9,7 +9,10 @@ fixed sinusoidal table added to x under ``positional="sinusoidal"`` (the
 tiny test config's).
 
 The convs run in the encoder's compute dtype with f32 GroupNorm/LayerNorm,
-as in JAX; tensors are NCW inside the convs and [B, T, C] elsewhere.
+as in JAX; tensors are NCW inside the convs and [B, T, C] elsewhere. Their
+weights are f32 masters cast to the compute dtype in the forward, as
+flax's ``nn.Conv(dtype=…)`` casts its f32 params, so an optimizer steps the
+f32 values as JAX's does.
 """
 
 from __future__ import annotations
@@ -71,14 +74,28 @@ def sinusoidal_positions(t: int, d: int) -> np.ndarray:
     return out
 
 
+def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], dt: torch.dtype, **kw) -> torch.Tensor:
+    """flax's ``nn.Conv(dtype=dt)`` on f32 masters: input, kernel and bias
+    cast to ``dt`` in the graph. On the card cuDNN convolves in ``dt``. On
+    the CPU a sub-f32 conv is computed in f32 from the rounded operands and
+    rounded once, then the bias is added in ``dt``, as XLA's CPU conv and
+    flax do it: oneDNN's bf16 conv1d on the CPU is wrong at some shapes
+    (8 channels with kernel 8 reads an error as large as the output)."""
+    w = weight.to(dt)
+    b = None if bias is None else bias.to(dt)
+    if x.device.type != "cpu" or dt == torch.float32:
+        return F.conv1d(x.to(dt), w, b, **kw)
+    y = F.conv1d(x.to(dt).float(), w.float(), **kw).to(dt)
+    return y if b is None else y + b[:, None]
+
+
 class ConvFeatureExtractor(nn.Module):
     def __init__(self, cfg: AudioModelConfig):
         super().__init__()
         self.cfg = cfg
-        dt = cfg.encoder.dtype
         cin = 1
         for i, (ch, k, s) in enumerate(zip(cfg.conv_channels, cfg.conv_kernels, cfg.conv_strides)):
-            self.add_module(f"conv_{i}", nn.Conv1d(cin, ch, k, stride=s, bias=False).to(dt))
+            self.add_module(f"conv_{i}", nn.Conv1d(cin, ch, k, stride=s, bias=False))
             cin = ch
         # wav2vec2: per-channel GroupNorm after conv0, exact variance, f32
         self.gn = nn.GroupNorm(cfg.conv_channels[0], cfg.conv_channels[0], eps=1e-5)
@@ -88,7 +105,8 @@ class ConvFeatureExtractor(nn.Module):
         dt = self.cfg.encoder.dtype
         x = wav[:, None, :].to(dt)
         for i in range(len(self.cfg.conv_channels)):
-            x = getattr(self, f"conv_{i}")(x)
+            conv = getattr(self, f"conv_{i}")
+            x = conv1d(x, conv.weight, None, dt, stride=conv.stride)
             if i == 0:
                 x = self.gn(x.float()).to(dt)
             x = F.gelu(x)
@@ -101,11 +119,12 @@ class ConvPositionalEmbedding(nn.Module):
 
     def __init__(self, d_model: int, kernel: int, groups: int, dtype: torch.dtype):
         super().__init__()
-        self.kernel = kernel
-        self.conv = nn.Conv1d(d_model, d_model, kernel, padding=kernel // 2, groups=groups).to(dtype)
+        self.kernel, self.dtype = kernel, dtype
+        self.conv = nn.Conv1d(d_model, d_model, kernel, padding=kernel // 2, groups=groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv(x.to(self.conv.weight.dtype).transpose(1, 2)).transpose(1, 2)
+        c, dt = self.conv, self.dtype
+        h = conv1d(x.transpose(1, 2), c.weight, c.bias, dt, padding=c.padding, groups=c.groups).transpose(1, 2)
         if self.kernel % 2 == 0:
             h = h[:, :-1, :]
         return F.gelu(h)
@@ -128,14 +147,15 @@ class AudioEmotionModel(nn.Module):
         self.pool = AttentiveStatsPool(d, cfg.pool_hidden)
         self.emotion_head = nn.Linear(2 * d, cfg.num_classes)
 
-    def forward(self, wav: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, wav: torch.Tensor, deterministic: bool = True) -> Dict[str, torch.Tensor]:
+        """``deterministic=False`` is training mode (``dropout`` must be 0)."""
         feats = self.post_extract_ln(self.feature_extractor(wav))  # f32
         x = self.proj(feats)
         if self.cfg.positional == "conv":
             x = self.encoder_pre_ln(x + self.pos_conv(x))
         else:
             x = x + torch.from_numpy(sinusoidal_positions(x.shape[1], x.shape[2])).to(x.device)
-        hidden = self.encoder(x, None)
+        hidden = self.encoder(x, None, deterministic)
         pooled = self.pool(hidden)
         logits = self.emotion_head(pooled.float())
         probs4 = torch.softmax(logits, dim=-1)

@@ -10,7 +10,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from msa_tpu_torch.models.transformer import EncoderConfig, LayerNorm, TransformerEncoder
+from msa_tpu_torch.models.transformer import EncoderConfig, LayerNorm, TransformerEncoder, check_dropout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,8 +37,12 @@ class BertEmbeddings(nn.Module):
         self.position_embeddings = nn.Embedding(cfg.max_positions, d)
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, d)
         self.ln = LayerNorm(d, cfg.encoder.layer_norm_eps, fast=True)
+        self.encoder_cfg = cfg.encoder
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+        """JAX applies ``nn.Dropout(encoder.dropout)`` to the result in
+        training; only dropout 0 is ported."""
+        check_dropout(self.encoder_cfg, deterministic)
         positions = torch.arange(input_ids.shape[-1], device=input_ids.device)[None, :]
         x = (
             self.word_embeddings(input_ids)
@@ -64,9 +68,12 @@ class TextModel(nn.Module):
         self.humor_head = nn.Linear(d, 2)
         self.sentiment_head = nn.Linear(d, 3)
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = self.embeddings(input_ids)
-        hidden = self.encoder(x, attention_mask).float()
+    def forward(
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor, deterministic: bool = True
+    ) -> Dict[str, torch.Tensor]:
+        """``deterministic=False`` is training mode (``dropout`` must be 0)."""
+        x = self.embeddings(input_ids, deterministic)
+        hidden = self.encoder(x, attention_mask, deterministic).float()
         cls = hidden[:, 0, :]
         emotion_probs = torch.softmax(self.emotion_head(cls), dim=-1)
         sarcasm = torch.softmax(self.sarcasm_head(cls), dim=-1)[:, 1:2]

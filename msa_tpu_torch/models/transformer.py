@@ -8,8 +8,9 @@ E[x²]−E[x]², eps 1e-12), an additive −1e9 key mask, matmuls in
 ``attention_impl``/``ffn_impl`` pick the path, as in JAX: ``"kernel"`` (the
 JAX ``"pallas"``) runs the hand-written CUDA kernels of
 :mod:`msa_tpu_torch.ops.kernels` — their plain versions on the CPU — and
-``"einsum"``/``"dense"`` the plain PyTorch path. The kernel paths dispatch
-as JAX's (``msa_tpu/models/transformer.py:86-156``, ``:204-239``):
+``"einsum"``/``"dense"`` the plain PyTorch path. In serving (the default,
+``deterministic=True``) the kernel paths dispatch as JAX's
+(``msa_tpu/models/transformer.py:86-156``, ``:204-239``):
 
 - attention: ``attention_block`` (``attention_block_int8`` under
   ``quantize="int8"``) where ``d_model % 128 == 0`` and T ≤ 512; otherwise
@@ -21,12 +22,27 @@ as JAX's (``msa_tpu/models/transformer.py:86-156``, ``:204-239``):
   the compute dtype.
 
 The encoder matrices are f32 masters, as flax's params are. Each layer
-derives what its paths consume (int8 codes and scales, compute-dtype
-copies) in ``derive_weights_``, which :mod:`msa_tpu_torch.weights` and
-:mod:`msa_tpu_torch.flax_init` run after a load or an init. Parameter names
-follow the flax tree (``qkv``, ``attn_out``, ``fc_in``, ``fc_out``,
-``attn_ln``, ``ffn_ln``, ``layer_{i}``) so :mod:`msa_tpu_torch.weights`
-maps them one to one. Inference only: there is no dropout.
+derives what its serving paths consume (int8 codes and scales,
+compute-dtype copies) in ``derive_weights_``, which
+:mod:`msa_tpu_torch.weights` and :mod:`msa_tpu_torch.flax_init` run after a
+load or an init; after an optimizer step, run
+:func:`msa_tpu_torch.weights.derive_weights_` again before serving.
+Parameter names follow the flax tree (``qkv``, ``attn_out``, ``fc_in``,
+``fc_out``, ``attn_ln``, ``ffn_ln``, ``layer_{i}``) so
+:mod:`msa_tpu_torch.weights` maps them one to one.
+
+Training (``forward(..., deterministic=False)``) takes JAX's training
+dispatch with ``dropout=0.0``: every matmul casts the f32 masters inside
+the graph (as flax's ``nn.Dense(dtype=…)`` casts its params), so gradients
+land on the masters; the kernel attention path runs a dense QKV projection
+→ :func:`packed_qkv_attention_with_vjp` (its forward is the packed-QKV
+kernel at T ≤ 512 and the flash kernel beyond, as JAX's
+``attention_with_vjp`` there) → a dense Wo at every ``d_model``, never
+``attention_block``; the FFN is dense and ``quantize`` is ignored
+(``msa_tpu/models/transformer.py:86-90``, ``:130-156``, ``:204-208``).
+``remat=True`` recomputes each layer in the backward pass, as ``nn.remat``.
+Flax's dropout masks are not ported: ``deterministic=False`` with
+``dropout > 0`` raises.
 """
 
 from __future__ import annotations
@@ -36,6 +52,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from msa_tpu_torch.ops.kernels.attention import (
@@ -44,6 +61,7 @@ from msa_tpu_torch.ops.kernels.attention import (
     attention_block_int8,
     flash_attention,
     packed_qkv_attention,
+    packed_qkv_attention_with_vjp,
 )
 from msa_tpu_torch.ops.kernels.ffn import ffn_fused, ffn_fused_int8
 from msa_tpu_torch.ops.quant import quantize_weight_axis
@@ -57,13 +75,18 @@ class EncoderConfig:
     d_model: int = 768
     num_heads: int = 12
     d_ff: int = 3072
+    # read only in training (deterministic=False), where only 0.0 is ported
+    dropout: float = 0.1
     layer_norm_eps: float = 1e-12  # BERT default
     compute_dtype: str = "float32"
     attention_impl: str = "einsum"  # "einsum" | "kernel"
     ffn_impl: str = "dense"  # "dense" | "kernel"
     # "none" | "int8": W8A8 projections and FFN on the kernel paths (the
-    # plain paths ignore it, as in JAX); attention's own dots stay bf16
+    # plain paths and training ignore it, as in JAX); attention's own dots
+    # stay bf16
     quantize: str = "none"
+    # recompute each layer in the backward pass (nn.remat in JAX)
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -88,6 +111,22 @@ class EncoderConfig:
     def tiny(cls) -> "EncoderConfig":
         """Small config for tests (``msa_tpu/models/transformer.py:67-70``)."""
         return cls(num_layers=2, d_model=32, num_heads=2, d_ff=64)
+
+
+def check_dropout(cfg: EncoderConfig, deterministic: bool) -> None:
+    """Raise where JAX would draw dropout masks: they are not ported."""
+    if not deterministic and cfg.dropout > 0:
+        raise NotImplementedError(
+            f"training with dropout={cfg.dropout}: flax's dropout masks are not ported "
+            "(ROADMAP queue 1, encoder dropout in training); set dropout=0.0"
+        )
+
+
+def _dense(x: torch.Tensor, lin: nn.Linear, dt: torch.dtype) -> torch.Tensor:
+    """flax's ``nn.Dense(dtype=dt)`` on the f32 master ``lin``: the input,
+    kernel and bias cast to ``dt`` inside the graph, the product rounded to
+    ``dt`` before the bias is added, as flax adds it."""
+    return F.linear(x.to(dt), lin.weight.to(dt)) + lin.bias.to(dt)
 
 
 class LayerNorm(nn.Module):
@@ -145,12 +184,21 @@ class SelfAttention(nn.Module):
         for ``attention_block_int8``, and compute-dtype copies for every
         other path (the dense projections around rows 5 and 6 included,
         which even the int8 recipe takes at T > 512). Run after the masters
-        change."""
+        change, an optimizer step included: serving reads these copies,
+        training the masters."""
         cfg = self.cfg
         int8 = cfg.block_kernel and cfg.quantize == "int8"
         _derive(self, (("qkv", self.qkv), ("out", self.attn_out)), int8, True, cfg.dtype)
 
-    def forward(self, x: torch.Tensor, attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def _project(self, y: torch.Tensor, name: str, deterministic: bool) -> torch.Tensor:
+        """The QKV (``name="qkv"``) or output (``"out"``) projection: serving
+        reads the derived compute-dtype copy, training casts the f32 master
+        in the graph."""
+        if deterministic:
+            return F.linear(y.to(self.cfg.dtype), getattr(self, f"w_{name}_c"), getattr(self, f"b_{name}_c"))
+        return _dense(y, self.qkv if name == "qkv" else self.attn_out, self.cfg.dtype)
+
+    def forward(self, x: torch.Tensor, attention_mask: Optional[torch.Tensor], deterministic: bool = True) -> torch.Tensor:
         cfg = self.cfg
         dt = cfg.dtype
         b, t, d = x.shape
@@ -161,25 +209,28 @@ class SelfAttention(nn.Module):
                 if attention_mask is None
                 else (attention_mask > 0).float()
             )
-            if cfg.block_kernel and t <= SINGLE_PASS_MAX_T:
+            if deterministic and cfg.block_kernel and t <= SINGLE_PASS_MAX_T:
                 if cfg.quantize == "int8":
                     return attention_block_int8(
                         x.to(dt), self.w_qkv_q, self.s_qkv, self.qkv.bias, self.w_out_q, self.s_out,
                         self.attn_out.bias, key_mask, h,
                     )
                 return attention_block(x.to(dt), self.w_qkv_c, self.qkv.bias, self.w_out_c, self.attn_out.bias, key_mask, h)
-            qkv = F.linear(x.to(dt), self.w_qkv_c, self.b_qkv_c).view(b, t, 3, h, dh)
-            attend = packed_qkv_attention if t <= SINGLE_PASS_MAX_T else flash_attention
-            out, _ = attend(qkv, key_mask)
-            return F.linear(out, self.w_out_c, self.b_out_c)
-        qkv = F.linear(x.to(dt), self.w_qkv_c, self.b_qkv_c).view(b, t, 3, h, dh)
+            qkv = self._project(x, "qkv", deterministic).view(b, t, 3, h, dh)
+            if deterministic:
+                attend = packed_qkv_attention if t <= SINGLE_PASS_MAX_T else flash_attention
+                out, _ = attend(qkv, key_mask)
+            else:
+                out = packed_qkv_attention_with_vjp(qkv, key_mask)
+            return self._project(out, "out", deterministic)
+        qkv = self._project(x, "qkv", deterministic).view(b, t, 3, h, dh)
         q, k, v = qkv.unbind(dim=2)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (1.0 / float(dh) ** 0.5)
         if attention_mask is not None:
             logits = logits + torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9).float()
         probs = torch.softmax(logits, dim=-1).to(dt)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, t, d)
-        return F.linear(out, self.w_out_c, self.b_out_c)
+        return self._project(out, "out", deterministic)
 
 
 class EncoderLayer(nn.Module):
@@ -203,13 +254,15 @@ class EncoderLayer(nn.Module):
         int8 = cfg.ffn_kernel and cfg.quantize == "int8"
         _derive(self, (("in", self.fc_in), ("out", self.fc_out)), int8, not int8, cfg.dtype)
 
-    def forward(self, x: torch.Tensor, attention_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attention_mask: Optional[torch.Tensor], deterministic: bool = True) -> torch.Tensor:
         cfg = self.cfg
         dt = cfg.dtype
-        attn = self.attention(x, attention_mask)
+        attn = self.attention(x, attention_mask, deterministic)
         x = self.attn_ln(x + attn).to(dt)
         b, t, d = x.shape
-        if cfg.ffn_kernel:
+        if not deterministic:  # training takes the dense FFN on the masters
+            h = _dense(F.gelu(_dense(x, self.fc_in, dt)), self.fc_out, dt)
+        elif cfg.ffn_kernel:
             if cfg.quantize == "int8":
                 h = ffn_fused_int8(
                     x.reshape(b * t, d), self.w_in_q, self.s_in, self.fc_in.bias, self.w_out_q, self.s_out,
@@ -231,10 +284,19 @@ class TransformerEncoder(nn.Module):
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", EncoderLayer(cfg))
 
-    def forward(self, x: torch.Tensor, attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x [b, t, d_model]; attention_mask [b, t], 1 = attend."""
+    def forward(
+        self, x: torch.Tensor, attention_mask: Optional[torch.Tensor] = None, deterministic: bool = True
+    ) -> torch.Tensor:
+        """x [b, t, d_model]; attention_mask [b, t], 1 = attend.
+        ``deterministic=False`` is training mode (``dropout`` must be 0)."""
+        check_dropout(self.cfg, deterministic)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for i in range(self.cfg.num_layers):
-            x = getattr(self, f"layer_{i}")(x, attention_mask)
+            layer = getattr(self, f"layer_{i}")
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(layer, x, attention_mask, deterministic, use_reentrant=False)
+            else:
+                x = layer(x, attention_mask, deterministic)
         return x
 
 

@@ -11,8 +11,8 @@ Layouts: ``x [B, T, dm]`` in the compute dtype; ``w_qkv [3·dm, dm]`` and
 ``w_out [dm, dm]`` in PyTorch's Linear layout and the compute dtype;
 ``b_qkv``/``b_out`` float32; ``key_mask [B, T]`` float32, 1 = attend. T is
 padded to a multiple of 128 inside, as the TPU wrapper does, and must be
-≤ 512 after padding (longer inputs took the TPU's flash kernel, which is
-not ported yet).
+≤ 512 after padding (the encoder sends longer inputs to
+:func:`flash_attention`).
 
 Rounding points, shared by the kernel and :func:`attention_block_plain`:
 q, k and v are projected in f32 (+ f32 bias) and rounded to the compute
@@ -48,7 +48,20 @@ fused projection, and return ``(o [B, T, H·D], lse [B, H, T])``:
 
 Both pad T to a multiple of 128 with zero rows under masked keys, so a row
 with no valid key averages V over all padded rows, as on the TPU; the lse
-is ``max + log(denom)`` in f32.
+is ``max + log(denom)`` in f32. :func:`mha_attention` (row 2,
+``_mha_attention_lse``, ``pl.pallas_call`` at :150) is row 5's function on
+q, k, v [B, H, T, D], through the same CUDA core with its own entry point.
+
+Training (``_bwd_dq_kernel``/``_bwd_dkv_kernel``, ``pl.pallas_call`` at
+:370 and :395, rows 3 and 4): :func:`attention_bwd` takes the forward's
+operands, o, lse and the output's gradient and returns (dq, dk, dv) through
+the two kernels of ``csrc/attention_bwd.cu``, :func:`attention_bwd_dq` and
+:func:`attention_bwd_dkv`; :func:`attention_bwd_plain` is their plain
+version, 128×128 blocks in the TPU kernels' order. Two
+``torch.autograd.Function`` wrappers run them as JAX's custom VJPs do:
+:func:`packed_qkv_attention_with_vjp` (JAX's ``packed_qkv_attention``,
+:511-540: row 5 forward, dqkv back in the packed layout) and
+:func:`attention_with_vjp` (:842-868: row 2 at T ≤ 512, row 6 beyond).
 """
 
 from __future__ import annotations
@@ -344,3 +357,231 @@ def flash_attention(qkv: torch.Tensor, key_mask: torch.Tensor):
 
 
 flash_attention.launches = 0  # kernel launches since the last reset (the smoke reads it)
+
+
+# --- row 2: row 5's function on q, k, v [B, H, T, D] ----------------------------
+
+
+def _to_packed(q, k, v):
+    """q, k, v [B, H, T, D] → qkv [B, T, 3, H, D] (one copy)."""
+    return torch.stack((q, k, v), dim=1).permute(0, 3, 1, 2, 4).contiguous()
+
+
+def _heads_first(o: torch.Tensor, h: int) -> torch.Tensor:
+    """o [B, T, H·D] → [B, H, T, D] (a view where o's layout allows)."""
+    b, t, hd = o.shape
+    return o.reshape(b, t, h, hd // h).transpose(1, 2)
+
+
+def mha_attention_plain(q, k, v, key_mask):
+    """Plain PyTorch version of the row-2 kernel: row 5's arithmetic on
+    [B, H, T, D] operands → (o [B, H, T, D], lse [B, H, T])."""
+    o, lse = packed_qkv_attention_plain(_to_packed(q, k, v), key_mask)
+    return _heads_first(o, q.shape[1]), lse
+
+
+def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor):
+    """q, k, v [B, H, T ≤ 512, D], key_mask [B, T] f32 (1 = attend) →
+    (o [B, H, T, D] in q's dtype, lse [B, H, T] f32). CPU tensors take
+    :func:`mha_attention_plain`; CUDA tensors launch the kernel (bf16,
+    contiguous, D % 8 == 0, D ≤ 128)."""
+    if q.device.type == "cpu":
+        return mha_attention_plain(q, k, v, key_mask)
+    b, h, t, d = q.shape
+    if t > SINGLE_PASS_MAX_T or d % 8 or not 8 <= d <= 128:
+        raise ValueError(f"mha_attention kernel needs T ≤ {SINGLE_PASS_MAX_T} and D % 8 == 0, D ≤ 128, got {tuple(q.shape)}")
+    dev = q.device
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        require(x, name, torch.bfloat16, (b, h, t, d), dev)
+    require(key_mask, "key_mask", torch.float32, (b, t), dev)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = build.library().msa_mha_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), o.data_ptr(), lse.data_ptr(), b, t, h, d, _scale(d), stream
+    )
+    build.check(rc, "mha_attention")
+    mha_attention.launches += 1
+    return o, lse
+
+
+mha_attention.launches = 0  # kernel launches since the last reset (the smoke reads it)
+
+
+# --- the backward (rows 3 and 4) -------------------------------------------------
+
+BWD_BLOCK = 128  # the TPU kernels' query and key blocks
+
+
+def _delta(o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Δ = rowsum(dO ∘ O) in f32, [B, H, T] (XLA in JAX, ``attention.py:360``)."""
+    return (g.float() * o.float()).sum(-1).contiguous()
+
+
+def attention_bwd_plain(q, k, v, key_mask, lse, o, g):
+    """Plain PyTorch version of rows 3 and 4: the same arithmetic over the
+    same 128×128 blocks in the same order. q, k, v, o, g [B, H, T, D],
+    key_mask [B, T], lse [B, H, T] → (dq, dk, dv) in the operands' dtypes."""
+    b, h, t, d = q.shape
+    scale = _scale(d)
+    t_pad = -(-t // LANE) * LANE
+    qf, kf, vf, gf = (F.pad(x, (0, 0, 0, t_pad - t)).float() for x in (q, k, v, g))
+    lse_p, delta_p = (F.pad(x.float(), (0, t_pad - t))[..., None] for x in (lse, _delta(o, g)))
+    bias = _mask_bias(F.pad(key_mask, (0, t_pad - t)))[:, None, None, :]
+    dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
+    for i in range(0, t_pad, BWD_BLOCK):
+        qi = slice(i, i + BWD_BLOCK)
+        for j in range(0, t_pad, BWD_BLOCK):
+            kj = slice(j, j + BWD_BLOCK)
+            s = qf[:, :, qi] @ kf[:, :, kj].transpose(-1, -2) * scale + bias[..., kj]
+            p = torch.exp(s - lse_p[:, :, qi])
+            dp = gf[:, :, qi] @ vf[:, :, kj].transpose(-1, -2)
+            ds = p * (dp - delta_p[:, :, qi])
+            dq[:, :, qi] += ds.to(k.dtype).float() @ kf[:, :, kj]
+            dv[:, :, kj] += p.transpose(-1, -2).to(g.dtype).float() @ gf[:, :, qi]
+            dk[:, :, kj] += ds.transpose(-1, -2).to(q.dtype).float() @ qf[:, :, qi]
+    return (
+        (dq * scale)[:, :, :t].to(q.dtype),
+        (dk * scale)[:, :, :t].to(k.dtype),
+        dv[:, :, :t].to(v.dtype),
+    )
+
+
+def _bwd_args(q, k, v, g, lse, delta, key_mask, outs):
+    """Check what the backward kernels take and return the C arguments:
+    q, k, v and the outputs [B, H, T, D] bf16 views with one set of strides
+    (D contiguous, rows 16-byte aligned), g with its own; lse, delta
+    [B, H, T] and key_mask [B, T] f32, contiguous."""
+    b, h, t, d = q.shape
+    if d % 8 or not 8 <= d <= 128:
+        raise ValueError(f"attention_bwd kernels need D % 8 == 0 and D ≤ 128, got {tuple(q.shape)}")
+    dev = q.device
+
+    def strides(x):  # a dimension of size 1 is never stepped along
+        return tuple(st if n > 1 else 0 for st, n in zip(x.stride(), x.shape))
+
+    sx = strides(q)
+    for name, x in (("q", q), ("k", k), ("v", v), ("g", g), *((f"out{i}", y) for i, y in enumerate(outs))):
+        if x.device != dev or x.dtype != torch.bfloat16 or tuple(x.shape) != (b, h, t, d):
+            raise ValueError(f"attention_bwd {name}: {x.dtype} {tuple(x.shape)} on {x.device}, expected bf16 {(b, h, t, d)} on {dev}")
+        if strides(x)[3] != 1 or any(st % 8 for st in strides(x)[:3]) or x.data_ptr() % 16:
+            raise ValueError(f"attention_bwd {name}: D must be contiguous and rows 16-byte aligned, strides {x.stride()}")
+        if name != "g" and strides(x) != sx:
+            raise ValueError(f"attention_bwd {name}: strides {x.stride()} differ from q's {sx}")
+    require(lse, "lse", torch.float32, (b, h, t), dev)
+    require(delta, "delta", torch.float32, (b, h, t), dev)
+    require(key_mask, "key_mask", torch.float32, (b, t), dev)
+    ptrs = [x.data_ptr() for x in (q, k, v, g, lse, delta, key_mask, *outs)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return (*ptrs, b, t, h, d, *sx[:3], *strides(g)[:3], _scale(d), stream)
+
+
+def attention_bwd_dq(q, k, v, g, lse, delta, key_mask, dq) -> None:
+    """Launch row 3 on the card: dq ← scale·Σ_k [P∘(dO·Vᵀ − Δ)]·K, written
+    into the view ``dq`` (arguments as :func:`_bwd_args` checks them)."""
+    rc = build.library().msa_attention_bwd_dq(*_bwd_args(q, k, v, g, lse, delta, key_mask, (dq,)))
+    build.check(rc, "attention_bwd_dq")
+    attention_bwd_dq.launches += 1
+
+
+def attention_bwd_dkv(q, k, v, g, lse, delta, key_mask, dk, dv) -> None:
+    """Launch row 4 on the card: dv ← Σ_q Pᵀ·dO and dk ← scale·Σ_q
+    [P∘(dO·Vᵀ − Δ)]ᵀ·Q, written into the views ``dk`` and ``dv``."""
+    rc = build.library().msa_attention_bwd_dkv(*_bwd_args(q, k, v, g, lse, delta, key_mask, (dk, dv)))
+    build.check(rc, "attention_bwd_dkv")
+    attention_bwd_dkv.launches += 1
+
+
+attention_bwd_dq.launches = 0  # kernel launches since the last reset (the smoke reads them)
+attention_bwd_dkv.launches = 0
+
+
+def _attention_bwd_into(q, k, v, key_mask, lse, o, g, dq, dk, dv) -> None:
+    """The backward into the [B, H, T, D] views dq, dk, dv: the kernels on
+    CUDA tensors, the plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        for out, got in zip((dq, dk, dv), attention_bwd_plain(q, k, v, key_mask, lse, o, g)):
+            out.copy_(got)
+        return
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    delta = _delta(o, g)
+    attention_bwd_dq(q, k, v, g, lse, delta, key_mask, dq)
+    attention_bwd_dkv(q, k, v, g, lse, delta, key_mask, dk, dv)
+
+
+def attention_bwd(q, k, v, key_mask, lse, o, g):
+    """JAX's ``attention_bwd``: the forward's q, k, v [B, H, T, D], key_mask
+    [B, T], its lse [B, H, T] and o, and the gradient g of o → (dq, dk,
+    dv) in the operands' dtypes. CPU tensors take
+    :func:`attention_bwd_plain`; CUDA tensors launch rows 3 and 4 (bf16)."""
+    if q.device.type != "cpu":
+        q, k, v = (x.contiguous() for x in (q, k, v))
+    dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (q, k, v))
+    _attention_bwd_into(q, k, v, key_mask, lse, o, g, dq, dk, dv)
+    return dq, dk, dv
+
+
+# --- the differentiable wrappers ----------------------------------------------------
+
+
+class _PackedQKVAttention(torch.autograd.Function):
+    """JAX's ``packed_qkv_attention`` custom VJP (``attention.py:511-540``),
+    and beyond T = 512 its ``attention_with_vjp`` (``:842-868``) on the
+    same packed layout."""
+
+    @staticmethod
+    def forward(ctx, qkv, key_mask):
+        attend = packed_qkv_attention if qkv.shape[1] <= SINGLE_PASS_MAX_T else flash_attention
+        o, lse = attend(qkv, key_mask)
+        ctx.save_for_backward(qkv, key_mask, lse, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, key_mask, lse, o = ctx.saved_tensors
+        h = qkv.shape[3]
+        dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+        # [B, H, T, D] views into the packed layouts: the kernels read and
+        # write them in place
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        dq, dk, dv = (dqkv[:, :, i].transpose(1, 2) for i in range(3))
+        _attention_bwd_into(q, k, v, key_mask, lse, _heads_first(o, h), _heads_first(g, h), dq, dk, dv)
+        return dqkv, None
+
+
+def packed_qkv_attention_with_vjp(qkv: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+    """Differentiable attention on the packed projection: qkv [B, T, 3, H,
+    D] → o [B, T, H·D]. Forward :func:`packed_qkv_attention` (row 5) at
+    T ≤ 512 and :func:`flash_attention` (row 6) beyond; backward rows 3 and
+    4, dqkv in the packed layout."""
+    return _PackedQKVAttention.apply(qkv.contiguous(), key_mask)
+
+
+class _AttentionWithVJP(torch.autograd.Function):
+    """JAX's ``attention_with_vjp`` custom VJP (``attention.py:842-868``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask):
+        if q.shape[2] > SINGLE_PASS_MAX_T:  # row 6 reads the packed layout
+            o, lse = flash_attention(_to_packed(q, k, v), key_mask)
+            o = _heads_first(o, q.shape[1])
+        else:
+            q, k, v = (x.contiguous() for x in (q, k, v))
+            o, lse = mha_attention(q, k, v, key_mask)
+        ctx.save_for_backward(q, k, v, key_mask, lse, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_mask, lse, o = ctx.saved_tensors
+        return (*attention_bwd(q, k, v, key_mask, lse, o, g), None)
+
+
+def attention_with_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+    """Differentiable attention: q, k, v [B, H, T, D], key_mask [B, T] →
+    o [B, H, T, D]. Forward :func:`mha_attention` (row 2) at T ≤ 512 and
+    :func:`flash_attention` (row 6) beyond; backward rows 3 and 4. The
+    counterpart of JAX's API; the encoders take
+    :func:`packed_qkv_attention_with_vjp`, which needs no layout copy."""
+    return _AttentionWithVJP.apply(q, k, v, key_mask)

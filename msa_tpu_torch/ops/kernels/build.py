@@ -46,6 +46,13 @@ _SIGNATURES = {
     # qkv, mask, o, lse, B, T, H, D, scale, stream
     "msa_packed_qkv_attention": (_P,) * 4 + (_I,) * 4 + (_F, _P),
     "msa_flash_attention": (_P,) * 4 + (_I,) * 4 + (_F, _P),
+    # q, k, v, mask, o, lse, B, T, H, D, scale, stream
+    "msa_mha_attention": (_P,) * 6 + (_I,) * 4 + (_F, _P),
+    # q, k, v, dout, lse, delta, mask, dq, B, T, H, D, 3 strides of q/k/v/dq,
+    # 3 of dout, scale, stream
+    "msa_attention_bwd_dq": (_P,) * 8 + (_I,) * 10 + (_F, _P),
+    # as above with dk, dv in place of dq
+    "msa_attention_bwd_dkv": (_P,) * 9 + (_I,) * 10 + (_F, _P),
 }
 
 

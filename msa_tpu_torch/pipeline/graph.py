@@ -161,17 +161,15 @@ class PipelineModels:
         """A copy whose text and audio encoders run
         ``dataclasses.replace(encoder_cfg, **changes)`` — e.g. the plain
         ``attention_impl="einsum", ffn_impl="dense"`` path, or another
-        ``quantize``. It shares every parameter with this one (the encoders'
-        f32 masters included) and derives its encoders' int8 or
-        compute-dtype weights from those masters; if ``compute_dtype``
-        changes, it holds a copy of the parameters cast to the new dtype."""
+        ``quantize``. It shares every parameter with this one (all are f32
+        masters, whatever the compute dtype) and derives its encoders' int8
+        or compute-dtype weights from those masters."""
 
         def swap(model):
             cfg = dataclasses.replace(model.cfg, encoder=dataclasses.replace(model.cfg.encoder, **changes))
-            share = cfg.encoder.compute_dtype == model.cfg.encoder.compute_dtype
-            with torch.device("meta" if share else self.device):
+            with torch.device("meta"):
                 new = type(model)(cfg)
-            new.load_state_dict(model.state_dict(), assign=share)
+            new.load_state_dict(model.state_dict(), assign=True)
             weights.derive_weights_(new)
             return new.eval().requires_grad_(False)
 

@@ -1,7 +1,7 @@
-"""Where the time of one serving forward goes, on the card.
+"""Where the time of one serving forward, or one training step, goes on the card.
 
     python3 -m msa_tpu_torch.profile_slice [--tokens 512] [--batch 2] [--steps 3] [--quantize int8|none]
-                                           [--samples 80000]
+                                           [--samples 80000] [--train]
 
 Builds the full-width models (``PipelineModels.initialize``, by default in
 the int8 serving recipe; ``--quantize none`` for the bf16 one), runs the
@@ -12,7 +12,10 @@ the flash kernel), warms
 ``torch.profiler`` (CPU + CUDA activities) and prints: the wall time per
 forward (host clock around work that ends in ``synchronize``), the device's
 busy time per forward (sum of kernel durations, from the trace) and its idle
-share, and the kernels ranked by device time. Needs a CUDA device.
+share, and the kernels ranked by device time. ``--train`` profiles instead
+one training step of the text model (``msa_tpu_torch.training``: bf16,
+kernel attention, dropout 0; forward, backward and AdamW) at ``--batch``
+(default 8) × ``--tokens``. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,12 +35,14 @@ from msa_tpu_torch.core.config import PipelineConfig, SystemConfig
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tokens", type=int, default=512)
-    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--batch", type=int, default=None, help="2 for a forward, 8 for --train")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--quantize", choices=("int8", "none"), default="int8")
     ap.add_argument("--samples", type=int, default=SystemConfig().pipeline.segment_samples)
+    ap.add_argument("--train", action="store_true", help="one text training step instead of a forward")
     args = ap.parse_args(argv)
+    b = args.batch or (8 if args.train else 2)
     if not torch.cuda.is_available():
         print("profile_slice: needs a CUDA device", file=sys.stderr)
         return 2
@@ -53,29 +58,48 @@ def main(argv=None) -> int:
         flush=True,
     )
     models = G.PipelineModels.initialize(seed=0, quantize=args.quantize, device="cuda")
-    pipe = G.SegmentPipeline(models, SystemConfig(pipeline=PipelineConfig(segment_samples=args.samples)))
     rng = np.random.default_rng(0)
-    b, tokens, samples = args.batch, args.tokens, args.samples
-    inp = G.SegmentInputs.zeros(models, b, samples=samples, tokens=tokens)
-    inp.frames = rng.integers(0, 256, size=inp.frames.shape, dtype=np.uint8)
-    inp.audio = (0.1 * rng.standard_normal((b, samples))).astype(np.float32)
-    inp.token_ids = rng.integers(1, models.text.cfg.vocab_size, size=(b, tokens)).astype(np.int32)
-    inp.token_mask[:] = 1
+    tokens, samples = args.tokens, args.samples
+    if args.train:
+        from msa_tpu_torch import training
+
+        text = models.with_encoders(dropout=0.0).text.requires_grad_(True)
+        batch = (
+            torch.from_numpy(rng.integers(1, text.cfg.vocab_size, size=(b, tokens))).cuda(),
+            torch.ones(b, tokens, dtype=torch.int32, device="cuda"),
+            {h: torch.from_numpy(rng.integers(0, n, size=b)).cuda() for h, n in zip(training.TEXT_HEADS, (7, 2, 2, 3))},
+        )
+        opt = training.adamw(text.parameters())
+
+        def run():
+            training.train_step(text, training.text_loss, opt, *batch)
+
+    else:
+        pipe = G.SegmentPipeline(models, SystemConfig(pipeline=PipelineConfig(segment_samples=samples)))
+        inp = G.SegmentInputs.zeros(models, b, samples=samples, tokens=tokens)
+        inp.frames = rng.integers(0, 256, size=inp.frames.shape, dtype=np.uint8)
+        inp.audio = (0.1 * rng.standard_normal((b, samples))).astype(np.float32)
+        inp.token_ids = rng.integers(1, models.text.cfg.vocab_size, size=(b, tokens)).astype(np.int32)
+        inp.token_mask[:] = 1
+
+        def run():
+            pipe.run_host(inp)
+
     for _ in range(2):
-        pipe.run_host(inp)
+        run()
     torch.cuda.synchronize()
 
     walls = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(args.steps):
             t0 = time.perf_counter()
-            pipe.run_host(inp)
+            run()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
     rows = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # CPU ops: their kernels are listed as device events
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue  # CPU ops and annotated ranges (the optimizer's step): their kernels are listed on their own
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0.0)
@@ -84,12 +108,13 @@ def main(argv=None) -> int:
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     wall_ms = 1e3 * float(np.median(walls))
-    print(f"quantize={args.quantize} B={b} tokens={tokens} samples={samples}: wall {wall_ms:.3f} ms/forward (median of {args.steps}), "
-          f"device busy {busy_ms:.3f} ms/forward, idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
+    what = "text training step" if args.train else f"quantize={args.quantize} samples={samples} forward"
+    print(f"{what} B={b} tokens={tokens}: wall {wall_ms:.3f} ms (median of {args.steps}), "
+          f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
     for us, n, key in rows[: args.top]:
         print(f"  {us / 1e3:9.4f} ms  {n:5d}x  {100 * us / 1e3 / busy_ms:5.1f}%  {key[:90]}", flush=True)
-    print(json.dumps({"quantize": args.quantize, "batch": b, "tokens": tokens, "samples": samples, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    print(json.dumps({"train": args.train, "quantize": args.quantize, "batch": b, "tokens": tokens, "samples": samples, "wall_ms": wall_ms,
+                      "device_busy_ms": busy_ms, "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 
 

@@ -9,11 +9,12 @@ The port's modules use the flax tree's names, so one walk maps every leaf:
 - ``scale`` → ``weight`` (LayerNorm/GroupNorm), ``embedding`` → ``weight``;
 - ``bias`` and scalar leaves keep their names.
 
-Values are cast to each parameter's own dtype (bf16 conv kernels round to
-nearest even, as JAX's ``astype`` does; the encoder matrices are f32
-masters). A load ends in :func:`derive_weights_`, so each encoder layer's
-int8 or compute-dtype weights follow its masters. JAX's flax init itself is
-rebuilt in :mod:`msa_tpu_torch.flax_init`, which walks the same names.
+Every parameter is an f32 master, as flax's params are; the modules cast
+to their compute dtype in the forward (the audio convs) or derive serving
+copies (the encoder layers). A load ends in :func:`derive_weights_`, so
+each encoder layer's int8 or compute-dtype weights follow its masters.
+JAX's flax init itself is rebuilt in :mod:`msa_tpu_torch.flax_init`, which
+walks the same names.
 """
 
 from __future__ import annotations
@@ -43,7 +44,9 @@ def _convert(name: str, value: np.ndarray, target: torch.Tensor) -> torch.Tensor
 
 def derive_weights_(module: nn.Module) -> None:
     """Re-derive what each layer under ``module`` consumes from its f32
-    masters (int8 codes and scales, or compute-dtype copies)."""
+    masters (int8 codes and scales, or compute-dtype copies). Run it after
+    the masters change, e.g. after an optimizer step, before serving: the
+    serving paths read these copies, the training path the masters."""
     for m in module.modules():
         if hasattr(m, "derive_weights_"):
             m.derive_weights_()
