@@ -64,6 +64,24 @@ Phases, one line each with its seconds:
      against the plain bf16 einsum path with an f32 run as yardstick and
      the dV fault planted; three AdamW steps on each path, whose losses
      stay finite and together; ms per step and the device-busy share.
+ 13. row 1, fused_attention, on its own entry point: bf16 and f32 at the
+     encoder's shape (B=2 H=12 T=512 D=64), at T = 749 (which rows 2 and 5
+     refuse) and at JAX's test shapes (T=250 D=64, T=100 D=32), o and lse
+     against its plain version, beside one scaled_dot_product_attention
+     call; the mask ignored as the planted fault; one direct call launches
+     it once;
+ 14. row 11, conv_stride2_fused, at the six stride-2 layers of the wav2vec2
+     extractor (B=64, 512 channels, bf16; tools/conv_bench.py's shapes) and
+     two f32 cases, against its plain version at JAX's tolerances, beside
+     cuDNN's bf16 conv1d; tap 2 dropped as the planted fault;
+ 15. the default diarizer, make_diarizer("neural") on the shipped speaker
+     net, on a 20 s two-voice meeting made here: segments and labels equal
+     to the CPU's, embeddings within 1e-4, ms per diarize;
+ 16. the default transcriber, make_transcriber("auto", scale="full") on the
+     shipped whisper ASR, at B=8 on the 5 s windows of
+     tests/data/asr_clips.npz: first-step logits against the CPU's, tokens
+     equal (or differing only where the CPU's top-2 margin is under the
+     logits bound), transcripts equal to JAX's, ms per batch.
 Phases 4, 5 and 8 also time run_host per forward, phase 7 run_stream per
 window. Counts are set to 0 just before each path runs and read just after.
 The line before the last is a JSON object with each kernel's numbers; the
@@ -80,8 +98,11 @@ import subprocess
 import sys
 import time
 
+from pathlib import Path
+
 import numpy as np
 import torch
+import torch.nn.functional as F_
 
 # dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet)
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -152,6 +173,24 @@ GRAD_NOISE_RATIO = 1.25  # each gradient group of a training step (phase 12)
 # three AdamW steps (lr 1e-3) on the kernel and the plain bf16 path: each
 # loss within this share of the plain path's
 LOSS_TRACK_RTOL = 0.1
+# row 1 in f32 against its plain version: both exact f32 (no TF32), so
+# only summation order differs; JAX's own test holds its kernel to 2e-5
+ROW1_F32_ATOL = 2e-5
+# row 11 against its plain version at JAX's tolerances
+# (tests/test_pallas_conv.py): bf16 within 2e-2 of the largest output, f32
+# at atol = rtol = 2e-4
+CONV_BF16_REL, CONV_F32_TOL = 2e-2, 2e-4
+# the shipped speaker net's embeddings, card against CPU (f32 on both, TF32
+# off): the CPU tests hold the port's embeddings to JAX's at 1e-4
+EMB_ATOL = 1e-4
+# the shipped whisper's first-step logits, card against CPU (f32, TF32
+# off): the CPU tests hold the port's logits to JAX's at 1e-3; a token may
+# differ from the CPU's only where the CPU's top-2 margin is under this
+WHISPER_LOGITS_ATOL = 1e-3
+SR = 16_000
+# 8 windows of 5 s of synthetic speech (int16) and JAX's transcripts of
+# them, written by tests/test_torch_whisper.py, which holds them to JAX
+ASR_FIXTURE = Path(__file__).resolve().parent / "tests" / "data" / "asr_clips.npz"
 
 
 class SmokeFailure(RuntimeError):
@@ -227,6 +266,44 @@ def device_ms(fn, reps: int = 20) -> float:
     raise SmokeFailure("the profiler recorded no device time, three times")
 
 
+def host_ms(fn) -> float:
+    """Host-clock ms of one call that ends in a synchronize."""
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def compare_f32(name, got, want):
+    """An f32 kernel against its plain version at ROW1_F32_ATOL."""
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    check(err <= ROW1_F32_ATOL, f"{name}: max abs err {err:.4e} > {ROW1_F32_ATOL}")
+    return err, err / want.abs().max().item(), ROW1_F32_ATOL
+
+
+def meeting_waveform(seconds: float = 20.0) -> np.ndarray:
+    """A deterministic meeting: two voices (harmonic stacks at 120 and 240
+    Hz with their own spectral envelopes and syllabic modulation) taking
+    turns of 1.6–2.6 s with 0.8 s pauses, over a quiet noise floor."""
+    rng = np.random.default_rng(0)
+    n = int(seconds * SR)
+    out = (3e-4 * rng.standard_normal(n)).astype(np.float32)
+    voices = ((120.0, (1.0, 0.6, 0.3, 0.15, 0.08)), (240.0, (0.3, 1.0, 0.7, 0.2, 0.4)))
+    pos, turn = int(0.3 * SR), 0
+    while True:
+        m = int(rng.uniform(1.6, 2.6) * SR)
+        if pos + m > n:
+            return out
+        f0, amps = voices[turn % 2]
+        t = np.arange(m) / SR
+        x = sum(a * np.sin(2 * np.pi * f0 * (h + 1) * t + rng.uniform(0, 2 * np.pi)) for h, a in enumerate(amps))
+        x *= 0.25 * (1 + 0.4 * np.sin(2 * np.pi * rng.uniform(2.5, 4.5) * t))
+        out[pos : pos + m] += x.astype(np.float32)
+        pos, turn = pos + m + int(0.8 * SR), turn + 1
+
+
 def bound_ms(nbytes: float, **ops: float):
     """The least time for the work: the larger of the bytes over the memory
     rate and the operations, each type over its own peak, summed."""
@@ -275,6 +352,7 @@ def main() -> int:
     from msa_tpu_torch.ops import quant as Q
     from msa_tpu_torch.ops.kernels import attention as A
     from msa_tpu_torch.ops.kernels import build
+    from msa_tpu_torch.ops.kernels import conv as KC
     from msa_tpu_torch.ops.kernels import ffn as F
     from msa_tpu_torch.ops.kernels import quant as KQ
     from msa_tpu_torch.pipeline import graph as G
@@ -290,6 +368,8 @@ def main() -> int:
         "mha_attention": A.mha_attention,
         "attention_bwd_dq": A.attention_bwd_dq,
         "attention_bwd_dkv": A.attention_bwd_dkv,
+        "fused_attention": A.fused_attention_lse,
+        "conv_stride2_fused": KC.conv_stride2_fused,
     }
 
     def reset_counts():
@@ -1191,6 +1271,209 @@ def main() -> int:
         phase(f"training {label}", t1)
     phase("training", t0)
 
+    # --- 13. row 1, fused_attention, on its own entry point ----------------------------
+    t0 = time.perf_counter()
+    row1_main = (2, 12, 512, 64)
+    with G.exact_fp32():
+        for dtype in (bf16, f32):
+            dname = str(dtype).split(".")[-1]
+            # the encoder's shape, a T past 512 (rows 2 and 5 refuse it), JAX's test shapes
+            for b, h, T_, d in (row1_main, (2, 12, 749, 64), (2, 2, 250, 64), (2, 3, 100, 32)):
+                tag = f"fused_attention {dname} B={b} H={h} T={T_} (T_pad={-(-T_ // 128) * 128}) D={d}"
+                q, k, v = (rand(b, h, T_, d, dtype=dtype) for _ in range(3))
+                mask = key_mask(b, T_)  # a ragged row and a row with no valid key
+                (o, lse), (po, plse) = A.fused_attention_lse(q, k, v, mask), A.fused_attention_plain(q, k, v, mask)
+                if dtype is bf16:
+                    err, rel, bnd = compare(tag, o, po)
+                else:
+                    err, rel, bnd = compare_f32(tag, o, po)
+                lse_err = (lse - plse).abs().max().item()
+                check(bool(torch.isfinite(lse).all()) and lse_err <= LSE_ATOL, f"{tag}: lse max abs err {lse_err:.3e} > {LSE_ATOL}")
+                # the planted fault: the mask ignored
+                fault = (A.fused_attention(q, k, v, torch.ones_like(mask)).float() - po.float()).abs().max().item()
+                check(fault > bnd, f"{tag}: the planted fault (mask ignored) passes the check ({fault:.4e} ≤ {bnd:.4e})")
+                tm = timings(lambda: A.fused_attention_lse(q, k, v, mask), lambda: A.fused_attention_plain(q, k, v, mask))
+                lib_ms, lib_call_ms = device_ms(lambda: sdpa_heads_first(q, k, v, mask)), time_ms(lambda: sdpa_heads_first(q, k, v, mask))
+                es = q.element_size()
+                nbytes = 4 * b * h * T_ * d * es + 4 * b * T_ + 4 * b * h * T_  # q, k, v in, o out; the mask; lse
+                bms, by = bound_ms(nbytes, **{"bf16" if dtype is bf16 else "f32": 4 * b * h * T_ * T_ * d})
+                report(f"{tag} lse_max_abs_err={lse_err:.3e} fault:mask_ignored={fault:.4e}", err, rel, bnd, tm, bms, by)
+                print(f"    sdpa (library, {dname}) ms={lib_ms:.4f} (device) call_ms={lib_call_ms:.4f}", flush=True)
+                main = dtype is bf16 and (b, h, T_, d) == row1_main
+                record("fused_attention", err, main, tm, bms, by)
+                if main:
+                    results["fused_attention"]["library_ms"] = lib_ms
+        # launches of the direct call, the entry point's own path
+        q, k, v = (rand(*row1_main) for _ in range(3))
+        mask = key_mask(2, row1_main[2])
+        reset_counts()
+        A.fused_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        fused_counts = counts()
+    check(fused_counts == {**zero, "fused_attention": 1}, f"one fused_attention call launched {fused_counts}")
+    phase("fused_attention", t0, launches=fused_counts["fused_attention"])
+
+    # --- 14. row 11, conv_stride2_fused, at the wav2vec2 stride-2 layers ------------------
+    t0 = time.perf_counter()
+    from msa_tpu_torch.profile_slice import CONV_LAYERS
+
+    def conv_err(got, want):
+        """(max abs err, that over the largest output)"""
+        err = (got.float() - want.float()).abs().max().item()
+        return err, err / want.float().abs().max().item()
+
+    for L_, k_ in CONV_LAYERS:
+        b, c = 64, 512
+        tag = f"conv_stride2_fused bf16 B={b} L={L_} k={k_} C={c}"
+        x = rand(b, L_, c)
+        w = rand(k_, c, c, scale=0.04, dtype=f32)
+        got, want = KC.conv_stride2_fused(x, w), KC.conv_stride2_reference(x, w)
+        out_len = (L_ - k_) // 2 + 1
+        check(tuple(got.shape) == (b, out_len, c) and bool(torch.isfinite(got).all()), f"{tag}: shape {tuple(got.shape)} or non-finite")
+        err, rel = conv_err(got, want)
+        check(rel < CONV_BF16_REL, f"{tag}: max abs err {rel:.3e} of the largest output ≥ {CONV_BF16_REL}")
+        fault_txt = ""
+        if k_ == 3:  # the planted fault: tap 2 dropped
+            w_f = w.clone()
+            w_f[2] = 0
+            fault = conv_err(KC.conv_stride2_fused(x, w_f), want)[1]
+            check(fault >= CONV_BF16_REL, f"{tag}: the planted fault (tap 2 dropped) passes the check ({fault:.3e})")
+            fault_txt = f" fault:tap2_dropped={fault:.3e}"
+        del got, want
+        x_ncw, w_oik = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).to(bf16).contiguous()
+        tm = timings(lambda: KC.conv_stride2_fused(x, w), lambda: KC.conv_stride2_reference(x, w))
+        lib_ms = device_ms(lambda: F_.conv1d(x_ncw, w_oik, stride=2))
+        lib_call_ms = time_ms(lambda: F_.conv1d(x_ncw, w_oik, stride=2))
+        flop = 2 * b * out_len * k_ * c * c
+        bms, by = bound_ms(2 * (b * L_ * c + k_ * c * c + b * out_len * c), bf16=flop)
+        print(
+            f"  {tag}: max_abs_err={err:.4e} rel={rel:.3e} (bound {CONV_BF16_REL}){fault_txt} {timing_text(tm, bms, by)} "
+            f"({flop / tm['ms'] / 1e9:.1f} TFLOP/s)",
+            flush=True,
+        )
+        print(f"    cudnn conv1d (library, bf16, NCW, no GELU) ms={lib_ms:.4f} (device) call_ms={lib_call_ms:.4f}", flush=True)
+        main = (L_, k_) == CONV_LAYERS[0]
+        record("conv_stride2_fused", err, main, tm, bms, by)
+        if main:
+            results["conv_stride2_fused"]["library_ms"] = lib_ms
+            reset_counts()  # launches of the direct call, the entry point's own path
+            KC.conv_stride2_fused(x, w)
+            torch.cuda.synchronize()
+            conv_counts = counts()
+        del x, x_ncw, w_oik
+        torch.cuda.empty_cache()
+    check(conv_counts == {**zero, "conv_stride2_fused": 1}, f"one conv_stride2_fused call launched {conv_counts}")
+    with G.exact_fp32():
+        for b, L_, k_, gelu in ((8, 1999, 3, True), (8, 999, 2, False)):
+            tag = f"conv_stride2_fused f32 B={b} L={L_} k={k_} C=512 gelu={gelu}"
+            x, w = rand(b, L_, 512, dtype=f32), rand(k_, 512, 512, scale=0.04, dtype=f32)
+            got, want = KC.conv_stride2_fused(x, w, gelu), KC.conv_stride2_reference(x, w, gelu)
+            over = ((got - want).abs() - CONV_F32_TOL * want.abs()).max().item()
+            check(over <= CONV_F32_TOL, f"{tag}: exceeds atol=rtol={CONV_F32_TOL} by {over:.3e}")
+            w_f = w.clone()
+            w_f[-1] = 0  # the last tap dropped
+            fault = ((KC.conv_stride2_fused(x, w_f, gelu) - want).abs() - CONV_F32_TOL * want.abs()).max().item()
+            check(fault > CONV_F32_TOL, f"{tag}: the planted fault (last tap dropped) passes the check")
+            tm = timings(lambda: KC.conv_stride2_fused(x, w, gelu), lambda: KC.conv_stride2_reference(x, w, gelu))
+            out_len = (L_ - k_) // 2 + 1
+            bms, by = bound_ms(4 * (b * L_ * 512 + k_ * 512 * 512 + b * out_len * 512), f32=2 * b * out_len * k_ * 512 * 512)
+            print(f"  {tag}: max abs err {(got - want).abs().max().item():.3e} {timing_text(tm, bms, by)}", flush=True)
+    phase("conv_stride2_fused", t0, launches=conv_counts["conv_stride2_fused"])
+
+    # --- 15. the default diarizer on the card: NeuralDiarizer, shipped speaker net ---------
+    t0 = time.perf_counter()
+    from msa_tpu_torch.core.config import DiarizationConfig, ProcessingConfig
+    from msa_tpu_torch.host import diarization as HD
+
+    wav = meeting_waveform()
+    d_card = HD.make_diarizer("neural", ProcessingConfig(), DiarizationConfig(), device=dev)
+    d_cpu = HD.make_diarizer("neural", ProcessingConfig(), DiarizationConfig(), device="cpu")
+    check(isinstance(d_card, HD.NeuralDiarizer) and d_card.device.type == "cuda", f"make_diarizer('neural') gave {type(d_card).__name__}")
+    reset_counts()
+    segs_card, segs_cpu = d_card.diarize(wav, SR), d_cpu.diarize(wav, SR)
+    torch.cuda.synchronize()
+    check(counts() == zero, f"the diarizer launched port kernels: {counts()}")
+    windows, _ = d_card._span_windows(wav, d_card.segment_boundaries(wav, SR), SR)
+    emb_err = (d_card.embed(windows).cpu() - d_cpu.embed(windows)).abs().max().item()
+    diar_ms = statistics.median(host_ms(lambda: d_card.diarize(wav, SR)) for _ in range(5))
+    embed_ms = time_ms(lambda: d_card.embed(windows), reps=10)
+    as_rows = lambda segs: [(round(s["start"], 6), round(s["end"], 6), s["speaker"]) for s in segs]  # noqa: E731
+    print(
+        f"  NeuralDiarizer on {len(wav) / SR:.0f} s: {len(segs_card)} segments, speakers "
+        f"{sorted(set(s['speaker'] for s in segs_card))}, {len(windows)} windows; embeddings card vs CPU max abs err "
+        f"{emb_err:.3e} (bound {EMB_ATOL}); {diar_ms:.3f} ms per diarize (median of 5, host clock, VAD + embedding + "
+        f"clustering), embedding {embed_ms:.3f} ms (CUDA events)",
+        flush=True,
+    )
+    print(f"    card: {as_rows(segs_card)}", flush=True)
+    check(len(segs_card) >= 2, f"the diarizer found {len(segs_card)} segments in the meeting")
+    check(as_rows(segs_card) == as_rows(segs_cpu), f"segments or labels differ from the CPU's: {as_rows(segs_cpu)}")
+    check(emb_err <= EMB_ATOL, f"speaker embeddings card vs CPU {emb_err:.3e} > {EMB_ATOL}")
+    phase("neural_diarizer", t0, ms_per_diarize=f"{diar_ms:.3f}")
+
+    # --- 16. the default transcriber on the card: the shipped whisper ASR, B=8 -----------------
+    t0 = time.perf_counter()
+    from msa_tpu_torch.host import transcription as HT
+    from msa_tpu_torch.models import whisper as W
+
+    fixture = np.load(ASR_FIXTURE)
+    waves, want_text = fixture["waves"], [str(s) for s in fixture["transcripts"]]
+    tr = HT.make_transcriber("auto", scale="full", device=dev)
+    tr_cpu = HT.make_transcriber("auto", scale="full", device="cpu")
+    check(isinstance(tr, HT.WhisperTranscriber) and tr.device.type == "cuda", f"make_transcriber('auto') gave {type(tr).__name__}")
+    cfg_w, nb = tr.cfg, waves.shape[0]
+    waves_dev = torch.from_numpy(waves).to(dev)
+
+    def mel_and_first_logits(t, w16):
+        with torch.inference_mode(), G.exact_fp32():
+            mel = W.log_mel_window(w16.float() / 32768.0, cfg_w)
+            enc = t.model.encoder(mel)
+            blocks = t.model.decoder.blocks()
+            caches = [
+                tuple(torch.zeros(nb, cfg_w.max_target_positions, cfg_w.d_model, device=w16.device) for _ in range(2))
+                for _ in blocks
+            ]
+            start = torch.full((nb,), cfg_w.decoder_start_token_id, dtype=torch.long, device=w16.device)
+            return mel, t.model.decoder.decode_step(start, 0, caches, [blk.encoder_attn.kv(enc) for blk in blocks])
+
+    _, logits_card = mel_and_first_logits(tr, waves_dev)
+    mel_cpu, logits_cpu = mel_and_first_logits(tr_cpu, torch.from_numpy(waves))
+    logit_err = (logits_card.cpu() - logits_cpu).abs().max().item()
+    valid = torch.ones(nb, dtype=torch.bool)
+    reset_counts()
+    packed_card = tr.graph(waves_dev, valid.to(dev)).cpu().numpy()
+    torch.cuda.synchronize()
+    check(counts() == zero, f"the transcriber launched port kernels: {counts()}")
+    packed_cpu = tr_cpu.graph(torch.from_numpy(waves), valid).numpy()
+    diverged = []
+    for r in range(nb):
+        diff = np.nonzero(packed_card[r, :-1] != packed_cpu[r, :-1])[0]
+        if len(diff):  # the CPU's top-2 margin at the first step that differs
+            i = int(diff[0])
+            prefix = [cfg_w.decoder_start_token_id] + packed_cpu[r, :i].tolist()
+            with torch.inference_mode(), G.exact_fp32():
+                last = tr_cpu.model(mel_cpu[r : r + 1], torch.tensor([prefix]))[0, -1]
+            top2 = last.topk(2).values
+            diverged.append((r, i, (top2[0] - top2[1]).item()))
+    texts = tr.transcribe_batch(list(waves.astype(np.float32) / 32768.0), SR)
+    resident = tr.collect_batch(tr.dispatch_resident(waves_dev, nb))
+    batch_ms = statistics.median(host_ms(lambda: tr.transcribe_batch(list(waves.astype(np.float32) / 32768.0), SR)) for _ in range(5))
+    steps = int(packed_card[:, -1].max()) + 1
+    print(
+        f"  shipped whisper ASR ({cfg_w.d_model}d, {cfg_w.encoder_layers}+{cfg_w.decoder_layers} layers) on {nb} windows of "
+        f"{waves.shape[1] / SR:.0f} s: first-step logits card vs CPU max abs err {logit_err:.3e} (bound {WHISPER_LOGITS_ATOL}); "
+        f"tokens equal to the CPU's in {nb - len(diverged)} of {nb} rows, diverging {diverged}; {steps} decode steps; "
+        f"{batch_ms:.3f} ms per batch of {nb} (median of 5, host clock: upload, mel, decode, fetch, detokenize)",
+        flush=True,
+    )
+    print(f"    card: {texts}", flush=True)
+    check(logit_err <= WHISPER_LOGITS_ATOL, f"whisper first-step logits card vs CPU {logit_err:.3e} > {WHISPER_LOGITS_ATOL}")
+    for r, i, margin in diverged:
+        check(margin < WHISPER_LOGITS_ATOL, f"whisper row {r} step {i}: tokens differ where the CPU's top-2 margin is {margin:.3e}")
+    check(texts == want_text, f"transcripts {texts} differ from JAX's {want_text}")
+    check(resident == want_text, f"dispatch_resident transcripts {resident} differ from JAX's")
+    phase("whisper_transcriber", t0, ms_per_batch=f"{batch_ms:.3f}")
+
     kernels = [
         {
             "name": name,
@@ -1223,6 +1506,16 @@ def main() -> int:
             ),
             ("attention_bwd_dq", "msa_tpu_torch/csrc/attention_bwd.cu", "msa_tpu/ops/pallas/attention.py:370", train_counts, ON_TRAIN),
             ("attention_bwd_dkv", "msa_tpu_torch/csrc/attention_bwd.cu", "msa_tpu/ops/pallas/attention.py:395", train_counts, ON_TRAIN),
+            (
+                "fused_attention", "msa_tpu_torch/csrc/attention_fused.cu", "msa_tpu/ops/pallas/attention.py:206", fused_counts,
+                "phase 13: one fused_attention call at B=2 H=12 T=512 D=64, bf16; a run_host forward and a training step "
+                "launch it 0 times (phases 4, 5, 12)",
+            ),
+            (
+                "conv_stride2_fused", "msa_tpu_torch/csrc/conv_stride2.cu", "msa_tpu/ops/pallas/conv.py:111", conv_counts,
+                "phase 14: one conv_stride2_fused call at B=64 L=15999 k=3 C=512, bf16; a run_host forward and a training "
+                "step launch it 0 times (the extractor convolves in cuDNN, as JAX's in XLA)",
+            ),
         )
     ]
     phase("total", t_all)

@@ -200,8 +200,8 @@ class Leaf:
 
     path: Tuple[str, ...]
     shape: Tuple[int, ...]
-    init: str  # "lecun_normal" | "xavier_uniform" | "embed_normal" | "const"
-    value: float = 0.0
+    init: str  # "lecun_normal" | "xavier_uniform" | "embed_normal" | "normal" | "const"
+    value: float = 0.0  # the constant, or the normal's std
 
     @property
     def counter(self) -> int:
@@ -215,6 +215,8 @@ def _scale_of(leaf: Leaf) -> Tuple[str, float]:
     ``variance_scaling`` computes them."""
     if leaf.init == "embed_normal":  # fan_in = features (in_axis -1, out_axis 0)
         return "normal", float(np.sqrt(np.float32(1.0 / leaf.shape[-1])))
+    if leaf.init == "normal":  # nn.initializers.normal(std)
+        return "normal", float(np.float32(leaf.value))
     receptive = math.prod(leaf.shape[:-2])
     fan_in, fan_out = leaf.shape[-2] * receptive, leaf.shape[-1] * receptive
     if leaf.init == "lecun_normal":
@@ -277,6 +279,8 @@ def leaves(module: nn.Module) -> Iterator[Tuple[Leaf, torch.Tensor]]:
                 yield Leaf(path + ("embedding",), tuple(p.shape), "embed_normal"), p
             elif isinstance(owner, (LayerNorm, FlaxGroupNorm, nn.GroupNorm)):
                 yield Leaf(path + ("scale",), tuple(p.shape), "const", 1.0), p
+            elif pname == "embed_positions":  # the whisper decoder's learned positions
+                yield Leaf(path + (pname,), tuple(p.shape), "normal", 0.02), p
             elif isinstance(owner, FusionMLP) and pname in _FUSION_CONSTANTS:
                 yield Leaf(path + (pname,), (), "const", _FUSION_CONSTANTS[pname]), p
             else:

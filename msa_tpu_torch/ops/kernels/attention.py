@@ -51,6 +51,10 @@ with no valid key averages V over all padded rows, as on the TPU; the lse
 is ``max + log(denom)`` in f32. :func:`mha_attention` (row 2,
 ``_mha_attention_lse``, ``pl.pallas_call`` at :150) is row 5's function on
 q, k, v [B, H, T, D], through the same CUDA core with its own entry point.
+:func:`fused_attention` / :func:`fused_attention_lse` (row 1,
+``_fused_attention_lse``, ``pl.pallas_call`` at :206) is the same function
+again at any T and in f32 as well as bf16, through its own kernel
+(``csrc/attention_fused.cu``); no path of the system reaches it, as in JAX.
 
 Training (``_bwd_dq_kernel``/``_bwd_dkv_kernel``, ``pl.pallas_call`` at
 :370 and :395, rows 3 and 4): :func:`attention_bwd` takes the forward's
@@ -406,6 +410,66 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: t
 
 
 mha_attention.launches = 0  # kernel launches since the last reset (the smoke reads it)
+
+
+# --- row 1: the public fused_attention, any T, f32 or bf16 ------------------------
+
+# Row 1 computes rows 2 and 5's function (exact row max, p/denom rounded to
+# v's dtype before P·V) with neither one's limits: any T, f32 as well as
+# bf16. Its plain version is theirs.
+fused_attention_plain = mha_attention_plain
+
+
+def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor, block_q: int = 256, pad_d: bool = False):
+    """JAX's ``_fused_attention_lse``: q, k, v [B, H, T, D] (f32 or bf16,
+    any T, D ≤ 128), key_mask [B, T] f32 (1 = attend) → (o [B, H, T, D] in
+    q's dtype, lse [B, H, T] f32). ``block_q`` and ``pad_d`` are the TPU
+    kernel's tiling knobs; zero padding is exact, so they change nothing
+    and are ignored. CPU tensors take :func:`fused_attention_plain`; CUDA
+    tensors launch the kernel of ``csrc/attention_fused.cu``."""
+    del block_q, pad_d
+    if q.device.type == "cpu":
+        return fused_attention_plain(q, k, v, key_mask)
+    b, h, t, d = q.shape
+    if q.dtype not in (torch.float32, torch.bfloat16) or not 1 <= d <= 128:
+        raise ValueError(f"fused_attention kernel takes f32 or bf16 with D ≤ 128, got {q.dtype} {tuple(q.shape)}")
+    dev = q.device
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        require(x, name, q.dtype, (b, h, t, d), dev)
+    key_mask = key_mask.float().contiguous()
+    require(key_mask, "key_mask", torch.float32, (b, t), dev)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = build.library().msa_fused_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        b, t, h, d, int(q.dtype == torch.bfloat16), _scale(d), stream,
+    )
+    build.check(rc, "fused_attention")
+    fused_attention_lse.launches += 1
+    return o, lse
+
+
+fused_attention_lse.launches = 0  # kernel launches since the last reset (the smoke reads it)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor, block_q: int = 256) -> torch.Tensor:
+    """softmax(q·kᵀ/√d + mask_bias)·v: q, k, v [B, H, T, D], key_mask
+    [B, T] (1 = attend) → [B, H, T, D] in q's dtype (JAX's public
+    ``fused_attention``; :func:`fused_attention_lse` without the lse)."""
+    return fused_attention_lse(q, k, v, key_mask, block_q)[0]
+
+
+def reference_attention(q, k, v, key_mask):
+    """JAX's plain-XLA ``reference_attention``: scores in the operands'
+    dtype, an f32 softmax over the −1e9-masked scores, P rounded to v's
+    dtype for P·V. Unpadded: a row with no valid key averages V over its
+    T keys."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * _scale(q.shape[-1])
+    s = s + _mask_bias(key_mask)[:, None, None, :]
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
 
 
 # --- the backward (rows 3 and 4) -------------------------------------------------

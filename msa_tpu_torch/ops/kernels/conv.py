@@ -1,0 +1,83 @@
+"""VALID stride-2 conv1d with an optional exact GELU, as one GEMM per batch
+row.
+
+Replaces the TPU kernel ``msa_tpu/ops/pallas/conv.py:conv_stride2_fused``
+(``pl.pallas_call`` at :111, body ``_conv_kernel`` :54-75). The CUDA
+kernel is ``msa_tpu_torch/csrc/conv_stride2.cu``; its note says why the
+conv is a GEMM over the input read with a row stride of 2C, and what
+bounds it on the card.
+
+Layouts are JAX's: ``x [B, L, C]``, ``w [k, C, C']`` (``nn.Conv``'s
+kernel), out ``[B, (L − k)//2 + 1, C']`` in x's dtype. The weight is cast
+to x's dtype first. Products accumulate in f32, the GELU (the A&S erf form
+of the TPU kernel) runs in f32 and the result is rounded once.
+
+As in JAX, no path of the system reaches it: the audio extractor convolves
+in the library (``models/audio.py``), as JAX's production path does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from msa_tpu_torch.ops.kernels import build
+from msa_tpu_torch.ops.kernels._common import require
+from msa_tpu_torch.ops.kernels.ffn import gelu_as
+
+
+def _check_shapes(x: torch.Tensor, w: torch.Tensor) -> int:
+    """JAX's asserts (conv.py:98-99): → out_len."""
+    b, length, c = x.shape
+    k, cin, cout = w.shape
+    if k not in (2, 3) or cin != c:
+        raise ValueError(f"conv_stride2 takes w [k ∈ (2, 3), C, C'] with C = {c}, got {tuple(w.shape)}")
+    if c % 128 or cout % 128:
+        raise ValueError(f"conv_stride2 needs C and C' multiples of 128, got {c}, {cout}")
+    if length < k:
+        raise ValueError(f"conv_stride2 needs L ≥ k, got L={length}, k={k}")
+    return (length - k) // 2 + 1
+
+
+def conv_stride2_reference(x: torch.Tensor, w: torch.Tensor, apply_gelu: bool = True) -> torch.Tensor:
+    """Plain version: the same GEMM over the same overlapping rows of x
+    (row stride 2C), computed in f32 from the operands rounded to x's dtype,
+    then the f32 GELU and one rounding."""
+    out_len = _check_shapes(x, w)
+    b, length, c = x.shape
+    k, _, cout = w.shape
+    xf = x.float().contiguous()
+    taps = xf.as_strided((b, out_len, k * c), (length * c, 2 * c, 1))
+    y = taps @ w.to(x.dtype).float().reshape(k * c, cout)
+    if apply_gelu:
+        y = gelu_as(y)
+    return y.to(x.dtype)
+
+
+def conv_stride2_fused(x: torch.Tensor, w: torch.Tensor, apply_gelu: bool = True) -> torch.Tensor:
+    """x [B, L, C] (f32 or bf16), w [k, C, C'] → [B, (L − k)//2 + 1, C'] in
+    x's dtype. CPU tensors take :func:`conv_stride2_reference`; CUDA
+    tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return conv_stride2_reference(x, w, apply_gelu)
+    out_len = _check_shapes(x, w)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"conv_stride2 kernel takes f32 or bf16, got {x.dtype}")
+    b, length, c = x.shape
+    k, _, cout = w.shape
+    dev = x.device
+    x = x.contiguous()
+    w = w.to(x.dtype).contiguous()
+    require(x, "x", x.dtype, (b, length, c), dev)
+    require(w, "w", x.dtype, (k, c, cout), dev)
+    out = torch.empty((b, out_len, cout), dtype=x.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = build.library().msa_conv_stride2(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), b, length, c, cout, k, int(apply_gelu),
+        int(x.dtype == torch.bfloat16), stream,
+    )
+    build.check(rc, "conv_stride2_fused")
+    conv_stride2_fused.launches += 1
+    return out
+
+
+conv_stride2_fused.launches = 0  # kernel launches since the last reset (the smoke reads it)

@@ -28,18 +28,18 @@ the graph.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import logging
 import os
-from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from msa_tpu_torch import flax_init, weights
+from msa_tpu_torch.assets import resolve_asset
+from msa_tpu_torch.precision import exact_fp32
 from msa_tpu_torch.checkpoints import flax_msgpack
 from msa_tpu_torch.core import emotions
 from msa_tpu_torch.core.config import SystemConfig
@@ -59,18 +59,6 @@ from msa_tpu_torch.ops import face_features as FF
 from msa_tpu_torch.ops.normalization import normalize_audio, normalize_face, normalize_text
 
 QUANTIZE_MODES = ("none", "int8")
-
-# The shipped checkpoints are data files of the JAX package; they are read
-# by path (config defaults are "checkpoints/<name>", relative to msa_tpu/).
-_ASSET_ROOT = Path(__file__).resolve().parents[2] / "msa_tpu"
-
-
-def resolve_asset(rel: str) -> Path:
-    for cand in (Path(rel), _ASSET_ROOT / rel):
-        if cand.exists():
-            return cand
-    raise FileNotFoundError(f"shipped asset {rel} not found (looked in . and {_ASSET_ROOT})")
-
 
 logger = logging.getLogger(__name__)
 
@@ -408,19 +396,6 @@ def pack_stream_inputs(
             scalars.view(np.uint8),
         ]
     )
-
-
-@contextlib.contextmanager
-def exact_fp32():
-    """TF32 off for the f32 convolutions, matmuls and feature math (cuDNN
-    convolutions default to TF32, which keeps ~3 digits)."""
-    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
 def _blend(x: torch.Tensor, default: torch.Tensor, avail: torch.Tensor) -> torch.Tensor:

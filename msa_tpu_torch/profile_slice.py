@@ -1,7 +1,7 @@
 """Where the time of one serving forward, or one training step, goes on the card.
 
     python3 -m msa_tpu_torch.profile_slice [--tokens 512] [--batch 2] [--steps 3] [--quantize int8|none]
-                                           [--samples 80000] [--train]
+                                           [--samples 80000] [--train | --conv | --asr]
 
 Builds the full-width models (``PipelineModels.initialize``, by default in
 the int8 serving recipe; ``--quantize none`` for the bf16 one), runs the
@@ -15,7 +15,15 @@ busy time per forward (sum of kernel durations, from the trace) and its idle
 share, and the kernels ranked by device time. ``--train`` profiles instead
 one training step of the text model (``msa_tpu_torch.training``: bf16,
 kernel attention, dropout 0; forward, backward and AdamW) at ``--batch``
-(default 8) × ``--tokens``. Needs a CUDA device.
+(default 8) × ``--tokens``. ``--conv`` times instead the counterpart of
+``tools/conv_bench.py``: ``conv_stride2_fused`` (row 11) at the wav2vec2
+extractor's six stride-2 layers, 512 → 512 channels, bf16, at ``--batch``
+(default 64), beside its plain version and cuDNN's bf16 ``F.conv1d`` (on
+the channels-first input, transposed once outside the timing; without the
+GELU), each the median of ``--steps`` CUDA-event timings. ``--asr``
+profiles instead one ``transcribe_batch`` of the shipped whisper ASR on
+``--batch`` (default 8) windows of ``tests/data/asr_clips.npz``. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -41,11 +50,15 @@ def main(argv=None) -> int:
     ap.add_argument("--quantize", choices=("int8", "none"), default="int8")
     ap.add_argument("--samples", type=int, default=SystemConfig().pipeline.segment_samples)
     ap.add_argument("--train", action="store_true", help="one text training step instead of a forward")
+    ap.add_argument("--conv", action="store_true", help="row 11 at the wav2vec2 stride-2 layers instead of a forward")
+    ap.add_argument("--asr", action="store_true", help="one batch of the shipped whisper ASR instead of a forward")
     args = ap.parse_args(argv)
-    b = args.batch or (8 if args.train else 2)
+    b = args.batch or (64 if args.conv else 8 if args.train or args.asr else 2)
     if not torch.cuda.is_available():
         print("profile_slice: needs a CUDA device", file=sys.stderr)
         return 2
+    if args.conv:
+        return conv_layers(b, max(args.steps, 5))
     from torch.profiler import ProfilerActivity, profile
 
     from msa_tpu_torch.pipeline import graph as G
@@ -57,10 +70,20 @@ def main(argv=None) -> int:
         ).stdout.strip(),
         flush=True,
     )
-    models = G.PipelineModels.initialize(seed=0, quantize=args.quantize, device="cuda")
     rng = np.random.default_rng(0)
     tokens, samples = args.tokens, args.samples
-    if args.train:
+    if args.asr:
+        from msa_tpu_torch.host.transcription import make_transcriber
+
+        tr = make_transcriber("auto", scale="full", device="cuda")
+        waves = np.load(ASR_CLIPS)["waves"][:b]
+        clips = list(waves.astype(np.float32) / 32768.0)
+
+        def run():
+            tr.transcribe_batch(clips, 16_000)
+
+    elif args.train:
+        models = G.PipelineModels.initialize(seed=0, quantize=args.quantize, device="cuda")
         from msa_tpu_torch import training
 
         text = models.with_encoders(dropout=0.0).text.requires_grad_(True)
@@ -75,6 +98,7 @@ def main(argv=None) -> int:
             training.train_step(text, training.text_loss, opt, *batch)
 
     else:
+        models = G.PipelineModels.initialize(seed=0, quantize=args.quantize, device="cuda")
         pipe = G.SegmentPipeline(models, SystemConfig(pipeline=PipelineConfig(segment_samples=samples)))
         inp = G.SegmentInputs.zeros(models, b, samples=samples, tokens=tokens)
         inp.frames = rng.integers(0, 256, size=inp.frames.shape, dtype=np.uint8)
@@ -108,13 +132,74 @@ def main(argv=None) -> int:
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     wall_ms = 1e3 * float(np.median(walls))
-    what = "text training step" if args.train else f"quantize={args.quantize} samples={samples} forward"
+    what = (
+        "whisper batch" if args.asr else "text training step" if args.train
+        else f"quantize={args.quantize} samples={samples} forward"
+    )
     print(f"{what} B={b} tokens={tokens}: wall {wall_ms:.3f} ms (median of {args.steps}), "
           f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
     for us, n, key in rows[: args.top]:
         print(f"  {us / 1e3:9.4f} ms  {n:5d}x  {100 * us / 1e3 / busy_ms:5.1f}%  {key[:90]}", flush=True)
-    print(json.dumps({"train": args.train, "quantize": args.quantize, "batch": b, "tokens": tokens, "samples": samples, "wall_ms": wall_ms,
+    print(json.dumps({"train": args.train, "asr": args.asr, "quantize": args.quantize, "batch": b, "tokens": tokens, "samples": samples, "wall_ms": wall_ms,
                       "device_busy_ms": busy_ms, "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+# 8 windows of 5 s of synthetic speech, int16 (tests/test_torch_whisper.py)
+ASR_CLIPS = Path(__file__).resolve().parents[1] / "tests" / "data" / "asr_clips.npz"
+
+# wav2vec2-base's stride-2 layers after the k=10/s=5 stem, on 5 s of audio:
+# (L_in, k), all 512 → 512 channels (tools/conv_bench.py:42-44)
+CONV_LAYERS = ((15999, 3), (7999, 3), (3999, 3), (1999, 3), (999, 2), (499, 2))
+
+
+def _event_ms(fn, reps: int) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def conv_layers(b: int, reps: int) -> int:
+    """Row 11 against its plain version and cuDNN at the six layers."""
+    import torch.nn.functional as F
+
+    from msa_tpu_torch.ops.kernels.conv import conv_stride2_fused, conv_stride2_reference
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for length, k in CONV_LAYERS:
+        x = torch.randn(b, length, 512, generator=g, device="cuda").to(torch.bfloat16)
+        w = 0.04 * torch.randn(k, 512, 512, generator=g, device="cuda")
+        got, want = conv_stride2_fused(x, w), conv_stride2_reference(x, w)
+        rel = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+        x_ncw, w_oik = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).to(torch.bfloat16).contiguous()
+        out_len = (length - k) // 2 + 1
+        flop = 2 * b * out_len * k * 512 * 512
+        row = {
+            "L": length, "k": k, "batch": b, "rel_err": rel,
+            "kernel_ms": _event_ms(lambda: conv_stride2_fused(x, w), reps),
+            "plain_ms": _event_ms(lambda: conv_stride2_reference(x, w), reps),
+            "cudnn_ms": _event_ms(lambda: F.conv1d(x_ncw, w_oik, stride=2), reps),
+            "bound_ms": 1e3 * max(flop / 989e12, 2 * (b * length * 512 + k * 512 * 512 + b * out_len * 512) / 3.35e12),
+        }
+        rows.append(row)
+        print(f"L={length:6d} k={k}  kernel {row['kernel_ms']:8.3f} ms ({flop / row['kernel_ms'] / 1e9:6.1f} TFLOP/s)"
+              f"  plain {row['plain_ms']:8.3f}  cudnn {row['cudnn_ms']:8.3f} ms ({flop / row['cudnn_ms'] / 1e9:6.1f} TFLOP/s)"
+              f"  bound {row['bound_ms']:.4f}  rel_err {rel:.2e}", flush=True)
+        del x, w, got, want, x_ncw
+    total = {key: sum(r[key] for r in rows) for key in ("kernel_ms", "plain_ms", "cudnn_ms", "bound_ms")}
+    print(f"TOTAL stride-2 layers: kernel {total['kernel_ms']:.3f} ms  cudnn {total['cudnn_ms']:.3f} ms  "
+          f"bound {total['bound_ms']:.4f} ms", flush=True)
+    print(json.dumps({"conv": rows, "total": total, "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 
 

@@ -30,7 +30,14 @@ def test_the_port_is_there():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for want in (
         "chip_smoke.py",
+        "msa_tpu_torch/host/audio_io.py",
+        "msa_tpu_torch/host/bpe.py",
+        "msa_tpu_torch/host/diarization.py",
+        "msa_tpu_torch/host/transcription.py",
+        "msa_tpu_torch/models/speaker.py",
+        "msa_tpu_torch/models/whisper.py",
         "msa_tpu_torch/ops/kernels/attention.py",
+        "msa_tpu_torch/ops/kernels/conv.py",
         "msa_tpu_torch/ops/kernels/ffn.py",
         "msa_tpu_torch/ops/kernels/quant.py",
         "msa_tpu_torch/ops/quant.py",

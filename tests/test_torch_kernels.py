@@ -112,7 +112,10 @@ def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
     from msa_tpu_torch.ops.kernels import build
 
     names = {p.name for p in build._sources()}
-    assert names == {"attention.cu", "attention_bwd.cu", "attention_flash.cu", "attention_packed.cu", "ffn.cu", "quant.cu"}
+    assert names == {
+        "attention.cu", "attention_bwd.cu", "attention_flash.cu", "attention_fused.cu", "attention_packed.cu",
+        "conv_stride2.cu", "ffn.cu", "quant.cu",
+    }
     assert {p.name for p in build.CSRC.glob("*.cuh")} == {"gemm.cuh", "gemm_s8.cuh"}
     assert build.ARCH_FLAGS == ("-gencode", "arch=compute_90a,code=sm_90a")
     assert "-shared" in build.NVCC_FLAGS and not any("fast_math" in f for f in build.NVCC_FLAGS)
@@ -130,6 +133,8 @@ def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
         "msa_mha_attention",
         "msa_attention_bwd_dq",
         "msa_attention_bwd_dkv",
+        "msa_fused_attention",
+        "msa_conv_stride2",
     }
     for name in build._SIGNATURES:  # every bound entry point is defined in a source
         assert any(f'extern "C" int {name}(' in p.read_text() for p in build._sources()), name
