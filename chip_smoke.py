@@ -5,12 +5,15 @@
 Phases, one line each with its seconds:
   1. require CUDA; print the card's name and power limit;
   2. build the hand-written kernels (one nvcc call, from msa_tpu_torch/csrc);
+     print ptxas's registers and spills of each kernel, and of the flash
+     and packed-QKV attention kernels once more on a line each;
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, and time both with CUDA events: the bf16
      attention_block and ffn_fused, the row-quantize kernel (exactly: codes
      and scales equal), attention_block_int8 and ffn_fused_int8, and the
-     attention-only kernels packed_qkv_attention and flash_attention (o and
-     lse, with a ragged T and a row with no valid key), beside one
+     attention-only kernels packed_qkv_attention (also at the text and 5 s
+     audio training steps' shapes, B=8) and flash_attention (o and lse,
+     with a ragged T and a row with no valid key), beside one
      scaled_dot_product_attention call on the same inputs as yardstick;
   4. the bf16 recipe at full width: PipelineModels.initialize(
      quantize="none") → SegmentPipeline.run_host at B=2, at the 512-token and
@@ -245,7 +248,11 @@ def device_ms(fn, reps: int = 20) -> float:
     :func:`time_ms` it leaves out the host's time between launches. Late in
     a long process the trace can lose a few kernels (18 of 20 recorded,
     where a fresh process records all 20): each kernel name then counts its
-    mean recorded duration times its launches per call, rounded."""
+    mean recorded duration times its launches per call, rounded. Where
+    three traces in a row record no device time at all (seen once, late in
+    the smoke, on a 7 µs kernel), it prints so and returns the CUDA-event
+    time of ``reps`` calls back to back over ``reps`` instead, which holds
+    the host's launch gaps."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -263,7 +270,9 @@ def device_ms(fn, reps: int = 20) -> float:
                 per_call += us / e.count * max(1, round(e.count / reps))
         if per_call > 0:
             return per_call / 1e3
-    raise SmokeFailure("the profiler recorded no device time, three times")
+    seen = sorted({f"{e.key[:40]} ({e.device_type})" for e in prof.key_averages()})
+    print(f"  device_ms: three traces recorded no device time (events: {seen}); CUDA-event time instead", flush=True)
+    return time_ms(lambda: [fn() for _ in range(reps)], reps=5) / reps
 
 
 def host_ms(fn) -> float:
@@ -302,6 +311,23 @@ def meeting_waveform(seconds: float = 20.0) -> np.ndarray:
         x *= 0.25 * (1 + 0.4 * np.sin(2 * np.pi * rng.uniform(2.5, 4.5) * t))
         out[pos : pos + m] += x.astype(np.float32)
         pos, turn = pos + m + int(0.8 * SR), turn + 1
+
+
+def ptxas_usage(log: str, kernels) -> dict:
+    """Registers and spills of each instance of the named kernels, from
+    the ``-Xptxas -v`` log: {"flash_kernel<64>": "168 registers, ..."}."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = next((f"{k}<{mangled.split(k + 'ILi')[1].split('E')[0]}>" for k in kernels if k + "ILi" in mangled), None)
+        elif name and "spill" in line:
+            usage[name] = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            usage[name] = f"{regs} registers, {usage.get(name, 'no spill line')}"
+            name = None
+    return usage
 
 
 def bound_ms(nbytes: float, **ops: float):
@@ -386,6 +412,8 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip().split("ptxas info    :")[-1].strip(), flush=True)
+    for kernel, used in ptxas_usage(log, ("flash_kernel", "packed_qkv_kernel")).items():
+        print(f"  ptxas {kernel}: {used}", flush=True)
     phase("build", t0, library=lib_path.name)
 
     # --- 3. kernels against their plain versions --------------------------------
@@ -538,12 +566,14 @@ def main() -> int:
         bias = torch.where(mask > 0, 0.0, -1e9).to(qkv.dtype)[:, None, None, :]
         return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias)
 
-    # the attention-only kernels: row 5 at the custom-width encoder's shape
-    # and the full-width training shape, row 6 at 15 s and 30 s of audio;
-    # ragged T everywhere, and a row with no valid key where B=2
+    # the attention-only kernels: row 5 at the custom-width encoder's shape,
+    # at B=2 T=512, and at the text and 5 s audio training steps' shapes
+    # (B=8; the text step's is row 5's recorded shape), row 6 at 15 s and
+    # 30 s of audio; ragged T everywhere, and a row with no valid key where
+    # B > 1
     for name, kernel, plain, main_shape, shapes in (
-        ("packed_qkv_attention", A.packed_qkv_attention, A.packed_qkv_attention_plain, (2, 40, 4, 24),
-         ((2, 40, 4, 24), (2, 512, 12, 64))),
+        ("packed_qkv_attention", A.packed_qkv_attention, A.packed_qkv_attention_plain, (8, 512, 12, 64),
+         ((2, 40, 4, 24), (2, 512, 12, 64), (8, 512, 12, 64), (8, 250, 12, 64))),
         ("flash_attention", A.flash_attention, A.flash_attention_plain, (2, 749, 12, 64),
          ((2, 749, 12, 64), (1, 1499, 12, 64))),
     ):
@@ -551,7 +581,7 @@ def main() -> int:
             qkv = rand(b, T_, 3, h, d)
             mask = torch.ones(b, T_, device=dev)
             mask[0, T_ * 2 // 3 :] = 0.0  # a ragged valid length
-            if b == 2:
+            if b > 1:
                 mask[1] = 0.0  # a row with no valid key
             (o, lse), (po, plse) = kernel(qkv, mask), plain(qkv, mask)
             err, rel, bnd = compare(f"{name} B={b} T={T_} H={h} D={d}", o, po)
@@ -941,7 +971,6 @@ def main() -> int:
     x_c = rand(2, 40, 96)
     mask_c = torch.ones(2, 40, device=dev)
     mask_c[1, 25:] = 0.0
-    custom_counts = {name: 0 for name in counters}
     for quantize in ("none", "int8"):
         cfg = T.EncoderConfig(
             num_layers=2, d_model=96, num_heads=4, d_ff=256, compute_dtype="bfloat16",
@@ -954,7 +983,6 @@ def main() -> int:
             got = enc(x_c, mask_c)
         torch.cuda.synchronize()
         c = counts()
-        custom_counts = {k: custom_counts[k] + v for k, v in c.items()}
         check(c == {**zero, "packed_qkv_attention": 2}, f"custom-width encoder ({quantize}): launches {c}, expected 2 packed_qkv_attention")
         with swapped(T, packed_qkv_attention=A.packed_qkv_attention_plain), torch.inference_mode():
             want = enc(x_c, mask_c)
@@ -1493,7 +1521,7 @@ def main() -> int:
             ("quantize_rows", "msa_tpu_torch/csrc/quant.cu", "msa_tpu/ops/quant.py:47", int8_counts, ON_INT8),
             (
                 "packed_qkv_attention", "msa_tpu_torch/csrc/attention_packed.cu", "msa_tpu/ops/pallas/attention.py:489",
-                custom_counts, "phase 9: one forward of the custom-width encoder (d_model 96) in each recipe",
+                train_counts, f"{ON_TRAIN} (its recorded shape); phase 9's custom-width forward launches it 2 times in each recipe",
             ),
             (
                 "flash_attention", "msa_tpu_torch/csrc/attention_flash.cu", "msa_tpu/ops/pallas/attention.py:948",

@@ -1,0 +1,218 @@
+// The register-resident attention core of the flash (row 6) and packed-QKV
+// (rows 5 and 2) kernels: tensor-core products through raw PTX
+// (mma.sync.m16n8k16 bf16 → f32, operands from ldmatrix), K/V tiles
+// brought into shared memory with cp.async, and the per-row statistics of
+// the softmax kept in registers.
+//
+// A warp owns 16 query rows. In the m16n8k16 layouts a lane holds, of each
+// 16 × 8 accumulator tile, rows g = lane/4 and g + 8 at columns 2·(lane%4)
+// and 2·(lane%4) + 1: so a row's values are spread over the 4 lanes of one
+// quad, which reduce a row max or a row sum with two shuffles (xor 1, 2).
+// The score accumulators of key n-tiles 2i and 2i+1, rounded to bf16 and
+// packed in pairs, are exactly the A operand of the P·V product over keys
+// [16i, 16i + 16) (FlashAttention-2's register reuse): P never touches
+// shared memory. The output accumulator stays in registers too, and is
+// staged through the warp's own Q rows only to be written with 16-byte
+// stores.
+//
+// Shared-memory tiles hold DP (32, 64 or 128) bf16 columns in rows of
+// LD = DP + 8: the 8 rows an ldmatrix phase reads then start in 8 distinct
+// 16-byte bank groups. Columns past D and rows past T are zero-filled by
+// the copy (src-size 0); a key mask comes in beside its K tile, 0 past T.
+#pragma once
+
+#include "gemm.cuh"
+
+namespace {
+
+constexpr float MASK_BIAS = -1e9f;  // the TPU kernels' additive bias on masked keys
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// d[16 × 8] += a[16 × 16] · b[16 × 8], bf16 operands, f32 accumulator
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 → one bf16x2 register, lo in the low half (round to nearest even)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// rows [t0, t0 + ROWS) of head h of batch row b of src, D columns, into
+// smem [ROWS × (DP + 8)] by cp.async: zeros past D and past T
+template <int ROWS, int DP, int NTHREADS>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* __restrict__ src, Strides st, int b, int h,
+                                                int t0, int T, int D, int tid) {
+  constexpr int LD = DP + 8, VECS = DP / 8;
+  static_assert(ROWS * VECS % NTHREADS == 0, "whole copies per thread");
+#pragma unroll
+  for (int it = 0; it < ROWS * VECS / NTHREADS; ++it) {
+    const int i = tid + it * NTHREADS, r = i / VECS, c = (i % VECS) * 8, t = t0 + r;
+    const bool ok = t < T && c < D;
+    cp_async16(dst + r * LD + c, ok ? src + st.at(b, h, t) + c : src, ok);
+  }
+}
+
+// the key mask of keys [t0, t0 + ROWS) of one batch row (mrow = mask + b·T)
+// into smem, 0 past T
+template <int ROWS, int NTHREADS>
+__device__ __forceinline__ void load_mask_async(float* dst, const float* __restrict__ mrow, int t0, int T, int tid) {
+  for (int i = tid; i < ROWS; i += NTHREADS) {
+    const bool ok = t0 + i < T;
+    cp_async4(dst + i, ok ? mrow + t0 + i : mrow, ok);
+  }
+}
+
+// the A fragments of the warp's 16 query rows (sQw: its first row), all DP columns
+template <int DP>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qf)[DP / 16][4], const bf16* sQw, int lane) {
+  constexpr int LD = DP + 8;
+  const bf16* p = sQw + (lane & 15) * LD + ((lane >> 4) << 3);
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) ldsm_x4(qf[kk], p + kk * 16);
+}
+
+// s = (Q·Kᵀ)·scale + bias for the warp's 16 rows over NK keys of sK
+// [NK × (DP + 8)], each product and sum rounded on its own as the plain
+// versions compute it; bias = 0 where sMask > 0, else −1e9. s[n] is the
+// accumulator tile of keys [8n, 8n + 8).
+template <int NK, int DP>
+__device__ __forceinline__ void tile_scores(float (&s)[NK / 8][4], const uint32_t (&qf)[DP / 16][4], const bf16* sK,
+                                            const float* sMask, float scale, int lane) {
+  constexpr int LD = DP + 8;
+#pragma unroll
+  for (int n = 0; n < NK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  // ldmatrix.x4 over keys [16j, 16j + 16) × columns [16kk, 16kk + 16):
+  // matrices (keys 0-7, cols 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15)
+  // are the B fragments (b0, b1) of n-tiles 2j and 2j + 1
+  const bf16* p = sK + ((lane & 7) + ((lane >> 4) << 3)) * LD + (((lane >> 3) & 1) << 3);
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < NK / 16; ++j) {
+      uint32_t kf[4];
+      ldsm_x4(kf, p + j * 16 * LD + kk * 16);
+      mma_bf16(s[2 * j], qf[kk], kf[0], kf[1]);
+      mma_bf16(s[2 * j + 1], qf[kk], kf[2], kf[3]);
+    }
+  }
+  const int c = (lane & 3) << 1;
+#pragma unroll
+  for (int n = 0; n < NK / 8; ++n) {
+    const float2 mk = *reinterpret_cast<const float2*>(sMask + n * 8 + c);
+    const float b0 = mk.x > 0.f ? 0.f : MASK_BIAS, b1 = mk.y > 0.f ? 0.f : MASK_BIAS;
+    s[n][0] = __fadd_rn(__fmul_rn(s[n][0], scale), b0);
+    s[n][1] = __fadd_rn(__fmul_rn(s[n][1], scale), b1);
+    s[n][2] = __fadd_rn(__fmul_rn(s[n][2], scale), b0);
+    s[n][3] = __fadd_rn(__fmul_rn(s[n][3], scale), b1);
+  }
+}
+
+// the max over the tile of rows g (m[0]) and g + 8 (m[1]), across the quad
+template <int NK>
+__device__ __forceinline__ void tile_row_max(const float (&s)[NK / 8][4], float (&m)[2]) {
+  m[0] = fmaxf(s[0][0], s[0][1]);
+  m[1] = fmaxf(s[0][2], s[0][3]);
+#pragma unroll
+  for (int n = 1; n < NK / 8; ++n) {
+    m[0] = fmaxf(m[0], fmaxf(s[n][0], s[n][1]));
+    m[1] = fmaxf(m[1], fmaxf(s[n][2], s[n][3]));
+  }
+  m[0] = quad_max(m[0]);
+  m[1] = quad_max(m[1]);
+}
+
+// P [16 × NK] in f32 accumulator tiles → the bf16 A fragments of P·V
+template <int NK>
+__device__ __forceinline__ void p_frags(uint32_t (&pf)[NK / 16][4], const float (&p)[NK / 8][4]) {
+#pragma unroll
+  for (int i = 0; i < NK / 16; ++i) {
+    pf[i][0] = pack_bf16(p[2 * i][0], p[2 * i][1]);
+    pf[i][1] = pack_bf16(p[2 * i][2], p[2 * i][3]);
+    pf[i][2] = pack_bf16(p[2 * i + 1][0], p[2 * i + 1][1]);
+    pf[i][3] = pack_bf16(p[2 * i + 1][2], p[2 * i + 1][3]);
+  }
+}
+
+// o[16 × NC] += P[16 × NK] · V[NK × NC]: sV points at the first column of
+// an [NK × LD] tile; o[n] is the accumulator tile of columns [8n, 8n + 8)
+template <int NK, int NC, int LD>
+__device__ __forceinline__ void tile_pv(float (&o)[NC / 8][4], const uint32_t (&pf)[NK / 16][4], const bf16* sV,
+                                        int lane) {
+  // ldmatrix.x4.trans over keys [16i, 16i + 16) × columns [16j, 16j + 16):
+  // matrices (keys 0-7, cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15),
+  // transposed, are the B fragments (b0, b1) of n-tiles 2j and 2j + 1
+  const bf16* p = sV + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + ((lane >> 4) << 3);
+#pragma unroll
+  for (int i = 0; i < NK / 16; ++i) {
+#pragma unroll
+    for (int j = 0; j < NC / 16; ++j) {
+      uint32_t vf[4];
+      ldsm_x4_trans(vf, p + i * 16 * LD + j * 16);
+      mma_bf16(o[2 * j], pf[i], vf[0], vf[1]);
+      mma_bf16(o[2 * j + 1], pf[i], vf[2], vf[3]);
+    }
+  }
+}
+
+// o (the warp's 16 rows, already final in f32) → bf16 at the first D
+// columns of rows t0 + r < T of out, through the warp's own rows of the Q
+// tile (sQw, free once the Q fragments are in registers) so that each lane
+// writes 16 bytes; row_lse[r] to lse [B, H, T] for rows g and g + 8
+template <int DP>
+__device__ __forceinline__ void store_rows(const float (&o)[DP / 8][4], const float (&row_lse)[2], bf16* sQw,
+                                           bf16* __restrict__ out, Strides lout, float* __restrict__ lse, int b,
+                                           int h, int H, int t0, int T, int D, int lane) {
+  constexpr int LD = DP + 8;
+  const int g = lane >> 2, c = (lane & 3) << 1;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(sQw + g * LD + n * 8 + c) = pack_bf16(o[n][0], o[n][1]);
+    *reinterpret_cast<uint32_t*>(sQw + (g + 8) * LD + n * 8 + c) = pack_bf16(o[n][2], o[n][3]);
+  }
+  __syncwarp();
+  const int vecs = D / 8;
+  for (int i = lane; i < 16 * vecs; i += 32) {
+    const int r = i / vecs, cc = (i % vecs) * 8, t = t0 + r;
+    if (t < T) *reinterpret_cast<uint4*>(out + lout.at(b, h, t) + cc) = *reinterpret_cast<const uint4*>(sQw + r * LD + cc);
+  }
+  if ((lane & 3) == 0) {
+    float* row = lse + ((size_t)b * H + h) * T;
+    if (t0 + g < T) row[t0 + g] = row_lse[0];
+    if (t0 + g + 8 < T) row[t0 + g + 8] = row_lse[1];
+  }
+}
+
+}  // namespace

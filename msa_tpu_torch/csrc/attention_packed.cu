@@ -18,61 +18,59 @@
 // Same rounding points as the TPU kernels: scores accumulate in f32 from
 // bf16 q and k, s = S·scale + bias with bias −1e9 on masked keys (a row with
 // no valid key stays finite and averages V over every padded row); the
-// exact row max and denom = Σ exp(s − max) over all T_pad keys; P is
-// normalised BEFORE the P·V product, (p / denom) rounded to bf16
-// (attention_block rounds the unnormalised P and divides after); o
-// accumulates in f32 and is rounded once; lse = max + log(denom).
+// exact row max m; P is normalised BEFORE the P·V product, (p / denom)
+// rounded to bf16 (attention_block rounds the unnormalised P and divides
+// after); o accumulates in f32 and is rounded once; lse = m + log(denom).
+// The denominator is summed online, as row 1's (attention_fused.cu): l is
+// rescaled by exp(m_old − m_new) when the max moves, so it differs from
+// Σ exp(s − m) only by f32 rounding. T is padded to a multiple of 128
+// (rows past T read as zeros under masked keys; the query rows past T are
+// not written). D is any multiple of 8 up to 128, zero-padded to DP (32,
+// 64 or 128) by the copies.
 //
-// T is padded to a multiple of 128 inside the kernel: rows past T read as
-// zeros under masked keys, and the query rows past T are not written. D is
-// any multiple of 8 up to 128; it is zero-padded to DP (32, 64 or 128) in
-// shared memory for the 16×16×16 WMMA steps (zeros add nothing).
+// What bounds it on the card: per (row, head) 4·T²·D operations on
+// 3·T·D·2 bytes read and T·D·2 + 4·T written. At the encoder's shape
+// (B=2, T=512, H=12, D=64) that is 1.6 GFLOP (1.6 µs at 989 TFLOP/s) over
+// 6.3 MB (1.9 µs at 3.35 TB/s); at the text training step's (B=8) 6.4
+// GFLOP (6.5 µs) over 25 MB (7.5 µs): about balanced, near both bounds.
+// The custom widths of the serving path (D=24, T=40) are tiny and bound by
+// the launch.
 //
-// One block per (64-query tile, head, batch row), 4 warps of 16 query rows.
-// The whole f32 score block of the tile (64 × T_pad, ≤ 129 KB) stays in
-// shared memory, so the row statistics are exact before P is rounded, as in
-// the TPU kernel; K and then V stream through in 64-key chunks.
-//
-// What bounds it on the card: per (row, head) it does 4·T²·D operations on
-// 3·T·D·2 bytes read and T·D·2 + 4·T written. At the full-width training
-// shape (B=2, T=512, H=12, D=64) that is 1.6 GFLOP (1.6 µs at 989 TFLOP/s)
-// over 6.3 MB (1.9 µs at 3.35 TB/s): about balanced, near both bounds. The
-// custom widths of the serving path (D=24, T=40) are tiny and bound by the
-// launch. This first design reloads K and V from L2 for every query tile
-// and runs the WMMA API without cp.async pipelining; a fast version
-// (wgmma, one K/V pass per row and head) is later work.
-#include "gemm.cuh"
+// The design (attention_mma.cuh): one block per (64-query tile, head,
+// batch row), 4 warps of 16 query rows, two passes over 64-key tiles.
+// Pass 1 streams K only and keeps the row max and the denominator online;
+// pass 2 streams K and V, recomputes the scores, forms bf16(exp(s − m) / l)
+// in registers (the quotient correctly rounded from a per-row reciprocal,
+// div_rn) and accumulates P·V with no rescaling. The scores therefore
+// never need a row in shared memory (6·T²·D operations instead of 4·T²·D,
+// the bound still counts 4). Q's fragments, the 16 × 64 score tile, m, l
+// and the output accumulator live in registers (mma.sync.m16n8k16 with
+// operands from ldmatrix); P goes from the score registers straight into
+// the P·V product. The tiles come through a two-stage cp.async ring (K,
+// V and the key mask of 64 keys a stage): tile i+1's copy flies while tile
+// i's products run. 45.5 KB of shared memory a block at DP = 64, so several
+// blocks share an SM.
+#include "attention_mma.cuh"
 
 namespace {
 
 constexpr int PQ = 64;         // query rows per block
-constexpr int PK = 64;         // keys per shared-memory chunk
+constexpr int PK = 64;         // keys per ring stage
 constexpr int PTHREADS = 128;  // 4 warps, 16 query rows each
-constexpr int PLP = PK + 8;    // padded bf16 row of a P chunk
 
-template <int DP>
-size_t packed_smem_bytes(int T_pad) {
-  constexpr int LD = DP + 8;
-  return (size_t)(PQ + PK) * LD * sizeof(bf16)       // sQ, sKV
-         + (size_t)PQ * PLP * sizeof(bf16)            // sP
-         + (size_t)PQ * (T_pad + 4) * sizeof(float)   // sS: scores, then p, then o
-         + (size_t)T_pad * sizeof(float)              // mask bias
-         + (size_t)2 * PQ * sizeof(float);            // row max, row denom
+// a / b rounded to nearest from r = RN(1/b): q = a·r is within an ulp, and
+// one FMA step on the exact remainder a − q·b rounds it correctly
+// (Markstein's theorem; a and a / b normal). Three instructions per
+// element where the IEEE division is a longer sequence with a slow path.
+__device__ __forceinline__ float div_rn(float a, float b, float r) {
+  const float q = __fmul_rn(a, r);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), r, q);
 }
 
-// rows [r0, r0 + nrows) of head h of batch row b of src into smem
-// [nrows × LD] bf16: D columns, zero past D and past T
 template <int DP>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, Strides st, int b, int r0,
-                                          int nrows, int h, int T, int D, int tid) {
-  constexpr int LD = DP + 8;
-  const int vecs = DP / 8;
-  for (int i = tid; i < nrows * vecs; i += PTHREADS) {
-    const int r = i / vecs, c = (i % vecs) * 8, t = r0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (t < T && c < D) v = *reinterpret_cast<const uint4*>(src + st.at(b, h, t) + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
-  }
+constexpr size_t packed_smem_bytes() {
+  return (size_t)(PQ + 4 * PK) * (DP + 8) * sizeof(bf16)  // sQ; sK, sV of two stages
+         + (size_t)2 * PK * sizeof(float);                 // the key mask of two stages
 }
 
 template <int DP>
@@ -81,120 +79,90 @@ packed_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const 
                   const float* __restrict__ mask, bf16* __restrict__ out, Strides lout, float* __restrict__ lse,
                   int T, int T_pad, int H, int D, float scale) {
   constexpr int LD = DP + 8;
-  constexpr int NF = DP / 16;  // 16-wide output fragments per warp
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sKV = sQ + PQ * LD;
-  bf16* sP = sKV + PK * LD;
-  const int LDS = T_pad + 4;
-  float* sS = reinterpret_cast<float*>(sP + PQ * PLP);
-  float* sBias = sS + PQ * LDS;
-  float* sMax = sBias + T_pad;
-  float* sDen = sMax + PQ;
+  bf16* sK = sQ + PQ * LD;                                   // [2][PK × LD]
+  bf16* sV = sK + 2 * PK * LD;                               // [2][PK × LD]
+  float* sMask = reinterpret_cast<float*>(sV + 2 * PK * LD);  // [2][PK]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * PQ, h = blockIdx.y, b = blockIdx.z;
+  const float* mrow = mask + (size_t)b * T;
+  bf16* sQw = sQ + warp * 16 * LD;
+  const int nt = T_pad / PK, steps = 2 * nt;
 
-  for (int i = tid; i < T_pad; i += PTHREADS) sBias[i] = (i < T && mask[(size_t)b * T + i] > 0.f) ? 0.f : -1e9f;
-  load_rows<DP>(sQ, q, lin, b, q0, PQ, h, T, D, tid);
-
-  // S = Q·Kᵀ (raw f32 dots) for this warp's 16 rows, one 64-key chunk at a time
-  float* sSw = sS + warp * 16 * LDS;
-  for (int kc = 0; kc < T_pad; kc += PK) {
-    __syncthreads();
-    load_rows<DP>(sKV, k, lin, b, kc, PK, h, T, D, tid);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < PK / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < DP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kt;
-        wmma::load_matrix_sync(a, sQ + warp * 16 * LD + kk, LD);
-        wmma::load_matrix_sync(kt, sKV + j * 16 * LD + kk, LD);
-        wmma::mma_sync(acc, a, kt, acc);
-      }
-      wmma::store_matrix_sync(sSw + kc + j * 16, acc, LDS, wmma::mem_row_major);
-    }
-  }
-  __syncwarp();
-
-  // row statistics in f32 over all T_pad keys: s = S·scale + bias,
-  // p = exp(s − max) kept unrounded, denom = Σ p
-  for (int r = 0; r < 16; ++r) {
-    float* row = sSw + r * LDS;
-    float m = -3.402823466e38f;
-    for (int c = lane; c < T_pad; c += 32) {
-      const float s = __fadd_rn(__fmul_rn(row[c], scale), sBias[c]);
-      row[c] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int c = lane; c < T_pad; c += 32) {
-      const float p = expf(row[c] - m);
-      row[c] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      sMax[warp * 16 + r] = m;
-      sDen[warp * 16 + r] = sum;
-    }
-  }
-  __syncwarp();
-
-  // O = bf16(p / denom) · V, 64 keys at a time
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[NF];
-#pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(o[j], 0.0f);
-  bf16* sPw = sP + warp * 16 * PLP;
-  for (int kc = 0; kc < T_pad; kc += PK) {
-    __syncthreads();  // every warp is done with sKV
-    load_rows<DP>(sKV, v, lin, b, kc, PK, h, T, D, tid);
-    for (int i = lane; i < 16 * PK; i += 32) {
-      const int r = i / PK, c = i % PK;
-      sPw[r * PLP + c] = __float2bfloat16(sSw[r * LDS + kc + c] / sDen[warp * 16 + r]);
+  // step i < nt brings K tile i (pass 1), step nt + i K and V tile i (pass 2)
+  auto issue = [&](int step) {
+    const int st = step & 1, t0 = (step < nt ? step : step - nt) * PK;
+    load_tile_async<PK, DP, PTHREADS>(sK + st * PK * LD, k, lin, b, h, t0, T, D, tid);
+    if (step >= nt) load_tile_async<PK, DP, PTHREADS>(sV + st * PK * LD, v, lin, b, h, t0, T, D, tid);
+    load_mask_async<PK, PTHREADS>(sMask + st * PK, mrow, t0, T, tid);
+    cp_async_commit();
+  };
+  // → the stage of step, landed for every thread, with step + 1's in flight
+  auto arrive = [&](int step) {
+    __syncthreads();  // every warp is done with the stage that step + 1 refills
+    if (step + 1 < steps) {
+      issue(step + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    return step & 1;
+  };
+
+  load_tile_async<PQ, DP, PTHREADS>(sQ, q, lin, b, h, q0, T, D, tid);
+  issue(0);  // Q lands with the first K tile
+
+  // pass 1: the exact row max m and the f32 denominator l, online
+  uint32_t qf[DP / 16][4];
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};  // rows g and g + 8 of the lane
+  for (int step = 0; step < nt; ++step) {
+    const int st = arrive(step);
+    if (step == 0) load_q_frags<DP>(qf, sQw, lane);
+    float s[PK / 8][4], bm[2], sum[2] = {0.f, 0.f};
+    tile_scores<PK, DP>(s, qf, sK + st * PK * LD, sMask + st * PK, scale, lane);
+    tile_row_max<PK>(s, bm);
+    const float mn[2] = {fmaxf(m[0], bm[0]), fmaxf(m[1], bm[1])};
 #pragma unroll
-    for (int kk = 0; kk < PK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> p;
-      wmma::load_matrix_sync(p, sPw + kk, PLP);
+    for (int n = 0; n < PK / 8; ++n) {
 #pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(vf, sKV + kk * LD + j * 16, LD);
-        wmma::mma_sync(o[j], p, vf, o[j]);
-      }
+      for (int e = 0; e < 4; ++e) sum[e >> 1] += expf(s[n][e] - mn[e >> 1]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = l[r] * expf(m[r] - mn[r]) + quad_sum(sum[r]);
+      m[r] = mn[r];
     }
   }
 
-  // o → bf16 at this head's D columns of out; lse per row
+  // pass 2: O = bf16(exp(s − m) / l) · V
+  const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+  float o[DP / 8][4] = {};
+  for (int step = nt; step < steps; ++step) {
+    const int st = arrive(step);
+    float s[PK / 8][4];
+    tile_scores<PK, DP>(s, qf, sK + st * PK * LD, sMask + st * PK, scale, lane);
 #pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::store_matrix_sync(sSw + j * 16, o[j], LDS, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 16 * (D / 8); i += 32) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8, t = q0 + warp * 16 + r;
-    if (t >= T) continue;
-    __align__(16) bf16 o8[8];
+    for (int n = 0; n < PK / 8; ++n) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) o8[e] = __float2bfloat16(sSw[r * LDS + c + e]);
-    *reinterpret_cast<uint4*>(out + lout.at(b, h, t) + c) = *reinterpret_cast<const uint4*>(o8);
+      for (int e = 0; e < 4; ++e) s[n][e] = div_rn(expf(s[n][e] - m[e >> 1]), l[e >> 1], rl[e >> 1]);
+    }
+    uint32_t pf[PK / 16][4];
+    p_frags<PK>(pf, s);
+    tile_pv<PK, DP, LD>(o, pf, sV + st * PK * LD, lane);
   }
-  if (lane < 16) {
-    const int t = q0 + warp * 16 + lane;
-    if (t < T) lse[((size_t)b * H + h) * T + t] = sMax[warp * 16 + lane] + logf(sDen[warp * 16 + lane]);
-  }
+
+  const float row_lse[2] = {m[0] + logf(l[0]), m[1] + logf(l[1])};
+  store_rows<DP>(o, row_lse, sQw, out, lout, lse, b, h, H, q0 + warp * 16, T, D, lane);
 }
 
 template <int DP>
 cudaError_t launch_packed(const bf16* q, const bf16* k, const bf16* v, Strides lin, const float* mask, bf16* out,
                           Strides lout, float* lse, int B, int T, int H, int D, float scale, cudaStream_t s) {
   const int T_pad = (T + 127) / 128 * 128;
-  const size_t smem = packed_smem_bytes<DP>(T_pad);
+  constexpr size_t smem = packed_smem_bytes<DP>();
   cudaError_t e =
       cudaFuncSetAttribute(packed_qkv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;

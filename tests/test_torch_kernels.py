@@ -116,7 +116,7 @@ def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
         "attention.cu", "attention_bwd.cu", "attention_flash.cu", "attention_fused.cu", "attention_packed.cu",
         "conv_stride2.cu", "ffn.cu", "quant.cu",
     }
-    assert {p.name for p in build.CSRC.glob("*.cuh")} == {"gemm.cuh", "gemm_s8.cuh"}
+    assert {p.name for p in build.CSRC.glob("*.cuh")} == {"gemm.cuh", "gemm_s8.cuh", "attention_mma.cuh"}
     assert build.ARCH_FLAGS == ("-gencode", "arch=compute_90a,code=sm_90a")
     assert "-shared" in build.NVCC_FLAGS and not any("fast_math" in f for f in build.NVCC_FLAGS)
     for p in build.CSRC.glob("*.cu*"):
