@@ -5,8 +5,9 @@
 Phases, one line each with its seconds:
   1. require CUDA; print the card's name and power limit;
   2. build the hand-written kernels (one nvcc call, from msa_tpu_torch/csrc);
-     print ptxas's registers and spills of each kernel, and of the flash
-     and packed-QKV attention kernels once more on a line each;
+     print ptxas's registers and spills of each kernel, and of the flash,
+     packed-QKV, dK/dV (row 4) and f32 fused (row 1) attention kernels once
+     more on a line each;
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, and time both with CUDA events: the bf16
      attention_block and ffn_fused, the row-quantize kernel (exactly: codes
@@ -52,7 +53,11 @@ Phases, one line each with its seconds:
      attention_bwd_dq and attention_bwd_dkv (rows 3 and 4) at the training
      shapes beside the backward kernels autograd runs for one
      scaled_dot_product_attention call; ragged masks, and a row with no
-     valid key where B=2, held at its own scale apart from the valid row;
+     valid key where B=2, held at its own scale apart from the valid row.
+     Row 4 runs on the forward's register-resident mma.sync core (K and V
+     fragments held, Sᵀ and dPᵀ in registers, dK and dV accumulated in
+     registers, Q/dO/L/Δ through a cp.async ring); both kernels' TFLOP/s
+     on the algorithm's 6 or 8·B·H·T²·D;
  11. the two differentiable wrappers, packed_qkv_attention_with_vjp (T =
      512, T = 749 through row 6, and the custom width H=4 D=24 at T = 40)
      and attention_with_vjp (T = 512 and T = 749): their gradients against
@@ -67,12 +72,14 @@ Phases, one line each with its seconds:
      against the plain bf16 einsum path with an f32 run as yardstick and
      the dV fault planted; three AdamW steps on each path, whose losses
      stay finite and together; ms per step and the device-busy share.
- 13. row 1, fused_attention, on its own entry point: bf16 and f32 at the
-     encoder's shape (B=2 H=12 T=512 D=64), at T = 749 (which rows 2 and 5
-     refuse) and at JAX's test shapes (T=250 D=64, T=100 D=32), o and lse
+ 13. row 1, fused_attention, on its own entry point: bf16 (rows 5 and 2's
+     two-pass core, at any T) and f32 (a one-pass register-tiled FMA
+     kernel) at the encoder's shape (B=2 H=12 T=512 D=64), at T = 749
+     (which rows 2 and 5 refuse), at JAX's test shapes (T=250 D=64, T=100
+     D=32) and at D = 20 (zero-padded to 24 by the wrapper), o and lse
      against its plain version, beside one scaled_dot_product_attention
-     call; the mask ignored as the planted fault; one direct call launches
-     it once;
+     call, with the TFLOP/s on 4·B·H·T²·D; the mask ignored as the planted
+     fault; one direct call launches it once;
  14. row 11, conv_stride2_fused, at the six stride-2 layers of the wav2vec2
      extractor (B=64, 512 channels, bf16; tools/conv_bench.py's shapes) and
      two f32 cases, against its plain version at JAX's tolerances, beside
@@ -412,7 +419,7 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip().split("ptxas info    :")[-1].strip(), flush=True)
-    for kernel, used in ptxas_usage(log, ("flash_kernel", "packed_qkv_kernel")).items():
+    for kernel, used in ptxas_usage(log, ("flash_kernel", "packed_qkv_kernel", "bwd_dkv_kernel", "fused_f32_kernel")).items():
         print(f"  ptxas {kernel}: {used}", flush=True)
     phase("build", t0, library=lib_path.name)
 
@@ -1110,6 +1117,7 @@ def main() -> int:
             bms, by = bound_ms(4 * one + stats + n_out * one, bf16=ops * b * h * T_ * T_ * d)
             err, rel, bnd = max(errs[n] for n in outs)
             report(f"{name} B={b} T={T_} H={h} D={d} (plain ms: dq, dk and dv together)", err, rel, bnd, tm, bms, by)
+            print(f"    {name}: {ops * b * h * T_ * T_ * d / tm['ms'] / 1e9:.1f} TFLOP/s on {ops}·B·H·T²·D", flush=True)
             record(name, err, main, tm, bms, by)
             if main:
                 results[name]["library_ms"] = lib_ms
@@ -1305,8 +1313,9 @@ def main() -> int:
     with G.exact_fp32():
         for dtype in (bf16, f32):
             dname = str(dtype).split(".")[-1]
-            # the encoder's shape, a T past 512 (rows 2 and 5 refuse it), JAX's test shapes
-            for b, h, T_, d in (row1_main, (2, 12, 749, 64), (2, 2, 250, 64), (2, 3, 100, 32)):
+            # the encoder's shape, a T past 512 (rows 2 and 5 refuse it), JAX's
+            # test shapes, and a D the wrapper zero-pads to a multiple of 8
+            for b, h, T_, d in (row1_main, (2, 12, 749, 64), (2, 2, 250, 64), (2, 3, 100, 32), (2, 3, 100, 20)):
                 tag = f"fused_attention {dname} B={b} H={h} T={T_} (T_pad={-(-T_ // 128) * 128}) D={d}"
                 q, k, v = (rand(b, h, T_, d, dtype=dtype) for _ in range(3))
                 mask = key_mask(b, T_)  # a ragged row and a row with no valid key
@@ -1326,6 +1335,7 @@ def main() -> int:
                 nbytes = 4 * b * h * T_ * d * es + 4 * b * T_ + 4 * b * h * T_  # q, k, v in, o out; the mask; lse
                 bms, by = bound_ms(nbytes, **{"bf16" if dtype is bf16 else "f32": 4 * b * h * T_ * T_ * d})
                 report(f"{tag} lse_max_abs_err={lse_err:.3e} fault:mask_ignored={fault:.4e}", err, rel, bnd, tm, bms, by)
+                print(f"    fused_attention {dname}: {4 * b * h * T_ * T_ * d / tm['ms'] / 1e9:.1f} TFLOP/s on 4·B·H·T²·D", flush=True)
                 print(f"    sdpa (library, {dname}) ms={lib_ms:.4f} (device) call_ms={lib_call_ms:.4f}", flush=True)
                 main = dtype is bf16 and (b, h, T_, d) == row1_main
                 record("fused_attention", err, main, tm, bms, by)

@@ -16,7 +16,7 @@
 // - msa_attention_bwd_dq: one block per (64-query tile, head, batch row),
 //   looping over 64-key chunks; dQ accumulates in WMMA fragments.
 // - msa_attention_bwd_dkv: one block per (64-key tile, head, batch row),
-//   looping over 64-query chunks; dK and dV accumulate in fragments.
+//   looping over query chunks; dK and dV accumulate in registers.
 // 4 warps, each owning 16 rows of the block's tile.
 //
 // Same rounding points as the TPU kernels: S and dO·Vᵀ in f32 from bf16
@@ -26,11 +26,11 @@
 // before the dS·K product, Pᵀ before Pᵀ·dO and dSᵀ before dSᵀ·Q; the f32
 // sums are multiplied by scale at the end (dQ, dK) and rounded once.
 //
-// Rows and keys past T are neither loaded nor written. In the TPU kernel a
-// padded query row has q = dO = 0 and L = Δ = 0, and a padded key has
-// k = v = 0, so both add exact zeros; leaving them out computes the same
-// sums. A row with no valid key has L ≈ −1e9 + log T_pad (the forward's),
-// so its P is about 1 on every key, as in JAX.
+// Rows and keys past T are never written. In the TPU kernel a padded query
+// row has q = dO = 0 and L = Δ = 0, and a padded key has k = v = 0, so both
+// add exact zeros: the dQ kernel leaves them out, the dK/dV kernel reads
+// them as those zeros. A row with no valid key has L ≈ −1e9 + log T_pad
+// (the forward's), so its P is about 1 on every key, as in JAX.
 //
 // q, k, v, dq, dk and dv are addressed by one set of element strides
 // (batch, head, time; D contiguous), dO by another: the same kernels read
@@ -44,19 +44,30 @@
 // V·dOᵀ, dSᵀ·Q), on 4·T·D·2 bytes in and T·D·2 (dQ) or 2·T·D·2 (dK, dV)
 // out. At the text training shape (B=8, T=512, H=12, D=64) that is 9.7 and
 // 12.9 GFLOP (9.8 and 13.0 µs at 989 TFLOP/s) over ~25 MB (7.5 µs at
-// 3.35 TB/s): bound by operations. This first design stages every score
-// tile through shared memory in f32 (WMMA fragments cannot be indexed by
-// row and column), loads without cp.async overlap, and recomputes P in
-// both kernels, as the TPU kernels do; wgmma with register-resident
-// scores is later work.
-#include "gemm.cuh"
+// 3.35 TB/s): bound by operations.
+//
+// The dQ kernel stages every score tile through shared memory in f32 (WMMA
+// fragments cannot be indexed by row and column) and loads without overlap.
+// The dK/dV kernel runs on the register-resident primitives of the
+// forward (attention_mma.cuh): each warp loads its 16 keys of K and V once
+// as mma.sync A fragments; per query chunk of 32 rows it forms Sᵀ = K·Qᵀ
+// and dPᵀ = V·dOᵀ as accumulators with tile_dots, takes P and dS in
+// registers (the key bias is per lane row, L and Δ per column), packs
+// bf16(Pᵀ) and bf16(dSᵀ) straight into A fragments (p_frags) and
+// accumulates dV += Pᵀ·dO and dK += dSᵀ·Q with tile_pv, dO and Q as its
+// ldmatrix.trans B operand. Q, dO, L and Δ come through a two-stage
+// cp.async ring (chunk c+1's copy flies while chunk c computes); dK·scale
+// and dV leave by 16-byte stores staged through the warp's own rows of sK
+// and sV. 37 KB of shared memory and 168 registers a thread at DP = 64:
+// 3 blocks share an SM.
+#include "attention_mma.cuh"
 
 namespace {
 
-constexpr int BR = 64;        // rows a block owns (queries for dQ, keys for dK/dV)
-constexpr int BC = 64;        // rows of the other side per loop step
+constexpr int BR = 64;        // query rows a block of the dQ kernel owns
+constexpr int BC = 64;        // keys per loop step of the dQ kernel
 constexpr int BTHREADS = 128; // 4 warps, 16 owned rows each
-constexpr int LB = BC + 8;    // padded bf16 row of a P / dS tile
+constexpr int LB = BC + 8;    // padded bf16 row of a dS tile
 
 template <int DP>
 struct Tiles {
@@ -209,74 +220,114 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
   store_rows<DP>(dq, sx, b, h, q0 + warp * 16, T, D, acc, scale, sSw, lane);
 }
 
+// row 4's tiles: the block's 64 keys, and query chunks of QC rows. QC = 32
+// keeps bwd_dkv_kernel<64> at 168 registers (3 blocks an SM) where 64 took
+// 242 (2 blocks) and ran 10–40% slower on the training shapes (PERF.md)
+constexpr int KB = 64;
+constexpr int QC = 32;
+
+template <int DP>
+constexpr size_t dkv_smem_bytes() {
+  return (size_t)(2 * KB + 4 * QC) * (DP + 8) * sizeof(bf16)  // sK, sV; sQ, sG of two stages
+         + (size_t)4 * QC * sizeof(float);                     // L, Δ of two stages
+}
+
 template <int DP>
 __global__ void __launch_bounds__(BTHREADS)
 bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, Strides sx,
                const bf16* __restrict__ dout, Strides so, const float* __restrict__ lse,
                const float* __restrict__ delta, const float* __restrict__ mask, bf16* __restrict__ dk,
                bf16* __restrict__ dv, int T, int H, int D, float scale) {
-  using L = Tiles<DP>;
-  constexpr int LD = L::LD, LS = L::LS;
+  constexpr int LD = DP + 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + 64 * LD;
-  bf16* sQ = sV + 64 * LD;
-  bf16* sG = sQ + 64 * LD;  // dO
-  float* sST = reinterpret_cast<float*>(sG + 64 * LD);
-  float* sDPT = sST + BR * LS;
-  bf16* sPT = reinterpret_cast<bf16*>(sDPT + BR * LS);
-  bf16* sDST = sPT + BR * LB;
-  float* sLse = reinterpret_cast<float*>(sDST + BR * LB);
-  float* sDelta = sLse + 64;
-  float* sBias = sDelta + 64;
+  bf16* sV = sK + KB * LD;
+  bf16* sQ = sV + KB * LD;                                 // [2][QC × LD]
+  bf16* sG = sQ + 2 * QC * LD;                             // dO, [2][QC × LD]
+  float* sL = reinterpret_cast<float*>(sG + 2 * QC * LD);  // [2][QC]
+  float* sD = sL + 2 * QC;                                 // Δ, [2][QC]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int k0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * KB, h = blockIdx.y, b = blockIdx.z;
   const size_t row0 = ((size_t)b * H + h) * T;
+  const int nc = (T + QC - 1) / QC;
 
-  load_tile<DP>(sK, k, sx, b, h, k0, BR, T, D, tid);
-  load_tile<DP>(sV, v, sx, b, h, k0, BR, T, D, tid);
-  for (int i = tid; i < BR; i += BTHREADS) sBias[i] = key_bias(mask, b, k0 + i, T);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_k[DP / 16], acc_v[DP / 16];
-#pragma unroll
-  for (int j = 0; j < DP / 16; ++j) {
-    wmma::fill_fragment(acc_k[j], 0.0f);
-    wmma::fill_fragment(acc_v[j], 0.0f);
-  }
-  float* sSTw = sST + warp * 16 * LS;
-  float* sDPTw = sDPT + warp * 16 * LS;
-  bf16* sPTw = sPT + warp * 16 * LB;
-  bf16* sDSTw = sDST + warp * 16 * LB;
-
-  for (int q0 = 0; q0 < T; q0 += BC) {
-    __syncthreads();  // every warp is done with the previous chunk
-    load_tile<DP>(sQ, q, sx, b, h, q0, BC, T, D, tid);
-    load_tile<DP>(sG, dout, so, b, h, q0, BC, T, D, tid);
-    for (int i = tid; i < BC; i += BTHREADS) {
-      const int t = q0 + i;
-      sLse[i] = t < T ? lse[row0 + t] : 0.f;
-      sDelta[i] = t < T ? delta[row0 + t] : 0.f;
+  // chunk c's Q, dO, L and Δ; rows past T arrive as zeros, so they add
+  // exact zeros (P = exp(bias − 0) on q = 0, dO = 0; a stale L could overflow)
+  auto issue = [&](int c) {
+    const int st = c & 1, t0 = c * QC;
+    load_tile_async<QC, DP, BTHREADS>(sQ + st * QC * LD, q, sx, b, h, t0, T, D, tid);
+    load_tile_async<QC, DP, BTHREADS>(sG + st * QC * LD, dout, so, b, h, t0, T, D, tid);
+    load_vec_async<QC, BTHREADS>(sL + st * QC, lse + row0, t0, T, tid);
+    load_vec_async<QC, BTHREADS>(sD + st * QC, delta + row0, t0, T, tid);
+    cp_async_commit();
+  };
+  // → the stage of chunk c, landed for every thread, with c + 1's in flight
+  auto arrive = [&](int c) {
+    __syncthreads();  // every warp is done with the stage that c + 1 refills
+    if (c + 1 < nc) {
+      issue(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    return c & 1;
+  };
 
-    dots_nt<DP>(sSTw, sK + warp * 16 * LD, sQ);   // Sᵀ = K·Qᵀ
-    dots_nt<DP>(sDPTw, sV + warp * 16 * LD, sG);  // dPᵀ = V·dOᵀ
-    __syncwarp();
-    for (int i = lane; i < 16 * BC; i += 32) {
-      const int r = i / BC, c = i % BC;  // r: this warp's key, c: the chunk's query
-      const float s = __fadd_rn(__fmul_rn(sSTw[r * LS + c], scale), sBias[warp * 16 + r]);
-      const float p = expf(__fsub_rn(s, sLse[c]));
-      const float ds = __fmul_rn(p, __fsub_rn(sDPTw[r * LS + c], sDelta[c]));
-      sPTw[r * LB + c] = __float2bfloat16(p);
-      sDSTw[r * LB + c] = __float2bfloat16(ds);
+  load_tile_async<KB, DP, BTHREADS>(sK, k, sx, b, h, k0, T, D, tid);
+  load_tile_async<KB, DP, BTHREADS>(sV, v, sx, b, h, k0, T, D, tid);
+  issue(0);  // K and V land with the first chunk
+
+  // the key bias of the lane's rows g and g + 8 (keys past T: −1e9)
+  const int kr = k0 + warp * 16 + (lane >> 2), c2 = (lane & 3) << 1;
+  const float* mrow = mask + (size_t)b * T;
+  const float kb[2] = {kr < T && mrow[kr] > 0.f ? 0.f : MASK_BIAS, kr + 8 < T && mrow[kr + 8] > 0.f ? 0.f : MASK_BIAS};
+
+  uint32_t kf[DP / 16][4], vf[DP / 16][4];
+  float acc_k[DP / 8][4] = {}, acc_v[DP / 8][4] = {};
+  for (int c = 0; c < nc; ++c) {
+    const int st = arrive(c);
+    if (c == 0) {
+      load_q_frags<DP>(kf, sK + warp * 16 * LD, lane);
+      load_q_frags<DP>(vf, sV + warp * 16 * LD, lane);
     }
-    __syncwarp();
-    dots_nn<DP>(acc_v, sPTw, sG);   // dV += bf16(Pᵀ)·dO
-    dots_nn<DP>(acc_k, sDSTw, sQ);  // dK += bf16(dSᵀ)·Q
+    const bf16* sQc = sQ + st * QC * LD;
+    const bf16* sGc = sG + st * QC * LD;
+    const float* sLc = sL + st * QC;
+    const float* sDc = sD + st * QC;
+
+    // Pᵀ = exp(Sᵀ·scale + bias − L): rows are the warp's keys, columns the chunk's queries
+    float p[QC / 8][4];
+    tile_dots<QC, DP>(p, kf, sQc, lane);
+#pragma unroll
+    for (int n = 0; n < QC / 8; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(sLc + n * 8 + c2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[n][e] = expf(__fsub_rn(__fadd_rn(__fmul_rn(p[n][e], scale), kb[e >> 1]), e & 1 ? l2.y : l2.x));
+    }
+    uint32_t pf[QC / 16][4];
+    p_frags<QC>(pf, p);
+    tile_pv<QC, DP, LD>(acc_v, pf, sGc, lane);  // dV += bf16(Pᵀ)·dO
+
+    // dSᵀ = Pᵀ ∘ (dPᵀ − Δ), dPᵀ = V·dOᵀ
+    float ds[QC / 8][4];
+    tile_dots<QC, DP>(ds, vf, sGc, lane);
+#pragma unroll
+    for (int n = 0; n < QC / 8; ++n) {
+      const float2 d2 = *reinterpret_cast<const float2*>(sDc + n * 8 + c2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[n][e] = __fmul_rn(p[n][e], __fsub_rn(ds[n][e], e & 1 ? d2.y : d2.x));
+    }
+    p_frags<QC>(pf, ds);
+    tile_pv<QC, DP, LD>(acc_k, pf, sQc, lane);  // dK += bf16(dSᵀ)·Q
   }
-  store_rows<DP>(dk, sx, b, h, k0 + warp * 16, T, D, acc_k, scale, sSTw, lane);
-  store_rows<DP>(dv, sx, b, h, k0 + warp * 16, T, D, acc_v, 1.0f, sSTw, lane);
+
+  // dK·scale and dV, each rounded once, staged through the warp's own rows
+  // of sK and sV (their fragments are in registers)
+  write_rows<DP>(acc_k, scale, sK + warp * 16 * LD, dk, sx, b, h, k0 + warp * 16, T, D, lane);
+  write_rows<DP>(acc_v, 1.f, sV + warp * 16 * LD, dv, sx, b, h, k0 + warp * 16, T, D, lane);
 }
 
 struct BwdArgs {
@@ -301,10 +352,10 @@ cudaError_t launch_dq(const BwdArgs& a) {
 
 template <int DP>
 cudaError_t launch_dkv(const BwdArgs& a) {
-  constexpr size_t smem = Tiles<DP>::bytes;
+  constexpr size_t smem = dkv_smem_bytes<DP>();
   cudaError_t e = cudaFuncSetAttribute(bwd_dkv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  bwd_dkv_kernel<DP><<<dim3((a.T + BR - 1) / BR, a.H, a.B), BTHREADS, smem, a.stream>>>(
+  bwd_dkv_kernel<DP><<<dim3((a.T + KB - 1) / KB, a.H, a.B), BTHREADS, smem, a.stream>>>(
       a.q, a.k, a.v, a.sx, a.dout, a.so, a.lse, a.delta, a.mask, a.dk, a.dv, a.T, a.H, a.D, a.scale);
   return cudaGetLastError();
 }

@@ -73,7 +73,7 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
 
   load_tile_async<FQ, DP, FTHREADS>(sQ, q, lin, b, h, q0, T, D, tid);
   load_tile_async<FK, DP, FTHREADS>(sK, k, lin, b, h, 0, T, D, tid);
-  load_mask_async<FK, FTHREADS>(sMask, mrow, 0, T, tid);
+  load_vec_async<FK, FTHREADS>(sMask, mrow, 0, T, tid);
   cp_async_commit();
 
   uint32_t qf[DP / 16][4];
@@ -88,7 +88,8 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
 
     // the online-softmax step: m_cur, α, p, l = α·l + Σp
     float s[FK / 8][4], bm[2], alpha[2], sum[2] = {0.f, 0.f};
-    tile_scores<FK, DP>(s, qf, sK, sMask, scale, lane);
+    tile_dots<FK, DP>(s, qf, sK, lane);
+    score_epilogue<FK>(s, sMask, scale, lane);
     tile_row_max<FK>(s, bm);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -113,7 +114,7 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
     __syncthreads();  // V has landed; every warp is done with K and the mask
     if (k0 + FK < T_pad) {
       load_tile_async<FK, DP, FTHREADS>(sK, k, lin, b, h, k0 + FK, T, D, tid);
-      load_mask_async<FK, FTHREADS>(sMask, mrow, k0 + FK, T, tid);
+      load_vec_async<FK, FTHREADS>(sMask, mrow, k0 + FK, T, tid);
       cp_async_commit();
     }
 

@@ -5,299 +5,268 @@
 // Replaces msa_tpu/ops/pallas/attention.py:_fused_attention_lse
 // (pallas_call at :206, kernel _attention_kernel :59-83), the function
 // behind the public fused_attention. Unlike rows 2 and 5 it has no T limit
-// and takes f32 as well as bf16, so it is a kernel of its own.
+// and takes f32 as well as bf16.
 //
-// Same rounding points as the TPU kernel: s = (q·k)·scale + bias with the
-// dot accumulated in f32 and bias −1e9 on masked keys; the exact row max m
-// and denom = Σ exp(s − m) over every key of the padded row; P normalised
+// The TPU kernel's rounding points: s = (q·k)·scale + bias with the dot
+// accumulated in f32 and bias −1e9 on masked keys; the exact row max m and
+// denom = Σ exp(s − m) over every key of the padded row; P normalised
 // BEFORE P·V, (p / denom) rounded to v's dtype; o accumulated in f32 and
 // rounded once; lse = m + log(denom). T is padded to a multiple of 128 with
 // zero keys under the −1e9 bias, so a row with no valid key averages V over
-// all T_pad keys, as on the TPU. D ≤ 128 is zero-padded to DP (32, 64 or
-// 128) in shared memory; zeros add nothing.
+// all T_pad keys, as on the TPU. D is a multiple of 8 up to 128 (the
+// wrapper zero-pads other D, as JAX pads D; zeros add nothing), and DP (32,
+// 64 or 128) in shared memory.
 //
-// One block per (64-query tile, head, batch row), 128 threads; thread 2r
-// and 2r+1 own query row r of the tile, each half of its keys and half of
-// its output columns. Two passes over 64-key chunks, so the score row never
-// has to fit in shared memory: pass 1 keeps the running max and the f32
-// denominator (l rescaled by exp(m_old − m_new) when the max moves), pass 2
-// recomputes the scores, forms p / denom and accumulates P·V. The padded
-// query rows are computed and not written.
+// bf16: that is rows 5 and 2's function, so it runs their two-pass
+// register-resident core (attention_packed.cu, attention_mma.cuh) through
+// attend_heads_first, at any T.
 //
-// bf16: both dots on tensor cores (16×16×16 WMMA, f32 accumulators, each
-// warp its 16 query rows). f32: both dots in f32 FMA on the CUDA cores, not
-// TF32, which keeps ~3 digits: JAX's f32 kernel is exact f32 on the CPU.
+// f32 (fused_f32_kernel): exact f32 FMA on the CUDA cores, no TF32 (JAX's
+// f32 kernel is exact f32 on the CPU), in ONE pass with FlashAttention-2's
+// online rescale: per 64-key chunk m_new = max(m, rowmax(s)), α = exp(m −
+// m_new), p = exp(s − m_new), l = α·l + Σp, o = α·o + P·V, and o / l at the
+// end. In f32, rounding p / denom to v's dtype is the identity, so
+// normalising after P·V instead of before moves no rounding point: it only
+// changes f32 rounding (about 1e-7 relative), and cuts the work from the
+// two-pass 6·T²·D operations to 4·T²·D. lse = m + log(l).
 //
-// What bounds it on the card: per (row, head) 4·T_pad²·D operations on
-// 3·T·D·s bytes read and T·D·s + 4·T written (s the element size). At the
-// encoder's shape (B=2, H=12, T=512, D=64, bf16) that is 1.6 GFLOP (1.6 µs
-// at 989 TFLOP/s) over 6.3 MB (1.9 µs at 3.35 TB/s). This simple design
-// computes the scores twice and reloads K (twice) and V from L2 for every
-// query tile, without cp.async pipelining; the f32 path is bound by the
-// CUDA cores' 67 TFLOP/s. A fast version is later work.
-#include "gemm.cuh"
+// What bounds it on the card: per (row, head) 4·T_pad·T·D operations on
+// 3·T·D·s bytes read and T·D·s + 4·T written (s the element size). At
+// B=2, H=12, T=512, D=64 in f32 that is 1.6 GFLOP (24 µs at the CUDA cores'
+// 67 TFLOP/s) over 12.6 MB (3.8 µs at 3.35 TB/s): bound by the FMA rate.
+//
+// The f32 design: one block per (64-query tile, head, batch row), 4 warps
+// of 16 query rows. In a warp, lane = 8·rg + kg: the thread holds 4 query
+// rows (16w + rg + 4i, i < 4) × 8 keys (kg + 8j, j < 8) of the score tile
+// and the same 4 rows × DP/8 output columns (4kg + 32u + 0..3), so each
+// operand it reads from shared memory feeds 4 or 8 FMAs. Q, K and V keep
+// their [row][d] layout, in rows of LD = DP + 4 floats (LD ≡ 4 mod 32
+// words): a thread reads 4 consecutive d (or keys, or columns) of one row
+// as a float4, and the 4 or 8 distinct rows a warp reads at once fall in
+// distinct 16-byte bank groups, so 12 float4 loads feed 128 FMAs with no
+// bank conflict. A row's max and sum are reduced across its 8 lanes by
+// shuffles (xor 1, 2, 4). P goes through the warp's own 16 rows of shared
+// memory (rows of FK + 8 floats), read back as 4 keys of a row per float4.
+// K and V have one shared-memory buffer each, filled by cp.async as in
+// FlashAttention-2 (and row 6): chunk i's V copy flies while its scores and
+// softmax step run, chunk i+1's K copy (with its key mask) while its P·V
+// runs. 69 KB of shared memory a block at DP = 64 and 168 registers a
+// thread, so 3 blocks share an SM: at B=2 H=12 T=749 the 288 blocks fit in
+// one round of the 132 SMs.
+#include "attention_mma.cuh"
 
 namespace {
 
 constexpr int FQ = 64;         // query rows per block
-constexpr int FK = 64;         // keys per chunk
-constexpr int FTHREADS = 128;  // 2 threads per query row
-constexpr int FHALF = FK / 2;  // keys of a chunk per thread
-
-// rows [r0, r0 + FQ) of (b, h) of src [B, H, T, D] into smem [FQ × LD]:
-// D columns, zero past D and past T
-template <typename T, int DP, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int r0, int T_len, int D, int tid) {
-  for (int i = tid; i < FQ * DP; i += FTHREADS) {
-    const int r = i / DP, c = i % DP, t = r0 + r;
-    dst[r * LD + c] = (t < T_len && c < D) ? src[(size_t)t * D + c] : T(0.f);
-  }
-}
-
-// the chunk's mask bias: 0 where the key is valid, −1e9 on masked and
-// padded keys
-__device__ __forceinline__ void load_bias(float* sBias, const float* __restrict__ mask, int b, int kc, int T_len,
-                                          int tid) {
-  if (tid < FK) {
-    const int t = kc + tid;
-    sBias[tid] = (t < T_len && mask[(size_t)b * T_len + t] > 0.f) ? 0.f : -1e9f;
-  }
-}
-
-// s = dot·scale + bias, rounded one step at a time (no contraction)
-__device__ __forceinline__ float score(float dot, float scale, float bias) {
-  return __fadd_rn(__fmul_rn(dot, scale), bias);
-}
-
-// pass 1's update of (m, l) from this thread's FHALF scores of a chunk;
-// the partner thread (same row) sees the same values after the shuffles
-__device__ __forceinline__ void online_update(const float (&s)[FHALF], float& m, float& l) {
-  float cmax = s[0];
-#pragma unroll
-  for (int j = 1; j < FHALF; ++j) cmax = fmaxf(cmax, s[j]);
-  cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 1));
-  const float m_new = fmaxf(m, cmax);
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < FHALF; ++j) sum += expf(s[j] - m_new);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  l = l * expf(m - m_new) + sum;
-  m = m_new;
-}
+constexpr int FK = 64;         // keys per ring stage
+constexpr int FTHREADS = 128;  // 4 warps of 16 query rows
+constexpr int PLD = FK + 8;    // row of sP: ≡ 8 (mod 32) words, so the 32 lanes' scalar stores differ in bank
 
 template <int DP>
-size_t bf16_smem_bytes() {
-  constexpr int LD = DP + 8, SLD = (DP > FK ? DP : FK) + 4, PLD = FK + 8;
-  return (size_t)2 * FQ * LD * sizeof(bf16) + (size_t)FQ * SLD * sizeof(float) + (size_t)FQ * PLD * sizeof(bf16) +
-         FK * sizeof(float);
+constexpr size_t f32_smem_bytes() {
+  return ((size_t)(FQ + 2 * FK) * (DP + 4)  // sQ, sK, sV
+          + (size_t)FQ * PLD                // sP
+          + (size_t)FK)                     // the key mask of the chunk
+         * sizeof(float);
 }
 
-template <int DP>
-__global__ void __launch_bounds__(FTHREADS)
-fused_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                  const float* __restrict__ mask, bf16* __restrict__ out, float* __restrict__ lse, int H, int T_len,
-                  int T_pad, int D, float scale) {
-  constexpr int LD = DP + 8;                    // bf16 row of Q, K or V
-  constexpr int SLD = (DP > FK ? DP : FK) + 4;  // f32 row of scores, then of o
-  constexpr int PLD = FK + 8;                   // bf16 row of P
-  constexpr int NF = DP / 16;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sKV = sQ + FQ * LD;
-  float* sS = reinterpret_cast<float*>(sKV + FQ * LD);
-  bf16* sP = reinterpret_cast<bf16*>(sS + FQ * SLD);
-  float* sBias = reinterpret_cast<float*>(sP + FQ * PLD);
-
-  const int tid = threadIdx.x, warp = tid >> 5, r = tid >> 1, half = tid & 1;
-  const int q0 = blockIdx.x * FQ, h = blockIdx.y, b = blockIdx.z;
-  const size_t head = ((size_t)b * H + h) * T_len * D;
-  load_tile<bf16, DP, LD>(sQ, q + head, q0, T_len, D, tid);
-
-  // S chunk = Q·Kᵀ for this warp's 16 rows into sS (raw f32 dots)
-  auto scores = [&](int kc) {
-    __syncthreads();  // every warp is done with sKV and sBias
-    load_tile<bf16, DP, LD>(sKV, k + head, kc, T_len, D, tid);
-    load_bias(sBias, mask, b, kc, T_len, tid);
-    __syncthreads();
+// rows [t0, t0 + ROWS) of head (b, h) of src [B, H, T, D] f32 into smem
+// [ROWS × (DP + 4)] by cp.async, 4 floats a copy: zeros past D and past T
+template <int ROWS, int DP>
+__device__ __forceinline__ void load_f32_tile_async(float* dst, const float* __restrict__ src, size_t head, int t0,
+                                                    int T, int D, int tid) {
+  constexpr int LD = DP + 4, VECS = DP / 4;
+  static_assert(ROWS * VECS % FTHREADS == 0, "whole copies per thread");
 #pragma unroll
-    for (int j = 0; j < FK / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < DP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kt;
-        wmma::load_matrix_sync(a, sQ + warp * 16 * LD + kk, LD);
-        wmma::load_matrix_sync(kt, sKV + j * 16 * LD + kk, LD);
-        wmma::mma_sync(acc, a, kt, acc);
-      }
-      wmma::store_matrix_sync(sS + warp * 16 * SLD + j * 16, acc, SLD, wmma::mem_row_major);
-    }
-    __syncwarp();
-  };
-
-  // pass 1: the row max and the f32 denominator
-  float m = -3.402823466e38f, l = 0.f;
-  float s[FHALF];
-  for (int kc = 0; kc < T_pad; kc += FK) {
-    scores(kc);
-#pragma unroll
-    for (int j = 0; j < FHALF; ++j) s[j] = score(sS[r * SLD + half * FHALF + j], scale, sBias[half * FHALF + j]);
-    online_update(s, m, l);
-  }
-
-  // pass 2: O = bf16(p / denom) · V
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[NF];
-#pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(o[j], 0.0f);
-  for (int kc = 0; kc < T_pad; kc += FK) {
-    scores(kc);
-#pragma unroll
-    for (int j = 0; j < FHALF; ++j) {
-      const int c = half * FHALF + j;
-      const float p = expf(score(sS[r * SLD + c], scale, sBias[c]) - m);
-      sP[r * PLD + c] = __float2bfloat16(p / l);
-    }
-    __syncthreads();  // every warp is done with K in sKV
-    load_tile<bf16, DP, LD>(sKV, v + head, kc, T_len, D, tid);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-      wmma::load_matrix_sync(pf, sP + warp * 16 * PLD + kk, PLD);
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(vf, sKV + kk * LD + j * 16, LD);
-        wmma::mma_sync(o[j], pf, vf, o[j]);
-      }
-    }
-  }
-
-  // o → bf16 at rows < T and columns < D; lse per row
-#pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::store_matrix_sync(sS + warp * 16 * SLD + j * 16, o[j], SLD, wmma::mem_row_major);
-  __syncwarp();
-  const int t = q0 + r;
-  if (t < T_len) {
-    for (int c = half; c < D; c += 2) out[head + (size_t)t * D + c] = __float2bfloat16(sS[r * SLD + c]);
-    if (half == 0) lse[((size_t)b * H + h) * T_len + t] = m + logf(l);
+  for (int it = 0; it < ROWS * VECS / FTHREADS; ++it) {
+    const int i = tid + it * FTHREADS, r = i / VECS, c = (i % VECS) * 4, t = t0 + r;
+    const bool ok = t < T && c < D;
+    cp_async16(dst + r * LD + c, ok ? src + head + (size_t)t * D + c : src, ok);
   }
 }
 
+// at DP ≤ 64 registers are capped for 3 blocks an SM; at DP = 128 the
+// tiles' 120 KB allow one, and the registers are left free
 template <int DP>
-size_t f32_smem_bytes() {
-  constexpr int LD = DP + 1, SLD = FK + 1;
-  return ((size_t)2 * FQ * LD + (size_t)FQ * SLD + FK) * sizeof(float);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(FTHREADS)
+__global__ void __launch_bounds__(FTHREADS, DP > 64 ? 1 : 3)
 fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                 const float* __restrict__ mask, float* __restrict__ out, float* __restrict__ lse, int H, int T_len,
+                 const float* __restrict__ mask, float* __restrict__ out, float* __restrict__ lse, int H, int T,
                  int T_pad, int D, float scale) {
-  constexpr int LD = DP + 1;   // odd row: the 16 rows a warp reads differ in bank
-  constexpr int SLD = FK + 1;  // f32 row of P
-  constexpr int OC = DP / 2;   // output columns per thread
+  constexpr int LD = DP + 4;
+  constexpr int NU = DP / 32;  // float4 column groups a thread owns: 4kg + 32u
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* sQ = reinterpret_cast<float*>(smem_raw);
-  float* sKV = sQ + FQ * LD;
-  float* sP = sKV + FQ * LD;
-  float* sBias = sP + FQ * SLD;
+  float* sK = sQ + FQ * LD;      // [FK × LD]
+  float* sV = sK + FK * LD;      // [FK × LD]
+  float* sP = sV + FK * LD;      // [FQ × PLD]
+  float* sMask = sP + FQ * PLD;  // [FK]
 
-  const int tid = threadIdx.x, r = tid >> 1, half = tid & 1;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, rg = lane >> 3, kg = lane & 7;
   const int q0 = blockIdx.x * FQ, h = blockIdx.y, b = blockIdx.z;
-  const size_t head = ((size_t)b * H + h) * T_len * D;
-  load_tile<float, DP, LD>(sQ, q + head, q0, T_len, D, tid);
+  const size_t head = ((size_t)b * H + h) * T * D;
+  const float* mrow = mask + (size_t)b * T;
+  const int nt = T_pad / FK;
 
-  // this thread's FHALF scores of row r in chunk kc, in f32 FMA
-  float s[FHALF];
-  auto scores = [&](int kc) {
-    __syncthreads();
-    load_tile<float, DP, LD>(sKV, k + head, kc, T_len, D, tid);
-    load_bias(sBias, mask, b, kc, T_len, tid);
-    __syncthreads();
-    float acc[FHALF];
-#pragma unroll
-    for (int j = 0; j < FHALF; ++j) acc[j] = 0.f;
-    for (int d = 0; d < DP; ++d) {
-      const float qd = sQ[r * LD + d];
-#pragma unroll
-      for (int j = 0; j < FHALF; ++j) acc[j] = fmaf(qd, sKV[(half * FHALF + j) * LD + d], acc[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < FHALF; ++j) s[j] = score(acc[j], scale, sBias[half * FHALF + j]);
-  };
+  load_f32_tile_async<FQ, DP>(sQ, q, head, q0, T, D, tid);
+  load_f32_tile_async<FK, DP>(sK, k, head, 0, T, D, tid);
+  load_vec_async<FK, FTHREADS>(sMask, mrow, 0, T, tid);
+  cp_async_commit();
 
-  float m = -3.402823466e38f, l = 0.f;
-  for (int kc = 0; kc < T_pad; kc += FK) {
-    scores(kc);
-    online_update(s, m, l);
+  const float* sQt = sQ + (warp * 16 + rg) * LD;  // the thread's row i is sQt + 4i·LD
+  float* sPt = sP + (warp * 16 + rg) * PLD;
+  float m[4], l[4], o[4][4 * NU];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -1e30f;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * NU; ++c) o[i][c] = 0.f;
   }
 
-  float o[OC];
+  const float* sKs = sK + kg * LD;  // key j of the thread: + 8j·LD
+  const float* sVs = sV + 4 * kg;   // column group u: + 32u
+  for (int step = 0; step < nt; ++step) {
+    cp_async_wait<0>();
+    __syncthreads();  // K and the mask of this chunk have landed; every warp is done with the last V
+    load_f32_tile_async<FK, DP>(sV, v, head, step * FK, T, D, tid);
+    cp_async_commit();
+
+    // s = (q·k)·scale + bias, the dot an f32 FMA chain over d in order
+    float s[4][8];
 #pragma unroll
-  for (int c = 0; c < OC; ++c) o[c] = 0.f;
-  for (int kc = 0; kc < T_pad; kc += FK) {
-    scores(kc);
+    for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < FHALF; ++j) sP[r * SLD + half * FHALF + j] = expf(s[j] - m) / l;
-    __syncthreads();  // every thread is done with K in sKV
-    load_tile<float, DP, LD>(sKV, v + head, kc, T_len, D, tid);
-    __syncthreads();
-    for (int j = 0; j < FK; ++j) {
-      const float p = sP[r * SLD + j];
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    }
+#pragma unroll 4
+    for (int d = 0; d < DP; d += 4) {
+      float4 qv[4];
 #pragma unroll
-      for (int c = 0; c < OC; ++c) o[c] = fmaf(p, sKV[j * LD + half * OC + c], o[c]);
+      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(sQt + 4 * i * LD + d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 kv = *reinterpret_cast<const float4*>(sKs + 8 * j * LD + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+        }
+      }
+    }
+    float bias[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) bias[j] = sMask[kg + 8 * j] > 0.f ? 0.f : MASK_BIAS;
+
+    // the online step: m_new, α, p, l = α·l + Σp, o = α·o; P to the warp's rows of sP
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -1e30f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = __fadd_rn(__fmul_rn(s[i][j], scale), bias[j]);
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[i], mx), alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        sum += p;
+        sPt[4 * i * PLD + kg + 8 * j] = p;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < 4 * NU; ++c) o[i][c] *= alpha;
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // V has landed (and the warp's 16 rows of P are whole); every warp is done with K
+    if (step + 1 < nt) {
+      load_f32_tile_async<FK, DP>(sK, k, head, (step + 1) * FK, T, D, tid);
+      load_vec_async<FK, FTHREADS>(sMask, mrow, (step + 1) * FK, T, tid);
+      cp_async_commit();
+    }
+
+    // o += P·V, an FMA chain over the chunk's keys in order
+#pragma unroll 4
+    for (int j0 = 0; j0 < FK; j0 += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = *reinterpret_cast<const float4*>(sPt + 4 * i * PLD + j0);
+#pragma unroll
+      for (int jq = 0; jq < 4; ++jq) {
+#pragma unroll
+        for (int u = 0; u < NU; ++u) {
+          const float4 vv = *reinterpret_cast<const float4*>(sVs + (j0 + jq) * LD + 32 * u);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = jq == 0 ? pv[i].x : jq == 1 ? pv[i].y : jq == 2 ? pv[i].z : pv[i].w;
+            o[i][4 * u + 0] = fmaf(p, vv.x, o[i][4 * u + 0]);
+            o[i][4 * u + 1] = fmaf(p, vv.y, o[i][4 * u + 1]);
+            o[i][4 * u + 2] = fmaf(p, vv.z, o[i][4 * u + 2]);
+            o[i][4 * u + 3] = fmaf(p, vv.w, o[i][4 * u + 3]);
+          }
+        }
+      }
     }
   }
 
-  const int t = q0 + r;
-  if (t < T_len) {
+  // o / l at rows < T and columns < D (16-byte stores); lse per row
+  float* orow = out + head;
 #pragma unroll
-    for (int c = 0; c < OC; ++c)
-      if (half * OC + c < D) out[head + (size_t)t * D + half * OC + c] = o[c];
-    if (half == 0) lse[((size_t)b * H + h) * T_len + t] = m + logf(l);
+  for (int i = 0; i < 4; ++i) {
+    const int t = q0 + warp * 16 + rg + 4 * i;
+    if (t >= T) continue;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      const int c = 4 * kg + 32 * u;
+      if (c < D)
+        *reinterpret_cast<float4*>(orow + (size_t)t * D + c) =
+            make_float4(o[i][4 * u] / l[i], o[i][4 * u + 1] / l[i], o[i][4 * u + 2] / l[i], o[i][4 * u + 3] / l[i]);
+    }
+    if (kg == 0) lse[((size_t)b * H + h) * T + t] = m[i] + logf(l[i]);
   }
 }
 
 template <int DP>
-cudaError_t launch_dp(bool is_bf16, const void* q, const void* k, const void* v, const float* mask, void* out,
-                      float* lse, int B, int H, int T_len, int D, float scale, cudaStream_t s) {
-  const int T_pad = (T_len + 127) / 128 * 128;
-  const dim3 grid((T_len + FQ - 1) / FQ, H, B);
-  cudaError_t e;
-  if (is_bf16) {
-    const size_t smem = bf16_smem_bytes<DP>();
-    e = cudaFuncSetAttribute(fused_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    fused_bf16_kernel<DP><<<grid, FTHREADS, smem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), mask,
-        static_cast<bf16*>(out), lse, H, T_len, T_pad, D, scale);
-  } else {
-    const size_t smem = f32_smem_bytes<DP>();
-    e = cudaFuncSetAttribute(fused_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    fused_f32_kernel<DP><<<grid, FTHREADS, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), mask,
-        static_cast<float*>(out), lse, H, T_len, T_pad, D, scale);
-  }
+cudaError_t launch_f32(const float* q, const float* k, const float* v, const float* mask, float* out, float* lse,
+                       int B, int H, int T, int D, float scale, cudaStream_t s) {
+  const int T_pad = (T + 127) / 128 * 128;
+  constexpr size_t smem = f32_smem_bytes<DP>();
+  cudaError_t e = cudaFuncSetAttribute(fused_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  fused_f32_kernel<DP><<<dim3((T + FQ - 1) / FQ, H, B), FTHREADS, smem, s>>>(q, k, v, mask, out, lse, H, T, T_pad, D,
+                                                                            scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, out [B, H, T, D] (contiguous; bf16 when is_bf16, else f32),
-// mask [B, T] f32 (1 = attend); lse [B, H, T] f32. Any T ≥ 1, D ≤ 128.
+// mask [B, T] f32 (1 = attend); lse [B, H, T] f32. Any T ≥ 1; D % 8 == 0,
+// D ≤ 128 (the wrapper zero-pads D).
 extern "C" int msa_fused_attention(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse,
                                    int B, int T, int H, int D, int is_bf16, float scale, void* stream) {
-  if (T < 1 || D < 1 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (T < 1 || D % 8 || D < 8 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16) return attend_heads_first(q, k, v, mask, out, lse, B, T, H, D, scale, stream);
+  auto qp = static_cast<const float*>(q);
+  auto kp = static_cast<const float*>(k);
+  auto vp = static_cast<const float*>(v);
   auto m = static_cast<const float*>(mask);
+  auto o = static_cast<float*>(out);
   auto l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool bf = is_bf16 != 0;
-  const cudaError_t e = D <= 32   ? launch_dp<32>(bf, q, k, v, m, out, l, B, H, T, D, scale, s)
-                        : D <= 64 ? launch_dp<64>(bf, q, k, v, m, out, l, B, H, T, D, scale, s)
-                                  : launch_dp<128>(bf, q, k, v, m, out, l, B, H, T, D, scale, s);
+  // D is zero-padded to 32, 64 or 128 columns in shared memory
+  const cudaError_t e = D <= 32   ? launch_f32<32>(qp, kp, vp, m, o, l, B, H, T, D, scale, s)
+                        : D <= 64 ? launch_f32<64>(qp, kp, vp, m, o, l, B, H, T, D, scale, s)
+                                  : launch_f32<128>(qp, kp, vp, m, o, l, B, H, T, D, scale, s);
   return static_cast<int>(e);
 }

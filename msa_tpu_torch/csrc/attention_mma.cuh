@@ -1,13 +1,16 @@
-// The register-resident attention core of the flash (row 6) and packed-QKV
-// (rows 5 and 2) kernels: tensor-core products through raw PTX
-// (mma.sync.m16n8k16 bf16 → f32, operands from ldmatrix), K/V tiles
-// brought into shared memory with cp.async, and the per-row statistics of
-// the softmax kept in registers.
+// The register-resident attention core of the flash (row 6), packed-QKV
+// (rows 5 and 2, and row 1 in bf16) and backward dK/dV (row 4) kernels:
+// tensor-core products through raw PTX (mma.sync.m16n8k16 bf16 → f32,
+// operands from ldmatrix), tiles brought into shared memory with cp.async,
+// and the per-row statistics of the softmax kept in registers. The raw
+// product (tile_dots) is shared; the forward adds its epilogue
+// (score_epilogue), row 4 its own (P and dS, keys as rows).
 //
-// A warp owns 16 query rows. In the m16n8k16 layouts a lane holds, of each
-// 16 × 8 accumulator tile, rows g = lane/4 and g + 8 at columns 2·(lane%4)
-// and 2·(lane%4) + 1: so a row's values are spread over the 4 lanes of one
-// quad, which reduce a row max or a row sum with two shuffles (xor 1, 2).
+// A warp owns 16 query rows (16 key rows in row 4). In the m16n8k16
+// layouts a lane holds, of each 16 × 8 accumulator tile, rows g = lane/4
+// and g + 8 at columns 2·(lane%4) and 2·(lane%4) + 1: so a row's values are
+// spread over the 4 lanes of one quad, which reduce a row max or a row sum
+// with two shuffles (xor 1, 2).
 // The score accumulators of key n-tiles 2i and 2i+1, rounded to bf16 and
 // packed in pairs, are exactly the A operand of the P·V product over keys
 // [16i, 16i + 16) (FlashAttention-2's register reuse): P never touches
@@ -85,17 +88,18 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* __restric
   }
 }
 
-// the key mask of keys [t0, t0 + ROWS) of one batch row (mrow = mask + b·T)
-// into smem, 0 past T
+// ROWS floats of a per-time f32 row from t0 into smem, 0 past T: the key
+// mask of one batch row (mask + b·T), or the lse or Δ of one head
 template <int ROWS, int NTHREADS>
-__device__ __forceinline__ void load_mask_async(float* dst, const float* __restrict__ mrow, int t0, int T, int tid) {
+__device__ __forceinline__ void load_vec_async(float* dst, const float* __restrict__ row, int t0, int T, int tid) {
   for (int i = tid; i < ROWS; i += NTHREADS) {
     const bool ok = t0 + i < T;
-    cp_async4(dst + i, ok ? mrow + t0 + i : mrow, ok);
+    cp_async4(dst + i, ok ? row + t0 + i : row, ok);
   }
 }
 
-// the A fragments of the warp's 16 query rows (sQw: its first row), all DP columns
+// the A fragments of the warp's 16 rows (sQw: its first row), all DP
+// columns: its query rows in the forward, its key or V rows in row 4
 template <int DP>
 __device__ __forceinline__ void load_q_frags(uint32_t (&qf)[DP / 16][4], const bf16* sQw, int lane) {
   constexpr int LD = DP + 8;
@@ -104,13 +108,13 @@ __device__ __forceinline__ void load_q_frags(uint32_t (&qf)[DP / 16][4], const b
   for (int kk = 0; kk < DP / 16; ++kk) ldsm_x4(qf[kk], p + kk * 16);
 }
 
-// s = (Q·Kᵀ)·scale + bias for the warp's 16 rows over NK keys of sK
-// [NK × (DP + 8)], each product and sum rounded on its own as the plain
-// versions compute it; bias = 0 where sMask > 0, else −1e9. s[n] is the
-// accumulator tile of keys [8n, 8n + 8).
+// s = Q·Kᵀ for the warp's 16 rows over NK keys of sK [NK × (DP + 8)], in
+// f32 from bf16 operands: the raw product, summed over 16-column slices of
+// D in order. s[n] is the accumulator tile of keys [8n, 8n + 8). The
+// backward takes it with other operands: Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ.
 template <int NK, int DP>
-__device__ __forceinline__ void tile_scores(float (&s)[NK / 8][4], const uint32_t (&qf)[DP / 16][4], const bf16* sK,
-                                            const float* sMask, float scale, int lane) {
+__device__ __forceinline__ void tile_dots(float (&s)[NK / 8][4], const uint32_t (&qf)[DP / 16][4], const bf16* sK,
+                                          int lane) {
   constexpr int LD = DP + 8;
 #pragma unroll
   for (int n = 0; n < NK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
@@ -128,6 +132,13 @@ __device__ __forceinline__ void tile_scores(float (&s)[NK / 8][4], const uint32_
       mma_bf16(s[2 * j + 1], qf[kk], kf[2], kf[3]);
     }
   }
+}
+
+// the forward's epilogue on a tile_dots result: s = S·scale + bias, the
+// product and the sum each rounded on its own as the plain versions
+// compute it; bias = 0 where sMask > 0, else −1e9 (sMask: the NK keys)
+template <int NK>
+__device__ __forceinline__ void score_epilogue(float (&s)[NK / 8][4], const float* sMask, float scale, int lane) {
   const int c = (lane & 3) << 1;
 #pragma unroll
   for (int n = 0; n < NK / 8; ++n) {
@@ -187,28 +198,38 @@ __device__ __forceinline__ void tile_pv(float (&o)[NC / 8][4], const uint32_t (&
   }
 }
 
-// o (the warp's 16 rows, already final in f32) → bf16 at the first D
-// columns of rows t0 + r < T of out, through the warp's own rows of the Q
-// tile (sQw, free once the Q fragments are in registers) so that each lane
-// writes 16 bytes; row_lse[r] to lse [B, H, T] for rows g and g + 8
+// o·mul (the warp's 16 rows in f32) → bf16 at the first D columns of rows
+// t0 + r < T of out, through sw, the warp's own 16 rows of a tile no longer
+// read (DP + 8 bf16 a row), so that each lane writes 16 bytes
 template <int DP>
-__device__ __forceinline__ void store_rows(const float (&o)[DP / 8][4], const float (&row_lse)[2], bf16* sQw,
-                                           bf16* __restrict__ out, Strides lout, float* __restrict__ lse, int b,
-                                           int h, int H, int t0, int T, int D, int lane) {
+__device__ __forceinline__ void write_rows(const float (&o)[DP / 8][4], float mul, bf16* sw, bf16* __restrict__ out,
+                                           Strides st, int b, int h, int t0, int T, int D, int lane) {
   constexpr int LD = DP + 8;
   const int g = lane >> 2, c = (lane & 3) << 1;
 #pragma unroll
   for (int n = 0; n < DP / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(sQw + g * LD + n * 8 + c) = pack_bf16(o[n][0], o[n][1]);
-    *reinterpret_cast<uint32_t*>(sQw + (g + 8) * LD + n * 8 + c) = pack_bf16(o[n][2], o[n][3]);
+    *reinterpret_cast<uint32_t*>(sw + g * LD + n * 8 + c) = pack_bf16(__fmul_rn(o[n][0], mul), __fmul_rn(o[n][1], mul));
+    *reinterpret_cast<uint32_t*>(sw + (g + 8) * LD + n * 8 + c) =
+        pack_bf16(__fmul_rn(o[n][2], mul), __fmul_rn(o[n][3], mul));
   }
   __syncwarp();
   const int vecs = D / 8;
   for (int i = lane; i < 16 * vecs; i += 32) {
     const int r = i / vecs, cc = (i % vecs) * 8, t = t0 + r;
-    if (t < T) *reinterpret_cast<uint4*>(out + lout.at(b, h, t) + cc) = *reinterpret_cast<const uint4*>(sQw + r * LD + cc);
+    if (t < T) *reinterpret_cast<uint4*>(out + st.at(b, h, t) + cc) = *reinterpret_cast<const uint4*>(sw + r * LD + cc);
   }
+}
+
+// o (the warp's 16 rows, already final in f32) → bf16 rows of out through
+// the warp's own rows of the Q tile (sQw, free once the Q fragments are in
+// registers); row_lse[r] to lse [B, H, T] for rows g and g + 8
+template <int DP>
+__device__ __forceinline__ void store_rows(const float (&o)[DP / 8][4], const float (&row_lse)[2], bf16* sQw,
+                                           bf16* __restrict__ out, Strides lout, float* __restrict__ lse, int b,
+                                           int h, int H, int t0, int T, int D, int lane) {
+  write_rows<DP>(o, 1.f, sQw, out, lout, b, h, t0, T, D, lane);
   if ((lane & 3) == 0) {
+    const int g = lane >> 2;
     float* row = lse + ((size_t)b * H + h) * T;
     if (t0 + g < T) row[t0 + g] = row_lse[0];
     if (t0 + g + 8 < T) row[t0 + g + 8] = row_lse[1];
@@ -216,3 +237,9 @@ __device__ __forceinline__ void store_rows(const float (&o)[DP / 8][4], const fl
 }
 
 }  // namespace
+
+// The two-pass core of rows 5 and 2 (attention_packed.cu) on q, k, v and o
+// [B, H, T, D] at any T: row 1's bf16 path (attention_fused.cu). D % 8 == 0,
+// D ≤ 128; returns a cudaError_t.
+int attend_heads_first(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse, int B,
+                       int T, int H, int D, float scale, void* stream);

@@ -14,6 +14,8 @@
 //   the forward of attention_with_vjp at T ≤ 512. It computes the same
 //   function as row 5 in another layout (JAX copies Kᵀ to [B, H, D, T] for
 //   the TPU's matrix unit; here K is read in place).
+// - row 1's bf16 path (msa_fused_attention, attention_fused.cu) calls the
+//   same core through attend_heads_first, at any T.
 //
 // Same rounding points as the TPU kernels: scores accumulate in f32 from
 // bf16 q and k, s = S·scale + bias with bias −1e9 on masked keys (a row with
@@ -21,12 +23,11 @@
 // exact row max m; P is normalised BEFORE the P·V product, (p / denom)
 // rounded to bf16 (attention_block rounds the unnormalised P and divides
 // after); o accumulates in f32 and is rounded once; lse = m + log(denom).
-// The denominator is summed online, as row 1's (attention_fused.cu): l is
-// rescaled by exp(m_old − m_new) when the max moves, so it differs from
-// Σ exp(s − m) only by f32 rounding. T is padded to a multiple of 128
-// (rows past T read as zeros under masked keys; the query rows past T are
-// not written). D is any multiple of 8 up to 128, zero-padded to DP (32,
-// 64 or 128) by the copies.
+// The denominator is summed online: l is rescaled by exp(m_old − m_new)
+// when the max moves, so it differs from Σ exp(s − m) only by f32
+// rounding. T is padded to a multiple of 128 (rows past T read as zeros
+// under masked keys; the query rows past T are not written). D is any
+// multiple of 8 up to 128, zero-padded to DP (32, 64 or 128) by the copies.
 //
 // What bounds it on the card: per (row, head) 4·T²·D operations on
 // 3·T·D·2 bytes read and T·D·2 + 4·T written. At the encoder's shape
@@ -50,6 +51,8 @@
 // V and the key mask of 64 keys a stage): tile i+1's copy flies while tile
 // i's products run. 45.5 KB of shared memory a block at DP = 64, so several
 // blocks share an SM.
+#include <climits>
+
 #include "attention_mma.cuh"
 
 namespace {
@@ -96,7 +99,7 @@ packed_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const 
     const int st = step & 1, t0 = (step < nt ? step : step - nt) * PK;
     load_tile_async<PK, DP, PTHREADS>(sK + st * PK * LD, k, lin, b, h, t0, T, D, tid);
     if (step >= nt) load_tile_async<PK, DP, PTHREADS>(sV + st * PK * LD, v, lin, b, h, t0, T, D, tid);
-    load_mask_async<PK, PTHREADS>(sMask + st * PK, mrow, t0, T, tid);
+    load_vec_async<PK, PTHREADS>(sMask + st * PK, mrow, t0, T, tid);
     cp_async_commit();
   };
   // → the stage of step, landed for every thread, with step + 1's in flight
@@ -122,7 +125,8 @@ packed_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const 
     const int st = arrive(step);
     if (step == 0) load_q_frags<DP>(qf, sQw, lane);
     float s[PK / 8][4], bm[2], sum[2] = {0.f, 0.f};
-    tile_scores<PK, DP>(s, qf, sK + st * PK * LD, sMask + st * PK, scale, lane);
+    tile_dots<PK, DP>(s, qf, sK + st * PK * LD, lane);
+    score_epilogue<PK>(s, sMask + st * PK, scale, lane);
     tile_row_max<PK>(s, bm);
     const float mn[2] = {fmaxf(m[0], bm[0]), fmaxf(m[1], bm[1])};
 #pragma unroll
@@ -143,7 +147,8 @@ packed_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const 
   for (int step = nt; step < steps; ++step) {
     const int st = arrive(step);
     float s[PK / 8][4];
-    tile_scores<PK, DP>(s, qf, sK + st * PK * LD, sMask + st * PK, scale, lane);
+    tile_dots<PK, DP>(s, qf, sK + st * PK * LD, lane);
+    score_epilogue<PK>(s, sMask + st * PK, scale, lane);
 #pragma unroll
     for (int n = 0; n < PK / 8; ++n) {
 #pragma unroll
@@ -171,9 +176,11 @@ cudaError_t launch_packed(const bf16* q, const bf16* k, const bf16* v, Strides l
   return cudaGetLastError();
 }
 
+// max_t: 512 for rows 5 and 2, which mirror JAX's dispatch (longer inputs
+// go to row 6); none for row 1. The two passes run at any T_pad.
 int attend(const void* q, const void* k, const void* v, Strides lin, const void* mask, void* out, Strides lout,
-           void* lse, int B, int T, int H, int D, float scale, void* stream) {
-  if (T < 1 || T > 512 || D % 8 || D < 8 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
+           void* lse, int B, int T, int H, int D, float scale, void* stream, int max_t = 512) {
+  if (T < 1 || T > max_t || D % 8 || D < 8 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
   auto qp = static_cast<const bf16*>(q);
   auto kp = static_cast<const bf16*>(k);
   auto vp = static_cast<const bf16*>(v);
@@ -189,6 +196,12 @@ int attend(const void* q, const void* k, const void* v, Strides lin, const void*
 }
 
 }  // namespace
+
+int attend_heads_first(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse, int B,
+                       int T, int H, int D, float scale, void* stream) {
+  const Strides st{H * T * D, T * D, D};
+  return attend(q, k, v, st, mask, out, st, lse, B, T, H, D, scale, stream, INT_MAX);
+}
 
 // qkv [B, T, 3, H, D] bf16 (contiguous), mask [B, T] f32 (1 = attend);
 // out [B, T, H·D] bf16, lse [B, H, T] f32. T ≤ 512, D % 8 == 0, D ≤ 128.

@@ -53,8 +53,9 @@ is ``max + log(denom)`` in f32. :func:`mha_attention` (row 2,
 q, k, v [B, H, T, D], through the same CUDA core with its own entry point.
 :func:`fused_attention` / :func:`fused_attention_lse` (row 1,
 ``_fused_attention_lse``, ``pl.pallas_call`` at :206) is the same function
-again at any T and in f32 as well as bf16, through its own kernel
-(``csrc/attention_fused.cu``); no path of the system reaches it, as in JAX.
+again at any T and in f32 as well as bf16 (``csrc/attention_fused.cu``:
+bf16 through rows 5 and 2's core, f32 through a one-pass kernel of its
+own); no path of the system reaches it, as in JAX.
 
 Training (``_bwd_dq_kernel``/``_bwd_dkv_kernel``, ``pl.pallas_call`` at
 :370 and :395, rows 3 and 4): :func:`attention_bwd` takes the forward's
@@ -275,11 +276,17 @@ def _mask_bias(key_mask: torch.Tensor) -> torch.Tensor:
 
 def packed_qkv_attention_plain(qkv: torch.Tensor, key_mask: torch.Tensor):
     """Plain PyTorch version of the row-5 kernel (same rounding points)."""
+    return _packed_plain(qkv, key_mask, _scale(qkv.shape[-1]))
+
+
+def _packed_plain(qkv: torch.Tensor, key_mask: torch.Tensor, scale: float):
+    """Row 5's arithmetic with the score scale given: the head dim's own,
+    or that of the unpadded D where D was zero-padded (row 1)."""
     b, t, _, h, d = qkv.shape
     dt = qkv.dtype
     qkv, key_mask, t_pad = _pad_packed(qkv, key_mask)
     q, k, v = qkv.float().unbind(dim=2)  # [b, t_pad, h, d]
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * _scale(d) + _mask_bias(key_mask)[:, None, None, :]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale + _mask_bias(key_mask)[:, None, None, :]
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True)
@@ -419,6 +426,17 @@ mha_attention.launches = 0  # kernel launches since the last reset (the smoke re
 # bf16. Its plain version is theirs.
 fused_attention_plain = mha_attention_plain
 
+FUSED_D_MULTIPLE = 8  # the kernels copy D in 16-byte pieces of bf16
+
+
+def _pad_head_dim(*xs: torch.Tensor):
+    """Zero-pad the last dimension (D) of each of xs to a multiple of
+    :data:`FUSED_D_MULTIPLE`, as JAX's wrapper pads D: the zeros add nothing
+    to either product, so o's first D columns and the lse are unchanged
+    (with the scale of the unpadded D)."""
+    pad = -xs[0].shape[-1] % FUSED_D_MULTIPLE
+    return xs if not pad else tuple(F.pad(x, (0, pad)) for x in xs)
+
 
 def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor, block_q: int = 256, pad_d: bool = False):
     """JAX's ``_fused_attention_lse``: q, k, v [B, H, T, D] (f32 or bf16,
@@ -426,7 +444,9 @@ def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_m
     q's dtype, lse [B, H, T] f32). ``block_q`` and ``pad_d`` are the TPU
     kernel's tiling knobs; zero padding is exact, so they change nothing
     and are ignored. CPU tensors take :func:`fused_attention_plain`; CUDA
-    tensors launch the kernel of ``csrc/attention_fused.cu``."""
+    tensors launch the kernel of ``csrc/attention_fused.cu`` (bf16: rows 5
+    and 2's core; f32: a one-pass kernel), with D zero-padded to a multiple
+    of 8 on the card where it is not one."""
     del block_q, pad_d
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v, key_mask)
@@ -434,9 +454,10 @@ def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_m
     if q.dtype not in (torch.float32, torch.bfloat16) or not 1 <= d <= 128:
         raise ValueError(f"fused_attention kernel takes f32 or bf16 with D ≤ 128, got {q.dtype} {tuple(q.shape)}")
     dev = q.device
-    q, k, v = (x.contiguous() for x in (q, k, v))
+    q, k, v = (x.contiguous() for x in _pad_head_dim(q, k, v))
+    d_pad = q.shape[-1]
     for name, x in (("q", q), ("k", k), ("v", v)):
-        require(x, name, q.dtype, (b, h, t, d), dev)
+        require(x, name, q.dtype, (b, h, t, d_pad), dev)
     key_mask = key_mask.float().contiguous()
     require(key_mask, "key_mask", torch.float32, (b, t), dev)
     o = torch.empty_like(q)
@@ -444,11 +465,11 @@ def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_m
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = build.library().msa_fused_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, t, h, d, int(q.dtype == torch.bfloat16), _scale(d), stream,
+        b, t, h, d_pad, int(q.dtype == torch.bfloat16), _scale(d), stream,
     )
     build.check(rc, "fused_attention")
     fused_attention_lse.launches += 1
-    return o, lse
+    return (o if d_pad == d else o[..., :d].contiguous()), lse
 
 
 fused_attention_lse.launches = 0  # kernel launches since the last reset (the smoke reads it)
