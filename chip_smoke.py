@@ -6,14 +6,14 @@ Phases, one line each with its seconds:
   1. require CUDA; print the card's name and power limit;
   2. build the hand-written kernels (one nvcc call, from msa_tpu_torch/csrc);
      print ptxas's registers and spills of each kernel, and of the flash,
-     packed-QKV, dK/dV (row 4) and f32 fused (row 1) attention kernels once
-     more on a line each;
+     packed-QKV, dK/dV (row 4), f32 fused (row 1) and attention-block core
+     (rows 7 and 8, DP 32, 64 and 128) kernels once more on a line each;
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, and time both with CUDA events: the bf16
      attention_block and ffn_fused, the row-quantize kernel (exactly: codes
      and scales equal), attention_block_int8 and ffn_fused_int8, and the
-     attention-only kernels packed_qkv_attention (also at the text and 5 s
-     audio training steps' shapes, B=8) and flash_attention (o and lse,
+     attention-only kernels packed_qkv_attention_lse (also at the text and 5 s
+     audio training steps' shapes, B=8) and flash_attention_lse (o and lse,
      with a ragged T and a row with no valid key), beside one
      scaled_dot_product_attention call on the same inputs as yardstick;
   4. the bf16 recipe at full width: PipelineModels.initialize(
@@ -40,11 +40,11 @@ Phases, one line each with its seconds:
   8. 15 s segments at full width (segment_samples=240_000): run_host at
      B=2, bucket 512, in both recipes; the audio encoder runs at T = 749,
      so each of its 12 layers takes the dense projections and
-     flash_attention; 12 flash launches per forward, 12 of the text's
+     flash_attention_lse; 12 flash launches per forward, 12 of the text's
      attention kernel, 24 of the FFN kernel; the same checks as phases 4
      and 5, and the forward's wall and device time;
   9. a custom-width encoder (2 layers, d_model 96, 4 heads, d_ff 256) in
-     the bf16 and int8 recipes: 2 packed_qkv_attention launches and the
+     the bf16 and int8 recipes: 2 packed_qkv_attention_lse launches and the
      dense FFN, held against its plain path; then PipelineModels.tiny() on
      the card, which launches no kernel, against the same models on the CPU;
  10. the training kernels against their plain versions, timed beside the
@@ -58,9 +58,10 @@ Phases, one line each with its seconds:
      fragments held, Sᵀ and dPᵀ in registers, dK and dV accumulated in
      registers, Q/dO/L/Δ through a cp.async ring); both kernels' TFLOP/s
      on the algorithm's 6 or 8·B·H·T²·D;
- 11. the two differentiable wrappers, packed_qkv_attention_with_vjp (T =
-     512, T = 749 through row 6, and the custom width H=4 D=24 at T = 40)
-     and attention_with_vjp (T = 512 and T = 749): their gradients against
+ 11. the two differentiable wrappers, packed_qkv_attention (T = 512, T =
+     749 through row 6, the custom width H=4 D=24 at T = 40, and D=25,
+     zero-padded to 32, at T = 40 and 600) and attention_with_vjp (T = 512,
+     T = 749, and D=25 at T = 100): their gradients against
      autograd through an f32 einsum attention, in units of the plain bf16
      einsum path's error, with the last head's dV zeroed as the fault;
  12. the full-width training step (msa_tpu_torch.training) on the bf16
@@ -92,7 +93,37 @@ Phases, one line each with its seconds:
      tests/data/asr_clips.npz: first-step logits against the CPU's, tokens
      equal (or differing only where the CPU's top-2 margin is under the
      logits bound), transcripts equal to JAX's, ms per batch.
-Phases 4, 5 and 8 also time run_host per forward, phase 7 run_stream per
+ 17. the f32 kernels of the parity mode against their plain versions (TF32
+     off): attention_block_f32 (row 8) at B=2 T=250 and 512 and at head
+     dims 32, 48 (padded to 64) and 128, ffn_fused_f32 (row 10) at N=500
+     and 1024 (both on the f32 SIMT GEMM of csrc/gemm_f32.cuh), within 1e-5
+     of the largest output; rows 5 and 6 in
+     f32 (row 1's one-pass f32 core on the packed layout) at B=2 T=512, the
+     custom widths (D=24, D=25) and B=2 T=749, B=1 T=1499, o and lse within
+     2e-5; each timed beside cuBLAS's f32 GEMMs or f32
+     scaled_dot_product_attention;
+ 18. JAX's f32 parity mode at full width: HF-named BERT-base and
+     wav2vec2-base state dicts made here from a numpy seed, converted by the
+     port's params_from_hf_bert / params_from_hf_wav2vec2, merged with the
+     init's heads (params_tree()), PipelineModels.initialize(text_params=,
+     audio_params=): the encoders resolve to f32 kernels with
+     quantize="none" and no shipped head loads over the trunks; run_host at
+     B=2, 5 s (buckets 512 and 32; 24 launches each of attention_block_f32
+     and ffn_fused_f32) and 15 s (12 of attention_block_f32 and of
+     flash_attention_f32, 24 of ffn_fused_f32), every hostpack column within
+     1e-3 of the plain f32 path (einsum attention, dense FFN), the last
+     head dropped as the planted fault; device ms per forward; the custom
+     widths in f32 (d_model 96 and 100 at T=40, 100 at T=600) against their
+     plain versions;
+ 19. the head-dim and API repairs: 2-layer encoders at head dims 32, 48
+     (weights padded to 64) and 128 through rows 7, 8 and 8 in f32, against
+     the same encoders on the kernels' plain versions (in f32 within 1e-5
+     of the largest output); rows 2-6 at D=25
+     (d_model 100, 4 heads): the encoder at T=40 (row 5) and T=600 (row 6),
+     one training step (rows 5, 3, 4), direct calls of rows 2, 5, 6 and the
+     backward; packed_qkv_attention(qkv, mask) → o and flash_attention(q,
+     k, v, mask) → o, JAX's contracts, one launch each.
+Phases 4, 5, 8 and 18 also time run_host per forward, phase 7 run_stream per
 window. Counts are set to 0 just before each path runs and read just after.
 The line before the last is a JSON object with each kernel's numbers; the
 last line is the JSON contract line. Any failure exits nonzero.
@@ -186,6 +217,14 @@ LOSS_TRACK_RTOL = 0.1
 # row 1 in f32 against its plain version: both exact f32 (no TF32), so
 # only summation order differs; JAX's own test holds its kernel to 2e-5
 ROW1_F32_ATOL = 2e-5
+# the f32 GEMM kernels (rows 8 and 10 in f32, the parity mode's) against
+# their plain versions: both exact f32 (no TF32), the sums over K ≤ 3072 in
+# another order, so the bound is relative to the largest output; fixed
+# before the first run. Rows 5 and 6 in f32 take ROW1_F32_ATOL (o and lse).
+F32_GEMM_RTOL = 1e-5
+# the parity mode end to end (and its encoders at the custom widths): JAX's
+# drop-in contract for imported trunks, tests/test_pipeline.py:192-200
+PARITY_ATOL = 1e-3
 # row 11 against its plain version at JAX's tolerances
 # (tests/test_pallas_conv.py): bf16 within 2e-2 of the largest output, f32
 # at atol = rtol = 2e-4
@@ -211,6 +250,7 @@ class SmokeFailure(RuntimeError):
 ON_BF16 = "phase 4: run_host in the bf16 recipe, B=2, one forward at bucket 512 and one at bucket 32"
 ON_INT8 = "phase 5: run_host in the int8 recipe, B=2, one forward at bucket 512 and one at bucket 32"
 ON_TRAIN = "phase 12: one text training step, B=8, bucket 512"
+ON_PARITY = "phase 18: run_host in the f32 parity mode (imported trunks), B=2, one forward at bucket 512 and one at bucket 32"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -390,27 +430,33 @@ def main() -> int:
     from msa_tpu_torch.ops.kernels import quant as KQ
     from msa_tpu_torch.pipeline import graph as G
 
+    # each kernel's launch counter: (wrapper, attribute); a dtype-dispatching
+    # wrapper counts its f32 kernel in launches_f32
     counters = {
-        "attention_block": A.attention_block,
-        "ffn_fused": F.ffn_fused,
-        "attention_block_int8": A.attention_block_int8,
-        "ffn_fused_int8": F.ffn_fused_int8,
-        "quantize_rows": KQ.quantize_rows,
-        "packed_qkv_attention": A.packed_qkv_attention,
-        "flash_attention": A.flash_attention,
-        "mha_attention": A.mha_attention,
-        "attention_bwd_dq": A.attention_bwd_dq,
-        "attention_bwd_dkv": A.attention_bwd_dkv,
-        "fused_attention": A.fused_attention_lse,
-        "conv_stride2_fused": KC.conv_stride2_fused,
+        "attention_block": (A.attention_block, "launches"),
+        "ffn_fused": (F.ffn_fused, "launches"),
+        "attention_block_int8": (A.attention_block_int8, "launches"),
+        "ffn_fused_int8": (F.ffn_fused_int8, "launches"),
+        "quantize_rows": (KQ.quantize_rows, "launches"),
+        "packed_qkv_attention_lse": (A.packed_qkv_attention_lse, "launches"),
+        "flash_attention_lse": (A.flash_attention_lse, "launches"),
+        "mha_attention": (A.mha_attention, "launches"),
+        "attention_bwd_dq": (A.attention_bwd_dq, "launches"),
+        "attention_bwd_dkv": (A.attention_bwd_dkv, "launches"),
+        "fused_attention": (A.fused_attention_lse, "launches"),
+        "conv_stride2_fused": (KC.conv_stride2_fused, "launches"),
+        "attention_block_f32": (A.attention_block, "launches_f32"),
+        "ffn_fused_f32": (F.ffn_fused, "launches_f32"),
+        "packed_qkv_attention_f32": (A.packed_qkv_attention_lse, "launches_f32"),
+        "flash_attention_f32": (A.flash_attention_lse, "launches_f32"),
     }
 
     def reset_counts():
-        for fn in counters.values():
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
 
     def counts():
-        return {name: fn.launches for name, fn in counters.items()}
+        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
     # --- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -419,7 +465,9 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip().split("ptxas info    :")[-1].strip(), flush=True)
-    for kernel, used in ptxas_usage(log, ("flash_kernel", "packed_qkv_kernel", "bwd_dkv_kernel", "fused_f32_kernel")).items():
+    for kernel, used in ptxas_usage(
+        log, ("flash_kernel", "packed_qkv_kernel", "bwd_dkv_kernel", "fused_f32_kernel", "attn_core_kernel")
+    ).items():
         print(f"  ptxas {kernel}: {used}", flush=True)
     phase("build", t0, library=lib_path.name)
 
@@ -579,9 +627,9 @@ def main() -> int:
     # 30 s of audio; ragged T everywhere, and a row with no valid key where
     # B > 1
     for name, kernel, plain, main_shape, shapes in (
-        ("packed_qkv_attention", A.packed_qkv_attention, A.packed_qkv_attention_plain, (8, 512, 12, 64),
+        ("packed_qkv_attention_lse", A.packed_qkv_attention_lse, A.packed_qkv_attention_lse_plain, (8, 512, 12, 64),
          ((2, 40, 4, 24), (2, 512, 12, 64), (8, 512, 12, 64), (8, 250, 12, 64))),
-        ("flash_attention", A.flash_attention, A.flash_attention_plain, (2, 749, 12, 64),
+        ("flash_attention_lse", A.flash_attention_lse, A.flash_attention_lse_plain, (2, 749, 12, 64),
          ((2, 749, 12, 64), (1, 1499, 12, 64))),
     ):
         for b, T_, h, d in shapes:
@@ -746,15 +794,15 @@ def main() -> int:
     exact = G.SegmentPipeline(models.with_encoders(attention_impl="einsum", ffn_impl="dense", compute_dtype="float32"))
     real_attention = A.attention_block
 
-    def skip_last_head(x, w_qkv, b_qkv, w_out, b_out, mask, heads):
+    def skip_last_head(x, w_qkv, b_qkv, w_out, b_out, mask, heads, head_dim=None):
         w = w_qkv.clone()
-        w[-w.shape[1] // heads:] = 0  # the last head's V rows: its output stays 0
-        return real_attention(x, w, b_qkv, w_out, b_out, mask, heads)
+        w[-w.shape[0] // (3 * heads):] = 0  # the last head's V rows: its output stays 0
+        return real_attention(x, w, b_qkv, w_out, b_out, mask, heads, head_dim)
 
-    def drop_last_key(x, w_qkv, b_qkv, w_out, b_out, mask, heads):
+    def drop_last_key(x, w_qkv, b_qkv, w_out, b_out, mask, heads, head_dim=None):
         m = mask.clone()
         m[:, -1] = 0  # the key-tile tail one short
-        return real_attention(x, w_qkv, b_qkv, w_out, b_out, m, heads)
+        return real_attention(x, w_qkv, b_qkv, w_out, b_out, m, heads, head_dim)
 
     bf16_errs = vs_plain(
         "bf16", runs, (pipe, None), (plain, None), (exact, None),
@@ -790,10 +838,10 @@ def main() -> int:
     exact8 = G.SegmentPipeline(models8.with_encoders(attention_impl="einsum", ffn_impl="dense", compute_dtype="float32"))
     real_int8 = A.attention_block_int8
 
-    def zero_last_head_v(x, w_qkv_q, s_qkv, b_qkv, w_out_q, s_out, b_out, mask, heads):
+    def zero_last_head_v(x, w_qkv_q, s_qkv, b_qkv, w_out_q, s_out, b_out, mask, heads, head_dim=None):
         w = w_qkv_q.clone()
-        w[-w.shape[1] // heads:] = 0  # the last head's V rows, zero before quantization: codes 0
-        return real_int8(x, w, s_qkv, b_qkv, w_out_q, s_out, b_out, mask, heads)
+        w[-w.shape[0] // (3 * heads):] = 0  # the last head's V rows, zero before quantization: codes 0
+        return real_int8(x, w, s_qkv, b_qkv, w_out_q, s_out, b_out, mask, heads, head_dim)
 
     int8_errs = vs_plain(
         "int8", runs8, (pipe8, None),
@@ -933,7 +981,7 @@ def main() -> int:
     t0 = time.perf_counter()
     long_cfg = SystemConfig(pipeline=PipelineConfig(segment_samples=240_000))
     long_runs = [(512, inputs(models, 512, long_cfg.pipeline.segment_samples))]
-    real_flash = A.flash_attention
+    real_flash = A.flash_attention_lse
 
     def flash_skip_last_head(qkv, mask):
         q = qkv.clone()
@@ -943,20 +991,20 @@ def main() -> int:
     long_counts = {}
     for label, mods, expect_counts, plain_of, fault_key, fault, enc_bound, pack_bound in (
         (
-            "long_bf16", models, {**zero, "attention_block": 12, "flash_attention": 12, "ffn_fused": 24},
+            "long_bf16", models, {**zero, "attention_block": 12, "flash_attention_lse": 12, "ffn_fused": 24},
             lambda pipe: (G.SegmentPipeline(mods.with_encoders(attention_impl="einsum", ffn_impl="dense"), long_cfg), None),
-            "skip_last_head", {"attention_block": skip_last_head, "flash_attention": flash_skip_last_head},
+            "skip_last_head", {"attention_block": skip_last_head, "flash_attention_lse": flash_skip_last_head},
             ENCODER_NOISE_RATIO, HOSTPACK_NOISE_RATIO,
         ),
         (
             "long_int8", models8,
-            {**zero, "attention_block_int8": 12, "flash_attention": 12, "ffn_fused_int8": 24, "quantize_rows": 72},
+            {**zero, "attention_block_int8": 12, "flash_attention_lse": 12, "ffn_fused_int8": 24, "quantize_rows": 72},
             lambda pipe: (pipe, {
                 "attention_block_int8": A.attention_block_int8_plain,
                 "ffn_fused_int8": F.ffn_int8_plain,
-                "flash_attention": A.flash_attention_plain,
+                "flash_attention_lse": A.flash_attention_lse_plain,
             }),
-            "zero_last_head_v", {"attention_block_int8": zero_last_head_v, "flash_attention": flash_skip_last_head},
+            "zero_last_head_v", {"attention_block_int8": zero_last_head_v, "flash_attention_lse": flash_skip_last_head},
             INT8_ENCODER_RATIO, INT8_HOSTPACK_RATIO,
         ),
     ):
@@ -990,8 +1038,8 @@ def main() -> int:
             got = enc(x_c, mask_c)
         torch.cuda.synchronize()
         c = counts()
-        check(c == {**zero, "packed_qkv_attention": 2}, f"custom-width encoder ({quantize}): launches {c}, expected 2 packed_qkv_attention")
-        with swapped(T, packed_qkv_attention=A.packed_qkv_attention_plain), torch.inference_mode():
+        check(c == {**zero, "packed_qkv_attention_lse": 2}, f"custom-width encoder ({quantize}): launches {c}, expected 2 packed_qkv_attention_lse")
+        with swapped(T, packed_qkv_attention_lse=A.packed_qkv_attention_lse_plain), torch.inference_mode():
             want = enc(x_c, mask_c)
         err, rel, bnd = compare(f"custom-width encoder ({quantize})", got, want)
         print(f"  custom-width encoder d_model 96, quantize={quantize}: launches {c} vs plain path max_abs_err={err:.4e} bound={bnd:.4e}", flush=True)
@@ -1077,7 +1125,7 @@ def main() -> int:
     for b, T_, h, d in ((8, 512, 12, 64), (8, 250, 12, 64), (2, 749, 12, 64), (2, 40, 4, 24)):
         q, k, v, go = (rand(b, h, T_, d) for _ in range(4))
         mask = key_mask(b, T_)
-        forward = A.flash_attention if T_ > A.SINGLE_PASS_MAX_T else A.packed_qkv_attention
+        forward = A.flash_attention_lse if T_ > A.SINGLE_PASS_MAX_T else A.packed_qkv_attention_lse
         o, lse = forward(A._to_packed(q, k, v), mask)
         o = A._heads_first(o, h).contiguous()
         delta = A._delta(o, go)
@@ -1147,16 +1195,22 @@ def main() -> int:
     wrapper_counts = {name: 0 for name in counters}
     mha_counts = dict(zero)
     for label, kernel_fn, ref_fn, shape, expect_counts in (
-        ("packed_qkv_attention_with_vjp", A.packed_qkv_attention_with_vjp, packed_ref, (2, 512, 3, 12, 64),
-         {"packed_qkv_attention": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}),
-        ("packed_qkv_attention_with_vjp", A.packed_qkv_attention_with_vjp, packed_ref, (2, 749, 3, 12, 64),
-         {"flash_attention": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}),
-        ("packed_qkv_attention_with_vjp", A.packed_qkv_attention_with_vjp, packed_ref, (2, 40, 3, 4, 24),
-         {"packed_qkv_attention": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}),
+        ("packed_qkv_attention", A.packed_qkv_attention, packed_ref, (2, 512, 3, 12, 64),
+         {"packed_qkv_attention_lse": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}),
+        ("packed_qkv_attention", A.packed_qkv_attention, packed_ref, (2, 749, 3, 12, 64),
+         {"flash_attention_lse": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}),
+        ("packed_qkv_attention", A.packed_qkv_attention, packed_ref, (2, 40, 3, 4, 24),
+         {"packed_qkv_attention_lse": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}),
+        ("packed_qkv_attention", A.packed_qkv_attention, packed_ref, (2, 40, 3, 4, 25),
+         {"packed_qkv_attention_lse": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}),
+        ("packed_qkv_attention", A.packed_qkv_attention, packed_ref, (2, 600, 3, 4, 25),
+         {"flash_attention_lse": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}),
         ("attention_with_vjp", A.attention_with_vjp, einsum_attention, (2, 12, 512, 64),
          {"mha_attention": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}),
         ("attention_with_vjp", A.attention_with_vjp, einsum_attention, (2, 12, 749, 64),
-         {"flash_attention": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}),
+         {"flash_attention_lse": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}),
+        ("attention_with_vjp", A.attention_with_vjp, einsum_attention, (2, 4, 100, 25),
+         {"mha_attention": 1, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}),
     ):
         if len(shape) == 5:
             _, T_, _, h_, d_ = shape
@@ -1177,7 +1231,7 @@ def main() -> int:
         torch.cuda.synchronize()
         c = counts()
         wrapper_counts = {n: wrapper_counts[n] + v for n, v in c.items()}
-        if "mha_attention" in expect_counts:
+        if "mha_attention" in expect_counts and mha_counts == zero:
             mha_counts = c  # row 2's own path: one attention_with_vjp call at T ≤ 512
         check(c == {**zero, **expect_counts}, f"{tag}: launches {c}, expected {expect_counts}")
         g_p = grads(ref_fn)
@@ -1246,9 +1300,9 @@ def main() -> int:
     train_counts = {}
     step_ms = {}
     for label, attr, loss_fn, batch, fwd_kernel in (
-        ("text B=8 bucket512", "text", TR.text_loss, text_batch, "packed_qkv_attention"),
-        ("audio 5s B=8", "audio", TR.audio_loss, audio_batch(8, 80_000), "packed_qkv_attention"),
-        ("audio 15s B=2", "audio", TR.audio_loss, audio_batch(2, 240_000), "flash_attention"),
+        ("text B=8 bucket512", "text", TR.text_loss, text_batch, "packed_qkv_attention_lse"),
+        ("audio 5s B=8", "audio", TR.audio_loss, audio_batch(8, 80_000), "packed_qkv_attention_lse"),
+        ("audio 15s B=2", "audio", TR.audio_loss, audio_batch(2, 240_000), "flash_attention_lse"),
     ):
         t1 = time.perf_counter()
         km, pm_, fm = getattr(kern_m, attr), getattr(plain_m, attr), getattr(f32_m, attr)
@@ -1512,6 +1566,344 @@ def main() -> int:
     check(resident == want_text, f"dispatch_resident transcripts {resident} differ from JAX's")
     phase("whisper_transcriber", t0, ms_per_batch=f"{batch_ms:.3f}")
 
+
+    # --- 17. the f32 kernels (the parity mode's rows 8, 10, 5 and 6) against their plain versions ---
+    t0 = time.perf_counter()
+
+    def compare_gemm(name, got, want):
+        """An f32 GEMM kernel against its plain version at F32_GEMM_RTOL."""
+        torch.cuda.synchronize()
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        check(err <= F32_GEMM_RTOL * scale, f"{name}: max abs err {err:.4e} > {F32_GEMM_RTOL} of {scale:.4e}")
+        return err, err / scale, F32_GEMM_RTOL * scale
+
+    def lib_text(fn, what):
+        ms, call = device_ms(fn), time_ms(fn)
+        print(f"    {what} (library, off the path) ms={ms:.4f} (device) call_ms={call:.4f}", flush=True)
+        return ms
+
+    with G.exact_fp32():
+        wq32, bq32 = rand(3 * dm, dm, scale=dm**-0.5, dtype=f32), rand(3 * dm, scale=0.02, dtype=f32)
+        wo32, bo32 = rand(dm, dm, scale=dm**-0.5, dtype=f32), rand(dm, scale=0.02, dtype=f32)
+        w1_32, b1_32 = rand(dff, dm, scale=dm**-0.5, dtype=f32), rand(dff, scale=0.02, dtype=f32)
+        w2_32, b2_32 = rand(dm, dff, scale=dff**-0.5, dtype=f32), rand(dm, scale=0.02, dtype=f32)
+        for T_ in (250, 512):  # audio at 5 s, text at bucket 512 (B=2)
+            b = 2
+            x = rand(b, T_, dm, dtype=f32)
+            mask = torch.ones(b, T_, device=dev)
+            mask[1, T_ * 3 // 5 :] = 0.0  # a ragged row
+            args = (x, wq32, bq32, wo32, bo32, mask, heads)
+            err, rel, bnd = compare_gemm(f"attention_block_f32 T={T_}", A.attention_block(*args), A.attention_block_plain(*args))
+            tm = timings(lambda: A.attention_block(*args), lambda: A.attention_block_plain(*args))
+            flops = 2 * b * T_ * dm * 3 * dm + 2 * 2 * b * heads * T_ * T_ * (dm // heads) + 2 * b * T_ * dm * dm
+            bms, by = bound_ms(4 * (2 * b * T_ * dm + 4 * dm * dm + 4 * dm + b * T_), f32=flops)
+            report(f"attention_block_f32 B={b} T={T_} (T_pad={-(-T_ // 128) * 128})", err, rel, bnd, tm, bms, by)
+
+            def cublas_block():
+                qkv = F_.linear(x, wq32, bq32).view(b, T_, 3, heads, dm // heads)
+                return F_.linear(sdpa(qkv, mask).transpose(1, 2).reshape(b, T_, dm), wo32, bo32)
+
+            lib_text(cublas_block, "cuBLAS f32 GEMMs (TF32 off) + f32 scaled_dot_product_attention, 3 calls")
+            record("attention_block_f32", err, T_ == 512, tm, bms, by)
+
+        # the core's other instances: head dims 32 (DP 32), 48 (weights padded to DP 64) and 128 (DP 128), B=2 T=512,
+        # against the plain version on the unpadded weights
+        for dm_h, heads_h in ((128, 4), (384, 8), (768, 6)):
+            d_h = dm_h // heads_h
+            wq_h, bq_h = rand(3 * dm_h, dm_h, scale=dm_h**-0.5, dtype=f32), rand(3 * dm_h, scale=0.02, dtype=f32)
+            wo_h, bo_h = rand(dm_h, dm_h, scale=dm_h**-0.5, dtype=f32), rand(dm_h, scale=0.02, dtype=f32)
+            wq_p, bq_p, wo_p, _ = A.pad_block_weights(wq_h, bq_h, wo_h, heads_h)
+            x = rand(2, 512, dm_h, dtype=f32)
+            mask = torch.ones(2, 512, device=dev)
+            mask[1, 307:] = 0.0
+            got = A.attention_block(x, wq_p, bq_p, wo_p, bo_h, mask, heads_h, d_h)
+            err, rel, bnd = compare_gemm(f"attention_block_f32 D={d_h}", got, A.attention_block_plain(x, wq_h, bq_h, wo_h, bo_h, mask, heads_h))
+            print(f"  attention_block_f32 B=2 T=512 head dim {d_h} (DP {wq_p.shape[0] // (3 * heads_h)}): max_abs_err={err:.4e} "
+                  f"rel={rel:.3e} bound={bnd:.4e}", flush=True)
+            record("attention_block_f32", err, False, None, None, None)
+
+        for n in (500, 1024):  # B·T of audio at 5 s and of text at bucket 512
+            x = rand(n, dm, dtype=f32)
+            args = (x, w1_32, b1_32, w2_32, b2_32)
+            err, rel, bnd = compare_gemm(f"ffn_fused_f32 N={n}", F.ffn_fused(*args), F.ffn_plain(*args))
+            tm = timings(lambda: F.ffn_fused(*args), lambda: F.ffn_plain(*args))
+            bms, by = bound_ms(4 * (2 * n * dm + 2 * dm * dff + dm + dff), f32=2 * 2 * n * dm * dff)
+            report(f"ffn_fused_f32 N={n}", err, rel, bnd, tm, bms, by)
+            lib_text(lambda: F_.linear(F_.gelu(F_.linear(x, w1_32, b1_32)), w2_32, b2_32), "cuBLAS f32 GEMMs (TF32 off) + exact GELU, 3 calls")
+            record("ffn_fused_f32", err, n == 1024, tm, bms, by)
+
+        for name, kernel, plain, main_shape, shapes in (
+            ("packed_qkv_attention_f32", A.packed_qkv_attention_lse, A.packed_qkv_attention_lse_plain, (2, 512, 12, 64),
+             ((2, 512, 12, 64), (2, 40, 4, 24), (2, 40, 4, 25))),
+            ("flash_attention_f32", A.flash_attention_lse, A.flash_attention_lse_plain, (2, 749, 12, 64),
+             ((2, 749, 12, 64), (1, 1499, 12, 64), (2, 600, 4, 25))),
+        ):
+            for b, T_, h, d in shapes:
+                qkv = rand(b, T_, 3, h, d, dtype=f32)
+                mask = torch.ones(b, T_, device=dev)
+                mask[0, T_ * 2 // 3 :] = 0.0
+                if b > 1:
+                    mask[1] = 0.0  # a row with no valid key
+                (o, lse), (po, plse) = kernel(qkv, mask), plain(qkv, mask)
+                tag = f"{name} B={b} T={T_} H={h} D={d}"
+                err, rel, bnd = compare_f32(tag, o, po)
+                lse_err = compare_f32(f"{tag} lse", lse, plse)[0]
+                tm = timings(lambda: kernel(qkv, mask), lambda: plain(qkv, mask))
+                nbytes = 4 * (3 * b * T_ * h * d + b * T_ + b * T_ * h * d + b * h * T_)
+                bms, by = bound_ms(nbytes, f32=4 * b * h * T_ * T_ * d)
+                report(f"{tag} (T_pad={-(-T_ // 128) * 128}) lse_max_abs_err={lse_err:.3e}", err, rel, bnd, tm, bms, by)
+                print(f"    {name}: {4 * b * h * T_ * T_ * d / tm['ms'] / 1e9:.1f} TFLOP/s on 4·B·H·T²·D", flush=True)
+                lib_ms = lib_text(lambda: sdpa(qkv, mask), "f32 scaled_dot_product_attention, 1 call")
+                record(name, max(err, lse_err), (b, T_, h, d) == main_shape, tm, bms, by)
+                if (b, T_, h, d) == main_shape:
+                    results[name]["library_ms"] = lib_ms
+    phase("f32_kernels", t0)
+
+    # --- 18. the f32 parity mode at full width: imported BERT-base and wav2vec2-base trunks ---
+    t0 = time.perf_counter()
+    from msa_tpu_torch.models import audio as MA
+    from msa_tpu_torch.models import text as MT
+
+    hf_rng = np.random.default_rng(1)
+
+    def normal(*shape, std=0.02):
+        return std * hf_rng.standard_normal(shape, dtype=np.float32)
+
+    def ln(n):
+        return 1.0 + normal(n), normal(n)
+
+    tcfg, acfg = models.text.cfg, models.audio.cfg
+    d_, f_, layers = tcfg.encoder.d_model, tcfg.encoder.d_ff, tcfg.encoder.num_layers
+    bert = {
+        "embeddings.word_embeddings.weight": normal(tcfg.vocab_size, d_),
+        "embeddings.position_embeddings.weight": normal(tcfg.max_positions, d_),
+        "embeddings.token_type_embeddings.weight": normal(tcfg.type_vocab_size, d_),
+    }
+    bert["embeddings.LayerNorm.weight"], bert["embeddings.LayerNorm.bias"] = ln(d_)
+    w2v = {}
+    for i in range(layers):  # BERT's init scale, std 0.02, on every matrix
+        pre = f"encoder.layer.{i}."
+        for n in ("attention.self.query", "attention.self.key", "attention.self.value", "attention.output.dense"):
+            bert[pre + n + ".weight"], bert[pre + n + ".bias"] = normal(d_, d_), normal(d_)
+        bert[pre + "intermediate.dense.weight"], bert[pre + "intermediate.dense.bias"] = normal(f_, d_), normal(f_)
+        bert[pre + "output.dense.weight"], bert[pre + "output.dense.bias"] = normal(d_, f_), normal(d_)
+        for n in ("attention.output.LayerNorm", "output.LayerNorm"):
+            bert[pre + n + ".weight"], bert[pre + n + ".bias"] = ln(d_)
+        pre = f"encoder.layers.{i}."
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            w2v[pre + f"attention.{n}.weight"], w2v[pre + f"attention.{n}.bias"] = normal(d_, d_), normal(d_)
+        w2v[pre + "feed_forward.intermediate_dense.weight"] = normal(f_, d_)
+        w2v[pre + "feed_forward.intermediate_dense.bias"] = normal(f_)
+        w2v[pre + "feed_forward.output_dense.weight"], w2v[pre + "feed_forward.output_dense.bias"] = normal(d_, f_), normal(d_)
+        for n in ("layer_norm", "final_layer_norm"):
+            w2v[pre + n + ".weight"], w2v[pre + n + ".bias"] = ln(d_)
+    cin = 1
+    for i, (ch, k_) in enumerate(zip(acfg.conv_channels, acfg.conv_kernels)):  # He's scale: the GELU stack keeps its size
+        w2v[f"feature_extractor.conv_layers.{i}.conv.weight"] = normal(ch, cin, k_, std=(2.0 / (cin * k_)) ** 0.5)
+        cin = ch
+    w2v["feature_extractor.conv_layers.0.layer_norm.weight"], w2v["feature_extractor.conv_layers.0.layer_norm.bias"] = ln(cin)
+    w2v["feature_projection.layer_norm.weight"], w2v["feature_projection.layer_norm.bias"] = ln(cin)
+    w2v["feature_projection.projection.weight"], w2v["feature_projection.projection.bias"] = normal(d_, cin, std=cin**-0.5), normal(d_)
+    pc, groups, kp = "encoder.pos_conv_embed.conv.", acfg.pos_conv_groups, acfg.pos_conv_kernel
+    w2v[pc + "weight_g"] = 1.0 + normal(1, 1, kp, std=0.1)  # torch's weight norm over dim 2
+    w2v[pc + "weight_v"], w2v[pc + "bias"] = normal(d_, d_ // groups, kp), normal(d_)
+    w2v["encoder.layer_norm.weight"], w2v["encoder.layer_norm.bias"] = ln(d_)
+    heads_tree = models.params_tree()  # the init's heads, merged under the imported trunks
+    text_tree = {**heads_tree["text"], **MT.params_from_hf_bert(bert, tcfg)}
+    audio_tree = {**heads_tree["audio"], **MA.params_from_hf_wav2vec2(w2v, acfg)}
+    del bert, w2v, heads_tree
+    t1 = time.perf_counter()
+    models_p = G.PipelineModels.initialize(seed=0, text_params=text_tree, audio_params=audio_tree, device=dev)
+    torch.cuda.synchronize()
+    phase("initialize_parity", t1, loaded=",".join(sorted(models_p.loaded)), trees_s=f"{t1 - t0:.3f}")
+    for enc in (models_p.text.encoder, models_p.audio.encoder):
+        got_cfg = (enc.cfg.compute_dtype, enc.cfg.attention_impl, enc.cfg.ffn_impl, enc.cfg.quantize)
+        check(got_cfg == ("float32", "kernel", "kernel", "none"), f"imported trunks resolved to {got_cfg}, not JAX's parity mode")
+    check(sorted(models_p.loaded) == ["face_cnn", "fusion", "landmark"], f"loaded over the imported trunks: {sorted(models_p.loaded)}")
+    layer0 = models_p.text.encoder.layer_0
+    check(layer0.w_in_c.data_ptr() == layer0.fc_in.weight.data_ptr(), "the f32 compute-dtype weights are copies, not the masters")
+    pipe_p = G.SegmentPipeline(models_p)
+    plain_p = G.SegmentPipeline(models_p.with_encoders(attention_impl="einsum", ffn_impl="dense"))
+    runs_p = [(tokens, inputs(models_p, tokens)) for tokens in (512, 32)]
+    parity_counts = drive("parity", pipe_p, runs_p, {**zero, "attention_block_f32": 24, "ffn_fused_f32": 24})
+    def parity_check(label, kern, plain_pipe, runs_, fault=None):
+        for tokens, inp in runs_:
+            k = kern.run_host(inp)[0]["hostpack"]
+            p = plain_pipe.run_host(inp)[0]["hostpack"]
+            errs = {name: (k[:, sl] - p[:, sl]).abs().max().item() for name, sl in G.PACK_SLICES.items()}
+            worst = max(errs.values())
+            text = " ".join(f"{n}={e:.3e}" for n, e in errs.items())
+            print(f"  {label} bucket{tokens}: hostpack f32 kernel path vs plain f32 path max abs {worst:.4e} (bound {PARITY_ATOL}); {text}", flush=True)
+            expect(bool(torch.isfinite(k).all()) and worst <= PARITY_ATOL, f"{label} bucket {tokens}: hostpack {worst:.4e} from the plain f32 path")
+            if fault is not None:  # skip_last_head reaches the f32 kernel through attention_block's dispatch
+                with swapped(T, attention_block=fault):
+                    f_err = (kern.run_host(inp)[0]["hostpack"] - p).abs().max().item()
+                print(f"    fault:skip_last_head max abs {f_err:.4e}", flush=True)
+                expect(f_err > PARITY_ATOL, f"{label} bucket {tokens}: the planted fault passes the check ({f_err:.4e})")
+
+    with G.exact_fp32():
+        parity_check("parity", pipe_p, plain_p, runs_p, skip_last_head)
+    time_forwards("parity", pipe_p, runs_p)
+    parity_ms = device_ms(lambda: pipe_p.run_host(runs_p[0][1]), reps=3)
+    print(f"  parity run_host B=2 bucket512 at 5 s: {parity_ms:.3f} ms of device time per forward (profiler)", flush=True)
+    pipe_pl = G.SegmentPipeline(models_p, long_cfg)
+    plain_pl = G.SegmentPipeline(plain_p.models, long_cfg)
+    long_p_runs = [(512, inputs(models_p, 512, long_cfg.pipeline.segment_samples))]
+    parity_long_counts = drive(
+        "parity_long", pipe_pl, long_p_runs, {**zero, "attention_block_f32": 12, "flash_attention_f32": 12, "ffn_fused_f32": 24}
+    )
+    with G.exact_fp32():
+        parity_check("parity_long", pipe_pl, plain_pl, long_p_runs)
+    time_forwards("parity_long", pipe_pl, long_p_runs)
+    parity_long_ms = device_ms(lambda: pipe_pl.run_host(long_p_runs[0][1]), reps=3)
+    print(f"  parity_long run_host B=2 bucket512 at 15 s: {parity_long_ms:.3f} ms of device time per forward (profiler)", flush=True)
+
+    # the custom width in the parity mode: rows 5 (T ≤ 512) and 6 in f32, D = 24 and 25 (padded to 32 and 32)
+    parity_custom_counts = dict(zero)
+    for dm_c, heads_c, T_c, kname in ((96, 4, 40, "packed_qkv_attention_f32"), (100, 4, 40, "packed_qkv_attention_f32"),
+                                      (100, 4, 600, "flash_attention_f32")):
+        cfg = T.EncoderConfig(num_layers=2, d_model=dm_c, num_heads=heads_c, d_ff=256, compute_dtype="float32",
+                              attention_impl="kernel", ffn_impl="kernel")
+        with torch.device(dev):
+            enc = flax_init.init_module_(T.TransformerEncoder(cfg).eval().requires_grad_(False), 0)
+        x_c = rand(2, T_c, dm_c, dtype=f32)
+        mask_c = torch.ones(2, T_c, device=dev)
+        mask_c[1, T_c * 3 // 5 :] = 0.0
+        reset_counts()
+        with torch.inference_mode(), G.exact_fp32():
+            got = enc(x_c, mask_c)
+            torch.cuda.synchronize()
+            c = counts()
+            with swapped(T, packed_qkv_attention_lse=A.packed_qkv_attention_lse_plain, flash_attention_lse=A.flash_attention_lse_plain):
+                want = enc(x_c, mask_c)
+        err = (got - want).abs().max().item()
+        print(f"  parity custom width d_model {dm_c} ({heads_c} heads of {dm_c // heads_c}) T={T_c}: launches {c}, vs plain path max abs {err:.4e} (bound {PARITY_ATOL})", flush=True)
+        check(c == {**zero, kname: 2}, f"parity custom width d_model {dm_c} T={T_c}: launches {c}, expected 2 {kname}")
+        check(bool(torch.isfinite(got).all()) and err <= PARITY_ATOL, f"parity custom width d_model {dm_c} T={T_c}: {err:.4e}")
+        if (dm_c, T_c) == (96, 40):
+            parity_custom_counts = c
+    phase("parity_mode", t0, ms_per_forward_512=f"{parity_ms:.3f}", ms_per_forward_15s=f"{parity_long_ms:.3f}")
+    del models_p, pipe_p, plain_p, pipe_pl, plain_pl, text_tree, audio_tree
+    torch.cuda.empty_cache()
+
+    # --- 19. the head-dim and API repairs on the card ---------------------------------------
+    t0 = time.perf_counter()
+    # rows 7 and 8 (and 8 in f32) at head dims 32, 48 (weights padded to 64) and 128
+    for dm_c, heads_c in ((128, 4), (384, 8), (768, 6)):
+        for dtype_c, quantize, kname in (("bfloat16", "none", "attention_block"), ("bfloat16", "int8", "attention_block_int8"),
+                                         ("float32", "none", "attention_block_f32")):
+            cfg = T.EncoderConfig(num_layers=2, d_model=dm_c, num_heads=heads_c, d_ff=256, compute_dtype=dtype_c,
+                                  attention_impl="kernel", ffn_impl="kernel", quantize=quantize)
+            with torch.device(dev):
+                enc = flax_init.init_module_(T.TransformerEncoder(cfg).eval().requires_grad_(False), 0)
+            x_c = rand(2, 40, dm_c, dtype=cfg.dtype)
+            mask_c = torch.ones(2, 40, device=dev)
+            mask_c[1, 25:] = 0.0
+            plain_fns = {
+                "attention_block": A.attention_block_plain,
+                "attention_block_int8": A.attention_block_int8_plain,
+                "ffn_fused": F.ffn_plain,
+                "ffn_fused_int8": F.ffn_int8_plain,
+            }
+            reset_counts()
+            with torch.inference_mode(), G.exact_fp32():
+                got = enc(x_c, mask_c)
+                torch.cuda.synchronize()
+                c = counts()
+                with swapped(T, **plain_fns):
+                    want = enc(x_c, mask_c)
+            tag = f"head dim {dm_c // heads_c} (d_model {dm_c}, {heads_c} heads) {dtype_c} quantize={quantize}"
+            if dtype_c == "float32":
+                err, _, bnd = compare_gemm(tag, got, want)
+            else:
+                err, _, bnd = compare(tag, got, want)
+            print(f"  {tag}: launches {c}; vs its plain versions max abs {err:.4e} (bound {bnd:.4e})", flush=True)
+            check(c[kname] == 2, f"{tag}: {c[kname]} launches of {kname}, expected 2")
+    # rows 2-6 at D = 25: the custom width d_model 100 (4 heads), forward at T = 40 (row 5) and 600 (row 6)
+    for T_c, kname, plain_fn in ((40, "packed_qkv_attention_lse", {"packed_qkv_attention_lse": A.packed_qkv_attention_lse_plain}),
+                                 (600, "flash_attention_lse", {"flash_attention_lse": A.flash_attention_lse_plain})):
+        cfg = T.EncoderConfig(num_layers=2, d_model=100, num_heads=4, d_ff=256, compute_dtype="bfloat16",
+                              attention_impl="kernel", ffn_impl="kernel", dropout=0.0)
+        with torch.device(dev):
+            enc = flax_init.init_module_(T.TransformerEncoder(cfg).eval().requires_grad_(False), 0)
+        x_c = rand(2, T_c, 100)
+        mask_c = torch.ones(2, T_c, device=dev)
+        mask_c[1, T_c * 3 // 5 :] = 0.0
+        reset_counts()
+        with torch.inference_mode():
+            got = enc(x_c, mask_c)
+            torch.cuda.synchronize()
+            c = counts()
+            with swapped(T, **plain_fn):
+                want = enc(x_c, mask_c)
+        err, _, bnd = compare(f"D=25 encoder T={T_c}", got, want)
+        print(f"  head dim 25 (d_model 100) forward T={T_c}: launches {c}; vs plain max abs {err:.4e} (bound {bnd:.4e})", flush=True)
+        check(c == {**zero, kname: 2}, f"D=25 encoder T={T_c}: launches {c}")
+        if T_c == 40:  # one training step on the same layers: rows 5, 3 and 4 at D = 25
+            enc.requires_grad_(True)
+            w_c = rand(2, T_c, 100)
+            names, params = zip(*enc.named_parameters())
+
+            def step():
+                loss = (enc(x_c, mask_c, deterministic=False).float() * w_c.float()).sum()
+                return torch.autograd.grad(loss, params)
+
+            def plain_bwd_into(q, k, v, key_mask_, lse, o, g_, dq, dk, dv):
+                for out, want_ in zip((dq, dk, dv), A.attention_bwd_plain(q, k, v, key_mask_, lse, o, g_)):
+                    out.copy_(want_)
+
+            reset_counts()
+            g_k = step()
+            torch.cuda.synchronize()
+            c = counts()
+            with swapped(A, packed_qkv_attention_lse=A.packed_qkv_attention_lse_plain, _attention_bwd_into=plain_bwd_into):
+                g_p = step()
+            check(c == {**zero, "packed_qkv_attention_lse": 2, "attention_bwd_dq": 2, "attention_bwd_dkv": 2}, f"D=25 training step launches {c}")
+            worst = max((compare(f"D=25 training step grad {n}", a_, b_)[0], n) for n, a_, b_ in zip(names, g_k, g_p))
+            print(f"  head dim 25 training step: launches {c}; every gradient within its bound, largest error {worst[0]:.4e} ({worst[1]})", flush=True)
+    # rows 2, 5, 6 and the backward directly at D = 25
+    q25, k25, v25, g25 = (rand(2, 4, 100, 25) for _ in range(4))
+    mask25 = key_mask(2, 100)
+    (o, lse), (po, plse) = A.mha_attention(q25, k25, v25, mask25), A.mha_attention_plain(q25, k25, v25, mask25)
+    err = compare("mha_attention D=25", o, po)[0]
+    lse_err = (lse - plse).abs().max().item()
+    check(lse_err <= LSE_ATOL, f"mha_attention D=25: lse {lse_err:.3e}")
+    dq, dk, dv = A.attention_bwd(q25, k25, v25, mask25, lse, o, g25)
+    want = A.attention_bwd_plain(q25, k25, v25, mask25, lse, o, g25)
+    errs = [compare_rows(f"attention_bwd D=25 {n}", a_, b_)[0] for n, a_, b_ in zip(("dq", "dk", "dv"), (dq, dk, dv), want)]
+    print(f"  D=25 direct: mha_attention max abs {err:.4e} lse {lse_err:.3e}; attention_bwd dq/dk/dv {['%.4e' % e for e in errs]}", flush=True)
+    for name, kernel, plain, T_c in (("packed_qkv_attention_lse", A.packed_qkv_attention_lse, A.packed_qkv_attention_lse_plain, 100),
+                                     ("flash_attention_lse", A.flash_attention_lse, A.flash_attention_lse_plain, 600)):
+        qkv = rand(2, T_c, 3, 4, 25)
+        m_ = key_mask(2, T_c)
+        (o, lse), (po, plse) = kernel(qkv, m_), plain(qkv, m_)
+        err = compare(f"{name} D=25", o, po)[0]
+        lse_err = (lse - plse).abs().max().item()
+        check(tuple(o.shape) == (2, T_c, 100) and lse_err <= LSE_ATOL, f"{name} D=25: shape {tuple(o.shape)}, lse {lse_err:.3e}")
+        print(f"  D=25 direct: {name} T={T_c} max abs {err:.4e} lse {lse_err:.3e}", flush=True)
+    # JAX's public names with JAX's contracts, called once each
+    qkv = rand(2, 100, 3, 4, 32)
+    m_ = key_mask(2, 100)
+    reset_counts()
+    o = A.packed_qkv_attention(qkv, m_)
+    torch.cuda.synchronize()
+    c = counts()
+    check(isinstance(o, torch.Tensor) and tuple(o.shape) == (2, 100, 128), f"packed_qkv_attention returned {type(o).__name__}")
+    check(c == {**zero, "packed_qkv_attention_lse": 1}, f"one packed_qkv_attention call launched {c}")
+    compare("packed_qkv_attention (JAX's contract)", o, A.packed_qkv_attention_lse_plain(qkv, m_)[0])
+    q_, k_, v_ = (rand(2, 4, 600, 32) for _ in range(3))
+    m_ = key_mask(2, 600)
+    reset_counts()
+    o = A.flash_attention(q_, k_, v_, m_)
+    torch.cuda.synchronize()
+    c = counts()
+    check(isinstance(o, torch.Tensor) and tuple(o.shape) == (2, 4, 600, 32), f"flash_attention returned {getattr(o, 'shape', type(o))}")
+    check(c == {**zero, "flash_attention_lse": 1}, f"one flash_attention call launched {c}")
+    compare("flash_attention (JAX's contract)", o, A._heads_first(A.flash_attention_lse_plain(A._to_packed(q_, k_, v_), m_)[0], 4))
+    print("  packed_qkv_attention(qkv, mask) → o [B, T, H·D] and flash_attention(q, k, v, mask) → o [B, H, T, D]: one launch each, held against the plain versions", flush=True)
+    phase("head_dims_and_api", t0)
+
     kernels = [
         {
             "name": name,
@@ -1530,17 +1922,17 @@ def main() -> int:
             ("ffn_fused_int8", "msa_tpu_torch/csrc/ffn.cu", "msa_tpu/ops/pallas/ffn.py:166", int8_counts, ON_INT8),
             ("quantize_rows", "msa_tpu_torch/csrc/quant.cu", "msa_tpu/ops/quant.py:47", int8_counts, ON_INT8),
             (
-                "packed_qkv_attention", "msa_tpu_torch/csrc/attention_packed.cu", "msa_tpu/ops/pallas/attention.py:489",
+                "packed_qkv_attention_lse", "msa_tpu_torch/csrc/attention_packed.cu", "msa_tpu/ops/pallas/attention.py:489",
                 train_counts, f"{ON_TRAIN} (its recorded shape); phase 9's custom-width forward launches it 2 times in each recipe",
             ),
             (
-                "flash_attention", "msa_tpu_torch/csrc/attention_flash.cu", "msa_tpu/ops/pallas/attention.py:948",
+                "flash_attention_lse", "msa_tpu_torch/csrc/attention_flash.cu", "msa_tpu/ops/pallas/attention.py:948",
                 long_counts, "phase 8: one run_host at 15 s (B=2) in each recipe",
             ),
             (
                 "mha_attention", "msa_tpu_torch/csrc/attention_packed.cu", "msa_tpu/ops/pallas/attention.py:150", mha_counts,
                 "phase 11: one attention_with_vjp forward and backward at B=2 T=512; a training step launches it "
-                "0 times (the encoders take packed_qkv_attention_with_vjp)",
+                "0 times (the encoders take packed_qkv_attention)",
             ),
             ("attention_bwd_dq", "msa_tpu_torch/csrc/attention_bwd.cu", "msa_tpu/ops/pallas/attention.py:370", train_counts, ON_TRAIN),
             ("attention_bwd_dkv", "msa_tpu_torch/csrc/attention_bwd.cu", "msa_tpu/ops/pallas/attention.py:395", train_counts, ON_TRAIN),
@@ -1553,6 +1945,17 @@ def main() -> int:
                 "conv_stride2_fused", "msa_tpu_torch/csrc/conv_stride2.cu", "msa_tpu/ops/pallas/conv.py:111", conv_counts,
                 "phase 14: one conv_stride2_fused call at B=64 L=15999 k=3 C=512, bf16; a run_host forward and a training "
                 "step launch it 0 times (the extractor convolves in cuDNN, as JAX's in XLA)",
+            ),
+            ("attention_block_f32", "msa_tpu_torch/csrc/attention.cu", "msa_tpu/ops/pallas/attention.py:819", parity_counts, ON_PARITY),
+            ("ffn_fused_f32", "msa_tpu_torch/csrc/ffn.cu", "msa_tpu/ops/pallas/ffn.py:89", parity_counts, ON_PARITY),
+            (
+                "packed_qkv_attention_f32", "msa_tpu_torch/csrc/attention_fused.cu", "msa_tpu/ops/pallas/attention.py:489",
+                parity_custom_counts, "phase 18: one forward of the 2-layer d_model 96 (4 heads) encoder in the parity mode at T=40; "
+                "a full-width parity forward launches it 0 times (d_model 768 takes attention_block_f32)",
+            ),
+            (
+                "flash_attention_f32", "msa_tpu_torch/csrc/attention_fused.cu", "msa_tpu/ops/pallas/attention.py:948",
+                parity_long_counts, "phase 18: one run_host at 15 s (B=2) in the f32 parity mode",
             ),
         )
     ]

@@ -21,7 +21,13 @@
 // register-resident core (attention_packed.cu, attention_mma.cuh) through
 // attend_heads_first, at any T.
 //
-// f32 (fused_f32_kernel): exact f32 FMA on the CUDA cores, no TF32 (JAX's
+// f32 (fused_f32_kernel, through attend_f32): q, k and v are read, and o
+// written, through element strides (batch, head, time; D contiguous), so
+// the same core serves row 1 on [B, H, T, D], rows 5 and 6 in f32 on the
+// packed projection qkv [B, T, 3, H, D] → [B, T, H·D]
+// (msa_packed_attention_f32), and row 8's f32 attention block
+// (attention.cu) on its [B·T, 3·H·DP] projection buffer. Exact f32 FMA on
+// the CUDA cores, no TF32 (JAX's
 // f32 kernel is exact f32 on the CPU), in ONE pass with FlashAttention-2's
 // online rescale: per 64-key chunk m_new = max(m, rowmax(s)), α = exp(m −
 // m_new), p = exp(s − m_new), l = α·l + Σp, o = α·o + P·V, and o / l at the
@@ -70,18 +76,19 @@ constexpr size_t f32_smem_bytes() {
          * sizeof(float);
 }
 
-// rows [t0, t0 + ROWS) of head (b, h) of src [B, H, T, D] f32 into smem
-// [ROWS × (DP + 4)] by cp.async, 4 floats a copy: zeros past D and past T
+// rows [t0, t0 + ROWS) of head h of batch row b of src (element strides
+// st, D contiguous) f32 into smem [ROWS × (DP + 4)] by cp.async, 4 floats a
+// copy: zeros past D and past T
 template <int ROWS, int DP>
-__device__ __forceinline__ void load_f32_tile_async(float* dst, const float* __restrict__ src, size_t head, int t0,
-                                                    int T, int D, int tid) {
+__device__ __forceinline__ void load_f32_tile_async(float* dst, const float* __restrict__ src, Strides st, int b, int h,
+                                                    int t0, int T, int D, int tid) {
   constexpr int LD = DP + 4, VECS = DP / 4;
   static_assert(ROWS * VECS % FTHREADS == 0, "whole copies per thread");
 #pragma unroll
   for (int it = 0; it < ROWS * VECS / FTHREADS; ++it) {
     const int i = tid + it * FTHREADS, r = i / VECS, c = (i % VECS) * 4, t = t0 + r;
     const bool ok = t < T && c < D;
-    cp_async16(dst + r * LD + c, ok ? src + head + (size_t)t * D + c : src, ok);
+    cp_async16(dst + r * LD + c, ok ? src + st.at(b, h, t) + c : src, ok);
   }
 }
 
@@ -89,9 +96,9 @@ __device__ __forceinline__ void load_f32_tile_async(float* dst, const float* __r
 // tiles' 120 KB allow one, and the registers are left free
 template <int DP>
 __global__ void __launch_bounds__(FTHREADS, DP > 64 ? 1 : 3)
-fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                 const float* __restrict__ mask, float* __restrict__ out, float* __restrict__ lse, int H, int T,
-                 int T_pad, int D, float scale) {
+fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, Strides lin,
+                 const float* __restrict__ mask, float* __restrict__ out, Strides lout, float* __restrict__ lse, int H,
+                 int T, int T_pad, int D, float scale) {
   constexpr int LD = DP + 4;
   constexpr int NU = DP / 32;  // float4 column groups a thread owns: 4kg + 32u
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -103,12 +110,11 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, rg = lane >> 3, kg = lane & 7;
   const int q0 = blockIdx.x * FQ, h = blockIdx.y, b = blockIdx.z;
-  const size_t head = ((size_t)b * H + h) * T * D;
   const float* mrow = mask + (size_t)b * T;
   const int nt = T_pad / FK;
 
-  load_f32_tile_async<FQ, DP>(sQ, q, head, q0, T, D, tid);
-  load_f32_tile_async<FK, DP>(sK, k, head, 0, T, D, tid);
+  load_f32_tile_async<FQ, DP>(sQ, q, lin, b, h, q0, T, D, tid);
+  load_f32_tile_async<FK, DP>(sK, k, lin, b, h, 0, T, D, tid);
   load_vec_async<FK, FTHREADS>(sMask, mrow, 0, T, tid);
   cp_async_commit();
 
@@ -128,7 +134,7 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const
   for (int step = 0; step < nt; ++step) {
     cp_async_wait<0>();
     __syncthreads();  // K and the mask of this chunk have landed; every warp is done with the last V
-    load_f32_tile_async<FK, DP>(sV, v, head, step * FK, T, D, tid);
+    load_f32_tile_async<FK, DP>(sV, v, lin, b, h, step * FK, T, D, tid);
     cp_async_commit();
 
     // s = (q·k)·scale + bias, the dot an f32 FMA chain over d in order
@@ -190,7 +196,7 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const
     cp_async_wait<0>();
     __syncthreads();  // V has landed (and the warp's 16 rows of P are whole); every warp is done with K
     if (step + 1 < nt) {
-      load_f32_tile_async<FK, DP>(sK, k, head, (step + 1) * FK, T, D, tid);
+      load_f32_tile_async<FK, DP>(sK, k, lin, b, h, (step + 1) * FK, T, D, tid);
       load_vec_async<FK, FTHREADS>(sMask, mrow, (step + 1) * FK, T, tid);
       cp_async_commit();
     }
@@ -220,7 +226,6 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const
   }
 
   // o / l at rows < T and columns < D (16-byte stores); lse per row
-  float* orow = out + head;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = q0 + warp * 16 + rg + 4 * i;
@@ -229,7 +234,7 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const
     for (int u = 0; u < NU; ++u) {
       const int c = 4 * kg + 32 * u;
       if (c < D)
-        *reinterpret_cast<float4*>(orow + (size_t)t * D + c) =
+        *reinterpret_cast<float4*>(out + lout.at(b, h, t) + c) =
             make_float4(o[i][4 * u] / l[i], o[i][4 * u + 1] / l[i], o[i][4 * u + 2] / l[i], o[i][4 * u + 3] / l[i]);
     }
     if (kg == 0) lse[((size_t)b * H + h) * T + t] = m[i] + logf(l[i]);
@@ -237,18 +242,36 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const
 }
 
 template <int DP>
-cudaError_t launch_f32(const float* q, const float* k, const float* v, const float* mask, float* out, float* lse,
-                       int B, int H, int T, int D, float scale, cudaStream_t s) {
+cudaError_t launch_f32(const float* q, const float* k, const float* v, Strides lin, const float* mask, float* out,
+                       Strides lout, float* lse, int B, int H, int T, int D, float scale, cudaStream_t s) {
   const int T_pad = (T + 127) / 128 * 128;
   constexpr size_t smem = f32_smem_bytes<DP>();
   cudaError_t e = cudaFuncSetAttribute(fused_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  fused_f32_kernel<DP><<<dim3((T + FQ - 1) / FQ, H, B), FTHREADS, smem, s>>>(q, k, v, mask, out, lse, H, T, T_pad, D,
-                                                                            scale);
+  fused_f32_kernel<DP><<<dim3((T + FQ - 1) / FQ, H, B), FTHREADS, smem, s>>>(q, k, v, lin, mask, out, lout, lse, H, T,
+                                                                            T_pad, D, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+int attend_f32(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out, int ob,
+               int oh, int ot, void* lse, int B, int T, int H, int D, float scale, void* stream) {
+  if (T < 1 || D % 8 || D < 8 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  auto qp = static_cast<const float*>(q);
+  auto kp = static_cast<const float*>(k);
+  auto vp = static_cast<const float*>(v);
+  auto m = static_cast<const float*>(mask);
+  auto o = static_cast<float*>(out);
+  auto l = static_cast<float*>(lse);
+  const Strides lin{sb, sh, st}, lout{ob, oh, ot};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // D is zero-padded to 32, 64 or 128 columns in shared memory
+  const cudaError_t e = D <= 32   ? launch_f32<32>(qp, kp, vp, lin, m, o, lout, l, B, H, T, D, scale, s)
+                        : D <= 64 ? launch_f32<64>(qp, kp, vp, lin, m, o, lout, l, B, H, T, D, scale, s)
+                                  : launch_f32<128>(qp, kp, vp, lin, m, o, lout, l, B, H, T, D, scale, s);
+  return static_cast<int>(e);
+}
 
 // q, k, v, out [B, H, T, D] (contiguous; bf16 when is_bf16, else f32),
 // mask [B, T] f32 (1 = attend); lse [B, H, T] f32. Any T ≥ 1; D % 8 == 0,
@@ -257,16 +280,18 @@ extern "C" int msa_fused_attention(const void* q, const void* k, const void* v, 
                                    int B, int T, int H, int D, int is_bf16, float scale, void* stream) {
   if (T < 1 || D % 8 || D < 8 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16) return attend_heads_first(q, k, v, mask, out, lse, B, T, H, D, scale, stream);
-  auto qp = static_cast<const float*>(q);
-  auto kp = static_cast<const float*>(k);
-  auto vp = static_cast<const float*>(v);
-  auto m = static_cast<const float*>(mask);
-  auto o = static_cast<float*>(out);
-  auto l = static_cast<float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // D is zero-padded to 32, 64 or 128 columns in shared memory
-  const cudaError_t e = D <= 32   ? launch_f32<32>(qp, kp, vp, m, o, l, B, H, T, D, scale, s)
-                        : D <= 64 ? launch_f32<64>(qp, kp, vp, m, o, l, B, H, T, D, scale, s)
-                                  : launch_f32<128>(qp, kp, vp, m, o, l, B, H, T, D, scale, s);
-  return static_cast<int>(e);
+  return attend_f32(q, k, v, H * T * D, T * D, D, mask, out, H * T * D, T * D, D, lse, B, T, H, D, scale, stream);
+}
+
+// Rows 5 and 6 in f32 (the parity mode's encoders at d_model % 128 ≠ 0,
+// and past T = 512): the one-pass f32 core on q, k and v strided out of
+// qkv [B, T, 3, H, D] (contiguous), writing out [B, T, H·D] and lse
+// [B, H, T], both f32; mask [B, T] f32 (1 = attend). Any T ≥ 1; D % 8 == 0,
+// D ≤ 128 (the wrapper zero-pads D).
+extern "C" int msa_packed_attention_f32(const void* qkv, const void* mask, void* out, void* lse, int B, int T, int H,
+                                        int D, float scale, void* stream) {
+  const float* q = static_cast<const float*>(qkv);
+  const int HD = H * D;
+  return attend_f32(q, q + HD, q + 2 * HD, 3 * T * HD, D, 3 * HD, mask, out, T * HD, D, HD, lse, B, T, H, D, scale,
+                    stream);
 }

@@ -243,3 +243,9 @@ __device__ __forceinline__ void store_rows(const float (&o)[DP / 8][4], const fl
 // D ≤ 128; returns a cudaError_t.
 int attend_heads_first(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse, int B,
                        int T, int H, int D, float scale, void* stream);
+
+// The one-pass f32 core of row 1 (attention_fused.cu) on q, k, v and o
+// addressed by element strides (batch, head, time; D contiguous): rows 1,
+// 5, 6 and 8 in f32. D % 8 == 0, D ≤ 128, any T; returns a cudaError_t.
+int attend_f32(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out, int ob,
+               int oh, int ot, void* lse, int B, int T, int H, int D, float scale, void* stream);

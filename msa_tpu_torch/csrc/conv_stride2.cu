@@ -22,8 +22,9 @@
 //
 // bf16: tensor cores through WMMA (16×16×16, f32 accumulators), 128×128
 // output tiles over 32-deep k steps, cp.async double buffering — the
-// GEMM of gemm.cuh with the B operand read row-major. f32: a tiled SIMT
-// GEMM in f32 FMA (64×64 tiles, 4×4 outputs per thread), not TF32.
+// GEMM of gemm.cuh with the B operand read row-major. f32: the port's
+// shared f32 SIMT GEMM (gemm_f32.cuh: exact FMA, not TF32), with A read at
+// the row stride 2C and B as [k·C, C'] row-major.
 //
 // What bounds it on the card: 2·B·out_len·k·C·C' operations on the input
 // read once (B·L·C elements), the weight and the output written once. At
@@ -33,7 +34,7 @@
 // design runs the WMMA API without wgmma or TMA; a fast version (wgmma
 // with a TMA ring, the A tile loaded once for both overlapping taps) is
 // later work.
-#include "gemm.cuh"
+#include "gemm_f32.cuh"
 
 namespace {
 
@@ -126,58 +127,6 @@ conv_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* _
   }
 }
 
-constexpr int FBM = 64, FBN = 64, FBK = 16, FTH = 256;
-
-__global__ void __launch_bounds__(FTH)
-conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ out, int L, int C,
-                int N, int K, int out_len, bool gelu) {
-  __shared__ __align__(16) float sA[FBK][FBM + 4];  // A tile, transposed: [k][row]
-  __shared__ __align__(16) float sW[FBK][FBN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int n0 = blockIdx.x * FBN, m0 = blockIdx.y * FBM, b = blockIdx.z;
-  const float* xb = x + (size_t)b * L * C;
-  float acc[4][4] = {};
-
-  for (int k0 = 0; k0 < K; k0 += FBK) {
-    {
-      const int r = tid / 4, c = (tid % 4) * 4;
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m0 + r < out_len) a = *reinterpret_cast<const float4*>(xb + (size_t)2 * (m0 + r) * C + k0 + c);
-      sA[c][r] = a.x;
-      sA[c + 1][r] = a.y;
-      sA[c + 2][r] = a.z;
-      sA[c + 3][r] = a.w;
-      const int wr = tid / 16, wc = (tid % 16) * 4;
-      *reinterpret_cast<float4*>(&sW[wr][wc]) = *reinterpret_cast<const float4*>(w + (size_t)(k0 + wr) * N + n0 + wc);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FBK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&sA[kk][ty * 4]);
-      const float4 bw = *reinterpret_cast<const float4*>(&sW[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {bw.x, bw.y, bw.z, bw.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* ob = out + (size_t)b * out_len * N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = m0 + ty * 4 + i;
-    if (gr >= out_len) continue;
-    float4 y;
-    y.x = gelu ? gelu_as(acc[i][0]) : acc[i][0];
-    y.y = gelu ? gelu_as(acc[i][1]) : acc[i][1];
-    y.z = gelu ? gelu_as(acc[i][2]) : acc[i][2];
-    y.w = gelu ? gelu_as(acc[i][3]) : acc[i][3];
-    *reinterpret_cast<float4*>(ob + (size_t)gr * N + n0 + tx * 4) = y;
-  }
-}
-
 }  // namespace
 
 // x [B, L, C], w [k, C, N], out [B, (L − k)/2 + 1, N], all contiguous, bf16
@@ -191,10 +140,9 @@ extern "C" int msa_conv_stride2(const void* x, const void* w, void* out, int B, 
     conv_bf16_kernel<<<dim3(N / GBN, (out_len + GBM - 1) / GBM, B), GTHREADS, 0, s>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(out), L, C, N, K, out_len,
         gelu != 0);
-  } else {
-    conv_f32_kernel<<<dim3(N / FBN, (out_len + FBM - 1) / FBM, B), FTH, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(out), L, C, N, K, out_len,
-        gelu != 0);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_gemm_f32<false>(static_cast<const float*>(x), static_cast<const float*>(w), nullptr,
+                                                 static_cast<float*>(out), out_len, N, K, 2 * C, gelu != 0, s, B,
+                                                 (size_t)L * C, (size_t)out_len * N));
 }

@@ -24,6 +24,15 @@
 // 9.7 G int8 operations against ~7 MB of compulsory traffic: tensor-core
 // bound at 1,979 TOPS. The f32 hidden tile (12.6 MB at N=1024) makes a
 // round trip through device memory (L2 holds it).
+//
+// msa_ffn_fused_f32 is the same TPU kernel in f32 (the parity mode's
+// encoders, compute_dtype="float32"): two launches of the shared f32 SIMT
+// GEMM (gemm_f32.cuh, exact FMA, no TF32), fc_in with + b1 and the GELU in
+// its epilogue writing the f32 hidden tile, then fc_out with + b2. JAX's
+// rounding points are all f32 there (ffn.py:49-63), and so are these. At
+// N=1024 it is 9.7 GFLOP against ~28 MB of compulsory traffic: bound by the
+// f32 FMA rate (67 TFLOP/s), 0.14 ms at best.
+#include "gemm_f32.cuh"
 #include "gemm_s8.cuh"
 
 extern "C" int msa_ffn_fused(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
@@ -35,6 +44,22 @@ extern "C" int msa_ffn_fused(const void* x, const void* w1, const void* b1, cons
   if (e != cudaSuccess) return static_cast<int>(e);
   e = launch_gemm_nt<false, bf16>(static_cast<const bf16*>(hidden), static_cast<const bf16*>(w2),
                                   static_cast<const bf16*>(b2), static_cast<bf16*>(out), M, D, F, s);
+  return static_cast<int>(e);
+}
+
+// x [M, D], w1 [F, D], b1 [F], w2 [D, F], b2 [D], hidden [M, F], out [M, D],
+// all f32 and contiguous; D and F multiples of 128; ws: the f32 GEMM's
+// split-K workspace (msa_gemm_f32_workspace_elems floats).
+extern "C" int msa_ffn_fused_f32(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+                                 void* hidden, void* out, void* ws, int M, int D, int F, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(ws);
+  cudaError_t e = launch_gemm_f32<true>(static_cast<const float*>(x), static_cast<const float*>(w1),
+                                        static_cast<const float*>(b1), static_cast<float*>(hidden), M, F, D, D, true, s,
+                                        1, 0, 0, w);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = launch_gemm_f32<true>(static_cast<const float*>(hidden), static_cast<const float*>(w2),
+                            static_cast<const float*>(b2), static_cast<float*>(out), M, D, F, F, false, s, 1, 0, 0, w);
   return static_cast<int>(e);
 }
 
@@ -63,3 +88,6 @@ extern "C" int msa_ffn_fused_int8(const void* x, const void* w1, const void* s1,
 extern "C" const char* msa_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// the floats of split-K workspace the f32 entries take (gemm_f32.cuh)
+extern "C" long long msa_gemm_f32_workspace_elems() { return static_cast<long long>(FG_WS_ELEMS); }

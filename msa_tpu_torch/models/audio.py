@@ -18,7 +18,7 @@ f32 values as JAX's does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -166,3 +166,77 @@ class AudioEmotionModel(nn.Module):
             "probs4": probs4,
             "emotion_probs": duplicate_4_to_8(probs4),
         }
+
+
+# --- HF weight import ---------------------------------------------------------
+
+
+def _numpy(x) -> np.ndarray:
+    """A torch tensor (any device) or array-like → numpy."""
+    return np.asarray(x.detach().cpu().numpy() if hasattr(x, "detach") else x)
+
+
+def _weight_norm(g: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """torch's weight norm, w = g · v/‖v‖, the norm over the axes where g is
+    singleton (wav2vec2's positional conv uses dim=2)."""
+    axes = tuple(i for i, s in enumerate(g.shape) if s == 1)
+    norm = np.sqrt((v**2).sum(axis=axes, keepdims=True))
+    return g * v / norm
+
+
+def params_from_hf_wav2vec2(state_dict: Dict[str, Any], cfg: AudioModelConfig) -> Dict[str, Any]:
+    """A ``transformers`` Wav2Vec2Model state dict (torch tensors or numpy
+    arrays under HF's names) → the audio trunk's flax tree with numpy leaves
+    (extractor, projection, conv positional embedding, transformer), which
+    :func:`msa_tpu_torch.weights.load_flax_tree` reads. A copy of the JAX
+    package's ``msa_tpu/models/audio.py:288``: the positional conv's
+    weight norm is folded in (``weight_g``/``weight_v``, or the
+    ``parametrizations.weight.original0/1`` names of newer torch), q, k and
+    v are concatenated into the fused projection. The pool and head stay
+    unpopulated, as the reference's classifier over a pretrained trunk."""
+    sd = state_dict
+
+    def g(name):
+        return _numpy(sd[name])
+
+    p: Dict[str, Any] = {"feature_extractor": {}, "encoder": {}}
+    for i in range(len(cfg.conv_channels)):
+        # torch conv1d [out, in, k] → flax [k, in, out]
+        p["feature_extractor"][f"conv_{i}"] = {"kernel": g(f"feature_extractor.conv_layers.{i}.conv.weight").transpose(2, 1, 0)}
+    p["feature_extractor"]["gn"] = {
+        "scale": g("feature_extractor.conv_layers.0.layer_norm.weight"),
+        "bias": g("feature_extractor.conv_layers.0.layer_norm.bias"),
+    }
+    p["post_extract_ln"] = {"scale": g("feature_projection.layer_norm.weight"), "bias": g("feature_projection.layer_norm.bias")}
+    p["proj"] = {"kernel": g("feature_projection.projection.weight").T, "bias": g("feature_projection.projection.bias")}
+    pc = "encoder.pos_conv_embed.conv."
+    if pc + "weight_g" in sd:
+        w = _weight_norm(g(pc + "weight_g"), g(pc + "weight_v"))
+    elif pc + "parametrizations.weight.original0" in sd:
+        w = _weight_norm(g(pc + "parametrizations.weight.original0"), g(pc + "parametrizations.weight.original1"))
+    else:
+        w = g(pc + "weight")
+    p["pos_conv"] = {"conv": {"kernel": w.transpose(2, 1, 0), "bias": g(pc + "bias")}}
+    p["encoder_pre_ln"] = {"scale": g("encoder.layer_norm.weight"), "bias": g("encoder.layer_norm.bias")}
+    for i in range(cfg.encoder.num_layers):
+        hf = f"encoder.layers.{i}."
+        p["encoder"][f"layer_{i}"] = {
+            "attention": {
+                "qkv": {
+                    "kernel": np.concatenate([g(hf + f"attention.{n}_proj.weight").T for n in ("q", "k", "v")], axis=1),
+                    "bias": np.concatenate([g(hf + f"attention.{n}_proj.bias") for n in ("q", "k", "v")]),
+                },
+                "attn_out": {"kernel": g(hf + "attention.out_proj.weight").T, "bias": g(hf + "attention.out_proj.bias")},
+            },
+            "attn_ln": {"scale": g(hf + "layer_norm.weight"), "bias": g(hf + "layer_norm.bias")},
+            "fc_in": {
+                "kernel": g(hf + "feed_forward.intermediate_dense.weight").T,
+                "bias": g(hf + "feed_forward.intermediate_dense.bias"),
+            },
+            "fc_out": {
+                "kernel": g(hf + "feed_forward.output_dense.weight").T,
+                "bias": g(hf + "feed_forward.output_dense.bias"),
+            },
+            "ffn_ln": {"scale": g(hf + "final_layer_norm.weight"), "bias": g(hf + "final_layer_norm.bias")},
+        }
+    return p

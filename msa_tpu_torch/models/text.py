@@ -1,12 +1,14 @@
 """Text model: one BERT trunk, four heads and coherence (port of
 ``msa_tpu/models/text.py``; the tokenizer and the host text heuristics wait
-for the processor slice)."""
+for the processor slice), and :func:`params_from_hf_bert`, the importer of
+a pretrained BERT trunk."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -99,3 +101,59 @@ class TextModel(nn.Module):
             "intensity": intensity,
             "coherence": coherence,
         }
+
+
+# --- HF weight import --------------------------------------------------------
+
+
+def _numpy(x) -> np.ndarray:
+    """A torch tensor (any device) or array-like → numpy."""
+    return np.asarray(x.detach().cpu().numpy() if hasattr(x, "detach") else x)
+
+
+def params_from_hf_bert(state_dict: Dict[str, Any], cfg: TextModelConfig) -> Dict[str, Any]:
+    """A ``transformers`` BertModel state dict (torch tensors or numpy
+    arrays under HF's ``embeddings.`` / ``encoder.layer.N.`` names) → the
+    text trunk's flax tree with numpy leaves (``embeddings`` and
+    ``encoder``), which :func:`msa_tpu_torch.weights.load_flax_tree` reads.
+    A copy of the JAX package's ``msa_tpu/models/text.py:322``; q, k and v
+    are concatenated into the trunk's fused [d, 3d] projection. The heads
+    are not populated (the reference loads base BERT under random heads).
+    ``transformers`` is not needed: the dict is all it reads."""
+
+    def g(name):
+        return _numpy(state_dict[name])
+
+    p: Dict[str, Any] = {
+        "embeddings": {
+            "word_embeddings": {"embedding": g("embeddings.word_embeddings.weight")},
+            "position_embeddings": {"embedding": g("embeddings.position_embeddings.weight")},
+            "token_type_embeddings": {"embedding": g("embeddings.token_type_embeddings.weight")},
+            "ln": {"scale": g("embeddings.LayerNorm.weight"), "bias": g("embeddings.LayerNorm.bias")},
+        },
+        "encoder": {},
+    }
+    for i in range(cfg.encoder.num_layers):
+        hf = f"encoder.layer.{i}."
+        p["encoder"][f"layer_{i}"] = {
+            "attention": {
+                "qkv": {
+                    "kernel": np.concatenate(
+                        [g(hf + f"attention.self.{n}.weight").T for n in ("query", "key", "value")], axis=1
+                    ),
+                    "bias": np.concatenate([g(hf + f"attention.self.{n}.bias") for n in ("query", "key", "value")]),
+                },
+                "attn_out": {
+                    "kernel": g(hf + "attention.output.dense.weight").T,
+                    "bias": g(hf + "attention.output.dense.bias"),
+                },
+            },
+            "attn_ln": {
+                "scale": g(hf + "attention.output.LayerNorm.weight"),
+                "bias": g(hf + "attention.output.LayerNorm.bias"),
+            },
+            "fc_in": {"kernel": g(hf + "intermediate.dense.weight").T, "bias": g(hf + "intermediate.dense.bias")},
+            "fc_out": {"kernel": g(hf + "output.dense.weight").T, "bias": g(hf + "output.dense.bias")},
+            "ffn_ln": {"scale": g(hf + "output.LayerNorm.weight"), "bias": g(hf + "output.LayerNorm.bias")},
+        }
+    return p

@@ -13,13 +13,20 @@ JAX ``"pallas"``) runs the hand-written CUDA kernels of
 (``msa_tpu/models/transformer.py:86-156``, ``:204-239``):
 
 - attention: ``attention_block`` (``attention_block_int8`` under
-  ``quantize="int8"``) where ``d_model % 128 == 0`` and T ≤ 512; otherwise
-  a dense QKV projection in the compute dtype (never int8, as JAX's
-  ``nn.Dense`` ignores ``quantize``), the packed-QKV attention kernel at
-  T ≤ 512 or the flash kernel beyond, and a dense output projection;
+  ``quantize="int8"``) where ``d_model % 128 == 0`` and T ≤ 512, at any
+  head dim (weights padded to the kernel's head dim once, in
+  ``derive_weights_``); otherwise a dense QKV projection in the compute
+  dtype (never int8, as JAX's ``nn.Dense`` ignores ``quantize``), the
+  packed-QKV attention kernel at T ≤ 512 or the flash kernel beyond, and a
+  dense output projection;
 - FFN: ``ffn_fused`` (``ffn_fused_int8``) where ``d_model`` and ``d_ff``
   are multiples of 128, at any T; otherwise dense → exact GELU → dense in
   the compute dtype.
+
+``compute_dtype="float32"`` with the kernel paths is JAX's f32 parity mode
+(imported trunks): the same dispatch through the kernels' f32 variants,
+with no bf16 cast anywhere; the compute-dtype weights are then the f32
+masters themselves.
 
 The encoder matrices are f32 masters, as flax's params are. Each layer
 derives what its serving paths consume (int8 codes and scales,
@@ -35,7 +42,7 @@ Training (``forward(..., deterministic=False)``) takes JAX's training
 dispatch with ``dropout=0.0``: every matmul casts the f32 masters inside
 the graph (as flax's ``nn.Dense(dtype=…)`` casts its params), so gradients
 land on the masters; the kernel attention path runs a dense QKV projection
-→ :func:`packed_qkv_attention_with_vjp` (its forward is the packed-QKV
+→ :func:`packed_qkv_attention` (its forward is the packed-QKV
 kernel at T ≤ 512 and the flash kernel beyond, as JAX's
 ``attention_with_vjp`` there) → a dense Wo at every ``d_model``, never
 ``attention_block``; the FFN is dense and ``quantize`` is ignored
@@ -56,12 +63,14 @@ import torch.utils.checkpoint
 from torch import nn
 
 from msa_tpu_torch.ops.kernels.attention import (
+    MAX_HEAD_DIM,
     SINGLE_PASS_MAX_T,
     attention_block,
     attention_block_int8,
-    flash_attention,
+    flash_attention_lse,
+    pad_block_weights,
     packed_qkv_attention,
-    packed_qkv_attention_with_vjp,
+    packed_qkv_attention_lse,
 )
 from msa_tpu_torch.ops.kernels.ffn import ffn_fused, ffn_fused_int8
 from msa_tpu_torch.ops.quant import quantize_weight_axis
@@ -183,12 +192,31 @@ class SelfAttention(nn.Module):
         """Derive the weights the paths consume from the f32 masters: int8
         for ``attention_block_int8``, and compute-dtype copies for every
         other path (the dense projections around rows 5 and 6 included,
-        which even the int8 recipe takes at T > 512). Run after the masters
-        change, an optimizer step included: serving reads these copies,
-        training the masters."""
+        which even the int8 recipe takes at T > 512). The attention-block
+        kernels' weights are padded to their head dim (``pad_block_weights``:
+        ``w_qkv_blk``, ``b_qkv_blk``, ``w_out_blk``, or the int8 codes after
+        quantization), once, here. Run after the masters change, an
+        optimizer step included: serving reads these copies, training the
+        masters."""
         cfg = self.cfg
         int8 = cfg.block_kernel and cfg.quantize == "int8"
         _derive(self, (("qkv", self.qkv), ("out", self.attn_out)), int8, True, cfg.dtype)
+        if cfg.block_kernel:
+            self._derive_block(int8)
+
+    @torch.no_grad()
+    def _derive_block(self, int8: bool) -> None:
+        h, bias = self.cfg.num_heads, self.qkv.bias.detach()
+        if self.cfg.head_dim > MAX_HEAD_DIM:  # unpadded: the plain path serves it, the card raises
+            blk = (self.w_qkv_q if int8 else self.w_qkv_c, bias, self.w_out_q if int8 else self.w_out_c, None)
+        elif int8:  # int8 codes and scales padded after quantization (scale 1.0 on padded channels)
+            blk = pad_block_weights(self.w_qkv_q, bias, self.w_out_q, h, self.s_qkv)
+        else:
+            blk = pad_block_weights(self.w_qkv_c, bias, self.w_out_c, h)
+        names = ("w_qkv_q", "b_qkv_blk", "w_out_q", "s_qkv") if int8 else ("w_qkv_blk", "b_qkv_blk", "w_out_blk", None)
+        for name, tensor in zip(names, blk):
+            if name is not None:
+                self.register_buffer(name, tensor.contiguous(), persistent=False)
 
     def _project(self, y: torch.Tensor, name: str, deterministic: bool) -> torch.Tensor:
         """The QKV (``name="qkv"``) or output (``"out"``) projection: serving
@@ -212,16 +240,18 @@ class SelfAttention(nn.Module):
             if deterministic and cfg.block_kernel and t <= SINGLE_PASS_MAX_T:
                 if cfg.quantize == "int8":
                     return attention_block_int8(
-                        x.to(dt), self.w_qkv_q, self.s_qkv, self.qkv.bias, self.w_out_q, self.s_out,
-                        self.attn_out.bias, key_mask, h,
+                        x.to(dt), self.w_qkv_q, self.s_qkv, self.b_qkv_blk, self.w_out_q, self.s_out,
+                        self.attn_out.bias, key_mask, h, dh,
                     )
-                return attention_block(x.to(dt), self.w_qkv_c, self.qkv.bias, self.w_out_c, self.attn_out.bias, key_mask, h)
+                return attention_block(
+                    x.to(dt), self.w_qkv_blk, self.b_qkv_blk, self.w_out_blk, self.attn_out.bias, key_mask, h, dh
+                )
             qkv = self._project(x, "qkv", deterministic).view(b, t, 3, h, dh)
             if deterministic:
-                attend = packed_qkv_attention if t <= SINGLE_PASS_MAX_T else flash_attention
+                attend = packed_qkv_attention_lse if t <= SINGLE_PASS_MAX_T else flash_attention_lse
                 out, _ = attend(qkv, key_mask)
             else:
-                out = packed_qkv_attention_with_vjp(qkv, key_mask)
+                out = packed_qkv_attention(qkv, key_mask)
             return self._project(out, "out", deterministic)
         qkv = self._project(x, "qkv", deterministic).view(b, t, 3, h, dh)
         q, k, v = qkv.unbind(dim=2)

@@ -2,31 +2,38 @@
 attention → output projection, for one encoder layer.
 
 Replaces the TPU kernel ``msa_tpu/ops/pallas/attention.py:attention_block``
-in its bf16/f32 form (``pl.pallas_call`` at :819, body
-``_attn_block_body`` :574-695). The CUDA kernel is
-``msa_tpu_torch/csrc/attention.cu`` (with the GEMM of ``csrc/gemm.cuh``);
-its note says what bounds it on the card and what the design does about it.
+(``pl.pallas_call`` at :819, body ``_attn_block_body`` :574-695) in bf16
+and in f32 (:func:`attention_block` on f32 operands, the parity mode's
+encoders). The CUDA kernels are ``msa_tpu_torch/csrc/attention.cu`` (with
+the GEMMs of ``csrc/gemm.cuh`` and ``csrc/gemm_f32.cuh``); its note says
+what bounds them on the card and what the design does about it.
 
-Layouts: ``x [B, T, dm]`` in the compute dtype; ``w_qkv [3·dm, dm]`` and
-``w_out [dm, dm]`` in PyTorch's Linear layout and the compute dtype;
+Layouts: ``x [B, T, dm]`` in the compute dtype; ``w_qkv [3·H·DP, dm]`` and
+``w_out [dm, H·DP]`` in PyTorch's Linear layout and the compute dtype;
 ``b_qkv``/``b_out`` float32; ``key_mask [B, T]`` float32, 1 = attend. T is
 padded to a multiple of 128 inside, as the TPU wrapper does, and must be
 ≤ 512 after padding (the encoder sends longer inputs to
-:func:`flash_attention`).
+:func:`flash_attention_lse`). Any head dim D ≤ 128: the kernels' head dim
+DP is 32, 64 or 128, and weights of another D are padded to the next DP
+once, by :func:`pad_block_weights` (zero rows of ``w_qkv``/``b_qkv`` per
+head, zero columns of ``w_out``); ``head_dim`` then names the unpadded D,
+whose 1/√D the scores take.
 
 Rounding points, shared by the kernel and :func:`attention_block_plain`:
 q, k and v are projected in f32 (+ f32 bias) and rounded to the compute
 dtype; the score dot accumulates in f32; masked keys add −1e9 (not −inf: a
 row with no valid key stays finite); P = exp(s − rowmax) is summed in f32
 and rounded for P·V; o/denom is rounded before the f32-accumulated output
-projection; the result is rounded once.
+projection; the result is rounded once. In f32 every rounding is the
+identity.
 
 :func:`attention_block_int8` is the W8A8 variant, replacing
 ``attention_block(int8=True)`` (``pl.pallas_call`` at :779, wrapper
 :760-815). Its weights come quantized per output channel
 (:mod:`msa_tpu_torch.ops.quant`, from the f32 masters): ``w_qkv_q
-[3·dm, dm]`` int8 with ``s_qkv [3·dm]`` f32 scales, ``w_out_q [dm, dm]``
-int8 with ``s_out [dm]``. x and the attention output are quantized per row;
+[3·H·DP, dm]`` int8 with ``s_qkv [3·H·DP]`` f32 scales, ``w_out_q
+[dm, H·DP]`` int8 with ``s_out [dm]`` (padded after quantization: int8
+zeros, scale 1.0). x and the attention output are quantized per row;
 the projections dequantize in f32 in the TPU kernel's order of products,
 ``acc·xs·s + b`` for q and v and ``acc·s·xs + b`` for k (``:605-657``),
 ``acc·as·so + bo`` for the output; the attention core is the bf16 one.
@@ -34,28 +41,40 @@ the projections dequantize in f32 in the TPU kernel's order of products,
 Two attention-only kernels serve the shapes ``attention_block`` does not
 take (the encoder then projects QKV and the output in plain PyTorch, as
 JAX does in XLA). Both read ``qkv [B, T, 3, H, D]``, the free view of the
-fused projection, and return ``(o [B, T, H·D], lse [B, H, T])``:
+fused projection, and return ``(o [B, T, H·D], lse [B, H, T])``; their
+names are JAX's private ones:
 
-- :func:`packed_qkv_attention` (``d_model % 128 ≠ 0`` at T ≤ 512) replaces
-  ``_packed_qkv_attention_lse`` (``pl.pallas_call`` at :489, kernel
-  :425-462); CUDA in ``csrc/attention_packed.cu``. Exact row max over all
-  keys, P normalised *before* P·V: ``(p/denom)`` is rounded to qkv's dtype.
-- :func:`flash_attention` (T > 512) replaces ``_flash_attention_lse``
-  (``pl.pallas_call`` at :948, kernel :880-926), which JAX's encoder reaches
-  through ``attention_with_vjp``; CUDA in ``csrc/attention_flash.cu``.
-  Online softmax over 128-key blocks: the *unnormalised* p is rounded for
-  P·V, ``acc = acc·α + pv``, and ``o = acc / max(l, 1e-30)`` at the end.
+- :func:`packed_qkv_attention_lse` (``d_model % 128 ≠ 0`` at T ≤ 512)
+  replaces ``_packed_qkv_attention_lse`` (``pl.pallas_call`` at :489,
+  kernel :425-462); CUDA in ``csrc/attention_packed.cu``. Exact row max
+  over all keys, P normalised *before* P·V: ``(p/denom)`` is rounded to
+  qkv's dtype.
+- :func:`flash_attention_lse` (T > 512) replaces ``_flash_attention_lse``
+  (``pl.pallas_call`` at :948, kernel :880-926), which JAX's encoder
+  reaches through ``attention_with_vjp``; CUDA in
+  ``csrc/attention_flash.cu``. Online softmax over 128-key blocks: the
+  *unnormalised* p is rounded for P·V, ``acc = acc·α + pv``, and ``o = acc
+  / max(l, 1e-30)`` at the end.
 
-Both pad T to a multiple of 128 with zero rows under masked keys, so a row
-with no valid key averages V over all padded rows, as on the TPU; the lse
-is ``max + log(denom)`` in f32. :func:`mha_attention` (row 2,
-``_mha_attention_lse``, ``pl.pallas_call`` at :150) is row 5's function on
-q, k, v [B, H, T, D], through the same CUDA core with its own entry point.
-:func:`fused_attention` / :func:`fused_attention_lse` (row 1,
-``_fused_attention_lse``, ``pl.pallas_call`` at :206) is the same function
-again at any T and in f32 as well as bf16 (``csrc/attention_fused.cu``:
-bf16 through rows 5 and 2's core, f32 through a one-pass kernel of its
-own); no path of the system reaches it, as in JAX.
+In f32 both run row 1's one-pass f32 core (``csrc/attention_fused.cu``,
+:func:`_packed_f32`): rounding p to f32 is the identity, so the three
+orders differ only in f32 rounding. Both pad T to a multiple of 128 with
+zero rows under masked keys, so a row with no valid key averages V over
+all padded rows, as on the TPU; the lse is ``max + log(denom)`` in f32.
+Any D ≤ 128: a D that is not a multiple of 8 is zero-padded on the card
+(:func:`_pad_head_dim`), as JAX pads D, with the scale of the unpadded D.
+
+JAX's public names keep JAX's contracts: :func:`packed_qkv_attention`
+(qkv → o, differentiable: ``attention.py:510-540``) and
+:func:`flash_attention` (q, k, v [B, H, T, D] → o, ``:975``).
+:func:`mha_attention` (row 2, ``_mha_attention_lse``, ``pl.pallas_call``
+at :150) is row 5's function on q, k, v [B, H, T, D], through the same
+CUDA core with its own entry point. :func:`fused_attention` /
+:func:`fused_attention_lse` (row 1, ``_fused_attention_lse``,
+``pl.pallas_call`` at :206) is the same function again at any T and in f32
+as well as bf16 (``csrc/attention_fused.cu``: bf16 through rows 5 and 2's
+core, f32 through a one-pass kernel of its own); no path of the system
+reaches it, as in JAX.
 
 Training (``_bwd_dq_kernel``/``_bwd_dkv_kernel``, ``pl.pallas_call`` at
 :370 and :395, rows 3 and 4): :func:`attention_bwd` takes the forward's
@@ -64,9 +83,12 @@ the two kernels of ``csrc/attention_bwd.cu``, :func:`attention_bwd_dq` and
 :func:`attention_bwd_dkv`; :func:`attention_bwd_plain` is their plain
 version, 128×128 blocks in the TPU kernels' order. Two
 ``torch.autograd.Function`` wrappers run them as JAX's custom VJPs do:
-:func:`packed_qkv_attention_with_vjp` (JAX's ``packed_qkv_attention``,
-:511-540: row 5 forward, dqkv back in the packed layout) and
-:func:`attention_with_vjp` (:842-868: row 2 at T ≤ 512, row 6 beyond).
+:func:`packed_qkv_attention` (row 5 forward, dqkv back in the packed
+layout; row 6 forward beyond T = 512) and :func:`attention_with_vjp`
+(:842-868: row 2 at T ≤ 512, row 6 beyond).
+
+Head dims above 128 need a second D tile in the kernels, still to come
+(ROADMAP queue 3): the wrappers raise for them on the card.
 """
 
 from __future__ import annotations
@@ -77,12 +99,52 @@ import torch.nn.functional as F
 
 from msa_tpu_torch.ops import quant as Q
 from msa_tpu_torch.ops.kernels import build
-from msa_tpu_torch.ops.kernels._common import require
+from msa_tpu_torch.ops.kernels._common import gemm_f32_workspace, require
 from msa_tpu_torch.ops.kernels.quant import quantize_rows
 
 LANE = 128
 SINGLE_PASS_MAX_T = 512
-KERNEL_HEAD_DIM = 64
+BLOCK_HEAD_DIMS = (32, 64, 128)  # the attention_block core's DP
+MAX_HEAD_DIM = 128
+
+
+def _check_head_dim(d: int, what: str) -> None:
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"{what} kernel takes head dims up to {MAX_HEAD_DIM}, got {d}: a second D tile in the "
+            "kernels is still to come (ROADMAP queue 3, head dim > 128)"
+        )
+
+
+def block_head_dim(d: int) -> int:
+    """The head dim DP of the attention_block core that serves head dim
+    ``d``: the least of 32, 64 and 128 that is ≥ d."""
+    _check_head_dim(d, "attention_block")
+    return next(dp for dp in BLOCK_HEAD_DIMS if d <= dp)
+
+
+def pad_block_weights(w_qkv, b_qkv, w_out, num_heads: int, s_qkv=None):
+    """Weights of head dim D as the attention_block kernels take them, at
+    head dim DP = :func:`block_head_dim` (D): each head's rows of ``w_qkv``
+    [3·H·D, dm] and of ``b_qkv`` (and of the int8 scales ``s_qkv``, padded
+    with 1.0 so that no scale is 0) padded to DP with zeros, and ``w_out``
+    [dm, H·D] given zero columns for the padded dims. Works on f32, bf16 or
+    int8 codes, so int8 weights are padded after quantization. → (w_qkv,
+    b_qkv, w_out, s_qkv); the same tensors where D == DP."""
+    dm = w_out.shape[0]
+    d = w_qkv.shape[0] // (3 * num_heads)
+    dp = block_head_dim(d)
+    if dp == d:
+        return w_qkv, b_qkv, w_out, s_qkv
+
+    def heads(x, fill=0):  # [3·H·D, ...] → [3·H·DP, ...]
+        out = torch.full((3, num_heads, dp, *x.shape[1:]), fill, dtype=x.dtype, device=x.device)
+        out[:, :, :d] = x.reshape(3, num_heads, d, *x.shape[1:])
+        return out.reshape(3 * num_heads * dp, *x.shape[1:])
+
+    w_out_p = torch.zeros((dm, num_heads, dp), dtype=w_out.dtype, device=w_out.device)
+    w_out_p[:, :, :d] = w_out.reshape(dm, num_heads, d)
+    return heads(w_qkv), heads(b_qkv), w_out_p.reshape(dm, num_heads * dp), None if s_qkv is None else heads(s_qkv, 1)
 
 
 def _pad_t(x: torch.Tensor, key_mask: torch.Tensor):
@@ -98,46 +160,71 @@ def _pad_t(x: torch.Tensor, key_mask: torch.Tensor):
     return x, key_mask, t_pad
 
 
-def _kernel_inputs(x: torch.Tensor, key_mask: torch.Tensor, num_heads: int, what: str):
-    """Check the head layout the kernels take and pad T: → (x, key_mask,
-    T_pad, head dim), contiguous."""
+def _kernel_inputs(x: torch.Tensor, key_mask: torch.Tensor, w_qkv: torch.Tensor, num_heads: int, what: str):
+    """Check the head layout the kernels take (the weights' per-head width
+    DP one of :data:`BLOCK_HEAD_DIMS`, dm % 128 == 0) and pad T: → (x,
+    key_mask, T_pad, DP), contiguous."""
     dm = x.shape[-1]
-    dh = dm // num_heads
-    if dh != KERNEL_HEAD_DIM or dh * num_heads != dm or dm % LANE:
-        raise ValueError(f"{what} kernel needs head dim {KERNEL_HEAD_DIM} and dm % 128 == 0, got {dm}/{num_heads}")
+    dp = w_qkv.shape[0] // (3 * num_heads)
+    if dp not in BLOCK_HEAD_DIMS or 3 * num_heads * dp != w_qkv.shape[0] or dm % LANE:
+        raise ValueError(
+            f"{what} kernel needs weights of head dim 32, 64 or 128 (pad_block_weights pads them) and "
+            f"dm % 128 == 0, got w_qkv {tuple(w_qkv.shape)}, {num_heads} heads, dm {dm}"
+        )
     xp, mask_p, t_pad = _pad_t(x, key_mask)
-    return xp.contiguous(), mask_p.contiguous(), t_pad, dh
+    return xp.contiguous(), mask_p.contiguous(), t_pad, dp
 
 
 def _scale(dh: int) -> float:
     return float(np.float32(1.0 / np.sqrt(dh)))
 
 
-def _attend(qkv: torch.Tensor, key_mask: torch.Tensor, num_heads: int, dt: torch.dtype) -> torch.Tensor:
-    """The attention core of both variants: qkv [b, t, 3·dm] (f32 values
-    already rounded to ``dt``) → o/denom rounded to ``dt``, [b, t, dm]."""
-    b, t, dm3 = qkv.shape
-    dm = dm3 // 3
-    dh = dm // num_heads
+def _attend(qkv: torch.Tensor, key_mask: torch.Tensor, num_heads: int, dt: torch.dtype, scale: float) -> torch.Tensor:
+    """The attention core of both variants: qkv [b, t, 3·H·dh] (f32 values
+    already rounded to ``dt``) → o/denom rounded to ``dt``, [b, t, H·dh]."""
+    b, t, w3 = qkv.shape
+    dh = w3 // (3 * num_heads)
     q, k, v = qkv.view(b, t, 3, num_heads, dh).unbind(dim=2)  # [b, t, h, dh] each
     s = torch.einsum("bqhd,bkhd->bhqk", q, k)
     bias = torch.where(key_mask > 0, 0.0, -1e9).float()
-    s = s * _scale(dh) + bias[:, None, None, :]
+    s = s * scale + bias[:, None, None, :]
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     denom = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bhqk,bkhd->bhqd", p.to(dt).float(), v)
-    return (o / denom).to(dt).permute(0, 2, 1, 3).reshape(b, t, dm)
+    return (o / denom).to(dt).permute(0, 2, 1, 3).reshape(b, t, num_heads * dh)
 
 
-def attention_block_plain(x, w_qkv, b_qkv, w_out, b_out, key_mask, num_heads: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same rounding points)."""
+def _block_scale(w_qkv: torch.Tensor, num_heads: int, head_dim) -> float:
+    """1/√D of the unpadded head dim (``head_dim``, or the weights' own)."""
+    return _scale(head_dim or w_qkv.shape[0] // (3 * num_heads))
+
+
+def attention_block_plain(x, w_qkv, b_qkv, w_out, b_out, key_mask, num_heads: int, head_dim=None) -> torch.Tensor:
+    """Plain PyTorch version of the kernels (same rounding points), on
+    padded or unpadded weights."""
     t = x.shape[1]
     dt = x.dtype
     x, key_mask, _ = _pad_t(x, key_mask)
     qkv = x.float() @ w_qkv.float().t() + b_qkv.float()
-    attn = _attend(qkv.to(dt).float(), key_mask, num_heads, dt)
+    attn = _attend(qkv.to(dt).float(), key_mask, num_heads, dt, _block_scale(w_qkv, num_heads, head_dim))
     out = attn.float() @ w_out.float().t() + b_out.float()
     return out.to(dt)[:, :t]
+
+
+def _block_checks(x, w_qkv, b_qkv, w_out, b_out, key_mask, num_heads, what, dtype):
+    b, t, dm = x.shape
+    xp, mask_p, t_pad, dp = _kernel_inputs(x, key_mask, w_qkv, num_heads, what)
+    hd = num_heads * dp
+    for name, tens, dt, shape in (
+        ("x", xp, dtype, (b, t_pad, dm)),
+        ("w_qkv", w_qkv, dtype, (3 * hd, dm)),
+        ("b_qkv", b_qkv, torch.float32, (3 * hd,)),
+        ("w_out", w_out, dtype, (dm, hd)),
+        ("b_out", b_out, torch.float32, (dm,)),
+        ("key_mask", mask_p, torch.float32, (b, t_pad)),
+    ):
+        require(tens, name, dt, shape, x.device)
+    return xp, mask_p, t_pad, dp
 
 
 def attention_block(
@@ -148,56 +235,79 @@ def attention_block(
     b_out: torch.Tensor,
     key_mask: torch.Tensor,
     num_heads: int,
+    head_dim=None,
 ) -> torch.Tensor:
     """[B, T, dm] → [B, T, dm] (pre-residual). CPU tensors take
-    :func:`attention_block_plain`; CUDA tensors launch the kernel (bf16,
-    head dim 64)."""
+    :func:`attention_block_plain`; CUDA tensors launch the bf16 kernel, or
+    for f32 x the f32 one (:func:`_attention_block_f32`). ``head_dim`` is
+    the unpadded head dim of weights padded by :func:`pad_block_weights`."""
     if x.device.type == "cpu":
-        return attention_block_plain(x, w_qkv, b_qkv, w_out, b_out, key_mask, num_heads)
+        return attention_block_plain(x, w_qkv, b_qkv, w_out, b_out, key_mask, num_heads, head_dim)
+    if x.dtype == torch.float32:
+        return _attention_block_f32(x, w_qkv, b_qkv, w_out, b_out, key_mask, num_heads, head_dim)
     b, t, dm = x.shape
-    xp, mask_p, t_pad, dh = _kernel_inputs(x, key_mask, num_heads, "attention_block")
-    dev, bf16 = x.device, torch.bfloat16
-    for name, tens, dtype, shape in (
-        ("x", xp, bf16, (b, t_pad, dm)),
-        ("w_qkv", w_qkv, bf16, (3 * dm, dm)),
-        ("b_qkv", b_qkv, torch.float32, (3 * dm,)),
-        ("w_out", w_out, bf16, (dm, dm)),
-        ("b_out", b_out, torch.float32, (dm,)),
-        ("key_mask", mask_p, torch.float32, (b, t_pad)),
-    ):
-        require(tens, name, dtype, shape, dev)
-    qkv = torch.empty((b * t_pad, 3 * dm), dtype=bf16, device=dev)
-    attn = torch.empty((b * t_pad, dm), dtype=bf16, device=dev)
+    bf16 = torch.bfloat16
+    xp, mask_p, t_pad, dp = _block_checks(x, w_qkv, b_qkv, w_out, b_out, key_mask, num_heads, "attention_block", bf16)
+    dev, hd = x.device, num_heads * dp
+    qkv = torch.empty((b * t_pad, 3 * hd), dtype=bf16, device=dev)
+    attn = torch.empty((b * t_pad, hd), dtype=bf16, device=dev)
     out = torch.empty((b, t_pad, dm), dtype=bf16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = build.library().msa_attention_block(
         xp.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
         mask_p.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
-        b, t_pad, dm, num_heads, _scale(dh), stream,
+        b, t_pad, dm, num_heads, dp, _block_scale(w_qkv, num_heads, head_dim), stream,
     )
     build.check(rc, "attention_block")
     attention_block.launches += 1
     return out[:, :t]
 
 
-attention_block.launches = 0  # kernel launches since the last reset (the smoke reads it)
+# kernel launches since the last reset, bf16 and f32 (the smoke reads them)
+attention_block.launches = attention_block.launches_f32 = 0
 
 
-def attention_block_int8_plain(x, w_qkv_q, s_qkv, b_qkv, w_out_q, s_out, b_out, key_mask, num_heads: int):
+def _attention_block_f32(x, w_qkv, b_qkv, w_out, b_out, key_mask, num_heads: int, head_dim) -> torch.Tensor:
+    """:func:`attention_block` on f32 CUDA tensors (x, weights and biases
+    f32): ``msa_attention_block_f32`` (the f32 SIMT GEMM, row 1's f32 core,
+    the GEMM again)."""
+    b, t, dm = x.shape
+    f32 = torch.float32
+    xp, mask_p, t_pad, dp = _block_checks(x, w_qkv, b_qkv, w_out, b_out, key_mask, num_heads, "attention_block_f32", f32)
+    dev, hd = x.device, num_heads * dp
+    qkv = torch.empty((b * t_pad, 3 * hd), dtype=f32, device=dev)
+    attn = torch.empty((b * t_pad, hd), dtype=f32, device=dev)
+    lse = torch.empty((b, num_heads, t_pad), dtype=f32, device=dev)
+    out = torch.empty((b, t_pad, dm), dtype=f32, device=dev)
+    ws = gemm_f32_workspace(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = build.library().msa_attention_block_f32(
+        xp.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
+        mask_p.data_ptr(), qkv.data_ptr(), attn.data_ptr(), lse.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        b, t_pad, dm, num_heads, dp, _block_scale(w_qkv, num_heads, head_dim), stream,
+    )
+    build.check(rc, "attention_block_f32")
+    attention_block.launches_f32 += 1
+    return out[:, :t]
+
+
+def attention_block_int8_plain(x, w_qkv_q, s_qkv, b_qkv, w_out_q, s_out, b_out, key_mask, num_heads: int, head_dim=None):
     """Plain PyTorch version of the int8 kernel (same rounding points; the
-    int32 sums are exact, see :func:`msa_tpu_torch.ops.quant.int8_matmul`)."""
+    int32 sums are exact, see :func:`msa_tpu_torch.ops.quant.int8_matmul`),
+    on padded or unpadded weights."""
     b, t, dm = x.shape
     dt = x.dtype
+    hd = w_qkv_q.shape[0] // 3
     x, key_mask, t_pad = _pad_t(x, key_mask)
     xq, xs = Q.quantize_rows(x.reshape(b * t_pad, dm))
-    acc = Q.int8_matmul(xq, w_qkv_q)  # [M, 3·dm]
+    acc = Q.int8_matmul(xq, w_qkv_q)  # [M, 3·hd]
     s = s_qkv.float()
     bias = b_qkv.float()
-    q = acc[:, :dm] * xs * s[:dm] + bias[:dm]
-    k = acc[:, dm : 2 * dm] * s[dm : 2 * dm] * xs + bias[dm : 2 * dm]
-    v = acc[:, 2 * dm :] * xs * s[2 * dm :] + bias[2 * dm :]
-    qkv = torch.cat([q, k, v], dim=-1).to(dt).float().view(b, t_pad, 3 * dm)
-    attn = _attend(qkv, key_mask, num_heads, dt).reshape(b * t_pad, dm)
+    q = acc[:, :hd] * xs * s[:hd] + bias[:hd]
+    k = acc[:, hd : 2 * hd] * s[hd : 2 * hd] * xs + bias[hd : 2 * hd]
+    v = acc[:, 2 * hd :] * xs * s[2 * hd :] + bias[2 * hd :]
+    qkv = torch.cat([q, k, v], dim=-1).to(dt).float().view(b, t_pad, 3 * hd)
+    attn = _attend(qkv, key_mask, num_heads, dt, _block_scale(w_qkv_q, num_heads, head_dim)).reshape(b * t_pad, hd)
     aq, as_ = Q.quantize_rows(attn)
     out = Q.int8_matmul(aq, w_out_q) * as_ * s_out.float() + b_out.float()
     return out.to(dt).view(b, t_pad, dm)[:, :t]
@@ -213,37 +323,41 @@ def attention_block_int8(
     b_out: torch.Tensor,
     key_mask: torch.Tensor,
     num_heads: int,
+    head_dim=None,
 ) -> torch.Tensor:
     """[B, T, dm] → [B, T, dm] (pre-residual), W8A8. CPU tensors take
     :func:`attention_block_int8_plain`; CUDA tensors launch the kernel
-    (bf16 x, head dim 64)."""
+    (bf16 x, weights of head dim 32, 64 or 128: :func:`pad_block_weights`)."""
     if x.device.type == "cpu":
-        return attention_block_int8_plain(x, w_qkv_q, s_qkv, b_qkv, w_out_q, s_out, b_out, key_mask, num_heads)
+        return attention_block_int8_plain(x, w_qkv_q, s_qkv, b_qkv, w_out_q, s_out, b_out, key_mask, num_heads, head_dim)
     b, t, dm = x.shape
-    xp, mask_p, t_pad, dh = _kernel_inputs(x, key_mask, num_heads, "attention_block_int8")
+    xp, mask_p, t_pad, dp = _kernel_inputs(x, key_mask, w_qkv_q, num_heads, "attention_block_int8")
     dev, bf16, f32, i8 = x.device, torch.bfloat16, torch.float32, torch.int8
+    hd = num_heads * dp
     for name, tens, dtype, shape in (
         ("x", xp, bf16, (b, t_pad, dm)),
-        ("w_qkv_q", w_qkv_q, i8, (3 * dm, dm)),
-        ("s_qkv", s_qkv, f32, (3 * dm,)),
-        ("b_qkv", b_qkv, f32, (3 * dm,)),
-        ("w_out_q", w_out_q, i8, (dm, dm)),
+        ("w_qkv_q", w_qkv_q, i8, (3 * hd, dm)),
+        ("s_qkv", s_qkv, f32, (3 * hd,)),
+        ("b_qkv", b_qkv, f32, (3 * hd,)),
+        ("w_out_q", w_out_q, i8, (dm, hd)),
         ("s_out", s_out, f32, (dm,)),
         ("b_out", b_out, f32, (dm,)),
         ("key_mask", mask_p, f32, (b, t_pad)),
     ):
         require(tens, name, dtype, shape, dev)
     m = b * t_pad
-    xq, aq = (torch.empty((m, dm), dtype=i8, device=dev) for _ in range(2))
+    xq = torch.empty((m, dm), dtype=i8, device=dev)
+    aq = torch.empty((m, hd), dtype=i8, device=dev)
     xs, as_ = (torch.empty((m,), dtype=f32, device=dev) for _ in range(2))
-    qkv = torch.empty((m, 3 * dm), dtype=bf16, device=dev)
-    attn = torch.empty((m, dm), dtype=bf16, device=dev)
+    qkv = torch.empty((m, 3 * hd), dtype=bf16, device=dev)
+    attn = torch.empty((m, hd), dtype=bf16, device=dev)
     out = torch.empty((b, t_pad, dm), dtype=bf16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = build.library().msa_attention_block_int8(
         xp.data_ptr(), w_qkv_q.data_ptr(), s_qkv.data_ptr(), b_qkv.data_ptr(), w_out_q.data_ptr(),
         s_out.data_ptr(), b_out.data_ptr(), mask_p.data_ptr(), xq.data_ptr(), xs.data_ptr(), qkv.data_ptr(),
-        attn.data_ptr(), aq.data_ptr(), as_.data_ptr(), out.data_ptr(), b, t_pad, dm, num_heads, _scale(dh), stream,
+        attn.data_ptr(), aq.data_ptr(), as_.data_ptr(), out.data_ptr(), b, t_pad, dm, num_heads, dp,
+        _block_scale(w_qkv_q, num_heads, head_dim), stream,
     )
     build.check(rc, "attention_block_int8")
     attention_block_int8.launches += 1
@@ -274,16 +388,13 @@ def _mask_bias(key_mask: torch.Tensor) -> torch.Tensor:
     return torch.where(key_mask > 0, 0.0, -1e9).float()
 
 
-def packed_qkv_attention_plain(qkv: torch.Tensor, key_mask: torch.Tensor):
-    """Plain PyTorch version of the row-5 kernel (same rounding points)."""
-    return _packed_plain(qkv, key_mask, _scale(qkv.shape[-1]))
-
-
-def _packed_plain(qkv: torch.Tensor, key_mask: torch.Tensor, scale: float):
-    """Row 5's arithmetic with the score scale given: the head dim's own,
-    or that of the unpadded D where D was zero-padded (row 1)."""
+def packed_qkv_attention_lse_plain(qkv: torch.Tensor, key_mask: torch.Tensor, scale=None):
+    """Plain PyTorch version of the row-5 kernel (same rounding points).
+    ``scale`` is 1/√D of the head dim by default, that of the unpadded D
+    for a D zero-padded as the card's wrappers pad it (rows 1–6)."""
     b, t, _, h, d = qkv.shape
     dt = qkv.dtype
+    scale = _scale(d) if scale is None else scale
     qkv, key_mask, t_pad = _pad_packed(qkv, key_mask)
     q, k, v = qkv.float().unbind(dim=2)  # [b, t_pad, h, d]
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale + _mask_bias(key_mask)[:, None, None, :]
@@ -295,10 +406,12 @@ def _packed_plain(qkv: torch.Tensor, key_mask: torch.Tensor, scale: float):
     return o.reshape(b, t_pad, h * d)[:, :t], lse[:, :, :t]
 
 
-def flash_attention_plain(qkv: torch.Tensor, key_mask: torch.Tensor):
+def flash_attention_lse_plain(qkv: torch.Tensor, key_mask: torch.Tensor, scale=None):
     """Plain PyTorch version of the row-6 kernel: the same online softmax
-    over the same 128-key blocks, in the same order of operations."""
+    over the same 128-key blocks, in the same order of operations
+    (``scale`` as :func:`packed_qkv_attention_lse_plain`'s)."""
     b, t, _, h, d = qkv.shape
+    scale = _scale(d) if scale is None else scale
     dt = qkv.dtype
     qkv, key_mask, t_pad = _pad_packed(qkv, key_mask)
     q, k, v = qkv.float().permute(2, 0, 3, 1, 4).unbind(0)  # [b, h, t_pad, d]
@@ -308,7 +421,7 @@ def flash_attention_plain(qkv: torch.Tensor, key_mask: torch.Tensor):
     acc = torch.zeros((b, h, t_pad, d), device=qkv.device)
     for k0 in range(0, t_pad, FLASH_BLOCK_K):
         kb = slice(k0, k0 + FLASH_BLOCK_K)
-        s = q @ k[:, :, kb].transpose(-1, -2) * _scale(d) + bias[:, None, None, kb]
+        s = q @ k[:, :, kb].transpose(-1, -2) * scale + bias[:, None, None, kb]
         m_cur = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_cur)
         p = torch.exp(s - m_cur)
@@ -320,54 +433,97 @@ def flash_attention_plain(qkv: torch.Tensor, key_mask: torch.Tensor):
     return o[:, :t], (m + torch.log(l))[..., 0][:, :, :t]
 
 
-def _launch_packed(entry: str, what: str, qkv: torch.Tensor, key_mask: torch.Tensor):
-    """Check the inputs of a packed-QKV kernel and launch it on the card."""
+FUSED_D_MULTIPLE = 8  # the kernels copy D in 16-byte pieces of bf16
+
+
+def _pad_head_dim(*xs: torch.Tensor):
+    """Zero-pad the last dimension (D) of each of xs to a multiple of
+    :data:`FUSED_D_MULTIPLE`, as JAX's wrappers pad D: the zeros add nothing
+    to either product, so o's first D columns and the lse are unchanged
+    (with the scale of the unpadded D)."""
+    pad = -xs[0].shape[-1] % FUSED_D_MULTIPLE
+    return xs if not pad else tuple(F.pad(x, (0, pad)) for x in xs)
+
+
+def _launch_packed(entry: str, what: str, qkv: torch.Tensor, key_mask: torch.Tensor, dtype: torch.dtype):
+    """Check the inputs of a packed-QKV kernel and launch it on the card:
+    D zero-padded to a multiple of 8 where it is not one, the output sliced
+    back to D."""
     b, t, three, h, d = qkv.shape
-    if three != 3 or d % 8 or not 8 <= d <= 128:
-        raise ValueError(f"{what} kernel needs qkv [B, T, 3, H, D] with D % 8 == 0 and D ≤ 128, got {tuple(qkv.shape)}")
+    if three != 3:
+        raise ValueError(f"{what} kernel needs qkv [B, T, 3, H, D], got {tuple(qkv.shape)}")
+    _check_head_dim(d, what)
     dev = qkv.device
-    require(qkv, "qkv", torch.bfloat16, (b, t, 3, h, d), dev)
+    (qkv_p,) = _pad_head_dim(qkv)
+    dp = qkv_p.shape[-1]
+    require(qkv_p, "qkv", dtype, (b, t, 3, h, dp), dev)
     require(key_mask, "key_mask", torch.float32, (b, t), dev)
-    o = torch.empty((b, t, h * d), dtype=torch.bfloat16, device=dev)
+    o = torch.empty((b, t, h * dp), dtype=dtype, device=dev)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(build.library(), entry)(
-        qkv.data_ptr(), key_mask.data_ptr(), o.data_ptr(), lse.data_ptr(), b, t, h, d, _scale(d), stream
+        qkv_p.data_ptr(), key_mask.data_ptr(), o.data_ptr(), lse.data_ptr(), b, t, h, dp, _scale(d), stream
     )
     build.check(rc, what)
+    if dp != d:
+        o = o.view(b, t, h, dp)[..., :d].reshape(b, t, h * d)
     return o, lse
 
 
-def packed_qkv_attention(qkv: torch.Tensor, key_mask: torch.Tensor):
-    """qkv [B, T ≤ 512, 3, H, D], key_mask [B, T] f32 (1 = attend) →
-    (o [B, T, H·D] in qkv's dtype, lse [B, H, T] f32). CPU tensors take
-    :func:`packed_qkv_attention_plain`; CUDA tensors launch the kernel
-    (bf16, D % 8 == 0, D ≤ 128)."""
+def _check_single_pass(qkv: torch.Tensor, what: str) -> None:
+    if qkv.shape[1] > SINGLE_PASS_MAX_T:  # JAX's dispatch sends longer inputs to row 6
+        raise ValueError(f"{what} covers T ≤ {SINGLE_PASS_MAX_T}, got {qkv.shape[1]}")
+
+
+def packed_qkv_attention_lse(qkv: torch.Tensor, key_mask: torch.Tensor):
+    """JAX's ``_packed_qkv_attention_lse``: qkv [B, T ≤ 512, 3, H, D],
+    key_mask [B, T] f32 (1 = attend) → (o [B, T, H·D] in qkv's dtype, lse
+    [B, H, T] f32). CPU tensors take
+    :func:`packed_qkv_attention_lse_plain`; CUDA tensors launch the bf16
+    kernel, or for f32 row 1's f32 core (:func:`_packed_f32`; D ≤ 128)."""
     if qkv.device.type == "cpu":
-        return packed_qkv_attention_plain(qkv, key_mask)
-    if qkv.shape[1] > SINGLE_PASS_MAX_T:
-        raise ValueError(f"packed_qkv_attention covers T ≤ {SINGLE_PASS_MAX_T}, got {qkv.shape[1]}")
-    out = _launch_packed("msa_packed_qkv_attention", "packed_qkv_attention", qkv, key_mask)
-    packed_qkv_attention.launches += 1
+        return packed_qkv_attention_lse_plain(qkv, key_mask)
+    _check_single_pass(qkv, "packed_qkv_attention_lse")
+    if qkv.dtype == torch.float32:
+        return _packed_f32(qkv, key_mask, packed_qkv_attention_lse)
+    out = _launch_packed("msa_packed_qkv_attention", "packed_qkv_attention_lse", qkv, key_mask, torch.bfloat16)
+    packed_qkv_attention_lse.launches += 1
     return out
 
 
-packed_qkv_attention.launches = 0  # kernel launches since the last reset (the smoke reads it)
+# kernel launches since the last reset, bf16 and f32 (the smoke reads them)
+packed_qkv_attention_lse.launches = packed_qkv_attention_lse.launches_f32 = 0
 
 
-def flash_attention(qkv: torch.Tensor, key_mask: torch.Tensor):
-    """Blockwise attention for any T: qkv [B, T, 3, H, D], key_mask [B, T]
-    → (o [B, T, H·D], lse [B, H, T]). CPU tensors take
-    :func:`flash_attention_plain`; CUDA tensors launch the kernel (bf16,
-    D % 8 == 0, D ≤ 128)."""
+def flash_attention_lse(qkv: torch.Tensor, key_mask: torch.Tensor):
+    """JAX's ``_flash_attention_lse`` on the packed projection: blockwise
+    attention for any T, qkv [B, T, 3, H, D], key_mask [B, T] → (o [B, T,
+    H·D], lse [B, H, T]). CPU tensors take :func:`flash_attention_lse_plain`;
+    CUDA tensors launch the bf16 kernel, or for f32 row 1's f32 core
+    (:func:`_packed_f32`; D ≤ 128)."""
     if qkv.device.type == "cpu":
-        return flash_attention_plain(qkv, key_mask)
-    out = _launch_packed("msa_flash_attention", "flash_attention", qkv, key_mask)
-    flash_attention.launches += 1
+        return flash_attention_lse_plain(qkv, key_mask)
+    if qkv.dtype == torch.float32:
+        return _packed_f32(qkv, key_mask, flash_attention_lse)
+    out = _launch_packed("msa_flash_attention", "flash_attention_lse", qkv, key_mask, torch.bfloat16)
+    flash_attention_lse.launches += 1
     return out
 
 
-flash_attention.launches = 0  # kernel launches since the last reset (the smoke reads it)
+# kernel launches since the last reset, bf16 and f32 (the smoke reads them)
+flash_attention_lse.launches = flash_attention_lse.launches_f32 = 0
+
+
+def _packed_f32(qkv: torch.Tensor, key_mask: torch.Tensor, row) -> tuple:
+    """Rows 5 and 6 on f32 CUDA tensors: row 1's one-pass f32 core
+    (``msa_packed_attention_f32``) on the packed layout, counted on
+    ``row`` (the dispatcher, :func:`packed_qkv_attention_lse` or
+    :func:`flash_attention_lse`). Its online rescale per 64-key chunk
+    differs from row 5's single pass and row 6's 128-key blocks only in
+    f32 rounding."""
+    out = _launch_packed("msa_packed_attention_f32", row.__name__, qkv, key_mask, torch.float32)
+    row.launches_f32 += 1
+    return out
 
 
 # --- row 2: row 5's function on q, k, v [B, H, T, D] ----------------------------
@@ -384,10 +540,19 @@ def _heads_first(o: torch.Tensor, h: int) -> torch.Tensor:
     return o.reshape(b, t, h, hd // h).transpose(1, 2)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+    """JAX's public ``flash_attention`` (``attention.py:975``): blockwise
+    attention with an online softmax, q, k, v [B, H, T, D], key_mask
+    [B, T] (1 = attend) → o [B, H, T, D] in q's dtype, at any T. Row 6
+    (:func:`flash_attention_lse`) on the packed copy of q, k and v. Not
+    differentiable, as JAX's is not."""
+    return _heads_first(flash_attention_lse(_to_packed(q, k, v), key_mask)[0], q.shape[1])
+
+
 def mha_attention_plain(q, k, v, key_mask):
     """Plain PyTorch version of the row-2 kernel: row 5's arithmetic on
     [B, H, T, D] operands → (o [B, H, T, D], lse [B, H, T])."""
-    o, lse = packed_qkv_attention_plain(_to_packed(q, k, v), key_mask)
+    o, lse = packed_qkv_attention_lse_plain(_to_packed(q, k, v), key_mask)
     return _heads_first(o, q.shape[1]), lse
 
 
@@ -395,25 +560,31 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: t
     """q, k, v [B, H, T ≤ 512, D], key_mask [B, T] f32 (1 = attend) →
     (o [B, H, T, D] in q's dtype, lse [B, H, T] f32). CPU tensors take
     :func:`mha_attention_plain`; CUDA tensors launch the kernel (bf16,
-    contiguous, D % 8 == 0, D ≤ 128)."""
+    contiguous, D ≤ 128: zero-padded to a multiple of 8 where it is not
+    one)."""
     if q.device.type == "cpu":
         return mha_attention_plain(q, k, v, key_mask)
     b, h, t, d = q.shape
-    if t > SINGLE_PASS_MAX_T or d % 8 or not 8 <= d <= 128:
-        raise ValueError(f"mha_attention kernel needs T ≤ {SINGLE_PASS_MAX_T} and D % 8 == 0, D ≤ 128, got {tuple(q.shape)}")
+    if t > SINGLE_PASS_MAX_T:
+        raise ValueError(f"mha_attention kernel needs T ≤ {SINGLE_PASS_MAX_T}, got {tuple(q.shape)}")
+    _check_head_dim(d, "mha_attention")
     dev = q.device
+    q, k, v = _pad_head_dim(q, k, v)
+    if q.shape[-1] != d:
+        q, k, v = (x.contiguous() for x in (q, k, v))
+    dp = q.shape[-1]
     for name, x in (("q", q), ("k", k), ("v", v)):
-        require(x, name, torch.bfloat16, (b, h, t, d), dev)
+        require(x, name, torch.bfloat16, (b, h, t, dp), dev)
     require(key_mask, "key_mask", torch.float32, (b, t), dev)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = build.library().msa_mha_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), o.data_ptr(), lse.data_ptr(), b, t, h, d, _scale(d), stream
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), o.data_ptr(), lse.data_ptr(), b, t, h, dp, _scale(d), stream
     )
     build.check(rc, "mha_attention")
     mha_attention.launches += 1
-    return o, lse
+    return (o if dp == d else o[..., :d]), lse
 
 
 mha_attention.launches = 0  # kernel launches since the last reset (the smoke reads it)
@@ -425,17 +596,6 @@ mha_attention.launches = 0  # kernel launches since the last reset (the smoke re
 # v's dtype before P·V) with neither one's limits: any T, f32 as well as
 # bf16. Its plain version is theirs.
 fused_attention_plain = mha_attention_plain
-
-FUSED_D_MULTIPLE = 8  # the kernels copy D in 16-byte pieces of bf16
-
-
-def _pad_head_dim(*xs: torch.Tensor):
-    """Zero-pad the last dimension (D) of each of xs to a multiple of
-    :data:`FUSED_D_MULTIPLE`, as JAX's wrapper pads D: the zeros add nothing
-    to either product, so o's first D columns and the lse are unchanged
-    (with the scale of the unpadded D)."""
-    pad = -xs[0].shape[-1] % FUSED_D_MULTIPLE
-    return xs if not pad else tuple(F.pad(x, (0, pad)) for x in xs)
 
 
 def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor, block_q: int = 256, pad_d: bool = False):
@@ -451,8 +611,9 @@ def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_m
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v, key_mask)
     b, h, t, d = q.shape
-    if q.dtype not in (torch.float32, torch.bfloat16) or not 1 <= d <= 128:
-        raise ValueError(f"fused_attention kernel takes f32 or bf16 with D ≤ 128, got {q.dtype} {tuple(q.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_attention kernel takes f32 or bf16, got {q.dtype}")
+    _check_head_dim(d, "fused_attention")
     dev = q.device
     q, k, v = (x.contiguous() for x in _pad_head_dim(q, k, v))
     d_pad = q.shape[-1]
@@ -503,12 +664,13 @@ def _delta(o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return (g.float() * o.float()).sum(-1).contiguous()
 
 
-def attention_bwd_plain(q, k, v, key_mask, lse, o, g):
+def attention_bwd_plain(q, k, v, key_mask, lse, o, g, scale=None):
     """Plain PyTorch version of rows 3 and 4: the same arithmetic over the
     same 128×128 blocks in the same order. q, k, v, o, g [B, H, T, D],
-    key_mask [B, T], lse [B, H, T] → (dq, dk, dv) in the operands' dtypes."""
+    key_mask [B, T], lse [B, H, T] → (dq, dk, dv) in the operands' dtypes
+    (``scale`` as :func:`packed_qkv_attention_lse_plain`'s)."""
     b, h, t, d = q.shape
-    scale = _scale(d)
+    scale = _scale(d) if scale is None else scale
     t_pad = -(-t // LANE) * LANE
     qf, kf, vf, gf = (F.pad(x, (0, 0, 0, t_pad - t)).float() for x in (q, k, v, g))
     lse_p, delta_p = (F.pad(x.float(), (0, t_pad - t))[..., None] for x in (lse, _delta(o, g)))
@@ -532,14 +694,15 @@ def attention_bwd_plain(q, k, v, key_mask, lse, o, g):
     )
 
 
-def _bwd_args(q, k, v, g, lse, delta, key_mask, outs):
+def _bwd_args(q, k, v, g, lse, delta, key_mask, outs, scale: float):
     """Check what the backward kernels take and return the C arguments:
     q, k, v and the outputs [B, H, T, D] bf16 views with one set of strides
-    (D contiguous, rows 16-byte aligned), g with its own; lse, delta
-    [B, H, T] and key_mask [B, T] f32, contiguous."""
+    (D contiguous, rows 16-byte aligned, D % 8 == 0), g with its own; lse,
+    delta [B, H, T] and key_mask [B, T] f32, contiguous."""
     b, h, t, d = q.shape
-    if d % 8 or not 8 <= d <= 128:
-        raise ValueError(f"attention_bwd kernels need D % 8 == 0 and D ≤ 128, got {tuple(q.shape)}")
+    _check_head_dim(d, "attention_bwd")
+    if d % 8:
+        raise ValueError(f"attention_bwd kernels need D % 8 == 0 (attention_bwd pads D), got {tuple(q.shape)}")
     dev = q.device
 
     def strides(x):  # a dimension of size 1 is never stepped along
@@ -558,21 +721,24 @@ def _bwd_args(q, k, v, g, lse, delta, key_mask, outs):
     require(key_mask, "key_mask", torch.float32, (b, t), dev)
     ptrs = [x.data_ptr() for x in (q, k, v, g, lse, delta, key_mask, *outs)]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    return (*ptrs, b, t, h, d, *sx[:3], *strides(g)[:3], _scale(d), stream)
+    return (*ptrs, b, t, h, d, *sx[:3], *strides(g)[:3], scale, stream)
 
 
-def attention_bwd_dq(q, k, v, g, lse, delta, key_mask, dq) -> None:
+def attention_bwd_dq(q, k, v, g, lse, delta, key_mask, dq, scale=None) -> None:
     """Launch row 3 on the card: dq ← scale·Σ_k [P∘(dO·Vᵀ − Δ)]·K, written
-    into the view ``dq`` (arguments as :func:`_bwd_args` checks them)."""
-    rc = build.library().msa_attention_bwd_dq(*_bwd_args(q, k, v, g, lse, delta, key_mask, (dq,)))
+    into the view ``dq`` (arguments as :func:`_bwd_args` checks them;
+    ``scale`` 1/√D of the unpadded D, by default q's)."""
+    scale = _scale(q.shape[-1]) if scale is None else scale
+    rc = build.library().msa_attention_bwd_dq(*_bwd_args(q, k, v, g, lse, delta, key_mask, (dq,), scale))
     build.check(rc, "attention_bwd_dq")
     attention_bwd_dq.launches += 1
 
 
-def attention_bwd_dkv(q, k, v, g, lse, delta, key_mask, dk, dv) -> None:
+def attention_bwd_dkv(q, k, v, g, lse, delta, key_mask, dk, dv, scale=None) -> None:
     """Launch row 4 on the card: dv ← Σ_q Pᵀ·dO and dk ← scale·Σ_q
     [P∘(dO·Vᵀ − Δ)]ᵀ·Q, written into the views ``dk`` and ``dv``."""
-    rc = build.library().msa_attention_bwd_dkv(*_bwd_args(q, k, v, g, lse, delta, key_mask, (dk, dv)))
+    scale = _scale(q.shape[-1]) if scale is None else scale
+    rc = build.library().msa_attention_bwd_dkv(*_bwd_args(q, k, v, g, lse, delta, key_mask, (dk, dv), scale))
     build.check(rc, "attention_bwd_dkv")
     attention_bwd_dkv.launches += 1
 
@@ -583,16 +749,31 @@ attention_bwd_dkv.launches = 0
 
 def _attention_bwd_into(q, k, v, key_mask, lse, o, g, dq, dk, dv) -> None:
     """The backward into the [B, H, T, D] views dq, dk, dv: the kernels on
-    CUDA tensors, the plain version on CPU tensors."""
+    CUDA tensors, the plain version on CPU tensors. On the card a D that is
+    not a multiple of 8 is zero-padded, as in the forward (the padded
+    columns' gradients are dropped), with the scale of the unpadded D."""
     if q.device.type == "cpu":
         for out, got in zip((dq, dk, dv), attention_bwd_plain(q, k, v, key_mask, lse, o, g)):
             out.copy_(got)
         return
+    d = q.shape[-1]
+    _check_head_dim(d, "attention_bwd")
+    if d % FUSED_D_MULTIPLE:
+        q, k, v, o, g = (x.contiguous() for x in _pad_head_dim(q, k, v, o, g))
+        outs = [torch.empty_like(q) for _ in range(3)]
+        _launch_bwd(q, k, v, key_mask, lse, o, g, *outs, _scale(d))
+        for out, got in zip((dq, dk, dv), outs):
+            out.copy_(got[..., :d])
+        return
+    _launch_bwd(q, k, v, key_mask, lse, o, g, dq, dk, dv, _scale(d))
+
+
+def _launch_bwd(q, k, v, key_mask, lse, o, g, dq, dk, dv, scale: float) -> None:
     if g.stride(-1) != 1:
         g = g.contiguous()
     delta = _delta(o, g)
-    attention_bwd_dq(q, k, v, g, lse, delta, key_mask, dq)
-    attention_bwd_dkv(q, k, v, g, lse, delta, key_mask, dk, dv)
+    attention_bwd_dq(q, k, v, g, lse, delta, key_mask, dq, scale)
+    attention_bwd_dkv(q, k, v, g, lse, delta, key_mask, dk, dv, scale)
 
 
 def attention_bwd(q, k, v, key_mask, lse, o, g):
@@ -617,7 +798,7 @@ class _PackedQKVAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv, key_mask):
-        attend = packed_qkv_attention if qkv.shape[1] <= SINGLE_PASS_MAX_T else flash_attention
+        attend = packed_qkv_attention_lse if qkv.shape[1] <= SINGLE_PASS_MAX_T else flash_attention_lse
         o, lse = attend(qkv, key_mask)
         ctx.save_for_backward(qkv, key_mask, lse, o)
         return o
@@ -635,11 +816,13 @@ class _PackedQKVAttention(torch.autograd.Function):
         return dqkv, None
 
 
-def packed_qkv_attention_with_vjp(qkv: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
-    """Differentiable attention on the packed projection: qkv [B, T, 3, H,
-    D] → o [B, T, H·D]. Forward :func:`packed_qkv_attention` (row 5) at
-    T ≤ 512 and :func:`flash_attention` (row 6) beyond; backward rows 3 and
-    4, dqkv in the packed layout."""
+def packed_qkv_attention(qkv: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+    """JAX's public ``packed_qkv_attention`` (``attention.py:510-540``):
+    differentiable attention on the packed projection, qkv [B, T, 3, H, D],
+    key_mask [B, T] (1 = attend) → o [B, T, H·D]. Forward
+    :func:`packed_qkv_attention_lse` (row 5) at T ≤ 512 and
+    :func:`flash_attention_lse` (row 6) beyond; backward rows 3 and 4, dqkv
+    in the packed layout."""
     return _PackedQKVAttention.apply(qkv.contiguous(), key_mask)
 
 
@@ -649,7 +832,7 @@ class _AttentionWithVJP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, key_mask):
         if q.shape[2] > SINGLE_PASS_MAX_T:  # row 6 reads the packed layout
-            o, lse = flash_attention(_to_packed(q, k, v), key_mask)
+            o, lse = flash_attention_lse(_to_packed(q, k, v), key_mask)
             o = _heads_first(o, q.shape[1])
         else:
             q, k, v = (x.contiguous() for x in (q, k, v))
@@ -666,7 +849,7 @@ class _AttentionWithVJP(torch.autograd.Function):
 def attention_with_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
     """Differentiable attention: q, k, v [B, H, T, D], key_mask [B, T] →
     o [B, H, T, D]. Forward :func:`mha_attention` (row 2) at T ≤ 512 and
-    :func:`flash_attention` (row 6) beyond; backward rows 3 and 4. The
+    :func:`flash_attention_lse` (row 6) beyond; backward rows 3 and 4. The
     counterpart of JAX's API; the encoders take
-    :func:`packed_qkv_attention_with_vjp`, which needs no layout copy."""
+    :func:`packed_qkv_attention`, which needs no layout copy."""
     return _AttentionWithVJP.apply(q, k, v, key_mask)

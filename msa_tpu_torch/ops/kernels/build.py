@@ -34,17 +34,23 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, w1, b1, w2, b2, hidden, out, M, D, F, stream
     "msa_ffn_fused": (_P,) * 7 + (_I,) * 3 + (_P,),
-    # x, wqkv, bqkv, wout, bout, mask, qkv, attn, out, B, T, DM, H, scale, stream
-    "msa_attention_block": (_P,) * 9 + (_I,) * 4 + (_F, _P),
+    # all f32, with the split-K workspace: x, w1, b1, w2, b2, hidden, out, ws, M, D, F, stream
+    "msa_ffn_fused_f32": (_P,) * 8 + (_I,) * 3 + (_P,),
+    # x, wqkv, bqkv, wout, bout, mask, qkv, attn, out, B, T, DM, H, DP, scale, stream
+    "msa_attention_block": (_P,) * 9 + (_I,) * 5 + (_F, _P),
+    # as above with the f32 core's lse scratch before out and the split-K
+    # workspace after it
+    "msa_attention_block_f32": (_P,) * 11 + (_I,) * 5 + (_F, _P),
     # x, x_is_bf16, q, scale, rows, cols, stream
     "msa_quantize_rows": (_P, _I, _P, _P, _I, _I, _P),
     # x, w1, s1, b1, w2, s2, b2, xq, xs, hidden, hq, hs, out, M, D, F, stream
     "msa_ffn_fused_int8": (_P,) * 13 + (_I,) * 3 + (_P,),
     # x, wqkv, sqkv, bqkv, wout, sout, bout, mask, xq, xs, qkv, attn, aq, as,
-    # out, B, T, DM, H, scale, stream
-    "msa_attention_block_int8": (_P,) * 15 + (_I,) * 4 + (_F, _P),
-    # qkv, mask, o, lse, B, T, H, D, scale, stream
+    # out, B, T, DM, H, DP, scale, stream
+    "msa_attention_block_int8": (_P,) * 15 + (_I,) * 5 + (_F, _P),
+    # qkv, mask, o, lse, B, T, H, D, scale, stream (rows 5 and 6 in bf16; both in f32)
     "msa_packed_qkv_attention": (_P,) * 4 + (_I,) * 4 + (_F, _P),
+    "msa_packed_attention_f32": (_P,) * 4 + (_I,) * 4 + (_F, _P),
     "msa_flash_attention": (_P,) * 4 + (_I,) * 4 + (_F, _P),
     # q, k, v, mask, o, lse, B, T, H, D, scale, stream
     "msa_mha_attention": (_P,) * 6 + (_I,) * 4 + (_F, _P),
@@ -113,6 +119,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.msa_cuda_error_string.argtypes = [ctypes.c_int]
     lib.msa_cuda_error_string.restype = ctypes.c_char_p
+    lib.msa_gemm_f32_workspace_elems.argtypes = []
+    lib.msa_gemm_f32_workspace_elems.restype = ctypes.c_longlong
     return lib
 
 

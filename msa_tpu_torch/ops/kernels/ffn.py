@@ -1,9 +1,12 @@
 """Fused encoder FFN: ``gelu(x·W1ᵀ + b1)·W2ᵀ + b2``.
 
 Replaces the TPU kernel ``msa_tpu/ops/pallas/ffn.py:ffn_fused``
-(``pl.pallas_call`` at :89, body :49-63). The CUDA kernel is
-``msa_tpu_torch/csrc/ffn.cu`` (with the GEMM of ``csrc/gemm.cuh``); its
-note says what bounds it on the card and what the design does about it.
+(``pl.pallas_call`` at :89, body :49-63) in bf16 and in f32
+(:func:`ffn_fused` on f32 x: the parity mode's encoders). The CUDA kernels
+are
+``msa_tpu_torch/csrc/ffn.cu`` (with the GEMMs of ``csrc/gemm.cuh`` and
+``csrc/gemm_f32.cuh``); its note says what bounds them on the card and
+what the design does about it.
 
 Weights are in PyTorch's Linear layout: ``w1 [d_ff, d]``, ``w2 [d, d_ff]``.
 Rounding points, shared by the kernel and :func:`ffn_plain`: both dots
@@ -28,7 +31,7 @@ import torch
 
 from msa_tpu_torch.ops import quant as Q
 from msa_tpu_torch.ops.kernels import build
-from msa_tpu_torch.ops.kernels._common import require
+from msa_tpu_torch.ops.kernels._common import gemm_f32_workspace, require
 from msa_tpu_torch.ops.kernels.quant import quantize_rows
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
@@ -57,33 +60,45 @@ def ffn_plain(x, w1, b1, w2, b2) -> torch.Tensor:
     return o.to(x.dtype)
 
 
-def ffn_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """x [N, d] → [N, d]. CPU tensors take :func:`ffn_plain`; CUDA tensors
-    launch the kernel (bf16 only; d and d_ff multiples of 128)."""
-    if x.device.type == "cpu":
-        return ffn_plain(x, w1, b1, w2, b2)
+def _launch_ffn(entry: str, x, w1, b1, w2, b2, dtype: torch.dtype) -> torch.Tensor:
     n, d = x.shape
     f = w1.shape[0]
     if d % 128 or f % 128:
-        raise ValueError(f"ffn_fused kernel needs d and d_ff multiples of 128, got {d}, {f}")
-    bf16 = torch.bfloat16
+        raise ValueError(f"{entry} kernel needs d and d_ff multiples of 128, got {d}, {f}")
     for name, t, shape in (
         ("x", x, (n, d)), ("w1", w1, (f, d)), ("b1", b1, (f,)), ("w2", w2, (d, f)), ("b2", b2, (d,))
     ):
-        require(t, name, bf16, shape, x.device)
-    hidden = torch.empty((n, f), dtype=bf16, device=x.device)
-    out = torch.empty((n, d), dtype=bf16, device=x.device)
+        require(t, name, dtype, shape, x.device)
+    hidden = torch.empty((n, f), dtype=dtype, device=x.device)
+    out = torch.empty((n, d), dtype=dtype, device=x.device)
+    ptrs = [t.data_ptr() for t in (x, w1, b1, w2, b2, hidden, out)]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = build.library().msa_ffn_fused(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        hidden.data_ptr(), out.data_ptr(), n, d, f, stream,
-    )
-    build.check(rc, "ffn_fused")
+    if dtype == torch.float32:  # with the f32 GEMM's split-K workspace
+        rc = getattr(build.library(), entry)(*ptrs, gemm_f32_workspace(x.device).data_ptr(), n, d, f, stream)
+    else:
+        rc = getattr(build.library(), entry)(*ptrs, n, d, f, stream)
+    build.check(rc, entry)
+    return out
+
+
+def ffn_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """x [N, d] → [N, d]. CPU tensors take :func:`ffn_plain`; CUDA tensors
+    launch the bf16 kernel, or for f32 x ``msa_ffn_fused_f32`` (two
+    launches of the f32 SIMT GEMM, exact FMA, no TF32); d and d_ff
+    multiples of 128."""
+    if x.device.type == "cpu":
+        return ffn_plain(x, w1, b1, w2, b2)
+    if x.dtype == torch.float32:
+        out = _launch_ffn("msa_ffn_fused_f32", x, w1, b1, w2, b2, torch.float32)
+        ffn_fused.launches_f32 += 1
+        return out
+    out = _launch_ffn("msa_ffn_fused", x, w1, b1, w2, b2, torch.bfloat16)
     ffn_fused.launches += 1
     return out
 
 
-ffn_fused.launches = 0  # kernel launches since the last reset (the smoke reads it)
+# kernel launches since the last reset, bf16 and f32 (the smoke reads them)
+ffn_fused.launches = ffn_fused.launches_f32 = 0
 
 
 def ffn_int8_plain(x, w1_q, s1, b1, w2_q, s2, b2) -> torch.Tensor:

@@ -13,7 +13,11 @@ The encoders run the serving recipe, as in JAX: bf16 activations with W8A8
 projections and FFN through the hand-written ``attention_block_int8`` and
 ``ffn_fused_int8`` CUDA kernels by default (``quantize="int8"``), or bf16
 matmuls through ``attention_block`` and ``ffn_fused`` under
-``quantize="none"`` / ``MSA_QUANTIZE=none``. The feature math and the fusion
+``quantize="none"`` / ``MSA_QUANTIZE=none``. Imported trunks
+(``initialize(text_params=, audio_params=)``, from
+:func:`msa_tpu_torch.models.text.params_from_hf_bert` and
+:func:`msa_tpu_torch.models.audio.params_from_hf_wav2vec2`) switch to JAX's
+f32 parity mode: the same kernels in f32. The feature math and the fusion
 MLP stay f32 with TF32 off.
 
 Two entry points run the graph: :meth:`SegmentPipeline.run_host` on a
@@ -60,6 +64,17 @@ from msa_tpu_torch.ops.normalization import normalize_audio, normalize_face, nor
 
 QUANTIZE_MODES = ("none", "int8")
 
+
+def resolve_precision(quantize: Optional[str], imported: bool) -> Tuple[str, bool]:
+    """JAX's serving precision (``msa_tpu/pipeline/graph.py:113-117``):
+    → (quantize, parity_mode). ``quantize`` is the argument, then
+    ``MSA_QUANTIZE``, then ``"none"`` for imported trunks and ``"int8"``
+    otherwise; the f32 parity mode holds where trunks were imported and no
+    quantize was asked for, since imported weights carry the ≤1e-3
+    drop-in contract that bf16's and int8's error would break."""
+    explicit = quantize or os.environ.get("MSA_QUANTIZE")
+    return explicit or ("none" if imported else "int8"), imported and not explicit
+
 logger = logging.getLogger(__name__)
 
 _FUSION_DIMS = ("face_dim", "audio_dim", "text_dim", "hidden_dim", "output_dim")
@@ -103,6 +118,14 @@ def _init_then_load(models: "PipelineModels", name: str, module: torch.nn.Module
     models.loaded[name] = str(path)
 
 
+def _load_whole(name: str, module: torch.nn.Module, tree: Mapping[str, Any]) -> None:
+    """Load a caller's tree that must set every parameter of ``module``."""
+    missing = weights.missing_leaves(module, tree)
+    if missing:
+        raise KeyError(f"{name} params lack {len(missing)} leaves of the model, e.g. {missing[:3]}")
+    weights.load_flax_tree(module, tree)
+
+
 @dataclasses.dataclass
 class PipelineModels:
     """All modules of the pipeline, on one device, in eval mode."""
@@ -117,13 +140,17 @@ class PipelineModels:
     loaded: Dict[str, str] = dataclasses.field(default_factory=dict)
 
     @staticmethod
-    def serving_encoder(quantize: str = "int8") -> EncoderConfig:
+    def serving_encoder(quantize: str = "int8", parity_mode: bool = False) -> EncoderConfig:
         """The production encoder recipe: bf16 through the fused kernels,
-        W8A8 under ``quantize="int8"``."""
+        W8A8 under ``quantize="int8"``; f32 through the same kernels in the
+        parity mode (``quantize`` is then ``"none"``)."""
         if quantize not in QUANTIZE_MODES:
             raise ValueError(f"quantize={quantize!r}: expected one of {QUANTIZE_MODES}")
         return EncoderConfig(
-            compute_dtype="bfloat16", attention_impl="kernel", ffn_impl="kernel", quantize=quantize
+            compute_dtype="float32" if parity_mode else "bfloat16",
+            attention_impl="kernel",
+            ffn_impl="kernel",
+            quantize=quantize,
         )
 
     @classmethod
@@ -174,6 +201,9 @@ class PipelineModels:
         fusion_checkpoint: Optional[str] = None,
         quantize: Optional[str] = None,
         device: "str | torch.device" = "cuda",
+        fusion_params: Optional[Mapping[str, Any]] = None,
+        text_params: Optional[Mapping[str, Any]] = None,
+        audio_params: Optional[Mapping[str, Any]] = None,
     ) -> "PipelineModels":
         """The JAX package's ``PipelineModels.initialize``
         (``msa_tpu/pipeline/graph.py:75-285``), on ``device``.
@@ -188,24 +218,41 @@ class PipelineModels:
         warning and leaves the init; one configured as ``None`` is not
         looked for. ``models.loaded`` names every checkpoint that loaded.
 
-        The fusion MLP: ``fusion`` (its dims, as ``FusionMLP``'s keyword
-        arguments) builds one from the init alone; otherwise
+        The fusion MLP: ``fusion_params`` (a flax tree, with ``fusion`` its
+        dims or the default ones) takes the place of any checkpoint;
+        ``fusion`` alone builds one from the init; otherwise
         ``fusion_checkpoint`` is tried, then the shipped
         ``checkpoints/fusion.msgpack``, then the default dims from the init.
 
-        ``quantize`` resolves as in JAX (``msa_tpu/pipeline/graph.py:114-117``):
-        the argument, then ``MSA_QUANTIZE``, then ``"int8"`` (W8A8 through
-        the int8 kernels); ``"none"`` is the bf16 recipe. The JAX package's
-        f32 parity mode for imported trunks is not ported (the kernels take
-        bf16 only)."""
-        quantize = quantize or os.environ.get("MSA_QUANTIZE") or "int8"
-        enc = cls.serving_encoder(quantize)
+        ``text_params`` / ``audio_params`` are the whole flax trees of the
+        text / audio model (numpy leaves), e.g. a trunk from
+        :func:`msa_tpu_torch.models.text.params_from_hf_bert` or
+        :func:`msa_tpu_torch.models.audio.params_from_hf_wav2vec2` merged
+        with heads (:meth:`params_tree` gives the init's): as in JAX
+        (``:208``, ``:241``), the shipped heads are not loaded over them. A
+        tree that lacks a parameter of its model raises.
+
+        ``quantize`` and the precision resolve as in JAX
+        (:func:`resolve_precision`): the argument, then ``MSA_QUANTIZE``,
+        then ``"int8"`` (W8A8 through the int8 kernels), where ``"none"`` is
+        the bf16 recipe; with imported trunks and no quantize asked for, the
+        f32 parity mode (``compute_dtype="float32"``, the kernels' f32
+        variants, ``quantize="none"``)."""
+        imported = text_params is not None or audio_params is not None
+        quantize, parity_mode = resolve_precision(quantize, imported)
+        logger.info(
+            "encoder serving precision: %s, quantize=%s%s",
+            "float32" if parity_mode else "bfloat16",
+            quantize,
+            " (imported weights: parity mode; pass quantize= or MSA_QUANTIZE for the bf16/int8 recipe)" if parity_mode else "",
+        )
+        enc = cls.serving_encoder(quantize, parity_mode)
         face_cfg = face_cfg or FaceModelConfig()
         audio_cfg = audio_cfg or AudioModelConfig(encoder=enc)
         text_cfg = text_cfg or TextModelConfig(encoder=enc)
 
         fusion_ckpt = None
-        if fusion is None:
+        if fusion is None and fusion_params is None:
             for rel in (fusion_checkpoint, "checkpoints/fusion.msgpack"):
                 if not rel:
                     continue
@@ -216,7 +263,9 @@ class PipelineModels:
                     logger.warning("fusion checkpoint %s failed to load (%s); trying next", rel, e)
         fusion_dims = fusion_ckpt[1] if fusion_ckpt else dict(fusion or {})
         models = cls._build(face_cfg, audio_cfg, text_cfg, fusion_dims, device)
-        if fusion_ckpt:
+        if fusion_params is not None:
+            _load_whole("fusion", models.fusion, fusion_params)
+        elif fusion_ckpt:
             weights.load_flax_tree(models.fusion, fusion_ckpt[2])
             models.loaded["fusion"] = str(fusion_ckpt[0])
         else:
@@ -227,9 +276,28 @@ class PipelineModels:
 
         _init_then_load(models, "landmark", models.landmark, seed, face_cfg.landmark_weights)
         _init_then_load(models, "face_cnn", models.face_cnn, seed + 1, face_cfg.emotion_weights)
-        _init_then_load(models, "audio_head", models.audio, seed + 2, audio_cfg.head_weights, audio_head)
-        _init_then_load(models, "text_heads", models.text, seed + 3, text_cfg.head_weights)
+        if audio_params is not None:
+            _load_whole("audio", models.audio, audio_params)
+        else:
+            _init_then_load(models, "audio_head", models.audio, seed + 2, audio_cfg.head_weights, audio_head)
+        if text_params is not None:
+            _load_whole("text", models.text, text_params)
+        else:
+            _init_then_load(models, "text_heads", models.text, seed + 3, text_cfg.head_weights)
         return models
+
+    def params_tree(self) -> Dict[str, Any]:
+        """Each model as a flax tree of numpy arrays, in JAX's names and
+        layouts (``msa_tpu/pipeline/graph.py:297``): the inverse of
+        :meth:`from_flax`. Merge an imported trunk into a model's tree to
+        keep this one's heads."""
+        return {
+            "landmark": weights.flax_tree(self.landmark),
+            "face_cnn": weights.flax_tree(self.face_cnn),
+            "audio": weights.flax_tree(self.audio),
+            "text": weights.flax_tree(self.text),
+            "fusion": weights.flax_tree(self.fusion),
+        }
 
     @classmethod
     def tiny(cls, seed: int = 0, device: "str | torch.device" = "cuda") -> "PipelineModels":

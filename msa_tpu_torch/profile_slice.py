@@ -1,10 +1,12 @@
 """Where the time of one serving forward, or one training step, goes on the card.
 
-    python3 -m msa_tpu_torch.profile_slice [--tokens 512] [--batch 2] [--steps 3] [--quantize int8|none]
+    python3 -m msa_tpu_torch.profile_slice [--tokens 512] [--batch 2] [--steps 3] [--quantize int8|none|f32]
                                            [--samples 80000] [--train | --conv | --asr]
 
 Builds the full-width models (``PipelineModels.initialize``, by default in
-the int8 serving recipe; ``--quantize none`` for the bf16 one), runs the
+the int8 serving recipe; ``--quantize none`` for the bf16 one, ``f32``
+for the encoders of JAX's f32 parity mode, f32 through the kernels' f32
+variants, on the init's weights), runs the
 segment graph at ``--samples`` audio samples per segment (the
 ``segment_samples`` of its config; 240000, 15 s, puts the audio encoder on
 the flash kernel), warms
@@ -47,7 +49,7 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=None, help="2 for a forward, 8 for --train")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=20)
-    ap.add_argument("--quantize", choices=("int8", "none"), default="int8")
+    ap.add_argument("--quantize", choices=("int8", "none", "f32"), default="int8")
     ap.add_argument("--samples", type=int, default=SystemConfig().pipeline.segment_samples)
     ap.add_argument("--train", action="store_true", help="one text training step instead of a forward")
     ap.add_argument("--conv", action="store_true", help="row 11 at the wav2vec2 stride-2 layers instead of a forward")
@@ -98,7 +100,10 @@ def main(argv=None) -> int:
             training.train_step(text, training.text_loss, opt, *batch)
 
     else:
-        models = G.PipelineModels.initialize(seed=0, quantize=args.quantize, device="cuda")
+        if args.quantize == "f32":  # the parity mode's encoders (imported trunks serve this path)
+            models = G.PipelineModels.initialize(seed=0, quantize="none", device="cuda").with_encoders(compute_dtype="float32")
+        else:
+            models = G.PipelineModels.initialize(seed=0, quantize=args.quantize, device="cuda")
         pipe = G.SegmentPipeline(models, SystemConfig(pipeline=PipelineConfig(segment_samples=samples)))
         inp = G.SegmentInputs.zeros(models, b, samples=samples, tokens=tokens)
         inp.frames = rng.integers(0, 256, size=inp.frames.shape, dtype=np.uint8)

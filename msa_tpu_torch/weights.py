@@ -14,7 +14,8 @@ to their compute dtype in the forward (the audio convs) or derive serving
 copies (the encoder layers). A load ends in :func:`derive_weights_`, so
 each encoder layer's int8 or compute-dtype weights follow its masters.
 JAX's flax init itself is rebuilt in :mod:`msa_tpu_torch.flax_init`, which
-walks the same names.
+walks the same names. :func:`flax_tree` is the inverse of
+:func:`load_flax_tree`: a module's parameters as a flax tree.
 """
 
 from __future__ import annotations
@@ -72,3 +73,36 @@ def _load(module: nn.Module, tree: Mapping[str, Any], prefix: str) -> None:
         if not isinstance(target, torch.Tensor):
             raise KeyError(f"{prefix}{key}: no such parameter in {type(module).__name__}")
         target.copy_(_convert(key, value, target))
+
+
+def flax_tree(module: nn.Module) -> dict:
+    """Every parameter of ``module`` as a nested dict of f32 numpy arrays in
+    flax's names and layouts (the leaves :func:`msa_tpu_torch.flax_init.leaves`
+    names): the inverse of :func:`load_flax_tree`."""
+    from msa_tpu_torch import flax_init
+
+    tree: dict = {}
+    for leaf, p in flax_init.leaves(module):
+        v = p.detach().float().cpu()
+        if leaf.path[-1] == "kernel":
+            v = v.t() if v.dim() == 2 else v.permute(*range(2, v.dim()), 1, 0)
+        node = tree
+        for name in leaf.path[:-1]:
+            node = node.setdefault(name, {})
+        node[leaf.path[-1]] = v.reshape(leaf.shape).contiguous().numpy().copy()
+    return tree
+
+
+def missing_leaves(module: nn.Module, tree: Mapping[str, Any]) -> list:
+    """The flax paths of ``module``'s parameters that ``tree`` lacks."""
+    from msa_tpu_torch import flax_init
+
+    def has(path):
+        node = tree
+        for name in path:
+            if not isinstance(node, Mapping) or name not in node:
+                return False
+            node = node[name]
+        return True
+
+    return ["/".join(leaf.path) for leaf, _ in flax_init.leaves(module) if not has(leaf.path)]

@@ -104,7 +104,7 @@ def test_packed_qkv_attention_with_vjp_grads_match_jax(rng, dtype, T, d):
     w = np.arange(h * d, dtype=np.float32) / (h * d)  # non-uniform cotangent
     want = jax.grad(lambda x: jnp.sum(jax_packed_qkv_attention(x, jnp.asarray(mask), True).astype(jnp.float32) * w))(qkv)
     (got,) = _torch_grads(
-        lambda x: A.packed_qkv_attention_with_vjp(x, t(mask)), [t(qkv, TORCH_DTYPES[dtype])], torch.from_numpy(w)
+        lambda x: A.packed_qkv_attention(x, t(mask)), [t(qkv, TORCH_DTYPES[dtype])], torch.from_numpy(w)
     )
     assert got.dtype == TORCH_DTYPES[dtype] and tuple(got.shape) == (b, T, 3, h, d)
     _close(got, want, dtype, T, "dqkv")
@@ -129,7 +129,7 @@ def test_packed_wrapper_beyond_512_matches_jax_attention_with_vjp(rng, dtype):
 
     want = jax.grad(loss)(qkv)
     (got,) = _torch_grads(
-        lambda x: A.packed_qkv_attention_with_vjp(x, t(mask)), [t(qkv, TORCH_DTYPES[dtype])], torch.from_numpy(w)
+        lambda x: A.packed_qkv_attention(x, t(mask)), [t(qkv, TORCH_DTYPES[dtype])], torch.from_numpy(w)
     )
     assert got.dtype == TORCH_DTYPES[dtype] and tuple(got.shape) == (b, T, 3, h, d)
     _close(got, want, dtype, T, "dqkv")
@@ -161,10 +161,10 @@ def test_attention_with_vjp_grads_match_jax(rng, dtype, b, h, T, d):
 
 def test_cpu_wrappers_launch_no_kernel(rng):
     """On CPU tensors the forward and backward take the plain versions."""
-    counters = (A.mha_attention, A.packed_qkv_attention, A.flash_attention, A.attention_bwd_dq, A.attention_bwd_dkv)
+    counters = (A.mha_attention, A.packed_qkv_attention_lse, A.flash_attention_lse, A.attention_bwd_dq, A.attention_bwd_dkv)
     before = [c.launches for c in counters]
     qkv = torch.from_numpy(rng.normal(size=(1, 40, 3, 2, 16)).astype(np.float32)).requires_grad_(True)
-    A.packed_qkv_attention_with_vjp(qkv, torch.ones(1, 40)).sum().backward()
+    A.packed_qkv_attention(qkv, torch.ones(1, 40)).sum().backward()
     q = torch.randn(1, 2, 40, 16, requires_grad=True)
     A.attention_with_vjp(q, q.detach(), q.detach(), torch.ones(1, 40)).sum().backward()
     assert [c.launches for c in counters] == before

@@ -2,8 +2,8 @@
 them, against the JAX package on the CPU.
 
 On the CPU the wrappers run their kernels' plain versions; JAX runs its
-Pallas kernels in interpret mode. ``packed_qkv_attention`` (row 5) is held
-against ``_packed_qkv_attention_lse``, ``flash_attention`` (row 6) against
+Pallas kernels in interpret mode. ``packed_qkv_attention_lse`` (row 5) is held
+against ``_packed_qkv_attention_lse``, ``flash_attention_lse`` (row 6) against
 ``_flash_attention_lse`` on the [B, H, T, D] transposes of the same
 projection; both ``o`` and ``lse``.
 
@@ -56,7 +56,7 @@ def _check(got, want, dtype, kind):
 def test_packed_qkv_attention_matches_pallas(rng, dtype, T, h, d):
     qkv, mask = _qkv_and_mask(rng, 2, T, h, d, dtype)
     want_o, want_lse = _packed_qkv_attention_lse(qkv, jnp.asarray(mask), interpret=True)
-    got_o, got_lse = A.packed_qkv_attention(t(qkv, TORCH_DTYPES[dtype]), t(mask))
+    got_o, got_lse = A.packed_qkv_attention_lse(t(qkv, TORCH_DTYPES[dtype]), t(mask))
     assert got_o.dtype == TORCH_DTYPES[dtype] and tuple(got_o.shape) == (2, T, h * d)
     _check(got_o, want_o, dtype, "packed")
     np.testing.assert_allclose(f32(got_lse), f32(want_lse), atol=F32_ATOL["packed"] if dtype == "float32" else 1e-3)
@@ -69,7 +69,7 @@ def test_flash_attention_matches_pallas(rng, dtype, d):
     qkv, mask = _qkv_and_mask(rng, 2, T, h, d, dtype)
     q, k, v = (qkv[:, :, i].transpose(0, 2, 1, 3) for i in range(3))
     want_o, want_lse = _flash_attention_lse(q, k, v, jnp.asarray(mask), interpret=True)
-    got_o, got_lse = A.flash_attention(t(qkv, TORCH_DTYPES[dtype]), t(mask))
+    got_o, got_lse = A.flash_attention_lse(t(qkv, TORCH_DTYPES[dtype]), t(mask))
     assert tuple(got_o.shape) == (2, T, h * d) and tuple(got_lse.shape) == (2, h, T)
     _check(got_o.reshape(2, T, h, d).permute(0, 2, 1, 3), want_o, dtype, "flash")
     np.testing.assert_allclose(f32(got_lse), f32(want_lse), atol=F32_ATOL["flash"] if dtype == "float32" else 1e-3)
@@ -105,8 +105,8 @@ def test_custom_width_encoder_takes_row5_like_jax(rng, recipe, monkeypatch):
     jenc, penc, dtype = _encoders(dict(num_layers=2, d_model=96, num_heads=4, d_ff=256), recipe)
     calls = []
     monkeypatch.setattr(
-        "msa_tpu_torch.models.transformer.packed_qkv_attention",
-        lambda qkv, m: calls.append(qkv.shape) or A.packed_qkv_attention(qkv, m),
+        "msa_tpu_torch.models.transformer.packed_qkv_attention_lse",
+        lambda qkv, m: calls.append(qkv.shape) or A.packed_qkv_attention_lse(qkv, m),
     )
     x = rng.normal(size=(2, 40, 96)).astype(np.float32)
     mask = np.ones((2, 40), np.int32)
@@ -123,8 +123,8 @@ def test_long_encoder_takes_row6_like_jax(rng, recipe, monkeypatch):
     jenc, penc, dtype = _encoders(ENC, recipe)
     calls = []
     monkeypatch.setattr(
-        "msa_tpu_torch.models.transformer.flash_attention",
-        lambda qkv, m: calls.append(qkv.shape) or A.flash_attention(qkv, m),
+        "msa_tpu_torch.models.transformer.flash_attention_lse",
+        lambda qkv, m: calls.append(qkv.shape) or A.flash_attention_lse(qkv, m),
     )
     x = rng.normal(size=(2, 598, 128)).astype(np.float32)
     mask = np.ones((2, 598), np.int32)

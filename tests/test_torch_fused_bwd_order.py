@@ -95,7 +95,7 @@ def dkv_order_model(q, k, v, key_mask, lse, o, g):
 
 def _forward(q, k, v, key_mask):
     """The forward's o [B, H, T, D] and lse (row 5's plain version)."""
-    o, lse = A.packed_qkv_attention_plain(A._to_packed(q, k, v), key_mask)
+    o, lse = A.packed_qkv_attention_lse_plain(A._to_packed(q, k, v), key_mask)
     return A._heads_first(o, q.shape[1]), lse
 
 
@@ -219,7 +219,7 @@ def test_head_dim_padding_is_exact(dtype):
     (q, k, v), mask = _heads(20, 2, 3, 100, 20, 3, dtype)
     qp, kp, vp = A._pad_head_dim(q, k, v)
     assert qp.shape[-1] == 24 and torch.equal(qp[..., :20], q) and not qp[..., 20:].any()
-    o, lse = A._packed_plain(A._to_packed(qp, kp, vp), mask, A._scale(20))
+    o, lse = A.packed_qkv_attention_lse_plain(A._to_packed(qp, kp, vp), mask, A._scale(20))
     want_o, want_lse = A.fused_attention_plain(q, k, v, mask)
     tol = dict(rtol=0, atol=1e-6) if dtype is torch.float32 else dict(rtol=0, atol=2.0**-8)
     torch.testing.assert_close(A._heads_first(o, 3)[..., :20].float(), want_o.float(), **tol)
@@ -228,4 +228,4 @@ def test_head_dim_padding_is_exact(dtype):
     assert A._pad_head_dim(q16)[0] is q16  # a multiple of 8 is left as it is
     if dtype is torch.bfloat16:
         qkv = A._to_packed(q, k, v)
-        _check(packed_order_model(qkv, mask), A.packed_qkv_attention_plain(qkv, mask))
+        _check(packed_order_model(qkv, mask), A.packed_qkv_attention_lse_plain(qkv, mask))

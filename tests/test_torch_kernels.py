@@ -116,7 +116,7 @@ def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
         "attention.cu", "attention_bwd.cu", "attention_flash.cu", "attention_fused.cu", "attention_packed.cu",
         "conv_stride2.cu", "ffn.cu", "quant.cu",
     }
-    assert {p.name for p in build.CSRC.glob("*.cuh")} == {"gemm.cuh", "gemm_s8.cuh", "attention_mma.cuh"}
+    assert {p.name for p in build.CSRC.glob("*.cuh")} == {"gemm.cuh", "gemm_s8.cuh", "gemm_f32.cuh", "attention_mma.cuh"}
     assert build.ARCH_FLAGS == ("-gencode", "arch=compute_90a,code=sm_90a")
     assert "-shared" in build.NVCC_FLAGS and not any("fast_math" in f for f in build.NVCC_FLAGS)
     for p in build.CSRC.glob("*.cu*"):
@@ -124,11 +124,14 @@ def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
         assert "torch/extension.h" not in src and "cublas" not in src.lower()
     assert set(build._SIGNATURES) == {
         "msa_ffn_fused",
+        "msa_ffn_fused_f32",
         "msa_attention_block",
+        "msa_attention_block_f32",
         "msa_quantize_rows",
         "msa_ffn_fused_int8",
         "msa_attention_block_int8",
         "msa_packed_qkv_attention",
+        "msa_packed_attention_f32",
         "msa_flash_attention",
         "msa_mha_attention",
         "msa_attention_bwd_dq",

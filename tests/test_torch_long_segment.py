@@ -95,8 +95,8 @@ def test_long_segments_match_jax(recipe, monkeypatch):
     want = np.asarray(JG.SegmentPipeline(jm, JSysCfg(pipeline=JPipeCfg(segment_samples=LONG))).run_host(inp)[0]["hostpack"])
     calls = []
     monkeypatch.setattr(
-        "msa_tpu_torch.models.transformer.flash_attention",
-        lambda qkv, m: calls.append(tuple(qkv.shape)) or A.flash_attention(qkv, m),
+        "msa_tpu_torch.models.transformer.flash_attention_lse",
+        lambda qkv, m: calls.append(tuple(qkv.shape)) or A.flash_attention_lse(qkv, m),
     )
     out, _ = PG.SegmentPipeline(pm, SystemConfig(pipeline=PipelineConfig(segment_samples=LONG))).run_host(_port_inputs(inp))
     assert calls == [(2, 598, 3, 4, 32)] * 2  # each audio layer, none of the text's

@@ -216,8 +216,8 @@ def test_remat_leaves_loss_and_grads_equal(rng, monkeypatch):
     runs twice per layer) and changes no value (tests/test_text_model.py:
     144-170)."""
     calls = []
-    real = PT.packed_qkv_attention_with_vjp
-    monkeypatch.setattr(PT, "packed_qkv_attention_with_vjp", lambda *a: calls.append(1) or real(*a))
+    real = PT.packed_qkv_attention
+    monkeypatch.setattr(PT, "packed_qkv_attention", lambda *a: calls.append(1) or real(*a))
     x = torch.from_numpy(rng.normal(size=(2, 12, 32)).astype(np.float32))
     mask = torch.ones(2, 12, dtype=torch.int32)
     out = {}
