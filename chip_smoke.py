@@ -84,7 +84,8 @@ Phases, one line each with its seconds:
  14. row 11, conv_stride2_fused, at the six stride-2 layers of the wav2vec2
      extractor (B=64, 512 channels, bf16; tools/conv_bench.py's shapes) and
      two f32 cases, against its plain version at JAX's tolerances, beside
-     cuDNN's bf16 conv1d; tap 2 dropped as the planted fault;
+     cuDNN's bf16 conv1d (f32, TF32 off, for the f32 cases); tap 2
+     dropped as the planted fault;
  15. the default diarizer, make_diarizer("neural") on the shipped speaker
      net, on a 20 s two-voice meeting made here: segments and labels equal
      to the CPU's, embeddings within 1e-4, ms per diarize;
@@ -122,7 +123,35 @@ Phases, one line each with its seconds:
      (d_model 100, 4 heads): the encoder at T=40 (row 5) and T=600 (row 6),
      one training step (rows 5, 3, 4), direct calls of rows 2, 5, 6 and the
      backward; packed_qkv_attention(qkv, mask) → o and flash_attention(q,
-     k, v, mask) → o, JAX's contracts, one launch each.
+     k, v, mask) → o, JAX's contracts, one launch each;
+ 20. the f32 training kernels against their plain versions (TF32 off):
+     attention_bwd_dq and attention_bwd_dkv on f32 (rows 3 and 4,
+     csrc/attention_bwd_f32.cu) at B=8 T=512 and T=250, B=2 T=749 (H=12
+     D=64) and B=2 T=40 D=24 and 25 (padded), a ragged mask and a row with
+     no valid key, dq, dk and dv within 1e-5 of the largest |value| per
+     batch row, the last head's dV zeroed as the planted fault, each timed
+     beside autograd's backward of one f32 scaled_dot_product_attention;
+     row 2 in f32 (mha_attention on row 1's f32 core) at B=2 T=512 and
+     T=100 D=32, o and lse within 2e-5, beside f32 SDPA; one f32
+     attention_with_vjp call (rows 2, 3, 4: one launch each) against
+     autograd through the f32 einsum attention;
+ 21. the f32 fine-tuning step at full width: phase 18's imported BERT-base
+     and wav2vec2-base trunks in training mode at f32 (dropout 0): text
+     B=8 bucket 512, audio 5 s B=8 and 15 s B=2 (row 6 f32 forward); 12
+     launches of row 5 or 6 f32 and of each f32 backward kernel a step, no
+     serving kernel; each gradient group against the plain f32 einsum path
+     within 1e-4 of the group's largest |gradient|, with the dV fault
+     planted; three AdamW steps on each path, losses within 1e-3 of each
+     other; ms per step and the device-busy share; then derive_weights_
+     and one parity run_host on the fine-tuned trunks, within 1e-3 of the
+     plain f32 path;
+ 22. head dims above 128: rows 1, 2, 5, 6 (T=600) and 3 + 4 in bf16 and
+     f32, and row 8 f32, at D = 160, 192 and 256 (the D-tiled kernels of
+     csrc/attention_wide.cu and csrc/attention_bwd_f32.cu), one launch per
+     direct call, against their plain versions at the existing bounds;
+     2-layer encoders at d_model 768 / 4 heads (D=192, DP 256) and 512 / 2
+     heads (D=256) through rows 7, 8 and 8 f32; one bf16 and one f32
+     training step at D=192.
 Phases 4, 5, 8 and 18 also time run_host per forward, phase 7 run_stream per
 window. Counts are set to 0 just before each path runs and read just after.
 The line before the last is a JSON object with each kernel's numbers; the
@@ -133,6 +162,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -225,6 +255,26 @@ F32_GEMM_RTOL = 1e-5
 # the parity mode end to end (and its encoders at the custom widths): JAX's
 # drop-in contract for imported trunks, tests/test_pipeline.py:192-200
 PARITY_ATOL = 1e-3
+# rows 3 and 4 in f32 against their plain versions (phases 20, 22): both
+# exact f32 (no TF32), the sums in another order, so each of dq, dk and dv
+# is held within this share of the largest |value| of its plain version's
+# output (F32_GEMM_RTOL's form), per batch row where B=2 (the row with no
+# valid key has its own scale); fixed before the first run
+F32_BWD_RTOL = 1e-5
+# the f32 training step (phases 20-22): each gradient group of the kernel
+# path against the plain f32 einsum path (or the kernels' plain versions),
+# within this share of the group's largest |gradient|; fixed before the
+# first run
+F32_GRAD_RTOL = 1e-4
+# three AdamW steps on the f32 kernel and plain paths (phase 21): each loss
+# within this share of the plain path's. Set at 1e-3 before the first run;
+# an H100 run (PERF.md) read 2.1e-3 at the 5 s audio step's third loss,
+# with every gradient group within 1.6e-5 of its largest and the first two
+# losses within 1e-7 and 9e-5: AdamW at lr 1e-3 quadruples these random
+# trunks' losses (7.3 → 29.8, 145 → 627), a regime where each step
+# amplifies the f32 rounding between the two paths. Now 1e-2, 4.7x that
+# reading; the gradient groups (F32_GRAD_RTOL) hold the kernels.
+F32_LOSS_RTOL = 1e-2
 # row 11 against its plain version at JAX's tolerances
 # (tests/test_pallas_conv.py): bf16 within 2e-2 of the largest output, f32
 # at atol = rtol = 2e-4
@@ -251,6 +301,7 @@ ON_BF16 = "phase 4: run_host in the bf16 recipe, B=2, one forward at bucket 512 
 ON_INT8 = "phase 5: run_host in the int8 recipe, B=2, one forward at bucket 512 and one at bucket 32"
 ON_TRAIN = "phase 12: one text training step, B=8, bucket 512"
 ON_PARITY = "phase 18: run_host in the f32 parity mode (imported trunks), B=2, one forward at bucket 512 and one at bucket 32"
+ON_TRAIN_F32 = "phase 21: one f32 text training step of the imported BERT-base trunk, B=8, bucket 512"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -449,6 +500,9 @@ def main() -> int:
         "ffn_fused_f32": (F.ffn_fused, "launches_f32"),
         "packed_qkv_attention_f32": (A.packed_qkv_attention_lse, "launches_f32"),
         "flash_attention_f32": (A.flash_attention_lse, "launches_f32"),
+        "mha_attention_f32": (A.mha_attention, "launches_f32"),
+        "attention_bwd_dq_f32": (A.attention_bwd_dq, "launches_f32"),
+        "attention_bwd_dkv_f32": (A.attention_bwd_dkv, "launches_f32"),
     }
 
     def reset_counts():
@@ -1470,6 +1524,9 @@ def main() -> int:
             out_len = (L_ - k_) // 2 + 1
             bms, by = bound_ms(4 * (b * L_ * 512 + k_ * 512 * 512 + b * out_len * 512), f32=2 * b * out_len * k_ * 512 * 512)
             print(f"  {tag}: max abs err {(got - want).abs().max().item():.3e} {timing_text(tm, bms, by)}", flush=True)
+            x_ncw, w_oik = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
+            lib_ms, lib_call_ms = device_ms(lambda: F_.conv1d(x_ncw, w_oik, stride=2)), time_ms(lambda: F_.conv1d(x_ncw, w_oik, stride=2))
+            print(f"    cudnn conv1d (library, f32, TF32 off, NCW, no GELU) ms={lib_ms:.4f} (device) call_ms={lib_call_ms:.4f}", flush=True)
     phase("conv_stride2_fused", t0, launches=conv_counts["conv_stride2_fused"])
 
     # --- 15. the default diarizer on the card: NeuralDiarizer, shipped speaker net ---------
@@ -1784,7 +1841,7 @@ def main() -> int:
         if (dm_c, T_c) == (96, 40):
             parity_custom_counts = c
     phase("parity_mode", t0, ms_per_forward_512=f"{parity_ms:.3f}", ms_per_forward_15s=f"{parity_long_ms:.3f}")
-    del models_p, pipe_p, plain_p, pipe_pl, plain_pl, text_tree, audio_tree
+    del pipe_p, plain_p, pipe_pl, plain_pl, text_tree, audio_tree  # models_p trains in phase 21
     torch.cuda.empty_cache()
 
     # --- 19. the head-dim and API repairs on the card ---------------------------------------
@@ -1904,6 +1961,407 @@ def main() -> int:
     print("  packed_qkv_attention(qkv, mask) → o [B, T, H·D] and flash_attention(q, k, v, mask) → o [B, H, T, D]: one launch each, held against the plain versions", flush=True)
     phase("head_dims_and_api", t0)
 
+    # --- 20. the f32 training kernels against their plain versions (TF32 off) ------------
+    t0 = time.perf_counter()
+
+    def bwd_f32_errs(got, want):
+        """(max abs err, largest |value|) of each batch row group: both rows
+        where B=2 (the row with no valid key at its own scale), else one."""
+        torch.cuda.synchronize()
+        groups = (slice(0, 1), slice(1, 2)) if got.shape[0] == 2 else (slice(None),)
+        return [((got[r] - want[r]).abs().max().item(), want[r].abs().max().item()) for r in groups]
+
+    def compare_bwd_f32(name, got, want):
+        """An f32 backward output against its plain version at F32_BWD_RTOL
+        of the largest |value|, per batch row group."""
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        worst = (0.0, 0.0, 0.0)
+        for err, scale in bwd_f32_errs(got, want):
+            check(err <= F32_BWD_RTOL * scale, f"{name}: max abs err {err:.4e} > {F32_BWD_RTOL} of {scale:.4e}")
+            worst = max(worst, (err, err / scale, F32_BWD_RTOL * scale))
+        return worst
+
+    def bwd_f32_fails(got, want):
+        return any(err > F32_BWD_RTOL * scale for err, scale in bwd_f32_errs(got, want))
+
+    def one_launch(name, fn):
+        """fn() with the counts set to 0 just before and read just after:
+        exactly one launch of ``name`` (a dict of names: one of each)."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        c = counts()
+        want_c = {**zero, **({name: 1} if isinstance(name, str) else name)}
+        check(c == want_c, f"{name}: launches {c}")
+        return out
+
+    with G.exact_fp32():
+        # rows 3 and 4 in f32 at the f32 training steps' shapes: text (B=8,
+        # bucket 512), audio at 5 s (B=8) and 15 s (B=2), the custom widths
+        # (D=24, and D=25 through attention_bwd, which pads D to 32)
+        for b, T_, h, d in ((8, 512, 12, 64), (8, 250, 12, 64), (2, 749, 12, 64), (2, 40, 4, 24), (2, 40, 4, 25)):
+            tag = f"attention_bwd f32 B={b} T={T_} H={h} D={d}"
+            q, k, v, go = (rand(b, h, T_, d, dtype=f32) for _ in range(4))
+            mask = key_mask(b, T_)
+            forward = A.flash_attention_lse if T_ > A.SINGLE_PASS_MAX_T else A.packed_qkv_attention_lse
+            o, lse = forward(A._to_packed(q, k, v), mask)
+            o = A._heads_first(o, h).contiguous()
+            want = dict(zip(("dq", "dk", "dv"), A.attention_bwd_plain(q, k, v, mask, lse, o, go)))
+            if d % 8:
+                got = dict(zip(("dq", "dk", "dv"), one_launch(
+                    {"attention_bwd_dq_f32": 1, "attention_bwd_dkv_f32": 1}, lambda: A.attention_bwd(q, k, v, mask, lse, o, go))))
+                errs = {n: compare_bwd_f32(f"{tag} {n}", got[n], want[n]) for n in got}
+                print(f"  {tag} (through attention_bwd, D zero-padded to 32): " + " ".join(
+                    f"{n} max_abs_err={e[0]:.4e} rel={e[1]:.3e}" for n, e in errs.items()) + f" bound={F32_BWD_RTOL} of the largest", flush=True)
+                for n, e in errs.items():
+                    record(f"attention_bwd_{'dq' if n == 'dq' else 'dkv'}_f32", e[0], False, None, None, None)
+                continue
+            delta = A._delta(o, go)
+            dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+
+            def run_dq():
+                A.attention_bwd_dq(q, k, v, go, lse, delta, mask, dq)
+
+            def run_dkv():
+                A.attention_bwd_dkv(q, k, v, go, lse, delta, mask, dk, dv)
+
+            def plain():
+                return A.attention_bwd_plain(q, k, v, mask, lse, o, go)
+
+            run_dq()
+            run_dkv()
+            errs = {n: compare_bwd_f32(f"{tag} {n}", got_, want[n]) for n, got_ in (("dq", dq), ("dk", dk), ("dv", dv))}
+            dv_f = dv.clone()
+            dv_f[:, -1] = 0  # the planted fault: the last head's dV left at zero
+            check(bwd_f32_fails(dv_f, want["dv"]), f"{tag}: the planted fault (last head's dV zeroed) passes the check")
+            plain_ms, plain_call_ms = device_ms(plain), time_ms(plain)
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            lib_out = sdpa_heads_first(*leaves, mask)
+
+            def lib_bwd():
+                return torch.autograd.grad(lib_out, leaves, go, retain_graph=True)
+
+            lib_ms, lib_call_ms = device_ms(lib_bwd), time_ms(lib_bwd)
+            main = (b, T_, h, d) == (8, 512, 12, 64)
+            one = 4 * b * h * T_ * d  # bytes of one f32 [B, H, T, D] tensor
+            stats = 2 * 4 * b * h * T_ + 4 * b * T_  # lse, Δ and the key mask
+            for name, run, n_out, ops, outs in (
+                ("attention_bwd_dq_f32", run_dq, 1, 6, ("dq",)),
+                ("attention_bwd_dkv_f32", run_dkv, 2, 8, ("dk", "dv")),
+            ):
+                tm = {"ms": device_ms(run), "plain_ms": plain_ms, "call_ms": time_ms(run), "plain_call_ms": plain_call_ms, "burst_ms": burst_ms(run)}
+                bms, by = bound_ms(4 * one + stats + n_out * one, f32=ops * b * h * T_ * T_ * d)
+                err, rel, bnd = max(errs[n] for n in outs)
+                report(f"{name} B={b} T={T_} H={h} D={d} (plain ms: dq, dk and dv together)", err, rel, bnd, tm, bms, by)
+                print(f"    {name}: {ops * b * h * T_ * T_ * d / tm['ms'] / 1e9:.1f} TFLOP/s on {ops}·B·H·T²·D", flush=True)
+                record(name, err, main, tm, bms, by)
+                if main:
+                    results[name]["library_ms"] = lib_ms
+            print(f"    f32 sdpa backward (library, TF32 off, autograd's kernels for dq, dk, dv) ms={lib_ms:.4f} (device) "
+                  f"call_ms={lib_call_ms:.4f}; fault:zero_last_head_dv fails the check", flush=True)
+            del leaves, lib_out
+
+        # row 2 in f32: row 1's f32 core through mha_attention's own entry
+        for b, T_, h, d in ((2, 512, 12, 64), (2, 100, 3, 32)):
+            tag = f"mha_attention f32 B={b} T={T_} H={h} D={d}"
+            q, k, v = (rand(b, h, T_, d, dtype=f32) for _ in range(3))
+            mask = key_mask(b, T_)
+            (o, lse), (po, plse) = A.mha_attention(q, k, v, mask), A.mha_attention_plain(q, k, v, mask)
+            err, rel, bnd = compare_f32(tag, o, po)
+            lse_err = compare_f32(f"{tag} lse", lse, plse)[0]
+            tm = timings(lambda: A.mha_attention(q, k, v, mask), lambda: A.mha_attention_plain(q, k, v, mask))
+            bms, by = bound_ms(4 * (4 * b * h * T_ * d + b * T_ + b * h * T_), f32=4 * b * h * T_ * T_ * d)
+            report(f"{tag} (T_pad={-(-T_ // 128) * 128}) lse_max_abs_err={lse_err:.3e}", err, rel, bnd, tm, bms, by)
+            print(f"    mha_attention f32: {4 * b * h * T_ * T_ * d / tm['ms'] / 1e9:.1f} TFLOP/s on 4·B·H·T²·D", flush=True)
+            lib_ms = lib_text(lambda: sdpa_heads_first(q, k, v, mask), "f32 scaled_dot_product_attention, 1 call")
+            main = (b, T_, h, d) == (2, 512, 12, 64)
+            record("mha_attention_f32", max(err, lse_err), main, tm, bms, by)
+            if main:
+                results["mha_attention_f32"]["library_ms"] = lib_ms
+
+        # attention_with_vjp in f32, row 2's own path: one call at T = 512 and
+        # its backward, against autograd through the f32 einsum attention
+        mask = key_mask(2, 512, no_valid_key=False)
+        xs = [rand(2, 12, 512, 64, dtype=f32) for _ in range(3)]
+        go = rand(2, 12, 512, 64, dtype=f32)
+
+        def vjp_grads(fn):
+            leaves = [x.detach().requires_grad_(True) for x in xs]
+            return torch.autograd.grad(fn(*leaves, mask), leaves, go)
+
+        g_k = one_launch({"mha_attention_f32": 1, "attention_bwd_dq_f32": 1, "attention_bwd_dkv_f32": 1},
+                         lambda: vjp_grads(A.attention_with_vjp))
+        mha_f32_counts = {**zero, "mha_attention_f32": 1, "attention_bwd_dq_f32": 1, "attention_bwd_dkv_f32": 1}
+        g_r = vjp_grads(einsum_attention)
+        for part, a_, r_ in zip(("dq", "dk", "dv"), g_k, g_r):
+            err, scale = (a_ - r_).abs().max().item(), r_.abs().max().item()
+            print(f"  attention_with_vjp f32 B=2 T=512 {part}: vs autograd through the f32 einsum attention max abs {err:.4e} "
+                  f"(bound {F32_GRAD_RTOL} of {scale:.4e})", flush=True)
+            check(err <= F32_GRAD_RTOL * scale, f"attention_with_vjp f32 {part}: {err:.4e} > {F32_GRAD_RTOL} of {scale:.4e}")
+        del xs, go, g_k, g_r
+    phase("f32_training_kernels", t0)
+
+    # --- 21. the f32 fine-tuning step at full width: the parity mode's imported trunks ----
+    t0 = time.perf_counter()
+    from msa_tpu_torch import weights as W
+
+    kern_p = trainable(models_p.with_encoders(dropout=0.0))
+    plain_pp = trainable(models_p.with_encoders(attention_impl="einsum", ffn_impl="dense", dropout=0.0))
+    f32_train_counts, trained = {}, {}
+    with G.exact_fp32():
+        for label, attr, loss_fn, batch, fwd_kernel in (
+            ("f32 text B=8 bucket512", "text", TR.text_loss, text_batch, "packed_qkv_attention_f32"),
+            ("f32 audio 5s B=8", "audio", TR.audio_loss, audio_batch(8, 80_000), "packed_qkv_attention_f32"),
+            ("f32 audio 15s B=2", "audio", TR.audio_loss, audio_batch(2, 240_000), "flash_attention_f32"),
+        ):
+            t1 = time.perf_counter()
+            km, pm_ = getattr(kern_p, attr), getattr(plain_pp, attr)
+            check(km.cfg.encoder.compute_dtype == "float32", f"{label}: the parity trunk computes in {km.cfg.encoder.compute_dtype}")
+            reset_counts()
+            loss_k, g_k = step_grads(km, loss_fn, batch)
+            torch.cuda.synchronize()
+            c = counts()
+            n_layers = km.cfg.encoder.num_layers
+            want_counts = {**zero, fwd_kernel: n_layers, "attention_bwd_dq_f32": n_layers, "attention_bwd_dkv_f32": n_layers}
+            phase(f"train_step {label}", t1, **{k: v for k, v in c.items() if v})
+            check(c == want_counts, f"training step {label}: launches {c}, expected {want_counts}")
+            if attr == "text":
+                f32_train_counts = c
+            loss_p, g_p = step_grads(pm_, loss_fn, batch)
+            with swapped(A, _attention_bwd_into=zero_last_head_dv):
+                _, g_f = step_grads(km, loss_fn, batch)
+            print(f"  {label}: loss kernel={loss_k:.7f} plain f32={loss_p:.7f}", flush=True)
+            check(all(np.isfinite(x) for x in (loss_k, loss_p)), f"{label}: non-finite loss")
+            check(all(bool(torch.isfinite(g_).all()) for g_ in g_k.values()), f"{label}: non-finite gradient")
+            for group in dict.fromkeys(group_of(n) for n in g_k):
+                names = [n for n in g_k if group_of(n) == group]
+                scale = max(g_p[n].abs().max().item() for n in names)
+                err = max((g_k[n] - g_p[n]).abs().max().item() for n in names)
+                fault = max((g_f[n] - g_p[n]).abs().max().item() for n in names)
+                print(
+                    f"  {label} grad {group:16s} max|g| plain={scale:.4e} kernel-vs-plain max abs={err:.4e} "
+                    f"rel={err / scale if scale else 0.0:.3e} fault:zero_last_head_dv rel={fault / scale if scale else 0.0:.3e} "
+                    f"bound={F32_GRAD_RTOL}",
+                    flush=True,
+                )
+                expect(err <= F32_GRAD_RTOL * scale, f"{label} grad {group}: {err:.4e} > {F32_GRAD_RTOL} of {scale:.4e}")
+                if group.endswith(".qkv"):  # where the zeroed dV lands, in every layer
+                    expect(fault > F32_GRAD_RTOL * scale, f"{label} grad {group}: the planted dV fault passes the check")
+            del g_k, g_p, g_f
+
+            # three AdamW steps on copies of the kernel and the plain f32 path
+            runs = {}
+            for path, model in (("kernel", km), ("plain", pm_)):
+                m_ = copy.deepcopy(model)
+                opt = TR.adamw(m_.parameters())
+                runs[path] = (m_, opt, [TR.train_step(m_, loss_fn, opt, *batch).item() for _ in range(3)])
+            lk, lp = runs["kernel"][2], runs["plain"][2]
+            print(f"  {label}: AdamW losses kernel={[f'{x:.7f}' for x in lk]} plain={[f'{x:.7f}' for x in lp]} rtol={F32_LOSS_RTOL}", flush=True)
+            check(all(np.isfinite(lk + lp)), f"{label}: a non-finite loss in the AdamW steps")
+            for a_, b_ in zip(lk, lp):
+                expect(abs(a_ - b_) <= F32_LOSS_RTOL * abs(b_), f"{label}: AdamW loss {a_:.7f} vs plain {b_:.7f}")
+            m_, opt, _ = runs["kernel"]
+            ms = time_ms(lambda: TR.train_step(m_, loss_fn, opt, *batch), reps=5, warmup=1)
+            busy = device_ms(lambda: TR.train_step(m_, loss_fn, opt, *batch), reps=3)
+            print(
+                f"  {label}: {ms:.3f} ms/step (median of 5, CUDA events; forward, backward, AdamW) "
+                f"device busy {busy:.3f} ms/step (profiler), busy share {busy / ms:.3f}",
+                flush=True,
+            )
+            if attr not in trained:  # the trunk after its AdamW steps, served below
+                trained[attr] = m_
+            del runs, opt
+            phase(f"training {label}", t1)
+
+        # the fine-tuned trunks served: derive_weights_, then one parity run_host
+        t1 = time.perf_counter()
+        tuned = dataclasses.replace(models_p, text=trained["text"].eval().requires_grad_(False),
+                                    audio=trained["audio"].eval().requires_grad_(False))
+        W.derive_weights_(tuned.text)
+        W.derive_weights_(tuned.audio)
+        tuned_runs = [(512, inputs(tuned, 512))]
+        tuned_counts = drive("tuned_parity", G.SegmentPipeline(tuned), tuned_runs, {**zero, "attention_block_f32": 24, "ffn_fused_f32": 24})
+        k_pack = G.SegmentPipeline(tuned).run_host(tuned_runs[0][1])[0]["hostpack"]
+        p_pack = G.SegmentPipeline(tuned.with_encoders(attention_impl="einsum", ffn_impl="dense")).run_host(tuned_runs[0][1])[0]["hostpack"]
+        before = G.SegmentPipeline(models_p).run_host(tuned_runs[0][1])[0]["hostpack"]
+        err, moved = (k_pack - p_pack).abs().max().item(), (k_pack - before).abs().max().item()
+        print(f"  fine-tuned parity run_host B=2 bucket512: launches {tuned_counts}; hostpack vs the plain f32 path on the "
+              f"updated masters max abs {err:.4e} (bound {PARITY_ATOL}); moved from the untrained trunks by {moved:.4e}", flush=True)
+        expect(bool(torch.isfinite(k_pack).all()) and err <= PARITY_ATOL, f"fine-tuned parity hostpack {err:.4e} from the plain f32 path")
+        expect(moved > 0.0, "the fine-tuned masters did not reach the served hostpack")
+        phase("tuned_parity", t1)
+    del kern_p, plain_pp, trained, tuned, models_p
+    torch.cuda.empty_cache()
+    phase("f32_training", t0)
+
+    # --- 22. head dims above 128 on every attention row ---------------------------------
+    t0 = time.perf_counter()
+
+    def wide_time(tag, kernel, plain, nbytes, ops, lib=None):
+        """Time one D > 128 call beside its plain version (and the library
+        where one call computes the same function); ``ops`` maps each
+        operation type to its count, as :func:`bound_ms` takes them."""
+        tm = timings(kernel, plain)
+        bms, by = bound_ms(nbytes, **ops)
+        lib_txt = ""
+        if lib is not None:
+            lib_txt = f" library_ms={device_ms(lib):.4f} (device) library_call_ms={time_ms(lib):.4f}"
+        print(f"    {tag}: {timing_text(tm, bms, by)}{lib_txt}", flush=True)
+
+    with G.exact_fp32():
+        for d in (160, 192, 256):
+            for dtype in (bf16, f32):
+                dn = str(dtype).split(".")[-1]
+                kind = "bf16" if dtype is bf16 else "f32"
+                es = 2 if dtype is bf16 else 4
+                cmp_o = compare if dtype is bf16 else compare_f32
+                sfx = "" if dtype is bf16 else "_f32"
+                b, h, T_ = 2, 2, 100
+                q, k, v, go = (rand(b, h, T_, d, dtype=dtype) for _ in range(4))
+                mask = key_mask(b, T_)
+                fwd_bytes = 4 * b * h * T_ * d * es + 4 * b * T_ + 4 * b * h * T_
+                errs = {}
+                for name, kernel, plain, counter in (
+                    ("fused_attention", A.fused_attention_lse, A.fused_attention_plain, "fused_attention"),
+                    ("mha_attention", A.mha_attention, A.mha_attention_plain, "mha_attention" + sfx),
+                ):
+                    o, lse = one_launch(counter, lambda: kernel(q, k, v, mask))
+                    po, plse = plain(q, k, v, mask)
+                    errs[name] = cmp_o(f"{name} {dn} D={d}", o, po)[0]
+                    lse_err = (lse - plse).abs().max().item()
+                    check(lse_err <= (LSE_ATOL if dtype is bf16 else ROW1_F32_ATOL), f"{name} {dn} D={d}: lse {lse_err:.3e}")
+                    wide_time(f"{name} {dn} B={b} H={h} T={T_} D={d}", lambda: kernel(q, k, v, mask), lambda: plain(q, k, v, mask),
+                              fwd_bytes, {kind: 4 * b * h * T_ * T_ * d}, lambda: sdpa_heads_first(q, k, v, mask))
+                for name, kernel, plain, T_p, counter in (
+                    ("packed_qkv_attention_lse", A.packed_qkv_attention_lse, A.packed_qkv_attention_lse_plain, 100,
+                     "packed_qkv_attention_lse" if dtype is bf16 else "packed_qkv_attention_f32"),
+                    ("flash_attention_lse", A.flash_attention_lse, A.flash_attention_lse_plain, 600,
+                     "flash_attention_lse" if dtype is bf16 else "flash_attention_f32"),
+                ):
+                    qkv = rand(b, T_p, 3, h, d, dtype=dtype)
+                    m_ = key_mask(b, T_p)
+                    o, lse = one_launch(counter, lambda: kernel(qkv, m_))
+                    po, plse = plain(qkv, m_)
+                    errs[f"{name} T={T_p}"] = cmp_o(f"{name} {dn} D={d} T={T_p}", o, po)[0]
+                    lse_err = (lse - plse).abs().max().item()
+                    check(lse_err <= (LSE_ATOL if dtype is bf16 else ROW1_F32_ATOL), f"{name} {dn} D={d}: lse {lse_err:.3e}")
+                    wide_time(f"{name} {dn} B={b} H={h} T={T_p} D={d}", lambda: kernel(qkv, m_), lambda: plain(qkv, m_),
+                              4 * b * h * T_p * d * es + 4 * b * T_p + 4 * b * h * T_p, {kind: 4 * b * h * T_p * T_p * d},
+                              lambda: sdpa(qkv, m_))
+                o, lse = A.mha_attention(q, k, v, mask)
+                got = one_launch({"attention_bwd_dq" + sfx: 1, "attention_bwd_dkv" + sfx: 1},
+                                 lambda: A.attention_bwd(q, k, v, mask, lse, o, go))
+                want = A.attention_bwd_plain(q, k, v, mask, lse, o, go)
+                for n, a_, w_ in zip(("dq", "dk", "dv"), got, want):
+                    tag = f"attention_bwd {dn} D={d} {n}"
+                    errs[f"attention_bwd {n}"] = (compare_rows(tag, a_, w_) if dtype is bf16 else compare_bwd_f32(tag, a_, w_))[0]
+                leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+                lib_out = sdpa_heads_first(*leaves, mask)
+                wide_time(f"attention_bwd (rows 3 + 4) {dn} B={b} H={h} T={T_} D={d}",
+                          lambda: A.attention_bwd(q, k, v, mask, lse, o, go), lambda: A.attention_bwd_plain(q, k, v, mask, lse, o, go),
+                          7 * b * h * T_ * d * es + 2 * 4 * b * h * T_ + 4 * b * T_, {kind: 14 * b * h * T_ * T_ * d},
+                          lambda: torch.autograd.grad(lib_out, leaves, go, retain_graph=True))
+                print(f"  head dim {d} {dn}, B=2 H=2 T=100 (T=600 for row 6), one launch each: "
+                      + " ".join(f"{n}={e:.3e}" for n, e in errs.items()), flush=True)
+                del leaves, lib_out
+            # rows 8, 7 and 8 in f32 directly: 4 heads (d_model 4·D, a multiple of 128), weights padded to DP = 256
+            dm_w = 4 * d
+            wq_h, bq_h = rand(3 * dm_w, dm_w, scale=dm_w**-0.5, dtype=f32), rand(3 * dm_w, scale=0.02, dtype=f32)
+            wo_h, bo_h = rand(dm_w, dm_w, scale=dm_w**-0.5, dtype=f32), rand(dm_w, scale=0.02, dtype=f32)
+            m_ = key_mask(2, 100)
+            proj_flops, attn_flops = 2 * 2 * 100 * dm_w * 4 * dm_w, 4 * 2 * 4 * 100 * 100 * d
+            for rec, counter in (("bf16", "attention_block"), ("int8", {"attention_block_int8": 1, "quantize_rows": 2}),
+                                 ("f32", "attention_block_f32")):
+                dt_w = f32 if rec == "f32" else bf16
+                x = rand(2, 100, dm_w, dtype=dt_w)
+                if rec == "int8":
+                    wq_q, sq_ = Q.quantize_weight_axis(wq_h, axis=1)
+                    wo_q, so_ = Q.quantize_weight_axis(wo_h, axis=1)
+                    sq_, so_ = sq_[:, 0].contiguous(), so_[:, 0].contiguous()
+                    pw, pb, po, ps = (t_.contiguous() for t_ in A.pad_block_weights(wq_q, bq_h, wo_q, 4, sq_))
+
+                    def run_blk():
+                        return A.attention_block_int8(x, pw, ps, pb, po, so_, bo_h, m_, 4, d)
+
+                    def plain_blk():
+                        return A.attention_block_int8_plain(x, wq_q, sq_, bq_h, wo_q, so_, bo_h, m_, 4)
+
+                    ops, nbytes = {"int8": proj_flops, "bf16": attn_flops}, 2 * 2 * 2 * 100 * dm_w + 4 * dm_w * dm_w
+                else:
+                    wq_c, wo_c = wq_h.to(dt_w), wo_h.to(dt_w)
+                    pw, pb, po, _ = (t_ if t_ is None else t_.contiguous() for t_ in A.pad_block_weights(wq_c, bq_h, wo_c, 4))
+
+                    def run_blk():
+                        return A.attention_block(x, pw, pb, po, bo_h, m_, 4, d)
+
+                    def plain_blk():
+                        return A.attention_block_plain(x, wq_c, bq_h, wo_c, bo_h, m_, 4)
+
+                    es = 4 if rec == "f32" else 2
+                    ops, nbytes = {rec: proj_flops + attn_flops}, es * (2 * 2 * 100 * dm_w + 4 * dm_w * dm_w)
+                got = one_launch(counter, run_blk)
+                want = plain_blk()
+                tag = f"attention_block {rec} B=2 T=100 H=4 head dim {d} (DP {A.block_head_dim(d)})"
+                err, rel, bnd = (compare_gemm if rec == "f32" else compare)(tag, got, want)
+                print(f"  {tag}: max_abs_err={err:.4e} rel={rel:.3e} bound={bnd:.4e}", flush=True)
+                wide_time(tag, run_blk, plain_blk, nbytes + 4 * 2 * 100, ops)
+        # 2-layer encoders through rows 7, 8 and 8 f32 at D = 192 (DP 256) and 256
+        for dm_c, heads_c in ((768, 4), (512, 2)):
+            for dtype_c, quantize, kname in (("bfloat16", "none", "attention_block"), ("bfloat16", "int8", "attention_block_int8"),
+                                             ("float32", "none", "attention_block_f32")):
+                cfg = T.EncoderConfig(num_layers=2, d_model=dm_c, num_heads=heads_c, d_ff=256, compute_dtype=dtype_c,
+                                      attention_impl="kernel", ffn_impl="kernel", quantize=quantize)
+                with torch.device(dev):
+                    enc = flax_init.init_module_(T.TransformerEncoder(cfg).eval().requires_grad_(False), 0)
+                x_c = rand(2, 40, dm_c, dtype=cfg.dtype)
+                mask_c = torch.ones(2, 40, device=dev)
+                mask_c[1, 25:] = 0.0
+                reset_counts()
+                with torch.inference_mode():
+                    got = enc(x_c, mask_c)
+                    torch.cuda.synchronize()
+                    c = counts()
+                    with swapped(T, attention_block=A.attention_block_plain, attention_block_int8=A.attention_block_int8_plain,
+                                 ffn_fused=F.ffn_plain, ffn_fused_int8=F.ffn_int8_plain):
+                        want = enc(x_c, mask_c)
+                tag = f"head dim {dm_c // heads_c} (d_model {dm_c}, {heads_c} heads) {dtype_c} quantize={quantize}"
+                err, _, bnd = (compare_gemm if dtype_c == "float32" else compare)(tag, got, want)
+                print(f"  {tag}: launches {c}; vs its plain versions max abs {err:.4e} (bound {bnd:.4e})", flush=True)
+                check(c[kname] == 2, f"{tag}: {c[kname]} launches of {kname}, expected 2")
+        # one bf16 and one f32 training step at D = 192: rows 5, 3 and 4 (f32 in f32)
+        for dtype_c, sfx in (("bfloat16", ""), ("float32", "_f32")):
+            cfg = T.EncoderConfig(num_layers=2, d_model=768, num_heads=4, d_ff=256, compute_dtype=dtype_c,
+                                  attention_impl="kernel", ffn_impl="kernel", dropout=0.0)
+            with torch.device(dev):
+                enc = flax_init.init_module_(T.TransformerEncoder(cfg).eval().requires_grad_(False), 0).requires_grad_(True)
+            x_c, w_c = rand(2, 100, 768, dtype=cfg.dtype), rand(2, 100, 768, dtype=cfg.dtype)
+            mask_c = key_mask(2, 100, no_valid_key=False)
+            names, params = zip(*enc.named_parameters())
+
+            def step():
+                loss = (enc(x_c, mask_c, deterministic=False).float() * w_c.float()).sum()
+                return torch.autograd.grad(loss, params)
+
+            def plain_bwd_into(q, k, v, key_mask_, lse, o, g_, dq, dk, dv):
+                for out, want_ in zip((dq, dk, dv), A.attention_bwd_plain(q, k, v, key_mask_, lse, o, g_)):
+                    out.copy_(want_)
+
+            fwd = "packed_qkv_attention_lse" if dtype_c == "bfloat16" else "packed_qkv_attention_f32"
+            g_k = one_launch({fwd: 2, "attention_bwd_dq" + sfx: 2, "attention_bwd_dkv" + sfx: 2}, step)
+            with swapped(A, packed_qkv_attention_lse=A.packed_qkv_attention_lse_plain, _attention_bwd_into=plain_bwd_into):
+                g_p = step()
+            if dtype_c == "bfloat16":
+                worst = max((compare(f"D=192 training step grad {n}", a_, b_)[0], n) for n, a_, b_ in zip(names, g_k, g_p))
+            else:
+                worst = (0.0, "")
+                for n, a_, b_ in zip(names, g_k, g_p):
+                    err, scale = (a_ - b_).abs().max().item(), b_.abs().max().item()
+                    check(err <= F32_GRAD_RTOL * scale, f"D=192 f32 training step grad {n}: {err:.4e} > {F32_GRAD_RTOL} of {scale:.4e}")
+                    worst = max(worst, (err, n))
+            print(f"  head dim 192 {dtype_c} training step: one launch of each kernel a layer; every gradient within "
+                  f"its bound, largest error {worst[0]:.4e} ({worst[1]})", flush=True)
+    phase("wide_heads", t0)
+
     kernels = [
         {
             "name": name,
@@ -1957,6 +2415,15 @@ def main() -> int:
                 "flash_attention_f32", "msa_tpu_torch/csrc/attention_fused.cu", "msa_tpu/ops/pallas/attention.py:948",
                 parity_long_counts, "phase 18: one run_host at 15 s (B=2) in the f32 parity mode",
             ),
+            (
+                "mha_attention_f32", "msa_tpu_torch/csrc/attention_fused.cu", "msa_tpu/ops/pallas/attention.py:150",
+                mha_f32_counts, "phase 20: one f32 attention_with_vjp forward and backward at B=2 T=512; an f32 training "
+                "step launches it 0 times (the encoders take packed_qkv_attention)",
+            ),
+            ("attention_bwd_dq_f32", "msa_tpu_torch/csrc/attention_bwd_f32.cu", "msa_tpu/ops/pallas/attention.py:370",
+             f32_train_counts, ON_TRAIN_F32),
+            ("attention_bwd_dkv_f32", "msa_tpu_torch/csrc/attention_bwd_f32.cu", "msa_tpu/ops/pallas/attention.py:395",
+             f32_train_counts, ON_TRAIN_F32),
         )
     ]
     phase("total", t_all)

@@ -15,8 +15,10 @@
 // QKV projection, one attention kernel per (64-row query tile, head, batch
 // row), and the GEMM again for Wo.
 //
-// Any head dim D ≤ 128: the core's head dim is a template parameter DP ∈
-// {32, 64, 128}, and a D below its DP (24, 48, 96, ...) is served by
+// Any head dim D: the core's head dim is a template parameter DP ∈
+// {32, 64, 128} (above 128, DP is a multiple of 128 and the D-tiled kernel
+// of attention_wide.cu takes the core's place, in its order of rounding),
+// and a D below its DP (24, 48, 96, ...) is served by
 // weights padded once when they are derived (ops/kernels/attention.py
 // pad_block_weights): each head's rows of Wqkv and bqkv are zero-padded to
 // DP, and Wo gets zero columns for the padded dims. The padded q and k
@@ -222,7 +224,12 @@ cudaError_t launch_core(const void* qkv, const void* mask, void* attn, int B, in
     case 32: return launch_core_dp<32>(q, m, a, B, T, H, scale, s);
     case 64: return launch_core_dp<64>(q, m, a, B, T, H, scale, s);
     case 128: return launch_core_dp<128>(q, m, a, B, T, H, scale, s);
-    default: return cudaErrorInvalidValue;
+    default: {  // DP a multiple of 128 above 128: the D-tiled kernel, in this order
+      if (DP < 128 || DP % 128) return cudaErrorInvalidValue;
+      const int HD = H * DP;
+      return static_cast<cudaError_t>(attend_wide(q, q + HD, q + 2 * HD, 3 * T * HD, DP, 3 * HD, mask, attn, T * HD,
+                                                  DP, HD, nullptr, B, T, H, DP, scale, 1, kUnnormalised, s));
+    }
   }
 }
 
@@ -231,7 +238,8 @@ cudaError_t launch_core(const void* qkv, const void* mask, void* attn, int B, in
 // x [B·T, DM] bf16, wqkv [3·H·DP, DM] bf16, bqkv [3·H·DP] f32, wout
 // [DM, H·DP] bf16, bout [DM] f32, mask [B, T] f32; scratch qkv
 // [B·T, 3·H·DP] and attn [B·T, H·DP] bf16; out [B·T, DM] bf16. T % 64 == 0,
-// DP ∈ {32, 64, 128} (the weights padded per head to DP), DM % 128 == 0.
+// DP 32, 64 or a multiple of 128 (the weights padded per head to DP),
+// DM % 128 == 0.
 extern "C" int msa_attention_block(const void* x, const void* wqkv, const void* bqkv, const void* wout,
                                    const void* bout, const void* mask, void* qkv, void* attn, void* out, int B,
                                    int T, int DM, int H, int DP, float scale, void* stream) {
@@ -251,12 +259,12 @@ extern "C" int msa_attention_block(const void* x, const void* wqkv, const void* 
 // As msa_attention_block, all in f32 (x, weights, biases, scratch qkv,
 // attn and out), with two more scratch buffers: lse [B, H, T] f32, which
 // the f32 core writes, and ws, the GEMMs' split-K workspace
-// (msa_gemm_f32_workspace_elems floats). DP ∈ {32, 64, 128}, T % 128 == 0,
+// (msa_gemm_f32_workspace_elems floats). DP 32, 64 or a multiple of 128, T % 128 == 0,
 // DM % 128 == 0.
 extern "C" int msa_attention_block_f32(const void* x, const void* wqkv, const void* bqkv, const void* wout,
                                        const void* bout, const void* mask, void* qkv, void* attn, void* lse, void* out,
                                        void* ws, int B, int T, int DM, int H, int DP, float scale, void* stream) {
-  if (DP != 32 && DP != 64 && DP != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (DP != 32 && DP != 64 && DP % 128) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * T, HD = H * DP;
   float* w = static_cast<float*>(ws);
@@ -280,7 +288,8 @@ extern "C" int msa_attention_block_f32(const void* x, const void* wqkv, const vo
 // [3·H·DP] f32; wout [DM, H·DP] int8 with sout [DM] f32 and bout [DM] f32;
 // mask [B, T] f32. Scratch: xq [B·T, DM] int8, xs [B·T] f32, qkv
 // [B·T, 3·H·DP] bf16, attn [B·T, H·DP] bf16, aq [B·T, H·DP] int8, as [B·T]
-// f32. out [B·T, DM] bf16. T % 64 == 0, DP ∈ {32, 64, 128}, DM % 128 == 0.
+// f32. out [B·T, DM] bf16. T % 64 == 0, DP 32, 64 or a multiple of 128,
+// DM % 128 == 0.
 extern "C" int msa_attention_block_int8(const void* x, const void* wqkv, const void* sqkv, const void* bqkv,
                                         const void* wout, const void* sout, const void* bout, const void* mask,
                                         void* xq, void* xs, void* qkv, void* attn, void* aq, void* as, void* out,

@@ -13,9 +13,10 @@
 // BEFORE P·V, (p / denom) rounded to v's dtype; o accumulated in f32 and
 // rounded once; lse = m + log(denom). T is padded to a multiple of 128 with
 // zero keys under the −1e9 bias, so a row with no valid key averages V over
-// all T_pad keys, as on the TPU. D is a multiple of 8 up to 128 (the
-// wrapper zero-pads other D, as JAX pads D; zeros add nothing), and DP (32,
-// 64 or 128) in shared memory.
+// all T_pad keys, as on the TPU. D is a multiple of 8 (the wrapper
+// zero-pads other D, as JAX pads D; zeros add nothing), and DP (32, 64 or
+// 128) in shared memory; above 128 both paths call the D-tiled kernel of
+// attention_wide.cu.
 //
 // bf16: that is rows 5 and 2's function, so it runs their two-pass
 // register-resident core (attention_packed.cu, attention_mma.cuh) through
@@ -257,7 +258,9 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, Strides l
 
 int attend_f32(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out, int ob,
                int oh, int ot, void* lse, int B, int T, int H, int D, float scale, void* stream) {
-  if (T < 1 || D % 8 || D < 8 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (T < 1 || D % 8 || D < 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (D > 128)  // the D-tiled kernel (attention_wide.cu), one pass as here
+    return attend_wide(q, k, v, sb, sh, st, mask, out, ob, oh, ot, lse, B, T, H, D, scale, 0, kOnline128, stream);
   auto qp = static_cast<const float*>(q);
   auto kp = static_cast<const float*>(k);
   auto vp = static_cast<const float*>(v);
@@ -274,11 +277,11 @@ int attend_f32(const void* q, const void* k, const void* v, int sb, int sh, int 
 }
 
 // q, k, v, out [B, H, T, D] (contiguous; bf16 when is_bf16, else f32),
-// mask [B, T] f32 (1 = attend); lse [B, H, T] f32. Any T ≥ 1; D % 8 == 0,
-// D ≤ 128 (the wrapper zero-pads D).
+// mask [B, T] f32 (1 = attend); lse [B, H, T] f32. Any T ≥ 1; D % 8 == 0
+// (the wrapper zero-pads D; above 128 through attend_wide).
 extern "C" int msa_fused_attention(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse,
                                    int B, int T, int H, int D, int is_bf16, float scale, void* stream) {
-  if (T < 1 || D % 8 || D < 8 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (T < 1 || D % 8 || D < 8) return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16) return attend_heads_first(q, k, v, mask, out, lse, B, T, H, D, scale, stream);
   return attend_f32(q, k, v, H * T * D, T * D, D, mask, out, H * T * D, T * D, D, lse, B, T, H, D, scale, stream);
 }
@@ -286,8 +289,8 @@ extern "C" int msa_fused_attention(const void* q, const void* k, const void* v, 
 // Rows 5 and 6 in f32 (the parity mode's encoders at d_model % 128 ≠ 0,
 // and past T = 512): the one-pass f32 core on q, k and v strided out of
 // qkv [B, T, 3, H, D] (contiguous), writing out [B, T, H·D] and lse
-// [B, H, T], both f32; mask [B, T] f32 (1 = attend). Any T ≥ 1; D % 8 == 0,
-// D ≤ 128 (the wrapper zero-pads D).
+// [B, H, T], both f32; mask [B, T] f32 (1 = attend). Any T ≥ 1; D % 8 == 0
+// (the wrapper zero-pads D; above 128 through attend_wide).
 extern "C" int msa_packed_attention_f32(const void* qkv, const void* mask, void* out, void* lse, int B, int T, int H,
                                         int D, float scale, void* stream) {
   const float* q = static_cast<const float*>(qkv);

@@ -236,16 +236,95 @@ __device__ __forceinline__ void store_rows(const float (&o)[DP / 8][4], const fl
   }
 }
 
+// the rounding order of attend_wide (attention_wide.cu): p/l rounded before
+// P·V (rows 1, 2, 5), the unnormalised p with o/denom after P·V (rows 7,
+// 8), row 6's online 128-key blocks
+enum : int { kNormBefore = 0, kUnnormalised = 1, kOnline128 = 2 };
+
+// rows [t0, t0 + ROWS) × columns [c0, c0 + COLS) of head h of batch row b
+// of src (element strides st, D contiguous) into f32 smem rows of ld
+// floats: zeros past D and past T. f32 comes by cp.async, 4 floats a copy;
+// bf16 by 16-byte loads widened to f32 (the caller waits and syncs either
+// way). The SIMT kernels' copy (attention_wide.cu, attention_bwd_f32.cu).
+template <typename E, int ROWS, int COLS, int NT>
+__device__ __forceinline__ void load_rows_f32(float* dst, int ld, const E* __restrict__ src, Strides st, int b, int h,
+                                              int t0, int T, int c0, int D, int tid) {
+  if constexpr (sizeof(E) == 4) {
+    constexpr int VECS = COLS / 4;
+    for (int i = tid; i < ROWS * VECS; i += NT) {
+      const int r = i / VECS, c = (i % VECS) * 4, t = t0 + r;
+      const bool ok = t < T && c0 + c < D;
+      cp_async16(dst + r * ld + c, ok ? src + st.at(b, h, t) + c0 + c : src, ok);
+    }
+  } else {
+    constexpr int VECS = COLS / 8;
+    for (int i = tid; i < ROWS * VECS; i += NT) {
+      const int r = i / VECS, c = (i % VECS) * 8, t = t0 + r;
+      uint4 raw = make_uint4(0, 0, 0, 0);
+      if (t < T && c0 + c < D) raw = *reinterpret_cast<const uint4*>(src + st.at(b, h, t) + c0 + c);
+      const bf16* e = reinterpret_cast<const bf16*>(&raw);
+      float* d = dst + r * ld + c;
+      *reinterpret_cast<float4*>(d) =
+          make_float4(__bfloat162float(e[0]), __bfloat162float(e[1]), __bfloat162float(e[2]), __bfloat162float(e[3]));
+      *reinterpret_cast<float4*>(d + 4) =
+          make_float4(__bfloat162float(e[4]), __bfloat162float(e[5]), __bfloat162float(e[6]), __bfloat162float(e[7]));
+    }
+  }
+}
+
+// x rounded to E and back (the identity for f32)
+template <typename E>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (sizeof(E) == 4) {
+    return x;
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+}
+
+// 4 consecutive values of a row, rounded once to E
+template <typename E>
+__device__ __forceinline__ void store4(E* p, float a, float b, float c, float d) {
+  if constexpr (sizeof(E) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+  } else {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+    uint2 v;
+    v.x = *reinterpret_cast<const uint32_t*>(&lo);
+    v.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p) = v;
+  }
+}
+
 }  // namespace
 
 // The two-pass core of rows 5 and 2 (attention_packed.cu) on q, k, v and o
-// [B, H, T, D] at any T: row 1's bf16 path (attention_fused.cu). D % 8 == 0,
-// D ≤ 128; returns a cudaError_t.
+// [B, H, T, D] at any T: row 1's bf16 path (attention_fused.cu). D % 8 == 0
+// (above 128 through attend_wide); returns a cudaError_t.
 int attend_heads_first(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse, int B,
                        int T, int H, int D, float scale, void* stream);
 
 // The one-pass f32 core of row 1 (attention_fused.cu) on q, k, v and o
 // addressed by element strides (batch, head, time; D contiguous): rows 1,
-// 5, 6 and 8 in f32. D % 8 == 0, D ≤ 128, any T; returns a cudaError_t.
+// 5, 6 and 8 in f32. D % 8 == 0 (above 128 through attend_wide), any T;
+// returns a cudaError_t.
 int attend_f32(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out, int ob,
                int oh, int ot, void* lse, int B, int T, int H, int D, float scale, void* stream);
+
+// Attention at any head dim D (a multiple of 8), the forward rows' path
+// above D = 128 (attention_wide.cu): the D-tiled f32 SIMT kernel on bf16
+// (is_bf16) or f32 operands, rounding to bf16 in ``order`` (kNormBefore,
+// kUnnormalised, kOnline128; f32 takes one pass whatever the order). lse
+// may be null. Any T; returns a cudaError_t.
+int attend_wide(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out,
+                int ob, int oh, int ot, void* lse, int B, int T, int H, int D, float scale, int is_bf16, int order,
+                void* stream);
+
+// The D-tiled SIMT backward (attention_bwd_f32.cu): rows 3 (dq non-null)
+// and 4 (dk and dv non-null) on f32 operands at any D, and on bf16 (is_bf16)
+// above D = 128. Arguments as msa_attention_bwd_dq/dkv; returns a
+// cudaError_t.
+int attend_bwd_simt(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                    const void* delta, const void* mask, void* dq, void* dk, void* dv, int B, int T, int H, int D,
+                    int sx_b, int sx_h, int sx_t, int so_b, int so_h, int so_t, float scale, int is_bf16,
+                    void* stream);

@@ -27,7 +27,9 @@
 // when the max moves, so it differs from Σ exp(s − m) only by f32
 // rounding. T is padded to a multiple of 128 (rows past T read as zeros
 // under masked keys; the query rows past T are not written). D is any
-// multiple of 8 up to 128, zero-padded to DP (32, 64 or 128) by the copies.
+// multiple of 8 up to 128, zero-padded to DP (32, 64 or 128) by the copies;
+// above 128 the entries call attend_wide (attention_wide.cu), in the same
+// order.
 //
 // What bounds it on the card: per (row, head) 4·T²·D operations on
 // 3·T·D·2 bytes read and T·D·2 + 4·T written. At the encoder's shape
@@ -180,7 +182,10 @@ cudaError_t launch_packed(const bf16* q, const bf16* k, const bf16* v, Strides l
 // go to row 6); none for row 1. The two passes run at any T_pad.
 int attend(const void* q, const void* k, const void* v, Strides lin, const void* mask, void* out, Strides lout,
            void* lse, int B, int T, int H, int D, float scale, void* stream, int max_t = 512) {
-  if (T < 1 || T > max_t || D % 8 || D < 8 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (T < 1 || T > max_t || D % 8 || D < 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (D > 128)  // the D-tiled kernel, p/denom rounded before P·V as here
+    return attend_wide(q, k, v, lin.b, lin.h, lin.t, mask, out, lout.b, lout.h, lout.t, lse, B, T, H, D, scale, 1,
+                       kNormBefore, stream);
   auto qp = static_cast<const bf16*>(q);
   auto kp = static_cast<const bf16*>(k);
   auto vp = static_cast<const bf16*>(v);
@@ -204,7 +209,7 @@ int attend_heads_first(const void* q, const void* k, const void* v, const void* 
 }
 
 // qkv [B, T, 3, H, D] bf16 (contiguous), mask [B, T] f32 (1 = attend);
-// out [B, T, H·D] bf16, lse [B, H, T] f32. T ≤ 512, D % 8 == 0, D ≤ 128.
+// out [B, T, H·D] bf16, lse [B, H, T] f32. T ≤ 512, D % 8 == 0.
 extern "C" int msa_packed_qkv_attention(const void* qkv, const void* mask, void* out, void* lse, int B, int T, int H,
                                         int D, float scale, void* stream) {
   const bf16* q = static_cast<const bf16*>(qkv);
@@ -213,7 +218,7 @@ extern "C" int msa_packed_qkv_attention(const void* qkv, const void* mask, void*
 }
 
 // q, k, v, out [B, H, T, D] bf16 (contiguous), mask [B, T] f32 (1 = attend);
-// lse [B, H, T] f32. T ≤ 512, D % 8 == 0, D ≤ 128.
+// lse [B, H, T] f32. T ≤ 512, D % 8 == 0.
 extern "C" int msa_mha_attention(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse,
                                  int B, int T, int H, int D, float scale, void* stream) {
   const Strides st{H * T * D, T * D, D};

@@ -14,8 +14,9 @@ JAX ``"pallas"``) runs the hand-written CUDA kernels of
 
 - attention: ``attention_block`` (``attention_block_int8`` under
   ``quantize="int8"``) where ``d_model % 128 == 0`` and T ≤ 512, at any
-  head dim (weights padded to the kernel's head dim once, in
-  ``derive_weights_``); otherwise a dense QKV projection in the compute
+  head dim, with no cap (weights padded once, in ``derive_weights_``, to
+  the kernel's head dim: 32, 64, 128, or above 128 a multiple of 128, as
+  JAX pads D); otherwise a dense QKV projection in the compute
   dtype (never int8, as JAX's ``nn.Dense`` ignores ``quantize``), the
   packed-QKV attention kernel at T ≤ 512 or the flash kernel beyond, and a
   dense output projection;
@@ -47,6 +48,13 @@ kernel at T ≤ 512 and the flash kernel beyond, as JAX's
 ``attention_with_vjp`` there) → a dense Wo at every ``d_model``, never
 ``attention_block``; the FFN is dense and ``quantize`` is ignored
 (``msa_tpu/models/transformer.py:86-90``, ``:130-156``, ``:204-208``).
+In f32 (``compute_dtype="float32"``, the parity mode's imported trunks
+fine-tuned) the same path trains on the card with no bf16 anywhere: the
+f32 masters go straight into the dense projections (the cast is the
+identity), rows 5/6 run their f32 forward and rows 3 and 4 their f32
+backward (``csrc/attention_bwd_f32.cu``), and the dense FFN takes cuBLAS's
+f32 GEMMs, with TF32 off under :func:`msa_tpu_torch.precision.exact_fp32`.
+Head dims above 128 train as well (the D-tiled backward, in bf16 too).
 ``remat=True`` recomputes each layer in the backward pass, as ``nn.remat``.
 Flax's dropout masks are not ported: ``deterministic=False`` with
 ``dropout > 0`` raises.
@@ -63,7 +71,6 @@ import torch.utils.checkpoint
 from torch import nn
 
 from msa_tpu_torch.ops.kernels.attention import (
-    MAX_HEAD_DIM,
     SINGLE_PASS_MAX_T,
     attention_block,
     attention_block_int8,
@@ -207,9 +214,7 @@ class SelfAttention(nn.Module):
     @torch.no_grad()
     def _derive_block(self, int8: bool) -> None:
         h, bias = self.cfg.num_heads, self.qkv.bias.detach()
-        if self.cfg.head_dim > MAX_HEAD_DIM:  # unpadded: the plain path serves it, the card raises
-            blk = (self.w_qkv_q if int8 else self.w_qkv_c, bias, self.w_out_q if int8 else self.w_out_c, None)
-        elif int8:  # int8 codes and scales padded after quantization (scale 1.0 on padded channels)
+        if int8:  # int8 codes and scales padded after quantization (scale 1.0 on padded channels)
             blk = pad_block_weights(self.w_qkv_q, bias, self.w_out_q, h, self.s_qkv)
         else:
             blk = pad_block_weights(self.w_qkv_c, bias, self.w_out_c, h)

@@ -13,11 +13,12 @@ Layouts: ``x [B, T, dm]`` in the compute dtype; ``w_qkv [3·H·DP, dm]`` and
 ``b_qkv``/``b_out`` float32; ``key_mask [B, T]`` float32, 1 = attend. T is
 padded to a multiple of 128 inside, as the TPU wrapper does, and must be
 ≤ 512 after padding (the encoder sends longer inputs to
-:func:`flash_attention_lse`). Any head dim D ≤ 128: the kernels' head dim
-DP is 32, 64 or 128, and weights of another D are padded to the next DP
-once, by :func:`pad_block_weights` (zero rows of ``w_qkv``/``b_qkv`` per
-head, zero columns of ``w_out``); ``head_dim`` then names the unpadded D,
-whose 1/√D the scores take.
+:func:`flash_attention_lse`). Any head dim D: the kernels' head dim DP is
+32, 64, 128 or, above 128, a multiple of 128 (the D-tiled kernel of
+``csrc/attention_wide.cu`` takes the core's place there), and weights of
+another D are padded to the next DP once, by :func:`pad_block_weights`
+(zero rows of ``w_qkv``/``b_qkv`` per head, zero columns of ``w_out``);
+``head_dim`` then names the unpadded D, whose 1/√D the scores take.
 
 Rounding points, shared by the kernel and :func:`attention_block_plain`:
 q, k and v are projected in f32 (+ f32 bias) and rounded to the compute
@@ -61,15 +62,19 @@ In f32 both run row 1's one-pass f32 core (``csrc/attention_fused.cu``,
 orders differ only in f32 rounding. Both pad T to a multiple of 128 with
 zero rows under masked keys, so a row with no valid key averages V over
 all padded rows, as on the TPU; the lse is ``max + log(denom)`` in f32.
-Any D ≤ 128: a D that is not a multiple of 8 is zero-padded on the card
+Any D: a D that is not a multiple of 8 is zero-padded on the card
 (:func:`_pad_head_dim`), as JAX pads D, with the scale of the unpadded D.
+Above D = 128 every forward row (1, 2, 5, 6, 7, 8, in bf16 and f32) runs
+the D-tiled kernel of ``csrc/attention_wide.cu`` (128-column tiles of o,
+the scores stepped over D), which rounds where each row's kernel rounds.
 
 JAX's public names keep JAX's contracts: :func:`packed_qkv_attention`
 (qkv → o, differentiable: ``attention.py:510-540``) and
 :func:`flash_attention` (q, k, v [B, H, T, D] → o, ``:975``).
 :func:`mha_attention` (row 2, ``_mha_attention_lse``, ``pl.pallas_call``
 at :150) is row 5's function on q, k, v [B, H, T, D], through the same
-CUDA core with its own entry point. :func:`fused_attention` /
+CUDA core with its own entry point (in f32, row 1's f32 core, which
+computes the same function). :func:`fused_attention` /
 :func:`fused_attention_lse` (row 1, ``_fused_attention_lse``,
 ``pl.pallas_call`` at :206) is the same function again at any T and in f32
 as well as bf16 (``csrc/attention_fused.cu``: bf16 through rows 5 and 2's
@@ -81,14 +86,14 @@ Training (``_bwd_dq_kernel``/``_bwd_dkv_kernel``, ``pl.pallas_call`` at
 operands, o, lse and the output's gradient and returns (dq, dk, dv) through
 the two kernels of ``csrc/attention_bwd.cu``, :func:`attention_bwd_dq` and
 :func:`attention_bwd_dkv`; :func:`attention_bwd_plain` is their plain
-version, 128×128 blocks in the TPU kernels' order. Two
-``torch.autograd.Function`` wrappers run them as JAX's custom VJPs do:
-:func:`packed_qkv_attention` (row 5 forward, dqkv back in the packed
-layout; row 6 forward beyond T = 512) and :func:`attention_with_vjp`
-(:842-868: row 2 at T ≤ 512, row 6 beyond).
-
-Head dims above 128 need a second D tile in the kernels, still to come
-(ROADMAP queue 3): the wrappers raise for them on the card.
+version, 128×128 blocks in the TPU kernels' order. On f32 operands (the
+f32 training step, ``compute_dtype="float32"``), and in bf16 above D = 128,
+they run the D-tiled SIMT kernels of ``csrc/attention_bwd_f32.cu`` (exact
+f32 FMA, no rounding in f32). Two ``torch.autograd.Function`` wrappers run
+them as JAX's custom VJPs do: :func:`packed_qkv_attention` (row 5 forward,
+dqkv back in the packed layout; row 6 forward beyond T = 512) and
+:func:`attention_with_vjp` (:842-868: row 2 at T ≤ 512, row 6 beyond), in
+bf16 or f32.
 """
 
 from __future__ import annotations
@@ -104,23 +109,16 @@ from msa_tpu_torch.ops.kernels.quant import quantize_rows
 
 LANE = 128
 SINGLE_PASS_MAX_T = 512
-BLOCK_HEAD_DIMS = (32, 64, 128)  # the attention_block core's DP
-MAX_HEAD_DIM = 128
-
-
-def _check_head_dim(d: int, what: str) -> None:
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"{what} kernel takes head dims up to {MAX_HEAD_DIM}, got {d}: a second D tile in the "
-            "kernels is still to come (ROADMAP queue 3, head dim > 128)"
-        )
+BLOCK_HEAD_DIMS = (32, 64, 128)  # the attention_block core's DP up to 128; above, multiples of 128
 
 
 def block_head_dim(d: int) -> int:
     """The head dim DP of the attention_block core that serves head dim
-    ``d``: the least of 32, 64 and 128 that is ≥ d."""
-    _check_head_dim(d, "attention_block")
-    return next(dp for dp in BLOCK_HEAD_DIMS if d <= dp)
+    ``d``: the least of 32, 64 and 128 that is ≥ d, and above 128 the least
+    multiple of 128 (the D-tiled kernel's column tile), as JAX pads D."""
+    if d < 1:
+        raise ValueError(f"head dim {d}")
+    return next((dp for dp in BLOCK_HEAD_DIMS if d <= dp), -(-d // LANE) * LANE)
 
 
 def pad_block_weights(w_qkv, b_qkv, w_out, num_heads: int, s_qkv=None):
@@ -162,13 +160,13 @@ def _pad_t(x: torch.Tensor, key_mask: torch.Tensor):
 
 def _kernel_inputs(x: torch.Tensor, key_mask: torch.Tensor, w_qkv: torch.Tensor, num_heads: int, what: str):
     """Check the head layout the kernels take (the weights' per-head width
-    DP one of :data:`BLOCK_HEAD_DIMS`, dm % 128 == 0) and pad T: → (x,
-    key_mask, T_pad, DP), contiguous."""
+    DP one of :data:`BLOCK_HEAD_DIMS` or a multiple of 128, dm % 128 == 0)
+    and pad T: → (x, key_mask, T_pad, DP), contiguous."""
     dm = x.shape[-1]
     dp = w_qkv.shape[0] // (3 * num_heads)
-    if dp not in BLOCK_HEAD_DIMS or 3 * num_heads * dp != w_qkv.shape[0] or dm % LANE:
+    if block_head_dim(max(dp, 1)) != dp or 3 * num_heads * dp != w_qkv.shape[0] or dm % LANE:
         raise ValueError(
-            f"{what} kernel needs weights of head dim 32, 64 or 128 (pad_block_weights pads them) and "
+            f"{what} kernel needs weights of head dim 32, 64 or a multiple of 128 (pad_block_weights pads them) and "
             f"dm % 128 == 0, got w_qkv {tuple(w_qkv.shape)}, {num_heads} heads, dm {dm}"
         )
     xp, mask_p, t_pad = _pad_t(x, key_mask)
@@ -327,7 +325,7 @@ def attention_block_int8(
 ) -> torch.Tensor:
     """[B, T, dm] → [B, T, dm] (pre-residual), W8A8. CPU tensors take
     :func:`attention_block_int8_plain`; CUDA tensors launch the kernel
-    (bf16 x, weights of head dim 32, 64 or 128: :func:`pad_block_weights`)."""
+    (bf16 x, weights padded by :func:`pad_block_weights`)."""
     if x.device.type == "cpu":
         return attention_block_int8_plain(x, w_qkv_q, s_qkv, b_qkv, w_out_q, s_out, b_out, key_mask, num_heads, head_dim)
     b, t, dm = x.shape
@@ -452,7 +450,6 @@ def _launch_packed(entry: str, what: str, qkv: torch.Tensor, key_mask: torch.Ten
     b, t, three, h, d = qkv.shape
     if three != 3:
         raise ValueError(f"{what} kernel needs qkv [B, T, 3, H, D], got {tuple(qkv.shape)}")
-    _check_head_dim(d, what)
     dev = qkv.device
     (qkv_p,) = _pad_head_dim(qkv)
     dp = qkv_p.shape[-1]
@@ -480,7 +477,7 @@ def packed_qkv_attention_lse(qkv: torch.Tensor, key_mask: torch.Tensor):
     key_mask [B, T] f32 (1 = attend) → (o [B, T, H·D] in qkv's dtype, lse
     [B, H, T] f32). CPU tensors take
     :func:`packed_qkv_attention_lse_plain`; CUDA tensors launch the bf16
-    kernel, or for f32 row 1's f32 core (:func:`_packed_f32`; D ≤ 128)."""
+    kernel, or for f32 row 1's f32 core (:func:`_packed_f32`)."""
     if qkv.device.type == "cpu":
         return packed_qkv_attention_lse_plain(qkv, key_mask)
     _check_single_pass(qkv, "packed_qkv_attention_lse")
@@ -500,7 +497,7 @@ def flash_attention_lse(qkv: torch.Tensor, key_mask: torch.Tensor):
     attention for any T, qkv [B, T, 3, H, D], key_mask [B, T] → (o [B, T,
     H·D], lse [B, H, T]). CPU tensors take :func:`flash_attention_lse_plain`;
     CUDA tensors launch the bf16 kernel, or for f32 row 1's f32 core
-    (:func:`_packed_f32`; D ≤ 128)."""
+    (:func:`_packed_f32`)."""
     if qkv.device.type == "cpu":
         return flash_attention_lse_plain(qkv, key_mask)
     if qkv.dtype == torch.float32:
@@ -559,35 +556,42 @@ def mha_attention_plain(q, k, v, key_mask):
 def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor):
     """q, k, v [B, H, T ≤ 512, D], key_mask [B, T] f32 (1 = attend) →
     (o [B, H, T, D] in q's dtype, lse [B, H, T] f32). CPU tensors take
-    :func:`mha_attention_plain`; CUDA tensors launch the kernel (bf16,
-    contiguous, D ≤ 128: zero-padded to a multiple of 8 where it is not
-    one)."""
+    :func:`mha_attention_plain`; CUDA tensors launch the kernel (contiguous;
+    D zero-padded to a multiple of 8 where it is not one): bf16 on rows 5
+    and 2's core, f32 on row 1's f32 core, which computes row 2's function
+    (``msa_fused_attention``), counted in ``launches_f32``."""
     if q.device.type == "cpu":
         return mha_attention_plain(q, k, v, key_mask)
     b, h, t, d = q.shape
     if t > SINGLE_PASS_MAX_T:
         raise ValueError(f"mha_attention kernel needs T ≤ {SINGLE_PASS_MAX_T}, got {tuple(q.shape)}")
-    _check_head_dim(d, "mha_attention")
-    dev = q.device
+    dev, dtype = q.device, q.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"mha_attention kernel takes f32 or bf16, got {dtype}")
     q, k, v = _pad_head_dim(q, k, v)
     if q.shape[-1] != d:
         q, k, v = (x.contiguous() for x in (q, k, v))
     dp = q.shape[-1]
     for name, x in (("q", q), ("k", k), ("v", v)):
-        require(x, name, torch.bfloat16, (b, h, t, dp), dev)
+        require(x, name, dtype, (b, h, t, dp), dev)
     require(key_mask, "key_mask", torch.float32, (b, t), dev)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = build.library().msa_mha_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), o.data_ptr(), lse.data_ptr(), b, t, h, dp, _scale(d), stream
-    )
-    build.check(rc, "mha_attention")
-    mha_attention.launches += 1
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), o.data_ptr(), lse.data_ptr(), b, t, h, dp)
+    if dtype == torch.float32:
+        rc = build.library().msa_fused_attention(*ptrs, 0, _scale(d), stream)
+        build.check(rc, "mha_attention_f32")
+        mha_attention.launches_f32 += 1
+    else:
+        rc = build.library().msa_mha_attention(*ptrs, _scale(d), stream)
+        build.check(rc, "mha_attention")
+        mha_attention.launches += 1
     return (o if dp == d else o[..., :d]), lse
 
 
-mha_attention.launches = 0  # kernel launches since the last reset (the smoke reads it)
+# kernel launches since the last reset, bf16 and f32 (the smoke reads them)
+mha_attention.launches = mha_attention.launches_f32 = 0
 
 
 # --- row 1: the public fused_attention, any T, f32 or bf16 ------------------------
@@ -600,7 +604,7 @@ fused_attention_plain = mha_attention_plain
 
 def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor, block_q: int = 256, pad_d: bool = False):
     """JAX's ``_fused_attention_lse``: q, k, v [B, H, T, D] (f32 or bf16,
-    any T, D ≤ 128), key_mask [B, T] f32 (1 = attend) → (o [B, H, T, D] in
+    any T, any D), key_mask [B, T] f32 (1 = attend) → (o [B, H, T, D] in
     q's dtype, lse [B, H, T] f32). ``block_q`` and ``pad_d`` are the TPU
     kernel's tiling knobs; zero padding is exact, so they change nothing
     and are ignored. CPU tensors take :func:`fused_attention_plain`; CUDA
@@ -613,7 +617,6 @@ def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_m
     b, h, t, d = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused_attention kernel takes f32 or bf16, got {q.dtype}")
-    _check_head_dim(d, "fused_attention")
     dev = q.device
     q, k, v = (x.contiguous() for x in _pad_head_dim(q, k, v))
     d_pad = q.shape[-1]
@@ -696,23 +699,26 @@ def attention_bwd_plain(q, k, v, key_mask, lse, o, g, scale=None):
 
 def _bwd_args(q, k, v, g, lse, delta, key_mask, outs, scale: float):
     """Check what the backward kernels take and return the C arguments:
-    q, k, v and the outputs [B, H, T, D] bf16 views with one set of strides
-    (D contiguous, rows 16-byte aligned, D % 8 == 0), g with its own; lse,
-    delta [B, H, T] and key_mask [B, T] f32, contiguous."""
+    q, k, v and the outputs [B, H, T, D] views of one dtype (bf16 or f32)
+    with one set of strides (D contiguous, rows 16-byte aligned, D % 8 ==
+    0), g with its own; lse, delta [B, H, T] and key_mask [B, T] f32,
+    contiguous."""
     b, h, t, d = q.shape
-    _check_head_dim(d, "attention_bwd")
     if d % 8:
         raise ValueError(f"attention_bwd kernels need D % 8 == 0 (attention_bwd pads D), got {tuple(q.shape)}")
-    dev = q.device
+    dev, dtype = q.device, q.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"attention_bwd kernels take bf16 or f32, got {dtype}")
+    align = 16 // q.element_size()  # elements in 16 bytes
 
     def strides(x):  # a dimension of size 1 is never stepped along
         return tuple(st if n > 1 else 0 for st, n in zip(x.stride(), x.shape))
 
     sx = strides(q)
     for name, x in (("q", q), ("k", k), ("v", v), ("g", g), *((f"out{i}", y) for i, y in enumerate(outs))):
-        if x.device != dev or x.dtype != torch.bfloat16 or tuple(x.shape) != (b, h, t, d):
-            raise ValueError(f"attention_bwd {name}: {x.dtype} {tuple(x.shape)} on {x.device}, expected bf16 {(b, h, t, d)} on {dev}")
-        if strides(x)[3] != 1 or any(st % 8 for st in strides(x)[:3]) or x.data_ptr() % 16:
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != (b, h, t, d):
+            raise ValueError(f"attention_bwd {name}: {x.dtype} {tuple(x.shape)} on {x.device}, expected {dtype} {(b, h, t, d)} on {dev}")
+        if strides(x)[3] != 1 or any(st % align for st in strides(x)[:3]) or x.data_ptr() % 16:
             raise ValueError(f"attention_bwd {name}: D must be contiguous and rows 16-byte aligned, strides {x.stride()}")
         if name != "g" and strides(x) != sx:
             raise ValueError(f"attention_bwd {name}: strides {x.stride()} differ from q's {sx}")
@@ -724,27 +730,37 @@ def _bwd_args(q, k, v, g, lse, delta, key_mask, outs, scale: float):
     return (*ptrs, b, t, h, d, *sx[:3], *strides(g)[:3], scale, stream)
 
 
+def _launch_bwd_kernel(fn, entry: str, q, k, v, g, lse, delta, key_mask, outs, scale) -> None:
+    """One backward kernel on the card: ``entry`` on bf16 operands,
+    ``entry_f32`` (``csrc/attention_bwd_f32.cu``) on f32 ones, counted on
+    ``fn`` (``launches`` or ``launches_f32``)."""
+    scale = _scale(q.shape[-1]) if scale is None else scale
+    f32 = q.dtype == torch.float32
+    name = entry + "_f32" if f32 else entry
+    rc = getattr(build.library(), name)(*_bwd_args(q, k, v, g, lse, delta, key_mask, outs, scale))
+    build.check(rc, fn.__name__ + ("_f32" if f32 else ""))
+    if f32:
+        fn.launches_f32 += 1
+    else:
+        fn.launches += 1
+
+
 def attention_bwd_dq(q, k, v, g, lse, delta, key_mask, dq, scale=None) -> None:
     """Launch row 3 on the card: dq ← scale·Σ_k [P∘(dO·Vᵀ − Δ)]·K, written
     into the view ``dq`` (arguments as :func:`_bwd_args` checks them;
     ``scale`` 1/√D of the unpadded D, by default q's)."""
-    scale = _scale(q.shape[-1]) if scale is None else scale
-    rc = build.library().msa_attention_bwd_dq(*_bwd_args(q, k, v, g, lse, delta, key_mask, (dq,), scale))
-    build.check(rc, "attention_bwd_dq")
-    attention_bwd_dq.launches += 1
+    _launch_bwd_kernel(attention_bwd_dq, "msa_attention_bwd_dq", q, k, v, g, lse, delta, key_mask, (dq,), scale)
 
 
 def attention_bwd_dkv(q, k, v, g, lse, delta, key_mask, dk, dv, scale=None) -> None:
     """Launch row 4 on the card: dv ← Σ_q Pᵀ·dO and dk ← scale·Σ_q
     [P∘(dO·Vᵀ − Δ)]ᵀ·Q, written into the views ``dk`` and ``dv``."""
-    scale = _scale(q.shape[-1]) if scale is None else scale
-    rc = build.library().msa_attention_bwd_dkv(*_bwd_args(q, k, v, g, lse, delta, key_mask, (dk, dv), scale))
-    build.check(rc, "attention_bwd_dkv")
-    attention_bwd_dkv.launches += 1
+    _launch_bwd_kernel(attention_bwd_dkv, "msa_attention_bwd_dkv", q, k, v, g, lse, delta, key_mask, (dk, dv), scale)
 
 
-attention_bwd_dq.launches = 0  # kernel launches since the last reset (the smoke reads them)
-attention_bwd_dkv.launches = 0
+# kernel launches since the last reset, bf16 and f32 (the smoke reads them)
+attention_bwd_dq.launches = attention_bwd_dq.launches_f32 = 0
+attention_bwd_dkv.launches = attention_bwd_dkv.launches_f32 = 0
 
 
 def _attention_bwd_into(q, k, v, key_mask, lse, o, g, dq, dk, dv) -> None:
@@ -757,7 +773,6 @@ def _attention_bwd_into(q, k, v, key_mask, lse, o, g, dq, dk, dv) -> None:
             out.copy_(got)
         return
     d = q.shape[-1]
-    _check_head_dim(d, "attention_bwd")
     if d % FUSED_D_MULTIPLE:
         q, k, v, o, g = (x.contiguous() for x in _pad_head_dim(q, k, v, o, g))
         outs = [torch.empty_like(q) for _ in range(3)]
@@ -771,6 +786,7 @@ def _attention_bwd_into(q, k, v, key_mask, lse, o, g, dq, dk, dv) -> None:
 def _launch_bwd(q, k, v, key_mask, lse, o, g, dq, dk, dv, scale: float) -> None:
     if g.stride(-1) != 1:
         g = g.contiguous()
+    lse = lse.contiguous()  # a caller's lse may be a slice of a padded one
     delta = _delta(o, g)
     attention_bwd_dq(q, k, v, g, lse, delta, key_mask, dq, scale)
     attention_bwd_dkv(q, k, v, g, lse, delta, key_mask, dk, dv, scale)
@@ -780,7 +796,8 @@ def attention_bwd(q, k, v, key_mask, lse, o, g):
     """JAX's ``attention_bwd``: the forward's q, k, v [B, H, T, D], key_mask
     [B, T], its lse [B, H, T] and o, and the gradient g of o → (dq, dk,
     dv) in the operands' dtypes. CPU tensors take
-    :func:`attention_bwd_plain`; CUDA tensors launch rows 3 and 4 (bf16)."""
+    :func:`attention_bwd_plain`; CUDA tensors launch rows 3 and 4 (bf16 or
+    f32)."""
     if q.device.type != "cpu":
         q, k, v = (x.contiguous() for x in (q, k, v))
     dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (q, k, v))

@@ -17,7 +17,10 @@ busy time per forward (sum of kernel durations, from the trace) and its idle
 share, and the kernels ranked by device time. ``--train`` profiles instead
 one training step of the text model (``msa_tpu_torch.training``: bf16,
 kernel attention, dropout 0; forward, backward and AdamW) at ``--batch``
-(default 8) × ``--tokens``. ``--conv`` times instead the counterpart of
+(default 8) × ``--tokens``, or with ``--samples`` that of the audio model
+at ``--samples`` per clip; ``--train --quantize f32`` the same step in f32
+(the parity mode's encoders fine-tuned: rows 5/6 forward and rows 3 and 4
+backward in f32, TF32 off). ``--conv`` times instead the counterpart of
 ``tools/conv_bench.py``: ``conv_stride2_fused`` (row 11) at the wav2vec2
 extractor's six stride-2 layers, 512 → 512 channels, bf16, at ``--batch``
 (default 64), beside its plain version and cuDNN's bf16 ``F.conv1d`` (on
@@ -50,8 +53,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--quantize", choices=("int8", "none", "f32"), default="int8")
-    ap.add_argument("--samples", type=int, default=SystemConfig().pipeline.segment_samples)
-    ap.add_argument("--train", action="store_true", help="one text training step instead of a forward")
+    ap.add_argument("--samples", type=int, default=None, help="audio samples a segment (with --train: the audio step's clip)")
+    ap.add_argument("--train", action="store_true", help="one text (with --samples: audio) training step instead of a forward")
     ap.add_argument("--conv", action="store_true", help="row 11 at the wav2vec2 stride-2 layers instead of a forward")
     ap.add_argument("--asr", action="store_true", help="one batch of the shipped whisper ASR instead of a forward")
     args = ap.parse_args(argv)
@@ -73,7 +76,7 @@ def main(argv=None) -> int:
         flush=True,
     )
     rng = np.random.default_rng(0)
-    tokens, samples = args.tokens, args.samples
+    tokens, samples = args.tokens, args.samples or SystemConfig().pipeline.segment_samples
     if args.asr:
         from msa_tpu_torch.host.transcription import make_transcriber
 
@@ -85,19 +88,28 @@ def main(argv=None) -> int:
             tr.transcribe_batch(clips, 16_000)
 
     elif args.train:
-        models = G.PipelineModels.initialize(seed=0, quantize=args.quantize, device="cuda")
         from msa_tpu_torch import training
 
-        text = models.with_encoders(dropout=0.0).text.requires_grad_(True)
-        batch = (
-            torch.from_numpy(rng.integers(1, text.cfg.vocab_size, size=(b, tokens))).cuda(),
-            torch.ones(b, tokens, dtype=torch.int32, device="cuda"),
-            {h: torch.from_numpy(rng.integers(0, n, size=b)).cuda() for h, n in zip(training.TEXT_HEADS, (7, 2, 2, 3))},
-        )
-        opt = training.adamw(text.parameters())
+        f32 = args.quantize == "f32"
+        models = G.PipelineModels.initialize(seed=0, quantize="none" if f32 else args.quantize, device="cuda")
+        models = models.with_encoders(dropout=0.0, **({"compute_dtype": "float32"} if f32 else {}))
+        if args.samples:  # the audio model's step
+            model, loss = models.audio.requires_grad_(True), training.audio_loss
+            batch = (
+                torch.from_numpy((0.1 * rng.standard_normal((b, samples))).astype(np.float32)).cuda(),
+                torch.from_numpy(rng.integers(0, 4, size=b)).cuda(),
+            )
+        else:
+            model, loss = models.text.requires_grad_(True), training.text_loss
+            batch = (
+                torch.from_numpy(rng.integers(1, model.cfg.vocab_size, size=(b, tokens))).cuda(),
+                torch.ones(b, tokens, dtype=torch.int32, device="cuda"),
+                {h: torch.from_numpy(rng.integers(0, n, size=b)).cuda() for h, n in zip(training.TEXT_HEADS, (7, 2, 2, 3))},
+            )
+        opt = training.adamw(model.parameters())
 
         def run():
-            training.train_step(text, training.text_loss, opt, *batch)
+            training.train_step(model, loss, opt, *batch)
 
     else:
         if args.quantize == "f32":  # the parity mode's encoders (imported trunks serve this path)
@@ -138,7 +150,8 @@ def main(argv=None) -> int:
     busy_ms = sum(r[0] for r in rows) / 1e3
     wall_ms = 1e3 * float(np.median(walls))
     what = (
-        "whisper batch" if args.asr else "text training step" if args.train
+        "whisper batch" if args.asr
+        else f"quantize={args.quantize} {'audio' if args.samples else 'text'} training step" if args.train
         else f"quantize={args.quantize} samples={samples} forward"
     )
     print(f"{what} B={b} tokens={tokens}: wall {wall_ms:.3f} ms (median of {args.steps}), "

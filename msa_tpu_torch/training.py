@@ -6,6 +6,9 @@ and 4), and optax's AdamW.
     opt = adamw(model.parameters())
     loss = train_step(model, text_loss, opt, input_ids, attention_mask, labels)
 
+In f32 (``compute_dtype="float32"``, the parity mode's imported trunks)
+the same step runs rows 5/6 and the backward in f32 on the card.
+
 The loss is the trainers' (``msa_tpu/training/train_audio_emotion.py:257-262``,
 ``:324-329``): the mean cross-entropy of ``log_softmax`` of the f32 head
 logits. The text model sums it over its four heads on [CLS]; the audio
@@ -21,6 +24,8 @@ from typing import Callable, Iterable, Mapping
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from msa_tpu_torch.precision import exact_fp32
 
 TEXT_HEADS = ("emotion_head", "sarcasm_head", "humor_head", "sentiment_head")
 
@@ -53,9 +58,13 @@ def adamw(params: Iterable[torch.Tensor], lr: float = 1e-3, weight_decay: float 
 
 def train_step(model: nn.Module, loss_fn: Callable[..., torch.Tensor], optimizer: torch.optim.Optimizer, *batch):
     """One step: zero the gradients, ``loss_fn(model, *batch)``,
-    ``backward()``, ``optimizer.step()``. Returns the loss (detached)."""
-    optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(model, *batch)
-    loss.backward()
-    optimizer.step()
+    ``backward()``, ``optimizer.step()``, with TF32 off
+    (:func:`~msa_tpu_torch.precision.exact_fp32`: JAX's f32 is exact, and
+    the f32 step of the parity mode's trunks keeps it). Returns the loss
+    (detached)."""
+    with exact_fp32():
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(model, *batch)
+        loss.backward()
+        optimizer.step()
     return loss.detach()

@@ -1,8 +1,8 @@
 """Head dims the kernels' tiles do not match, on the CPU.
 
-Rows 7 and 8 (``attention_block[_int8]``) serve any head dim D ≤ 128 on
-weights padded once per head to the core's DP ∈ {32, 64, 128}
-(``pad_block_weights``); rows 2–6 zero-pad a D that is not a multiple of
+Rows 7 and 8 (``attention_block[_int8]``) serve any head dim D on weights
+padded once per head to the core's DP ∈ {32, 64, 128} (or, above 128, the
+next multiple of 128: ``pad_block_weights``); rows 2–6 zero-pad a D that is not a multiple of
 8 on the card, with the scale of the unpadded D. These tests hold the
 padding identities the card's wrappers rely on (the plain versions on
 padded operands against the same on unpadded ones: f32 within 1e-6, int8
@@ -52,9 +52,12 @@ def _block_weights(rng, d):
 
 
 def test_block_head_dim_and_the_limit():
+    """32, 64 or 128 up to 128; above, the next multiple of 128 (the
+    D-tiled kernel's column tile, as JAX pads D): no limit."""
     assert [A.block_head_dim(d) for d in (1, 24, 32, 33, 64, 65, 100, 128)] == [32, 32, 32, 64, 64, 128, 128, 128]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
-        A.block_head_dim(129)
+    assert [A.block_head_dim(d) for d in (129, 192, 256, 257, 512)] == [256, 256, 256, 384, 512]
+    with pytest.raises(ValueError):
+        A.block_head_dim(0)
 
 
 @pytest.mark.parametrize("d", PAD_D)
@@ -246,12 +249,3 @@ def test_flash_attention_has_jaxs_contract(rng, dtype):
     assert isinstance(got, torch.Tensor) and got.dtype == tdt and tuple(got.shape) == (2, 2, 300, 32)
     _close(got, want, dtype, "flash")
 
-
-def test_head_dims_past_128_raise_on_the_card_path():
-    """The kernels take D ≤ 128; beyond, the card's wrappers raise and name
-    the ROADMAP item (the CPU's plain versions serve any D)."""
-    qkv = torch.zeros(1, 8, 3, 1, 136)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
-        A._launch_packed("msa_packed_qkv_attention", "packed_qkv_attention_lse", qkv, torch.ones(1, 8), torch.float32)
-    o, lse = A.packed_qkv_attention_lse(qkv, torch.ones(1, 8))
-    assert o.shape == (1, 8, 136) and torch.isfinite(lse).all()

@@ -113,8 +113,8 @@ def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
 
     names = {p.name for p in build._sources()}
     assert names == {
-        "attention.cu", "attention_bwd.cu", "attention_flash.cu", "attention_fused.cu", "attention_packed.cu",
-        "conv_stride2.cu", "ffn.cu", "quant.cu",
+        "attention.cu", "attention_bwd.cu", "attention_bwd_f32.cu", "attention_flash.cu", "attention_fused.cu",
+        "attention_packed.cu", "attention_wide.cu", "conv_stride2.cu", "ffn.cu", "quant.cu",
     }
     assert {p.name for p in build.CSRC.glob("*.cuh")} == {"gemm.cuh", "gemm_s8.cuh", "gemm_f32.cuh", "attention_mma.cuh"}
     assert build.ARCH_FLAGS == ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -136,6 +136,8 @@ def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
         "msa_mha_attention",
         "msa_attention_bwd_dq",
         "msa_attention_bwd_dkv",
+        "msa_attention_bwd_dq_f32",
+        "msa_attention_bwd_dkv_f32",
         "msa_fused_attention",
         "msa_conv_stride2",
     }
