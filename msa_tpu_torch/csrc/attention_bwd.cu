@@ -14,7 +14,7 @@
 // grid axis. Here the split is the same and each output tile is owned by
 // one block, so no sum crosses blocks (no atomics; deterministic):
 // - msa_attention_bwd_dq: one block per (64-query tile, head, batch row),
-//   looping over 64-key chunks; dQ accumulates in WMMA fragments.
+//   looping over 64-key steps; dQ accumulates in registers.
 // - msa_attention_bwd_dkv: one block per (64-key tile, head, batch row),
 //   looping over query chunks; dK and dV accumulate in registers.
 // 4 warps, each owning 16 rows of the block's tile.
@@ -48,10 +48,22 @@
 // 12.9 GFLOP (9.8 and 13.0 µs at 989 TFLOP/s) over ~25 MB (7.5 µs at
 // 3.35 TB/s): bound by operations.
 //
-// The dQ kernel stages every score tile through shared memory in f32 (WMMA
-// fragments cannot be indexed by row and column) and loads without overlap.
-// The dK/dV kernel runs on the register-resident primitives of the
-// forward (attention_mma.cuh): each warp loads its 16 keys of K and V once
+// Both kernels run on the register-resident primitives of the forward
+// (attention_mma.cuh). The dQ kernel: each warp loads its 16 queries of Q
+// and dO once as mma.sync A fragments (load_q_frags); per step it forms
+// S = Q·Kᵀ and dP = dO·Vᵀ as accumulators with tile_dots, takes P and dS
+// in registers (the key bias per column, L and Δ per lane row), packs
+// bf16(dS) straight into A fragments (p_frags) and accumulates
+// dQ += dS·K with tile_pv, K's tile as its ldmatrix.trans B operand (K is
+// [keys × D], as V is for P·V). K, V and the key mask come through a
+// two-stage cp.async ring of 64 keys (step i+1's copy flies while step i's
+// products run); at DP = 128 a ring stage is taken in two 32-key halves,
+// since Q's and dO's fragments (2 × 32 registers), dQ's accumulator (64)
+// and two 16 × 64 accumulator tiles (2 × 32) would pass 255 registers.
+// dQ·scale leaves by 16-byte stores staged through the warp's own rows of
+// the Q tile. 55 KB of shared memory and 132 registers a thread at
+// DP = 64: 3 blocks share an SM.
+// The dK/dV kernel: each warp loads its 16 keys of K and V once
 // as mma.sync A fragments; per query chunk of 32 rows it forms Sᵀ = K·Qᵀ
 // and dPᵀ = V·dOᵀ as accumulators with tile_dots, takes P and dS in
 // registers (the key bias is per lane row, L and Δ per column), packs
@@ -66,98 +78,16 @@
 
 namespace {
 
-constexpr int BR = 64;        // query rows a block of the dQ kernel owns
-constexpr int BC = 64;        // keys per loop step of the dQ kernel
-constexpr int BTHREADS = 128; // 4 warps, 16 owned rows each
-constexpr int LB = BC + 8;    // padded bf16 row of a dS tile
+constexpr int BTHREADS = 128;  // 4 warps, 16 owned rows each
+
+// row 3's tiles: the block's 64 queries, and ring stages of 64 keys
+constexpr int QB = 64;
+constexpr int KS = 64;
 
 template <int DP>
-struct Tiles {
-  static constexpr int LD = DP + 8;                 // padded bf16 row of a q/k/v/dO tile
-  static constexpr int LS = (DP > BC ? DP : BC) + 4;  // padded f32 row: scores, then the output
-  static constexpr size_t bytes = (size_t)4 * 64 * LD * sizeof(bf16)  // two owned tiles, two streamed
-                                  + (size_t)2 * BR * LS * sizeof(float)  // S and dP (or their transposes)
-                                  + (size_t)2 * BR * LB * sizeof(bf16)   // P and dS in bf16
-                                  + (size_t)3 * 64 * sizeof(float);      // lse, Δ, mask bias
-};
-
-// rows [r0, r0 + nrows) of head h of batch row b of src into smem
-// [nrows × LD] bf16: D columns, zero past D and past T
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, Strides st, int b, int h, int r0,
-                                          int nrows, int T, int D, int tid) {
-  constexpr int LD = Tiles<DP>::LD;
-  constexpr int vecs = DP / 8;
-  for (int i = tid; i < nrows * vecs; i += BTHREADS) {
-    const int r = i / vecs, c = (i % vecs) * 8, t = r0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (t < T && c < D) v = *reinterpret_cast<const uint4*>(src + st.at(b, h, t) + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
-  }
-}
-
-// one warp: out[16 × BC] (f32, ld LS) = A[16 × DP] · Bᵀ, B [BC × DP]: both
-// tiles bf16 with row length LD
-template <int DP>
-__device__ __forceinline__ void dots_nt(float* out, const bf16* a, const bf16* b) {
-  constexpr int LD = Tiles<DP>::LD, LS = Tiles<DP>::LS;
-#pragma unroll
-  for (int j = 0; j < BC / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, a + kk, LD);
-      wmma::load_matrix_sync(fb, b + j * 16 * LD + kk, LD);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + j * 16, acc, LS, wmma::mem_row_major);
-  }
-}
-
-// one warp: acc[16 × DP] += A[16 × BC] (bf16, ld LB) · B[BC × DP] (bf16, ld LD)
-template <int DP>
-__device__ __forceinline__ void dots_nn(wmma::fragment<wmma::accumulator, 16, 16, 16, float>* acc, const bf16* a,
-                                        const bf16* b) {
-  constexpr int LD = Tiles<DP>::LD;
-#pragma unroll
-  for (int kk = 0; kk < BC; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, a + kk, LB);
-#pragma unroll
-    for (int j = 0; j < DP / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, b + kk * LD + j * 16, LD);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
-    }
-  }
-}
-
-// one warp: acc·mul → bf16 rows [t0, t0 + 16) of dst (t < T, c < D), staged
-// through the warp's f32 rows of stage
-template <int DP>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, Strides st, int b, int h, int t0, int T, int D,
-                                           const wmma::fragment<wmma::accumulator, 16, 16, 16, float>* acc,
-                                           float mul, float* stage, int lane) {
-  constexpr int LS = Tiles<DP>::LS;
-#pragma unroll
-  for (int j = 0; j < DP / 16; ++j) wmma::store_matrix_sync(stage + j * 16, acc[j], LS, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 16 * (D / 8); i += 32) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8, t = t0 + r;
-    if (t >= T) continue;
-    __align__(16) bf16 v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(__fmul_rn(stage[r * LS + c + e], mul));
-    *reinterpret_cast<uint4*>(dst + st.at(b, h, t) + c) = *reinterpret_cast<const uint4*>(v);
-  }
-  __syncwarp();
-}
-
-__device__ __forceinline__ float key_bias(const float* __restrict__ mask, int b, int t, int T) {
-  return (t < T && mask[(size_t)b * T + t] > 0.f) ? 0.f : -1e9f;
+constexpr size_t dq_smem_bytes() {
+  return (size_t)(2 * QB + 4 * KS) * (DP + 8) * sizeof(bf16)  // sQ, sG; sK, sV of two stages
+         + (size_t)2 * KS * sizeof(float);                     // the key mask of two stages
 }
 
 template <int DP>
@@ -166,60 +96,85 @@ bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
               const bf16* __restrict__ dout, Strides so, const float* __restrict__ lse,
               const float* __restrict__ delta, const float* __restrict__ mask, bf16* __restrict__ dq, int T, int H,
               int D, float scale) {
-  using L = Tiles<DP>;
-  constexpr int LD = L::LD, LS = L::LS;
+  constexpr int LD = DP + 8;
+  constexpr int NK = DP == 128 ? 32 : 64;  // keys a product step takes (see the note above)
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sG = sQ + 64 * LD;  // dO
-  bf16* sK = sG + 64 * LD;
-  bf16* sV = sK + 64 * LD;
-  float* sS = reinterpret_cast<float*>(sV + 64 * LD);
-  float* sDP = sS + BR * LS;
-  bf16* sDS = reinterpret_cast<bf16*>(sDP + BR * LS);
-  float* sLse = reinterpret_cast<float*>(sDS + 2 * BR * LB);  // the P tile's room is unused here
-  float* sDelta = sLse + 64;
-  float* sBias = sDelta + 64;
+  bf16* sG = sQ + QB * LD;                                 // dO
+  bf16* sK = sG + QB * LD;                                 // [2][KS × LD]
+  bf16* sV = sK + 2 * KS * LD;                             // [2][KS × LD]
+  float* sM = reinterpret_cast<float*>(sV + 2 * KS * LD);  // the key mask, [2][KS]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * QB, h = blockIdx.y, b = blockIdx.z;
   const size_t row0 = ((size_t)b * H + h) * T;
+  const float* mrow = mask + (size_t)b * T;
+  const int nk = (T + KS - 1) / KS;
 
-  load_tile<DP>(sQ, q, sx, b, h, q0, BR, T, D, tid);
-  load_tile<DP>(sG, dout, so, b, h, q0, BR, T, D, tid);
-  for (int i = tid; i < BR; i += BTHREADS) {
-    const int t = q0 + i;
-    sLse[i] = t < T ? lse[row0 + t] : 0.f;
-    sDelta[i] = t < T ? delta[row0 + t] : 0.f;
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[DP / 16];
-#pragma unroll
-  for (int j = 0; j < DP / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  float* sSw = sS + warp * 16 * LS;
-  float* sDPw = sDP + warp * 16 * LS;
-  bf16* sDSw = sDS + warp * 16 * LB;
-
-  for (int k0 = 0; k0 < T; k0 += BC) {
-    __syncthreads();  // every warp is done with the previous chunk
-    load_tile<DP>(sK, k, sx, b, h, k0, BC, T, D, tid);
-    load_tile<DP>(sV, v, sx, b, h, k0, BC, T, D, tid);
-    for (int i = tid; i < BC; i += BTHREADS) sBias[i] = key_bias(mask, b, k0 + i, T);
-    __syncthreads();
-
-    dots_nt<DP>(sSw, sQ + warp * 16 * LD, sK);   // S = Q·Kᵀ
-    dots_nt<DP>(sDPw, sG + warp * 16 * LD, sV);  // dP = dO·Vᵀ
-    __syncwarp();
-    for (int i = lane; i < 16 * BC; i += 32) {
-      const int r = i / BC, c = i % BC;
-      const float s = __fadd_rn(__fmul_rn(sSw[r * LS + c], scale), sBias[c]);
-      const float p = expf(__fsub_rn(s, sLse[warp * 16 + r]));
-      const float ds = __fmul_rn(p, __fsub_rn(sDPw[r * LS + c], sDelta[warp * 16 + r]));
-      sDSw[r * LB + c] = __float2bfloat16(ds);
+  // step c's K, V and key mask: keys past T arrive as zeros under the −1e9
+  // bias, so they add exact zeros (dS·K with K = 0)
+  auto issue = [&](int c) {
+    const int st = c & 1, t0 = c * KS;
+    load_tile_async<KS, DP, BTHREADS>(sK + st * KS * LD, k, sx, b, h, t0, T, D, tid);
+    load_tile_async<KS, DP, BTHREADS>(sV + st * KS * LD, v, sx, b, h, t0, T, D, tid);
+    load_vec_async<KS, BTHREADS>(sM + st * KS, mrow, t0, T, tid);
+    cp_async_commit();
+  };
+  // → the stage of step c, landed for every thread, with c + 1's in flight
+  auto arrive = [&](int c) {
+    __syncthreads();  // every warp is done with the stage that c + 1 refills
+    if (c + 1 < nk) {
+      issue(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncwarp();
-    dots_nn<DP>(acc, sDSw, sK);  // dQ += bf16(dS)·K
+    __syncthreads();
+    return c & 1;
+  };
+
+  load_tile_async<QB, DP, BTHREADS>(sQ, q, sx, b, h, q0, T, D, tid);
+  load_tile_async<QB, DP, BTHREADS>(sG, dout, so, b, h, q0, T, D, tid);
+  issue(0);  // Q and dO land with the first step
+
+  // L and Δ of the lane's rows g and g + 8; rows past T have q = dO = 0
+  // and L = Δ = 0, so their dS is 0, and they are not written
+  const int r = q0 + warp * 16 + (lane >> 2);
+  const float L[2] = {r < T ? lse[row0 + r] : 0.f, r + 8 < T ? lse[row0 + r + 8] : 0.f};
+  const float Dl[2] = {r < T ? delta[row0 + r] : 0.f, r + 8 < T ? delta[row0 + r + 8] : 0.f};
+
+  uint32_t qf[DP / 16][4], gf[DP / 16][4];
+  float acc[DP / 8][4] = {};
+  for (int c = 0; c < nk; ++c) {
+    const int st = arrive(c);
+    if (c == 0) {
+      load_q_frags<DP>(qf, sQ + warp * 16 * LD, lane);
+      load_q_frags<DP>(gf, sG + warp * 16 * LD, lane);
+    }
+#pragma unroll
+    for (int j = 0; j < KS / NK; ++j) {
+      const bf16* sKj = sK + (st * KS + j * NK) * LD;
+      // s = S·scale + bias (each rounded once), P = exp(s − L),
+      // dS = P·(dP − Δ), dP = dO·Vᵀ: all in f32
+      float s[NK / 8][4], dp[NK / 8][4];
+      tile_dots<NK, DP>(s, qf, sKj, lane);
+      score_epilogue<NK>(s, sM + st * KS + j * NK, scale, lane);
+      tile_dots<NK, DP>(dp, gf, sV + (st * KS + j * NK) * LD, lane);
+#pragma unroll
+      for (int n = 0; n < NK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = __fmul_rn(expf(__fsub_rn(s[n][e], L[e >> 1])), __fsub_rn(dp[n][e], Dl[e >> 1]));
+      }
+      uint32_t pf[NK / 16][4];
+      p_frags<NK>(pf, s);
+      tile_pv<NK, DP, LD>(acc, pf, sKj, lane);  // dQ += bf16(dS)·K
+    }
   }
-  store_rows<DP>(dq, sx, b, h, q0 + warp * 16, T, D, acc, scale, sSw, lane);
+
+  // dQ·scale, rounded once, staged through the warp's own rows of sQ (its
+  // fragments are in registers)
+  write_rows<DP>(acc, scale, sQ + warp * 16 * LD, dq, sx, b, h, q0 + warp * 16, T, D, lane);
 }
 
 // row 4's tiles: the block's 64 keys, and query chunks of QC rows. QC = 32
@@ -258,8 +213,8 @@ bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   // exact zeros (P = exp(bias − 0) on q = 0, dO = 0; a stale L could overflow)
   auto issue = [&](int c) {
     const int st = c & 1, t0 = c * QC;
-    load_tile_async<QC, DP, BTHREADS>(sQ + st * QC * LD, q, sx, b, h, t0, T, D, tid);
-    load_tile_async<QC, DP, BTHREADS>(sG + st * QC * LD, dout, so, b, h, t0, T, D, tid);
+    load_tile_async<QC, DP, BTHREADS, false>(sQ + st * QC * LD, q, sx, b, h, t0, T, D, tid);
+    load_tile_async<QC, DP, BTHREADS, false>(sG + st * QC * LD, dout, so, b, h, t0, T, D, tid);
     load_vec_async<QC, BTHREADS>(sL + st * QC, lse + row0, t0, T, tid);
     load_vec_async<QC, BTHREADS>(sD + st * QC, delta + row0, t0, T, tid);
     cp_async_commit();
@@ -277,8 +232,8 @@ bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
     return c & 1;
   };
 
-  load_tile_async<KB, DP, BTHREADS>(sK, k, sx, b, h, k0, T, D, tid);
-  load_tile_async<KB, DP, BTHREADS>(sV, v, sx, b, h, k0, T, D, tid);
+  load_tile_async<KB, DP, BTHREADS, false>(sK, k, sx, b, h, k0, T, D, tid);
+  load_tile_async<KB, DP, BTHREADS, false>(sV, v, sx, b, h, k0, T, D, tid);
   issue(0);  // K and V land with the first chunk
 
   // the key bias of the lane's rows g and g + 8 (keys past T: −1e9)
@@ -344,10 +299,10 @@ struct BwdArgs {
 
 template <int DP>
 cudaError_t launch_dq(const BwdArgs& a) {
-  constexpr size_t smem = Tiles<DP>::bytes;
+  constexpr size_t smem = dq_smem_bytes<DP>();
   cudaError_t e = cudaFuncSetAttribute(bwd_dq_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  bwd_dq_kernel<DP><<<dim3((a.T + BR - 1) / BR, a.H, a.B), BTHREADS, smem, a.stream>>>(
+  bwd_dq_kernel<DP><<<dim3((a.T + QB - 1) / QB, a.H, a.B), BTHREADS, smem, a.stream>>>(
       a.q, a.k, a.v, a.sx, a.dout, a.so, a.lse, a.delta, a.mask, a.dq, a.T, a.H, a.D, a.scale);
   return cudaGetLastError();
 }

@@ -74,17 +74,33 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // rows [t0, t0 + ROWS) of head h of batch row b of src, D columns, into
-// smem [ROWS × (DP + 8)] by cp.async: zeros past D and past T
-template <int ROWS, int DP, int NTHREADS>
+// smem [ROWS × (DP + 8)] by cp.async: zeros past D and past T. FOLD_D
+// folds the test against D into the count of rows the thread copies (its
+// column is the same in every copy): a loop-invariant predicate held
+// across a kernel's loop is what ptxas spilled in the dQ and flash
+// kernels. Row 4 keeps the per-copy test: folded, it spilled 8 bytes at
+// DP 64 and ran 1.7% slower on an H100 (PERF.md).
+template <int ROWS, int DP, int NTHREADS, bool FOLD_D = true>
 __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* __restrict__ src, Strides st, int b, int h,
                                                 int t0, int T, int D, int tid) {
   constexpr int LD = DP + 8, VECS = DP / 8;
-  static_assert(ROWS * VECS % NTHREADS == 0, "whole copies per thread");
+  static_assert(ROWS * VECS % NTHREADS == 0 && NTHREADS % VECS == 0, "whole copies, one column a thread");
+  if constexpr (FOLD_D) {
+    const int c = (tid % VECS) * 8, r0 = tid / VECS;
+    const int rows = c < D ? T - t0 : 0;
 #pragma unroll
-  for (int it = 0; it < ROWS * VECS / NTHREADS; ++it) {
-    const int i = tid + it * NTHREADS, r = i / VECS, c = (i % VECS) * 8, t = t0 + r;
-    const bool ok = t < T && c < D;
-    cp_async16(dst + r * LD + c, ok ? src + st.at(b, h, t) + c : src, ok);
+    for (int it = 0; it < ROWS * VECS / NTHREADS; ++it) {
+      const int r = r0 + it * (NTHREADS / VECS);
+      const bool ok = r < rows;
+      cp_async16(dst + r * LD + c, ok ? src + st.at(b, h, t0 + r) + c : src, ok);
+    }
+  } else {
+#pragma unroll
+    for (int it = 0; it < ROWS * VECS / NTHREADS; ++it) {
+      const int i = tid + it * NTHREADS, r = i / VECS, c = (i % VECS) * 8, t = t0 + r;
+      const bool ok = t < T && c < D;
+      cp_async16(dst + r * LD + c, ok ? src + st.at(b, h, t) + c : src, ok);
+    }
   }
 }
 
@@ -222,13 +238,14 @@ __device__ __forceinline__ void write_rows(const float (&o)[DP / 8][4], float mu
 
 // o (the warp's 16 rows, already final in f32) → bf16 rows of out through
 // the warp's own rows of the Q tile (sQw, free once the Q fragments are in
-// registers); row_lse[r] to lse [B, H, T] for rows g and g + 8
+// registers); row_lse[r] to lse [B, H, T] for rows g and g + 8, unless lse
+// is null
 template <int DP>
 __device__ __forceinline__ void store_rows(const float (&o)[DP / 8][4], const float (&row_lse)[2], bf16* sQw,
                                            bf16* __restrict__ out, Strides lout, float* __restrict__ lse, int b,
                                            int h, int H, int t0, int T, int D, int lane) {
   write_rows<DP>(o, 1.f, sQw, out, lout, b, h, t0, T, D, lane);
-  if ((lane & 3) == 0) {
+  if (lse && (lane & 3) == 0) {
     const int g = lane >> 2;
     float* row = lse + ((size_t)b * H + h) * T;
     if (t0 + g < T) row[t0 + g] = row_lse[0];
@@ -303,6 +320,14 @@ __device__ __forceinline__ void store4(E* p, float a, float b, float c, float d)
 // (above 128 through attend_wide); returns a cudaError_t.
 int attend_heads_first(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse, int B,
                        int T, int H, int D, float scale, void* stream);
+
+// The two-pass core in rows 7 and 8's order (attention_packed.cu: bf16 of
+// the unnormalised exp(s − m) into P·V, o / l after it, no lse) on q, k, v
+// and o addressed by element strides (batch, head, time; D contiguous):
+// the attention core of attention.cu. T ≤ 512, D % 8 == 0 (above 128
+// through attend_wide in the same order); returns a cudaError_t.
+int attend_unnormalised(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask,
+                        void* out, int ob, int oh, int ot, int B, int T, int H, int D, float scale, void* stream);
 
 // The one-pass f32 core of row 1 (attention_fused.cu) on q, k, v and o
 // addressed by element strides (batch, head, time; D contiguous): rows 1,

@@ -16,6 +16,8 @@
 //   the TPU's matrix unit; here K is read in place).
 // - row 1's bf16 path (msa_fused_attention, attention_fused.cu) calls the
 //   same core through attend_heads_first, at any T.
+// - the attention core of rows 7 and 8 (attention.cu) calls it through
+//   attend_unnormalised, in their order of rounding (below).
 //
 // Same rounding points as the TPU kernels: scores accumulate in f32 from
 // bf16 q and k, s = S·scale + bias with bias −1e9 on masked keys (a row with
@@ -53,6 +55,15 @@
 // V and the key mask of 64 keys a stage): tile i+1's copy flies while tile
 // i's products run. 45.5 KB of shared memory a block at DP = 64, so several
 // blocks share an SM.
+//
+// Rows 7 and 8 (attention_block[_int8], msa_tpu/ops/pallas/attention.py
+// _attn_block_body :640-686) round elsewhere: pass 2 packs the
+// UNNORMALISED bf16(exp(s − m)) into the P·V fragments, and o is divided by
+// l after P·V (o / l correctly rounded), then rounded to bf16 once; no lse.
+// The kernel's template parameter UNNORM picks that order; the rest is
+// shared. There q, k and v come strided out of the [B·T, 3·H·DP]
+// projection buffer and o goes to [B·T, H·DP], so the shared memory a
+// block takes does not grow with T.
 #include <climits>
 
 #include "attention_mma.cuh"
@@ -78,7 +89,7 @@ constexpr size_t packed_smem_bytes() {
          + (size_t)2 * PK * sizeof(float);                 // the key mask of two stages
 }
 
-template <int DP>
+template <int DP, bool UNNORM>
 __global__ void __launch_bounds__(PTHREADS)
 packed_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, Strides lin,
                   const float* __restrict__ mask, bf16* __restrict__ out, Strides lout, float* __restrict__ lse,
@@ -143,7 +154,7 @@ packed_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const 
     }
   }
 
-  // pass 2: O = bf16(exp(s − m) / l) · V
+  // pass 2: O = bf16(exp(s − m) / l) · V, or bf16(exp(s − m)) · V, then / l
   const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
   float o[DP / 8][4] = {};
   for (int step = nt; step < steps; ++step) {
@@ -154,38 +165,59 @@ packed_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const 
 #pragma unroll
     for (int n = 0; n < PK / 8; ++n) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = div_rn(expf(s[n][e] - m[e >> 1]), l[e >> 1], rl[e >> 1]);
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[n][e] - m[e >> 1]);
+        s[n][e] = UNNORM ? p : div_rn(p, l[e >> 1], rl[e >> 1]);
+      }
     }
     uint32_t pf[PK / 16][4];
     p_frags<PK>(pf, s);
     tile_pv<PK, DP, LD>(o, pf, sV + st * PK * LD, lane);
+  }
+  if constexpr (UNNORM) {
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = __fdiv_rn(o[n][e], l[e >> 1]);
+    }
   }
 
   const float row_lse[2] = {m[0] + logf(l[0]), m[1] + logf(l[1])};
   store_rows<DP>(o, row_lse, sQw, out, lout, lse, b, h, H, q0 + warp * 16, T, D, lane);
 }
 
-template <int DP>
+template <int DP, bool UNNORM>
 cudaError_t launch_packed(const bf16* q, const bf16* k, const bf16* v, Strides lin, const float* mask, bf16* out,
                           Strides lout, float* lse, int B, int T, int H, int D, float scale, cudaStream_t s) {
   const int T_pad = (T + 127) / 128 * 128;
   constexpr size_t smem = packed_smem_bytes<DP>();
   cudaError_t e =
-      cudaFuncSetAttribute(packed_qkv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(packed_qkv_kernel<DP, UNNORM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  packed_qkv_kernel<DP><<<dim3(T_pad / PQ, H, B), PTHREADS, smem, s>>>(q, k, v, lin, mask, out, lout, lse, T, T_pad, H,
-                                                                       D, scale);
+  packed_qkv_kernel<DP, UNNORM><<<dim3(T_pad / PQ, H, B), PTHREADS, smem, s>>>(q, k, v, lin, mask, out, lout, lse, T,
+                                                                               T_pad, H, D, scale);
   return cudaGetLastError();
 }
 
-// max_t: 512 for rows 5 and 2, which mirror JAX's dispatch (longer inputs
-// go to row 6); none for row 1. The two passes run at any T_pad.
+template <bool UNNORM>
+cudaError_t launch_order(const bf16* q, const bf16* k, const bf16* v, Strides lin, const float* mask, bf16* out,
+                         Strides lout, float* lse, int B, int T, int H, int D, float scale, cudaStream_t s) {
+  // D is zero-padded to 32, 64 or 128 columns in shared memory
+  return D <= 32   ? launch_packed<32, UNNORM>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s)
+         : D <= 64 ? launch_packed<64, UNNORM>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s)
+                   : launch_packed<128, UNNORM>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s);
+}
+
+// max_t: 512 for rows 5, 2, 7 and 8, which mirror JAX's dispatch (longer
+// inputs go to row 6); none for row 1. The two passes run at any T_pad.
+// order: kNormBefore (rows 1, 2, 5) or kUnnormalised (rows 7, 8; lse null).
 int attend(const void* q, const void* k, const void* v, Strides lin, const void* mask, void* out, Strides lout,
-           void* lse, int B, int T, int H, int D, float scale, void* stream, int max_t = 512) {
+           void* lse, int B, int T, int H, int D, float scale, void* stream, int max_t = 512,
+           int order = kNormBefore) {
   if (T < 1 || T > max_t || D % 8 || D < 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (D > 128)  // the D-tiled kernel, p/denom rounded before P·V as here
+  if (D > 128)  // the D-tiled kernel, in the same order
     return attend_wide(q, k, v, lin.b, lin.h, lin.t, mask, out, lout.b, lout.h, lout.t, lse, B, T, H, D, scale, 1,
-                       kNormBefore, stream);
+                       order, stream);
   auto qp = static_cast<const bf16*>(q);
   auto kp = static_cast<const bf16*>(k);
   auto vp = static_cast<const bf16*>(v);
@@ -193,10 +225,9 @@ int attend(const void* q, const void* k, const void* v, Strides lin, const void*
   auto o = static_cast<bf16*>(out);
   auto l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // D is zero-padded to 32, 64 or 128 columns in shared memory
-  const cudaError_t e = D <= 32   ? launch_packed<32>(qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s)
-                        : D <= 64 ? launch_packed<64>(qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s)
-                                  : launch_packed<128>(qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s);
+  const cudaError_t e = order == kUnnormalised
+                            ? launch_order<true>(qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s)
+                            : launch_order<false>(qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s);
   return static_cast<int>(e);
 }
 
@@ -206,6 +237,12 @@ int attend_heads_first(const void* q, const void* k, const void* v, const void* 
                        int T, int H, int D, float scale, void* stream) {
   const Strides st{H * T * D, T * D, D};
   return attend(q, k, v, st, mask, out, st, lse, B, T, H, D, scale, stream, INT_MAX);
+}
+
+int attend_unnormalised(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask,
+                        void* out, int ob, int oh, int ot, int B, int T, int H, int D, float scale, void* stream) {
+  return attend(q, k, v, Strides{sb, sh, st}, mask, out, Strides{ob, oh, ot}, nullptr, B, T, H, D, scale, stream, 512,
+                kUnnormalised);
 }
 
 // qkv [B, T, 3, H, D] bf16 (contiguous), mask [B, T] f32 (1 = attend);

@@ -25,6 +25,12 @@
 // bound at 1,979 TOPS. The f32 hidden tile (12.6 MB at N=1024) makes a
 // round trip through device memory (L2 holds it).
 //
+// msa_ffn_fused_int8_f32 is the same W8A8 kernel under f32 compute
+// (compute_dtype="float32", quantize="int8"; the TPU kernel quantizes
+// x.astype(f32) and writes x.dtype): the f32 rows of x are quantized, and
+// fc_out's epilogue writes f32. Nothing else changes: before that last
+// rounding the bf16-x kernel computes the same f32 values from the same x.
+//
 // msa_ffn_fused_f32 is the same TPU kernel in f32 (the parity mode's
 // encoders, compute_dtype="float32"): two launches of the shared f32 SIMT
 // GEMM (gemm_f32.cuh, exact FMA, no TF32), fc_in with + b1 and the GELU in
@@ -63,14 +69,15 @@ extern "C" int msa_ffn_fused_f32(const void* x, const void* w1, const void* b1, 
   return static_cast<int>(e);
 }
 
-// x [M, D] bf16; w1 [F, D] int8, s1 [F] f32, b1 [F] f32; w2 [D, F] int8,
-// s2 [D] f32, b2 [D] f32. Scratch: xq [M, D] int8, xs [M] f32, hidden
-// [M, F] f32, hq [M, F] int8, hs [M] f32. out [M, D] bf16.
-extern "C" int msa_ffn_fused_int8(const void* x, const void* w1, const void* s1, const void* b1, const void* w2,
-                                  const void* s2, const void* b2, void* xq, void* xs, void* hidden, void* hq,
-                                  void* hs, void* out, int M, int D, int F, void* stream) {
+namespace {
+
+// the W8A8 FFN with x and out in E (bf16, or f32 under f32 compute)
+template <typename E>
+int ffn_int8(const void* x, const void* w1, const void* s1, const void* b1, const void* w2, const void* s2,
+             const void* b2, void* xq, void* xs, void* hidden, void* hq, void* hs, void* out, int M, int D, int F,
+             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = msa_quantize_rows(x, 1, xq, xs, M, D, stream);
+  int rc = msa_quantize_rows(x, sizeof(E) == 2, xq, xs, M, D, stream);
   if (rc) return rc;
   cudaError_t e = launch_gemm_s8<true, float>(static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w1),
                                               static_cast<const float*>(xs), static_cast<const float*>(s1),
@@ -79,10 +86,28 @@ extern "C" int msa_ffn_fused_int8(const void* x, const void* w1, const void* s1,
   if (e != cudaSuccess) return static_cast<int>(e);
   rc = msa_quantize_rows(hidden, 0, hq, hs, M, F, stream);
   if (rc) return rc;
-  e = launch_gemm_s8<false, bf16>(static_cast<const int8_t*>(hq), static_cast<const int8_t*>(w2),
-                                  static_cast<const float*>(hs), static_cast<const float*>(s2),
-                                  static_cast<const float*>(b2), static_cast<bf16*>(out), M, D, F, s);
+  e = launch_gemm_s8<false, E>(static_cast<const int8_t*>(hq), static_cast<const int8_t*>(w2),
+                               static_cast<const float*>(hs), static_cast<const float*>(s2),
+                               static_cast<const float*>(b2), static_cast<E*>(out), M, D, F, s);
   return static_cast<int>(e);
+}
+
+}  // namespace
+
+// x [M, D] bf16; w1 [F, D] int8, s1 [F] f32, b1 [F] f32; w2 [D, F] int8,
+// s2 [D] f32, b2 [D] f32. Scratch: xq [M, D] int8, xs [M] f32, hidden
+// [M, F] f32, hq [M, F] int8, hs [M] f32. out [M, D] bf16.
+extern "C" int msa_ffn_fused_int8(const void* x, const void* w1, const void* s1, const void* b1, const void* w2,
+                                  const void* s2, const void* b2, void* xq, void* xs, void* hidden, void* hq,
+                                  void* hs, void* out, int M, int D, int F, void* stream) {
+  return ffn_int8<bf16>(x, w1, s1, b1, w2, s2, b2, xq, xs, hidden, hq, hs, out, M, D, F, stream);
+}
+
+// As msa_ffn_fused_int8 with x and out f32.
+extern "C" int msa_ffn_fused_int8_f32(const void* x, const void* w1, const void* s1, const void* b1, const void* w2,
+                                      const void* s2, const void* b2, void* xq, void* xs, void* hidden, void* hq,
+                                      void* hs, void* out, int M, int D, int F, void* stream) {
+  return ffn_int8<float>(x, w1, s1, b1, w2, s2, b2, xq, xs, hidden, hq, hs, out, M, D, F, stream);
 }
 
 extern "C" const char* msa_cuda_error_string(int code) {

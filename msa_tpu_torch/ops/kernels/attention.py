@@ -37,7 +37,10 @@ identity.
 zeros, scale 1.0). x and the attention output are quantized per row;
 the projections dequantize in f32 in the TPU kernel's order of products,
 ``acc·xs·s + b`` for q and v and ``acc·s·xs + b`` for k (``:605-657``),
-``acc·as·so + bo`` for the output; the attention core is the bf16 one.
+``acc·as·so + bo`` for the output; the attention core is the one of the
+compute dtype: bf16 on bf16 x, and on f32 x (``compute_dtype="float32",
+quantize="int8"``, where JAX's dots run in f32) the f32 one, with q, k, v,
+the attention output and the result in f32.
 
 Two attention-only kernels serve the shapes ``attention_block`` does not
 take (the encoder then projects QKV and the output in plain PyTorch, as
@@ -325,15 +328,18 @@ def attention_block_int8(
 ) -> torch.Tensor:
     """[B, T, dm] → [B, T, dm] (pre-residual), W8A8. CPU tensors take
     :func:`attention_block_int8_plain`; CUDA tensors launch the kernel
-    (bf16 x, weights padded by :func:`pad_block_weights`)."""
+    (weights padded by :func:`pad_block_weights`): on bf16 x
+    ``msa_attention_block_int8``, on f32 x (f32 compute)
+    ``msa_attention_block_int8_f32``, counted in ``launches_f32``."""
     if x.device.type == "cpu":
         return attention_block_int8_plain(x, w_qkv_q, s_qkv, b_qkv, w_out_q, s_out, b_out, key_mask, num_heads, head_dim)
     b, t, dm = x.shape
     xp, mask_p, t_pad, dp = _kernel_inputs(x, key_mask, w_qkv_q, num_heads, "attention_block_int8")
-    dev, bf16, f32, i8 = x.device, torch.bfloat16, torch.float32, torch.int8
+    dev, f32, i8 = x.device, torch.float32, torch.int8
+    dt = torch.float32 if x.dtype == f32 else torch.bfloat16
     hd = num_heads * dp
     for name, tens, dtype, shape in (
-        ("x", xp, bf16, (b, t_pad, dm)),
+        ("x", xp, dt, (b, t_pad, dm)),
         ("w_qkv_q", w_qkv_q, i8, (3 * hd, dm)),
         ("s_qkv", s_qkv, f32, (3 * hd,)),
         ("b_qkv", b_qkv, f32, (3 * hd,)),
@@ -347,23 +353,30 @@ def attention_block_int8(
     xq = torch.empty((m, dm), dtype=i8, device=dev)
     aq = torch.empty((m, hd), dtype=i8, device=dev)
     xs, as_ = (torch.empty((m,), dtype=f32, device=dev) for _ in range(2))
-    qkv = torch.empty((m, 3 * hd), dtype=bf16, device=dev)
-    attn = torch.empty((m, hd), dtype=bf16, device=dev)
-    out = torch.empty((b, t_pad, dm), dtype=bf16, device=dev)
+    qkv = torch.empty((m, 3 * hd), dtype=dt, device=dev)
+    attn = torch.empty((m, hd), dtype=dt, device=dev)
+    out = torch.empty((b, t_pad, dm), dtype=dt, device=dev)
+    scratch = [xq, xs, qkv, attn]
+    if dt == f32:  # the f32 core's lse
+        scratch.append(torch.empty((b, num_heads, t_pad), dtype=f32, device=dev))
+    entry = "msa_attention_block_int8_f32" if dt == f32 else "msa_attention_block_int8"
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = build.library().msa_attention_block_int8(
+    rc = getattr(build.library(), entry)(
         xp.data_ptr(), w_qkv_q.data_ptr(), s_qkv.data_ptr(), b_qkv.data_ptr(), w_out_q.data_ptr(),
-        s_out.data_ptr(), b_out.data_ptr(), mask_p.data_ptr(), xq.data_ptr(), xs.data_ptr(), qkv.data_ptr(),
-        attn.data_ptr(), aq.data_ptr(), as_.data_ptr(), out.data_ptr(), b, t_pad, dm, num_heads, dp,
-        _block_scale(w_qkv_q, num_heads, head_dim), stream,
+        s_out.data_ptr(), b_out.data_ptr(), mask_p.data_ptr(), *(t.data_ptr() for t in scratch), aq.data_ptr(),
+        as_.data_ptr(), out.data_ptr(), b, t_pad, dm, num_heads, dp, _block_scale(w_qkv_q, num_heads, head_dim), stream,
     )
-    build.check(rc, "attention_block_int8")
-    attention_block_int8.launches += 1
+    build.check(rc, entry)
+    if dt == f32:
+        attention_block_int8.launches_f32 += 1
+    else:
+        attention_block_int8.launches += 1
     quantize_rows.launches += 2  # x and the attention output, launched from C
     return out[:, :t]
 
 
-attention_block_int8.launches = 0  # kernel launches since the last reset (the smoke reads it)
+# kernel launches since the last reset, bf16 and f32 x (the smoke reads them)
+attention_block_int8.launches = attention_block_int8.launches_f32 = 0
 
 
 # --- attention on the packed QKV projection (rows 5 and 6) ---------------------

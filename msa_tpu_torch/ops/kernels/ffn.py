@@ -20,7 +20,9 @@ body ``_ffn_int8_kernel`` :106-133). Its weights come quantized per output
 channel from the f32 masters (``w1_q [d_ff, d]`` int8 with ``s1 [d_ff]``,
 ``w2_q [d, d_ff]`` with ``s2 [d]``) and its biases are f32. x and the f32
 GELU output are quantized per row; the dots dequantize as ``acc·xs·s1 +
-b1`` and ``acc·hs·s2 + b2`` in f32 (``ffn.py:123,131``).
+b1`` and ``acc·hs·s2 + b2`` in f32 (``ffn.py:123,131``). The result is in
+x's dtype: bf16, or f32 under f32 compute (``compute_dtype="float32",
+quantize="int8"``), where the kernel quantizes the f32 rows of x.
 """
 
 from __future__ import annotations
@@ -112,16 +114,19 @@ def ffn_int8_plain(x, w1_q, s1, b1, w2_q, s2, b2) -> torch.Tensor:
 
 def ffn_fused_int8(x, w1_q, s1, b1, w2_q, s2, b2) -> torch.Tensor:
     """x [N, d] → [N, d], W8A8. CPU tensors take :func:`ffn_int8_plain`;
-    CUDA tensors launch the kernel (bf16 x; d % 128 == 0, d_ff % 128 == 0)."""
+    CUDA tensors launch the kernel (d % 128 == 0, d_ff % 128 == 0): on bf16
+    x ``msa_ffn_fused_int8``, on f32 x (f32 compute) ``msa_ffn_fused_int8_f32``,
+    counted in ``launches_f32``."""
     if x.device.type == "cpu":
         return ffn_int8_plain(x, w1_q, s1, b1, w2_q, s2, b2)
     n, d = x.shape
     f = w1_q.shape[0]
     if d % 128 or f % 128:
         raise ValueError(f"ffn_fused_int8 kernel needs d and d_ff multiples of 128, got {d}, {f}")
-    dev, bf16, f32, i8 = x.device, torch.bfloat16, torch.float32, torch.int8
+    dev, f32, i8 = x.device, torch.float32, torch.int8
+    dt = f32 if x.dtype == f32 else torch.bfloat16
     for name, t, dtype, shape in (
-        ("x", x, bf16, (n, d)),
+        ("x", x, dt, (n, d)),
         ("w1_q", w1_q, i8, (f, d)),
         ("s1", s1, f32, (f,)),
         ("b1", b1, f32, (f,)),
@@ -134,17 +139,22 @@ def ffn_fused_int8(x, w1_q, s1, b1, w2_q, s2, b2) -> torch.Tensor:
     hidden = torch.empty((n, f), dtype=f32, device=dev)
     hq = torch.empty((n, f), dtype=i8, device=dev)
     xs, hs = (torch.empty((n,), dtype=f32, device=dev) for _ in range(2))
-    out = torch.empty((n, d), dtype=bf16, device=dev)
+    out = torch.empty((n, d), dtype=dt, device=dev)
+    entry = "msa_ffn_fused_int8_f32" if dt == f32 else "msa_ffn_fused_int8"
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = build.library().msa_ffn_fused_int8(
+    rc = getattr(build.library(), entry)(
         x.data_ptr(), w1_q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2_q.data_ptr(), s2.data_ptr(),
         b2.data_ptr(), xq.data_ptr(), xs.data_ptr(), hidden.data_ptr(), hq.data_ptr(), hs.data_ptr(),
         out.data_ptr(), n, d, f, stream,
     )
-    build.check(rc, "ffn_fused_int8")
-    ffn_fused_int8.launches += 1
+    build.check(rc, entry)
+    if dt == f32:
+        ffn_fused_int8.launches_f32 += 1
+    else:
+        ffn_fused_int8.launches += 1
     quantize_rows.launches += 2  # x and the hidden tile, launched from C
     return out
 
 
-ffn_fused_int8.launches = 0  # kernel launches since the last reset (the smoke reads it)
+# kernel launches since the last reset, bf16 and f32 x (the smoke reads them)
+ffn_fused_int8.launches = ffn_fused_int8.launches_f32 = 0

@@ -1,12 +1,13 @@
 """Where the time of one serving forward, or one training step, goes on the card.
 
-    python3 -m msa_tpu_torch.profile_slice [--tokens 512] [--batch 2] [--steps 3] [--quantize int8|none|f32]
+    python3 -m msa_tpu_torch.profile_slice [--tokens 512] [--batch 2] [--steps 3] [--quantize int8|none|f32|int8_f32]
                                            [--samples 80000] [--train | --conv | --asr]
 
 Builds the full-width models (``PipelineModels.initialize``, by default in
 the int8 serving recipe; ``--quantize none`` for the bf16 one, ``f32``
 for the encoders of JAX's f32 parity mode, f32 through the kernels' f32
-variants, on the init's weights), runs the
+variants, on the init's weights; ``int8_f32`` for W8A8 under f32 compute,
+``compute_dtype="float32"`` with ``quantize="int8"``), runs the
 segment graph at ``--samples`` audio samples per segment (the
 ``segment_samples`` of its config; 240000, 15 s, puts the audio encoder on
 the flash kernel), warms
@@ -52,7 +53,7 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=None, help="2 for a forward, 8 for --train")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=20)
-    ap.add_argument("--quantize", choices=("int8", "none", "f32"), default="int8")
+    ap.add_argument("--quantize", choices=("int8", "none", "f32", "int8_f32"), default="int8")
     ap.add_argument("--samples", type=int, default=None, help="audio samples a segment (with --train: the audio step's clip)")
     ap.add_argument("--train", action="store_true", help="one text (with --samples: audio) training step instead of a forward")
     ap.add_argument("--conv", action="store_true", help="row 11 at the wav2vec2 stride-2 layers instead of a forward")
@@ -112,8 +113,9 @@ def main(argv=None) -> int:
             training.train_step(model, loss, opt, *batch)
 
     else:
-        if args.quantize == "f32":  # the parity mode's encoders (imported trunks serve this path)
-            models = G.PipelineModels.initialize(seed=0, quantize="none", device="cuda").with_encoders(compute_dtype="float32")
+        if args.quantize in ("f32", "int8_f32"):  # f32 compute: the parity mode's encoders, or W8A8 under f32
+            quantize = "none" if args.quantize == "f32" else "int8"
+            models = G.PipelineModels.initialize(seed=0, quantize=quantize, device="cuda").with_encoders(compute_dtype="float32")
         else:
             models = G.PipelineModels.initialize(seed=0, quantize=args.quantize, device="cuda")
         pipe = G.SegmentPipeline(models, SystemConfig(pipeline=PipelineConfig(segment_samples=samples)))

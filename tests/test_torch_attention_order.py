@@ -14,7 +14,13 @@ xor 2). On top of that:
   max moves), pass 2 recomputes the scores and accumulates bf16(exp(s − m)
   / l) · V, where the plain version takes the exact Σ exp(s − m);
 - row 6 sums each 128-key block's P·V in an accumulator of its own and adds
-  it as acc·α + pv, as the plain version does.
+  it as acc·α + pv, as the plain version does;
+- the attention core of rows 7 and 8 (``attention_block[_int8]``) runs
+  rows 5 and 2's two passes in its own order: pass 2 accumulates the
+  unnormalised bf16(exp(s − m)) · V, and o / l comes after P·V, rounded
+  once; held against the plain core (``_attend``) alone, and with the model
+  in its place inside both blocks' plain versions at head dims 32, 64 and
+  128, as the smoke holds rows 7 and 8.
 
 Rows 5 and 2 divide by l as q = p·r with r = RN(1/l), then one FMA step on
 the exact remainder (``div_rn`` in attention_packed.cu); a test below holds
@@ -143,6 +149,25 @@ def flash_order_model(qkv, key_mask, block=A.FLASH_BLOCK_K):
     return _finish(acc / l, m + torch.log(l), t, h, d, qkv.dtype)
 
 
+def block_core_order_model(qkv, key_mask, num_heads, dt, scale, tile=64):
+    """The core of rows 7 and 8 as the kernel orders it, on ``_attend``'s
+    arguments (qkv [B, T, 3·H·DP], T a multiple of 128): pass 1 online
+    (m, l) over 64-key tiles, pass 2 bf16(exp(s − m)) · V, then o / l."""
+    b, t, w3 = qkv.shape
+    q, k, v, bias, _ = _operands(qkv.view(b, t, 3, num_heads, w3 // (3 * num_heads)), key_mask)
+    m = torch.full((b, num_heads, t, 1), -1e30)
+    l = torch.zeros_like(m)
+    for k0 in range(0, t, tile):
+        s = _scores(q, k, bias, k0, tile, scale)
+        m_new = torch.maximum(m, _quad(s, torch.maximum))
+        l = l * torch.exp(m - m_new) + _quad(torch.exp(s - m_new), torch.add)
+        m = m_new
+    o = torch.zeros_like(q)
+    for k0 in range(0, t, tile):
+        o = o + _pv(torch.exp(_scores(q, k, bias, k0, tile, scale) - m).to(torch.bfloat16).float(), v, k0, tile)
+    return (o / l).to(dt).permute(0, 2, 1, 3).reshape(b, t, -1)
+
+
 def _check(got, want):
     (o, lse), (po, plse) = got, want
     assert o.shape == po.shape and lse.shape == plse.shape
@@ -164,6 +189,55 @@ def test_packed_order_within_the_smoke_bounds(t, h, d):
 def test_flash_order_within_the_smoke_bounds(t, h, d):
     qkv, mask = _inputs(t + d, 2, t, h, d)
     _check(flash_order_model(qkv, mask), A.flash_attention_lse_plain(qkv, mask))
+
+
+@pytest.mark.parametrize("t", [128, 256, 512])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_block_core_order_within_the_smoke_bounds(t, d):
+    """The core alone against the plain core, with the unpadded D's scale."""
+    h = 2
+    qkv, mask = _inputs(t + d, 2, t, h, d)
+    qkv = qkv.float().reshape(2, t, 3 * h * d)
+    got = block_core_order_model(qkv, mask, h, torch.bfloat16, A._scale(d))
+    want = A._attend(qkv, mask, h, torch.bfloat16, A._scale(d))
+    assert got.shape == want.shape and torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    bound = KERNEL_RTOL * want.float().abs().max().item() + 1e-3
+    assert err <= bound, f"max abs err {err:.4e} > {bound:.4e}"
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dm, heads", [(128, 4), (128, 2), (256, 2)])  # D = 32, 64, 128
+def test_rows_7_and_8_with_the_core_order_within_the_smoke_bounds(monkeypatch, int8, dm, heads):
+    """attention_block and attention_block_int8 (bf16 x) with the core's
+    order model in place of the plain core, against their plain versions at
+    the bound phase 3 of the smoke holds the kernels to, at T = 200 (padded
+    to 256) with a ragged row and a row with no valid key."""
+    from msa_tpu_torch.ops import quant as Q
+
+    rng = np.random.default_rng(dm + heads)
+    t = 200
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32))
+
+    x = normal(2, t, dm).to(torch.bfloat16)
+    w_qkv, w_out = normal(3 * dm, dm, scale=dm**-0.5), normal(dm, dm, scale=dm**-0.5)
+    b_qkv, b_out = normal(3 * dm, scale=0.02), normal(dm, scale=0.02)
+    mask = torch.ones(2, t)
+    mask[0, 150:] = 0.0
+    mask[1] = 0.0
+    if int8:
+        (wq, sq), (wo, so) = (Q.quantize_weight_axis(w, axis=1) for w in (w_qkv, w_out))
+        args, plain = (x, wq, sq[:, 0], b_qkv, wo, so[:, 0], b_out, mask, heads), A.attention_block_int8_plain
+    else:
+        args, plain = (x, w_qkv.to(torch.bfloat16), b_qkv, w_out.to(torch.bfloat16), b_out, mask, heads), A.attention_block_plain
+    want = plain(*args)
+    monkeypatch.setattr(A, "_attend", block_core_order_model)
+    got = plain(*args)
+    err = (got.float() - want.float()).abs().max().item()
+    bound = KERNEL_RTOL * want.float().abs().max().item() + 1e-3
+    assert torch.isfinite(got.float()).all() and err <= bound, f"max abs err {err:.4e} > {bound:.4e}"
 
 
 def test_row2_takes_row5_order():

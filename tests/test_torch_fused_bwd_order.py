@@ -3,6 +3,12 @@
 and held against the plain versions the kernels are checked against on the
 card, at the smoke's bounds (``chip_smoke.py``).
 
+- Row 3 (``bwd_dq_kernel``, ``csrc/attention_bwd.cu``): one block per 64
+  queries; per step of 64 keys (32 at DP = 128) S = Q·Kᵀ and dP = dO·Vᵀ
+  summed over 16-column slices of D in order, P = exp(S·scale + bias − L)
+  and dS = P·(dP − Δ) in f32, bf16(dS)·K added to dQ a 16-key slice at a
+  time, the steps in order, and dQ·scale at the end. Keys past T (to the
+  next multiple of 64) come as k = v = 0 under the −1e9 bias.
 - Row 4 (``bwd_dkv_kernel``, ``csrc/attention_bwd.cu``): one block per 64
   keys; per query chunk of 32 rows Sᵀ = K·Qᵀ and dPᵀ =
   V·dOᵀ summed over 16-column slices of D in order, P = exp(Sᵀ·scale +
@@ -60,6 +66,58 @@ def _slices16(a, b_):
     for c in range(0, a.shape[-1], 16):
         out = out + a[..., c : c + 16] @ b_[..., c : c + 16, :]
     return out
+
+
+# --- row 3 ---------------------------------------------------------------------------
+
+
+def dq_order_model(q, k, v, key_mask, lse, o, g):
+    """Row 3 as the kernel orders it, on attention_bwd_plain's arguments →
+    dq in the operands' dtype."""
+    b, h, t, d = q.shape
+    dp, scale = _dp(d), A._scale(d)
+    nk = 32 if dp == 128 else 64  # keys a step takes
+    tp = -(-t // 64) * 64
+
+    def pad(x):
+        return F.pad(x.float(), (0, dp - d, 0, tp - t))
+
+    qf, gf, kf, vf = pad(q), pad(g), pad(k), pad(v)  # rows and keys past T: zeros
+    lq = F.pad(lse.float(), (0, tp - t))[..., None]  # L = 0 past T
+    delta = F.pad(A._delta(o, g), (0, tp - t))[..., None]  # Δ = 0 past T
+    bias = torch.where(F.pad(key_mask, (0, tp - t)) > 0, 0.0, -1e9)[:, None, None, :]  # per key column
+    dq = torch.zeros(b, h, tp, dp)
+    for k0 in range(0, tp, nk):
+        ks, vs = kf[:, :, k0 : k0 + nk], vf[:, :, k0 : k0 + nk]
+        p = torch.exp(_slices16(qf, ks.transpose(-1, -2)) * scale + bias[..., k0 : k0 + nk] - lq)
+        ds = (p * (_slices16(gf, vs.transpose(-1, -2)) - delta)).to(torch.bfloat16).float()
+        for c in range(0, nk, 16):  # each mma step adds a 16-key slice to the accumulator
+            dq = dq + ds[..., c : c + 16] @ ks[:, :, c : c + 16]
+    return (dq * scale)[:, :, :t, :d].to(q.dtype)
+
+
+@pytest.mark.parametrize("t, h, d", [(40, 4, 24), (100, 3, 32), (300, 2, 64), (512, 2, 64), (130, 2, 128), (200, 2, 96)])
+def test_dq_order_within_the_smoke_bounds(t, h, d):
+    """T = 40, 100, 300, 130 and 200 end mid-step; D = 24 and 96 are
+    zero-padded to the kernel's DP (32, 128)."""
+    (q, k, v, g), mask = _heads(t + d + 1, 2, h, t, d, 4, torch.bfloat16)
+    o, lse = _forward(q, k, v, mask)
+    pdq, _, _ = A.attention_bwd_plain(q, k, v, mask, lse, o, g)
+    _check_rows("dq", dq_order_model(q, k, v, mask, lse, o, g), pdq)
+
+
+def test_dq_padded_keys_add_exact_zeros():
+    """Keys past T arrive as k = v = 0 under the −1e9 bias: their dS·K
+    products are exact zeros, so 64 such keys leave dQ as it was, even for
+    the row with no valid key (L ≈ −1e9 + log T_pad, where P on a padded
+    key is about 1/T_pad, not 0)."""
+    (q, k, v, g), mask = _heads(5, 2, 2, 64, 32, 4, torch.bfloat16)
+    o, lse = _forward(q, k, v, mask)
+    dq = dq_order_model(q, k, v, mask, lse, o, g)
+    assert lse.min() < -1e8  # the row with no valid key
+    q2, k2, v2, o2, g2 = (F.pad(x, (0, 0, 0, 64)) for x in (q, k, v, o, g))
+    dq2 = dq_order_model(q2, k2, v2, F.pad(mask, (0, 64)), F.pad(lse, (0, 64)), o2, g2)
+    torch.testing.assert_close(dq2[:, :, :64], dq, rtol=0, atol=0)
 
 
 # --- row 4 ---------------------------------------------------------------------------

@@ -105,7 +105,12 @@ def test_padded_int8_weights_are_bit_equal(rng, d):
     assert torch.equal(got, want)
 
 
-RECIPES = {"float32": ("float32", "none"), "bfloat16": ("bfloat16", "none"), "int8": ("bfloat16", "int8")}
+RECIPES = {
+    "float32": ("float32", "none"),
+    "bfloat16": ("bfloat16", "none"),
+    "int8": ("bfloat16", "int8"),
+    "int8_f32": ("float32", "int8"),  # W8A8 under f32 compute
+}
 
 
 @pytest.mark.parametrize("recipe", sorted(RECIPES))
@@ -136,7 +141,7 @@ def test_encoder_at_any_head_dim_matches_jax_attention_block(rng, recipe, dm, he
         got = f32(penc(torch.from_numpy(x), torch.from_numpy(mask)))
     assert calls == [dm // heads] * 2  # both layers, with the unpadded head dim
     assert np.isfinite(got).all()
-    bound = 1e-3 if dtype == "float32" else bf16_bound(want)
+    bound = 1e-3 if recipe == "float32" else bf16_bound(want)  # int8 at either dtype: bf16's bound
     assert np.abs(got - want).max() <= bound, (np.abs(got - want).max(), bound)
 
 

@@ -39,7 +39,12 @@ from msa_tpu_torch.pipeline import graph as PG
 from torch_parity import AUDIO, FACE, TEXT, bf16_bound, jax_encoder_cfg, port_encoder_cfg, to_numpy
 
 LONG = 12_000  # audio T = (12000 − 10)/5 + 1 → (2399 − 8)/4 + 1 = 598
-RECIPES = {"float32": ("float32", "none"), "bfloat16": ("bfloat16", "none"), "int8": ("bfloat16", "int8")}
+RECIPES = {
+    "float32": ("float32", "none"),
+    "bfloat16": ("bfloat16", "none"),
+    "int8": ("bfloat16", "int8"),
+    "int8_f32": ("float32", "int8"),  # W8A8 under f32 compute
+}
 
 
 def _inputs(jax_models, b, samples, tokens, vocab):
@@ -62,12 +67,12 @@ def _port_inputs(inp):
     return PG.SegmentInputs(**{f.name: getattr(inp, f.name) for f in PG.dataclasses.fields(PG.SegmentInputs)})
 
 
-def _hold_hostpack(got, want, dtype):
+def _hold_hostpack(got, want, recipe):
     assert got.shape == want.shape and np.isfinite(got).all()
     for name, sl in PG.PACK_SLICES.items():
         err = np.abs(got[:, sl] - want[:, sl]).max()
-        bound = 1e-3 if dtype == "float32" else bf16_bound(want[:, sl])
-        assert err <= bound, f"{dtype} {name}: {err:.3e} > {bound:.3e}"
+        bound = 1e-3 if recipe == "float32" else bf16_bound(want[:, sl])
+        assert err <= bound, f"{recipe} {name}: {err:.3e} > {bound:.3e}"
 
 
 @pytest.mark.parametrize("recipe", sorted(RECIPES))
@@ -100,7 +105,7 @@ def test_long_segments_match_jax(recipe, monkeypatch):
     )
     out, _ = PG.SegmentPipeline(pm, SystemConfig(pipeline=PipelineConfig(segment_samples=LONG))).run_host(_port_inputs(inp))
     assert calls == [(2, 598, 3, 4, 32)] * 2  # each audio layer, none of the text's
-    _hold_hostpack(out["hostpack"].numpy(), want, dtype)
+    _hold_hostpack(out["hostpack"].numpy(), want, recipe)  # int8 at either dtype takes bf16's bound
 
 
 def test_tiny_from_the_seed_alone_matches_jax(tiny_models):
