@@ -8,11 +8,18 @@ Phases, one line each with its seconds:
      print ptxas's registers and spills of each kernel, and of the flash,
      packed-QKV (rows 5 and 2, and with UNNORM = 1 the attention-block core
      of rows 7 and 8), dQ (row 3), dK/dV (row 4) and f32 fused (row 1)
-     kernels once more on a line each, at DP 32, 64 and 128;
+     kernels once more on a line each, at DP 32, 64 and 128, and of the
+     int8 wgmma GEMM of rows 7 and 9 (gemm_s8_kernel<BM, BN, GELU, out>),
+     which must not spill;
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, and time both with CUDA events: the bf16
      attention_block and ffn_fused, the row-quantize kernel (exactly: codes
-     and scales equal), attention_block_int8 and ffn_fused_int8 on bf16 x
+     and scales equal), the int8 GEMM of rows 7 and 9 alone (gemm_s8:
+     scales 1, bias 0, f32 out) against torch._int_mm exactly, timed beside
+     it, at a layer's four GEMMs (QKV, Wo, fc_in, fc_out) and M = 1024,
+     500, 256, 128, 64 on the planner's tile and split, every tile with
+     splits of 1 to 24 at one shape, a ragged K, and with scales and bias
+     against its plain version; attention_block_int8 and ffn_fused_int8 on bf16 x
      and on f32 x (W8A8 under f32 compute: the f32 entries), and the
      attention-only kernels packed_qkv_attention_lse (also at the text and 5 s
      audio training steps' shapes, B=8) and flash_attention_lse (o and lse,
@@ -337,8 +344,10 @@ ON_TRAIN_F32 = "phase 21: one f32 text training step of the imported BERT-base t
 ON_INT8_F32 = "phase 23: run_host with W8A8 under f32 compute, B=2, one forward at bucket 512 and one at bucket 32"
 
 # the previous design's device ms at the recorded shape (PERF.md, NVIDIA H100
-# 80GB HBM3 at 700 W), printed beside the new reading
-PREVIOUS_MS = {"attention_bwd_dq": 0.1639}
+# 80GB HBM3 at 700 W: rows 7 and 9 on the mma.sync int8 GEMM), printed
+# beside the new reading
+PREVIOUS_MS = {"attention_block_int8": 0.0679, "ffn_fused_int8": 0.0753, "attention_block_int8_f32": 0.1090,
+               "ffn_fused_int8_f32": 0.0728}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -456,11 +465,17 @@ def meeting_waveform(seconds: float = 20.0) -> np.ndarray:
 
 def template_args(mangled: str, kernel: str) -> str:
     """The integer and bool template arguments of ``kernel`` in a mangled
-    name: "...17packed_qkv_kernelILi64ELb1EEEv..." → "64, 1"."""
+    name, and an f32 or bf16 type argument after them:
+    "...17packed_qkv_kernelILi64ELb1EEEv..." → "64, 1";
+    "...14gemm_s8_kernelILi128ELi64ELb0E13__nv_bfloat16EEv..." → "128, 64, 0, bf16"."""
     tail, args = mangled.split(kernel + "I", 1)[1], []
     while (m := re.match(r"L[a-z](\d+)E", tail)) is not None:
         args.append(m.group(1))
         tail = tail[m.end():]
+    if tail.startswith("f"):
+        args.append("f32")
+    elif tail.startswith("13__nv_bfloat16"):
+        args.append("bf16")
     return ", ".join(args)
 
 
@@ -532,6 +547,8 @@ def main() -> int:
     from msa_tpu_torch.ops.kernels import build
     from msa_tpu_torch.ops.kernels import conv as KC
     from msa_tpu_torch.ops.kernels import ffn as F
+    from msa_tpu_torch.ops.kernels import _common as KC_
+    from msa_tpu_torch.ops.kernels import gemm_s8 as GS
     from msa_tpu_torch.ops.kernels import quant as KQ
     from msa_tpu_torch.pipeline import graph as G
 
@@ -543,6 +560,7 @@ def main() -> int:
         "attention_block_int8": (A.attention_block_int8, "launches"),
         "ffn_fused_int8": (F.ffn_fused_int8, "launches"),
         "quantize_rows": (KQ.quantize_rows, "launches"),
+        "gemm_s8": (GS.gemm_s8, "launches"),
         "packed_qkv_attention_lse": (A.packed_qkv_attention_lse, "launches"),
         "flash_attention_lse": (A.flash_attention_lse, "launches"),
         "mha_attention": (A.mha_attention, "launches"),
@@ -573,12 +591,15 @@ def main() -> int:
     lib_path, log = build.build(verbose=True)
     build.library()
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line or "wgmma" in line:
             print("  ptxas:", line.strip().split("ptxas info    :")[-1].strip(), flush=True)
     for kernel, used in ptxas_usage(
-        log, ("flash_kernel", "packed_qkv_kernel", "bwd_dq_kernel", "bwd_dkv_kernel", "fused_f32_kernel")
+        log, ("flash_kernel", "packed_qkv_kernel", "bwd_dq_kernel", "bwd_dkv_kernel", "fused_f32_kernel", "gemm_s8_kernel")
     ).items():
         print(f"  ptxas {kernel}: {used}", flush=True)
+        if kernel.startswith("gemm_s8_kernel"):
+            check("0 bytes spill stores" in used, f"{kernel} spills: {used}")
+    check("gemm_s8_kernel" in log, "no gemm_s8_kernel in the ptxas log")
     phase("build", t0, library=lib_path.name)
 
     # --- 3. kernels against their plain versions --------------------------------
@@ -656,16 +677,34 @@ def main() -> int:
     def attention_bytes(b, t, w_bytes, x_bytes=2):
         return x_bytes * 2 * b * t * dm + w_bytes + 4 * b * t
 
-    def block_composite(x, mask, wq, bq, wo, bo):
+    def block_composite(x, mask, wq, bq, wo, bo, h=heads):
         """The library's composite of an attention block: cuBLAS QKV, one
         SDPA call, cuBLAS Wo, in x's dtype (f32 under exact_fp32)."""
-        b, t, _ = x.shape
-        qkv = F_.linear(x, wq, bq.to(x.dtype)).view(b, t, 3, heads, dm // heads)
-        return F_.linear(sdpa(qkv, mask).transpose(1, 2).reshape(b, t, dm), wo, bo.to(x.dtype))
+        b, t, d_ = x.shape
+        qkv = F_.linear(x, wq, bq.to(x.dtype)).view(b, t, 3, h, -1)
+        return F_.linear(sdpa(qkv, mask).transpose(1, 2).reshape(b, t, -1), wo, bo.to(x.dtype))
 
     def ffn_composite(x, w1_, b1_, w2_, b2_):
         """The library's composite of the FFN: cuBLAS, exact F.gelu, cuBLAS."""
         return F_.linear(F_.gelu(F_.linear(x, w1_, b1_.to(x.dtype))), w2_, b2_.to(x.dtype))
+
+    def w8a8_linear(x2, w_q, s_w, b_, dtype):
+        """One W8A8 projection from library calls: the plain row
+        quantization, torch._int_mm, the f32 dequantisation, in dtype."""
+        xq_, xs_ = Q.quantize_rows(x2)
+        return (torch._int_mm(xq_, w_q.t()).float() * xs_ * s_w + b_).to(dtype)
+
+    def block_w8a8_composite(x, mask, wq_q, sq, bq, wo_q, so, bo, h=heads):
+        """Row 7 from library calls: W8A8 QKV, one SDPA call, W8A8 Wo."""
+        b, t, d_ = x.shape
+        qkv = w8a8_linear(x.reshape(b * t, d_), wq_q, sq, bq, x.dtype).view(b, t, 3, h, -1)
+        return w8a8_linear(sdpa(qkv, mask).transpose(1, 2).reshape(b * t, -1), wo_q, so, bo, x.dtype)
+
+    def ffn_w8a8_composite(x, w1_q_, s1_, b1_, w2_q_, s2_, b2_):
+        """Row 9 from library calls: W8A8 fc_in, F.gelu, W8A8 fc_out."""
+        return w8a8_linear(F_.gelu(w8a8_linear(x, w1_q_, s1_, b1_, torch.float32)), w2_q_, s2_, b2_, x.dtype)
+
+    W8A8_LIB = "quantize + torch._int_mm + dequantize, {}, quantize + torch._int_mm + dequantize (W8A8 from library calls)"
 
     BLOCK_LIB = "cuBLAS bf16 QKV + scaled_dot_product_attention + cuBLAS Wo, 3 calls"
     FFN_LIB = "cuBLAS bf16 fc_in + F.gelu + cuBLAS fc_out, 3 calls"
@@ -725,7 +764,90 @@ def main() -> int:
             f"  quantize_rows {rows}x{cols} {str(dtype).split('.')[-1]}: codes and scales equal {timing_text(tm, bms, by)}",
             flush=True,
         )
+        if dtype == f32:  # the FFN hidden tile's form: each row's amax given (as fc_in's epilogue leaves it)
+            amax = x.abs().amax(dim=1).view(torch.int32).contiguous()
+            q, s = KQ.quantize_rows(x, amax)
+            torch.cuda.synchronize()
+            n_diff = (q != pq).sum().item() + (s != ps).sum().item()
+            check(n_diff == 0, f"quantize_rows(x, amax) {rows}x{cols}: {n_diff} codes or scales differ")
+            ms_amax = device_ms(lambda: KQ.quantize_rows(x, x.abs().amax(dim=1).view(torch.int32)), only="quantize_rows_amax")
+            print(f"    with the row amax given: codes and scales equal; kernel_ms={ms_amax:.4f} (device)", flush=True)
         record("quantize_rows", 0.0, (rows, cols) == (1024, dff), tm, bms, by)
+
+    # the int8 GEMM of rows 7 and 9 alone (gemm_s8: scales 1, bias 0, f32
+    # out) against torch._int_mm (cuBLASLt, int8 x int8 -> int32; never on the
+    # path): equal value for value, its int32 sums converted to f32 once on
+    # both sides. A layer's four GEMMs at each row count of the main path on
+    # the planner's tile and split; rows and columns of 127 put sums past
+    # 2^24, where a split converted to f32 before the sum would round
+    def codes(*shape):
+        c = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+        c[::7] = 127
+        return c
+
+    def gemm_core(a, w, p=None):
+        m, n = a.shape[0], w.shape[0]
+        return GS.gemm_s8(a, w, torch.ones(m, device=dev), torch.ones(n, device=dev), torch.zeros(n, device=dev), p)
+
+    def gemm_exact(tag, a, w, p=None):
+        got, want = gemm_core(a, w, p), torch._int_mm(a, w.t())
+        torch.cuda.synchronize()
+        n_diff = (got != want.float()).sum().item()
+        check(n_diff == 0, f"gemm_s8 {tag}: {n_diff} values differ from torch._int_mm")
+        return want.abs().max().item()
+
+    for gname, n, k in (("QKV", 3 * dm, dm), ("Wo", dm, dm), ("fc_in", dff, dm), ("fc_out", dm, dff)):
+        w_c = codes(n, k)
+        for m in (1024, 500, 256, 128, 64):
+            a_c = codes(m, k)
+            p = GS.plan(m, n, k)
+            top = gemm_exact(f"{gname} M={m}", a_c, w_c)
+            ones_m, ones_n, zeros_n = torch.ones(m, device=dev), torch.ones(n, device=dev), torch.zeros(n, device=dev)
+            args = (a_c, w_c, ones_m, ones_n, zeros_n)
+            tm = timings(lambda: GS.gemm_s8(*args), lambda: GS.gemm_s8_plain(*args))
+            lib_ms, lib_call = device_ms(lambda: torch._int_mm(a_c, w_c.t())), time_ms(lambda: torch._int_mm(a_c, w_c.t()))
+            bms, by = bound_ms(m * k + n * k + 4 * m + 8 * n + 4 * m * n, int8=2 * m * n * k)
+            print(f"  gemm_s8 {gname} M={m} N={n} K={k} plan {p.bm}x{p.bn}, {p.splits} split(s), {p.ctas(m, n)} CTAs: "
+                  f"equal to torch._int_mm (max |sum| {top:.0f}) {timing_text(tm, bms, by)}", flush=True)
+            print(f"    torch._int_mm (library, off the path) ms={lib_ms:.4f} (device) call_ms={lib_call:.4f}; "
+                  f"kernel / library {tm['ms'] / lib_ms:.2f}", flush=True)
+            record("gemm_s8", 0.0, (gname, m) == ("fc_in", 1024), tm, bms, by)
+            if (gname, m) == ("fc_in", 1024):
+                results["gemm_s8"]["library_ms"] = lib_ms
+    # both tiles, splits from 1 to one a k-tile, at fc_out M = 500 (24
+    # k-tiles, rows of padding); M = 4096, where the planner takes 128 × 128;
+    # a K that ends inside a k-tile; the epilogue with scales and bias, and
+    # fc_in's (GELU and each row's amax, from which the hidden tile's row
+    # quantization must give the plain version's codes and scales), against
+    # the plain versions
+    a_c, w_c = codes(500, dff), codes(dm, dff)
+    for t_ in GS.TILES:
+        for splits in (1, 2, 5, 24):
+            gemm_exact(f"fc_out M=500 plan {t_}x{t_}/{splits}", a_c, w_c, GS.Plan(t_, t_, splits))
+    check(GS.plan(4096, dff, dm).bm == 128, f"the planner at M=4096: {GS.plan(4096, dff, dm)}")
+    gemm_exact("fc_in M=4096", codes(4096, dm), codes(dff, dm))
+    gemm_exact("M=77 N=256 K=416", codes(77, 416), codes(256, 416))
+    sargs = (a_c, w_c, rand(500, dtype=f32).abs() + 0.01, rand(dm, dtype=f32).abs() + 0.01, rand(dm, dtype=f32))
+    n_diff = (GS.gemm_s8(*sargs) != GS.gemm_s8_plain(*sargs)).sum().item()
+    check(n_diff == 0, f"gemm_s8 with scales and bias: {n_diff} values differ from its plain version")
+    w1q_, s1_ = Q.quantize_weight_axis(rand(dff, dm, scale=dm**-0.5, dtype=f32), axis=1)
+    for m in (1024, 500, 64):
+        xq_, xs_ = Q.quantize_rows(rand(m, dm))
+        gargs = (xq_, w1q_, xs_[:, 0].contiguous(), s1_[:, 0].contiguous(), b1.float())
+        (h, amax), (ph, _) = GS.gemm_s8(*gargs, gelu=True), GS.gemm_s8_plain(*gargs, gelu=True)
+        torch.cuda.synchronize()
+        err = (h - ph).abs().max().item()
+        check(err <= 1e-5 * ph.abs().max().item(), f"gemm_s8 fc_in epilogue M={m}: max abs err {err:.3e}")
+        check(torch.equal(amax, h.abs().amax(dim=1).view(torch.int32)), f"gemm_s8 fc_in M={m}: row amax differs")
+        hq_, hs_ = KQ.quantize_rows(h, amax)
+        pq, ps = Q.quantize_rows(h)
+        torch.cuda.synchronize()
+        n_diff = (hq_ != pq).sum().item() + (hs_ != ps).sum().item()
+        check(n_diff == 0, f"fc_in amax + quantize_rows(h, amax) M={m}: {n_diff} codes or scales differ")
+        print(f"  gemm_s8 fc_in epilogue M={m}: GELU max abs err {err:.3e} against the plain version (bit-equal: "
+              f"{torch.equal(h, ph)}); its row amax exact, the hidden tile's codes and scales equal", flush=True)
+    print(f"  gemm_s8: tiles {GS.TILES} at splits 1, 2, 5 and 24, fc_in at M=4096 (128 x 128), and M=77 N=256 "
+          "K=416, equal to torch._int_mm; with scales and bias equal to its plain version", flush=True)
 
     # int8 weights from f32 masters, as the encoder layers derive them
     def int8_weight(out_f, in_f):
@@ -758,6 +880,8 @@ def main() -> int:
                 attention_bytes(b, T_, 4 * dm * dm + 4 * 2 * 4 * dm, x.element_size()), int8=2 * b * T_ * dm * 4 * dm, **dots
             )
             report(f"{name} B={b} T={T_} (T_pad={-(-T_ // 128) * 128})", err, rel, bnd, tm, bms, by)
+            if (b, T_) == (2, 512):
+                print(f"    on the earlier mma.sync int8 GEMM this read {PREVIOUS_MS[name]} ms (device)", flush=True)
             if (b, T_) in ((2, 250), (2, 512)):
                 with G.exact_fp32():
                     if dtype == bf16:
@@ -765,6 +889,8 @@ def main() -> int:
                     else:
                         lib_text(lambda: block_composite(x, mask, w_qkv32, b_qkv, w_out32, b_out),
                                  "cuBLAS f32 QKV (TF32 off) + f32 scaled_dot_product_attention + cuBLAS f32 Wo, 3 calls (no W8A8 call)")
+                    lib_text(lambda: block_w8a8_composite(x, mask, wqkv_q, s_qkv, b_qkv, wout_q, s_out, b_out),
+                             W8A8_LIB.format("scaled_dot_product_attention"))
             record(name, err, (b, T_) == (2, 512), tm, bms, by)
 
         name = "ffn_fused_int8" + ("_f32" if dtype == f32 else "")
@@ -777,6 +903,8 @@ def main() -> int:
             tm = timings(lambda: F.ffn_fused_int8(*args), lambda: F.ffn_int8_plain(*args))
             bms, by = bound_ms(2 * x.element_size() * n * dm + 2 * dm * dff + 4 * 2 * (dm + dff), int8=2 * 2 * n * dm * dff)
             report(f"{name} N={n}", err, rel, bnd, tm, bms, by)
+            if n == 1024:
+                print(f"    on the earlier mma.sync int8 GEMM this read {PREVIOUS_MS[name]} ms (device)", flush=True)
             if n in (500, 1024):
                 with G.exact_fp32():
                     if dtype == bf16:
@@ -784,7 +912,12 @@ def main() -> int:
                     else:
                         lib_text(lambda: ffn_composite(x, w1_32c, b1, w2_32c, b2),
                                  "cuBLAS f32 fc_in (TF32 off) + F.gelu + cuBLAS f32 fc_out, 3 calls (no W8A8 call)")
+                    lib_text(lambda: ffn_w8a8_composite(*args), W8A8_LIB.format("F.gelu"))
             record(name, err, n == 1024, tm, bms, by)
+        # the buffers the int8 kernels keep zero at rest: the split-K sums and
+        # counters, the hidden rows' amax (fc_out restores it)
+        for buf in ("gemm_s8_ws", "gemm_s8_counters", "row_amax"):
+            check(bool((KC_.zeroed(buf, dev, 0) == 0).all()), f"{buf} is not zero after the int8 kernels")
 
     # the new core of rows 7 and 8 at its other head dims: 32 (DP 32, 24
     # heads) and 128 (DP 128, 6 heads) at T = 128, 256, 512, bf16 and int8,
@@ -1049,7 +1182,7 @@ def main() -> int:
     pipe8 = G.SegmentPipeline(models8)
     runs8 = runs  # the same inputs as the bf16 recipe: its errors stand beside these
     int8_counts = drive(
-        "int8", pipe8, runs8, {**zero, "attention_block_int8": 24, "ffn_fused_int8": 24, "quantize_rows": 96}
+        "int8", pipe8, runs8, {**zero, "attention_block_int8": 24, "ffn_fused_int8": 24, "quantize_rows": 96, "gemm_s8": 96}
     )
 
     t1 = time.perf_counter()
@@ -1151,7 +1284,7 @@ def main() -> int:
     stream_counts = counts()
     phase("run_stream_window", t0, bytes=packed.nbytes, **stream_counts)
     check(
-        stream_counts == {**zero, "attention_block_int8": 24, "ffn_fused_int8": 24, "quantize_rows": 96},
+        stream_counts == {**zero, "attention_block_int8": 24, "ffn_fused_int8": 24, "quantize_rows": 96, "gemm_s8": 96},
         f"run_stream launches {stream_counts}, expected 24 of each int8 kernel",
     )
     host_inp = G.SegmentInputs(
@@ -1216,7 +1349,7 @@ def main() -> int:
         ),
         (
             "long_int8", models8,
-            {**zero, "attention_block_int8": 12, "flash_attention_lse": 12, "ffn_fused_int8": 24, "quantize_rows": 72},
+            {**zero, "attention_block_int8": 12, "flash_attention_lse": 12, "ffn_fused_int8": 24, "quantize_rows": 72, "gemm_s8": 72},
             lambda pipe: (pipe, {
                 "attention_block_int8": A.attention_block_int8_plain,
                 "ffn_fused_int8": F.ffn_int8_plain,
@@ -1385,8 +1518,7 @@ def main() -> int:
             bms, by = bound_ms(4 * one + stats + n_out * one, bf16=ops * b * h * T_ * T_ * d)
             err, rel, bnd = max(errs[n] for n in outs)
             report(f"{name} B={b} T={T_} H={h} D={d} (plain ms: dq, dk and dv together)", err, rel, bnd, tm, bms, by)
-            was = f"; the previous design read {PREVIOUS_MS[name]} ms here" if main and name in PREVIOUS_MS else ""
-            print(f"    {name}: {ops * b * h * T_ * T_ * d / tm['ms'] / 1e9:.1f} TFLOP/s on {ops}·B·H·T²·D{was}", flush=True)
+            print(f"    {name}: {ops * b * h * T_ * T_ * d / tm['ms'] / 1e9:.1f} TFLOP/s on {ops}·B·H·T²·D", flush=True)
             record(name, err, main, tm, bms, by)
             if main:
                 results[name]["library_ms"] = lib_ms
@@ -2432,7 +2564,7 @@ def main() -> int:
             wo_h, bo_h = rand(dm_w, dm_w, scale=dm_w**-0.5, dtype=f32), rand(dm_w, scale=0.02, dtype=f32)
             m_ = key_mask(2, 100)
             proj_flops, attn_flops = 2 * 2 * 100 * dm_w * 4 * dm_w, 4 * 2 * 4 * 100 * 100 * d
-            for rec, counter in (("bf16", "attention_block"), ("int8", {"attention_block_int8": 1, "quantize_rows": 2}),
+            for rec, counter in (("bf16", "attention_block"), ("int8", {"attention_block_int8": 1, "quantize_rows": 2, "gemm_s8": 2}),
                                  ("f32", "attention_block_f32")):
                 dt_w = f32 if rec == "f32" else bf16
                 x = rand(2, 100, dm_w, dtype=dt_w)
@@ -2467,6 +2599,12 @@ def main() -> int:
                 err, rel, bnd = (compare_gemm if rec == "f32" else compare)(tag, got, want)
                 print(f"  {tag}: max_abs_err={err:.4e} rel={rel:.3e} bound={bnd:.4e}", flush=True)
                 wide_time(tag, run_blk, plain_blk, nbytes + 4 * 2 * 100, ops)
+                if rec == "int8":
+                    lib_text(lambda: block_w8a8_composite(x, m_, wq_q, sq_, bq_h, wo_q, so_, bo_h, 4),
+                             W8A8_LIB.format("scaled_dot_product_attention"))
+                else:
+                    lib_text(lambda: block_composite(x, m_, wq_c, bq_h, wo_c, bo_h, 4),
+                             f"cuBLAS {rec} QKV + scaled_dot_product_attention + cuBLAS {rec} Wo, 3 calls")
         # 2-layer encoders through rows 7, 8 and 8 f32 at D = 192 (DP 256) and 256
         for dm_c, heads_c in ((768, 4), (512, 2)):
             for dtype_c, quantize, kname in (("bfloat16", "none", "attention_block"), ("bfloat16", "int8", "attention_block_int8"),
@@ -2541,7 +2679,7 @@ def main() -> int:
     pipe_q = G.SegmentPipeline(models_q)
     runs_q = [(tokens, inputs(models_q, tokens)) for tokens in (512, 32)]
     int8_f32_counts = drive(
-        "int8_f32", pipe_q, runs_q, {**zero, "attention_block_int8_f32": 24, "ffn_fused_int8_f32": 24, "quantize_rows": 96}
+        "int8_f32", pipe_q, runs_q, {**zero, "attention_block_int8_f32": 24, "ffn_fused_int8_f32": 24, "quantize_rows": 96, "gemm_s8": 96}
     )
     t1 = time.perf_counter()
     exact_q = G.SegmentPipeline(models_q.with_encoders(attention_impl="einsum", ffn_impl="dense"))
@@ -2576,6 +2714,8 @@ def main() -> int:
             ("attention_block_int8", "msa_tpu_torch/csrc/attention.cu", "msa_tpu/ops/pallas/attention.py:779", int8_counts, ON_INT8),
             ("ffn_fused_int8", "msa_tpu_torch/csrc/ffn.cu", "msa_tpu/ops/pallas/ffn.py:166", int8_counts, ON_INT8),
             ("quantize_rows", "msa_tpu_torch/csrc/quant.cu", "msa_tpu/ops/quant.py:47", int8_counts, ON_INT8),
+            # the int8 dots of rows 9 and 7 (ffn.py:120 and :127; attention.py:607-633 and :679-689)
+            ("gemm_s8", "msa_tpu_torch/csrc/gemm_s8.cuh", "msa_tpu/ops/pallas/ffn.py:120", int8_counts, ON_INT8),
             (
                 "packed_qkv_attention_lse", "msa_tpu_torch/csrc/attention_packed.cu", "msa_tpu/ops/pallas/attention.py:489",
                 train_counts, f"{ON_TRAIN} (its recorded shape); phase 9's custom-width forward launches it 2 times in each recipe",

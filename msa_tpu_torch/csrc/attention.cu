@@ -58,13 +58,15 @@
 // int8=True), pallas_call at :779, body _attn_block_body :574-695, wrapper
 // :760-815) with five launches: quantize the rows of x (quant.cu); the int8
 // QKV GEMM of gemm_s8.cuh with the epilogue acc·xs·s + b (acc·s·xs + b for
-// K, as on the TPU), rounded to bf16; the same attention core as above
+// K, as on the TPU), rounded to bf16, on the tile and K split the planner
+// picked (ops/kernels/gemm_s8.py); the same attention core as above
 // (score and P·V dots stay bf16, as on the TPU); quantize the rows of the
 // bf16 attention output over all heads, padded columns included (zeros
 // move no row's amax, so the codes and scales are those of the unpadded
 // output; its row amax needs every head, so
 // it sits between the core and the Wo GEMM); the int8 Wo GEMM with
-// acc·as·so + bo, rounded to bf16. At B=2, T_pad=512 the projections are
+// acc·as·so + bo, rounded to bf16, on its own plan. At B=2, T_pad=512 the
+// projections are
 // 4.8 G int8 operations and the two attention dots 3.2 GFLOP of bf16:
 // tensor-core bound, at 1,979 TOPS and 989 TFLOP/s respectively.
 //
@@ -99,16 +101,14 @@ cudaError_t launch_core(const void* qkv, const void* mask, void* attn, int B, in
 template <typename E>
 int attention_block_int8(const void* x, const void* wqkv, const void* sqkv, const void* bqkv, const void* wout,
                          const void* sout, const void* bout, const void* mask, void* xq, void* xs, void* qkv,
-                         void* attn, void* lse, void* aq, void* as, void* out, int B, int T, int DM, int H, int DP,
-                         float scale, void* stream) {
+                         void* attn, void* lse, void* aq, void* as, void* out, void* ws, void* counters, int B, int T,
+                         int DM, int H, int DP, int plan_qkv, int plan_out, float scale, void* stream) {
   constexpr int is_bf16 = sizeof(E) == 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * T, HD = H * DP;
   int rc = msa_quantize_rows(x, is_bf16, xq, xs, M, DM, stream);
   if (rc) return rc;
-  cudaError_t e = launch_gemm_s8<false, E>(static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wqkv),
-                                           static_cast<const float*>(xs), static_cast<const float*>(sqkv),
-                                           static_cast<const float*>(bqkv), static_cast<E*>(qkv), M, 3 * HD, DM, s, HD,
+  cudaError_t e = launch_gemm_s8<false, E>(xq, wqkv, xs, sqkv, bqkv, qkv, M, 3 * HD, DM, plan_qkv, ws, counters, s, HD,
                                            2 * HD);
   if (e != cudaSuccess) return static_cast<int>(e);
   if constexpr (is_bf16) {
@@ -121,9 +121,7 @@ int attention_block_int8(const void* x, const void* wqkv, const void* sqkv, cons
   if (rc) return rc;
   rc = msa_quantize_rows(attn, is_bf16, aq, as, M, HD, stream);
   if (rc) return rc;
-  e = launch_gemm_s8<false, E>(static_cast<const int8_t*>(aq), static_cast<const int8_t*>(wout),
-                               static_cast<const float*>(as), static_cast<const float*>(sout),
-                               static_cast<const float*>(bout), static_cast<E*>(out), M, DM, HD, s);
+  e = launch_gemm_s8<false, E>(aq, wout, as, sout, bout, out, M, DM, HD, plan_out, ws, counters, s);
   return static_cast<int>(e);
 }
 
@@ -185,15 +183,19 @@ extern "C" int msa_attention_block_f32(const void* x, const void* wqkv, const vo
 // [3·H·DP] f32; wout [DM, H·DP] int8 with sout [DM] f32 and bout [DM] f32;
 // mask [B, T] f32. Scratch: xq [B·T, DM] int8, xs [B·T] f32, qkv
 // [B·T, 3·H·DP] bf16, attn [B·T, H·DP] bf16, aq [B·T, H·DP] int8, as [B·T]
-// f32. out [B·T, DM] bf16. T ≤ 512, DP 32, 64 or a multiple of 128,
+// f32. out [B·T, DM] bf16. ws and counters: the int8 GEMM's split-K
+// workspace and per-tile counters (int32, the counters zero at rest);
+// plan_qkv and plan_out: the two GEMMs' plans (bm | bn << 8 | splits << 16,
+// ops/kernels/gemm_s8.py). T ≤ 512, DP 32, 64 or a multiple of 128,
 // DM % 128 == 0.
 extern "C" int msa_attention_block_int8(const void* x, const void* wqkv, const void* sqkv, const void* bqkv,
                                         const void* wout, const void* sout, const void* bout, const void* mask,
                                         void* xq, void* xs, void* qkv, void* attn, void* aq, void* as, void* out,
-                                        int B, int T, int DM, int H, int DP, float scale, void* stream) {
+                                        void* ws, void* counters, int B, int T, int DM, int H, int DP, int plan_qkv,
+                                        int plan_out, float scale, void* stream) {
   if (bad_block_dp(DP)) return static_cast<int>(cudaErrorInvalidValue);
   return attention_block_int8<bf16>(x, wqkv, sqkv, bqkv, wout, sout, bout, mask, xq, xs, qkv, attn, nullptr, aq, as,
-                                    out, B, T, DM, H, DP, scale, stream);
+                                    out, ws, counters, B, T, DM, H, DP, plan_qkv, plan_out, scale, stream);
 }
 
 // As msa_attention_block_int8 under f32 compute: x, the scratch qkv and
@@ -202,8 +204,9 @@ extern "C" int msa_attention_block_int8(const void* x, const void* wqkv, const v
 extern "C" int msa_attention_block_int8_f32(const void* x, const void* wqkv, const void* sqkv, const void* bqkv,
                                             const void* wout, const void* sout, const void* bout, const void* mask,
                                             void* xq, void* xs, void* qkv, void* attn, void* lse, void* aq, void* as,
-                                            void* out, int B, int T, int DM, int H, int DP, float scale, void* stream) {
+                                            void* out, void* ws, void* counters, int B, int T, int DM, int H, int DP,
+                                            int plan_qkv, int plan_out, float scale, void* stream) {
   if (bad_block_dp(DP)) return static_cast<int>(cudaErrorInvalidValue);
   return attention_block_int8<float>(x, wqkv, sqkv, bqkv, wout, sout, bout, mask, xq, xs, qkv, attn, lse, aq, as, out,
-                                     B, T, DM, H, DP, scale, stream);
+                                     ws, counters, B, T, DM, H, DP, plan_qkv, plan_out, scale, stream);
 }

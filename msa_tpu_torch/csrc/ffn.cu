@@ -18,12 +18,17 @@
 // quantize the rows of x (quant.cu); the int8 fc_in GEMM of gemm_s8.cuh
 // with the epilogue acc·xs·s1 + b1 and the GELU, writing an f32 hidden tile
 // (the TPU kernel quantizes the f32 GELU output, not a bf16 rounding of
-// it); quantize the rows of the hidden tile over all d_ff columns (a row
-// spans every block of the fc_in grid, so this is a second pass); the int8
-// fc_out GEMM with acc·hs·s2 + b2, rounded to bf16. At N=1024 that is
+// it) and max-reducing each row's |h| into amax; quantize the rows of the
+// hidden tile over all d_ff columns with that amax (a row spans every
+// block of the fc_in grid, so this is a second pass, but an elementwise
+// one: quant.cu msa_quantize_rows_amax); the int8 fc_out GEMM with
+// acc·hs·s2 + b2, rounded to bf16, which zeroes amax again. At N=1024 that is
 // 9.7 G int8 operations against ~7 MB of compulsory traffic: tensor-core
 // bound at 1,979 TOPS. The f32 hidden tile (12.6 MB at N=1024) makes a
-// round trip through device memory (L2 holds it).
+// round trip through device memory (L2 holds it). Each GEMM runs on the
+// tile and K split the planner picked (ops/kernels/gemm_s8.py): fc_out,
+// which fixed 128 × 128 tiles cut into 6–48 CTAs, runs on 72–192; the
+// wrapper passes the split-K workspace, the per-tile counters and amax.
 //
 // msa_ffn_fused_int8_f32 is the same W8A8 kernel under f32 compute
 // (compute_dtype="float32", quantize="int8"; the TPU kernel quantizes
@@ -74,21 +79,18 @@ namespace {
 // the W8A8 FFN with x and out in E (bf16, or f32 under f32 compute)
 template <typename E>
 int ffn_int8(const void* x, const void* w1, const void* s1, const void* b1, const void* w2, const void* s2,
-             const void* b2, void* xq, void* xs, void* hidden, void* hq, void* hs, void* out, int M, int D, int F,
-             void* stream) {
+             const void* b2, void* xq, void* xs, void* hidden, void* hq, void* hs, void* out, void* ws, void* counters,
+             void* amax, int M, int D, int F, int plan_in, int plan_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = msa_quantize_rows(x, sizeof(E) == 2, xq, xs, M, D, stream);
   if (rc) return rc;
-  cudaError_t e = launch_gemm_s8<true, float>(static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w1),
-                                              static_cast<const float*>(xs), static_cast<const float*>(s1),
-                                              static_cast<const float*>(b1), static_cast<float*>(hidden), M, F, D,
-                                              s);
+  cudaError_t e =
+      launch_gemm_s8<true, float>(xq, w1, xs, s1, b1, hidden, M, F, D, plan_in, ws, counters, s, 0, 0, amax);
   if (e != cudaSuccess) return static_cast<int>(e);
-  rc = msa_quantize_rows(hidden, 0, hq, hs, M, F, stream);
+  rc = msa_quantize_rows_amax(hidden, amax, hq, hs, M, F, stream);
   if (rc) return rc;
-  e = launch_gemm_s8<false, E>(static_cast<const int8_t*>(hq), static_cast<const int8_t*>(w2),
-                               static_cast<const float*>(hs), static_cast<const float*>(s2),
-                               static_cast<const float*>(b2), static_cast<E*>(out), M, D, F, s);
+  // fc_out zeroes amax for the next call (the quantization above has read it)
+  e = launch_gemm_s8<false, E>(hq, w2, hs, s2, b2, out, M, D, F, plan_out, ws, counters, s, 0, 0, amax);
   return static_cast<int>(e);
 }
 
@@ -96,18 +98,38 @@ int ffn_int8(const void* x, const void* w1, const void* s1, const void* b1, cons
 
 // x [M, D] bf16; w1 [F, D] int8, s1 [F] f32, b1 [F] f32; w2 [D, F] int8,
 // s2 [D] f32, b2 [D] f32. Scratch: xq [M, D] int8, xs [M] f32, hidden
-// [M, F] f32, hq [M, F] int8, hs [M] f32. out [M, D] bf16.
+// [M, F] f32, hq [M, F] int8, hs [M] f32. out [M, D] bf16. ws, counters and
+// amax [M]: the int8 GEMM's split-K workspace and per-tile counters and the
+// hidden rows' amax (int32, all zero at rest); plan_in and plan_out: fc_in's
+// and fc_out's plans (bm | bn << 8 | splits << 16).
 extern "C" int msa_ffn_fused_int8(const void* x, const void* w1, const void* s1, const void* b1, const void* w2,
                                   const void* s2, const void* b2, void* xq, void* xs, void* hidden, void* hq,
-                                  void* hs, void* out, int M, int D, int F, void* stream) {
-  return ffn_int8<bf16>(x, w1, s1, b1, w2, s2, b2, xq, xs, hidden, hq, hs, out, M, D, F, stream);
+                                  void* hs, void* out, void* ws, void* counters, void* amax, int M, int D, int F,
+                                  int plan_in, int plan_out, void* stream) {
+  return ffn_int8<bf16>(x, w1, s1, b1, w2, s2, b2, xq, xs, hidden, hq, hs, out, ws, counters, amax, M, D, F, plan_in,
+                        plan_out, stream);
 }
 
 // As msa_ffn_fused_int8 with x and out f32.
 extern "C" int msa_ffn_fused_int8_f32(const void* x, const void* w1, const void* s1, const void* b1, const void* w2,
                                       const void* s2, const void* b2, void* xq, void* xs, void* hidden, void* hq,
-                                      void* hs, void* out, int M, int D, int F, void* stream) {
-  return ffn_int8<float>(x, w1, s1, b1, w2, s2, b2, xq, xs, hidden, hq, hs, out, M, D, F, stream);
+                                      void* hs, void* out, void* ws, void* counters, void* amax, int M, int D, int F,
+                                      int plan_in, int plan_out, void* stream) {
+  return ffn_int8<float>(x, w1, s1, b1, w2, s2, b2, xq, xs, hidden, hq, hs, out, ws, counters, amax, M, D, F, plan_in,
+                         plan_out, stream);
+}
+
+// The int8 GEMM of rows 7 and 9 on its own: c [M, N] f32 = (f32(a·wᵀ)·rs)·cs
+// + bias, a [M, K] int8, w [N, K] int8, rs [M], cs [N], bias [N] f32, on
+// the given plan; ws and counters as above. With amax (int32 [M], zero),
+// fc_in's epilogue: c = gelu(...), each row's max |c| into amax.
+extern "C" int msa_gemm_s8(const void* a, const void* w, const void* rs, const void* cs, const void* bias, void* c,
+                           void* ws, void* counters, void* amax, int M, int N, int K, int plan, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      amax ? launch_gemm_s8<true, float>(a, w, rs, cs, bias, c, M, N, K, plan, ws, counters, s, 0, 0, amax)
+           : launch_gemm_s8<false, float>(a, w, rs, cs, bias, c, M, N, K, plan, ws, counters, s);
+  return static_cast<int>(e);
 }
 
 extern "C" const char* msa_cuda_error_string(int code) {

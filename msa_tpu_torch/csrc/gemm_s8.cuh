@@ -1,4 +1,4 @@
-// int8 GEMM with a dequantising epilogue, for the W8A8 kernels:
+// int8 GEMM with a dequantising epilogue, for the W8A8 kernels (rows 7 and 9):
 //   C[m, n] = act( f32(Σ_k A[m, k]·W[n, k]) · row_scale[m] · col_scale[n] + bias[n] )
 // A int8 [M, K], W int8 [N, K] (PyTorch's Linear layout), int32
 // accumulation, f32 epilogue, C f32 or bf16.
@@ -10,31 +10,117 @@
 // transposed). __fmul_rn/__fadd_rn keep nvcc from contracting them into an
 // FMA, so the dequantised value is bit-equal to the plain version's.
 //
-// Tensor cores through `mma.sync.m16n8k32.s8.s8.s32`, fragments read from
-// shared memory with 32-bit loads; tiles of 128×128 stream through shared
-// memory with the same 2-stage cp.async pipeline as gemm.cuh. This is the
-// simple first design; wgmma and TMA are still to come.
+// What bounds it on the card: at the encoders' shapes (M = B·T ≤ 1024 rows,
+// K and N 768–3072) one GEMM is 1.2–4.8 G int8 operations, 0.6–2.4 µs at
+// 1,979 TOP/s, against 1–4 MB of compulsory traffic: the operations, but
+// so few that a launch that leaves SMs idle or walks K serially sets the
+// time. So the design fills the card first:
 //
-// Limits the wrappers check: N % 128 == 0, K % 64 == 0, A and W 16-byte
-// aligned. M is arbitrary (rows past M are zero-filled and not stored).
+// - Tensor cores through wgmma.mma_async.m64nBNk32.s32.s8.s8, A and W both
+//   read from shared memory by descriptor (K-major, the only layout wgmma
+//   takes for 8-bit types; both operands are K-major already), one
+//   warpgroup per 64 rows of the tile, the int32 accumulators in registers.
+// - Square tiles of 64 or 128 and a split of K into S runs of whole
+//   128-byte k-tiles, picked per (M, N, K) by the planner
+//   (msa_tpu_torch/ops/kernels/gemm_s8.py) from the card's timings of every
+//   candidate and passed as arguments: 128 × 128 where that grid alone
+//   fills the SMs, else 64 × 64 (one warpgroup a CTA), and K = 3072 split
+//   where its tiles hold under half the SMs.
+// - k-tiles of 128 bytes come in through a ring of 4 stages (64 × 64, 64
+//   KB) or 3 (128 × 128, 96 KB), so that three or two CTAs share an SM, by
+//   cp.async, written in the 128-byte swizzle that the wgmma descriptors
+//   name; rows past M and bytes past K are zero-filled (src-size 0) and
+//   never stored. cp.async, not TMA: A is a scratch tensor whose address
+//   changes every call, so TMA would encode a tensor map on the host per
+//   launch, and the host already sets the wall. Every thread copies; a CTA
+//   barrier and cp.async groups guard the ring.
+// - Split-K stays exact: each split adds its int32 partial tile into an
+//   int32 workspace with atomic adds (in the accumulators' register order,
+//   so they are coalesced; integer sums are the same in any order), and
+//   the last CTA of the tile to arrive (a per-tile counter, __threadfence
+//   before and after) reads the sum back, zeroes the workspace and the
+//   counter for the next launch, and runs the epilogue: the sum is
+//   converted to f32 once, as the plain version's int8_matmul does.
+//   Converting per split would round wherever a partial passes 2^24 (|sum|
+//   reaches 127²·3072 ≈ 4.95·10^7 at K = 3072). Reading back each split's
+//   own partial instead cost an L2 round trip per split.
+// - fc_in's epilogue (GELU) also max-reduces |h| of each row into
+//   row_amax (atomicMax on the f32 bits, exact in any order for values
+//   ≥ 0), so that the hidden tile's row quantization (quant.cu,
+//   msa_quantize_rows_amax) runs no reduction; fc_out's launch (no GELU,
+//   row_amax given) zeroes those rows again for the next call.
+//
+// The wrappers check what the kernel takes: N % 128 == 0, K % 16 == 0,
+// A and W 16-byte aligned, any M; the entry points check the plan.
 #pragma once
 
 #include "gemm.cuh"
 
 namespace {
 
-constexpr int SBM = 128;       // block tile rows
-constexpr int SBN = 128;       // block tile columns
-constexpr int SBK = 64;        // k depth per stage (bytes)
-constexpr int SLD = SBK + 16;  // padded smem row: 80 bytes = 20 words, conflict-free fragment reads
-constexpr int STHREADS = 256;  // 8 warps as 2 (m) × 4 (n), 64×32 each
+constexpr int S8_BK = 128;  // bytes of K a stage: one 128-byte swizzle row
 
-__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+template <int BM, int BN>
+struct S8Cfg {
+  static constexpr int THREADS = 2 * BM;  // one warpgroup per 64 rows
+  static constexpr int STAGE_BYTES = (BM + BN) * S8_BK;
+  static constexpr int STAGES = BM == 64 ? 4 : 3;  // deeper rings, fewer CTAs an SM, ran slower
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;       // + room to align to 1024 bytes
+  static constexpr int NREG = BN / 2;                              // int32 accumulators a thread
+};
+
+// wgmma's shared-memory matrix descriptor for a K-major tile of 128-byte
+// rows in the 128-byte swizzle: start address, leading byte offset 16
+// (unused in this layout), stride 1024 bytes between groups of 8 rows
+__device__ __forceinline__ uint64_t s8_desc(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) | (uint64_t{1024 >> 4} << 32) |
+         (uint64_t{1} << 62);
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]),
+        "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),
+        "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]),
+        "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),
+        "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]),
+        "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]),
+        "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]),
+        "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+// cp.async writes through the generic proxy, wgmma reads through the async one
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+// keeps the compiler from moving reads of the accumulators above the wait
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) asm volatile("" : "+r"(d[r])::"memory");
 }
 
 __device__ __forceinline__ void store2(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
@@ -42,117 +128,183 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <bool GELU, typename OutT>
-__global__ void __launch_bounds__(STHREADS)
+template <int BM, int BN, bool GELU, typename OutT>
+__global__ void __launch_bounds__(S8Cfg<BM, BN>::THREADS)
 gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W, const float* __restrict__ row_scale,
                const float* __restrict__ col_scale, const float* __restrict__ bias, OutT* __restrict__ C, int M,
-               int N, int K, int swap_lo, int swap_hi) {
-  // [stage][0 = A tile, 1 = W tile][128 rows × SLD bytes]; 40 KB in all
-  __shared__ __align__(128) int8_t smem[2][2][SBM * SLD];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, tig = lane & 3;  // mma groupID, thread-in-group
-  const int m0 = blockIdx.y * SBM, n0 = blockIdx.x * SBN;
+               int N, int K, int swap_lo, int swap_hi, int splits, int* __restrict__ ws,
+               int* __restrict__ counters, int* __restrict__ row_amax) {
+  using Cfg = S8Cfg<BM, BN>;
+  constexpr int NT = Cfg::THREADS, STAGES = Cfg::STAGES, NREG = Cfg::NREG;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int s_last;
+  // the swizzle repeats every 8 rows of 128 bytes: stages start 1024-aligned
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t pad = (1024 - (raw & 1023)) & 1023;
+  uint8_t* smem = smem_raw + pad;
+  const uint32_t sbase = raw + pad;
 
-  auto load_stage = [&](int stage, int k0) {
-    for (int i = tid; i < SBM * SBK / 16; i += STHREADS) {
-      const int r = i / (SBK / 16), c = (i % (SBK / 16)) * 16;
-      const int gr = m0 + r;
-      const bool ok = gr < M;
-      cp_async16(&smem[stage][0][r * SLD + c], A + (size_t)(ok ? gr : 0) * K + k0 + c, ok);
-      cp_async16(&smem[stage][1][r * SLD + c], W + (size_t)(n0 + r) * K + k0 + c, true);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int n_tiles = N / BN, tile = blockIdx.x, split = blockIdx.y;
+  const int m0 = (tile / n_tiles) * BM, n0 = (tile % n_tiles) * BN;
+  const int nk = (K + S8_BK - 1) / S8_BK;
+  const int kt0 = split * nk / splits, nkt = (split + 1) * nk / splits - kt0;
+  if (!GELU && row_amax && n0 == 0 && split == 0 && tid < BM && m0 + tid < M) row_amax[m0 + tid] = 0;
+
+  // one k-tile into a stage: row r's 16-byte chunk c goes to chunk c ^ (r % 8)
+  auto load_stage = [&](int slot, int kt) {
+    uint8_t* sa = smem + slot * Cfg::STAGE_BYTES;
+    uint8_t* sb = sa + BM * S8_BK;
+    const int k0 = kt * S8_BK;
+#pragma unroll
+    for (int j = 0; j < BM * 8 / NT; ++j) {
+      const int i = tid + j * NT, r = i >> 3, c = i & 7, kc = k0 + c * 16;
+      const bool ok = m0 + r < M && kc < K;
+      cp_async16(sa + r * S8_BK + ((c ^ (r & 7)) << 4), A + (ok ? (size_t)(m0 + r) * K + kc : 0), ok);
     }
-    cp_async_commit();
+#pragma unroll
+    for (int j = 0; j < BN * 8 / NT; ++j) {
+      const int i = tid + j * NT, r = i >> 3, c = i & 7, kc = k0 + c * 16;
+      const bool ok = kc < K;
+      cp_async16(sb + r * S8_BK + ((c ^ (r & 7)) << 4), W + (ok ? (size_t)(n0 + r) * K + kc : 0), ok);
+    }
   };
 
-  int acc[4][4][4];  // [m16 tile][n8 tile][fragment]
+  int acc[NREG];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0;
+  for (int r = 0; r < NREG; ++r) acc[r] = 0;
 
-  const int nk = K / SBK;
-  load_stage(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load_stage((kt + 1) & 1, (kt + 1) * SBK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nkt) load_stage(s, kt0 + s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nkt; ++i) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of k-tile i have landed
+    fence_proxy_async();
+    __syncthreads();  // everyone's have, and every warpgroup is done with k-tile i - 1
+    if (i + STAGES - 1 < nkt) load_stage((i + STAGES - 1) % STAGES, kt0 + i + STAGES - 1);
+    cp_async_commit();
+    const uint32_t sa = sbase + (i % STAGES) * Cfg::STAGE_BYTES, sb = sa + BM * S8_BK;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < S8_BK / 32; ++kk)  // the 32-byte k steps move the start address inside the swizzle row
+      wgmma_s8(acc, s8_desc(sa + wg * 64 * S8_BK + kk * 32), s8_desc(sb + kk * 32));
+    wgmma_commit();
+    wgmma_wait_all();
+  }
+  fence_regs(acc);
+
+  if (splits > 1) {  // exact split-K: int32 atomic sums, read back by the tile's last CTA
+    int* sum = ws + (size_t)tile * (BM * BN) + tid;
+#pragma unroll
+    for (int r = 0; r < NREG; ++r) atomicAdd(sum + r * NT, acc[r]);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      s_last = atomicAdd(counters + tile, 1) == splits - 1;
+      if (s_last) counters[tile] = 0;  // every split has arrived: ready for the next launch
     }
     __syncthreads();
-    const int8_t* sA = smem[kt & 1][0];
-    const int8_t* sW = smem[kt & 1][1];
+    if (!s_last) return;
+    __threadfence();
 #pragma unroll
-    for (int kk = 0; kk < SBK; kk += 32) {
-      // A fragment (16×32, row): rows g and g+8, bytes tig·4..+3 and 16+tig·4..+3
-      unsigned a[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int8_t* p = sA + (wm * 64 + mi * 16 + g) * SLD + kk + tig * 4;
-        a[mi][0] = *reinterpret_cast<const unsigned*>(p);
-        a[mi][1] = *reinterpret_cast<const unsigned*>(p + 8 * SLD);
-        a[mi][2] = *reinterpret_cast<const unsigned*>(p + 16);
-        a[mi][3] = *reinterpret_cast<const unsigned*>(p + 8 * SLD + 16);
-      }
-      // B fragment (32×8, col): column n = g, bytes tig·4..+3 and 16+tig·4..+3
-      unsigned b[4][2];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* p = sW + (wn * 32 + ni * 8 + g) * SLD + kk + tig * 4;
-        b[ni][0] = *reinterpret_cast<const unsigned*>(p);
-        b[ni][1] = *reinterpret_cast<const unsigned*>(p + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8_16832(acc[mi][ni], a[mi], b[ni]);
+    for (int r = 0; r < NREG; ++r) {
+      acc[r] = __ldcg(sum + r * NT);
+      __stcg(sum + r * NT, 0);  // zero at rest, for the next launch
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  // epilogue: fragment j holds row g (j < 2) or g+8, column tig·2 + (j & 1)
+  // epilogue: accumulator 4j + 2h + e holds row 16·warp + g + 8h of the
+  // warpgroup's 64, column 8j + 2·tig + e
+  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, tig = lane & 3;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+  for (int half = 0; half < 2; ++half) {
+    const int gr = m0 + wg * 64 + warp * 16 + g + half * 8;
+    if (gr >= M) continue;
+    const float rs = row_scale[gr];
+    float amax = 0.f;  // of this thread's |h| in row gr (GELU: fc_in)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int gr = m0 + wm * 64 + mi * 16 + g + half * 8;
-      if (gr >= M) continue;
-      const float rs = row_scale[gr];
+    for (int j = 0; j < BN / 8; ++j) {
+      const int gc = n0 + j * 8 + tig * 2;
+      float v[2];
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int gc = n0 + wn * 32 + ni * 8 + tig * 2;
-        float v[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float a = __int2float_rn(acc[mi][ni][half * 2 + j]);
-          const float cs = col_scale[gc + j];
-          const bool swap = gc + j >= swap_lo && gc + j < swap_hi;
-          float x = swap ? __fmul_rn(__fmul_rn(a, cs), rs) : __fmul_rn(__fmul_rn(a, rs), cs);
-          x = __fadd_rn(x, bias[gc + j]);
-          v[j] = GELU ? gelu_as(x) : x;
-        }
-        store2(C + (size_t)gr * N + gc, v[0], v[1]);
+      for (int e = 0; e < 2; ++e) {
+        const float a = __int2float_rn(acc[j * 4 + half * 2 + e]);
+        const float cs = col_scale[gc + e];
+        const bool swap = gc + e >= swap_lo && gc + e < swap_hi;
+        float x = swap ? __fmul_rn(__fmul_rn(a, cs), rs) : __fmul_rn(__fmul_rn(a, rs), cs);
+        x = __fadd_rn(x, bias[gc + e]);
+        v[e] = GELU ? gelu_as(x) : x;
+        amax = fmaxf(amax, fabsf(v[e]));
       }
+      store2(C + (size_t)gr * N + gc, v[0], v[1]);
+    }
+    if (GELU && row_amax) {  // the 4 lanes of a quad hold row gr
+      const unsigned quad = 0xFu << (lane & ~3);
+      amax = fmaxf(amax, __shfl_xor_sync(quad, amax, 1));
+      amax = fmaxf(amax, __shfl_xor_sync(quad, amax, 2));
+      if (tig == 0) atomicMax(row_amax + gr, __float_as_int(amax));
     }
   }
 }
 
-template <bool GELU, typename OutT>
-cudaError_t launch_gemm_s8(const int8_t* A, const int8_t* W, const float* row_scale, const float* col_scale,
-                           const float* bias, OutT* C, int M, int N, int K, cudaStream_t stream, int swap_lo = 0,
-                           int swap_hi = 0) {
-  dim3 grid(N / SBN, (M + SBM - 1) / SBM);
-  gemm_s8_kernel<GELU, OutT><<<grid, STHREADS, 0, stream>>>(A, W, row_scale, col_scale, bias, C, M, N, K, swap_lo,
-                                                            swap_hi);
+// a GEMM's plan as the planner packs it: bm | bn << 8 | splits << 16
+struct S8Plan {
+  int bm, bn, splits;
+  explicit S8Plan(int code) : bm(code & 0xff), bn((code >> 8) & 0xff), splits(code >> 16) {}
+};
+
+template <int BM, int BN, bool GELU, typename OutT>
+cudaError_t launch_s8(const int8_t* A, const int8_t* W, const float* rs, const float* cs, const float* bias, OutT* C,
+                      int M, int N, int K, int splits, int* ws, int* counters, int* row_amax, cudaStream_t stream,
+                      int swap_lo, int swap_hi) {
+  using Cfg = S8Cfg<BM, BN>;
+  auto kernel = gemm_s8_kernel<BM, BN, GELU, OutT>;
+  static unsigned attr_set = 0;  // one bit per device: shared memory above 48 KB is opted into once
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (!(attr_set >> dev & 1u)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+    if (e != cudaSuccess) return e;
+    attr_set |= 1u << dev;
+  }
+  const dim3 grid(((M + BM - 1) / BM) * (N / BN), splits);
+  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(A, W, rs, cs, bias, C, M, N, K, swap_lo, swap_hi, splits, ws,
+                                                    counters, row_amax);
   return cudaGetLastError();
+}
+
+// C = epilogue(A·Wᵀ) on the planned tile and split; ws and counters are the
+// split-K workspace (the padded M × N int32) and the per-tile counters, both
+// zero at rest and both from the wrapper; row_amax (int32 [M], or null):
+// with GELU each row's max |h| is merged into it as f32 bits (it is zero
+// before), without GELU it is zeroed (fc_out restores fc_in's buffer)
+template <bool GELU, typename OutT>
+cudaError_t launch_gemm_s8(const void* A, const void* W, const void* rs, const void* cs, const void* bias, void* C,
+                           int M, int N, int K, int plan_code, void* ws, void* counters, cudaStream_t stream,
+                           int swap_lo = 0, int swap_hi = 0, void* row_amax = nullptr) {
+  const S8Plan p(plan_code);
+  const int nk = (K + S8_BK - 1) / S8_BK;
+  if ((p.bm != 64 && p.bm != 128) || p.bn != p.bm || N % p.bn || K % 16 || M < 1 || p.splits < 1 || p.splits > nk ||
+      (p.splits > 1 && (!ws || !counters)))
+    return cudaErrorInvalidValue;
+  auto a = static_cast<const int8_t*>(A), w = static_cast<const int8_t*>(W);
+  auto r = static_cast<const float*>(rs), c = static_cast<const float*>(cs), b = static_cast<const float*>(bias);
+  auto out = static_cast<OutT*>(C);
+  auto wsp = static_cast<int*>(ws), cnt = static_cast<int*>(counters), amax = static_cast<int*>(row_amax);
+  if (p.bm == 128)
+    return launch_s8<128, 128, GELU>(a, w, r, c, b, out, M, N, K, p.splits, wsp, cnt, amax, stream, swap_lo, swap_hi);
+  return launch_s8<64, 64, GELU>(a, w, r, c, b, out, M, N, K, p.splits, wsp, cnt, amax, stream, swap_lo, swap_hi);
 }
 
 }  // namespace
 
-// Row quantization, defined in quant.cu (the same C entry the wrapper of
-// msa_tpu_torch/ops/kernels/quant.py calls).
+// Row quantization, defined in quant.cu (the same C entries the wrapper of
+// msa_tpu_torch/ops/kernels/quant.py calls): from x alone, and from f32 x
+// with each row's amax already reduced (fc_in's epilogue above).
 extern "C" int msa_quantize_rows(const void* x, int x_is_bf16, void* q, void* scale, int rows, int cols,
                                  void* stream);
+extern "C" int msa_quantize_rows_amax(const void* x, const void* amax, void* q, void* scale, int rows, int cols,
+                                      void* stream);

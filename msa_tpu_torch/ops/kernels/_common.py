@@ -9,6 +9,7 @@ import torch
 from msa_tpu_torch.ops.kernels import build
 
 _F32_WS: dict = {}
+_ZEROED: dict = {}
 
 
 def gemm_f32_workspace(device: torch.device) -> torch.Tensor:
@@ -20,6 +21,18 @@ def gemm_f32_workspace(device: torch.device) -> torch.Tensor:
         elems = build.library().msa_gemm_f32_workspace_elems()
         _F32_WS[key] = torch.empty(elems, dtype=torch.float32, device=device)
     return _F32_WS[key]
+
+
+def zeroed(name: str, device: torch.device, elems: int) -> torch.Tensor:
+    """The int32 buffer ``name`` of the current stream on ``device``, of at
+    least ``elems`` elements: made with zeros, and zero again after every
+    launch that uses it (the kernels restore it), so the kernels of one
+    stream, which run in order, share it. Grown, never shrunk."""
+    key = (name, device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _ZEROED.get(key)
+    if buf is None or buf.numel() < elems:
+        buf = _ZEROED[key] = torch.zeros(max(elems, 1), dtype=torch.int32, device=device)
+    return buf
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: Sequence[int], device: torch.device) -> None:

@@ -107,6 +107,7 @@ import torch.nn.functional as F
 
 from msa_tpu_torch.ops import quant as Q
 from msa_tpu_torch.ops.kernels import build
+from msa_tpu_torch.ops.kernels import gemm_s8 as GS
 from msa_tpu_torch.ops.kernels._common import gemm_f32_workspace, require
 from msa_tpu_torch.ops.kernels.quant import quantize_rows
 
@@ -360,11 +361,13 @@ def attention_block_int8(
     if dt == f32:  # the f32 core's lse
         scratch.append(torch.empty((b, num_heads, t_pad), dtype=f32, device=dev))
     entry = "msa_attention_block_int8_f32" if dt == f32 else "msa_attention_block_int8"
+    ws, cnt, plan_qkv, plan_out = GS.launch_args(dev, (m, 3 * hd, dm), (m, dm, hd))
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(build.library(), entry)(
         xp.data_ptr(), w_qkv_q.data_ptr(), s_qkv.data_ptr(), b_qkv.data_ptr(), w_out_q.data_ptr(),
         s_out.data_ptr(), b_out.data_ptr(), mask_p.data_ptr(), *(t.data_ptr() for t in scratch), aq.data_ptr(),
-        as_.data_ptr(), out.data_ptr(), b, t_pad, dm, num_heads, dp, _block_scale(w_qkv_q, num_heads, head_dim), stream,
+        as_.data_ptr(), out.data_ptr(), ws, cnt, b, t_pad, dm, num_heads, dp, plan_qkv, plan_out,
+        _block_scale(w_qkv_q, num_heads, head_dim), stream,
     )
     build.check(rc, entry)
     if dt == f32:
@@ -372,6 +375,7 @@ def attention_block_int8(
     else:
         attention_block_int8.launches += 1
     quantize_rows.launches += 2  # x and the attention output, launched from C
+    GS.gemm_s8.launches += 2  # QKV and Wo, launched from C
     return out[:, :t]
 
 

@@ -43,15 +43,22 @@ _SIGNATURES = {
     "msa_attention_block_f32": (_P,) * 11 + (_I,) * 5 + (_F, _P),
     # x, x_is_bf16, q, scale, rows, cols, stream
     "msa_quantize_rows": (_P, _I, _P, _P, _I, _I, _P),
-    # x, w1, s1, b1, w2, s2, b2, xq, xs, hidden, hq, hs, out, M, D, F, stream
-    # (x and out bf16; f32 under f32 compute)
-    "msa_ffn_fused_int8": (_P,) * 13 + (_I,) * 3 + (_P,),
-    "msa_ffn_fused_int8_f32": (_P,) * 13 + (_I,) * 3 + (_P,),
+    # x, amax, q, scale, rows, cols, stream (f32 x whose row amax is known)
+    "msa_quantize_rows_amax": (_P,) * 4 + (_I, _I, _P),
+    # x, w1, s1, b1, w2, s2, b2, xq, xs, hidden, hq, hs, out, ws, counters,
+    # amax, M, D, F, plan_in, plan_out, stream (x and out bf16; f32 under f32
+    # compute; ws and counters the int8 GEMM's split-K workspace, amax the
+    # hidden rows', the plans ops/kernels/gemm_s8.py's codes)
+    "msa_ffn_fused_int8": (_P,) * 16 + (_I,) * 5 + (_P,),
+    "msa_ffn_fused_int8_f32": (_P,) * 16 + (_I,) * 5 + (_P,),
     # x, wqkv, sqkv, bqkv, wout, sout, bout, mask, xq, xs, qkv, attn, aq, as,
-    # out, B, T, DM, H, DP, scale, stream
-    "msa_attention_block_int8": (_P,) * 15 + (_I,) * 5 + (_F, _P),
+    # out, ws, counters, B, T, DM, H, DP, plan_qkv, plan_out, scale, stream
+    "msa_attention_block_int8": (_P,) * 17 + (_I,) * 7 + (_F, _P),
     # under f32 compute, with the f32 core's lse scratch after attn
-    "msa_attention_block_int8_f32": (_P,) * 16 + (_I,) * 5 + (_F, _P),
+    "msa_attention_block_int8_f32": (_P,) * 18 + (_I,) * 7 + (_F, _P),
+    # the int8 GEMM alone: a, w, rs, cs, bias, c, ws, counters, amax (or
+    # null: no GELU), M, N, K, plan, stream
+    "msa_gemm_s8": (_P,) * 9 + (_I,) * 4 + (_P,),
     # qkv, mask, o, lse, B, T, H, D, scale, stream (rows 5 and 6 in bf16; both in f32)
     "msa_packed_qkv_attention": (_P,) * 4 + (_I,) * 4 + (_F, _P),
     "msa_packed_attention_f32": (_P,) * 4 + (_I,) * 4 + (_F, _P),

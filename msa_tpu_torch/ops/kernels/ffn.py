@@ -33,7 +33,8 @@ import torch
 
 from msa_tpu_torch.ops import quant as Q
 from msa_tpu_torch.ops.kernels import build
-from msa_tpu_torch.ops.kernels._common import gemm_f32_workspace, require
+from msa_tpu_torch.ops.kernels import gemm_s8 as GS
+from msa_tpu_torch.ops.kernels._common import gemm_f32_workspace, require, zeroed
 from msa_tpu_torch.ops.kernels.quant import quantize_rows
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
@@ -116,7 +117,8 @@ def ffn_fused_int8(x, w1_q, s1, b1, w2_q, s2, b2) -> torch.Tensor:
     """x [N, d] → [N, d], W8A8. CPU tensors take :func:`ffn_int8_plain`;
     CUDA tensors launch the kernel (d % 128 == 0, d_ff % 128 == 0): on bf16
     x ``msa_ffn_fused_int8``, on f32 x (f32 compute) ``msa_ffn_fused_int8_f32``,
-    counted in ``launches_f32``."""
+    counted in ``launches_f32``; each GEMM on :func:`gemm_s8.plan`'s tile and
+    K split."""
     if x.device.type == "cpu":
         return ffn_int8_plain(x, w1_q, s1, b1, w2_q, s2, b2)
     n, d = x.shape
@@ -141,18 +143,21 @@ def ffn_fused_int8(x, w1_q, s1, b1, w2_q, s2, b2) -> torch.Tensor:
     xs, hs = (torch.empty((n,), dtype=f32, device=dev) for _ in range(2))
     out = torch.empty((n, d), dtype=dt, device=dev)
     entry = "msa_ffn_fused_int8_f32" if dt == f32 else "msa_ffn_fused_int8"
+    ws, cnt, plan_in, plan_out = GS.launch_args(dev, (n, f, d), (n, d, f))
+    amax = zeroed("row_amax", dev, n).data_ptr()  # fc_in's epilogue reduces the hidden rows' amax here
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(build.library(), entry)(
         x.data_ptr(), w1_q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2_q.data_ptr(), s2.data_ptr(),
         b2.data_ptr(), xq.data_ptr(), xs.data_ptr(), hidden.data_ptr(), hq.data_ptr(), hs.data_ptr(),
-        out.data_ptr(), n, d, f, stream,
+        out.data_ptr(), ws, cnt, amax, n, d, f, plan_in, plan_out, stream,
     )
     build.check(rc, entry)
     if dt == f32:
         ffn_fused_int8.launches_f32 += 1
     else:
         ffn_fused_int8.launches += 1
-    quantize_rows.launches += 2  # x and the hidden tile, launched from C
+    quantize_rows.launches += 2  # x and the hidden tile (from fc_in's amax), launched from C
+    GS.gemm_s8.launches += 2  # fc_in and fc_out, launched from C
     return out
 
 

@@ -1,7 +1,7 @@
 """Where the time of one serving forward, or one training step, goes on the card.
 
     python3 -m msa_tpu_torch.profile_slice [--tokens 512] [--batch 2] [--steps 3] [--quantize int8|none|f32|int8_f32]
-                                           [--samples 80000] [--train | --conv | --asr]
+                                           [--samples 80000] [--train | --conv | --asr | --gemm-s8]
 
 Builds the full-width models (``PipelineModels.initialize``, by default in
 the int8 serving recipe; ``--quantize none`` for the bf16 one, ``f32``
@@ -28,13 +28,21 @@ extractor's six stride-2 layers, 512 → 512 channels, bf16, at ``--batch``
 the channels-first input, transposed once outside the timing; without the
 GELU), each the median of ``--steps`` CUDA-event timings. ``--asr``
 profiles instead one ``transcribe_batch`` of the shipped whisper ASR on
-``--batch`` (default 8) windows of ``tests/data/asr_clips.npz``. Needs a
-CUDA device.
+``--batch`` (default 8) windows of ``tests/data/asr_clips.npz``.
+``--gemm-s8`` times instead the int8 GEMM of rows 7 and 9 alone
+(``ops/kernels/gemm_s8.py``) at an encoder layer's four GEMMs (QKV, Wo,
+fc_in, fc_out at d_model 768, d_ff 3072) and M = 4096, 1024, 500, 256,
+128, 64: the device ms of the planner's plan, of each tile at one split, at the
+fewest splits that fill the SMs, at twice that and at as many of them as
+leave each split 4 k-tiles, and of
+``torch._int_mm`` (cuBLASLt) on the same codes, each from the profiler's
+trace of ``--steps`` (at least 20) calls. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -58,6 +66,7 @@ def main(argv=None) -> int:
     ap.add_argument("--train", action="store_true", help="one text (with --samples: audio) training step instead of a forward")
     ap.add_argument("--conv", action="store_true", help="row 11 at the wav2vec2 stride-2 layers instead of a forward")
     ap.add_argument("--asr", action="store_true", help="one batch of the shipped whisper ASR instead of a forward")
+    ap.add_argument("--gemm-s8", action="store_true", help="the int8 GEMM of rows 7 and 9 alone, each plan, beside torch._int_mm")
     args = ap.parse_args(argv)
     b = args.batch or (64 if args.conv else 8 if args.train or args.asr else 2)
     if not torch.cuda.is_available():
@@ -65,6 +74,8 @@ def main(argv=None) -> int:
         return 2
     if args.conv:
         return conv_layers(b, max(args.steps, 5))
+    if args.gemm_s8:
+        return gemm_s8_plans(max(args.steps, 20))
     from torch.profiler import ProfilerActivity, profile
 
     from msa_tpu_torch.pipeline import graph as G
@@ -220,6 +231,65 @@ def conv_layers(b: int, reps: int) -> int:
     print(f"TOTAL stride-2 layers: kernel {total['kernel_ms']:.3f} ms  cudnn {total['cudnn_ms']:.3f} ms  "
           f"bound {total['bound_ms']:.4f} ms", flush=True)
     print(json.dumps({"conv": rows, "total": total, "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+def _device_ms(fn, reps: int, only: str = "") -> float:
+    """Device ms per call of the kernels (whose name holds ``only``) that
+    ``reps`` calls of ``fn`` ran, from the profiler's trace: each kernel's
+    mean recorded duration times its launches per call (a trace can lose
+    a few kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(
+        (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)) / e.count
+        * max(1, round(e.count / reps))
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and only in e.key and e.count
+    )
+    return us / 1e3
+
+
+def gemm_s8_plans(reps: int) -> int:
+    """The int8 GEMM alone: each candidate plan beside the planner's and
+    torch._int_mm, at a layer's four GEMMs and the main path's row counts."""
+    from msa_tpu_torch.ops.kernels import gemm_s8 as GS
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for name, n, k in (("QKV", 2304, 768), ("Wo", 768, 768), ("fc_in", 3072, 768), ("fc_out", 768, 3072)):
+        w = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
+        for m in (4096, 1024, 500, 256, 128, 64):
+            a = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+            scales = (torch.ones(m, device="cuda"), torch.ones(n, device="cuda"), torch.zeros(n, device="cuda"))
+            nk, cands = -(-k // GS.K_TILE), set()
+            for t in GS.TILES:
+                tiles = -(-m // t) * (n // t)
+                fill = 1 if tiles >= GS.SMS else min(nk, -(-GS.SMS // tiles))
+                cands |= {GS.Plan(t, t, s) for s in (1, fill, min(nk, 2 * fill), max(1, min(fill, nk // 4)))}
+            times = {
+                p: _device_ms(lambda p=p: GS.gemm_s8(a, w, *scales, p), reps, "gemm_s8_kernel")
+                for p in sorted(cands, key=lambda p: (p.bm, p.bn, p.splits))
+            }
+            chosen, best = GS.plan(m, n, k), min(times, key=times.get)
+            lib = _device_ms(lambda: torch._int_mm(a, w.t()), reps)
+            row = {"gemm": name, "M": m, "N": n, "K": k, "plan": dataclasses.astuple(chosen), "plan_ms": times[chosen],
+                   "best": dataclasses.astuple(best), "best_ms": times[best], "int_mm_ms": lib,
+                   "bound_ms": 1e3 * max(2 * m * n * k / 1979e12, (m * k + n * k + 4 * m * n) / 3.35e12),
+                   "all": {f"{p.bm}x{p.bn}/{p.splits}": t for p, t in times.items()}}
+            rows.append(row)
+            print(f"{name:6s} M={m:4d} N={n} K={k}: plan {chosen.bm}x{chosen.bn}/{chosen.splits} {times[chosen]:.4f} ms, "
+                  f"best {best.bm}x{best.bn}/{best.splits} {times[best]:.4f}, torch._int_mm {lib:.4f}, "
+                  f"bound {row['bound_ms']:.5f}  | " + " ".join(f"{key} {t:.4f}" for key, t in row["all"].items()), flush=True)
+    print(json.dumps({"gemm_s8": rows, "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 
 

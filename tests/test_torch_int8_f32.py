@@ -43,6 +43,7 @@ from msa_tpu_torch.ops import quant as PQ
 from msa_tpu_torch.ops.kernels import attention as A
 from msa_tpu_torch.ops.kernels import ffn as F
 from msa_tpu_torch.ops.kernels import quant as KQ
+from msa_tpu_torch.ops.kernels import gemm_s8 as GS
 from test_torch_int8 import _attention_weights
 from test_torch_wide_heads import card  # noqa: F401 (the stand-in kernel library, a fixture)
 from torch_parity import bf16_bound, f32, to_numpy
@@ -142,8 +143,9 @@ def test_int8_wrappers_take_the_entry_of_x_dtype_on_the_card_path(card, dtype):
     sfx = "_f32" if is_f32 else ""
     assert [name for name, _ in card.calls] == ["msa_attention_block_int8" + sfx, "msa_ffn_fused_int8" + sfx]
     (_, att), (_, ffn) = card.calls
-    assert len(att) == (16 if is_f32 else 15) + 7  # pointers, then B, T, DM, H, DP, scale, stream
-    assert att[-7:-2] == (b, 128, dm, h, dm // h) and att[-2] == float(np.float32(1.0 / np.sqrt(dm // h)))
-    assert ffn[-4:-1] == (b * t, dm, dff)
+    assert len(att) == (18 if is_f32 else 17) + 9  # pointers, then B, T, DM, H, DP, the two plans, scale, stream
+    assert att[-9:-4] == (b, 128, dm, h, dm // h) and att[-2] == float(np.float32(1.0 / np.sqrt(dm // h)))
+    assert att[-4:-2] == (GS.plan(b * 128, 3 * dm, dm).code, GS.plan(b * 128, dm, dm).code)
+    assert ffn[-6:-1] == (b * t, dm, dff, GS.plan(b * t, dff, dm).code, GS.plan(b * t, dm, dff).code)
     assert (getattr(A.attention_block_int8, counter), getattr(F.ffn_fused_int8, counter), KQ.quantize_rows.launches) == (
         before[0] + 1, before[1] + 1, before[2] + 4)

@@ -128,10 +128,12 @@ def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
         "msa_attention_block",
         "msa_attention_block_f32",
         "msa_quantize_rows",
+        "msa_quantize_rows_amax",
         "msa_ffn_fused_int8",
         "msa_ffn_fused_int8_f32",
         "msa_attention_block_int8",
         "msa_attention_block_int8_f32",
+        "msa_gemm_s8",
         "msa_packed_qkv_attention",
         "msa_packed_attention_f32",
         "msa_flash_attention",

@@ -214,11 +214,11 @@ def test_attention_block_takes_wide_heads_on_the_card_path(card, recipe, d):
     if recipe == "int8":
         w_qkv, w_out = _meta(3 * h * dp, dm, dtype=torch.int8), _meta(dm, h * dp, dtype=torch.int8)
         out = A.attention_block_int8(x, w_qkv, _meta(3 * h * dp), b_qkv, w_out, _meta(dm), b_out, mask, h, d)
-        entry, at = "msa_attention_block_int8", 19
+        entry, at = "msa_attention_block_int8", 21
     else:
         w_qkv, w_out = _meta(3 * h * dp, dm, dtype=dtype), _meta(dm, h * dp, dtype=dtype)
         out = A.attention_block(x, w_qkv, b_qkv, w_out, b_out, mask, h, d)
         entry, at = ("msa_attention_block_f32", 15) if recipe == "float32" else ("msa_attention_block", 13)
     assert tuple(out.shape) == (1, 40, dm)
     (name, args), = card.calls
-    assert name == entry and args[at] == dp and args[at + 1] == float(np.float32(1.0 / np.sqrt(d)))
+    assert name == entry and args[at] == dp and args[-2] == float(np.float32(1.0 / np.sqrt(d)))
