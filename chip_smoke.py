@@ -9,8 +9,10 @@ Phases, one line each with its seconds:
      packed-QKV (rows 5 and 2, and with UNNORM = 1 the attention-block core
      of rows 7 and 8), dQ (row 3), dK/dV (row 4) and f32 fused (row 1)
      kernels once more on a line each, at DP 32, 64 and 128, and of the
-     int8 wgmma GEMM of rows 7 and 9 (gemm_s8_kernel<BM, BN, GELU, out>),
-     which must not spill;
+     int8 wgmma GEMM of rows 7 and 9 (gemm_s8_kernel<BM, BN, GELU, out>)
+     and the bf16 wgmma GEMM of rows 8 and 10 (gemm_bf16_kernel<BM, BN,
+     GELU, bias>), which must not spill; the bf16 GEMM's SASS must issue
+     HGMMA (wgmma) on bf16, and no WMMA gemm_nt_kernel is left;
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, and time both with CUDA events: the bf16
      attention_block and ffn_fused, the row-quantize kernel (exactly: codes
@@ -19,7 +21,13 @@ Phases, one line each with its seconds:
      it, at a layer's four GEMMs (QKV, Wo, fc_in, fc_out) and M = 1024,
      500, 256, 128, 64 on the planner's tile and split, every tile with
      splits of 1 to 24 at one shape, a ragged K, and with scales and bias
-     against its plain version; attention_block_int8 and ffn_fused_int8 on bf16 x
+     against its plain version; the bf16 GEMM of rows 8 and 10 alone
+     (gemm_bf16: bias f32, no GELU) against the f32 product of the same
+     bf16 operands within GEMM_BF16_RTOL, timed beside torch.matmul, at the
+     same four GEMMs and row counts on the planner's plan, every tile at
+     splits 1 to 48 at one shape, a ragged K and an M off the 64-row grid,
+     two calls bit-equal wherever K is split, and with a bf16 bias and
+     fc_in's GELU against its plain version; attention_block_int8 and ffn_fused_int8 on bf16 x
      and on f32 x (W8A8 under f32 compute: the f32 entries), and the
      attention-only kernels packed_qkv_attention_lse (also at the text and 5 s
      audio training steps' shapes, B=8) and flash_attention_lse (o and lse,
@@ -34,7 +42,7 @@ Phases, one line each with its seconds:
      quantize="none") → SegmentPipeline.run_host at B=2, at the 512-token and
      the 32-token bucket; check that every shipped checkpoint loaded, the
      [2, 1715] hostpack, the kernels' launch counts (24 each per forward:
-     12 text + 12 audio layers), and each encoder's last hidden state and
+     12 text + 12 audio layers; 96 of the bf16 GEMM, two a call), and each encoder's last hidden state and
      each hostpack column group against the port's plain bf16 path (einsum
      attention, dense FFN) on the same weights and inputs, with an f32 run
      of that path as the yardstick of bf16 noise; a planted fault shows
@@ -193,6 +201,7 @@ import copy
 import dataclasses
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -215,6 +224,12 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 # quantize bit for bit as their plain versions, so what is left is the bf16
 # attention core's summation order (one flip can move a row's int8 codes).
 KERNEL_RTOL = 5 * 2.0**-8
+# the bf16 GEMM alone against the f32 product of the same bf16 operands
+# (+ bias): it rounds its f32 sum to bf16 once (half a bf16 step), and its
+# sum differs from the reference's only in the order of f32 additions,
+# which can carry that rounding to the next step: at most one bf16 step
+# (2^-8) of the largest |output|. Fixed before the first run.
+GEMM_BF16_RTOL = 2.0**-8
 # each encoder's last hidden state on the main path: the kernel path and
 # the port's plain bf16 path (einsum attention, dense FFN) round at
 # different points, and a random 12-layer trunk carries each difference
@@ -344,10 +359,10 @@ ON_TRAIN_F32 = "phase 21: one f32 text training step of the imported BERT-base t
 ON_INT8_F32 = "phase 23: run_host with W8A8 under f32 compute, B=2, one forward at bucket 512 and one at bucket 32"
 
 # the previous design's device ms at the recorded shape (PERF.md, NVIDIA H100
-# 80GB HBM3 at 700 W: rows 7 and 9 on the mma.sync int8 GEMM), printed
-# beside the new reading
+# 80GB HBM3 at 700 W: rows 7 and 9 on the mma.sync int8 GEMM, rows 8 and 10
+# on the WMMA bf16 GEMM), printed beside the new reading
 PREVIOUS_MS = {"attention_block_int8": 0.0679, "ffn_fused_int8": 0.0753, "attention_block_int8_f32": 0.1090,
-               "ffn_fused_int8_f32": 0.0728}
+               "ffn_fused_int8_f32": 0.0728, "attention_block": 0.0899, "ffn_fused": 0.1293}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -497,6 +512,29 @@ def ptxas_usage(log: str, kernels) -> dict:
     return usage
 
 
+def hgmma_of(lib_path, kernel: str) -> str:
+    """The warpgroup MMAs (SASS ``HGMMA``) of every instance of ``kernel``
+    in the built library, from ``cuobjdump --dump-sass``: fails unless each
+    instance issues them, and only on bf16 operands into f32."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return "not checked (no cuobjdump)"
+    sass = subprocess.run([tool, "--dump-sass", str(lib_path)], capture_output=True, text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            cur = name if kernel in name else None
+            if cur:
+                funcs[cur] = set()
+        elif cur and (m := re.search(r"HGMMA\.(\S+)", line)):
+            funcs[cur].add(m.group(1))
+    check(bool(funcs), f"no {kernel} in the SASS")
+    for name, ops in funcs.items():
+        check(bool(ops) and all("BF16" in o and "F32" in o for o in ops), f"{name}: HGMMA {sorted(ops)}")
+    return f"{len(funcs)} instances issue HGMMA {', '.join(sorted(set().union(*funcs.values())))}"
+
+
 def bound_ms(nbytes: float, **ops: float):
     """The least time for the work: the larger of the bytes over the memory
     rate and the operations, each type over its own peak, summed."""
@@ -548,6 +586,8 @@ def main() -> int:
     from msa_tpu_torch.ops.kernels import conv as KC
     from msa_tpu_torch.ops.kernels import ffn as F
     from msa_tpu_torch.ops.kernels import _common as KC_
+    from msa_tpu_torch.ops.kernels import gemm_bf16 as GB
+    from msa_tpu_torch.ops.kernels import gemm_plan as GP
     from msa_tpu_torch.ops.kernels import gemm_s8 as GS
     from msa_tpu_torch.ops.kernels import quant as KQ
     from msa_tpu_torch.pipeline import graph as G
@@ -561,6 +601,7 @@ def main() -> int:
         "ffn_fused_int8": (F.ffn_fused_int8, "launches"),
         "quantize_rows": (KQ.quantize_rows, "launches"),
         "gemm_s8": (GS.gemm_s8, "launches"),
+        "gemm_bf16": (GB.gemm_bf16, "launches"),
         "packed_qkv_attention_lse": (A.packed_qkv_attention_lse, "launches"),
         "flash_attention_lse": (A.flash_attention_lse, "launches"),
         "mha_attention": (A.mha_attention, "launches"),
@@ -594,12 +635,15 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line or "wgmma" in line:
             print("  ptxas:", line.strip().split("ptxas info    :")[-1].strip(), flush=True)
     for kernel, used in ptxas_usage(
-        log, ("flash_kernel", "packed_qkv_kernel", "bwd_dq_kernel", "bwd_dkv_kernel", "fused_f32_kernel", "gemm_s8_kernel")
+        log, ("flash_kernel", "packed_qkv_kernel", "bwd_dq_kernel", "bwd_dkv_kernel", "fused_f32_kernel", "gemm_s8_kernel",
+              "gemm_bf16_kernel")
     ).items():
         print(f"  ptxas {kernel}: {used}", flush=True)
-        if kernel.startswith("gemm_s8_kernel"):
+        if kernel.startswith(("gemm_s8_kernel", "gemm_bf16_kernel")):
             check("0 bytes spill stores" in used, f"{kernel} spills: {used}")
-    check("gemm_s8_kernel" in log, "no gemm_s8_kernel in the ptxas log")
+    check("gemm_s8_kernel" in log and "gemm_bf16_kernel" in log, "no gemm_s8_kernel or gemm_bf16_kernel in the ptxas log")
+    check("gemm_nt_kernel" not in log, "the WMMA gemm_nt_kernel is still built")
+    print(f"  gemm_bf16_kernel SASS: {hgmma_of(lib_path, 'gemm_bf16_kernel')}", flush=True)
     phase("build", t0, library=lib_path.name)
 
     # --- 3. kernels against their plain versions --------------------------------
@@ -720,6 +764,8 @@ def main() -> int:
         flops = 2 * b * T_ * dm * 3 * dm + 2 * 2 * b * heads * T_ * T_ * (dm // heads) + 2 * b * T_ * dm * dm
         bms, by = bound_ms(attention_bytes(b, T_, 2 * 4 * dm * dm + 4 * 4 * dm), bf16=flops)
         report(f"attention_block B={b} T={T_} (T_pad={-(-T_ // 128) * 128})", err, rel, bnd, tm, bms, by)
+        if T_ == 512:
+            print(f"    on the earlier WMMA bf16 GEMM this read {PREVIOUS_MS['attention_block']} ms (device)", flush=True)
         lib_text(lambda: block_composite(x, mask, w_qkv, b_qkv, w_out, b_out), BLOCK_LIB)
         # the core of rows 7 and 8 alone (the register core with UNNORM = 1),
         # beside one SDPA call on a packed qkv of the padded shape
@@ -742,8 +788,78 @@ def main() -> int:
         tm = timings(lambda: F.ffn_fused(*args), lambda: F.ffn_plain(*args))
         bms, by = bound_ms(2 * (2 * n * dm + 2 * dm * dff + dm + dff), bf16=2 * 2 * n * dm * dff)
         report(f"ffn_fused N={n}", err, rel, bnd, tm, bms, by)
+        if n == 1024:
+            print(f"    on the earlier WMMA bf16 GEMM this read {PREVIOUS_MS['ffn_fused']} ms (device)", flush=True)
         lib_text(lambda: ffn_composite(x, w1, b1, w2, b2), FFN_LIB)
         record("ffn_fused", err, n == 1024, tm, bms, by)
+
+    # the bf16 GEMM of rows 8 and 10 alone (gemm_bf16: bias f32, no GELU)
+    # against the f32 product of the same bf16 operands (+ bias; in f32,
+    # TF32 off, never on the path) within GEMM_BF16_RTOL of the largest
+    # output, timed beside torch.matmul on the same bf16 operands: a layer's
+    # four GEMMs at each row count of the main path on the planner's plan
+    def gemm_bf16_check(tag, a, w, bias, p=None, gelu=False):
+        got = GB.gemm_bf16(a, w, bias, p, gelu)
+        with G.exact_fp32():
+            want = a.float() @ w.float().t() + bias.float()
+        want = F.gelu_as(want) if gelu else want
+        torch.cuda.synchronize()
+        err, scale = (got.float() - want).abs().max().item(), want.abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"gemm_bf16 {tag}: non-finite output")
+        check(err <= GEMM_BF16_RTOL * scale, f"gemm_bf16 {tag}: max abs err {err:.4e} > {GEMM_BF16_RTOL} of {scale:.4e}")
+        return got, err
+
+    def gemm_bf16_same_bits(tag, got, *args):
+        again = GB.gemm_bf16(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"gemm_bf16 {tag}: two calls on the same inputs differ")
+
+    for gname, n, k in (("QKV", 3 * dm, dm), ("Wo", dm, dm), ("fc_in", dff, dm), ("fc_out", dm, dff)):
+        w_g, bias_g = rand(n, k, scale=k**-0.5), rand(n, scale=0.02, dtype=f32)
+        for m in (1024, 500, 256, 128, 64):
+            a_g = rand(m, k)
+            p = GP.plan(m, n, k, bf16)
+            got, err = gemm_bf16_check(f"{gname} M={m}", a_g, w_g, bias_g)
+            if p.splits > 1:
+                gemm_bf16_same_bits(f"{gname} M={m}", got, a_g, w_g, bias_g)
+            args = (a_g, w_g, bias_g)
+            tm = timings(lambda: GB.gemm_bf16(*args), lambda: GB.gemm_bf16_plain(*args))
+            lib_ms, lib_call = device_ms(lambda: torch.matmul(a_g, w_g.t())), time_ms(lambda: torch.matmul(a_g, w_g.t()))
+            bms, by = bound_ms(2 * (m * k + n * k + m * n) + 4 * n, bf16=2 * m * n * k)
+            print(f"  gemm_bf16 {gname} M={m} N={n} K={k} plan {p.bm}x{p.bn}, {p.splits} split(s), {p.ctas(m, n)} CTAs: "
+                  f"max_abs_err={err:.4e} vs the f32 product {timing_text(tm, bms, by)}", flush=True)
+            print(f"    torch.matmul bf16 (library, off the path) ms={lib_ms:.4f} (device) call_ms={lib_call:.4f}; "
+                  f"kernel / library {tm['ms'] / lib_ms:.2f}", flush=True)
+            record("gemm_bf16", err, (gname, m) == ("fc_in", 1024), tm, bms, by)
+            if (gname, m) == ("fc_in", 1024):
+                results["gemm_bf16"]["library_ms"] = lib_ms
+    # every tile at splits 1 to 48 (one k-tile each) at fc_out M = 500 (rows
+    # of padding), two calls bit-equal at every split; a ragged K (13·32 =
+    # 416) and an M off the 64-row grid on every tile; K = 8 at M = 1; fc_in's
+    # epilogue (a bf16 bias, the GELU) against the f32 product and against
+    # the plain version at KERNEL_RTOL
+    a_g, w_g, bias_g = rand(500, dff), rand(dm, dff, scale=dff**-0.5), rand(dm, scale=0.02, dtype=f32)
+    nk = GP.BF16_RULE.k_tiles(dff)
+    for bm, bn in GP.BF16_RULE.tiles:
+        for splits in range(1, nk + 1):
+            p = GP.Plan(bm, bn, splits)
+            got, _ = gemm_bf16_check(f"fc_out M=500 plan {bm}x{bn}/{splits}", a_g, w_g, bias_g, p)
+            if splits > 1:
+                gemm_bf16_same_bits(f"fc_out M=500 plan {bm}x{bn}/{splits}", got, a_g, w_g, bias_g, p)
+    a_r, w_r, bias_r = rand(77, 416), rand(384, 416, scale=416**-0.5), rand(384, scale=0.02, dtype=f32)
+    for bm, bn in GP.BF16_RULE.tiles:
+        for splits in (1, GP.BF16_RULE.k_tiles(416)):
+            gemm_bf16_check(f"M=77 N=384 K=416 plan {bm}x{bn}/{splits}", a_r, w_r, bias_r, GP.Plan(bm, bn, splits))
+    gemm_bf16_check("M=1 N=128 K=8", rand(1, 8), rand(128, 8), rand(128, scale=0.02, dtype=f32))
+    for m in (1024, 500, 64):
+        x_g = rand(m, dm)
+        h_g, err = gemm_bf16_check(f"fc_in epilogue M={m}", x_g, w1, b1, gelu=True)
+        e_plain = compare(f"gemm_bf16 fc_in epilogue M={m} vs its plain version", h_g, GB.gemm_bf16_plain(x_g, w1, b1, gelu=True))[0]
+        print(f"  gemm_bf16 fc_in epilogue M={m} (bf16 bias, GELU): max_abs_err={err:.4e} vs the f32 product, "
+              f"{e_plain:.4e} vs its plain version", flush=True)
+    check(bool((KC_.zeroed("gemm_bf16_counters", dev, 0) == 0).all()), "gemm_bf16_counters is not zero after the bf16 kernels")
+    print(f"  gemm_bf16: tiles {GP.BF16_RULE.tiles} at splits 1 to {nk} (two calls bit-equal), M=77 N=384 K=416 and "
+          f"M=1 K=8, within {GEMM_BF16_RTOL} of the largest output; its split-K counters zero at rest", flush=True)
 
     # the row-quantize kernel, exactly: every x the int8 kernels quantize
     # (bf16 [B·T, 768], padded rows zero) and the FFN's f32 hidden tile
@@ -882,15 +998,14 @@ def main() -> int:
             report(f"{name} B={b} T={T_} (T_pad={-(-T_ // 128) * 128})", err, rel, bnd, tm, bms, by)
             if (b, T_) == (2, 512):
                 print(f"    on the earlier mma.sync int8 GEMM this read {PREVIOUS_MS[name]} ms (device)", flush=True)
-            if (b, T_) in ((2, 250), (2, 512)):
-                with G.exact_fp32():
-                    if dtype == bf16:
-                        lib_text(lambda: block_composite(x, mask, w_qkv, b_qkv, w_out, b_out), BLOCK_LIB + " (no W8A8 call)")
-                    else:
-                        lib_text(lambda: block_composite(x, mask, w_qkv32, b_qkv, w_out32, b_out),
-                                 "cuBLAS f32 QKV (TF32 off) + f32 scaled_dot_product_attention + cuBLAS f32 Wo, 3 calls (no W8A8 call)")
-                    lib_text(lambda: block_w8a8_composite(x, mask, wqkv_q, s_qkv, b_qkv, wout_q, s_out, b_out),
-                             W8A8_LIB.format("scaled_dot_product_attention"))
+            with G.exact_fp32():  # the library's composites at every shape, beside each reading
+                if dtype == bf16:
+                    lib_text(lambda: block_composite(x, mask, w_qkv, b_qkv, w_out, b_out), BLOCK_LIB + " (no W8A8 call)")
+                else:
+                    lib_text(lambda: block_composite(x, mask, w_qkv32, b_qkv, w_out32, b_out),
+                             "cuBLAS f32 QKV (TF32 off) + f32 scaled_dot_product_attention + cuBLAS f32 Wo, 3 calls (no W8A8 call)")
+                lib_text(lambda: block_w8a8_composite(x, mask, wqkv_q, s_qkv, b_qkv, wout_q, s_out, b_out),
+                         W8A8_LIB.format("scaled_dot_product_attention"))
             record(name, err, (b, T_) == (2, 512), tm, bms, by)
 
         name = "ffn_fused_int8" + ("_f32" if dtype == f32 else "")
@@ -905,19 +1020,18 @@ def main() -> int:
             report(f"{name} N={n}", err, rel, bnd, tm, bms, by)
             if n == 1024:
                 print(f"    on the earlier mma.sync int8 GEMM this read {PREVIOUS_MS[name]} ms (device)", flush=True)
-            if n in (500, 1024):
-                with G.exact_fp32():
-                    if dtype == bf16:
-                        lib_text(lambda: ffn_composite(x, w1, b1, w2, b2), FFN_LIB + " (no W8A8 call)")
-                    else:
-                        lib_text(lambda: ffn_composite(x, w1_32c, b1, w2_32c, b2),
-                                 "cuBLAS f32 fc_in (TF32 off) + F.gelu + cuBLAS f32 fc_out, 3 calls (no W8A8 call)")
-                    lib_text(lambda: ffn_w8a8_composite(*args), W8A8_LIB.format("F.gelu"))
+            with G.exact_fp32():  # the library's composites at every shape, beside each reading
+                if dtype == bf16:
+                    lib_text(lambda: ffn_composite(x, w1, b1, w2, b2), FFN_LIB + " (no W8A8 call)")
+                else:
+                    lib_text(lambda: ffn_composite(x, w1_32c, b1, w2_32c, b2),
+                             "cuBLAS f32 fc_in (TF32 off) + F.gelu + cuBLAS f32 fc_out, 3 calls (no W8A8 call)")
+                lib_text(lambda: ffn_w8a8_composite(*args), W8A8_LIB.format("F.gelu"))
             record(name, err, n == 1024, tm, bms, by)
         # the buffers the int8 kernels keep zero at rest: the split-K sums and
         # counters, the hidden rows' amax (fc_out restores it)
-        for buf in ("gemm_s8_ws", "gemm_s8_counters", "row_amax"):
-            check(bool((KC_.zeroed(buf, dev, 0) == 0).all()), f"{buf} is not zero after the int8 kernels")
+        for buf in ("gemm_s8_ws", "gemm_s8_counters", "row_amax", "gemm_bf16_counters"):
+            check(bool((KC_.zeroed(buf, dev, 0) == 0).all()), f"{buf} is not zero after the int8 and bf16 kernels")
 
     # the new core of rows 7 and 8 at its other head dims: 32 (DP 32, 24
     # heads) and 128 (DP 128, 6 heads) at T = 128, 256, 512, bf16 and int8,
@@ -1138,7 +1252,8 @@ def main() -> int:
     check(models.text.encoder.cfg.quantize == "none", "quantize='none' did not build the bf16 recipe")
     pipe = G.SegmentPipeline(models)
     runs = [(tokens, inputs(models, tokens)) for tokens in (512, 32)]
-    bf16_counts = drive("bf16", pipe, runs, {**zero, "attention_block": 24, "ffn_fused": 24})
+    bf16_counts = drive("bf16", pipe, runs, {**zero, "attention_block": 24, "ffn_fused": 24, "gemm_bf16": 96})
+    check(bool((KC_.zeroed("gemm_bf16_counters", dev, 0) == 0).all()), "gemm_bf16_counters is not zero after the bf16 forwards")
 
     t1 = time.perf_counter()
     plain = G.SegmentPipeline(models.with_encoders(attention_impl="einsum", ffn_impl="dense"))
@@ -1342,7 +1457,7 @@ def main() -> int:
     long_counts = {}
     for label, mods, expect_counts, plain_of, fault_key, fault, enc_bound, pack_bound in (
         (
-            "long_bf16", models, {**zero, "attention_block": 12, "flash_attention_lse": 12, "ffn_fused": 24},
+            "long_bf16", models, {**zero, "attention_block": 12, "flash_attention_lse": 12, "ffn_fused": 24, "gemm_bf16": 72},
             lambda pipe: (G.SegmentPipeline(mods.with_encoders(attention_impl="einsum", ffn_impl="dense"), long_cfg), None),
             "skip_last_head", {"attention_block": skip_last_head, "flash_attention_lse": flash_skip_last_head},
             ENCODER_NOISE_RATIO, HOSTPACK_NOISE_RATIO,
@@ -1986,7 +2101,7 @@ def main() -> int:
 
         for name, kernel, plain, main_shape, shapes in (
             ("packed_qkv_attention_f32", A.packed_qkv_attention_lse, A.packed_qkv_attention_lse_plain, (2, 512, 12, 64),
-             ((2, 512, 12, 64), (2, 40, 4, 24), (2, 40, 4, 25))),
+             ((2, 512, 12, 64), (8, 512, 12, 64), (2, 40, 4, 24), (2, 40, 4, 25))),
             ("flash_attention_f32", A.flash_attention_lse, A.flash_attention_lse_plain, (2, 749, 12, 64),
              ((2, 749, 12, 64), (1, 1499, 12, 64), (2, 600, 4, 25))),
         ):
@@ -2171,6 +2286,7 @@ def main() -> int:
                 err, _, bnd = compare(tag, got, want)
             print(f"  {tag}: launches {c}; vs its plain versions max abs {err:.4e} (bound {bnd:.4e})", flush=True)
             check(c[kname] == 2, f"{tag}: {c[kname]} launches of {kname}, expected 2")
+            check(c["gemm_bf16"] == 2 * (c["attention_block"] + c["ffn_fused"]), f"{tag}: {c['gemm_bf16']} bf16 GEMM launches")
     # rows 2-6 at D = 25: the custom width d_model 100 (4 heads), forward at T = 40 (row 5) and 600 (row 6)
     for T_c, kname, plain_fn in ((40, "packed_qkv_attention_lse", {"packed_qkv_attention_lse": A.packed_qkv_attention_lse_plain}),
                                  (600, "flash_attention_lse", {"flash_attention_lse": A.flash_attention_lse_plain})):
@@ -2564,7 +2680,8 @@ def main() -> int:
             wo_h, bo_h = rand(dm_w, dm_w, scale=dm_w**-0.5, dtype=f32), rand(dm_w, scale=0.02, dtype=f32)
             m_ = key_mask(2, 100)
             proj_flops, attn_flops = 2 * 2 * 100 * dm_w * 4 * dm_w, 4 * 2 * 4 * 100 * 100 * d
-            for rec, counter in (("bf16", "attention_block"), ("int8", {"attention_block_int8": 1, "quantize_rows": 2, "gemm_s8": 2}),
+            for rec, counter in (("bf16", {"attention_block": 1, "gemm_bf16": 2}),
+                                 ("int8", {"attention_block_int8": 1, "quantize_rows": 2, "gemm_s8": 2}),
                                  ("f32", "attention_block_f32")):
                 dt_w = f32 if rec == "f32" else bf16
                 x = rand(2, 100, dm_w, dtype=dt_w)
@@ -2628,6 +2745,7 @@ def main() -> int:
                 err, _, bnd = (compare_gemm if dtype_c == "float32" else compare)(tag, got, want)
                 print(f"  {tag}: launches {c}; vs its plain versions max abs {err:.4e} (bound {bnd:.4e})", flush=True)
                 check(c[kname] == 2, f"{tag}: {c[kname]} launches of {kname}, expected 2")
+                check(c["gemm_bf16"] == 2 * (c["attention_block"] + c["ffn_fused"]), f"{tag}: {c['gemm_bf16']} bf16 GEMM launches")
         # one bf16 and one f32 training step at D = 192: rows 5, 3 and 4 (f32 in f32)
         for dtype_c, sfx in (("bfloat16", ""), ("float32", "_f32")):
             cfg = T.EncoderConfig(num_layers=2, d_model=768, num_heads=4, d_ff=256, compute_dtype=dtype_c,
@@ -2716,6 +2834,8 @@ def main() -> int:
             ("quantize_rows", "msa_tpu_torch/csrc/quant.cu", "msa_tpu/ops/quant.py:47", int8_counts, ON_INT8),
             # the int8 dots of rows 9 and 7 (ffn.py:120 and :127; attention.py:607-633 and :679-689)
             ("gemm_s8", "msa_tpu_torch/csrc/gemm_s8.cuh", "msa_tpu/ops/pallas/ffn.py:120", int8_counts, ON_INT8),
+            # the bf16 dots of rows 10 and 8 (ffn.py:53 and :58; attention.py:616, 633, 660 and 689)
+            ("gemm_bf16", "msa_tpu_torch/csrc/gemm_bf16.cuh", "msa_tpu/ops/pallas/ffn.py:53", bf16_counts, ON_BF16),
             (
                 "packed_qkv_attention_lse", "msa_tpu_torch/csrc/attention_packed.cu", "msa_tpu/ops/pallas/attention.py:489",
                 train_counts, f"{ON_TRAIN} (its recorded shape); phase 9's custom-width forward launches it 2 times in each recipe",

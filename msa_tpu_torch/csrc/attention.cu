@@ -11,8 +11,10 @@
 // bf16 for P·V; the division by the denominator comes after P·V, and o/denom
 // is rounded to bf16 before the output projection.
 //
-// Three launches, all hand-written: the WMMA GEMM of gemm.cuh for the fused
-// QKV projection, the attention core, and the GEMM again for Wo.
+// Three launches, all hand-written: the bf16 wgmma GEMM of gemm_bf16.cuh
+// (through msa_gemm_bf16) for the fused QKV projection, the attention
+// core, and the GEMM again for Wo, each GEMM on the tile and K split the
+// planner picked (ops/kernels/gemm_plan.py).
 //
 // Any head dim D: the core's head dim is DP ∈ {32, 64, 128} (above 128,
 // DP is a multiple of 128 and the D-tiled kernel of attention_wide.cu
@@ -81,6 +83,7 @@
 // T_pad=512: 4.8 G int8 operations and 1.6 GFLOP of f32 FMA (24 µs at
 // 67 TFLOP/s), so the f32 core bounds it.
 #include "attention_mma.cuh"
+#include "gemm_bf16.cuh"
 #include "gemm_f32.cuh"
 #include "gemm_s8.cuh"
 
@@ -131,24 +134,23 @@ bool bad_block_dp(int DP) { return DP != 32 && DP != 64 && DP % 128; }
 
 // x [B·T, DM] bf16, wqkv [3·H·DP, DM] bf16, bqkv [3·H·DP] f32, wout
 // [DM, H·DP] bf16, bout [DM] f32, mask [B, T] f32; scratch qkv
-// [B·T, 3·H·DP] and attn [B·T, H·DP] bf16; out [B·T, DM] bf16. T ≤ 512,
-// DP 32, 64 or a multiple of 128 (the weights padded per head to DP),
-// DM % 128 == 0.
+// [B·T, 3·H·DP] and attn [B·T, H·DP] bf16; out [B·T, DM] bf16; ws and
+// counters: the bf16 GEMM's split-K partials and per-tile counters (zero
+// at rest); plan_qkv and plan_out: the two GEMMs' plans (bm | bn << 10 |
+// splits << 20, ops/kernels/gemm_plan.py). T ≤ 512, DP 32, 64 or a
+// multiple of 128 (the weights padded per head to DP), DM % 128 == 0.
 extern "C" int msa_attention_block(const void* x, const void* wqkv, const void* bqkv, const void* wout,
-                                   const void* bout, const void* mask, void* qkv, void* attn, void* out, int B,
-                                   int T, int DM, int H, int DP, float scale, void* stream) {
+                                   const void* bout, const void* mask, void* qkv, void* attn, void* out, void* ws,
+                                   void* counters, int B, int T, int DM, int H, int DP, int plan_qkv, int plan_out,
+                                   float scale, void* stream) {
   if (bad_block_dp(DP)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * T, HD = H * DP;
-  cudaError_t e = launch_gemm_nt<false, float>(static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
-                                               static_cast<const float*>(bqkv), static_cast<bf16*>(qkv), M,
-                                               3 * HD, DM, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = launch_core(qkv, mask, attn, B, T, H, DP, scale, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = launch_gemm_nt<false, float>(static_cast<const bf16*>(attn), static_cast<const bf16*>(wout),
-                                   static_cast<const float*>(bout), static_cast<bf16*>(out), M, DM, HD, s);
-  return static_cast<int>(e);
+  int rc = msa_gemm_bf16(x, wqkv, bqkv, 0, qkv, ws, counters, M, 3 * HD, DM, plan_qkv, 0, stream);
+  if (rc) return rc;
+  rc = static_cast<int>(launch_core(qkv, mask, attn, B, T, H, DP, scale, s));
+  if (rc) return rc;
+  return msa_gemm_bf16(attn, wout, bout, 0, out, ws, counters, M, DM, HD, plan_out, 0, stream);
 }
 
 // As msa_attention_block, all in f32 (x, weights, biases, scratch qkv,
@@ -185,7 +187,7 @@ extern "C" int msa_attention_block_f32(const void* x, const void* wqkv, const vo
 // [B·T, 3·H·DP] bf16, attn [B·T, H·DP] bf16, aq [B·T, H·DP] int8, as [B·T]
 // f32. out [B·T, DM] bf16. ws and counters: the int8 GEMM's split-K
 // workspace and per-tile counters (int32, the counters zero at rest);
-// plan_qkv and plan_out: the two GEMMs' plans (bm | bn << 8 | splits << 16,
+// plan_qkv and plan_out: the two GEMMs' plans (bm | bn << 10 | splits << 20,
 // ops/kernels/gemm_s8.py). T ≤ 512, DP 32, 64 or a multiple of 128,
 // DM % 128 == 0.
 extern "C" int msa_attention_block_int8(const void* x, const void* wqkv, const void* sqkv, const void* bqkv,

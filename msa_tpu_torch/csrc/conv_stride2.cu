@@ -21,8 +21,8 @@
 // x's dtype first, as conv.py:109-110 does.
 //
 // bf16: tensor cores through WMMA (16×16×16, f32 accumulators), 128×128
-// output tiles over 32-deep k steps, cp.async double buffering — the
-// GEMM of gemm.cuh with the B operand read row-major. f32: the port's
+// output tiles over 32-deep k steps, cp.async double buffering (the tile
+// constants of gemm.cuh), with the B operand read row-major. f32: the port's
 // shared f32 SIMT GEMM (gemm_f32.cuh: exact FMA, not TF32), with A read at
 // the row stride 2C and B as [k·C, C'] row-major.
 //

@@ -8,10 +8,13 @@
 //
 // What bounds it on the card: at the serving shapes (N = B·T_pad ≤ 1024
 // rows, d 768, d_ff 3072) the two GEMMs are ~9.7 GFLOP against ~12.5 MB of
-// compulsory traffic, i.e. ~780 FLOP/byte: tensor-core bound. This first
-// design runs two launches of the shared WMMA GEMM (gemm.cuh) and lets the
-// hidden tile [N, d_ff] make a round trip through device memory (L2 holds
-// it at these sizes). Keeping it on chip is the redesign still to come.
+// compulsory traffic, i.e. ~780 FLOP/byte: tensor-core bound. Two
+// launches of the bf16 wgmma GEMM (gemm_bf16.cuh, through msa_gemm_bf16):
+// fc_in with + b1 and the GELU in its epilogue, writing the bf16 hidden
+// tile, then fc_out with + b2, each on the tile and K split the planner
+// picked (ops/kernels/gemm_plan.py; fc_out's K = 3072 splits where its
+// tiles are few, deterministically). The hidden tile [N, d_ff] makes a
+// round trip through device memory (L2 holds it at these sizes).
 //
 // msa_ffn_fused_int8 replaces msa_tpu/ops/pallas/ffn.py:ffn_fused_int8
 // (pallas_call at :166, body _ffn_int8_kernel :106-133) with four launches:
@@ -43,19 +46,21 @@
 // rounding points are all f32 there (ffn.py:49-63), and so are these. At
 // N=1024 it is 9.7 GFLOP against ~28 MB of compulsory traffic: bound by the
 // f32 FMA rate (67 TFLOP/s), 0.14 ms at best.
+#include "gemm_bf16.cuh"
 #include "gemm_f32.cuh"
 #include "gemm_s8.cuh"
 
+// x [M, D], w1 [F, D], b1 [F], w2 [D, F], b2 [D], hidden [M, F], out [M, D],
+// all bf16 and contiguous; D and F multiples of 128; ws and counters: the
+// bf16 GEMM's split-K partials and per-tile counters (zero at rest);
+// plan_in and plan_out: fc_in's and fc_out's plans (bm | bn << 10 | splits
+// << 20, ops/kernels/gemm_plan.py).
 extern "C" int msa_ffn_fused(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-                             void* hidden, void* out, int M, int D, int F, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = launch_gemm_nt<true, bf16>(static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-                                             static_cast<const bf16*>(b1), static_cast<bf16*>(hidden), M, F,
-                                             D, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = launch_gemm_nt<false, bf16>(static_cast<const bf16*>(hidden), static_cast<const bf16*>(w2),
-                                  static_cast<const bf16*>(b2), static_cast<bf16*>(out), M, D, F, s);
-  return static_cast<int>(e);
+                             void* hidden, void* out, void* ws, void* counters, int M, int D, int F, int plan_in,
+                             int plan_out, void* stream) {
+  const int rc = msa_gemm_bf16(x, w1, b1, 1, hidden, ws, counters, M, F, D, plan_in, 1, stream);
+  if (rc) return rc;
+  return msa_gemm_bf16(hidden, w2, b2, 1, out, ws, counters, M, D, F, plan_out, 0, stream);
 }
 
 // x [M, D], w1 [F, D], b1 [F], w2 [D, F], b2 [D], hidden [M, F], out [M, D],
@@ -101,7 +106,7 @@ int ffn_int8(const void* x, const void* w1, const void* s1, const void* b1, cons
 // [M, F] f32, hq [M, F] int8, hs [M] f32. out [M, D] bf16. ws, counters and
 // amax [M]: the int8 GEMM's split-K workspace and per-tile counters and the
 // hidden rows' amax (int32, all zero at rest); plan_in and plan_out: fc_in's
-// and fc_out's plans (bm | bn << 8 | splits << 16).
+// and fc_out's plans (bm | bn << 10 | splits << 20).
 extern "C" int msa_ffn_fused_int8(const void* x, const void* w1, const void* s1, const void* b1, const void* w2,
                                   const void* s2, const void* b2, void* xq, void* xs, void* hidden, void* hq,
                                   void* hs, void* out, void* ws, void* counters, void* amax, int M, int D, int F,

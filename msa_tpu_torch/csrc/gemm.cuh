@@ -1,17 +1,10 @@
-// Shared pieces of the port's CUDA kernels: a tiled bf16 GEMM with f32
-// accumulation and a fused bias (+ optional GELU) epilogue, the A&S 7.1.26
-// erf that the TPU FFN kernel uses, warp reductions, and the strides the
-// attention kernels address q, k and v by.
-//
-// The GEMM is "NT": C[M, N] = A[M, K] · W[N, K]ᵀ + bias[N], with W in
-// PyTorch's Linear layout ([out, in], row-major). Tensor cores are reached
-// through the WMMA API (16×16×16 bf16 fragments, f32 accumulators); tiles
-// stream through shared memory with cp.async double buffering. This is the
-// simple first design; the fast Hopper design (wgmma + TMA) is still to come.
-//
-// Limits the wrappers check: N % 128 == 0, K % 32 == 0, every pointer
-// 16-byte aligned. M is arbitrary (rows past M are zero-filled and not
-// stored).
+// Shared pieces of the port's CUDA kernels: the cp.async helpers, the
+// A&S 7.1.26 erf that the TPU FFN kernel uses and its GELU, warp
+// reductions, the strides the attention kernels address q, k and v by,
+// and the WMMA tile constants of row 11's bf16 convolution
+// (conv_stride2.cu: 128 × 128 tiles, K in steps of 32, 8 warps of 64 × 32).
+// The bf16 GEMM of rows 8 and 10 is gemm_bf16.cuh (wgmma), the int8 one of
+// rows 7 and 9 gemm_s8.cuh, the f32 one gemm_f32.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,6 +17,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace nvcuda;
 
+// row 11's WMMA tiles (conv_stride2.cu)
 constexpr int GBM = 128;          // block tile rows
 constexpr int GBN = 128;          // block tile columns
 constexpr int GBK = 32;           // k depth per stage
@@ -74,97 +68,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-template <bool GELU, typename BiasT>
-__global__ void __launch_bounds__(GTHREADS)
-gemm_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, const BiasT* __restrict__ bias,
-               bf16* __restrict__ C, int M, int N, int K) {
-  // [stage][0 = A tile, 1 = W tile][128 rows × GLD]; 40 KB in all
-  __shared__ __align__(128) bf16 smem[2][2][GBM * GLD];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
-
-  auto load_stage = [&](int stage, int k0) {
-    for (int i = tid; i < GBM * GBK / 8; i += GTHREADS) {
-      const int r = i / (GBK / 8), c = (i % (GBK / 8)) * 8;
-      const int gr = m0 + r;
-      const bool ok = gr < M;
-      cp_async16(&smem[stage][0][r * GLD + c], A + (size_t)(ok ? gr : 0) * K + k0 + c, ok);
-      cp_async16(&smem[stage][1][r * GLD + c], W + (size_t)(n0 + r) * K + k0 + c, true);
-    }
-    cp_async_commit();
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni) wmma::fill_fragment(acc[mi][ni], 0.0f);
-
-  const int nk = K / GBK;
-  load_stage(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load_stage((kt + 1) & 1, (kt + 1) * GBK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* sA = smem[kt & 1][0];
-    const bf16* sW = smem[kt & 1][1];
-#pragma unroll
-    for (int kk = 0; kk < GBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) wmma::load_matrix_sync(a[mi], sA + (wm * 64 + mi * 16) * GLD + kk, GLD);
-#pragma unroll
-      for (int ni = 0; ni < 2; ++ni) wmma::load_matrix_sync(b[ni], sW + (wn * 32 + ni * 16) * GLD + kk, GLD);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 2; ++ni) wmma::mma_sync(acc[mi][ni], a[mi], b[ni], acc[mi][ni]);
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-  // epilogue: each warp stages one 16×16 f32 fragment at a time in its own
-  // 1 KB of the (now idle) tile buffer, adds the bias, applies the GELU and
-  // writes 8 bf16 (16 bytes) per lane
-  float* scratch = reinterpret_cast<float*>(&smem[0][0][0]) + warp * 256;
-  const int r = lane >> 1, c = (lane & 1) * 8;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni) {
-      wmma::store_matrix_sync(scratch, acc[mi][ni], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gr = m0 + wm * 64 + mi * 16 + r;
-      const int gc = n0 + wn * 32 + ni * 16 + c;
-      if (gr < M) {
-        __align__(16) bf16 v[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float x = scratch[r * 16 + c + j] + to_f32(bias[gc + j]);
-          if (GELU) x = gelu_as(x);
-          v[j] = __float2bfloat16(x);
-        }
-        *reinterpret_cast<uint4*>(C + (size_t)gr * N + gc) = *reinterpret_cast<const uint4*>(v);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-template <bool GELU, typename BiasT>
-cudaError_t launch_gemm_nt(const bf16* A, const bf16* W, const BiasT* bias, bf16* C, int M, int N, int K,
-                           cudaStream_t stream) {
-  dim3 grid(N / GBN, (M + GBM - 1) / GBM);
-  gemm_nt_kernel<GELU, BiasT><<<grid, GTHREADS, 0, stream>>>(A, W, bias, C, M, N, K);
-  return cudaGetLastError();
 }
 
 }  // namespace

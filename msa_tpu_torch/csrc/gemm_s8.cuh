@@ -22,7 +22,7 @@
 //   warpgroup per 64 rows of the tile, the int32 accumulators in registers.
 // - Square tiles of 64 or 128 and a split of K into S runs of whole
 //   128-byte k-tiles, picked per (M, N, K) by the planner
-//   (msa_tpu_torch/ops/kernels/gemm_s8.py) from the card's timings of every
+//   (msa_tpu_torch/ops/kernels/gemm_plan.py) from the card's timings of every
 //   candidate and passed as arguments: 128 × 128 where that grid alone
 //   fills the SMs, else 64 × 64 (one warpgroup a CTA), and K = 3072 split
 //   where its tiles hold under half the SMs.
@@ -30,10 +30,11 @@
 //   KB) or 3 (128 × 128, 96 KB), so that three or two CTAs share an SM, by
 //   cp.async, written in the 128-byte swizzle that the wgmma descriptors
 //   name; rows past M and bytes past K are zero-filled (src-size 0) and
-//   never stored. cp.async, not TMA: A is a scratch tensor whose address
-//   changes every call, so TMA would encode a tensor map on the host per
-//   launch, and the host already sets the wall. Every thread copies; a CTA
-//   barrier and cp.async groups guard the ring.
+//   never stored: the ring, loader and descriptor of wgmma.cuh, which the
+//   bf16 GEMM (gemm_bf16.cuh) shares. cp.async, not TMA: A is a scratch
+//   tensor whose address changes every call, so TMA would encode a tensor
+//   map on the host per launch, and the host already sets the wall. Every
+//   thread copies; a CTA barrier and cp.async groups guard the ring.
 // - Split-K stays exact: each split adds its int32 partial tile into an
 //   int32 workspace with atomic adds (in the accumulators' register order,
 //   so they are coalesced; integer sums are the same in any order), and
@@ -54,28 +55,9 @@
 // A and W 16-byte aligned, any M; the entry points check the plan.
 #pragma once
 
-#include "gemm.cuh"
+#include "wgmma.cuh"
 
 namespace {
-
-constexpr int S8_BK = 128;  // bytes of K a stage: one 128-byte swizzle row
-
-template <int BM, int BN>
-struct S8Cfg {
-  static constexpr int THREADS = 2 * BM;  // one warpgroup per 64 rows
-  static constexpr int STAGE_BYTES = (BM + BN) * S8_BK;
-  static constexpr int STAGES = BM == 64 ? 4 : 3;  // deeper rings, fewer CTAs an SM, ran slower
-  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;       // + room to align to 1024 bytes
-  static constexpr int NREG = BN / 2;                              // int32 accumulators a thread
-};
-
-// wgmma's shared-memory matrix descriptor for a K-major tile of 128-byte
-// rows in the 128-byte swizzle: start address, leading byte offset 16
-// (unused in this layout), stride 1024 bytes between groups of 8 rows
-__device__ __forceinline__ uint64_t s8_desc(uint32_t saddr) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) | (uint64_t{1024 >> 4} << 32) |
-         (uint64_t{1} << 62);
-}
 
 __device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(
@@ -111,88 +93,37 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db)
       : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-// cp.async writes through the generic proxy, wgmma reads through the async one
-__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-// keeps the compiler from moving reads of the accumulators above the wait
-template <int R>
-__device__ __forceinline__ void fence_regs(int (&d)[R]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) asm volatile("" : "+r"(d[r])::"memory");
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 template <int BM, int BN, bool GELU, typename OutT>
-__global__ void __launch_bounds__(S8Cfg<BM, BN>::THREADS)
+__global__ void __launch_bounds__(WgCfg<BM, BN>::THREADS)
 gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W, const float* __restrict__ row_scale,
                const float* __restrict__ col_scale, const float* __restrict__ bias, OutT* __restrict__ C, int M,
                int N, int K, int swap_lo, int swap_hi, int splits, int* __restrict__ ws,
                int* __restrict__ counters, int* __restrict__ row_amax) {
-  using Cfg = S8Cfg<BM, BN>;
-  constexpr int NT = Cfg::THREADS, STAGES = Cfg::STAGES, NREG = Cfg::NREG;
+  using Cfg = WgCfg<BM, BN>;
+  constexpr int NT = Cfg::THREADS, NREG = Cfg::NREG;
   extern __shared__ uint8_t smem_raw[];
   __shared__ int s_last;
-  // the swizzle repeats every 8 rows of 128 bytes: stages start 1024-aligned
-  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
-  const uint32_t pad = (1024 - (raw & 1023)) & 1023;
-  uint8_t* smem = smem_raw + pad;
-  const uint32_t sbase = raw + pad;
+  uint8_t* smem;
+  const uint32_t sbase = wg_smem(smem_raw, smem);
 
   const int tid = threadIdx.x, wg = tid >> 7;
   const int n_tiles = N / BN, tile = blockIdx.x, split = blockIdx.y;
   const int m0 = (tile / n_tiles) * BM, n0 = (tile % n_tiles) * BN;
-  const int nk = (K + S8_BK - 1) / S8_BK;
+  const int nk = (K + WG_BK - 1) / WG_BK;
   const int kt0 = split * nk / splits, nkt = (split + 1) * nk / splits - kt0;
   if (!GELU && row_amax && n0 == 0 && split == 0 && tid < BM && m0 + tid < M) row_amax[m0 + tid] = 0;
-
-  // one k-tile into a stage: row r's 16-byte chunk c goes to chunk c ^ (r % 8)
-  auto load_stage = [&](int slot, int kt) {
-    uint8_t* sa = smem + slot * Cfg::STAGE_BYTES;
-    uint8_t* sb = sa + BM * S8_BK;
-    const int k0 = kt * S8_BK;
-#pragma unroll
-    for (int j = 0; j < BM * 8 / NT; ++j) {
-      const int i = tid + j * NT, r = i >> 3, c = i & 7, kc = k0 + c * 16;
-      const bool ok = m0 + r < M && kc < K;
-      cp_async16(sa + r * S8_BK + ((c ^ (r & 7)) << 4), A + (ok ? (size_t)(m0 + r) * K + kc : 0), ok);
-    }
-#pragma unroll
-    for (int j = 0; j < BN * 8 / NT; ++j) {
-      const int i = tid + j * NT, r = i >> 3, c = i & 7, kc = k0 + c * 16;
-      const bool ok = kc < K;
-      cp_async16(sb + r * S8_BK + ((c ^ (r & 7)) << 4), W + (ok ? (size_t)(n0 + r) * K + kc : 0), ok);
-    }
-  };
 
   int acc[NREG];
 #pragma unroll
   for (int r = 0; r < NREG; ++r) acc[r] = 0;
 
+  auto a8 = reinterpret_cast<const uint8_t*>(A), w8 = reinterpret_cast<const uint8_t*>(W);
+  wg_k_loop<Cfg, 0>(smem, sbase, a8 + (size_t)m0 * K, M - m0, w8 + (size_t)n0 * K, K, kt0, nkt, tid,
+                    [&](uint32_t sa, uint32_t sb) {
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nkt) load_stage(s, kt0 + s);
-    cp_async_commit();
-  }
-  for (int i = 0; i < nkt; ++i) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of k-tile i have landed
-    fence_proxy_async();
-    __syncthreads();  // everyone's have, and every warpgroup is done with k-tile i - 1
-    if (i + STAGES - 1 < nkt) load_stage((i + STAGES - 1) % STAGES, kt0 + i + STAGES - 1);
-    cp_async_commit();
-    const uint32_t sa = sbase + (i % STAGES) * Cfg::STAGE_BYTES, sb = sa + BM * S8_BK;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < S8_BK / 32; ++kk)  // the 32-byte k steps move the start address inside the swizzle row
-      wgmma_s8(acc, s8_desc(sa + wg * 64 * S8_BK + kk * 32), s8_desc(sb + kk * 32));
-    wgmma_commit();
-    wgmma_wait_all();
-  }
+                      for (int kk = 0; kk < WG_BK / 32; ++kk)  // 32-byte k steps inside the swizzle row
+                        wgmma_s8(acc, wg_desc(sa + wg * 64 * WG_BK + kk * 32), wg_desc(sb + kk * 32));
+                    });
   fence_regs(acc);
 
   if (splits > 1) {  // exact split-K: int32 atomic sums, read back by the tile's last CTA
@@ -249,27 +180,15 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W, const
   }
 }
 
-// a GEMM's plan as the planner packs it: bm | bn << 8 | splits << 16
-struct S8Plan {
-  int bm, bn, splits;
-  explicit S8Plan(int code) : bm(code & 0xff), bn((code >> 8) & 0xff), splits(code >> 16) {}
-};
-
 template <int BM, int BN, bool GELU, typename OutT>
 cudaError_t launch_s8(const int8_t* A, const int8_t* W, const float* rs, const float* cs, const float* bias, OutT* C,
                       int M, int N, int K, int splits, int* ws, int* counters, int* row_amax, cudaStream_t stream,
                       int swap_lo, int swap_hi) {
-  using Cfg = S8Cfg<BM, BN>;
+  using Cfg = WgCfg<BM, BN>;
   auto kernel = gemm_s8_kernel<BM, BN, GELU, OutT>;
   static unsigned attr_set = 0;  // one bit per device: shared memory above 48 KB is opted into once
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const cudaError_t e = wg_smem_attr(kernel, Cfg::SMEM, attr_set);
   if (e != cudaSuccess) return e;
-  if (!(attr_set >> dev & 1u)) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
-    if (e != cudaSuccess) return e;
-    attr_set |= 1u << dev;
-  }
   const dim3 grid(((M + BM - 1) / BM) * (N / BN), splits);
   kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(A, W, rs, cs, bias, C, M, N, K, swap_lo, swap_hi, splits, ws,
                                                     counters, row_amax);
@@ -285,8 +204,8 @@ template <bool GELU, typename OutT>
 cudaError_t launch_gemm_s8(const void* A, const void* W, const void* rs, const void* cs, const void* bias, void* C,
                            int M, int N, int K, int plan_code, void* ws, void* counters, cudaStream_t stream,
                            int swap_lo = 0, int swap_hi = 0, void* row_amax = nullptr) {
-  const S8Plan p(plan_code);
-  const int nk = (K + S8_BK - 1) / S8_BK;
+  const WgPlan p(plan_code);
+  const int nk = (K + WG_BK - 1) / WG_BK;
   if ((p.bm != 64 && p.bm != 128) || p.bn != p.bm || N % p.bn || K % 16 || M < 1 || p.splits < 1 || p.splits > nk ||
       (p.splits > 1 && (!ws || !counters)))
     return cudaErrorInvalidValue;

@@ -10,6 +10,7 @@ from msa_tpu_torch.ops.kernels import build
 
 _F32_WS: dict = {}
 _ZEROED: dict = {}
+_SCRATCH: dict = {}
 
 
 def gemm_f32_workspace(device: torch.device) -> torch.Tensor:
@@ -21,6 +22,18 @@ def gemm_f32_workspace(device: torch.device) -> torch.Tensor:
         elems = build.library().msa_gemm_f32_workspace_elems()
         _F32_WS[key] = torch.empty(elems, dtype=torch.float32, device=device)
     return _F32_WS[key]
+
+
+def scratch(name: str, device: torch.device, elems: int, dtype: torch.dtype) -> torch.Tensor:
+    """The scratch buffer ``name`` of the current stream on ``device``, of
+    at least ``elems`` elements of ``dtype``, contents undefined: the
+    kernels of one stream, which run in order, share it. Grown, never
+    shrunk."""
+    key = (name, device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < elems:
+        buf = _SCRATCH[key] = torch.empty(max(elems, 1), dtype=dtype, device=device)
+    return buf
 
 
 def zeroed(name: str, device: torch.device, elems: int) -> torch.Tensor:

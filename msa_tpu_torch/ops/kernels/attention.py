@@ -5,8 +5,9 @@ Replaces the TPU kernel ``msa_tpu/ops/pallas/attention.py:attention_block``
 (``pl.pallas_call`` at :819, body ``_attn_block_body`` :574-695) in bf16
 and in f32 (:func:`attention_block` on f32 operands, the parity mode's
 encoders). The CUDA kernels are ``msa_tpu_torch/csrc/attention.cu`` (with
-the GEMMs of ``csrc/gemm.cuh`` and ``csrc/gemm_f32.cuh``); its note says
-what bounds them on the card and what the design does about it.
+the bf16 ``wgmma`` GEMM of ``csrc/gemm_bf16.cuh``, on the plans of
+:func:`gemm_plan.plan`, and the f32 GEMM of ``csrc/gemm_f32.cuh``); its
+note says what bounds them on the card and what the design does about it.
 
 Layouts: ``x [B, T, dm]`` in the compute dtype; ``w_qkv [3·H·DP, dm]`` and
 ``w_out [dm, H·DP]`` in PyTorch's Linear layout and the compute dtype;
@@ -107,6 +108,8 @@ import torch.nn.functional as F
 
 from msa_tpu_torch.ops import quant as Q
 from msa_tpu_torch.ops.kernels import build
+from msa_tpu_torch.ops.kernels import gemm_bf16 as GB
+from msa_tpu_torch.ops.kernels import gemm_plan as GP
 from msa_tpu_torch.ops.kernels import gemm_s8 as GS
 from msa_tpu_torch.ops.kernels._common import gemm_f32_workspace, require
 from msa_tpu_torch.ops.kernels.quant import quantize_rows
@@ -240,9 +243,10 @@ def attention_block(
     head_dim=None,
 ) -> torch.Tensor:
     """[B, T, dm] → [B, T, dm] (pre-residual). CPU tensors take
-    :func:`attention_block_plain`; CUDA tensors launch the bf16 kernel, or
-    for f32 x the f32 one (:func:`_attention_block_f32`). ``head_dim`` is
-    the unpadded head dim of weights padded by :func:`pad_block_weights`."""
+    :func:`attention_block_plain`; CUDA tensors launch the bf16 kernel (its
+    two GEMMs counted in ``gemm_bf16.launches``), or for f32 x the f32 one
+    (:func:`_attention_block_f32`). ``head_dim`` is the unpadded head dim
+    of weights padded by :func:`pad_block_weights`."""
     if x.device.type == "cpu":
         return attention_block_plain(x, w_qkv, b_qkv, w_out, b_out, key_mask, num_heads, head_dim)
     if x.dtype == torch.float32:
@@ -254,14 +258,17 @@ def attention_block(
     qkv = torch.empty((b * t_pad, 3 * hd), dtype=bf16, device=dev)
     attn = torch.empty((b * t_pad, hd), dtype=bf16, device=dev)
     out = torch.empty((b, t_pad, dm), dtype=bf16, device=dev)
+    m = b * t_pad
+    ws, cnt, plan_qkv, plan_out = GP.launch_args(dev, (m, 3 * hd, dm), (m, dm, hd), dtype=bf16)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = build.library().msa_attention_block(
         xp.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
-        mask_p.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
-        b, t_pad, dm, num_heads, dp, _block_scale(w_qkv, num_heads, head_dim), stream,
+        mask_p.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), ws, cnt,
+        b, t_pad, dm, num_heads, dp, plan_qkv, plan_out, _block_scale(w_qkv, num_heads, head_dim), stream,
     )
     build.check(rc, "attention_block")
     attention_block.launches += 1
+    GB.gemm_bf16.launches += 2  # QKV and Wo, launched from C
     return out[:, :t]
 
 
@@ -361,7 +368,7 @@ def attention_block_int8(
     if dt == f32:  # the f32 core's lse
         scratch.append(torch.empty((b, num_heads, t_pad), dtype=f32, device=dev))
     entry = "msa_attention_block_int8_f32" if dt == f32 else "msa_attention_block_int8"
-    ws, cnt, plan_qkv, plan_out = GS.launch_args(dev, (m, 3 * hd, dm), (m, dm, hd))
+    ws, cnt, plan_qkv, plan_out = GP.launch_args(dev, (m, 3 * hd, dm), (m, dm, hd), dtype=i8)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(build.library(), entry)(
         xp.data_ptr(), w_qkv_q.data_ptr(), s_qkv.data_ptr(), b_qkv.data_ptr(), w_out_q.data_ptr(),

@@ -32,12 +32,16 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # x, w1, b1, w2, b2, hidden, out, M, D, F, stream
-    "msa_ffn_fused": (_P,) * 7 + (_I,) * 3 + (_P,),
+    # x, w1, b1, w2, b2, hidden, out, ws, counters, M, D, F, plan_in,
+    # plan_out, stream (ws and counters the bf16 GEMM's split-K partials and
+    # per-tile counters, the plans ops/kernels/gemm_plan.py's codes)
+    "msa_ffn_fused": (_P,) * 9 + (_I,) * 5 + (_P,),
     # all f32, with the split-K workspace: x, w1, b1, w2, b2, hidden, out, ws, M, D, F, stream
     "msa_ffn_fused_f32": (_P,) * 8 + (_I,) * 3 + (_P,),
-    # x, wqkv, bqkv, wout, bout, mask, qkv, attn, out, B, T, DM, H, DP, scale, stream
-    "msa_attention_block": (_P,) * 9 + (_I,) * 5 + (_F, _P),
+    # x, wqkv, bqkv, wout, bout, mask, qkv, attn, out, ws, counters, B, T,
+    # DM, H, DP, plan_qkv, plan_out, scale, stream (ws, counters and plans as
+    # msa_ffn_fused's)
+    "msa_attention_block": (_P,) * 11 + (_I,) * 7 + (_F, _P),
     # as above with the f32 core's lse scratch before out and the split-K
     # workspace after it
     "msa_attention_block_f32": (_P,) * 11 + (_I,) * 5 + (_F, _P),
@@ -59,6 +63,9 @@ _SIGNATURES = {
     # the int8 GEMM alone: a, w, rs, cs, bias, c, ws, counters, amax (or
     # null: no GELU), M, N, K, plan, stream
     "msa_gemm_s8": (_P,) * 9 + (_I,) * 4 + (_P,),
+    # the bf16 GEMM alone: a, w, bias, bias_is_bf16, c, ws, counters, M, N,
+    # K, plan, gelu, stream
+    "msa_gemm_bf16": (_P,) * 3 + (_I,) + (_P,) * 3 + (_I,) * 5 + (_P,),
     # qkv, mask, o, lse, B, T, H, D, scale, stream (rows 5 and 6 in bf16; both in f32)
     "msa_packed_qkv_attention": (_P,) * 4 + (_I,) * 4 + (_F, _P),
     "msa_packed_attention_f32": (_P,) * 4 + (_I,) * 4 + (_F, _P),

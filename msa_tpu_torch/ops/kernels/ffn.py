@@ -3,10 +3,10 @@
 Replaces the TPU kernel ``msa_tpu/ops/pallas/ffn.py:ffn_fused``
 (``pl.pallas_call`` at :89, body :49-63) in bf16 and in f32
 (:func:`ffn_fused` on f32 x: the parity mode's encoders). The CUDA kernels
-are
-``msa_tpu_torch/csrc/ffn.cu`` (with the GEMMs of ``csrc/gemm.cuh`` and
-``csrc/gemm_f32.cuh``); its note says what bounds them on the card and
-what the design does about it.
+are ``msa_tpu_torch/csrc/ffn.cu`` (with the bf16 ``wgmma`` GEMM of
+``csrc/gemm_bf16.cuh``, two launches a call on the plans of
+:func:`gemm_plan.plan`, and the f32 GEMM of ``csrc/gemm_f32.cuh``); its
+note says what bounds them on the card and what the design does about it.
 
 Weights are in PyTorch's Linear layout: ``w1 [d_ff, d]``, ``w2 [d, d_ff]``.
 Rounding points, shared by the kernel and :func:`ffn_plain`: both dots
@@ -33,6 +33,8 @@ import torch
 
 from msa_tpu_torch.ops import quant as Q
 from msa_tpu_torch.ops.kernels import build
+from msa_tpu_torch.ops.kernels import gemm_bf16 as GB
+from msa_tpu_torch.ops.kernels import gemm_plan as GP
 from msa_tpu_torch.ops.kernels import gemm_s8 as GS
 from msa_tpu_torch.ops.kernels._common import gemm_f32_workspace, require, zeroed
 from msa_tpu_torch.ops.kernels.quant import quantize_rows
@@ -78,15 +80,17 @@ def _launch_ffn(entry: str, x, w1, b1, w2, b2, dtype: torch.dtype) -> torch.Tens
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if dtype == torch.float32:  # with the f32 GEMM's split-K workspace
         rc = getattr(build.library(), entry)(*ptrs, gemm_f32_workspace(x.device).data_ptr(), n, d, f, stream)
-    else:
-        rc = getattr(build.library(), entry)(*ptrs, n, d, f, stream)
+    else:  # with the bf16 GEMM's split-K scratch and fc_in's and fc_out's plans
+        ws, cnt, plan_in, plan_out = GP.launch_args(x.device, (n, f, d), (n, d, f), dtype=dtype)
+        rc = getattr(build.library(), entry)(*ptrs, ws, cnt, n, d, f, plan_in, plan_out, stream)
     build.check(rc, entry)
     return out
 
 
 def ffn_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """x [N, d] → [N, d]. CPU tensors take :func:`ffn_plain`; CUDA tensors
-    launch the bf16 kernel, or for f32 x ``msa_ffn_fused_f32`` (two
+    launch the bf16 kernel (two launches of the bf16 GEMM, counted in
+    ``gemm_bf16.launches``), or for f32 x ``msa_ffn_fused_f32`` (two
     launches of the f32 SIMT GEMM, exact FMA, no TF32); d and d_ff
     multiples of 128."""
     if x.device.type == "cpu":
@@ -97,6 +101,7 @@ def ffn_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
         return out
     out = _launch_ffn("msa_ffn_fused", x, w1, b1, w2, b2, torch.bfloat16)
     ffn_fused.launches += 1
+    GB.gemm_bf16.launches += 2  # fc_in and fc_out, launched from C
     return out
 
 
@@ -143,7 +148,7 @@ def ffn_fused_int8(x, w1_q, s1, b1, w2_q, s2, b2) -> torch.Tensor:
     xs, hs = (torch.empty((n,), dtype=f32, device=dev) for _ in range(2))
     out = torch.empty((n, d), dtype=dt, device=dev)
     entry = "msa_ffn_fused_int8_f32" if dt == f32 else "msa_ffn_fused_int8"
-    ws, cnt, plan_in, plan_out = GS.launch_args(dev, (n, f, d), (n, d, f))
+    ws, cnt, plan_in, plan_out = GP.launch_args(dev, (n, f, d), (n, d, f), dtype=i8)
     amax = zeroed("row_amax", dev, n).data_ptr()  # fc_in's epilogue reduces the hidden rows' amax here
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(build.library(), entry)(

@@ -1,7 +1,7 @@
 """Where the time of one serving forward, or one training step, goes on the card.
 
     python3 -m msa_tpu_torch.profile_slice [--tokens 512] [--batch 2] [--steps 3] [--quantize int8|none|f32|int8_f32]
-                                           [--samples 80000] [--train | --conv | --asr | --gemm-s8]
+                                           [--samples 80000] [--train | --conv | --asr | --gemm-s8 | --gemm-bf16]
 
 Builds the full-width models (``PipelineModels.initialize``, by default in
 the int8 serving recipe; ``--quantize none`` for the bf16 one, ``f32``
@@ -36,7 +36,14 @@ fc_in, fc_out at d_model 768, d_ff 3072) and M = 4096, 1024, 500, 256,
 fewest splits that fill the SMs, at twice that and at as many of them as
 leave each split 4 k-tiles, and of
 ``torch._int_mm`` (cuBLASLt) on the same codes, each from the profiler's
-trace of ``--steps`` (at least 20) calls. Needs a CUDA device.
+trace of ``--steps`` (at least 20) calls. ``--gemm-bf16`` does the same
+for the bf16 GEMM of rows 8 and 10 (``ops/kernels/gemm_bf16.py``; bias
+f32, no GELU) at the same shapes: every tile the kernel is built for at
+splits 1, 2, 3, 4, 6, 8, 12 and 16 where each split keeps 2 k-tiles or
+more, beside ``torch.matmul`` on the same bf16 operands, each plan's max
+abs error against the f32 product of those operands printed beside its
+time; then fc_in with its own epilogue (bf16 bias, GELU) on the planner's
+plan beside the same plan without it. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ def main(argv=None) -> int:
     ap.add_argument("--conv", action="store_true", help="row 11 at the wav2vec2 stride-2 layers instead of a forward")
     ap.add_argument("--asr", action="store_true", help="one batch of the shipped whisper ASR instead of a forward")
     ap.add_argument("--gemm-s8", action="store_true", help="the int8 GEMM of rows 7 and 9 alone, each plan, beside torch._int_mm")
+    ap.add_argument("--gemm-bf16", action="store_true", help="the bf16 GEMM of rows 8 and 10 alone, each plan, beside torch.matmul")
     args = ap.parse_args(argv)
     b = args.batch or (64 if args.conv else 8 if args.train or args.asr else 2)
     if not torch.cuda.is_available():
@@ -76,6 +84,8 @@ def main(argv=None) -> int:
         return conv_layers(b, max(args.steps, 5))
     if args.gemm_s8:
         return gemm_s8_plans(max(args.steps, 20))
+    if args.gemm_bf16:
+        return gemm_bf16_plans(max(args.steps, 20))
     from torch.profiler import ProfilerActivity, profile
 
     from msa_tpu_torch.pipeline import graph as G
@@ -290,6 +300,57 @@ def gemm_s8_plans(reps: int) -> int:
                   f"best {best.bm}x{best.bn}/{best.splits} {times[best]:.4f}, torch._int_mm {lib:.4f}, "
                   f"bound {row['bound_ms']:.5f}  | " + " ".join(f"{key} {t:.4f}" for key, t in row["all"].items()), flush=True)
     print(json.dumps({"gemm_s8": rows, "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+def gemm_bf16_plans(reps: int) -> int:
+    """The bf16 GEMM alone: each candidate plan beside the planner's and
+    torch.matmul, at a layer's four GEMMs and the main path's row counts."""
+    from msa_tpu_torch.ops.kernels import gemm_bf16 as GB
+    from msa_tpu_torch.ops.kernels import gemm_plan as GP
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf16, rows = torch.bfloat16, []
+    for name, n, k in (("QKV", 2304, 768), ("Wo", 768, 768), ("fc_in", 3072, 768), ("fc_out", 768, 3072)):
+        w = (torch.randn(n, k, generator=g, device="cuda") * k**-0.5).to(bf16)
+        bias = 0.02 * torch.randn(n, generator=g, device="cuda")
+        for m in (4096, 1024, 500, 256, 128, 64):
+            a = torch.randn(m, k, generator=g, device="cuda").to(bf16)
+            want = a.float() @ w.float().t() + bias
+            nk = GP.BF16_RULE.k_tiles(k)
+            chosen = GP.plan(m, n, k, bf16)
+            cands = [GP.Plan(bm, bn, s) for bm, bn in GP.BF16_RULE.tiles for s in (1, 2, 3, 4, 6, 8, 12, 16)
+                     if s == 1 or nk // s >= 2]
+            cands += [chosen] if chosen not in cands else []
+            times, errs = {}, {}
+            for p in cands:
+                errs[p] = (GB.gemm_bf16(a, w, bias, p).float() - want).abs().max().item()
+                times[p] = _device_ms(lambda p=p: GB.gemm_bf16(a, w, bias, p), reps, "gemm_bf16_kernel")
+            best = min(times, key=times.get)
+            lib = _device_ms(lambda: torch.matmul(a, w.t()), reps)
+            row = {"gemm": name, "M": m, "N": n, "K": k, "plan": dataclasses.astuple(chosen), "plan_ms": times[chosen],
+                   "best": dataclasses.astuple(best), "best_ms": times[best], "matmul_ms": lib,
+                   "bound_ms": 1e3 * max(2 * m * n * k / 989e12, 2 * (m * k + n * k + m * n) / 3.35e12),
+                   "max_abs_err": max(errs.values()),
+                   "all": {f"{p.bm}x{p.bn}/{p.splits}": t for p, t in times.items()}}
+            rows.append(row)
+            print(f"{name:6s} M={m:4d} N={n} K={k}: plan {chosen.bm}x{chosen.bn}/{chosen.splits} {times[chosen]:.4f} ms, "
+                  f"best {best.bm}x{best.bn}/{best.splits} {times[best]:.4f}, torch.matmul {lib:.4f}, "
+                  f"bound {row['bound_ms']:.5f}, max abs err {row['max_abs_err']:.3e} (|want| {want.abs().max().item():.2f})  | "
+                  + " ".join(f"{key} {t:.4f}" for key, t in row["all"].items()), flush=True)
+    # fc_in's own epilogue (bf16 bias, GELU) on the planner's plan, beside the same plan without it
+    w = (torch.randn(3072, 768, generator=g, device="cuda") * 768**-0.5).to(bf16)
+    b1 = (0.02 * torch.randn(3072, generator=g, device="cuda")).to(bf16)
+    for m in (1024, 500, 64):
+        a = torch.randn(m, 768, generator=g, device="cuda").to(bf16)
+        p = GP.plan(m, 3072, 768, bf16)
+        gelu_ms, bare_ms = (_device_ms(lambda gl=gl: GB.gemm_bf16(a, w, b1, p, gl), reps, "gemm_bf16_kernel") for gl in (True, False))
+        rows.append({"gemm": "fc_in+GELU", "M": m, "plan": dataclasses.astuple(p), "plan_ms": gelu_ms, "no_gelu_ms": bare_ms})
+        print(f"fc_in  M={m:4d} with its GELU (bf16 bias): plan {p.bm}x{p.bn}/{p.splits} {gelu_ms:.4f} ms, "
+              f"{bare_ms:.4f} without", flush=True)
+    print(json.dumps({"gemm_bf16": rows, "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 
 

@@ -74,7 +74,7 @@ def test_plan_covers_the_gemm_once(gemm, m):
     if m >= 256:  # the card filled, or no split that paid would fill it
         assert p.ctas(m, n) >= GS.SMS or 2 * p.tiles(m, n) >= GS.SMS or p.splits == nk // GS.MIN_SPLIT_K_TILES
     assert p.workspace_elems(m, n) == (p.tiles(m, n) * p.bm * p.bn if p.splits > 1 else 0)
-    assert GS.Plan(p.code & 0xFF, p.code >> 8 & 0xFF, p.code >> 16) == p  # the C entries' decoding
+    assert GS.Plan(p.code & 0x3FF, p.code >> 10 & 0x3FF, p.code >> 20) == p  # the C entries' decoding
 
 
 def test_plan_takes_128_tiles_where_they_fill_the_card():

@@ -114,9 +114,11 @@ def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
     names = {p.name for p in build._sources()}
     assert names == {
         "attention.cu", "attention_bwd.cu", "attention_bwd_f32.cu", "attention_flash.cu", "attention_fused.cu",
-        "attention_packed.cu", "attention_wide.cu", "conv_stride2.cu", "ffn.cu", "quant.cu",
+        "attention_packed.cu", "attention_wide.cu", "conv_stride2.cu", "ffn.cu", "gemm_bf16.cu", "quant.cu",
     }
-    assert {p.name for p in build.CSRC.glob("*.cuh")} == {"gemm.cuh", "gemm_s8.cuh", "gemm_f32.cuh", "attention_mma.cuh"}
+    assert {p.name for p in build.CSRC.glob("*.cuh")} == {
+        "gemm.cuh", "gemm_bf16.cuh", "gemm_s8.cuh", "gemm_f32.cuh", "wgmma.cuh", "attention_mma.cuh",
+    }
     assert build.ARCH_FLAGS == ("-gencode", "arch=compute_90a,code=sm_90a")
     assert "-shared" in build.NVCC_FLAGS and not any("fast_math" in f for f in build.NVCC_FLAGS)
     for p in build.CSRC.glob("*.cu*"):
@@ -134,6 +136,7 @@ def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
         "msa_attention_block_int8",
         "msa_attention_block_int8_f32",
         "msa_gemm_s8",
+        "msa_gemm_bf16",
         "msa_packed_qkv_attention",
         "msa_packed_attention_f32",
         "msa_flash_attention",

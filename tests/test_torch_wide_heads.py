@@ -218,7 +218,7 @@ def test_attention_block_takes_wide_heads_on_the_card_path(card, recipe, d):
     else:
         w_qkv, w_out = _meta(3 * h * dp, dm, dtype=dtype), _meta(dm, h * dp, dtype=dtype)
         out = A.attention_block(x, w_qkv, b_qkv, w_out, b_out, mask, h, d)
-        entry, at = ("msa_attention_block_f32", 15) if recipe == "float32" else ("msa_attention_block", 13)
+        entry, at = ("msa_attention_block_f32", 15) if recipe == "float32" else ("msa_attention_block", 15)
     assert tuple(out.shape) == (1, 40, dm)
     (name, args), = card.calls
     assert name == entry and args[at] == dp and args[-2] == float(np.float32(1.0 / np.sqrt(d)))
