@@ -1,7 +1,7 @@
 // attention_bwd in f32 (rows 3 and 4 on f32 operands), and in bf16 at head
 // dims above 128: the flash-style attention backward from the forward's row
-// logsumexp, as two D-tiled kernels on the CUDA cores. With L = lse, Δ =
-// rowsum(dO∘O) and P = exp(S·scale + bias − L) recomputed per tile:
+// logsumexp on the CUDA cores. With L = lse, Δ = rowsum(dO∘O) and P =
+// exp(S·scale + bias − L) recomputed per tile:
 //   dV = Pᵀ·dO,   dS = P ∘ (dO·Vᵀ − Δ),   dQ = scale·dS·K,   dK = scale·dSᵀ·Q.
 //
 // Replaces msa_tpu/ops/pallas/attention.py:attention_bwd (:343-421) on f32
@@ -11,43 +11,93 @@
 // training step in f32 (compute_dtype="float32", the parity mode's imported
 // trunks fine-tuned) runs this backward after rows 5 and 6 in f32.
 //
-// Same rounding points as the TPU kernels and attention_bwd_plain: S and
-// dO·Vᵀ accumulate in f32; s = S·scale + bias with −1e9 on masked keys (the
-// product and the sum each rounded once); P = exp(s − L); dS = P·(dP − Δ);
-// dS is rounded to k's dtype before dS·K, Pᵀ to dO's before Pᵀ·dO and dSᵀ to
-// q's before dSᵀ·Q (the identity in f32: no rounding anywhere, exact FMA, no
-// TF32); the f32 sums are multiplied by scale at the end (dQ, dK) and
-// rounded once. Products of bf16 values are exact in f32, so at D > 128 the
-// bf16 instances differ from the plain version only in summation order.
+// Two designs, dispatched by D (the wrapper's _launch_bwd picks the entry):
+// - D ≤ 64, f32 (every served f32 shape: D = 64, and 24 or 25 padded to
+//   32): ONE pass, msa_attention_bwd_onepass_f32 (onepass_f32_kernel, 32
+//   columns at D ≤ 32, else 64).
+// - any other D (D % 8 == 0), and bf16 above D = 128: the D-tiled pair,
+//   msa_attention_bwd_dq_f32 and msa_attention_bwd_dkv_f32 (simt_dq_kernel,
+//   simt_dkv_kernel; attention_bwd.cu routes its bf16 D > 128 calls here).
+//
+// Same rounding points in both as the TPU kernels and attention_bwd_plain:
+// S and dO·Vᵀ accumulate in f32; s = S·scale + bias with −1e9 on masked
+// keys (the product and the sum each rounded once); P = exp(s − L); dS =
+// P·(dP − Δ); dS is rounded to k's dtype before dS·K, Pᵀ to dO's before
+// Pᵀ·dO and dSᵀ to q's before dSᵀ·Q (the identity in f32: no rounding
+// anywhere, exact FMA, no TF32); the f32 sums are multiplied by scale at
+// the end (dQ, dK) and rounded once. Products of bf16 values are exact in
+// f32, so at D > 128 the bf16 instances differ from the plain version only
+// in summation order.
 //
 // Rows and keys past T are never written. A padded query row has q = dO = 0
 // and L = Δ = 0, a padded key k = v = 0, so both add exact zeros, as in the
 // TPU kernel. A row with no valid key has L ≈ −1e9 + log T_pad (the
 // forward's), so its P is about 1/T_pad on every key, as in JAX.
 //
-// The design (row 1's f32 core, attention_fused.cu, with a D tile): one
-// block per (64-row tile, DC-column tile of the output, head, batch row), 4
-// warps of 16 owned rows; lane = 8·rg + kg holds owned rows 16w + rg + 4i (i
-// < 4) × the step's columns kg + 8j (j < 8) of the 64 × 64 S and dP tiles
-// (Sᵀ and dPᵀ in row 4) in registers, and the same rows × output columns
-// 4kg + 32u (u < DC/32). Each operand read from shared memory (float4, rows
-// of LD = DC + 4 floats: conflict-free) feeds 4 or 8 FMAs. The scores run
-// over the full D, DC columns of each operand at a time; dS (and Pᵀ) goes
-// through the warp's own rows of shared memory into the products of the
-// block's column tile. At D ≤ DC (the encoders' D = 64) the owned tiles are
-// loaded once. Copies are waited for before each step: simple first.
+// The pair's register tiles (row 1's f32 core, attention_fused.cu): 4
+// warps of 16 owned rows; lane = 8·rg + kg holds owned rows 16w + rg + 4i
+// (i < 4) × the step's columns kg + 8j (j < 8) of the 64-wide S and dP
+// tiles in registers, and the same rows × output columns 4kg + 32u (u <
+// DC/32). Each operand read from shared memory (float4, rows of LD = DC +
+// 4 floats: conflict-free) feeds 4 or 8 FMAs; dS (and Pᵀ) goes through
+// the warp's own rows of shared memory into the products over the step.
+//
+// The one pass (D ≤ 64): a block owns BK = 64·KH keys of one (batch row,
+// head) (KH = 1 or 2: 4 or 8 warps, 128·KH threads) and walks the query
+// steps of 64 of its split of the query loop; per step it forms Sᵀ = K·Qᵀ
+// and dPᵀ = V·dOᵀ ONCE, then Pᵀ and dSᵀ, then dV += Pᵀ·dO and dK += dSᵀ·Q
+// in registers and this key tile's share of the step's dQ = dS·K. 10·T²·D
+// operations a (row, head), where the pair takes 14 (it forms S and dP in
+// both kernels).
+// - Two warp groups: group 0 forms Sᵀ, Pᵀ and dV, group 1 dPᵀ, dSᵀ (from
+//   group 0's Pᵀ in shared memory) and dK; a thread holds 8 keys × 8
+//   queries of its tile and the same 8 keys × 8 columns of its dV or dK,
+//   so each operand it reads feeds 8 FMAs. Every thread then takes RPT
+//   query rows × 4 columns of the [64 × D] dQ share, over the BK keys in
+//   order.
+// - dQ is summed in key-tile order, never by float atomics: the share of
+//   key tile kt goes into dq itself (kt = 0 stores it, the others read,
+//   add and store; the last also multiplies by scale), a warp at a time,
+//   once the (b, h, query step)'s ticket counts every warp of the key tiles
+//   before it; the warp then adds one to it (the last warp sets 0: zero at
+//   rest). No block-wide barrier waits on it. A query split's dK/dV are
+//   summed the same way, in split order, under a per-(b, h, key tile)
+//   ticket. Blocks take their work in the order of an atomic counter, key
+//   tile fastest, so a block only ever waits on a block that started
+//   before it: no deadlock whatever the scheduler does. Two calls are
+//   bit-equal.
+// - The tile size BK and the query split come from the wrapper's planner
+//   (ops/kernels/attention_bwd_plan.py), which fills the 132 SMs (one block
+//   an SM) in close to whole waves at the served shapes; the entry refuses
+//   a plan it cannot take (cudaErrorInvalidValue).
+// - The step's Q, dO, L and Δ come by cp.async into a ring of two stages:
+//   the next step's tiles are in flight while this step's FMAs run.
+//   Shared memory at DC = 64, KH = 2: 209 KB (K, V, the ring, Pᵀ and dSᵀ),
+//   so one block of 8 warps an SM; 254 registers a thread, no spill.
+// - What the design runs on the card found (PERF.md §6): the products
+//   run at about half the CUDA cores' peak, as the pair's do. Without the
+//   dQ sums' loads, stores and tickets the kernel read 8% faster, without
+//   the dQ product 29%; 8-key rows (a third fewer operand loads than the
+//   pair's 4 × 8 tiles) gained 2%, 16 warps at 128 registers lost 11%, and
+//   named-barrier hand-offs between the two groups 1%.
+//
+// The pair (any D): one block per (64-row tile, DC-column tile of the
+// output, head, batch row); the scores run over the full D, DC columns of
+// each operand at a time, and the products of the block's column tile
+// follow. Copies are waited for before each step. At D ≤ DC the owned
+// tiles are loaded once.
 // - the dQ kernel (msa_attention_bwd_dq_f32): owned rows are queries;
 //   steps of 64 keys; S = Q·Kᵀ, dP = dO·Vᵀ, then dQ += dS·K.
 // - the dK/dV kernel (msa_attention_bwd_dkv_f32): owned rows are keys;
 //   steps of 64 queries; Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ, then dV += Pᵀ·dO and
 //   dK += dSᵀ·Q.
 //
-// What bounds it on the card: per (row, head) 6·T²·D (dQ) and 8·T²·D
-// (dK, dV) f32 operations. At the text training step's shape (B=8, T=512,
-// H=12, D=64) 9.66 and 12.9 GFLOP, 0.144 and 0.192 ms at the CUDA cores' 67
-// TFLOP/s, over ~50 MB (0.015 ms at 3.35 TB/s): bound by the FMA rate.
-// Shared memory at DC = 64: 87 KB (dQ) and 104 KB (dK/dV) a block, so 2
-// blocks share an SM.
+// What bounds it on the card: the FMA rate. At the text training step's
+// shape (B=8, T=512, H=12, D=64) the function needs 10·B·H·T²·D = 16.1
+// GFLOP, 0.240 ms at the CUDA cores' 67 TFLOP/s, over ~50 MB (0.015 ms at
+// 3.35 TB/s). The pair does 6·T²·D (dQ) and 8·T²·D (dK, dV) operations a
+// (row, head): 9.66 and 12.9 GFLOP there; shared memory at DC = 64: 87 KB
+// (dQ) and 104 KB (dK/dV) a block, so 2 blocks share an SM.
 //
 // q, k, v, dq, dk and dv are addressed by one set of element strides
 // (batch, head, time; D contiguous), dO by another, as in attention_bwd.cu:
@@ -304,6 +354,337 @@ simt_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __res
   store_acc<E, DC>(acc_v, 1.f, dv, sx, b, h, k0 + r, c0, T, D, kg);
 }
 
+// --- the one pass (f32, D ≤ 64) ------------------------------------------------
+
+constexpr int OQ = 64;  // queries a step (the S tile's columns, SC)
+constexpr int ONEPASS_MAX_D = 64;
+
+// the ticket buffer: [work counter, finished blocks, the dQ tickets (B·H·nq),
+// the dK/dV tickets (B·H·nkt)], int32, zero at rest
+constexpr int TK_WORK = 0, TK_DONE = 1, TK_DQ = 2;
+
+template <int DC, int KH>
+constexpr size_t onepass_smem_bytes() {
+  constexpr size_t BK = 64 * KH, LD = DC + 4;
+  return (2 * BK * LD                   // sK, sV: the owned keys
+          + 4 * OQ * LD                 // sQ, sG: two stages of the step's queries and their dO
+          + 2 * BK * SPL                // sP, sDS: Pᵀ and dSᵀ
+          + 4 * OQ) * sizeof(float)     // L, Δ: two stages
+         + 16;                          // the work id
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// the dQ share's thread tile: RPT query rows × 4 columns of the step's [64
+// × DC] tile, so that the block's NT threads cover it once
+template <int DC, int NT>
+struct DqTile {
+  static constexpr int RPT = 16 * DC / NT;  // rows a thread: 4 at DC = 64 and 256 threads, 8 at 128
+  static constexpr int NCG = DC / 4;        // column groups of 4
+};
+
+// t[i][j] += Σ_d a(row i)[d]·b(row cg + 8j)[d] over the DC columns: a the
+// thread's 8 owned rows (+ 4i·LD), b the step's 64 rows; one operand of
+// each pair feeds 8 FMAs (the pair's dots2 feeds 4 or 8)
+template <int DC>
+__device__ __forceinline__ void dots8(float (&t)[8][8], const float* a, const float* bt, int cg) {
+  constexpr int LD = DC + 4;
+#pragma unroll 1
+  for (int d = 0; d < DC; d += 4) {
+    float4 av[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) av[i] = *reinterpret_cast<const float4*>(a + 4 * i * LD + d);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 bv = *reinterpret_cast<const float4*>(bt + (cg + 8 * j) * LD + d);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        t[i][j] = fmaf(av[i].x, bv.x, t[i][j]);
+        t[i][j] = fmaf(av[i].y, bv.y, t[i][j]);
+        t[i][j] = fmaf(av[i].z, bv.z, t[i][j]);
+        t[i][j] = fmaf(av[i].w, bv.w, t[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][4u + e] += Σ_j w(row i)[j]·x[j][4cg + 32u + e] over the 64 rows of
+// a step: w the thread's 8 rows of a [BK × SPL] tile (+ 4i·SPL), x a [64 ×
+// LD] tile
+template <int DC>
+__device__ __forceinline__ void acc8(float (&acc)[8][DC / 8], const float* w, const float* x, int cg) {
+  constexpr int LD = DC + 4, NU = DC / 32;
+#pragma unroll 1
+  for (int j0 = 0; j0 < OQ; j0 += 4) {
+    float4 wv[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) wv[i] = *reinterpret_cast<const float4*>(w + 4 * i * SPL + j0);
+#pragma unroll
+    for (int jq = 0; jq < 4; ++jq) {
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        const float4 xv = *reinterpret_cast<const float4*>(x + (j0 + jq) * LD + 4 * cg + 32 * u);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float p = jq == 0 ? wv[i].x : jq == 1 ? wv[i].y : jq == 2 ? wv[i].z : wv[i].w;
+          acc[i][4 * u + 0] = fmaf(p, xv.x, acc[i][4 * u + 0]);
+          acc[i][4 * u + 1] = fmaf(p, xv.y, acc[i][4 * u + 1]);
+          acc[i][4 * u + 2] = fmaf(p, xv.z, acc[i][4 * u + 2]);
+          acc[i][4 * u + 3] = fmaf(p, xv.w, acc[i][4 * u + 3]);
+        }
+      }
+    }
+  }
+}
+
+// acc[i][e] += Σ_k dS[k][RPT·rg + i]·K[k][4cg + e] over the BK keys of the
+// block in order: sDS its dSᵀ [BK × SPL], sK its keys [BK × LD]
+template <int DC, int NT, int BK>
+__device__ __forceinline__ void dq_share(float (&acc)[DqTile<DC, NT>::RPT][4], const float* sDS, const float* sK,
+                                         int rg, int cg) {
+  constexpr int LD = DC + 4, RPT = DqTile<DC, NT>::RPT;
+#pragma unroll 4
+  for (int kk = 0; kk < BK; ++kk) {
+    float w[RPT];
+    const float* ds = sDS + kk * SPL + RPT * rg;
+    if constexpr (RPT % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < RPT; i += 4) {
+        const float4 w4 = *reinterpret_cast<const float4*>(ds + i);
+        w[i] = w4.x;
+        w[i + 1] = w4.y;
+        w[i + 2] = w4.z;
+        w[i + 3] = w4.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < RPT; i += 2) {
+        const float2 w2 = *reinterpret_cast<const float2*>(ds + i);
+        w[i] = w2.x;
+        w[i + 1] = w2.y;
+      }
+    }
+    const float4 x = *reinterpret_cast<const float4*>(sK + kk * LD + 4 * cg);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      acc[i][0] = fmaf(w[i], x.x, acc[i][0]);
+      acc[i][1] = fmaf(w[i], x.y, acc[i][1]);
+      acc[i][2] = fmaf(w[i], x.z, acc[i][2]);
+      acc[i][3] = fmaf(w[i], x.w, acc[i][3]);
+    }
+  }
+}
+
+// N float4 sums into dst (p[n], null where the value lies past T or D) in
+// the order of the sum: the first writer stores, the others add to what is
+// there (read past L1, every load in flight before the first add), and the
+// last multiplies by mul; each value rounded once a step
+template <int N>
+__device__ __forceinline__ void add_ordered(float4* (&p)[N], float4 (&v)[N], bool first, bool last, float mul) {
+  if (!first) {
+    float4 o[N];
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      if (p[n] != nullptr) o[n] = __ldcg(p[n]);
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      if (p[n] != nullptr)
+        v[n] = make_float4(__fadd_rn(o[n].x, v[n].x), __fadd_rn(o[n].y, v[n].y), __fadd_rn(o[n].z, v[n].z),
+                           __fadd_rn(o[n].w, v[n].w));
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    if (p[n] == nullptr) continue;
+    if (last) v[n] = make_float4(__fmul_rn(v[n].x, mul), __fmul_rn(v[n].y, mul), __fmul_rn(v[n].z, mul), __fmul_rn(v[n].w, mul));
+    __stcg(p[n], v[n]);
+  }
+}
+
+template <int DC, int KH>
+__global__ void __launch_bounds__(128 * KH, 1)
+onepass_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, Strides sx,
+                   const float* __restrict__ dout, Strides so, const float* __restrict__ lse,
+                   const float* __restrict__ delta, const float* __restrict__ mask, float* dq, float* dk, float* dv,
+                   int* tickets, int H, int T, int D, int nkt, int nq, int splits, float scale) {
+  constexpr int BK = 64 * KH, NT = 128 * KH, WARPS = NT / 32, LD = DC + 4;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);  // [BK × LD] the owned keys
+  float* sV = sK + BK * LD;
+  float* sQ = sV + BK * LD;      // 2 stages of [OQ × LD]: the step's queries
+  float* sG = sQ + 2 * OQ * LD;  // their dO
+  float* sP = sG + 2 * OQ * LD;  // [BK × SPL] Pᵀ
+  float* sDS = sP + BK * SPL;    // dSᵀ
+  float* sL = sDS + BK * SPL;    // 2 stages of L, then 2 of Δ
+  float* sDl = sL + 2 * OQ;
+  int* sWork = reinterpret_cast<int*>(sDl + 2 * OQ);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // two groups of WARPS/2 warps: group 0 forms Sᵀ, Pᵀ and dV, group 1 dPᵀ,
+  // dSᵀ and dK; a thread owns keys r + 4i (i < 8) × the step's queries cg +
+  // 8j (j < 8), and those keys × the columns 4cg + 32u of its dV or dK
+  const int grp = warp / (WARPS / 2), r = (warp % (WARPS / 2)) * 32 + (lane >> 3), cg = lane & 7;
+  using Dq = DqTile<DC, NT>;
+  const int qr = tid / Dq::NCG, qc = tid % Dq::NCG;  // the dQ share: rows RPT·qr + i, columns 4qc + e
+  // the work item, in the order blocks start: key tile fastest, then the split, then (b, h)
+  if (tid == 0) *sWork = atomicAdd(tickets + TK_WORK, 1);
+  __syncthreads();
+  const int work = *sWork, kt = work % nkt, sp = (work / nkt) % splits, bh = work / nkt / splits;
+  const int b = bh / H, h = bh % H, k0 = kt * BK;
+  const int j0 = sp * nq / splits, j1 = (sp + 1) * nq / splits;  // the split's query steps
+  const size_t row0 = (size_t)bh * T;
+  int* dq_ticket = tickets + TK_DQ + (size_t)bh * nq;
+  const float* mrow = mask + (size_t)b * T;
+  float kb[8];  // the key bias of the owned keys (−1e9 past T): group 0's
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int t = k0 + r + 4 * i;
+    kb[i] = t < T && mrow[t] > 0.f ? 0.f : MASK_BIAS;
+  }
+
+  // query rows past T arrive as zeros with L = Δ = 0: exact zeros
+  auto load_step = [&](int j, int stage) {
+    load_rows_f32<float, OQ, DC, NT>(sQ + stage * OQ * LD, LD, q, sx, b, h, j * OQ, T, 0, D, tid);
+    load_rows_f32<float, OQ, DC, NT>(sG + stage * OQ * LD, LD, dout, so, b, h, j * OQ, T, 0, D, tid);
+    load_vec_async<OQ, NT>(sL + stage * OQ, lse + row0, j * OQ, T, tid);
+    load_vec_async<OQ, NT>(sDl + stage * OQ, delta + row0, j * OQ, T, tid);
+  };
+  load_rows_f32<float, BK, DC, NT>(sK, LD, k, sx, b, h, k0, T, 0, D, tid);
+  load_rows_f32<float, BK, DC, NT>(sV, LD, v, sx, b, h, k0, T, 0, D, tid);
+  load_step(j0, 0);
+  cp_async_commit();
+
+  float acc[8][DC / 8] = {};  // dV (group 0) or dK (group 1) of the owned keys
+  float* sPt = sP + r * SPL;
+  float* sDSt = sDS + r * SPL;
+  for (int j = j0; j < j1; ++j) {
+    const int stage = (j - j0) & 1;
+    const float* sQs = sQ + stage * OQ * LD;
+    const float* sGs = sG + stage * OQ * LD;
+    cp_async_wait<0>();
+    // this step's tiles are in for every thread, and every warp is done
+    // with the last step's (stage ^ 1 of the ring, Pᵀ and dSᵀ): only now may
+    // the next step's copies overwrite that stage
+    __syncthreads();
+    if (j + 1 < j1) {  // the next step's tiles, in flight during this step
+      load_step(j + 1, stage ^ 1);
+      cp_async_commit();
+    }
+    float t[8][8] = {};
+    if (grp == 0) {  // Sᵀ = K·Qᵀ, once; Pᵀ = exp(Sᵀ·scale + bias − L)
+      dots8<DC>(t, sK + r * LD, sQs, cg);
+      const float* sLs = sL + stage * OQ;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float Lj = sLs[cg + 8 * jj];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          sPt[4 * i * SPL + cg + 8 * jj] = expf(__fsub_rn(__fadd_rn(__fmul_rn(t[i][jj], scale), kb[i]), Lj));
+      }
+    } else {  // dPᵀ = V·dOᵀ, once
+      dots8<DC>(t, sV + r * LD, sGs, cg);
+    }
+    __syncthreads();  // Pᵀ in place
+    if (grp == 1) {  // dSᵀ = Pᵀ·(dPᵀ − Δ)
+      const float* sDls = sDl + stage * OQ;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float Dj = sDls[cg + 8 * jj];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          sDSt[4 * i * SPL + cg + 8 * jj] = __fmul_rn(sPt[4 * i * SPL + cg + 8 * jj], __fsub_rn(t[i][jj], Dj));
+      }
+    }
+    __syncthreads();  // dSᵀ in place
+    if (grp == 0)
+      acc8<DC>(acc, sPt, sGs, cg);  // dV += Pᵀ·dO
+    else
+      acc8<DC>(acc, sDSt, sQs, cg);  // dK += dSᵀ·Q
+    float dqs[Dq::RPT][4] = {};
+    dq_share<DC, NT, BK>(dqs, sDS, sK, qr, qc);  // this key tile's share of the step's dQ: dS·K
+    // into dq in key-tile order, a warp at a time: the ticket counts the
+    // warps of the key tiles before this one that have added
+    float4* ptr[Dq::RPT];
+    float4 val[Dq::RPT];
+#pragma unroll
+    for (int i = 0; i < Dq::RPT; ++i) {
+      const int tq = j * OQ + Dq::RPT * qr + i, c = 4 * qc;
+      ptr[i] = tq < T && c < D ? reinterpret_cast<float4*>(dq + sx.at(b, h, tq) + c) : nullptr;
+      val[i] = make_float4(dqs[i][0], dqs[i][1], dqs[i][2], dqs[i][3]);
+    }
+    if (nkt > 1) {
+      if (lane == 0) {
+        while (ld_acquire(dq_ticket + j) < WARPS * kt) __nanosleep(32);
+      }
+      __syncwarp();
+    }
+    add_ordered<Dq::RPT>(ptr, val, kt == 0, kt == nkt - 1, scale);
+    if (nkt > 1) {
+      __threadfence();
+      __syncwarp();
+      if (lane == 0 && atomicAdd(dq_ticket + j, 1) == WARPS * nkt - 1) dq_ticket[j] = 0;  // the last warp: zero at rest
+    }
+  }
+
+  // dV (group 0) or dK (group 1, times scale) of the owned keys: the splits
+  // in order, under the key tile's ticket
+  int* kv_ticket = tickets + TK_DQ + (size_t)(gridDim.x / (nkt * splits)) * nq + (size_t)bh * nkt + kt;
+  if (splits > 1) {
+    if (tid == 0) {
+      while (ld_acquire(kv_ticket) != sp) __nanosleep(32);
+    }
+    __syncthreads();
+  }
+  {
+    constexpr int NU = DC / 32;
+    float* out = grp == 0 ? dv : dk;
+    float4* ptr[8 * NU];
+    float4 val[8 * NU];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int t = k0 + r + 4 * i;
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        const int c = 4 * cg + 32 * u, n = i * NU + u;
+        ptr[n] = t < T && c < D ? reinterpret_cast<float4*>(out + sx.at(b, h, t) + c) : nullptr;
+        val[n] = make_float4(acc[i][4 * u], acc[i][4 * u + 1], acc[i][4 * u + 2], acc[i][4 * u + 3]);
+      }
+    }
+    add_ordered<8 * NU>(ptr, val, sp == 0, sp == splits - 1, grp == 0 ? 1.f : scale);
+  }
+  if (splits > 1) {
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) st_release(kv_ticket, sp == splits - 1 ? 0 : sp + 1);
+  }
+  if (tid == 0 && atomicAdd(tickets + TK_DONE, 1) == (int)gridDim.x - 1) {  // the last block: zero at rest
+    tickets[TK_WORK] = 0;
+    tickets[TK_DONE] = 0;
+  }
+}
+
+template <int DC, int KH>
+cudaError_t launch_onepass(const float* q, const float* k, const float* v, Strides sx, const float* dout, Strides so,
+                           const float* lse, const float* delta, const float* mask, float* dq, float* dk, float* dv,
+                           int* tickets, int B, int T, int H, int D, int splits, float scale, cudaStream_t stream) {
+  constexpr size_t smem = onepass_smem_bytes<DC, KH>();
+  const int nkt = (T + 64 * KH - 1) / (64 * KH), nq = (T + OQ - 1) / OQ;
+  const long long blocks = (long long)B * H * nkt * splits;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(onepass_f32_kernel<DC, KH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  onepass_f32_kernel<DC, KH><<<(unsigned)blocks, 128 * KH, smem, stream>>>(q, k, v, sx, dout, so, lse, delta, mask, dq,
+                                                                         dk, dv, tickets, H, T, D, nkt, nq, splits, scale);
+  return cudaGetLastError();
+}
+
 struct SimtArgs {
   const void *q, *k, *v, *dout;
   Strides sx, so;
@@ -365,13 +746,9 @@ int attend_bwd_simt(const void* q, const void* k, const void* v, const void* dou
                    D,
                    scale,
                    static_cast<cudaStream_t>(stream)};
-  // the column tile (and the D step of the scores): 32 at D ≤ 32, else 64
-  cudaError_t e;
-  if (is_bf16)
-    e = D <= 32 ? launch_simt<bf16, 32>(a) : launch_simt<bf16, 64>(a);
-  else
-    e = D <= 32 ? launch_simt<float, 32>(a) : launch_simt<float, 64>(a);
-  return static_cast<int>(e);
+  // column tiles (and D steps of the scores) of 64: the pair serves f32 at
+  // D > 64 and bf16 above 128 (below, the one pass and attention_bwd.cu)
+  return static_cast<int>(is_bf16 ? launch_simt<bf16, 64>(a) : launch_simt<float, 64>(a));
 }
 
 // q, k, v, dq: f32 with element strides (sx_b, sx_h, sx_t), D contiguous;
@@ -392,4 +769,40 @@ extern "C" int msa_attention_bwd_dkv_f32(const void* q, const void* k, const voi
                                          float scale, void* stream) {
   return attend_bwd_simt(q, k, v, dout, lse, delta, mask, nullptr, dk, dv, B, T, H, D, sx_b, sx_h, sx_t, so_b, so_h,
                          so_t, scale, 0, stream);
+}
+
+// The one pass on f32 operands at D ≤ 64 (the dispatch by D: the wrapper
+// takes the pair above it): dq, dk and dv in one launch. Arguments as
+// msa_attention_bwd_dq_f32's, with dk and dv beside dq (the strides of q,
+// k and v); tickets the int32 buffer of the plan (2 + B·H·(nq + nkt)
+// elements, nq = ⌈T/64⌉, nkt = ⌈T/BK⌉), zero at rest: the kernel leaves it
+// so; plan = BK | splits << 10 (ops/kernels/attention_bwd_plan.py): BK 64 or
+// 128 keys a block, 1 ≤ splits ≤ nq. Returns cudaErrorInvalidValue on a
+// shape or plan the kernel cannot take.
+extern "C" int msa_attention_bwd_onepass_f32(const void* q, const void* k, const void* v, const void* dout,
+                                             const void* lse, const void* delta, const void* mask, void* dq, void* dk,
+                                             void* dv, void* tickets, int B, int T, int H, int D, int sx_b, int sx_h,
+                                             int sx_t, int so_b, int so_h, int so_t, int plan, float scale,
+                                             void* stream) {
+  const int bk = plan & 1023, splits = plan >> 10, nq = (T + OQ - 1) / OQ;
+  if (B < 1 || H < 1 || T < 1 || D < 8 || D % 8 || D > ONEPASS_MAX_D || (bk != 64 && bk != 128) || splits < 1 ||
+      splits > nq || tickets == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides sx{sx_b, sx_h, sx_t}, so{so_b, so_h, so_t};
+  auto qf = static_cast<const float*>(q), kf = static_cast<const float*>(k), vf = static_cast<const float*>(v);
+  auto gf = static_cast<const float*>(dout), lf = static_cast<const float*>(lse), df = static_cast<const float*>(delta);
+  auto mf = static_cast<const float*>(mask);
+  auto dqf = static_cast<float*>(dq), dkf = static_cast<float*>(dk), dvf = static_cast<float*>(dv);
+  auto tk = static_cast<int*>(tickets);
+  auto st = static_cast<cudaStream_t>(stream);
+  // 32 columns at D ≤ 32 (the custom widths' D = 24 and 25 run faster than
+  // on 64: PERF.md §6), else 64
+  cudaError_t e;
+  if (D <= 32)
+    e = bk == 128 ? launch_onepass<32, 2>(qf, kf, vf, sx, gf, so, lf, df, mf, dqf, dkf, dvf, tk, B, T, H, D, splits, scale, st)
+                  : launch_onepass<32, 1>(qf, kf, vf, sx, gf, so, lf, df, mf, dqf, dkf, dvf, tk, B, T, H, D, splits, scale, st);
+  else
+    e = bk == 128 ? launch_onepass<64, 2>(qf, kf, vf, sx, gf, so, lf, df, mf, dqf, dkf, dvf, tk, B, T, H, D, splits, scale, st)
+                  : launch_onepass<64, 1>(qf, kf, vf, sx, gf, so, lf, df, mf, dqf, dkf, dvf, tk, B, T, H, D, splits, scale, st);
+  return static_cast<int>(e);
 }

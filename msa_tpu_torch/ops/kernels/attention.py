@@ -91,9 +91,12 @@ operands, o, lse and the output's gradient and returns (dq, dk, dv) through
 the two kernels of ``csrc/attention_bwd.cu``, :func:`attention_bwd_dq` and
 :func:`attention_bwd_dkv`; :func:`attention_bwd_plain` is their plain
 version, 128×128 blocks in the TPU kernels' order. On f32 operands (the
-f32 training step, ``compute_dtype="float32"``), and in bf16 above D = 128,
-they run the D-tiled SIMT kernels of ``csrc/attention_bwd_f32.cu`` (exact
-f32 FMA, no rounding in f32). Two ``torch.autograd.Function`` wrappers run
+f32 training step, ``compute_dtype="float32"``) the backward runs
+``csrc/attention_bwd_f32.cu`` (exact f32 FMA, no rounding in f32), by D:
+at D ≤ 64 (every served f32 shape) one pass computes dq, dk and dv in one
+launch, :func:`attention_bwd_onepass`, on the grid of
+:func:`attention_bwd_plan.plan`; above it, and in bf16 above D = 128, the
+two entries run that file's D-tiled SIMT kernels. Two ``torch.autograd.Function`` wrappers run
 them as JAX's custom VJPs do: :func:`packed_qkv_attention` (row 5 forward,
 dqkv back in the packed layout; row 6 forward beyond T = 512) and
 :func:`attention_with_vjp` (:842-868: row 2 at T ≤ 512, row 6 beyond), in
@@ -107,6 +110,7 @@ import torch
 import torch.nn.functional as F
 
 from msa_tpu_torch.ops import quant as Q
+from msa_tpu_torch.ops.kernels import attention_bwd_plan as BP
 from msa_tpu_torch.ops.kernels import build
 from msa_tpu_torch.ops.kernels import gemm_bf16 as GB
 from msa_tpu_torch.ops.kernels import gemm_plan as GP
@@ -782,9 +786,30 @@ def attention_bwd_dkv(q, k, v, g, lse, delta, key_mask, dk, dv, scale=None) -> N
     _launch_bwd_kernel(attention_bwd_dkv, "msa_attention_bwd_dkv", q, k, v, g, lse, delta, key_mask, (dk, dv), scale)
 
 
+def attention_bwd_onepass(q, k, v, g, lse, delta, key_mask, dq, dk, dv, scale=None, plan=None) -> None:
+    """Launch rows 3 and 4 on f32 operands at D ≤ 64 as one kernel
+    (``msa_attention_bwd_onepass_f32``): dq, dk and dv written into the
+    views (arguments as :func:`_bwd_args` checks them), on ``plan`` (by
+    default :func:`attention_bwd_plan.plan`'s), with the current stream's
+    ticket buffer."""
+    if q.dtype != torch.float32:
+        raise ValueError(f"the one-pass attention backward takes f32, got {q.dtype}")
+    b, h, t, d = q.shape
+    plan = plan or BP.plan(b, h, t, d)
+    BP.validate(plan, b, h, t, d)
+    scale = _scale(d) if scale is None else scale
+    args = _bwd_args(q, k, v, g, lse, delta, key_mask, (dq, dk, dv), scale)
+    tickets, code = BP.launch_args(q.device, plan, b, h, t)
+    # (10 pointers, tickets, B, T, H, D, 6 strides, plan, scale, stream)
+    rc = build.library().msa_attention_bwd_onepass_f32(*args[:10], tickets, *args[10:20], code, *args[20:])
+    build.check(rc, "attention_bwd_onepass")
+    attention_bwd_onepass.launches += 1
+
+
 # kernel launches since the last reset, bf16 and f32 (the smoke reads them)
 attention_bwd_dq.launches = attention_bwd_dq.launches_f32 = 0
 attention_bwd_dkv.launches = attention_bwd_dkv.launches_f32 = 0
+attention_bwd_onepass.launches = 0
 
 
 def _attention_bwd_into(q, k, v, key_mask, lse, o, g, dq, dk, dv) -> None:
@@ -808,10 +833,15 @@ def _attention_bwd_into(q, k, v, key_mask, lse, o, g, dq, dk, dv) -> None:
 
 
 def _launch_bwd(q, k, v, key_mask, lse, o, g, dq, dk, dv, scale: float) -> None:
+    """The backward's launches, by dtype and D: f32 at D ≤ 64 one pass
+    (:func:`attention_bwd_onepass`), else the dQ and the dK/dV entries."""
     if g.stride(-1) != 1:
         g = g.contiguous()
     lse = lse.contiguous()  # a caller's lse may be a slice of a padded one
     delta = _delta(o, g)
+    if q.dtype == torch.float32 and q.shape[-1] <= BP.MAX_D:
+        attention_bwd_onepass(q, k, v, g, lse, delta, key_mask, dq, dk, dv, scale)
+        return
     attention_bwd_dq(q, k, v, g, lse, delta, key_mask, dq, scale)
     attention_bwd_dkv(q, k, v, g, lse, delta, key_mask, dk, dv, scale)
 
@@ -820,8 +850,8 @@ def attention_bwd(q, k, v, key_mask, lse, o, g):
     """JAX's ``attention_bwd``: the forward's q, k, v [B, H, T, D], key_mask
     [B, T], its lse [B, H, T] and o, and the gradient g of o → (dq, dk,
     dv) in the operands' dtypes. CPU tensors take
-    :func:`attention_bwd_plain`; CUDA tensors launch rows 3 and 4 (bf16 or
-    f32)."""
+    :func:`attention_bwd_plain`; CUDA tensors launch rows 3 and 4 (bf16, or
+    f32: one pass at D ≤ 64)."""
     if q.device.type != "cpu":
         q, k, v = (x.contiguous() for x in (q, k, v))
     dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (q, k, v))

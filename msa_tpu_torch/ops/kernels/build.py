@@ -80,6 +80,9 @@ _SIGNATURES = {
     # the same two on f32 operands (csrc/attention_bwd_f32.cu)
     "msa_attention_bwd_dq_f32": (_P,) * 8 + (_I,) * 10 + (_F, _P),
     "msa_attention_bwd_dkv_f32": (_P,) * 9 + (_I,) * 10 + (_F, _P),
+    # the one pass on f32 at D ≤ 64: q, k, v, dout, lse, delta, mask, dq,
+    # dk, dv, tickets, B, T, H, D, the 6 strides, plan, scale, stream
+    "msa_attention_bwd_onepass_f32": (_P,) * 11 + (_I,) * 11 + (_F, _P),
     # q, k, v, mask, o, lse, B, T, H, D, is_bf16, scale, stream
     "msa_fused_attention": (_P,) * 6 + (_I,) * 5 + (_F, _P),
     # x, w, out, B, L, C, C', k, gelu, is_bf16, stream

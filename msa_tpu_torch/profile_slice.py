@@ -1,7 +1,8 @@
 """Where the time of one serving forward, or one training step, goes on the card.
 
     python3 -m msa_tpu_torch.profile_slice [--tokens 512] [--batch 2] [--steps 3] [--quantize int8|none|f32|int8_f32]
-                                           [--samples 80000] [--train | --conv | --asr | --gemm-s8 | --gemm-bf16]
+                                           [--samples 80000]
+                                           [--train | --conv | --asr | --gemm-s8 | --gemm-bf16 | --attn-bwd-f32]
 
 Builds the full-width models (``PipelineModels.initialize``, by default in
 the int8 serving recipe; ``--quantize none`` for the bf16 one, ``f32``
@@ -43,7 +44,18 @@ splits 1, 2, 3, 4, 6, 8, 12 and 16 where each split keeps 2 k-tiles or
 more, beside ``torch.matmul`` on the same bf16 operands, each plan's max
 abs error against the f32 product of those operands printed beside its
 time; then fc_in with its own epilogue (bf16 bias, GELU) on the planner's
-plan beside the same plan without it. Needs a CUDA device.
+plan beside the same plan without it. ``--attn-bwd-f32`` times instead
+the one-pass f32 attention backward (rows 3 and 4 on f32 at D ≤ 64,
+``attention_bwd_onepass``) at the f32 training steps' shapes (B=8 T=512
+and T=250, B=2 T=749, H=12 D=64) and the custom widths' (B=2 T=40 H=4
+D=24), on the planner's plan and on every key tile at splits 1, 2, 3, 4,
+6, 8 and 12 of the query loop, beside the D-tiled pair it replaced there
+and autograd's backward of one f32 ``scaled_dot_product_attention`` (TF32
+off), each from the profiler's trace of ``--steps`` (at least 20) calls,
+with each plan's largest error against the plain version (relative to the
+largest |value|); then it profiles the f32 training step (``--train
+--quantize f32``) of the text model (B=8, 512 tokens) and of the audio
+model at 5 s (B=8) and 15 s (B=2). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -75,6 +87,8 @@ def main(argv=None) -> int:
     ap.add_argument("--asr", action="store_true", help="one batch of the shipped whisper ASR instead of a forward")
     ap.add_argument("--gemm-s8", action="store_true", help="the int8 GEMM of rows 7 and 9 alone, each plan, beside torch._int_mm")
     ap.add_argument("--gemm-bf16", action="store_true", help="the bf16 GEMM of rows 8 and 10 alone, each plan, beside torch.matmul")
+    ap.add_argument("--attn-bwd-f32", action="store_true",
+                    help="the one-pass f32 attention backward, each plan, beside the pair and f32 SDPA; then the f32 steps")
     args = ap.parse_args(argv)
     b = args.batch or (64 if args.conv else 8 if args.train or args.asr else 2)
     if not torch.cuda.is_available():
@@ -86,6 +100,11 @@ def main(argv=None) -> int:
         return gemm_s8_plans(max(args.steps, 20))
     if args.gemm_bf16:
         return gemm_bf16_plans(max(args.steps, 20))
+    if args.attn_bwd_f32:
+        rc = attention_bwd_f32_plans(max(args.steps, 20))
+        for step in ([], ["--samples", "80000"], ["--samples", "240000", "--batch", "2"]):
+            rc = rc or main(["--train", "--quantize", "f32", *step])
+        return rc
     from torch.profiler import ProfilerActivity, profile
 
     from msa_tpu_torch.pipeline import graph as G
@@ -351,6 +370,63 @@ def gemm_bf16_plans(reps: int) -> int:
         print(f"fc_in  M={m:4d} with its GELU (bf16 bias): plan {p.bm}x{p.bn}/{p.splits} {gelu_ms:.4f} ms, "
               f"{bare_ms:.4f} without", flush=True)
     print(json.dumps({"gemm_bf16": rows, "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+def attention_bwd_f32_plans(reps: int) -> int:
+    """The one-pass f32 attention backward alone: each plan beside the
+    planner's, the D-tiled pair and f32 SDPA's autograd backward."""
+    from msa_tpu_torch.ops.kernels import attention as A
+    from msa_tpu_torch.ops.kernels import attention_bwd_plan as BP
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for b, h, t, d in ((8, 12, 512, 64), (8, 12, 250, 64), (2, 12, 749, 64), (2, 4, 40, 24)):
+        q, k, v, go = (torch.randn(b, h, t, d, generator=g, device="cuda") for _ in range(4))
+        mask = torch.ones(b, t, device="cuda")
+        mask[0, t * 3 // 4 :] = 0.0  # a ragged valid length
+        o, lse = (x.contiguous() for x in A.mha_attention_plain(q, k, v, mask))
+        want = A.attention_bwd_plain(q, k, v, mask, lse, o, go)
+        delta = A._delta(o, go)
+        outs = [torch.empty_like(q) for _ in range(3)]
+        chosen = BP.plan(b, h, t, d)
+        cands = {chosen} | {BP.BwdPlan(bk, s_) for bk in BP.KEY_TILES for s_ in (1, 2, 3, 4, 6, 8, 12)
+                            if s_ <= BP.query_steps(t)}
+        times, errs = {}, {}
+        for p in sorted(cands, key=lambda p: (p.bk, p.splits)):
+            def one(p=p):
+                A.attention_bwd_onepass(q, k, v, go, lse, delta, mask, *outs, None, p)
+
+            one()
+            errs[p] = max(((x - w).abs().max() / w.abs().max()).item() for x, w in zip(outs, want))
+            times[p] = _device_ms(one, reps, "onepass_f32_kernel")
+        best = min(times, key=times.get)
+
+        def pair():
+            A.attention_bwd_dq(q, k, v, go, lse, delta, mask, outs[0])
+            A.attention_bwd_dkv(q, k, v, go, lse, delta, mask, outs[1], outs[2])
+
+        pair_ms = _device_ms(pair, reps, "simt_d")
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+        lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=bias)
+        lib_ms = _device_ms(lambda: torch.autograd.grad(lib_out, leaves, go, retain_graph=True), reps)
+        flop = 10 * b * h * t * t * d
+        row = {"B": b, "H": h, "T": t, "D": d, "plan": dataclasses.astuple(chosen), "plan_ms": times[chosen],
+               "best": dataclasses.astuple(best), "best_ms": times[best], "pair_ms": pair_ms, "sdpa_bwd_ms": lib_ms,
+               "bound_ms": 1e3 * max(flop / 67e12, (7 * 4 * b * h * t * d + 8 * b * h * t + 4 * b * t) / 3.35e12),
+               "max_rel_err": max(errs.values()), "blocks": chosen.blocks(b, h, t),
+               "all": {f"{p.bk}/{p.splits}": ms for p, ms in times.items()}}
+        rows.append(row)
+        print(f"B={b} H={h} T={t} D={d}: plan {chosen.bk}/{chosen.splits} ({row['blocks']} blocks) {times[chosen]:.4f} ms "
+              f"({flop / times[chosen] / 1e9:.1f} TFLOP/s), best {best.bk}/{best.splits} {times[best]:.4f}, the pair "
+              f"{pair_ms:.4f}, f32 sdpa backward {lib_ms:.4f}, bound {row['bound_ms']:.5f}, max rel err "
+              f"{row['max_rel_err']:.2e}  | " + " ".join(f"{key} {ms:.4f}" for key, ms in row["all"].items()), flush=True)
+        del leaves, lib_out
+    print(json.dumps({"attention_bwd_f32": rows, "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 
 

@@ -161,7 +161,8 @@ def test_attention_with_vjp_grads_match_jax(rng, dtype, b, h, T, d):
 
 def test_cpu_wrappers_launch_no_kernel(rng):
     """On CPU tensors the forward and backward take the plain versions."""
-    counters = (A.mha_attention, A.packed_qkv_attention_lse, A.flash_attention_lse, A.attention_bwd_dq, A.attention_bwd_dkv)
+    counters = (A.mha_attention, A.packed_qkv_attention_lse, A.flash_attention_lse, A.attention_bwd_dq, A.attention_bwd_dkv,
+                A.attention_bwd_onepass)
     before = [c.launches for c in counters]
     qkv = torch.from_numpy(rng.normal(size=(1, 40, 3, 2, 16)).astype(np.float32)).requires_grad_(True)
     A.packed_qkv_attention(qkv, torch.ones(1, 40)).sum().backward()

@@ -13,8 +13,9 @@ audio trunk's 198 frames, 2 layers):
   f32 gradients of ``attention_with_vjp`` and ``packed_qkv_attention``
   against ``jax.grad`` of JAX's, with a ragged mask and a row with no valid
   key;
-- the card path's dispatch in f32: the f32 C entry points, strided views
-  of the packed dqkv, ``launches_f32`` (a stand-in library, meta tensors);
+- the card path's dispatch in f32: the one-pass C entry point at D ≤ 64,
+  strided views of the packed dqkv, its launch count (a stand-in library,
+  meta tensors);
 - an HF-named BERT and wav2vec2 built locally (as
   tests/test_torch_importers.py does, nothing downloaded) → the importers →
   one f32 training step on the kernel path: the loss and every gradient
@@ -46,6 +47,7 @@ from msa_tpu_torch.models import audio as PAudio
 from msa_tpu_torch.models import text as PText
 from msa_tpu_torch.models.transformer import EncoderConfig as PEncCfg
 from msa_tpu_torch.ops.kernels import attention as A
+from msa_tpu_torch.ops.kernels import attention_bwd_plan as BP
 from test_torch_importers import AUDIO, ENC, _bert, _wav2vec2
 from test_torch_training import _hold_grads
 from test_torch_wide_heads import card  # noqa: F401 (the stand-in kernel library, a fixture)
@@ -108,30 +110,33 @@ def test_packed_qkv_attention_f32_grads_match_jax(rng):
 @pytest.mark.parametrize("d", [64, 25])
 def test_f32_backward_takes_the_f32_entries_on_the_card_path(card, d):
     """_PackedQKVAttention.backward's call on f32: the [B, H, T, D] views
-    into the packed qkv and dqkv (their strides, D contiguous) go to
-    msa_attention_bwd_dq_f32 and _dkv_f32 (D = 25 zero-padded to 32 first),
-    counted in launches_f32; row 2 in f32 goes to msa_fused_attention."""
+    into the packed qkv and dqkv (their strides, D contiguous) go to the
+    one-pass entry msa_attention_bwd_onepass_f32 (D = 25 zero-padded to 32
+    first: D ≤ 64), with the ticket buffer and the planner's plan, counted
+    in attention_bwd_onepass.launches; the D-tiled pair is not launched;
+    row 2 in f32 goes to msa_fused_attention."""
     lib = card
     b, T, h = 2, 40, 2
     qkv, dqkv = (torch.empty(b, T, 3, h, d, device="meta") for _ in range(2))
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     dq, dk, dv = (dqkv[:, :, i].transpose(1, 2) for i in range(3))
     g = torch.empty(b, T, h * d, device="meta")
-    before = (A.attention_bwd_dq.launches_f32, A.attention_bwd_dkv.launches_f32, A.attention_bwd_dq.launches)
+    before = (A.attention_bwd_onepass.launches, A.attention_bwd_dq.launches_f32, A.attention_bwd_dkv.launches_f32,
+              A.attention_bwd_dq.launches)
     A._attention_bwd_into(q, k, v, torch.empty(b, T, device="meta"), torch.empty(b, h, T, device="meta"),
                           torch.empty(b, T, h * d, device="meta").view(b, T, h, d).transpose(1, 2),
                           g.view(b, T, h, d).transpose(1, 2), dq, dk, dv)
-    assert [name for name, _ in lib.calls] == ["msa_attention_bwd_dq_f32", "msa_attention_bwd_dkv_f32"]
     dp = -(-d // 8) * 8
-    for _, args in lib.calls:
-        n_ptrs = len(args) - 12
-        assert args[n_ptrs : n_ptrs + 4] == (b, T, h, dp)
-        if d == dp:  # the packed layout's strides, read in place
-            assert args[n_ptrs + 4 : n_ptrs + 7] == (3 * T * h * d, d, 3 * h * d)
-            assert args[n_ptrs + 7 : n_ptrs + 10] == (T * h * d, d, h * d)
-        assert args[-2] == float(np.float32(1.0 / np.sqrt(d)))
-    assert (A.attention_bwd_dq.launches_f32, A.attention_bwd_dkv.launches_f32, A.attention_bwd_dq.launches) == (
-        before[0] + 1, before[1] + 1, before[2])
+    (name, args), = lib.calls
+    assert name == "msa_attention_bwd_onepass_f32" and len(args) == 11 + 11 + 2  # pointers, ints, scale, stream
+    assert args[11:15] == (b, T, h, dp)
+    if d == dp:  # the packed layout's strides, read in place
+        assert args[15:18] == (3 * T * h * d, d, 3 * h * d)
+        assert args[18:21] == (T * h * d, d, h * d)
+    assert args[21] == BP.plan(b, h, T, dp).code == BP.BwdPlan(64, 1).code
+    assert args[-2] == float(np.float32(1.0 / np.sqrt(d)))
+    assert (A.attention_bwd_onepass.launches, A.attention_bwd_dq.launches_f32, A.attention_bwd_dkv.launches_f32,
+            A.attention_bwd_dq.launches) == (before[0] + 1, *before[1:])
     lib.calls.clear()
     n = A.mha_attention.launches_f32
     o, lse = A.mha_attention(q.contiguous(), k.contiguous(), v.contiguous(), torch.empty(b, T, device="meta"))

@@ -145,6 +145,7 @@ def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
         "msa_attention_bwd_dkv",
         "msa_attention_bwd_dq_f32",
         "msa_attention_bwd_dkv_f32",
+        "msa_attention_bwd_onepass_f32",
         "msa_fused_attention",
         "msa_conv_stride2",
     }
