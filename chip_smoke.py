@@ -11,9 +11,12 @@ Phases, one line each with its seconds:
      kernels once more on a line each, at DP 32, 64 and 128, and of the
      int8 wgmma GEMM of rows 7 and 9 (gemm_s8_kernel<BM, BN, GELU, out>)
      and the bf16 wgmma GEMM of rows 8 and 10 (gemm_bf16_kernel<BM, BN,
-     GELU, bias>), which must not spill, and the one-pass f32 backward
-     (onepass_f32_kernel<DC, KH>); the bf16 GEMM's SASS must issue
-     HGMMA (wgmma) on bf16, and no WMMA gemm_nt_kernel is left;
+     GELU, bias>), which must not spill, the one-pass f32 backward
+     (onepass_f32_kernel<DC, KH>) and the f32 GEMM of rows 10, 8 and 11
+     (gemm_f32_kernel<BM, BN, B_NK, GELU>), which must not spill either;
+     the bf16 GEMM's SASS must issue HGMMA (wgmma) on bf16, the f32 GEMM's
+     FFMA and no tensor-core instruction, and no WMMA gemm_nt_kernel is
+     left;
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, and time both with CUDA events: the bf16
      attention_block and ffn_fused, the row-quantize kernel (exactly: codes
@@ -126,7 +129,16 @@ Phases, one line each with its seconds:
      off): attention_block_f32 (row 8) at B=2 T=250 and 512 and at head
      dims 32, 48 (padded to 64) and 128, ffn_fused_f32 (row 10) at N=500
      and 1024 (both on the f32 SIMT GEMM of csrc/gemm_f32.cuh), within 1e-5
-     of the largest output; rows 5 and 6 in
+     of the largest output; that GEMM alone (gemm_f32: bias f32, no GELU)
+     against gemm_f32_plain within 1e-5 of the largest output at the parity
+     forward's eight encoder GEMMs and the 15 s audio FFN on the planner's
+     stream-K plan, timed beside torch.addmm and torch.matmul (TF32 off),
+     every tile at one CTA a tile and at stream-K grids of 7 to 528 CTAs at
+     one shape, a ragged K and M, fc_in's GELU, row 11's w [K, N] batch path
+     (B=8 L=1999 k=3, A rows 2C apart) on the planner's and other grids,
+     F32_GEMM_REPEATS further calls bit-equal at text fc_out (split) and at
+     text QKV on one CTA a tile (unsplit), its per-tile counters zero at
+     rest, and the last k-step dropped as the planted fault; rows 5 and 6 in
      f32 (row 1's one-pass f32 core on the packed layout) at B=2 T=512, the
      custom widths (D=24, D=25) and B=2 T=749, B=1 T=1499, o and lse within
      2e-5; each timed beside cuBLAS's f32 GEMMs or f32
@@ -138,8 +150,9 @@ Phases, one line each with its seconds:
      audio_params=): the encoders resolve to f32 kernels with
      quantize="none" and no shipped head loads over the trunks; run_host at
      B=2, 5 s (buckets 512 and 32; 24 launches each of attention_block_f32
-     and ffn_fused_f32) and 15 s (12 of attention_block_f32 and of
-     flash_attention_f32, 24 of ffn_fused_f32), every hostpack column within
+     and ffn_fused_f32, 96 of the f32 GEMM) and 15 s (12 of
+     attention_block_f32 and of flash_attention_f32, 24 of ffn_fused_f32,
+     72 of the f32 GEMM), every hostpack column within
      1e-3 of the plain f32 path (einsum attention, dense FFN), the last
      head dropped as the planted fault; device ms per forward; the custom
      widths in f32 (d_model 96 and 100 at T=40, 100 at T=600) against their
@@ -312,6 +325,10 @@ ROW1_F32_ATOL = 2e-5
 # another order, so the bound is relative to the largest output; fixed
 # before the first run. Rows 5 and 6 in f32 take ROW1_F32_ATOL (o and lse).
 F32_GEMM_RTOL = 1e-5
+# calls of the f32 GEMM held bit-equal to the first at a split and an
+# unsplit plan (phase 17): its folded split-K sum must not depend on which
+# CTA arrives last
+F32_GEMM_REPEATS = 200
 # the parity mode end to end (and its encoders at the custom widths): JAX's
 # drop-in contract for imported trunks, tests/test_pipeline.py:192-200
 PARITY_ATOL = 1e-3
@@ -547,6 +564,31 @@ def hgmma_of(lib_path, kernel: str) -> str:
     return f"{len(funcs)} instances issue HGMMA {', '.join(sorted(set().union(*funcs.values())))}"
 
 
+def fma_only(lib_path, kernel: str) -> str:
+    """The f32 FMAs of every instance of ``kernel`` in the built library,
+    from ``cuobjdump --dump-sass``: fails unless each instance issues FFMA
+    and no tensor-core instruction (HMMA, HGMMA, IMMA, DMMA): exact f32 on
+    the CUDA cores, no TF32."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return "not checked (no cuobjdump)"
+    sass = subprocess.run([tool, "--dump-sass", str(lib_path)], capture_output=True, text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            cur = name if kernel in name else None
+            if cur:
+                funcs[cur] = {"FFMA": 0, "MMA": 0}
+        elif cur:
+            funcs[cur]["FFMA"] += bool(re.search(r"\bFFMA\b", line))
+            funcs[cur]["MMA"] += bool(re.search(r"\b(HMMA|HGMMA|IMMA|DMMA)\b", line))
+    check(bool(funcs), f"no {kernel} in the SASS")
+    for name, ops in funcs.items():
+        check(ops["FFMA"] > 0 and ops["MMA"] == 0, f"{name}: {ops['FFMA']} FFMA, {ops['MMA']} tensor-core instructions")
+    return f"{len(funcs)} instances issue FFMA ({min(o['FFMA'] for o in funcs.values())}+ each) and no tensor-core instruction"
+
+
 def bound_ms(nbytes: float, **ops: float):
     """The least time for the work: the larger of the bytes over the memory
     rate and the operations, each type over its own peak, summed."""
@@ -600,6 +642,7 @@ def main() -> int:
     from msa_tpu_torch.ops.kernels import ffn as F
     from msa_tpu_torch.ops.kernels import _common as KC_
     from msa_tpu_torch.ops.kernels import gemm_bf16 as GB
+    from msa_tpu_torch.ops.kernels import gemm_f32 as GF
     from msa_tpu_torch.ops.kernels import gemm_plan as GP
     from msa_tpu_torch.ops.kernels import gemm_s8 as GS
     from msa_tpu_torch.ops.kernels import quant as KQ
@@ -615,6 +658,7 @@ def main() -> int:
         "quantize_rows": (KQ.quantize_rows, "launches"),
         "gemm_s8": (GS.gemm_s8, "launches"),
         "gemm_bf16": (GB.gemm_bf16, "launches"),
+        "gemm_f32": (GF.gemm_f32, "launches"),
         "packed_qkv_attention_lse": (A.packed_qkv_attention_lse, "launches"),
         "flash_attention_lse": (A.flash_attention_lse, "launches"),
         "mha_attention": (A.mha_attention, "launches"),
@@ -650,14 +694,17 @@ def main() -> int:
             print("  ptxas:", line.strip().split("ptxas info    :")[-1].strip(), flush=True)
     for kernel, used in ptxas_usage(
         log, ("flash_kernel", "packed_qkv_kernel", "bwd_dq_kernel", "bwd_dkv_kernel", "fused_f32_kernel", "gemm_s8_kernel",
-              "gemm_bf16_kernel", "onepass_f32_kernel")
+              "gemm_bf16_kernel", "onepass_f32_kernel", "gemm_f32_kernel")
     ).items():
         print(f"  ptxas {kernel}: {used}", flush=True)
-        if kernel.startswith(("gemm_s8_kernel", "gemm_bf16_kernel", "onepass_f32_kernel")):
+        if kernel.startswith(("gemm_s8_kernel", "gemm_bf16_kernel", "onepass_f32_kernel", "gemm_f32_kernel")):
             check("0 bytes spill stores" in used, f"{kernel} spills: {used}")
-    check("gemm_s8_kernel" in log and "gemm_bf16_kernel" in log, "no gemm_s8_kernel or gemm_bf16_kernel in the ptxas log")
-    check("gemm_nt_kernel" not in log, "the WMMA gemm_nt_kernel is still built")
+    check(all(k in log for k in ("gemm_s8_kernel", "gemm_bf16_kernel", "gemm_f32_kernel")),
+          "no gemm_s8_kernel, gemm_bf16_kernel or gemm_f32_kernel in the ptxas log")
+    check("gemm_nt_kernel" not in log and "split_reduce_kernel" not in log,
+          "the WMMA gemm_nt_kernel or the f32 GEMM's split_reduce_kernel is still built")
     print(f"  gemm_bf16_kernel SASS: {hgmma_of(lib_path, 'gemm_bf16_kernel')}", flush=True)
+    print(f"  gemm_f32_kernel SASS: {fma_only(lib_path, 'gemm_f32_kernel')}", flush=True)
     phase("build", t0, library=lib_path.name)
 
     # --- 3. kernels against their plain versions --------------------------------
@@ -2113,6 +2160,96 @@ def main() -> int:
             lib_text(lambda: F_.linear(F_.gelu(F_.linear(x, w1_32, b1_32)), w2_32, b2_32), "cuBLAS f32 GEMMs (TF32 off) + exact GELU, 3 calls")
             record("ffn_fused_f32", err, n == 1024, tm, bms, by)
 
+        # the f32 GEMM of rows 10, 8 and 11 alone (gemm_f32: bias f32, no GELU) against gemm_f32_plain within
+        # F32_GEMM_RTOL of the largest output, at the parity forward's GEMMs on the planner's stream-K plan, timed
+        # beside torch.addmm and torch.matmul on the same f32 operands (TF32 off; never on the path)
+        from msa_tpu_torch.profile_slice import GEMMS_F32
+
+        def gemm_f32_same_bits(tag, got, fn, calls=1):
+            for _ in range(calls):
+                again = fn()
+                torch.cuda.synchronize()
+                check(torch.equal(got, again), f"gemm_f32 {tag}: a further call on the same inputs differs")
+
+        for gname, m, n, k in GEMMS_F32:
+            a_g, w_g, bias_g = rand(m, k, dtype=f32), rand(n, k, scale=k**-0.5, dtype=f32), rand(n, scale=0.02, dtype=f32)
+            p = GP.plan_f32(m, n, k)
+            args = (a_g, w_g, bias_g)
+            got = GF.gemm_f32(*args)
+            err = compare_gemm(f"gemm_f32 {gname} M={m}", got, GF.gemm_f32_plain(*args))[0]
+            gemm_f32_same_bits(f"{gname} M={m}", got, lambda: GF.gemm_f32(*args))
+            tm = timings(lambda: GF.gemm_f32(*args), lambda: GF.gemm_f32_plain(*args))
+            lib_ms, lib_call = device_ms(lambda: torch.addmm(bias_g, a_g, w_g.t())), time_ms(lambda: torch.addmm(bias_g, a_g, w_g.t()))
+            mm_ms = device_ms(lambda: torch.matmul(a_g, w_g.t()))
+            bms, by = bound_ms(4 * (m * k + n * k + m * n + n), f32=2 * m * n * k)
+            print(f"  gemm_f32 {gname} M={m} N={n} K={k} plan {p.bm}x{p.bn}, {p.grid(m, n)} CTAs over {p.tiles(m, n)} tiles: "
+                  f"max_abs_err={err:.4e} vs gemm_f32_plain {timing_text(tm, bms, by)} "
+                  f"({2 * m * n * k / tm['ms'] / 1e9:.1f} TFLOP/s)", flush=True)
+            print(f"    torch.addmm f32 (library, off the path) ms={lib_ms:.4f} (device) call_ms={lib_call:.4f}; torch.matmul "
+                  f"ms={mm_ms:.4f}; kernel / addmm {tm['ms'] / lib_ms:.2f}", flush=True)
+            main_gemm = (gname, m) == ("fc_in", 1024)
+            record("gemm_f32", err, main_gemm, tm, bms, by)
+            if main_gemm:
+                results["gemm_f32"]["library_ms"] = lib_ms
+        # every tile at one CTA a tile and at stream-K grids of 7 to 528 CTAs at audio fc_out (M = 500, K = 3072: up
+        # to 23 runs a tile), two calls bit-equal; a ragged K (1028: a 4-value k-step) and M on every tile; K = 4 at
+        # M = 1; fc_in's GELU against its plain version
+        a_g, w_g, bias_g = rand(500, dff, dtype=f32), rand(dm, dff, scale=dff**-0.5, dtype=f32), rand(dm, scale=0.02, dtype=f32)
+        want = GF.gemm_f32_plain(a_g, w_g, bias_g)
+        for bm, bn in GP.F32_TILES:
+            for ctas in (0, 7, 132, 264, 528):
+                p = GP.StreamPlan(bm, bn, ctas)
+                got = GF.gemm_f32(a_g, w_g, bias_g, p)
+                compare_gemm(f"gemm_f32 fc_out M=500 plan {bm}x{bn}/{ctas}", got, want)
+                gemm_f32_same_bits(f"fc_out M=500 plan {bm}x{bn}/{ctas}", got, lambda: GF.gemm_f32(a_g, w_g, bias_g, p))
+        a_r, w_r, bias_r = rand(77, 1028, dtype=f32), rand(384, 1028, scale=1028**-0.5, dtype=f32), rand(384, scale=0.02, dtype=f32)
+        for bm, bn in GP.F32_TILES:
+            for ctas in (0, 5, GP.StreamPlan(bm, bn, 0).steps(77, 384, 1028)):  # one k-step a CTA at the most
+                compare_gemm(f"gemm_f32 M=77 N=384 K=1028 plan {bm}x{bn}/{ctas}", GF.gemm_f32(a_r, w_r, bias_r, GP.StreamPlan(bm, bn, ctas)),
+                             GF.gemm_f32_plain(a_r, w_r, bias_r))
+        a_1, w_1 = rand(1, 4, dtype=f32), rand(128, 4, dtype=f32)
+        compare_gemm("gemm_f32 M=1 N=128 K=4", GF.gemm_f32(a_1, w_1), GF.gemm_f32_plain(a_1, w_1))
+        for m in (1024, 500, 1498):
+            x_g = rand(m, dm, dtype=f32)
+            err = compare_gemm(f"gemm_f32 fc_in epilogue M={m}", GF.gemm_f32(x_g, w1_32, b1_32, gelu=True),
+                               GF.gemm_f32_plain(x_g, w1_32, b1_32, gelu=True))[0]
+            print(f"  gemm_f32 fc_in epilogue M={m} (GELU): max_abs_err={err:.4e} vs its plain version", flush=True)
+        # row 11's path: w [K, N], A rows 2C apart (overlapping), B=8 batch rows, the GELU; against gemm_f32_plain on
+        # the same taps, on the planner's plan and other grids
+        b_c, l_c, c_c = 8, 1999, 512
+        out_c = (l_c - 3) // 2 + 1
+        x_c, w_c = rand(b_c, l_c, c_c, dtype=f32), rand(3, c_c, c_c, scale=0.04, dtype=f32)
+        taps = x_c.as_strided((b_c, out_c, 3 * c_c), (l_c * c_c, 2 * c_c, 1)).reshape(b_c * out_c, 3 * c_c)
+        want = GF.gemm_f32_plain(taps, w_c.reshape(3 * c_c, c_c).t(), gelu=True).view(b_c, out_c, c_c)
+        p_conv = GP.plan_f32(out_c, c_c, 3 * c_c, batch=b_c, w_nk=False)
+        for p in (p_conv, GP.StreamPlan(128, 128, 0), GP.StreamPlan(128, 128, 132), GP.StreamPlan(128, 128, 264)):
+            got = torch.empty(b_c, out_c, c_c, device=dev)
+            GF.launch(x_c, w_c, None, got, out_c, c_c, 3 * c_c, p, lda=2 * c_c, w_nk=False, batch=b_c, a_batch=l_c * c_c,
+                      c_batch=out_c * c_c, gelu=True)
+            err = compare_gemm(f"gemm_f32 row 11 path plan {p.bm}x{p.bn}/{p.ctas}", got, want)[0]
+            print(f"  gemm_f32 row 11 path B={b_c} L={l_c} k=3 C={c_c} (w [K, N], lda 2C) plan {p.bm}x{p.bn}/{p.ctas}: "
+                  f"max_abs_err={err:.4e} vs gemm_f32_plain on the taps", flush=True)
+        # F32_GEMM_REPEATS further calls bit-equal: text fc_out on the planner's (split) plan, text QKV on one CTA a tile
+        for gname, m, n, k, p in (("fc_out", 1024, dm, dff, None), ("QKV", 1024, 3 * dm, dm, GP.StreamPlan(64, 128, 0))):
+            a_g, w_g, bias_g = rand(m, k, dtype=f32), rand(n, k, scale=k**-0.5, dtype=f32), rand(n, scale=0.02, dtype=f32)
+            p = p or GP.plan_f32(m, n, k)
+            got = GF.gemm_f32(a_g, w_g, bias_g, p)
+            gemm_f32_same_bits(f"{gname} M={m} plan {p.bm}x{p.bn}/{p.ctas}", got, lambda: GF.gemm_f32(a_g, w_g, bias_g, p),
+                               F32_GEMM_REPEATS)
+            print(f"  gemm_f32 {gname} M={m} plan {p.bm}x{p.bn}/{p.ctas} ({'split' if p.partial_elems(m, n) else 'unsplit'}): "
+                  f"{F32_GEMM_REPEATS} further calls bit-equal to the first", flush=True)
+            if gname == "fc_out":  # the planted fault: the last k-step dropped (A's rows read to K − 32, W cut to match)
+                out_f = torch.empty(m, n, device=dev)
+                GF.launch(a_g, w_g[:, : k - GP.F32_K_STEP].contiguous(), bias_g, out_f, m, n, k - GP.F32_K_STEP, p, lda=k)
+                want = GF.gemm_f32_plain(a_g, w_g, bias_g)
+                torch.cuda.synchronize()
+                fault = (out_f - want).abs().max().item() / want.abs().max().item()
+                check(fault > F32_GEMM_RTOL, f"gemm_f32: the planted fault (last k-step dropped) passes the check ({fault:.3e})")
+                print(f"    fault:last_k_step_dropped max abs err {fault:.3e} of the largest output (bound {F32_GEMM_RTOL})", flush=True)
+        check(bool((KC_.zeroed("gemm_f32_counters", dev, 0) == 0).all()), "gemm_f32_counters is not zero after the f32 GEMMs")
+        print(f"  gemm_f32: tiles {GP.F32_TILES} at grids 0-528, M=77 K=1028, M=1 K=4, fc_in's GELU and row 11's path "
+              f"within {F32_GEMM_RTOL} of the largest output; its per-tile counters zero at rest", flush=True)
+
         for name, kernel, plain, main_shape, shapes in (
             ("packed_qkv_attention_f32", A.packed_qkv_attention_lse, A.packed_qkv_attention_lse_plain, (2, 512, 12, 64),
              ((2, 512, 12, 64), (8, 512, 12, 64), (2, 40, 4, 24), (2, 40, 4, 25))),
@@ -2206,7 +2343,7 @@ def main() -> int:
     pipe_p = G.SegmentPipeline(models_p)
     plain_p = G.SegmentPipeline(models_p.with_encoders(attention_impl="einsum", ffn_impl="dense"))
     runs_p = [(tokens, inputs(models_p, tokens)) for tokens in (512, 32)]
-    parity_counts = drive("parity", pipe_p, runs_p, {**zero, "attention_block_f32": 24, "ffn_fused_f32": 24})
+    parity_counts = drive("parity", pipe_p, runs_p, {**zero, "attention_block_f32": 24, "ffn_fused_f32": 24, "gemm_f32": 96})
     def parity_check(label, kern, plain_pipe, runs_, fault=None):
         for tokens, inp in runs_:
             k = kern.run_host(inp)[0]["hostpack"]
@@ -2231,7 +2368,8 @@ def main() -> int:
     plain_pl = G.SegmentPipeline(plain_p.models, long_cfg)
     long_p_runs = [(512, inputs(models_p, 512, long_cfg.pipeline.segment_samples))]
     parity_long_counts = drive(
-        "parity_long", pipe_pl, long_p_runs, {**zero, "attention_block_f32": 12, "flash_attention_f32": 12, "ffn_fused_f32": 24}
+        "parity_long", pipe_pl, long_p_runs,
+        {**zero, "attention_block_f32": 12, "flash_attention_f32": 12, "ffn_fused_f32": 24, "gemm_f32": 72}
     )
     with G.exact_fp32():
         parity_check("parity_long", pipe_pl, plain_pl, long_p_runs)
@@ -2301,6 +2439,7 @@ def main() -> int:
             print(f"  {tag}: launches {c}; vs its plain versions max abs {err:.4e} (bound {bnd:.4e})", flush=True)
             check(c[kname] == 2, f"{tag}: {c[kname]} launches of {kname}, expected 2")
             check(c["gemm_bf16"] == 2 * (c["attention_block"] + c["ffn_fused"]), f"{tag}: {c['gemm_bf16']} bf16 GEMM launches")
+            check(c["gemm_f32"] == 2 * (c["attention_block_f32"] + c["ffn_fused_f32"]), f"{tag}: {c['gemm_f32']} f32 GEMM launches")
     # rows 2-6 at D = 25: the custom width d_model 100 (4 heads), forward at T = 40 (row 5) and 600 (row 6)
     for T_c, kname, plain_fn in ((40, "packed_qkv_attention_lse", {"packed_qkv_attention_lse": A.packed_qkv_attention_lse_plain}),
                                  (600, "flash_attention_lse", {"flash_attention_lse": A.flash_attention_lse_plain})):
@@ -2642,7 +2781,8 @@ def main() -> int:
         W.derive_weights_(tuned.text)
         W.derive_weights_(tuned.audio)
         tuned_runs = [(512, inputs(tuned, 512))]
-        tuned_counts = drive("tuned_parity", G.SegmentPipeline(tuned), tuned_runs, {**zero, "attention_block_f32": 24, "ffn_fused_f32": 24})
+        tuned_counts = drive("tuned_parity", G.SegmentPipeline(tuned), tuned_runs,
+                             {**zero, "attention_block_f32": 24, "ffn_fused_f32": 24, "gemm_f32": 96})
         k_pack = G.SegmentPipeline(tuned).run_host(tuned_runs[0][1])[0]["hostpack"]
         p_pack = G.SegmentPipeline(tuned.with_encoders(attention_impl="einsum", ffn_impl="dense")).run_host(tuned_runs[0][1])[0]["hostpack"]
         before = G.SegmentPipeline(models_p).run_host(tuned_runs[0][1])[0]["hostpack"]
@@ -2734,7 +2874,7 @@ def main() -> int:
             proj_flops, attn_flops = 2 * 2 * 100 * dm_w * 4 * dm_w, 4 * 2 * 4 * 100 * 100 * d
             for rec, counter in (("bf16", {"attention_block": 1, "gemm_bf16": 2}),
                                  ("int8", {"attention_block_int8": 1, "quantize_rows": 2, "gemm_s8": 2}),
-                                 ("f32", "attention_block_f32")):
+                                 ("f32", {"attention_block_f32": 1, "gemm_f32": 2})):
                 dt_w = f32 if rec == "f32" else bf16
                 x = rand(2, 100, dm_w, dtype=dt_w)
                 if rec == "int8":
@@ -2798,6 +2938,7 @@ def main() -> int:
                 print(f"  {tag}: launches {c}; vs its plain versions max abs {err:.4e} (bound {bnd:.4e})", flush=True)
                 check(c[kname] == 2, f"{tag}: {c[kname]} launches of {kname}, expected 2")
                 check(c["gemm_bf16"] == 2 * (c["attention_block"] + c["ffn_fused"]), f"{tag}: {c['gemm_bf16']} bf16 GEMM launches")
+                check(c["gemm_f32"] == 2 * (c["attention_block_f32"] + c["ffn_fused_f32"]), f"{tag}: {c['gemm_f32']} f32 GEMM launches")
         # one bf16 and one f32 training step at D = 192: rows 5, 3 and 4 (f32 in f32)
         for dtype_c, sfx in (("bfloat16", ""), ("float32", "_f32")):
             cfg = T.EncoderConfig(num_layers=2, d_model=768, num_heads=4, d_ff=256, compute_dtype=dtype_c,
@@ -2917,6 +3058,8 @@ def main() -> int:
             ),
             ("attention_block_f32", "msa_tpu_torch/csrc/attention.cu", "msa_tpu/ops/pallas/attention.py:819", parity_counts, ON_PARITY),
             ("ffn_fused_f32", "msa_tpu_torch/csrc/ffn.cu", "msa_tpu/ops/pallas/ffn.py:89", parity_counts, ON_PARITY),
+            # the f32 dots of rows 10 and 8 (ffn.py:53 and :58; attention.py:616, 633, 660 and 689) and row 11's (conv.py:54-75)
+            ("gemm_f32", "msa_tpu_torch/csrc/gemm_f32.cuh", "msa_tpu/ops/pallas/ffn.py:53", parity_counts, ON_PARITY),
             (
                 "packed_qkv_attention_f32", "msa_tpu_torch/csrc/attention_fused.cu", "msa_tpu/ops/pallas/attention.py:489",
                 parity_custom_counts, "phase 18: one forward of the 2-layer d_model 96 (4 heads) encoder in the parity mode at T=40; "

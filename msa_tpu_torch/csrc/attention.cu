@@ -48,8 +48,9 @@
 // msa_attention_block_f32 is the f32 variant (the parity mode's encoders,
 // compute_dtype="float32"; the same pallas_call at :819 with f32 operands,
 // where JAX rounds nothing: every dot is f32, P·V unnormalised, then
-// o/denom). Three launches: the shared f32 SIMT GEMM (gemm_f32.cuh, exact
-// FMA, no TF32) for x·Wqkvᵀ + bqkv into the [B·T, 3·H·DP] buffer, which is
+// o/denom). Three launches: the shared f32 SIMT GEMM (gemm_f32.cuh through
+// msa_gemm_f32, exact FMA, no TF32, on the planner's tile and stream-K
+// grid) for x·Wqkvᵀ + bqkv into the [B·T, 3·H·DP] buffer, which is
 // the packed layout [B, T, 3, H, DP]; row 1's one-pass f32 core
 // (attention_fused.cu, attend_f32) on it, which divides by the denominator
 // after P·V as well, its online rescale moving only f32 rounding; the GEMM
@@ -154,30 +155,24 @@ extern "C" int msa_attention_block(const void* x, const void* wqkv, const void* 
 }
 
 // As msa_attention_block, all in f32 (x, weights, biases, scratch qkv,
-// attn and out), with two more scratch buffers: lse [B, H, T] f32, which
-// the f32 core writes, and ws, the GEMMs' split-K workspace
-// (msa_gemm_f32_workspace_elems floats). DP 32, 64 or a multiple of 128, T % 128 == 0,
-// DM % 128 == 0.
+// attn and out), with the f32 core's lse [B, H, T] f32 scratch before out;
+// ws, counters and the plans are the f32 GEMM's (stream-K partials,
+// per-tile counters zero at rest, bm | bn << 10 | ctas << 20). DP 32, 64
+// or a multiple of 128, T % 128 == 0, DM % 128 == 0.
 extern "C" int msa_attention_block_f32(const void* x, const void* wqkv, const void* bqkv, const void* wout,
                                        const void* bout, const void* mask, void* qkv, void* attn, void* lse, void* out,
-                                       void* ws, int B, int T, int DM, int H, int DP, float scale, void* stream) {
+                                       void* ws, void* counters, int B, int T, int DM, int H, int DP, int plan_qkv,
+                                       int plan_out, float scale, void* stream) {
   if (bad_block_dp(DP)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * T, HD = H * DP;
-  float* w = static_cast<float*>(ws);
-  cudaError_t e = launch_gemm_f32<true>(static_cast<const float*>(x), static_cast<const float*>(wqkv),
-                                        static_cast<const float*>(bqkv), static_cast<float*>(qkv), M, 3 * HD, DM, DM,
-                                        false, s, 1, 0, 0, w);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  int rc = msa_gemm_f32(x, wqkv, bqkv, qkv, ws, counters, M, 3 * HD, DM, DM, 1, 1, 0, 0, plan_qkv, 0, stream);
+  if (rc) return rc;
   const float* q = static_cast<const float*>(qkv);
   // the [B·T, 3·HD] buffer is the packed layout [B, T, 3, H, DP]
-  const int rc = attend_f32(q, q + HD, q + 2 * HD, 3 * T * HD, DP, 3 * HD, mask, attn, T * HD, DP, HD, lse, B, T, H,
-                            DP, scale, stream);
+  rc = attend_f32(q, q + HD, q + 2 * HD, 3 * T * HD, DP, 3 * HD, mask, attn, T * HD, DP, HD, lse, B, T, H, DP, scale,
+                  stream);
   if (rc) return rc;
-  e = launch_gemm_f32<true>(static_cast<const float*>(attn), static_cast<const float*>(wout),
-                            static_cast<const float*>(bout), static_cast<float*>(out), M, DM, HD, HD, false, s, 1, 0, 0,
-                            w);
-  return static_cast<int>(e);
+  return msa_gemm_f32(attn, wout, bout, out, ws, counters, M, DM, HD, HD, 1, 1, 0, 0, plan_out, 0, stream);
 }
 
 // x [B·T, DM] bf16; wqkv [3·H·DP, DM] int8 with per-row (output channel)

@@ -30,11 +30,6 @@ namespace {
 
 constexpr float MASK_BIAS = -1e9f;  // the TPU kernels' additive bias on masked keys
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(pred ? 4 : 0));
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"

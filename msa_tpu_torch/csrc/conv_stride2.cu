@@ -20,11 +20,13 @@
 // the result is rounded once to x's dtype. The wrapper casts the weight to
 // x's dtype first, as conv.py:109-110 does.
 //
-// bf16: tensor cores through WMMA (16×16×16, f32 accumulators), 128×128
-// output tiles over 32-deep k steps, cp.async double buffering (the tile
-// constants of gemm.cuh), with the B operand read row-major. f32: the port's
-// shared f32 SIMT GEMM (gemm_f32.cuh: exact FMA, not TF32), with A read at
-// the row stride 2C and B as [k·C, C'] row-major.
+// bf16 (this file's msa_conv_stride2): tensor cores through WMMA
+// (16×16×16, f32 accumulators), 128×128 output tiles over 32-deep k steps,
+// cp.async double buffering (the tile constants of gemm.cuh), with the B
+// operand read row-major. f32: the port's shared f32 SIMT GEMM
+// (gemm_f32.cuh: exact FMA, not TF32) through its own entry msa_gemm_f32,
+// which ops/kernels/conv.py calls with A read at the row stride 2C, B as
+// [k·C, C'] row-major and the batch rows on its stream-K grid.
 //
 // What bounds it on the card: 2·B·out_len·k·C·C' operations on the input
 // read once (B·L·C elements), the weight and the output written once. At
@@ -34,7 +36,7 @@
 // design runs the WMMA API without wgmma or TMA; a fast version (wgmma
 // with a TMA ring, the A tile loaded once for both overlapping taps) is
 // later work.
-#include "gemm_f32.cuh"
+#include "gemm.cuh"
 
 namespace {
 
@@ -129,20 +131,14 @@ conv_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* _
 
 }  // namespace
 
-// x [B, L, C], w [k, C, N], out [B, (L − k)/2 + 1, N], all contiguous, bf16
-// when is_bf16 else f32; k ∈ {2, 3}, C and N multiples of 128, L ≥ k.
+// x [B, L, C], w [k, C, N], out [B, (L − k)/2 + 1, N], all contiguous bf16;
+// k ∈ {2, 3}, C and N multiples of 128, L ≥ k.
 extern "C" int msa_conv_stride2(const void* x, const void* w, void* out, int B, int L, int C, int N, int k,
-                                int gelu, int is_bf16, void* stream) {
+                                int gelu, void* stream) {
   if ((k != 2 && k != 3) || C % 128 || N % 128 || L < k || B < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int out_len = (L - k) / 2 + 1, K = k * C;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    conv_bf16_kernel<<<dim3(N / GBN, (out_len + GBM - 1) / GBM, B), GTHREADS, 0, s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(out), L, C, N, K, out_len,
-        gelu != 0);
-    return static_cast<int>(cudaGetLastError());
-  }
-  return static_cast<int>(launch_gemm_f32<false>(static_cast<const float*>(x), static_cast<const float*>(w), nullptr,
-                                                 static_cast<float*>(out), out_len, N, K, 2 * C, gelu != 0, s, B,
-                                                 (size_t)L * C, (size_t)out_len * N));
+  conv_bf16_kernel<<<dim3(N / GBN, (out_len + GBM - 1) / GBM, B), GTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(out), L, C, N, K, out_len,
+      gelu != 0);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -41,8 +41,10 @@
 //
 // msa_ffn_fused_f32 is the same TPU kernel in f32 (the parity mode's
 // encoders, compute_dtype="float32"): two launches of the shared f32 SIMT
-// GEMM (gemm_f32.cuh, exact FMA, no TF32), fc_in with + b1 and the GELU in
-// its epilogue writing the f32 hidden tile, then fc_out with + b2. JAX's
+// GEMM (gemm_f32.cuh through msa_gemm_f32, exact FMA, no TF32), fc_in with
+// + b1 and the GELU in its epilogue writing the f32 hidden tile, then
+// fc_out with + b2, each on the tile and stream-K grid the planner picked
+// (ops/kernels/gemm_plan.py), its split-K sums folded into the launch. JAX's
 // rounding points are all f32 there (ffn.py:49-63), and so are these. At
 // N=1024 it is 9.7 GFLOP against ~28 MB of compulsory traffic: bound by the
 // f32 FMA rate (67 TFLOP/s), 0.14 ms at best.
@@ -64,19 +66,16 @@ extern "C" int msa_ffn_fused(const void* x, const void* w1, const void* b1, cons
 }
 
 // x [M, D], w1 [F, D], b1 [F], w2 [D, F], b2 [D], hidden [M, F], out [M, D],
-// all f32 and contiguous; D and F multiples of 128; ws: the f32 GEMM's
-// split-K workspace (msa_gemm_f32_workspace_elems floats).
+// all f32 and contiguous; D and F multiples of 128; ws and counters: the
+// f32 GEMM's stream-K partials and per-tile counters (zero at rest);
+// plan_in and plan_out: fc_in's and fc_out's plans (bm | bn << 10 | ctas
+// << 20, ops/kernels/gemm_plan.py).
 extern "C" int msa_ffn_fused_f32(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-                                 void* hidden, void* out, void* ws, int M, int D, int F, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* w = static_cast<float*>(ws);
-  cudaError_t e = launch_gemm_f32<true>(static_cast<const float*>(x), static_cast<const float*>(w1),
-                                        static_cast<const float*>(b1), static_cast<float*>(hidden), M, F, D, D, true, s,
-                                        1, 0, 0, w);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = launch_gemm_f32<true>(static_cast<const float*>(hidden), static_cast<const float*>(w2),
-                            static_cast<const float*>(b2), static_cast<float*>(out), M, D, F, F, false, s, 1, 0, 0, w);
-  return static_cast<int>(e);
+                                 void* hidden, void* out, void* ws, void* counters, int M, int D, int F, int plan_in,
+                                 int plan_out, void* stream) {
+  const int rc = msa_gemm_f32(x, w1, b1, hidden, ws, counters, M, F, D, D, 1, 1, 0, 0, plan_in, 1, stream);
+  if (rc) return rc;
+  return msa_gemm_f32(hidden, w2, b2, out, ws, counters, M, D, F, F, 1, 1, 0, 0, plan_out, 0, stream);
 }
 
 namespace {
@@ -140,6 +139,3 @@ extern "C" int msa_gemm_s8(const void* a, const void* w, const void* rs, const v
 extern "C" const char* msa_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
-
-// the floats of split-K workspace the f32 entries take (gemm_f32.cuh)
-extern "C" long long msa_gemm_f32_workspace_elems() { return static_cast<long long>(FG_WS_ELEMS); }

@@ -1,4 +1,5 @@
-// Shared pieces of the port's CUDA kernels: the cp.async helpers, the
+// Shared pieces of the port's CUDA kernels: the cp.async helpers (16 and 4
+// bytes, zero-filling where the predicate is false), the
 // A&S 7.1.26 erf that the TPU FFN kernel uses and its GELU, warp
 // reductions, the strides the attention kernels address q, k and v by,
 // and the WMMA tile constants of row 11's bf16 convolution
@@ -28,6 +29,10 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   int n = pred ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(pred ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>

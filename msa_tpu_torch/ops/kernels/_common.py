@@ -6,22 +6,9 @@ from typing import Sequence
 
 import torch
 
-from msa_tpu_torch.ops.kernels import build
 
-_F32_WS: dict = {}
 _ZEROED: dict = {}
 _SCRATCH: dict = {}
-
-
-def gemm_f32_workspace(device: torch.device) -> torch.Tensor:
-    """The f32 GEMM's split-K workspace for the current stream on
-    ``device``, at the size ``csrc/gemm_f32.cuh`` sets: allocated once a
-    stream, since the kernels of one stream run in order."""
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    if key not in _F32_WS:
-        elems = build.library().msa_gemm_f32_workspace_elems()
-        _F32_WS[key] = torch.empty(elems, dtype=torch.float32, device=device)
-    return _F32_WS[key]
 
 
 def scratch(name: str, device: torch.device, elems: int, dtype: torch.dtype) -> torch.Tensor:

@@ -6,8 +6,9 @@ Replaces the TPU kernel ``msa_tpu/ops/pallas/attention.py:attention_block``
 and in f32 (:func:`attention_block` on f32 operands, the parity mode's
 encoders). The CUDA kernels are ``msa_tpu_torch/csrc/attention.cu`` (with
 the bf16 ``wgmma`` GEMM of ``csrc/gemm_bf16.cuh``, on the plans of
-:func:`gemm_plan.plan`, and the f32 GEMM of ``csrc/gemm_f32.cuh``); its
-note says what bounds them on the card and what the design does about it.
+:func:`gemm_plan.plan`, and the f32 GEMM of ``csrc/gemm_f32.cuh`` on the
+stream-K plans of :func:`gemm_plan.plan_f32`); its note says what bounds
+them on the card and what the design does about it.
 
 Layouts: ``x [B, T, dm]`` in the compute dtype; ``w_qkv [3·H·DP, dm]`` and
 ``w_out [dm, H·DP]`` in PyTorch's Linear layout and the compute dtype;
@@ -113,9 +114,10 @@ from msa_tpu_torch.ops import quant as Q
 from msa_tpu_torch.ops.kernels import attention_bwd_plan as BP
 from msa_tpu_torch.ops.kernels import build
 from msa_tpu_torch.ops.kernels import gemm_bf16 as GB
+from msa_tpu_torch.ops.kernels import gemm_f32 as GF
 from msa_tpu_torch.ops.kernels import gemm_plan as GP
 from msa_tpu_torch.ops.kernels import gemm_s8 as GS
-from msa_tpu_torch.ops.kernels._common import gemm_f32_workspace, require
+from msa_tpu_torch.ops.kernels._common import require
 from msa_tpu_torch.ops.kernels.quant import quantize_rows
 
 LANE = 128
@@ -282,8 +284,9 @@ attention_block.launches = attention_block.launches_f32 = 0
 
 def _attention_block_f32(x, w_qkv, b_qkv, w_out, b_out, key_mask, num_heads: int, head_dim) -> torch.Tensor:
     """:func:`attention_block` on f32 CUDA tensors (x, weights and biases
-    f32): ``msa_attention_block_f32`` (the f32 SIMT GEMM, row 1's f32 core,
-    the GEMM again)."""
+    f32): ``msa_attention_block_f32`` (the f32 SIMT GEMM on the planner's
+    stream-K plan, row 1's f32 core, the GEMM again; the two GEMMs counted
+    in ``gemm_f32.launches``)."""
     b, t, dm = x.shape
     f32 = torch.float32
     xp, mask_p, t_pad, dp = _block_checks(x, w_qkv, b_qkv, w_out, b_out, key_mask, num_heads, "attention_block_f32", f32)
@@ -292,15 +295,17 @@ def _attention_block_f32(x, w_qkv, b_qkv, w_out, b_out, key_mask, num_heads: int
     attn = torch.empty((b * t_pad, hd), dtype=f32, device=dev)
     lse = torch.empty((b, num_heads, t_pad), dtype=f32, device=dev)
     out = torch.empty((b, t_pad, dm), dtype=f32, device=dev)
-    ws = gemm_f32_workspace(dev)
+    m = b * t_pad
+    ws, cnt, plan_qkv, plan_out = GP.launch_args(dev, (m, 3 * hd, dm), (m, dm, hd), dtype=f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = build.library().msa_attention_block_f32(
         xp.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
-        mask_p.data_ptr(), qkv.data_ptr(), attn.data_ptr(), lse.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        b, t_pad, dm, num_heads, dp, _block_scale(w_qkv, num_heads, head_dim), stream,
+        mask_p.data_ptr(), qkv.data_ptr(), attn.data_ptr(), lse.data_ptr(), out.data_ptr(), ws, cnt,
+        b, t_pad, dm, num_heads, dp, plan_qkv, plan_out, _block_scale(w_qkv, num_heads, head_dim), stream,
     )
     build.check(rc, "attention_block_f32")
     attention_block.launches_f32 += 1
+    GF.gemm_f32.launches += 2  # QKV and Wo, launched from C
     return out[:, :t]
 
 

@@ -36,15 +36,15 @@ _SIGNATURES = {
     # plan_out, stream (ws and counters the bf16 GEMM's split-K partials and
     # per-tile counters, the plans ops/kernels/gemm_plan.py's codes)
     "msa_ffn_fused": (_P,) * 9 + (_I,) * 5 + (_P,),
-    # all f32, with the split-K workspace: x, w1, b1, w2, b2, hidden, out, ws, M, D, F, stream
-    "msa_ffn_fused_f32": (_P,) * 8 + (_I,) * 3 + (_P,),
+    # all f32, with the f32 GEMM's stream-K partials, counters and plans
+    "msa_ffn_fused_f32": (_P,) * 9 + (_I,) * 5 + (_P,),
     # x, wqkv, bqkv, wout, bout, mask, qkv, attn, out, ws, counters, B, T,
     # DM, H, DP, plan_qkv, plan_out, scale, stream (ws, counters and plans as
     # msa_ffn_fused's)
     "msa_attention_block": (_P,) * 11 + (_I,) * 7 + (_F, _P),
-    # as above with the f32 core's lse scratch before out and the split-K
-    # workspace after it
-    "msa_attention_block_f32": (_P,) * 11 + (_I,) * 5 + (_F, _P),
+    # as above with the f32 core's lse scratch before out (ws, counters and
+    # plans the f32 GEMM's)
+    "msa_attention_block_f32": (_P,) * 12 + (_I,) * 7 + (_F, _P),
     # x, x_is_bf16, q, scale, rows, cols, stream
     "msa_quantize_rows": (_P, _I, _P, _P, _I, _I, _P),
     # x, amax, q, scale, rows, cols, stream (f32 x whose row amax is known)
@@ -66,6 +66,9 @@ _SIGNATURES = {
     # the bf16 GEMM alone: a, w, bias, bias_is_bf16, c, ws, counters, M, N,
     # K, plan, gelu, stream
     "msa_gemm_bf16": (_P,) * 3 + (_I,) + (_P,) * 3 + (_I,) * 5 + (_P,),
+    # the f32 GEMM alone (and row 11 on f32): a, w, bias (or null), c, ws,
+    # counters, M, N, K, lda, w_nk, batch, a_batch, c_batch, plan, gelu, stream
+    "msa_gemm_f32": (_P,) * 6 + (_I,) * 10 + (_P,),
     # qkv, mask, o, lse, B, T, H, D, scale, stream (rows 5 and 6 in bf16; both in f32)
     "msa_packed_qkv_attention": (_P,) * 4 + (_I,) * 4 + (_F, _P),
     "msa_packed_attention_f32": (_P,) * 4 + (_I,) * 4 + (_F, _P),
@@ -85,8 +88,8 @@ _SIGNATURES = {
     "msa_attention_bwd_onepass_f32": (_P,) * 11 + (_I,) * 11 + (_F, _P),
     # q, k, v, mask, o, lse, B, T, H, D, is_bf16, scale, stream
     "msa_fused_attention": (_P,) * 6 + (_I,) * 5 + (_F, _P),
-    # x, w, out, B, L, C, C', k, gelu, is_bf16, stream
-    "msa_conv_stride2": (_P,) * 3 + (_I,) * 7 + (_P,),
+    # bf16: x, w, out, B, L, C, C', k, gelu, stream
+    "msa_conv_stride2": (_P,) * 3 + (_I,) * 6 + (_P,),
 }
 
 
@@ -143,8 +146,6 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.msa_cuda_error_string.argtypes = [ctypes.c_int]
     lib.msa_cuda_error_string.restype = ctypes.c_char_p
-    lib.msa_gemm_f32_workspace_elems.argtypes = []
-    lib.msa_gemm_f32_workspace_elems.restype = ctypes.c_longlong
     return lib
 
 

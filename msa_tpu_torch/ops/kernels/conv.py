@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 
 from msa_tpu_torch.ops.kernels import build
+from msa_tpu_torch.ops.kernels import gemm_f32 as GF
+from msa_tpu_torch.ops.kernels import gemm_plan as GP
 from msa_tpu_torch.ops.kernels._common import require
 from msa_tpu_torch.ops.kernels.ffn import gelu_as
 
@@ -56,7 +58,9 @@ def conv_stride2_reference(x: torch.Tensor, w: torch.Tensor, apply_gelu: bool = 
 def conv_stride2_fused(x: torch.Tensor, w: torch.Tensor, apply_gelu: bool = True) -> torch.Tensor:
     """x [B, L, C] (f32 or bf16), w [k, C, C'] → [B, (L − k)//2 + 1, C'] in
     x's dtype. CPU tensors take :func:`conv_stride2_reference`; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel: bf16 ``msa_conv_stride2``, f32 the f32 GEMM
+    (``msa_gemm_f32`` on its w [K, N] path and the planner's plan, also
+    counted in ``gemm_f32.launches``)."""
     if x.device.type == "cpu":
         return conv_stride2_reference(x, w, apply_gelu)
     out_len = _check_shapes(x, w)
@@ -70,12 +74,16 @@ def conv_stride2_fused(x: torch.Tensor, w: torch.Tensor, apply_gelu: bool = True
     require(x, "x", x.dtype, (b, length, c), dev)
     require(w, "w", x.dtype, (k, c, cout), dev)
     out = torch.empty((b, out_len, cout), dtype=x.dtype, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = build.library().msa_conv_stride2(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), b, length, c, cout, k, int(apply_gelu),
-        int(x.dtype == torch.bfloat16), stream,
-    )
-    build.check(rc, "conv_stride2_fused")
+    if x.dtype == torch.float32:  # output row i's taps start at input row 2i: A's row stride is 2C
+        p = GP.plan_f32(out_len, cout, k * c, batch=b, w_nk=False)
+        GF.launch(x, w, None, out, out_len, cout, k * c, p, lda=2 * c, w_nk=False, batch=b, a_batch=length * c,
+                  c_batch=out_len * cout, gelu=apply_gelu)
+    else:
+        rc = build.library().msa_conv_stride2(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), b, length, c, cout, k, int(apply_gelu),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        build.check(rc, "conv_stride2_fused")
     conv_stride2_fused.launches += 1
     return out
 

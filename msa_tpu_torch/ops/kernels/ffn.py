@@ -5,7 +5,8 @@ Replaces the TPU kernel ``msa_tpu/ops/pallas/ffn.py:ffn_fused``
 (:func:`ffn_fused` on f32 x: the parity mode's encoders). The CUDA kernels
 are ``msa_tpu_torch/csrc/ffn.cu`` (with the bf16 ``wgmma`` GEMM of
 ``csrc/gemm_bf16.cuh``, two launches a call on the plans of
-:func:`gemm_plan.plan`, and the f32 GEMM of ``csrc/gemm_f32.cuh``); its
+:func:`gemm_plan.plan`, and the f32 GEMM of ``csrc/gemm_f32.cuh`` on the
+stream-K plans of :func:`gemm_plan.plan_f32`); its
 note says what bounds them on the card and what the design does about it.
 
 Weights are in PyTorch's Linear layout: ``w1 [d_ff, d]``, ``w2 [d, d_ff]``.
@@ -34,9 +35,10 @@ import torch
 from msa_tpu_torch.ops import quant as Q
 from msa_tpu_torch.ops.kernels import build
 from msa_tpu_torch.ops.kernels import gemm_bf16 as GB
+from msa_tpu_torch.ops.kernels import gemm_f32 as GF
 from msa_tpu_torch.ops.kernels import gemm_plan as GP
 from msa_tpu_torch.ops.kernels import gemm_s8 as GS
-from msa_tpu_torch.ops.kernels._common import gemm_f32_workspace, require, zeroed
+from msa_tpu_torch.ops.kernels._common import require, zeroed
 from msa_tpu_torch.ops.kernels.quant import quantize_rows
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
@@ -78,11 +80,9 @@ def _launch_ffn(entry: str, x, w1, b1, w2, b2, dtype: torch.dtype) -> torch.Tens
     out = torch.empty((n, d), dtype=dtype, device=x.device)
     ptrs = [t.data_ptr() for t in (x, w1, b1, w2, b2, hidden, out)]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if dtype == torch.float32:  # with the f32 GEMM's split-K workspace
-        rc = getattr(build.library(), entry)(*ptrs, gemm_f32_workspace(x.device).data_ptr(), n, d, f, stream)
-    else:  # with the bf16 GEMM's split-K scratch and fc_in's and fc_out's plans
-        ws, cnt, plan_in, plan_out = GP.launch_args(x.device, (n, f, d), (n, d, f), dtype=dtype)
-        rc = getattr(build.library(), entry)(*ptrs, ws, cnt, n, d, f, plan_in, plan_out, stream)
+    # with the GEMM's split-K scratch and fc_in's and fc_out's plans
+    ws, cnt, plan_in, plan_out = GP.launch_args(x.device, (n, f, d), (n, d, f), dtype=dtype)
+    rc = getattr(build.library(), entry)(*ptrs, ws, cnt, n, d, f, plan_in, plan_out, stream)
     build.check(rc, entry)
     return out
 
@@ -91,13 +91,14 @@ def ffn_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
     """x [N, d] → [N, d]. CPU tensors take :func:`ffn_plain`; CUDA tensors
     launch the bf16 kernel (two launches of the bf16 GEMM, counted in
     ``gemm_bf16.launches``), or for f32 x ``msa_ffn_fused_f32`` (two
-    launches of the f32 SIMT GEMM, exact FMA, no TF32); d and d_ff
-    multiples of 128."""
+    launches of the f32 SIMT GEMM, exact FMA, no TF32, counted in
+    ``gemm_f32.launches``); d and d_ff multiples of 128."""
     if x.device.type == "cpu":
         return ffn_plain(x, w1, b1, w2, b2)
     if x.dtype == torch.float32:
         out = _launch_ffn("msa_ffn_fused_f32", x, w1, b1, w2, b2, torch.float32)
         ffn_fused.launches_f32 += 1
+        GF.gemm_f32.launches += 2  # fc_in and fc_out, launched from C
         return out
     out = _launch_ffn("msa_ffn_fused", x, w1, b1, w2, b2, torch.bfloat16)
     ffn_fused.launches += 1

@@ -2,7 +2,8 @@
 
     python3 -m msa_tpu_torch.profile_slice [--tokens 512] [--batch 2] [--steps 3] [--quantize int8|none|f32|int8_f32]
                                            [--samples 80000]
-                                           [--train | --conv | --asr | --gemm-s8 | --gemm-bf16 | --attn-bwd-f32]
+                                           [--train | --conv | --asr | --gemm-s8 | --gemm-bf16 | --gemm-f32
+                                            | --f32-rows | --attn-bwd-f32]
 
 Builds the full-width models (``PipelineModels.initialize``, by default in
 the int8 serving recipe; ``--quantize none`` for the bf16 one, ``f32``
@@ -44,7 +45,24 @@ splits 1, 2, 3, 4, 6, 8, 12 and 16 where each split keeps 2 k-tiles or
 more, beside ``torch.matmul`` on the same bf16 operands, each plan's max
 abs error against the f32 product of those operands printed beside its
 time; then fc_in with its own epilogue (bf16 bias, GELU) on the planner's
-plan beside the same plan without it. ``--attn-bwd-f32`` times instead
+plan beside the same plan without it. ``--gemm-f32`` times the f32 GEMM
+of rows 10, 8 and 11 in f32 (``ops/kernels/gemm_f32.py``; bias f32, no
+GELU) at the f32 parity forward's eight encoder GEMMs (text at M = 1024,
+audio at M = 512 for QKV and Wo and 500 for the FFN), the 15 s audio FFN
+(M = 1498) and row 11's f32 conv (B=8 L=1999 k=3, w [K, N]): every tile
+the kernel is built for at a grid of one CTA a tile and of 132, 264, 396
+and 528 CTAs (stream-K), each plan's device ms and its largest error
+against the plain product (relative to the largest output), beside
+``torch.matmul`` and ``torch.addmm`` with TF32 off (device ms from the
+profiler, call ms from CUDA events, as for the planner's plan); then
+fc_in with its GELU on the planner's plan beside the same plan without it,
+and the registers and spills ``-Xptxas -v`` reports for each instance
+of ``gemm_f32_kernel``. ``--f32-rows`` times rows 10, 8 and 11 in f32
+through their public wrappers only (``ffn_fused`` at N = 1024 and 500,
+``attention_block`` at B=2 T=512 and 250, ``conv_stride2_fused`` at B=8
+L=1999 k=3 with the GELU and L=999 k=2 without), device ms and call ms, so
+that the same file times another tree of the package (``PYTHONPATH=<tree>
+python3 msa_tpu_torch/profile_slice.py --f32-rows``). ``--attn-bwd-f32`` times instead
 the one-pass f32 attention backward (rows 3 and 4 on f32 at D ≤ 64,
 ``attention_bwd_onepass``) at the f32 training steps' shapes (B=8 T=512
 and T=250, B=2 T=749, H=12 D=64) and the custom widths' (B=2 T=40 H=4
@@ -87,6 +105,8 @@ def main(argv=None) -> int:
     ap.add_argument("--asr", action="store_true", help="one batch of the shipped whisper ASR instead of a forward")
     ap.add_argument("--gemm-s8", action="store_true", help="the int8 GEMM of rows 7 and 9 alone, each plan, beside torch._int_mm")
     ap.add_argument("--gemm-bf16", action="store_true", help="the bf16 GEMM of rows 8 and 10 alone, each plan, beside torch.matmul")
+    ap.add_argument("--gemm-f32", action="store_true", help="the f32 GEMM of rows 10, 8 and 11 alone, each plan, beside torch.addmm")
+    ap.add_argument("--f32-rows", action="store_true", help="rows 10, 8 and 11 in f32 through their public wrappers")
     ap.add_argument("--attn-bwd-f32", action="store_true",
                     help="the one-pass f32 attention backward, each plan, beside the pair and f32 SDPA; then the f32 steps")
     args = ap.parse_args(argv)
@@ -100,6 +120,10 @@ def main(argv=None) -> int:
         return gemm_s8_plans(max(args.steps, 20))
     if args.gemm_bf16:
         return gemm_bf16_plans(max(args.steps, 20))
+    if args.gemm_f32:
+        return gemm_f32_plans(max(args.steps, 20))
+    if args.f32_rows:
+        return f32_rows(max(args.steps, 20))
     if args.attn_bwd_f32:
         rc = attention_bwd_f32_plans(max(args.steps, 20))
         for step in ([], ["--samples", "80000"], ["--samples", "240000", "--batch", "2"]):
@@ -370,6 +394,140 @@ def gemm_bf16_plans(reps: int) -> int:
         print(f"fc_in  M={m:4d} with its GELU (bf16 bias): plan {p.bm}x{p.bn}/{p.splits} {gelu_ms:.4f} ms, "
               f"{bare_ms:.4f} without", flush=True)
     print(json.dumps({"gemm_bf16": rows, "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+# the f32 parity forward's GEMMs at B=2 (name, M, N, K): text at bucket 512,
+# audio at 5 s (QKV and Wo on T_pad 256, the FFN on T = 250), the 15 s audio FFN
+GEMMS_F32 = (("QKV", 1024, 2304, 768), ("Wo", 1024, 768, 768), ("fc_in", 1024, 3072, 768), ("fc_out", 1024, 768, 3072),
+             ("QKV", 512, 2304, 768), ("Wo", 512, 768, 768), ("fc_in", 500, 3072, 768), ("fc_out", 500, 768, 3072),
+             ("fc_in", 1498, 3072, 768), ("fc_out", 1498, 768, 3072))
+
+
+def gemm_f32_plans(reps: int) -> int:
+    """The f32 GEMM alone: each candidate plan beside the planner's,
+    torch.matmul and torch.addmm (TF32 off), at the parity forward's GEMMs
+    and row 11's f32 conv; then the registers of each instance."""
+    from msa_tpu_torch.ops.kernels import build
+    from msa_tpu_torch.ops.kernels import conv as KC
+    from msa_tpu_torch.ops.kernels import gemm_f32 as GF
+    from msa_tpu_torch.ops.kernels import gemm_plan as GP
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    _, log = build.build(verbose=True)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+
+    def sweep(tag, m, n, k, run, plain, chosen, cands, flop, nbytes, lib=None):
+        want = plain()
+        scale = want.abs().max().item()
+        times, errs = {}, {}
+        for p in sorted(set(cands) | {chosen}, key=lambda p: (p.bm, p.bn, p.ctas)):
+            errs[p] = (run(p) - want).abs().max().item() / scale
+            times[p] = _device_ms(lambda p=p: run(p), reps, "gemm_f32_kernel")
+        best = min(times, key=times.get)
+        row = {"gemm": tag, "M": m, "N": n, "K": k, "plan": dataclasses.astuple(chosen), "plan_ms": times[chosen],
+               "plan_call_ms": _event_ms(lambda: run(chosen), reps), "best": dataclasses.astuple(best),
+               "best_ms": times[best], "bound_ms": 1e3 * max(flop / 67e12, nbytes / 3.35e12),
+               "max_rel_err": max(errs.values()), "all": {f"{p.bm}x{p.bn}/{p.ctas}": t for p, t in times.items()}}
+        text = ""
+        for name, fn in (lib or {}).items():
+            row[f"{name}_ms"], row[f"{name}_call_ms"] = _device_ms(fn, reps), _event_ms(fn, reps)
+            text += f", {name} {row[f'{name}_ms']:.4f} (call {row[f'{name}_call_ms']:.4f})"
+        rows.append(row)
+        print(f"{tag:6s} M={m:4d} N={n} K={k}: plan {chosen.bm}x{chosen.bn}/{chosen.ctas} {times[chosen]:.4f} ms "
+              f"(call {row['plan_call_ms']:.4f}; {flop / times[chosen] / 1e9:.1f} TFLOP/s), best {best.bm}x{best.bn}/"
+              f"{best.ctas} {times[best]:.4f}{text}, bound {row['bound_ms']:.5f}, max rel err {row['max_rel_err']:.2e}  | "
+              + " ".join(f"{key} {t:.4f}" for key, t in row["all"].items()), flush=True)
+
+    def candidates(m, n, k, tiles, batch=1):
+        out = []
+        for bm, bn in tiles:
+            p0 = GP.StreamPlan(bm, bn, 0)
+            out += [p0] + [GP.StreamPlan(bm, bn, c) for c in (132, 264, 396, 528) if c <= p0.steps(m, n, k, batch)]
+        return out
+
+    for name, m, n, k in GEMMS_F32:
+        a = torch.randn(m, k, generator=g, device="cuda")
+        w = torch.randn(n, k, generator=g, device="cuda") * k**-0.5
+        bias = 0.02 * torch.randn(n, generator=g, device="cuda")
+        sweep(name, m, n, k, lambda p: GF.gemm_f32(a, w, bias, p), lambda: GF.gemm_f32_plain(a, w, bias),
+              GP.plan_f32(m, n, k), candidates(m, n, k, GP.F32_TILES), 2 * m * n * k, 4 * (m * k + n * k + m * n + n),
+              {"matmul": lambda: torch.matmul(a, w.t()), "addmm": lambda: torch.addmm(bias, a, w.t())})
+    # row 11 on f32: B=8 L=1999 k=3 C=C'=512, the GELU; w [K, N], A rows 2C apart
+    b, length, c, kw = 8, 1999, 512, 3
+    x = torch.randn(b, length, c, generator=g, device="cuda")
+    wc = 0.04 * torch.randn(kw, c, c, generator=g, device="cuda")
+    out_len = (length - kw) // 2 + 1
+    out = torch.empty(b, out_len, c, device="cuda")
+
+    def conv(p):
+        GF.launch(x, wc, None, out, out_len, c, kw * c, p, lda=2 * c, w_nk=False, batch=b, a_batch=length * c,
+                  c_batch=out_len * c, gelu=True)
+        return out
+
+    sweep("conv", out_len, c, kw * c, conv, lambda: KC.conv_stride2_reference(x, wc),
+          GP.plan_f32(out_len, c, kw * c, batch=b, w_nk=False), candidates(out_len, c, kw * c, GP.F32_KN_TILES, b),
+          2 * b * out_len * kw * c * c, 4 * (b * length * c + kw * c * c + b * out_len * c))
+    # fc_in with its GELU on the planner's plan, beside the same plan without it
+    for m in (1024, 500, 1498):
+        a = torch.randn(m, 768, generator=g, device="cuda")
+        w = torch.randn(3072, 768, generator=g, device="cuda") * 768**-0.5
+        b1 = 0.02 * torch.randn(3072, generator=g, device="cuda")
+        p = GP.plan_f32(m, 3072, 768)
+        gelu_ms, bare_ms = (_device_ms(lambda gl=gl: GF.gemm_f32(a, w, b1, p, gl), reps, "gemm_f32_kernel") for gl in (True, False))
+        rows.append({"gemm": "fc_in+GELU", "M": m, "plan": dataclasses.astuple(p), "plan_ms": gelu_ms, "no_gelu_ms": bare_ms})
+        print(f"fc_in  M={m:4d} with its GELU: plan {p.bm}x{p.bn}/{p.ctas} {gelu_ms:.4f} ms, {bare_ms:.4f} without", flush=True)
+    name = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "gemm_f32_kernel" in line else None
+        elif name and ("registers" in line or "spill" in line):
+            print(f"ptxas {name}: {line.split('ptxas info    :')[-1].strip()}", flush=True)
+    print(json.dumps({"gemm_f32": rows, "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+def f32_rows(reps: int) -> int:
+    """Rows 10, 8 and 11 in f32 through ffn_fused, attention_block and
+    conv_stride2_fused alone (TF32 off): device ms (every kernel of the
+    call) and call ms (CUDA events), with the package they ran from."""
+    import msa_tpu_torch
+    from msa_tpu_torch.ops.kernels import attention as A
+    from msa_tpu_torch.ops.kernels import conv as KC
+    from msa_tpu_torch.ops.kernels import ffn as F
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dm, dff, heads = 768, 3072, 12
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    w1, b1, w2, b2 = rand(dff, dm, scale=dm**-0.5), rand(dff, scale=0.02), rand(dm, dff, scale=dff**-0.5), rand(dm, scale=0.02)
+    wq, bq, wo, bo = rand(3 * dm, dm, scale=dm**-0.5), rand(3 * dm, scale=0.02), rand(dm, dm, scale=dm**-0.5), rand(dm, scale=0.02)
+    cases = []
+    for n in (1024, 500):
+        x = rand(n, dm)
+        cases.append((f"row 10 f32 N={n}", lambda x=x: F.ffn_fused(x, w1, b1, w2, b2)))
+    for t in (512, 250):
+        x, mask = rand(2, t, dm), torch.ones(2, t, device="cuda")
+        mask[1, t * 3 // 5 :] = 0.0
+        cases.append((f"row 8 f32 B=2 T={t}", lambda x=x, mask=mask: A.attention_block(x, wq, bq, wo, bo, mask, heads)))
+    for length, k, gelu in ((1999, 3, True), (999, 2, False)):
+        x, w = rand(8, length, 512), rand(k, 512, 512, scale=0.04)
+        cases.append((f"row 11 f32 B=8 L={length} k={k} gelu={gelu}", lambda x=x, w=w, gelu=gelu: KC.conv_stride2_fused(x, w, gelu)))
+    rows = []
+    for name, fn in cases:
+        row = {"case": name, "device_ms": _device_ms(fn, reps), "call_ms": _event_ms(fn, reps)}
+        rows.append(row)
+        print(f"{name}: {row['device_ms']:.4f} ms (device), {row['call_ms']:.4f} ms (call)", flush=True)
+    print(json.dumps({"f32_rows": rows, "package": str(Path(msa_tpu_torch.__file__).parent),
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 
 

@@ -114,7 +114,8 @@ def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
     names = {p.name for p in build._sources()}
     assert names == {
         "attention.cu", "attention_bwd.cu", "attention_bwd_f32.cu", "attention_flash.cu", "attention_fused.cu",
-        "attention_packed.cu", "attention_wide.cu", "conv_stride2.cu", "ffn.cu", "gemm_bf16.cu", "quant.cu",
+        "attention_packed.cu", "attention_wide.cu", "conv_stride2.cu", "ffn.cu", "gemm_bf16.cu", "gemm_f32.cu",
+        "quant.cu",
     }
     assert {p.name for p in build.CSRC.glob("*.cuh")} == {
         "gemm.cuh", "gemm_bf16.cuh", "gemm_s8.cuh", "gemm_f32.cuh", "wgmma.cuh", "attention_mma.cuh",
@@ -137,6 +138,7 @@ def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
         "msa_attention_block_int8_f32",
         "msa_gemm_s8",
         "msa_gemm_bf16",
+        "msa_gemm_f32",
         "msa_packed_qkv_attention",
         "msa_packed_attention_f32",
         "msa_flash_attention",
