@@ -4,7 +4,8 @@
 
 Phases, one line each with its seconds:
   1. require CUDA; print the card's name and power limit;
-  2. build the hand-written kernels (one nvcc call, from msa_tpu_torch/csrc);
+  2. build the hand-written kernels (one nvcc a source, all started
+     together, and one link, from msa_tpu_torch/csrc);
      print ptxas's registers and spills of each kernel, and of the flash,
      packed-QKV (rows 5 and 2, and with UNNORM = 1 the attention-block core
      of rows 7 and 8), dQ (row 3), dK/dV (row 4) and f32 fused (row 1)
@@ -16,7 +17,11 @@ Phases, one line each with its seconds:
      (gemm_f32_kernel<BM, BN, B_NK, GELU>), which must not spill either;
      the bf16 GEMM's SASS must issue HGMMA (wgmma) on bf16, the f32 GEMM's
      FFMA and no tensor-core instruction, and no WMMA gemm_nt_kernel is
-     left;
+     left; the bf16 tensor-core kernels above head dim 128
+     (wide_mma_kernel<NC, ORDER>, wide_bwd_dq_kernel<NC>,
+     wide_bwd_dkv_kernel)
+     must not spill and their SASS must issue bf16 HMMA, and no bf16
+     instance of the SIMT kernels is left;
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, and time both with CUDA events: the bf16
      attention_block and ffn_fused, the row-quantize kernel (exactly: codes
@@ -192,12 +197,23 @@ Phases, one line each with its seconds:
      and one parity run_host on the fine-tuned trunks, within 1e-3 of the
      plain f32 path;
  22. head dims above 128: rows 1, 2, 5, 6 (T=600) and 3 + 4 in bf16 and
-     f32, and row 8 f32, at D = 160, 192 and 256 (the D-tiled kernels of
+     f32, and rows 7, 8 and 8 f32, at D = 160, 192 and 256 (bf16 on the
+     tensor-core kernels of csrc/attention_wide_mma.cu and
+     csrc/attention_bwd_wide.cu, f32 on the D-tiled SIMT kernels of
      csrc/attention_wide.cu and csrc/attention_bwd_f32.cu), one launch per
-     direct call, against their plain versions at the existing bounds;
-     2-layer encoders at d_model 768 / 4 heads (D=192, DP 256) and 512 / 2
-     heads (D=256) through rows 7, 8 and 8 f32; one bf16 and one f32
-     training step at D=192.
+     direct call, against their plain versions at the existing bounds; the
+     bf16 rows again at full width (rows 1, 2, 5 and rows 7/8 at B=2 T=512
+     H=4 D=192 and H=3 D=256, row 5 also at B=8, row 6 at B=2 T=749 H=4
+     D=192, rows 3 + 4 at B=8 T=512 H=4 D=192 and H=3 D=256, two backward
+     calls bit-equal), each timed beside its plain version, one SDPA call
+     (or SDPA's autograd backward) and its bound; 2-layer encoders at
+     d_model 768 / 4 heads (D=192, DP 256) and 512 / 2 heads (D=256)
+     through rows 7, 8 and 8 f32; one bf16 and one f32 training step at
+     D=192; then a 12-layer encoder at d_model 768, 4 heads, d_ff 3072
+     (JAX's flax init): its bf16 (row 8) and int8 (row 7) forwards at B=2
+     T=512 and one bf16 training step at B=8 T=512 (row 5 forward, rows 3
+     and 4 backward), 12 launches of each row and of the tensor-core
+     kernels, against the plain path at the same bounds.
  23. W8A8 under f32 compute at full width: PipelineModels.initialize with
      text and audio EncoderConfig(compute_dtype="float32",
      attention_impl="kernel", ffn_impl="kernel", quantize="int8") →
@@ -385,6 +401,8 @@ ON_PARITY = "phase 18: run_host in the f32 parity mode (imported trunks), B=2, o
 ON_TRAIN_F32 = "phase 21: one f32 text training step of the imported BERT-base trunk, B=8, bucket 512"
 ON_WIDE_F32 = ("phase 22: one f32 training step of a 2-layer encoder at head dim 192 (the D-tiled pair serves f32 D > 64; "
                "the f32 steps at D ≤ 64 take attention_bwd_onepass_f32)")
+ON_WIDE = ("phase 22: one bf16 training step of the 12-layer d_model 768, 4-head (head dim 192) encoder, B=8 T=512 "
+           "(row 5 forward, rows 3 and 4 backward); its bf16 and int8 forwards at B=2 T=512 launch the forward 12 times each")
 ON_INT8_F32 = "phase 23: run_host with W8A8 under f32 compute, B=2, one forward at bucket 512 and one at bucket 32"
 
 # the previous design's device ms at the recorded shape (PERF.md, NVIDIA H100
@@ -531,7 +549,7 @@ def ptxas_usage(log: str, kernels) -> dict:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            name = next((f"{k}<{template_args(mangled, k)}>" for k in kernels if k + "IL" in mangled), None)
+            name = next((f"{k}<{template_args(mangled, k)}>" for k in kernels if f"{len(k)}{k}IL" in mangled), None)
         elif name and "spill" in line:
             usage[name] = line.strip()
         elif name and "Used" in line and "registers" in line:
@@ -562,6 +580,45 @@ def hgmma_of(lib_path, kernel: str) -> str:
     for name, ops in funcs.items():
         check(bool(ops) and all("BF16" in o and "F32" in o for o in ops), f"{name}: HGMMA {sorted(ops)}")
     return f"{len(funcs)} instances issue HGMMA {', '.join(sorted(set().union(*funcs.values())))}"
+
+
+def ptxas_plain(log: str, kernel: str) -> str:
+    """Registers and spills of a kernel that is no template, from the
+    ``-Xptxas -v`` log (its mangled name holds ``kernel`` after its length
+    and before the end of its namespace)."""
+    used, cur = "", False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = f"{len(kernel)}{kernel}E" in line.split("'")[1]
+        elif cur and "spill" in line:
+            used = line.strip()
+        elif cur and "Used" in line and "registers" in line:
+            return f"{line.split('Used')[1].split('registers')[0].strip()} registers, {used or 'no spill line'}"
+    check(False, f"no {kernel} in the ptxas log")
+    return ""
+
+
+def hmma_of(lib_path, kernel: str) -> str:
+    """The tensor-core MMAs (SASS ``HMMA``) of every function whose name
+    holds ``kernel`` in the built library: fails unless each issues bf16
+    HMMAs into f32 (mma.sync m16n8k16)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return "not checked (no cuobjdump)"
+    sass = subprocess.run([tool, "--dump-sass", str(lib_path)], capture_output=True, text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            cur = name if kernel in name else None
+            if cur:
+                funcs[cur] = set()
+        elif cur and (m := re.search(r"HMMA\.(\S+)", line)):
+            funcs[cur].add(m.group(1))
+    check(bool(funcs), f"no {kernel} in the SASS")
+    for name, ops in funcs.items():
+        check(bool(ops) and all("BF16" in o and "F32" in o for o in ops), f"{name}: HMMA {sorted(ops)}")
+    return f"{len(funcs)} functions issue HMMA {', '.join(sorted(set().union(*funcs.values())))}"
 
 
 def fma_only(lib_path, kernel: str) -> str:
@@ -676,6 +733,11 @@ def main() -> int:
         "attention_bwd_onepass_f32": (A.attention_bwd_onepass, "launches"),
         "attention_block_int8_f32": (A.attention_block_int8, "launches_f32"),
         "ffn_fused_int8_f32": (F.ffn_fused_int8, "launches_f32"),
+        # the bf16 tensor-core kernels above head dim 128, reached through
+        # the rows' entries (each wrapper counts them beside its own)
+        "wide_mma": (A.wide_mma, "launches"),
+        "wide_bwd_dq": (A.wide_bwd_dq, "launches"),
+        "wide_bwd_dkv": (A.wide_bwd_dkv, "launches"),
     }
 
     def reset_counts():
@@ -692,13 +754,24 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line or "wgmma" in line:
             print("  ptxas:", line.strip().split("ptxas info    :")[-1].strip(), flush=True)
-    for kernel, used in ptxas_usage(
+    usage = ptxas_usage(
         log, ("flash_kernel", "packed_qkv_kernel", "bwd_dq_kernel", "bwd_dkv_kernel", "fused_f32_kernel", "gemm_s8_kernel",
-              "gemm_bf16_kernel", "onepass_f32_kernel", "gemm_f32_kernel")
-    ).items():
+              "gemm_bf16_kernel", "onepass_f32_kernel", "gemm_f32_kernel", "wide_mma_kernel", "wide_attention_kernel",
+              "simt_dq_kernel", "simt_dkv_kernel")
+    )
+    for kernel, used in usage.items():
         print(f"  ptxas {kernel}: {used}", flush=True)
-        if kernel.startswith(("gemm_s8_kernel", "gemm_bf16_kernel", "onepass_f32_kernel", "gemm_f32_kernel")):
+        if kernel.startswith(("gemm_s8_kernel", "gemm_bf16_kernel", "onepass_f32_kernel", "gemm_f32_kernel", "wide_mma_kernel")):
             check("0 bytes spill stores" in used, f"{kernel} spills: {used}")
+    wide_bwd = {**ptxas_usage(log, ("wide_bwd_dq_kernel",)), "wide_bwd_dkv_kernel": ptxas_plain(log, "wide_bwd_dkv_kernel")}
+    check(len(wide_bwd) == 3, f"the tensor-core backward's instances: {sorted(wide_bwd)}")
+    for kernel, used in wide_bwd.items():
+        print(f"  ptxas {kernel}: {used}", flush=True)
+        check("0 bytes spill stores" in used, f"{kernel} spills: {used}")
+    check(not any(k.startswith(("wide_attention_kernel", "simt_d")) and "bf16" in k for k in usage),
+          f"a bf16 instance of the SIMT kernels is still built: {sorted(usage)}")
+    print(f"  wide_mma_kernel SASS: {hmma_of(lib_path, 'wide_mma_kernel')}", flush=True)
+    print(f"  wide_bwd_dq_kernel, wide_bwd_dkv_kernel SASS: {hmma_of(lib_path, 'wide_bwd_d')}", flush=True)
     check(all(k in log for k in ("gemm_s8_kernel", "gemm_bf16_kernel", "gemm_f32_kernel")),
           "no gemm_s8_kernel, gemm_bf16_kernel or gemm_f32_kernel in the ptxas log")
     check("gemm_nt_kernel" not in log and "split_reduce_kernel" not in log,
@@ -2823,11 +2896,12 @@ def main() -> int:
                 mask = key_mask(b, T_)
                 fwd_bytes = 4 * b * h * T_ * d * es + 4 * b * T_ + 4 * b * h * T_
                 errs = {}
+                wide = {"wide_mma": 1} if dtype is bf16 else {}  # the tensor-core forward, from the rows' entries
                 for name, kernel, plain, counter in (
                     ("fused_attention", A.fused_attention_lse, A.fused_attention_plain, "fused_attention"),
                     ("mha_attention", A.mha_attention, A.mha_attention_plain, "mha_attention" + sfx),
                 ):
-                    o, lse = one_launch(counter, lambda: kernel(q, k, v, mask))
+                    o, lse = one_launch({counter: 1, **wide}, lambda: kernel(q, k, v, mask))
                     po, plse = plain(q, k, v, mask)
                     errs[name] = cmp_o(f"{name} {dn} D={d}", o, po)[0]
                     lse_err = (lse - plse).abs().max().item()
@@ -2842,7 +2916,7 @@ def main() -> int:
                 ):
                     qkv = rand(b, T_p, 3, h, d, dtype=dtype)
                     m_ = key_mask(b, T_p)
-                    o, lse = one_launch(counter, lambda: kernel(qkv, m_))
+                    o, lse = one_launch({counter: 1, **wide}, lambda: kernel(qkv, m_))
                     po, plse = plain(qkv, m_)
                     errs[f"{name} T={T_p}"] = cmp_o(f"{name} {dn} D={d} T={T_p}", o, po)[0]
                     lse_err = (lse - plse).abs().max().item()
@@ -2851,7 +2925,8 @@ def main() -> int:
                               4 * b * h * T_p * d * es + 4 * b * T_p + 4 * b * h * T_p, {kind: 4 * b * h * T_p * T_p * d},
                               lambda: sdpa(qkv, m_))
                 o, lse = A.mha_attention(q, k, v, mask)
-                got = one_launch({"attention_bwd_dq" + sfx: 1, "attention_bwd_dkv" + sfx: 1},
+                wide_bwd = {"wide_bwd_dq": 1, "wide_bwd_dkv": 1} if dtype is bf16 else {}
+                got = one_launch({"attention_bwd_dq" + sfx: 1, "attention_bwd_dkv" + sfx: 1, **wide_bwd},
                                  lambda: A.attention_bwd(q, k, v, mask, lse, o, go))
                 want = A.attention_bwd_plain(q, k, v, mask, lse, o, go)
                 for n, a_, w_ in zip(("dq", "dk", "dv"), got, want):
@@ -2861,7 +2936,7 @@ def main() -> int:
                 lib_out = sdpa_heads_first(*leaves, mask)
                 wide_time(f"attention_bwd (rows 3 + 4) {dn} B={b} H={h} T={T_} D={d}",
                           lambda: A.attention_bwd(q, k, v, mask, lse, o, go), lambda: A.attention_bwd_plain(q, k, v, mask, lse, o, go),
-                          7 * b * h * T_ * d * es + 2 * 4 * b * h * T_ + 4 * b * T_, {kind: 14 * b * h * T_ * T_ * d},
+                          7 * b * h * T_ * d * es + 2 * 4 * b * h * T_ + 4 * b * T_, {kind: 10 * b * h * T_ * T_ * d},
                           lambda: torch.autograd.grad(lib_out, leaves, go, retain_graph=True))
                 print(f"  head dim {d} {dn}, B=2 H=2 T=100 (T=600 for row 6), one launch each: "
                       + " ".join(f"{n}={e:.3e}" for n, e in errs.items()), flush=True)
@@ -2872,8 +2947,8 @@ def main() -> int:
             wo_h, bo_h = rand(dm_w, dm_w, scale=dm_w**-0.5, dtype=f32), rand(dm_w, scale=0.02, dtype=f32)
             m_ = key_mask(2, 100)
             proj_flops, attn_flops = 2 * 2 * 100 * dm_w * 4 * dm_w, 4 * 2 * 4 * 100 * 100 * d
-            for rec, counter in (("bf16", {"attention_block": 1, "gemm_bf16": 2}),
-                                 ("int8", {"attention_block_int8": 1, "quantize_rows": 2, "gemm_s8": 2}),
+            for rec, counter in (("bf16", {"attention_block": 1, "gemm_bf16": 2, "wide_mma": 1}),
+                                 ("int8", {"attention_block_int8": 1, "quantize_rows": 2, "gemm_s8": 2, "wide_mma": 1}),
                                  ("f32", {"attention_block_f32": 1, "gemm_f32": 2})):
                 dt_w = f32 if rec == "f32" else bf16
                 x = rand(2, 100, dm_w, dtype=dt_w)
@@ -2914,6 +2989,120 @@ def main() -> int:
                 else:
                     lib_text(lambda: block_composite(x, m_, wq_c, bq_h, wo_c, bo_h, 4),
                              f"cuBLAS {rec} QKV + scaled_dot_product_attention + cuBLAS {rec} Wo, 3 calls")
+        # the bf16 rows at full width on the tensor-core kernels: rows 5, 1
+        # and 2 at B=2 T=512 (row 5 also at B=8, the training step's shape,
+        # whose numbers the kernels line keeps), row 6 at B=2 T=749
+        for b, T_, h, d in ((2, 512, 4, 192), (2, 512, 3, 256), (8, 512, 4, 192), (2, 749, 4, 192)):
+            q, k, v = (rand(b, h, T_, d) for _ in range(3))
+            mask = key_mask(b, T_)
+            qkv = A._to_packed(q, k, v)
+            if T_ > A.SINGLE_PASS_MAX_T:
+                cases = [("flash_attention_lse", lambda: A.flash_attention_lse(qkv, mask),
+                          lambda: A.flash_attention_lse_plain(qkv, mask), lambda: sdpa(qkv, mask))]
+            else:
+                cases = [("packed_qkv_attention_lse", lambda: A.packed_qkv_attention_lse(qkv, mask),
+                          lambda: A.packed_qkv_attention_lse_plain(qkv, mask), lambda: sdpa(qkv, mask))]
+            if b == 2 and T_ <= A.SINGLE_PASS_MAX_T:
+                cases += [("fused_attention", lambda: A.fused_attention_lse(q, k, v, mask),
+                           lambda: A.fused_attention_plain(q, k, v, mask), lambda: sdpa_heads_first(q, k, v, mask)),
+                          ("mha_attention", lambda: A.mha_attention(q, k, v, mask),
+                           lambda: A.mha_attention_plain(q, k, v, mask), lambda: sdpa_heads_first(q, k, v, mask))]
+            for name, kernel, plain, lib in cases:
+                tag = f"{name} bf16 B={b} T={T_} H={h} D={d}"
+                o, lse = one_launch({name: 1, "wide_mma": 1}, kernel)
+                po, plse = plain()
+                err, rel, bnd = compare(tag, o, po)
+                lse_err = (lse - plse).abs().max().item()
+                check(lse_err <= LSE_ATOL, f"{tag}: lse {lse_err:.3e}")
+                tm = timings(kernel, plain)
+                flop = 4 * b * h * T_ * T_ * d
+                bms, by = bound_ms(3 * 2 * b * h * T_ * d + 2 * b * h * T_ * d + 4 * b * h * T_ + 4 * b * T_, bf16=flop)
+                lib_ms = device_ms(lib)
+                report(f"{tag} (tensor-core forward)", err, rel, bnd, tm, bms, by)
+                print(f"    {flop / tm['ms'] / 1e9:.1f} TFLOP/s on 4·B·H·T²·D; sdpa (library) ms={lib_ms:.4f} (device)", flush=True)
+                main = (name, b) == ("packed_qkv_attention_lse", 8)  # the training step's forward
+                record("wide_mma", err, main, tm, bms, by)
+                if main:
+                    results["wide_mma"]["library_ms"] = lib_ms
+        # rows 8 and 7 at full width: d_model 768 = H·D, weights padded to
+        # DP; the block beside its plain version, its core alone beside one
+        # SDPA call on q, k and v of the core's shape
+        for h, d in ((4, 192), (3, 256)):
+            dm_w, dp_w = h * d, A.block_head_dim(d)
+            wq_h, bq_h = rand(3 * dm_w, dm_w, scale=dm_w**-0.5, dtype=f32), rand(3 * dm_w, scale=0.02, dtype=f32)
+            wo_h, bo_h = rand(dm_w, dm_w, scale=dm_w**-0.5, dtype=f32), rand(dm_w, scale=0.02, dtype=f32)
+            x, m_ = rand(2, 512, dm_w), key_mask(2, 512)
+            core_q = [rand(2, h, 512, dp_w) for _ in range(3)]
+            sdpa_core_ms = device_ms(lambda: sdpa_heads_first(*core_q, m_))
+            wq_c, wo_c = wq_h.to(bf16), wo_h.to(bf16)
+            pw, pb, po, _ = (t_ if t_ is None else t_.contiguous() for t_ in A.pad_block_weights(wq_c, bq_h, wo_c, h))
+            wq_q, sq_ = Q.quantize_weight_axis(wq_h, axis=1)
+            wo_q, so_ = Q.quantize_weight_axis(wo_h, axis=1)
+            sq_, so_ = sq_[:, 0].contiguous(), so_[:, 0].contiguous()
+            pwq, pbq, poq, psq = (t_.contiguous() for t_ in A.pad_block_weights(wq_q, bq_h, wo_q, h, sq_))
+            for rec, counter, run_blk, plain_blk in (
+                ("bf16", {"attention_block": 1, "gemm_bf16": 2, "wide_mma": 1},
+                 lambda: A.attention_block(x, pw, pb, po, bo_h, m_, h, d),
+                 lambda: A.attention_block_plain(x, wq_c, bq_h, wo_c, bo_h, m_, h)),
+                ("int8", {"attention_block_int8": 1, "quantize_rows": 2, "gemm_s8": 2, "wide_mma": 1},
+                 lambda: A.attention_block_int8(x, pwq, psq, pbq, poq, so_, bo_h, m_, h, d),
+                 lambda: A.attention_block_int8_plain(x, wq_q, sq_, bq_h, wo_q, so_, bo_h, m_, h)),
+            ):
+                tag = f"attention_block {rec} B=2 T=512 H={h} head dim {d} (DP {dp_w})"
+                got = one_launch(counter, run_blk)
+                err, rel, bnd = compare(tag, got, plain_blk())
+                core_ms = device_ms(run_blk, only="wide_mma_kernel")
+                flop = 4 * 2 * h * 512 * 512 * dp_w
+                bms, by = bound_ms(4 * 2 * 2 * h * 512 * dp_w + 4 * 2 * 512, bf16=flop)
+                print(f"  {tag}: max_abs_err={err:.4e} rel={rel:.3e} bound={bnd:.4e}; the core alone (tensor-core "
+                      f"forward, unnormalised P) kernel_ms={core_ms:.4f} (device) {flop / core_ms / 1e9:.1f} TFLOP/s, "
+                      f"sdpa (library) ms={sdpa_core_ms:.4f}, bound_ms={bms:.5f} ({by})", flush=True)
+                proj = 2 * 2 * 512 * dm_w * 4 * dm_w  # QKV and Wo
+                wide_time(tag, run_blk, plain_blk, 2 * (2 * 2 * 512 * dm_w + 4 * dm_w * dm_w) + 4 * 2 * 512,
+                          {"bf16": proj + flop} if rec == "bf16" else {"int8": proj, "bf16": flop})
+                record("wide_mma", err, False, None, 0, "")
+            del core_q
+        # rows 3 + 4 at full width on the tensor-core pair: each kernel
+        # alone, the pair beside its plain version and SDPA's autograd
+        # backward, two calls bit-equal
+        for b, T_, h, d in ((8, 512, 4, 192), (8, 512, 3, 256)):
+            q, k, v, go = (rand(b, h, T_, d) for _ in range(4))
+            mask = key_mask(b, T_)
+            o, lse = A.mha_attention(q, k, v, mask)
+            lse, delta = lse.contiguous(), A._delta(o, go)
+            dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+            tag = f"attention_bwd bf16 B={b} T={T_} H={h} D={d}"
+            got = one_launch({"attention_bwd_dq": 1, "attention_bwd_dkv": 1, "wide_bwd_dq": 1, "wide_bwd_dkv": 1},
+                             lambda: A.attention_bwd(q, k, v, mask, lse, o, go))
+            want = A.attention_bwd_plain(q, k, v, mask, lse, o, go)
+            errs = {n: compare(f"{tag} {n}", a_, w_) for n, a_, w_ in zip(("dq", "dk", "dv"), got, want)}
+            again = A.attention_bwd(q, k, v, mask, lse, o, go)
+            check(all(torch.equal(a_, b_) for a_, b_ in zip(got, again)), f"{tag}: two calls differ")
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            lib_out = sdpa_heads_first(*leaves, mask)
+            lib_ms = device_ms(lambda: torch.autograd.grad(lib_out, leaves, go, retain_graph=True))
+            one = 2 * b * h * T_ * d  # bytes of one bf16 [B, H, T, D] tensor
+            stats = 2 * 4 * b * h * T_ + 4 * b * T_  # lse, Δ and the key mask
+            wide_time(f"{tag} (rows 3 + 4, bit-equal over two calls)", lambda: A.attention_bwd(q, k, v, mask, lse, o, go),
+                      lambda: A.attention_bwd_plain(q, k, v, mask, lse, o, go), 7 * one + stats,
+                      {"bf16": 10 * b * h * T_ * T_ * d}, lambda: torch.autograd.grad(lib_out, leaves, go, retain_graph=True))
+            plain_ms = device_ms(lambda: A.attention_bwd_plain(q, k, v, mask, lse, o, go))
+            for name, run, n_out, ops, outs in (
+                ("wide_bwd_dq", lambda: A.attention_bwd_dq(q, k, v, go, lse, delta, mask, dq), 1, 6, ("dq",)),
+                ("wide_bwd_dkv", lambda: A.attention_bwd_dkv(q, k, v, go, lse, delta, mask, dk, dv), 2, 8, ("dk", "dv")),
+            ):
+                tm = {"ms": device_ms(run), "plain_ms": plain_ms, "call_ms": time_ms(run), "plain_call_ms": float("nan"),
+                      "burst_ms": burst_ms(run)}
+                bms, by = bound_ms(4 * one + stats + n_out * one, bf16=ops * b * h * T_ * T_ * d)
+                err, rel, bnd = max(errs[n] for n in outs)
+                report(f"{name} {tag} (plain ms: dq, dk and dv together)", err, rel, bnd, tm, bms, by)
+                print(f"    {name}: {ops * b * h * T_ * T_ * d / tm['ms'] / 1e9:.1f} TFLOP/s on {ops}·B·H·T²·D; sdpa backward "
+                      f"(library, dq, dk and dv) ms={lib_ms:.4f}", flush=True)
+                main = (h, d) == (4, 192)
+                record(name, err, main, tm, bms, by)
+                if main:
+                    results[name]["library_ms"] = lib_ms
+            del leaves, lib_out
         # 2-layer encoders through rows 7, 8 and 8 f32 at D = 192 (DP 256) and 256
         for dm_c, heads_c in ((768, 4), (512, 2)):
             for dtype_c, quantize, kname in (("bfloat16", "none", "attention_block"), ("bfloat16", "int8", "attention_block_int8"),
@@ -2937,6 +3126,7 @@ def main() -> int:
                 err, _, bnd = (compare_gemm if dtype_c == "float32" else compare)(tag, got, want)
                 print(f"  {tag}: launches {c}; vs its plain versions max abs {err:.4e} (bound {bnd:.4e})", flush=True)
                 check(c[kname] == 2, f"{tag}: {c[kname]} launches of {kname}, expected 2")
+                check(c["wide_mma"] == (0 if dtype_c == "float32" else 2), f"{tag}: {c['wide_mma']} launches of wide_mma")
                 check(c["gemm_bf16"] == 2 * (c["attention_block"] + c["ffn_fused"]), f"{tag}: {c['gemm_bf16']} bf16 GEMM launches")
                 check(c["gemm_f32"] == 2 * (c["attention_block_f32"] + c["ffn_fused_f32"]), f"{tag}: {c['gemm_f32']} f32 GEMM launches")
         # one bf16 and one f32 training step at D = 192: rows 5, 3 and 4 (f32 in f32)
@@ -2958,7 +3148,8 @@ def main() -> int:
                     out.copy_(want_)
 
             fwd = "packed_qkv_attention_lse" if dtype_c == "bfloat16" else "packed_qkv_attention_f32"
-            g_k = one_launch({fwd: 2, "attention_bwd_dq" + sfx: 2, "attention_bwd_dkv" + sfx: 2}, step)
+            wide = {} if sfx else {"wide_mma": 2, "wide_bwd_dq": 2, "wide_bwd_dkv": 2}
+            g_k = one_launch({fwd: 2, "attention_bwd_dq" + sfx: 2, "attention_bwd_dkv" + sfx: 2, **wide}, step)
             if sfx:  # the f32 pair's launches on a path: D = 192 > 64
                 wide_f32_train_counts = dict(launched)
             with swapped(A, packed_qkv_attention_lse=A.packed_qkv_attention_lse_plain, _attention_bwd_into=plain_bwd_into):
@@ -2973,6 +3164,79 @@ def main() -> int:
                     worst = max(worst, (err, n))
             print(f"  head dim 192 {dtype_c} training step: one launch of each kernel a layer; every gradient within "
                   f"its bound, largest error {worst[0]:.4e} ({worst[1]})", flush=True)
+        # the slice's path at full width: a 12-layer encoder at d_model 768,
+        # 4 heads (head dim 192, DP 256), d_ff 3072, JAX's flax init; its
+        # bf16 (row 8) and int8 (row 7) forwards at B=2 T=512 and one bf16
+        # training step at B=8 T=512 (row 5 forward, rows 3 and 4 backward),
+        # against the same modules through the kernels' plain versions. At
+        # 12 layers a flipped int8 code carries forward, so the int8 forward
+        # is held as phase 5 holds its 12-layer trunks: its RMS error against
+        # an f32 run of the same masters over the plain path's, with the
+        # last head's V rows zeroed as the fault; the bf16 one by phase 22's
+        # bound and by that ratio (phase 4's, skip_last_head the fault)
+        wide_cfg = dict(num_layers=12, d_model=768, num_heads=4, d_ff=3072, attention_impl="kernel", ffn_impl="kernel")
+        x_c, mask_c = rand(2, 512, 768), key_mask(2, 512, no_valid_key=False)
+        with torch.device(dev):
+            enc = flax_init.init_module_(
+                T.TransformerEncoder(T.EncoderConfig(**{**wide_cfg, "attention_impl": "einsum", "ffn_impl": "dense"},
+                                                     compute_dtype="float32")).eval().requires_grad_(False), 0)
+        with torch.inference_mode():
+            wide_ref = enc(x_c.float(), mask_c)
+        for quantize, kname, fault, ratio_bound in (("none", "attention_block", {"attention_block": skip_last_head}, ENCODER_NOISE_RATIO),
+                                                    ("int8", "attention_block_int8", {"attention_block_int8": zero_last_head_v},
+                                                     INT8_ENCODER_RATIO)):
+            cfg = T.EncoderConfig(**wide_cfg, compute_dtype="bfloat16", quantize=quantize)
+            with torch.device(dev):
+                enc = flax_init.init_module_(T.TransformerEncoder(cfg).eval().requires_grad_(False), 0)
+            reset_counts()
+            with torch.inference_mode():
+                got = enc(x_c, mask_c)
+                torch.cuda.synchronize()
+                c = counts()
+                fwd_ms = host_ms(lambda: enc(x_c, mask_c))
+                with swapped(T, attention_block=A.attention_block_plain, attention_block_int8=A.attention_block_int8_plain,
+                             ffn_fused=F.ffn_plain, ffn_fused_int8=F.ffn_int8_plain):
+                    want = enc(x_c, mask_c)
+                with swapped(T, **fault):
+                    faulty = enc(x_c, mask_c)
+            tag = f"12-layer encoder, head dim 192 (d_model 768, 4 heads, d_ff 3072) quantize={quantize} B=2 T=512"
+            err = (got.float() - want.float()).abs().max().item()
+            bnd = KERNEL_RTOL * want.float().abs().max().item() + 1e-3
+            e_p, ratio, fault_ratio = noise_ratios(got.float(), want.float(), wide_ref, {"fault": faulty.float()})
+            print(f"  {tag}: launches {({n: v for n, v in c.items() if v})}; vs its plain versions max abs {err:.4e} "
+                  f"(phase 22's bound {bnd:.4e}{', held' if quantize == 'none' else ', not held at 12 layers'}); "
+                  f"rms_err_vs_f32 plain={e_p:.4e} kernel/plain={ratio:.4f} fault/plain={fault_ratio['fault']:.4f} "
+                  f"(bound {ratio_bound}); {fwd_ms:.3f} ms a forward (host clock)", flush=True)
+            check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+            if quantize == "none":
+                check(err <= bnd, f"{tag}: max abs err {err:.4e} > bound {bnd:.4e}")
+            check(ratio <= ratio_bound, f"{tag}: kernel/plain noise ratio {ratio:.4f} > {ratio_bound}")
+            check(fault_ratio["fault"] > ratio_bound, f"{tag}: the planted fault passes ({fault_ratio['fault']:.4f})")
+            check(c[kname] == 12 and c["wide_mma"] == 12 and c["wide_bwd_dq"] == c["wide_bwd_dkv"] == 0,
+                  f"{tag}: launches {c}, expected 12 of {kname} and of wide_mma")
+            del enc
+        cfg = T.EncoderConfig(**wide_cfg, compute_dtype="bfloat16", dropout=0.0)
+        with torch.device(dev):
+            enc = flax_init.init_module_(T.TransformerEncoder(cfg).eval().requires_grad_(False), 0).requires_grad_(True)
+        x_c, w_c = rand(8, 512, 768), rand(8, 512, 768)
+        mask_c = key_mask(8, 512)
+        names, params = zip(*enc.named_parameters())
+
+        def wide_step():
+            loss = (enc(x_c, mask_c, deterministic=False).float() * w_c.float()).sum()
+            return torch.autograd.grad(loss, params)
+
+        g_k = one_launch({"packed_qkv_attention_lse": 12, "attention_bwd_dq": 12, "attention_bwd_dkv": 12, "wide_mma": 12,
+                          "wide_bwd_dq": 12, "wide_bwd_dkv": 12}, wide_step)
+        wide_train_counts = dict(launched)
+        step_ms = host_ms(wide_step)
+        with swapped(A, packed_qkv_attention_lse=A.packed_qkv_attention_lse_plain, _attention_bwd_into=plain_bwd_into):
+            g_p = wide_step()
+        worst = max((compare(f"12-layer head dim 192 training step grad {n}", a_, b_)[0], n) for n, a_, b_ in zip(names, g_k, g_p))
+        print(f"  12-layer head dim 192 bf16 training step B=8 T=512: 12 launches of rows 5, 3 and 4 and of the tensor-core "
+              f"kernels; every gradient group within its bound, largest error {worst[0]:.4e} ({worst[1]}); "
+              f"{step_ms:.3f} ms a step (host clock)", flush=True)
+        del enc, g_k, g_p
     phase("wide_heads", t0)
 
     # --- 23. W8A8 under f32 compute at full width ---------------------------------------------
@@ -3084,6 +3348,15 @@ def main() -> int:
             ("attention_block_int8_f32", "msa_tpu_torch/csrc/attention.cu", "msa_tpu/ops/pallas/attention.py:779",
              int8_f32_counts, ON_INT8_F32),
             ("ffn_fused_int8_f32", "msa_tpu_torch/csrc/ffn.cu", "msa_tpu/ops/pallas/ffn.py:166", int8_f32_counts, ON_INT8_F32),
+            # the bf16 rows above head dim 128: the forward of rows 1, 2, 5, 6
+            # and 7/8's core (attention.py:206, 150, 489, 948, 779, 819), the
+            # backward pair of rows 3 and 4
+            ("wide_mma", "msa_tpu_torch/csrc/attention_wide_mma.cu", "msa_tpu/ops/pallas/attention.py:489", wide_train_counts,
+             ON_WIDE),
+            ("wide_bwd_dq", "msa_tpu_torch/csrc/attention_bwd_wide.cu", "msa_tpu/ops/pallas/attention.py:370",
+             wide_train_counts, ON_WIDE),
+            ("wide_bwd_dkv", "msa_tpu_torch/csrc/attention_bwd_wide.cu", "msa_tpu/ops/pallas/attention.py:395",
+             wide_train_counts, ON_WIDE),
         )
     ]
     phase("total", t_all)

@@ -17,8 +17,10 @@
 // planner picked (ops/kernels/gemm_plan.py).
 //
 // Any head dim D: the core's head dim is DP ∈ {32, 64, 128} (above 128,
-// DP is a multiple of 128 and the D-tiled kernel of attention_wide.cu
-// takes the core's place, in its order of rounding), and a D below its DP
+// DP is a multiple of 128 and the tensor-core kernel of
+// attention_wide_mma.cu takes the bf16 core's place, the D-tiled SIMT
+// kernel of attention_wide.cu the f32 one's, in its order of rounding),
+// and a D below its DP
 // (24, 48, 96, ...) is served by
 // weights padded once when they are derived (ops/kernels/attention.py
 // pad_block_weights): each head's rows of Wqkv and bqkv are zero-padded to

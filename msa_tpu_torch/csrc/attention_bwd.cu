@@ -38,8 +38,8 @@
 // in that layout, or take [B, H, T, D] throughout. lse and Δ are
 // [B, H, T] f32, the key mask [B, T] f32 (1 = attend). D is any multiple of
 // 8 up to 128, zero-padded to DP (32, 64 or 128) in shared memory; above
-// 128 the entries run the D-tiled SIMT kernels of attention_bwd_f32.cu in
-// bf16, which round at the same points.
+// 128 (up to 512) the entries run the tensor-core pair of
+// attention_bwd_wide.cu, which rounds at the same points.
 //
 // What bounds it on the card: per (row, head) the dQ kernel does 6·T²·D
 // operations (S, dO·Vᵀ, dS·K) and the dK/dV kernel 8·T²·D (Sᵀ, Pᵀ·dO,
@@ -337,16 +337,16 @@ bool bad_shape(int T, int D) { return T < 1 || D % 8 || D < 8; }
 
 // q, k, v, dq: bf16 with element strides (sx_b, sx_h, sx_t), D contiguous;
 // dout: bf16 with strides (so_b, so_h, so_t); lse, delta [B, H, T] f32;
-// mask [B, T] f32. Every row 16-byte aligned. Any T ≥ 1; D % 8 == 0 (above
-// 128 the D-tiled SIMT kernels of attention_bwd_f32.cu, in bf16).
+// mask [B, T] f32. Every row 16-byte aligned. Any T ≥ 1; D % 8 == 0, D ≤ 512
+// (above 128 the tensor-core pair of attention_bwd_wide.cu).
 extern "C" int msa_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                                     const void* delta, const void* mask, void* dq, int B, int T, int H, int D,
                                     int sx_b, int sx_h, int sx_t, int so_b, int so_h, int so_t, float scale,
                                     void* stream) {
   if (bad_shape(T, D)) return static_cast<int>(cudaErrorInvalidValue);
   if (D > 128)
-    return attend_bwd_simt(q, k, v, dout, lse, delta, mask, dq, nullptr, nullptr, B, T, H, D, sx_b, sx_h, sx_t, so_b,
-                           so_h, so_t, scale, 1, stream);
+    return attend_bwd_wide(q, k, v, dout, lse, delta, mask, dq, nullptr, nullptr, B, T, H, D, sx_b, sx_h, sx_t, so_b,
+                           so_h, so_t, scale, stream);
   const BwdArgs a = bwd_args(q, k, v, dout, lse, delta, mask, dq, nullptr, nullptr, B, T, H, D, sx_b, sx_h, sx_t,
                              so_b, so_h, so_t, scale, stream);
   const cudaError_t e = D <= 32 ? launch_dq<32>(a) : D <= 64 ? launch_dq<64>(a) : launch_dq<128>(a);
@@ -360,8 +360,8 @@ extern "C" int msa_attention_bwd_dkv(const void* q, const void* k, const void* v
                                      void* stream) {
   if (bad_shape(T, D)) return static_cast<int>(cudaErrorInvalidValue);
   if (D > 128)
-    return attend_bwd_simt(q, k, v, dout, lse, delta, mask, nullptr, dk, dv, B, T, H, D, sx_b, sx_h, sx_t, so_b, so_h,
-                           so_t, scale, 1, stream);
+    return attend_bwd_wide(q, k, v, dout, lse, delta, mask, nullptr, dk, dv, B, T, H, D, sx_b, sx_h, sx_t, so_b, so_h,
+                           so_t, scale, stream);
   const BwdArgs a = bwd_args(q, k, v, dout, lse, delta, mask, nullptr, dk, dv, B, T, H, D, sx_b, sx_h, sx_t, so_b,
                              so_h, so_t, scale, stream);
   const cudaError_t e = D <= 32 ? launch_dkv<32>(a) : D <= 64 ? launch_dkv<64>(a) : launch_dkv<128>(a);

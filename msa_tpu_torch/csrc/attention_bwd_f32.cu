@@ -1,6 +1,7 @@
-// attention_bwd in f32 (rows 3 and 4 on f32 operands), and in bf16 at head
-// dims above 128: the flash-style attention backward from the forward's row
-// logsumexp on the CUDA cores. With L = lse, Δ = rowsum(dO∘O) and P =
+// attention_bwd in f32 (rows 3 and 4 on f32 operands): the flash-style
+// attention backward from the forward's row logsumexp on the CUDA cores.
+// (bf16 above head dim 128 runs the tensor-core pair of
+// attention_bwd_wide.cu.) With L = lse, Δ = rowsum(dO∘O) and P =
 // exp(S·scale + bias − L) recomputed per tile:
 //   dV = Pᵀ·dO,   dS = P ∘ (dO·Vᵀ − Δ),   dQ = scale·dS·K,   dK = scale·dSᵀ·Q.
 //
@@ -15,19 +16,15 @@
 // - D ≤ 64, f32 (every served f32 shape: D = 64, and 24 or 25 padded to
 //   32): ONE pass, msa_attention_bwd_onepass_f32 (onepass_f32_kernel, 32
 //   columns at D ≤ 32, else 64).
-// - any other D (D % 8 == 0), and bf16 above D = 128: the D-tiled pair,
-//   msa_attention_bwd_dq_f32 and msa_attention_bwd_dkv_f32 (simt_dq_kernel,
-//   simt_dkv_kernel; attention_bwd.cu routes its bf16 D > 128 calls here).
+// - any other D (D % 8 == 0): the D-tiled pair, msa_attention_bwd_dq_f32
+//   and msa_attention_bwd_dkv_f32 (simt_dq_kernel, simt_dkv_kernel).
 //
 // Same rounding points in both as the TPU kernels and attention_bwd_plain:
 // S and dO·Vᵀ accumulate in f32; s = S·scale + bias with −1e9 on masked
 // keys (the product and the sum each rounded once); P = exp(s − L); dS =
-// P·(dP − Δ); dS is rounded to k's dtype before dS·K, Pᵀ to dO's before
-// Pᵀ·dO and dSᵀ to q's before dSᵀ·Q (the identity in f32: no rounding
-// anywhere, exact FMA, no TF32); the f32 sums are multiplied by scale at
-// the end (dQ, dK) and rounded once. Products of bf16 values are exact in
-// f32, so at D > 128 the bf16 instances differ from the plain version only
-// in summation order.
+// P·(dP − Δ); the roundings of dS, Pᵀ and dSᵀ to the operands' dtype before
+// the products are the identity in f32 (no rounding anywhere, exact FMA, no
+// TF32); the f32 sums are multiplied by scale at the end (dQ, dK).
 //
 // Rows and keys past T are never written. A padded query row has q = dO = 0
 // and L = Δ = 0, a padded key k = v = 0, so both add exact zeros, as in the
@@ -185,10 +182,10 @@ __device__ __forceinline__ void accumulate(float (&acc)[4][DC / 8], const float*
   }
 }
 
-// acc·mul rounded once to E at the thread's rows t0 + 4i < T and columns
+// acc·mul at the thread's rows t0 + 4i < T and columns
 // c0 + 4kg + 32u < D of dst
-template <typename E, int DC>
-__device__ __forceinline__ void store_acc(const float (&acc)[4][DC / 8], float mul, E* __restrict__ dst, Strides st,
+template <int DC>
+__device__ __forceinline__ void store_acc(const float (&acc)[4][DC / 8], float mul, float* __restrict__ dst, Strides st,
                                           int b, int h, int t0, int c0, int T, int D, int kg) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -199,18 +196,18 @@ __device__ __forceinline__ void store_acc(const float (&acc)[4][DC / 8], float m
       const int c = c0 + 4 * kg + 32 * u;
       if (c < D) {
         const float* a = acc[i] + 4 * u;
-        store4<E>(dst + st.at(b, h, t) + c, __fmul_rn(a[0], mul), __fmul_rn(a[1], mul), __fmul_rn(a[2], mul),
-                  __fmul_rn(a[3], mul));
+        *reinterpret_cast<float4*>(dst + st.at(b, h, t) + c) =
+            make_float4(__fmul_rn(a[0], mul), __fmul_rn(a[1], mul), __fmul_rn(a[2], mul), __fmul_rn(a[3], mul));
       }
     }
   }
 }
 
-template <typename E, int DC>
+template <int DC>
 __global__ void __launch_bounds__(STHREADS, 2)
-simt_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v, Strides sx,
-               const E* __restrict__ dout, Strides so, const float* __restrict__ lse, const float* __restrict__ delta,
-               const float* __restrict__ mask, E* __restrict__ dq, int H, int nct, int T, int D, float scale) {
+simt_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, Strides sx,
+               const float* __restrict__ dout, Strides so, const float* __restrict__ lse, const float* __restrict__ delta,
+               const float* __restrict__ mask, float* __restrict__ dq, int H, int nct, int T, int D, float scale) {
   constexpr int LD = DC + 4;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* sQ = reinterpret_cast<float*>(smem_raw);  // [SR × LD] the owned queries
@@ -234,11 +231,11 @@ simt_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __rest
     for (int dc = 0; dc < ndc; ++dc) {
       __syncthreads();  // every warp is done with the last step's tiles
       if (ndc > 1 || kc == 0) {
-        load_rows_f32<E, SR, DC, STHREADS>(sQ, LD, q, sx, b, h, q0, T, dc * DC, D, tid);
-        load_rows_f32<E, SR, DC, STHREADS>(sG, LD, dout, so, b, h, q0, T, dc * DC, D, tid);
+        load_rows_f32<SR, DC, STHREADS>(sQ, LD, q, sx, b, h, q0, T, dc * DC, D, tid);
+        load_rows_f32<SR, DC, STHREADS>(sG, LD, dout, so, b, h, q0, T, dc * DC, D, tid);
       }
-      load_rows_f32<E, SC, DC, STHREADS>(sK, LD, k, sx, b, h, kc, T, dc * DC, D, tid);
-      load_rows_f32<E, SC, DC, STHREADS>(sV, LD, v, sx, b, h, kc, T, dc * DC, D, tid);
+      load_rows_f32<SC, DC, STHREADS>(sK, LD, k, sx, b, h, kc, T, dc * DC, D, tid);
+      load_rows_f32<SC, DC, STHREADS>(sV, LD, v, sx, b, h, kc, T, dc * DC, D, tid);
       if (dc == 0) load_vec_async<SC, STHREADS>(sMask, mask + (size_t)b * T, kc, T, tid);
       if (kc == 0 && dc == 0) {
         load_vec_async<SR, STHREADS>(sL, lse + row0, q0, T, tid);
@@ -262,26 +259,26 @@ simt_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __rest
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = expf(__fsub_rn(__fadd_rn(__fmul_rn(s[i][j], scale), bias), L[i]));
-        sDSt[4 * i * SPL + kg + 8 * j] = round_to<E>(__fmul_rn(p, __fsub_rn(dp[i][j], Dl[i])));
+        sDSt[4 * i * SPL + kg + 8 * j] = __fmul_rn(p, __fsub_rn(dp[i][j], Dl[i]));
       }
     }
     if (ndc > 1) {  // the keys' columns of the block's tile
       __syncthreads();
-      load_rows_f32<E, SC, DC, STHREADS>(sK, LD, k, sx, b, h, kc, T, c0, D, tid);
+      load_rows_f32<SC, DC, STHREADS>(sK, LD, k, sx, b, h, kc, T, c0, D, tid);
       cp_async_commit();
       cp_async_wait<0>();
     }
     __syncthreads();
     accumulate<DC>(acc, sDSt, sK, kg);  // dQ += dS·K
   }
-  store_acc<E, DC>(acc, scale, dq, sx, b, h, q0 + r, c0, T, D, kg);
+  store_acc<DC>(acc, scale, dq, sx, b, h, q0 + r, c0, T, D, kg);
 }
 
-template <typename E, int DC>
+template <int DC>
 __global__ void __launch_bounds__(STHREADS, 2)
-simt_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v, Strides sx,
-                const E* __restrict__ dout, Strides so, const float* __restrict__ lse, const float* __restrict__ delta,
-                const float* __restrict__ mask, E* __restrict__ dk, E* __restrict__ dv, int H, int nct, int T, int D,
+simt_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, Strides sx,
+                const float* __restrict__ dout, Strides so, const float* __restrict__ lse, const float* __restrict__ delta,
+                const float* __restrict__ mask, float* __restrict__ dk, float* __restrict__ dv, int H, int nct, int T, int D,
                 float scale) {
   constexpr int LD = DC + 4;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -314,12 +311,12 @@ simt_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __res
     for (int dc = 0; dc < ndc; ++dc) {
       __syncthreads();  // every warp is done with the last step's tiles
       if (ndc > 1 || qc == 0) {
-        load_rows_f32<E, SR, DC, STHREADS>(sK, LD, k, sx, b, h, k0, T, dc * DC, D, tid);
-        load_rows_f32<E, SR, DC, STHREADS>(sV, LD, v, sx, b, h, k0, T, dc * DC, D, tid);
+        load_rows_f32<SR, DC, STHREADS>(sK, LD, k, sx, b, h, k0, T, dc * DC, D, tid);
+        load_rows_f32<SR, DC, STHREADS>(sV, LD, v, sx, b, h, k0, T, dc * DC, D, tid);
       }
       // query rows past T arrive as zeros with L = Δ = 0: exact zeros
-      load_rows_f32<E, SC, DC, STHREADS>(sQ, LD, q, sx, b, h, qc, T, dc * DC, D, tid);
-      load_rows_f32<E, SC, DC, STHREADS>(sG, LD, dout, so, b, h, qc, T, dc * DC, D, tid);
+      load_rows_f32<SC, DC, STHREADS>(sQ, LD, q, sx, b, h, qc, T, dc * DC, D, tid);
+      load_rows_f32<SC, DC, STHREADS>(sG, LD, dout, so, b, h, qc, T, dc * DC, D, tid);
       if (dc == 0) {
         load_vec_async<SC, STHREADS>(sL, lse + row0, qc, T, tid);
         load_vec_async<SC, STHREADS>(sDl, delta + row0, qc, T, tid);
@@ -335,14 +332,14 @@ simt_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __res
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = expf(__fsub_rn(__fadd_rn(__fmul_rn(s[i][j], scale), kb[i]), Lj));
-        sPt[4 * i * SPL + kg + 8 * j] = round_to<E>(p);
-        sDSt[4 * i * SPL + kg + 8 * j] = round_to<E>(__fmul_rn(p, __fsub_rn(dp[i][j], Dj)));
+        sPt[4 * i * SPL + kg + 8 * j] = p;
+        sDSt[4 * i * SPL + kg + 8 * j] = __fmul_rn(p, __fsub_rn(dp[i][j], Dj));
       }
     }
     if (ndc > 1) {  // the queries' columns of the block's tile
       __syncthreads();
-      load_rows_f32<E, SC, DC, STHREADS>(sQ, LD, q, sx, b, h, qc, T, c0, D, tid);
-      load_rows_f32<E, SC, DC, STHREADS>(sG, LD, dout, so, b, h, qc, T, c0, D, tid);
+      load_rows_f32<SC, DC, STHREADS>(sQ, LD, q, sx, b, h, qc, T, c0, D, tid);
+      load_rows_f32<SC, DC, STHREADS>(sG, LD, dout, so, b, h, qc, T, c0, D, tid);
       cp_async_commit();
       cp_async_wait<0>();
     }
@@ -350,8 +347,8 @@ simt_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __res
     accumulate<DC>(acc_v, sPt, sG, kg);   // dV += Pᵀ·dO
     accumulate<DC>(acc_k, sDSt, sQ, kg);  // dK += dSᵀ·Q
   }
-  store_acc<E, DC>(acc_k, scale, dk, sx, b, h, k0 + r, c0, T, D, kg);
-  store_acc<E, DC>(acc_v, 1.f, dv, sx, b, h, k0 + r, c0, T, D, kg);
+  store_acc<DC>(acc_k, scale, dk, sx, b, h, k0 + r, c0, T, D, kg);
+  store_acc<DC>(acc_v, 1.f, dv, sx, b, h, k0 + r, c0, T, D, kg);
 }
 
 // --- the one pass (f32, D ≤ 64) ------------------------------------------------
@@ -551,13 +548,13 @@ onepass_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, con
 
   // query rows past T arrive as zeros with L = Δ = 0: exact zeros
   auto load_step = [&](int j, int stage) {
-    load_rows_f32<float, OQ, DC, NT>(sQ + stage * OQ * LD, LD, q, sx, b, h, j * OQ, T, 0, D, tid);
-    load_rows_f32<float, OQ, DC, NT>(sG + stage * OQ * LD, LD, dout, so, b, h, j * OQ, T, 0, D, tid);
+    load_rows_f32<OQ, DC, NT>(sQ + stage * OQ * LD, LD, q, sx, b, h, j * OQ, T, 0, D, tid);
+    load_rows_f32<OQ, DC, NT>(sG + stage * OQ * LD, LD, dout, so, b, h, j * OQ, T, 0, D, tid);
     load_vec_async<OQ, NT>(sL + stage * OQ, lse + row0, j * OQ, T, tid);
     load_vec_async<OQ, NT>(sDl + stage * OQ, delta + row0, j * OQ, T, tid);
   };
-  load_rows_f32<float, BK, DC, NT>(sK, LD, k, sx, b, h, k0, T, 0, D, tid);
-  load_rows_f32<float, BK, DC, NT>(sV, LD, v, sx, b, h, k0, T, 0, D, tid);
+  load_rows_f32<BK, DC, NT>(sK, LD, k, sx, b, h, k0, T, 0, D, tid);
+  load_rows_f32<BK, DC, NT>(sV, LD, v, sx, b, h, k0, T, 0, D, tid);
   load_step(j0, 0);
   cp_async_commit();
 
@@ -695,27 +692,27 @@ struct SimtArgs {
   cudaStream_t stream;
 };
 
-template <typename E, int DC>
+template <int DC>
 cudaError_t launch_simt(const SimtArgs& a) {
   const int nct = (a.D + DC - 1) / DC;
   const dim3 grid((a.T + SR - 1) / SR, a.H * nct, a.B);
-  auto q = static_cast<const E*>(a.q);
-  auto k = static_cast<const E*>(a.k);
-  auto v = static_cast<const E*>(a.v);
-  auto g = static_cast<const E*>(a.dout);
+  auto q = static_cast<const float*>(a.q);
+  auto k = static_cast<const float*>(a.k);
+  auto v = static_cast<const float*>(a.v);
+  auto g = static_cast<const float*>(a.dout);
   if (a.dq != nullptr) {
     constexpr size_t smem = dq_smem_bytes<DC>();
-    cudaError_t e = cudaFuncSetAttribute(simt_dq_kernel<E, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(simt_dq_kernel<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
-    simt_dq_kernel<E, DC><<<grid, STHREADS, smem, a.stream>>>(q, k, v, a.sx, g, a.so, a.lse, a.delta, a.mask,
-                                                             static_cast<E*>(a.dq), a.H, nct, a.T, a.D, a.scale);
+    simt_dq_kernel<DC><<<grid, STHREADS, smem, a.stream>>>(q, k, v, a.sx, g, a.so, a.lse, a.delta, a.mask,
+                                                          static_cast<float*>(a.dq), a.H, nct, a.T, a.D, a.scale);
   } else {
     constexpr size_t smem = dkv_smem_bytes<DC>();
-    cudaError_t e = cudaFuncSetAttribute(simt_dkv_kernel<E, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(simt_dkv_kernel<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
-    simt_dkv_kernel<E, DC><<<grid, STHREADS, smem, a.stream>>>(q, k, v, a.sx, g, a.so, a.lse, a.delta, a.mask,
-                                                              static_cast<E*>(a.dk), static_cast<E*>(a.dv), a.H, nct,
-                                                              a.T, a.D, a.scale);
+    simt_dkv_kernel<DC><<<grid, STHREADS, smem, a.stream>>>(q, k, v, a.sx, g, a.so, a.lse, a.delta, a.mask,
+                                                           static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.H,
+                                                           nct, a.T, a.D, a.scale);
   }
   return cudaGetLastError();
 }
@@ -724,8 +721,7 @@ cudaError_t launch_simt(const SimtArgs& a) {
 
 int attend_bwd_simt(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                     const void* delta, const void* mask, void* dq, void* dk, void* dv, int B, int T, int H, int D,
-                    int sx_b, int sx_h, int sx_t, int so_b, int so_h, int so_t, float scale, int is_bf16,
-                    void* stream) {
+                    int sx_b, int sx_h, int sx_t, int so_b, int so_h, int so_t, float scale, void* stream) {
   if (T < 1 || D < 8 || D % 8 || H * ((D + 31) / 32) > 65535 || (dq == nullptr) == (dk == nullptr || dv == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const SimtArgs a{q,
@@ -747,8 +743,8 @@ int attend_bwd_simt(const void* q, const void* k, const void* v, const void* dou
                    scale,
                    static_cast<cudaStream_t>(stream)};
   // column tiles (and D steps of the scores) of 64: the pair serves f32 at
-  // D > 64 and bf16 above 128 (below, the one pass and attention_bwd.cu)
-  return static_cast<int>(is_bf16 ? launch_simt<bf16, 64>(a) : launch_simt<float, 64>(a));
+  // D > 64 (below, the one pass)
+  return static_cast<int>(launch_simt<64>(a));
 }
 
 // q, k, v, dq: f32 with element strides (sx_b, sx_h, sx_t), D contiguous;
@@ -759,7 +755,7 @@ extern "C" int msa_attention_bwd_dq_f32(const void* q, const void* k, const void
                                         int sx_b, int sx_h, int sx_t, int so_b, int so_h, int so_t, float scale,
                                         void* stream) {
   return attend_bwd_simt(q, k, v, dout, lse, delta, mask, dq, nullptr, nullptr, B, T, H, D, sx_b, sx_h, sx_t, so_b,
-                         so_h, so_t, scale, 0, stream);
+                         so_h, so_t, scale, stream);
 }
 
 // as msa_attention_bwd_dq_f32; dk and dv take the strides of q, k and v
@@ -768,7 +764,7 @@ extern "C" int msa_attention_bwd_dkv_f32(const void* q, const void* k, const voi
                                          int D, int sx_b, int sx_h, int sx_t, int so_b, int so_h, int so_t,
                                          float scale, void* stream) {
   return attend_bwd_simt(q, k, v, dout, lse, delta, mask, nullptr, dk, dv, B, T, H, D, sx_b, sx_h, sx_t, so_b, so_h,
-                         so_t, scale, 0, stream);
+                         so_t, scale, stream);
 }
 
 // The one pass on f32 operands at D ≤ 64 (the dispatch by D: the wrapper

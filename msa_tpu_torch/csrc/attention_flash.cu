@@ -21,8 +21,8 @@
 // plain version computes them. T is padded to a multiple of 128 (zero rows
 // under masked keys), so a row with no valid key averages V over all padded
 // rows, as on the TPU; D is any multiple of 8 up to 128, zero-padded to DP
-// (32, 64 or 128) by the copies; above 128 the entry calls attend_wide
-// (attention_wide.cu), in the same order.
+// (32, 64 or 128) by the copies; above 128 the entry calls attend_wide_mma
+// (attention_wide_mma.cu), in the same order.
 //
 // What bounds it on the card: 4·T²·D operations per (row, head) on
 // 3·T·D·2 bytes in and T·D·2 + 4·T out. At B=2, H=12, T=749, D=64 that is
@@ -159,8 +159,8 @@ cudaError_t launch_flash(const bf16* q, const bf16* k, const bf16* v, Strides li
 }  // namespace
 
 // qkv [B, T, 3, H, D] bf16 (contiguous), mask [B, T] f32 (1 = attend);
-// out [B, T, H·D] bf16, lse [B, H, T] f32. Any T ≥ 1; D % 8 == 0 (above 128
-// through attend_wide, attention_wide.cu).
+// out [B, T, H·D] bf16, lse [B, H, T] f32. Any T ≥ 1; D % 8 == 0, D ≤ 512
+// (above 128 through attend_wide_mma, attention_wide_mma.cu).
 extern "C" int msa_flash_attention(const void* qkv, const void* mask, void* out, void* lse, int B, int T, int H,
                                    int D, float scale, void* stream) {
   if (T < 1 || D % 8 || D < 8) return static_cast<int>(cudaErrorInvalidValue);
@@ -170,9 +170,9 @@ extern "C" int msa_flash_attention(const void* qkv, const void* mask, void* out,
   auto l = static_cast<float*>(lse);
   const Strides lin{3 * T * H * D, D, 3 * H * D}, lout{T * H * D, D, H * D};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D > 128)  // the D-tiled kernel, in row 6's order over the same 128-key blocks
-    return attend_wide(q, q + H * D, q + 2 * H * D, lin.b, lin.h, lin.t, mask, out, lout.b, lout.h, lout.t, lse, B, T,
-                       H, D, scale, 1, kOnline128, stream);
+  if (D > 128)  // the tensor-core kernel above 128, in row 6's order over the same 128-key blocks
+    return attend_wide_mma(q, q + H * D, q + 2 * H * D, lin.b, lin.h, lin.t, mask, out, lout.b, lout.h, lout.t, lse,
+                           B, T, H, D, scale, kOnline128, 0, stream);
   // D is zero-padded to 32, 64 or 128 columns in shared memory
   const cudaError_t e = D <= 32   ? launch_flash<32>(q, q + H * D, q + 2 * H * D, lin, m, o, lout, l, B, T, H, D, scale, s)
                         : D <= 64 ? launch_flash<64>(q, q + H * D, q + 2 * H * D, lin, m, o, lout, l, B, T, H, D, scale, s)

@@ -15,8 +15,8 @@
 // zero keys under the −1e9 bias, so a row with no valid key averages V over
 // all T_pad keys, as on the TPU. D is a multiple of 8 (the wrapper
 // zero-pads other D, as JAX pads D; zeros add nothing), and DP (32, 64 or
-// 128) in shared memory; above 128 both paths call the D-tiled kernel of
-// attention_wide.cu.
+// 128) in shared memory; above 128 bf16 calls the tensor-core kernel of
+// attention_wide_mma.cu and f32 the D-tiled kernel of attention_wide.cu.
 //
 // bf16: that is rows 5 and 2's function, so it runs their two-pass
 // register-resident core (attention_packed.cu, attention_mma.cuh) through
@@ -260,7 +260,7 @@ int attend_f32(const void* q, const void* k, const void* v, int sb, int sh, int 
                int oh, int ot, void* lse, int B, int T, int H, int D, float scale, void* stream) {
   if (T < 1 || D % 8 || D < 8) return static_cast<int>(cudaErrorInvalidValue);
   if (D > 128)  // the D-tiled kernel (attention_wide.cu), one pass as here
-    return attend_wide(q, k, v, sb, sh, st, mask, out, ob, oh, ot, lse, B, T, H, D, scale, 0, kOnline128, stream);
+    return attend_wide(q, k, v, sb, sh, st, mask, out, ob, oh, ot, lse, B, T, H, D, scale, stream);
   auto qp = static_cast<const float*>(q);
   auto kp = static_cast<const float*>(k);
   auto vp = static_cast<const float*>(v);
@@ -278,7 +278,8 @@ int attend_f32(const void* q, const void* k, const void* v, int sb, int sh, int 
 
 // q, k, v, out [B, H, T, D] (contiguous; bf16 when is_bf16, else f32),
 // mask [B, T] f32 (1 = attend); lse [B, H, T] f32. Any T ≥ 1; D % 8 == 0
-// (the wrapper zero-pads D; above 128 through attend_wide).
+// (the wrapper zero-pads D; above 128 through attend_wide_mma in bf16, ≤ 512,
+// and attend_wide in f32).
 extern "C" int msa_fused_attention(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse,
                                    int B, int T, int H, int D, int is_bf16, float scale, void* stream) {
   if (T < 1 || D % 8 || D < 8) return static_cast<int>(cudaErrorInvalidValue);

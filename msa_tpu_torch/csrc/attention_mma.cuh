@@ -68,6 +68,15 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// a / b rounded to nearest from r = RN(1/b): q = a·r is within an ulp, and
+// one FMA step on the exact remainder a − q·b rounds it correctly
+// (Markstein's theorem; a and a / b normal). Three instructions per
+// element where the IEEE division is a longer sequence with a slow path.
+__device__ __forceinline__ float div_rn(float a, float b, float r) {
+  const float q = __fmul_rn(a, r);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), r, q);
+}
+
 // rows [t0, t0 + ROWS) of head h of batch row b of src, D columns, into
 // smem [ROWS × (DP + 8)] by cp.async: zeros past D and past T. FOLD_D
 // folds the test against D into the count of rows the thread copies (its
@@ -119,22 +128,22 @@ __device__ __forceinline__ void load_q_frags(uint32_t (&qf)[DP / 16][4], const b
   for (int kk = 0; kk < DP / 16; ++kk) ldsm_x4(qf[kk], p + kk * 16);
 }
 
-// s = Q·Kᵀ for the warp's 16 rows over NK keys of sK [NK × (DP + 8)], in
-// f32 from bf16 operands: the raw product, summed over 16-column slices of
-// D in order. s[n] is the accumulator tile of keys [8n, 8n + 8). The
-// backward takes it with other operands: Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ.
-template <int NK, int DP>
-__device__ __forceinline__ void tile_dots(float (&s)[NK / 8][4], const uint32_t (&qf)[DP / 16][4], const bf16* sK,
-                                          int lane) {
-  constexpr int LD = DP + 8;
-#pragma unroll
-  for (int n = 0; n < NK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+// s += Q·Kᵀ for the warp's 16 rows over NK keys of sK [NK × LD], in f32
+// from bf16 operands, over the DC columns whose A fragments are qf (and
+// whose first column sK points at), summed over 16-column slices in order.
+// s[n] is the accumulator tile of keys [8n, 8n + 8). The backward takes it
+// with other operands: Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ. The kernels above D = 128
+// (attention_wide_mma.cu, attention_bwd_wide.cu) sum a score tile over D
+// one 64-column chunk at a time.
+template <int NK, int DC, int LD>
+__device__ __forceinline__ void tile_dots_acc(float (&s)[NK / 8][4], const uint32_t (&qf)[DC / 16][4], const bf16* sK,
+                                              int lane) {
   // ldmatrix.x4 over keys [16j, 16j + 16) × columns [16kk, 16kk + 16):
   // matrices (keys 0-7, cols 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15)
   // are the B fragments (b0, b1) of n-tiles 2j and 2j + 1
   const bf16* p = sK + ((lane & 7) + ((lane >> 4) << 3)) * LD + (((lane >> 3) & 1) << 3);
 #pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
+  for (int kk = 0; kk < DC / 16; ++kk) {
 #pragma unroll
     for (int j = 0; j < NK / 16; ++j) {
       uint32_t kf[4];
@@ -143,6 +152,15 @@ __device__ __forceinline__ void tile_dots(float (&s)[NK / 8][4], const uint32_t 
       mma_bf16(s[2 * j + 1], qf[kk], kf[2], kf[3]);
     }
   }
+}
+
+// s = Q·Kᵀ over all DP columns of sK [NK × (DP + 8)]: tile_dots_acc from zero
+template <int NK, int DP>
+__device__ __forceinline__ void tile_dots(float (&s)[NK / 8][4], const uint32_t (&qf)[DP / 16][4], const bf16* sK,
+                                          int lane) {
+#pragma unroll
+  for (int n = 0; n < NK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  tile_dots_acc<NK, DP, DP + 8>(s, qf, sK, lane);
 }
 
 // the forward's epilogue on a tile_dots result: s = S·scale + bias, the
@@ -248,63 +266,24 @@ __device__ __forceinline__ void store_rows(const float (&o)[DP / 8][4], const fl
   }
 }
 
-// the rounding order of attend_wide (attention_wide.cu): p/l rounded before
-// P·V (rows 1, 2, 5), the unnormalised p with o/denom after P·V (rows 7,
-// 8), row 6's online 128-key blocks
+// the rounding order of attend_wide_mma (attention_wide_mma.cu): p/l
+// rounded before P·V (rows 1, 2, 5), the unnormalised p with o/denom after
+// P·V (rows 7, 8), row 6's online 128-key blocks
 enum : int { kNormBefore = 0, kUnnormalised = 1, kOnline128 = 2 };
 
 // rows [t0, t0 + ROWS) × columns [c0, c0 + COLS) of head h of batch row b
-// of src (element strides st, D contiguous) into f32 smem rows of ld
-// floats: zeros past D and past T. f32 comes by cp.async, 4 floats a copy;
-// bf16 by 16-byte loads widened to f32 (the caller waits and syncs either
-// way). The SIMT kernels' copy (attention_wide.cu, attention_bwd_f32.cu).
-template <typename E, int ROWS, int COLS, int NT>
-__device__ __forceinline__ void load_rows_f32(float* dst, int ld, const E* __restrict__ src, Strides st, int b, int h,
-                                              int t0, int T, int c0, int D, int tid) {
-  if constexpr (sizeof(E) == 4) {
-    constexpr int VECS = COLS / 4;
-    for (int i = tid; i < ROWS * VECS; i += NT) {
-      const int r = i / VECS, c = (i % VECS) * 4, t = t0 + r;
-      const bool ok = t < T && c0 + c < D;
-      cp_async16(dst + r * ld + c, ok ? src + st.at(b, h, t) + c0 + c : src, ok);
-    }
-  } else {
-    constexpr int VECS = COLS / 8;
-    for (int i = tid; i < ROWS * VECS; i += NT) {
-      const int r = i / VECS, c = (i % VECS) * 8, t = t0 + r;
-      uint4 raw = make_uint4(0, 0, 0, 0);
-      if (t < T && c0 + c < D) raw = *reinterpret_cast<const uint4*>(src + st.at(b, h, t) + c0 + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&raw);
-      float* d = dst + r * ld + c;
-      *reinterpret_cast<float4*>(d) =
-          make_float4(__bfloat162float(e[0]), __bfloat162float(e[1]), __bfloat162float(e[2]), __bfloat162float(e[3]));
-      *reinterpret_cast<float4*>(d + 4) =
-          make_float4(__bfloat162float(e[4]), __bfloat162float(e[5]), __bfloat162float(e[6]), __bfloat162float(e[7]));
-    }
-  }
-}
-
-// x rounded to E and back (the identity for f32)
-template <typename E>
-__device__ __forceinline__ float round_to(float x) {
-  if constexpr (sizeof(E) == 4) {
-    return x;
-  } else {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-}
-
-// 4 consecutive values of a row, rounded once to E
-template <typename E>
-__device__ __forceinline__ void store4(E* p, float a, float b, float c, float d) {
-  if constexpr (sizeof(E) == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-  } else {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
-    uint2 v;
-    v.x = *reinterpret_cast<const uint32_t*>(&lo);
-    v.y = *reinterpret_cast<const uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p) = v;
+// of f32 src (element strides st, D contiguous) into smem rows of ld
+// floats by cp.async, 4 floats a copy: zeros past D and past T (the caller
+// waits and syncs). The f32 SIMT kernels' copy (attention_wide.cu,
+// attention_bwd_f32.cu).
+template <int ROWS, int COLS, int NT>
+__device__ __forceinline__ void load_rows_f32(float* dst, int ld, const float* __restrict__ src, Strides st, int b,
+                                              int h, int t0, int T, int c0, int D, int tid) {
+  constexpr int VECS = COLS / 4;
+  for (int i = tid; i < ROWS * VECS; i += NT) {
+    const int r = i / VECS, c = (i % VECS) * 4, t = t0 + r;
+    const bool ok = t < T && c0 + c < D;
+    cp_async16(dst + r * ld + c, ok ? src + st.at(b, h, t) + c0 + c : src, ok);
   }
 }
 
@@ -312,7 +291,7 @@ __device__ __forceinline__ void store4(E* p, float a, float b, float c, float d)
 
 // The two-pass core of rows 5 and 2 (attention_packed.cu) on q, k, v and o
 // [B, H, T, D] at any T: row 1's bf16 path (attention_fused.cu). D % 8 == 0
-// (above 128 through attend_wide); returns a cudaError_t.
+// (above 128 through attend_wide_mma, D ≤ 512); returns a cudaError_t.
 int attend_heads_first(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse, int B,
                        int T, int H, int D, float scale, void* stream);
 
@@ -320,7 +299,8 @@ int attend_heads_first(const void* q, const void* k, const void* v, const void* 
 // the unnormalised exp(s − m) into P·V, o / l after it, no lse) on q, k, v
 // and o addressed by element strides (batch, head, time; D contiguous):
 // the attention core of attention.cu. T ≤ 512, D % 8 == 0 (above 128
-// through attend_wide in the same order); returns a cudaError_t.
+// through attend_wide_mma in the same order, D ≤ 512); returns a
+// cudaError_t.
 int attend_unnormalised(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask,
                         void* out, int ob, int oh, int ot, int B, int T, int H, int D, float scale, void* stream);
 
@@ -331,20 +311,36 @@ int attend_unnormalised(const void* q, const void* k, const void* v, int sb, int
 int attend_f32(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out, int ob,
                int oh, int ot, void* lse, int B, int T, int H, int D, float scale, void* stream);
 
-// Attention at any head dim D (a multiple of 8), the forward rows' path
-// above D = 128 (attention_wide.cu): the D-tiled f32 SIMT kernel on bf16
-// (is_bf16) or f32 operands, rounding to bf16 in ``order`` (kNormBefore,
-// kUnnormalised, kOnline128; f32 takes one pass whatever the order). lse
-// may be null. Any T; returns a cudaError_t.
+// f32 attention at any head dim D (a multiple of 8), the f32 forward rows'
+// path above D = 128 (attention_wide.cu): the D-tiled f32 SIMT kernel, in
+// row 6's one-pass order (every rounding to f32 is the identity). lse may
+// be null. Any T; returns a cudaError_t.
 int attend_wide(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out,
-                int ob, int oh, int ot, void* lse, int B, int T, int H, int D, float scale, int is_bf16, int order,
-                void* stream);
+                int ob, int oh, int ot, void* lse, int B, int T, int H, int D, float scale, void* stream);
 
-// The D-tiled SIMT backward (attention_bwd_f32.cu): rows 3 (dq non-null)
-// and 4 (dk and dv non-null) on f32 operands at any D, and on bf16 (is_bf16)
-// above D = 128. Arguments as msa_attention_bwd_dq/dkv; returns a
-// cudaError_t.
+// bf16 attention above head dim 128 on the tensor cores, the bf16 forward
+// rows' path there (attention_wide_mma.cu), rounding to bf16 in ``order``
+// (kNormBefore, kUnnormalised, kOnline128). q, k and v by element strides
+// (sb, sh, st), o by (ob, oh, ot); lse may be null. 128 < D ≤ 512, D % 8 ==
+// 0, any T. nc: the column tile of o (128 or 192; 0 picks it by D and the
+// grid, wide_nc). Returns a cudaError_t.
+int attend_wide_mma(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out,
+                    int ob, int oh, int ot, void* lse, int B, int T, int H, int D, float scale, int order, int nc,
+                    void* stream);
+
+// The D-tiled SIMT backward on f32 operands (attention_bwd_f32.cu): rows 3
+// (dq non-null) and 4 (dk and dv non-null) at any D. Arguments as
+// msa_attention_bwd_dq_f32/dkv_f32; returns a cudaError_t.
 int attend_bwd_simt(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                     const void* delta, const void* mask, void* dq, void* dk, void* dv, int B, int T, int H, int D,
-                    int sx_b, int sx_h, int sx_t, int so_b, int so_h, int so_t, float scale, int is_bf16,
-                    void* stream);
+                    int sx_b, int sx_h, int sx_t, int so_b, int so_h, int so_t, float scale, void* stream);
+
+// The bf16 backward above head dim 128 on the tensor cores
+// (attention_bwd_wide.cu): row 3 (dq non-null) or row 4 (dk and dv
+// non-null). Arguments as msa_attention_bwd_dq/dkv; 128 < D ≤ 512, D % 8
+// == 0, any T; nc: the column tile (128, or 192 for dQ at D ≤ 192; 0
+// picks it by D and the grid, dq_nc). Returns a cudaError_t.
+int attend_bwd_wide(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                    const void* delta, const void* mask, void* dq, void* dk, void* dv, int B, int T, int H, int D,
+                    int sx_b, int sx_h, int sx_t, int so_b, int so_h, int so_t, float scale, void* stream,
+                    int nc = 0);

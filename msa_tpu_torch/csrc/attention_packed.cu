@@ -30,8 +30,8 @@
 // rounding. T is padded to a multiple of 128 (rows past T read as zeros
 // under masked keys; the query rows past T are not written). D is any
 // multiple of 8 up to 128, zero-padded to DP (32, 64 or 128) by the copies;
-// above 128 the entries call attend_wide (attention_wide.cu), in the same
-// order.
+// above 128 the entries call attend_wide_mma (attention_wide_mma.cu), in
+// the same order.
 //
 // What bounds it on the card: per (row, head) 4·T²·D operations on
 // 3·T·D·2 bytes read and T·D·2 + 4·T written. At the encoder's shape
@@ -73,15 +73,6 @@ namespace {
 constexpr int PQ = 64;         // query rows per block
 constexpr int PK = 64;         // keys per ring stage
 constexpr int PTHREADS = 128;  // 4 warps, 16 query rows each
-
-// a / b rounded to nearest from r = RN(1/b): q = a·r is within an ulp, and
-// one FMA step on the exact remainder a − q·b rounds it correctly
-// (Markstein's theorem; a and a / b normal). Three instructions per
-// element where the IEEE division is a longer sequence with a slow path.
-__device__ __forceinline__ float div_rn(float a, float b, float r) {
-  const float q = __fmul_rn(a, r);
-  return __fmaf_rn(__fmaf_rn(-q, b, a), r, q);
-}
 
 template <int DP>
 constexpr size_t packed_smem_bytes() {
@@ -215,9 +206,9 @@ int attend(const void* q, const void* k, const void* v, Strides lin, const void*
            void* lse, int B, int T, int H, int D, float scale, void* stream, int max_t = 512,
            int order = kNormBefore) {
   if (T < 1 || T > max_t || D % 8 || D < 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (D > 128)  // the D-tiled kernel, in the same order
-    return attend_wide(q, k, v, lin.b, lin.h, lin.t, mask, out, lout.b, lout.h, lout.t, lse, B, T, H, D, scale, 1,
-                       order, stream);
+  if (D > 128)  // the tensor-core kernel above 128, in the same order
+    return attend_wide_mma(q, k, v, lin.b, lin.h, lin.t, mask, out, lout.b, lout.h, lout.t, lse, B, T, H, D, scale,
+                           order, 0, stream);
   auto qp = static_cast<const bf16*>(q);
   auto kp = static_cast<const bf16*>(k);
   auto vp = static_cast<const bf16*>(v);

@@ -16,8 +16,9 @@ Layouts: ``x [B, T, dm]`` in the compute dtype; ``w_qkv [3·H·DP, dm]`` and
 padded to a multiple of 128 inside, as the TPU wrapper does, and must be
 ≤ 512 after padding (the encoder sends longer inputs to
 :func:`flash_attention_lse`). Any head dim D: the kernels' head dim DP is
-32, 64, 128 or, above 128, a multiple of 128 (the D-tiled kernel of
-``csrc/attention_wide.cu`` takes the core's place there), and weights of
+32, 64, 128 or, above 128, a multiple of 128 (the tensor-core kernel of
+``csrc/attention_wide_mma.cu`` takes the bf16 core's place there, the
+D-tiled kernel of ``csrc/attention_wide.cu`` the f32 one's), and weights of
 another D are padded to the next DP once, by :func:`pad_block_weights`
 (zero rows of ``w_qkv``/``b_qkv`` per head, zero columns of ``w_out``);
 ``head_dim`` then names the unpadded D, whose 1/√D the scores take.
@@ -69,9 +70,13 @@ zero rows under masked keys, so a row with no valid key averages V over
 all padded rows, as on the TPU; the lse is ``max + log(denom)`` in f32.
 Any D: a D that is not a multiple of 8 is zero-padded on the card
 (:func:`_pad_head_dim`), as JAX pads D, with the scale of the unpadded D.
-Above D = 128 every forward row (1, 2, 5, 6, 7, 8, in bf16 and f32) runs
-the D-tiled kernel of ``csrc/attention_wide.cu`` (128-column tiles of o,
-the scores stepped over D), which rounds where each row's kernel rounds.
+Above D = 128 every bf16 forward row (1, 2, 5, 6, 7, 8) runs the
+tensor-core kernel of ``csrc/attention_wide_mma.cu`` (D ≤ 512; Q's tile in
+shared memory, K and V through a ring of 64-column chunks, 128- or
+192-column tiles of o) and every f32 one the D-tiled SIMT kernel of
+``csrc/attention_wide.cu``; both round where each row's kernel rounds.
+Each wrapper counts such a bf16 launch in :data:`wide_mma` beside its own
+count.
 
 JAX's public names keep JAX's contracts: :func:`packed_qkv_attention`
 (qkv → o, differentiable: ``attention.py:510-540``) and
@@ -96,8 +101,11 @@ f32 training step, ``compute_dtype="float32"``) the backward runs
 ``csrc/attention_bwd_f32.cu`` (exact f32 FMA, no rounding in f32), by D:
 at D ≤ 64 (every served f32 shape) one pass computes dq, dk and dv in one
 launch, :func:`attention_bwd_onepass`, on the grid of
-:func:`attention_bwd_plan.plan`; above it, and in bf16 above D = 128, the
-two entries run that file's D-tiled SIMT kernels. Two ``torch.autograd.Function`` wrappers run
+:func:`attention_bwd_plan.plan`; above it the two entries run that file's
+D-tiled SIMT kernels. In bf16 above D = 128 (up to 512) the two entries
+run the tensor-core pair of ``csrc/attention_bwd_wide.cu``, counted in
+:data:`wide_bwd_dq` and :data:`wide_bwd_dkv` beside ``launches``. Two
+``torch.autograd.Function`` wrappers run
 them as JAX's custom VJPs do: :func:`packed_qkv_attention` (row 5 forward,
 dqkv back in the packed layout; row 6 forward beyond T = 512) and
 :func:`attention_with_vjp` (:842-868: row 2 at T ≤ 512, row 6 beyond), in
@@ -123,12 +131,38 @@ from msa_tpu_torch.ops.kernels.quant import quantize_rows
 LANE = 128
 SINGLE_PASS_MAX_T = 512
 BLOCK_HEAD_DIMS = (32, 64, 128)  # the attention_block core's DP up to 128; above, multiples of 128
+WIDE_MMA_MAX_D = 512  # the bf16 tensor-core kernels above D = 128 take D ≤ 512 (their shared memory)
+
+
+class _Launches:
+    """The launch count of a kernel that wrappers reach through another C
+    entry point (the smoke resets and reads ``launches``)."""
+
+    launches = 0
+
+
+# the bf16 tensor-core kernels above head dim 128: the forward
+# (csrc/attention_wide_mma.cu), reached from rows 1, 2, 5, 6, 7 and 8's
+# entries, and the backward pair (csrc/attention_bwd_wide.cu), from rows 3
+# and 4's; each wrapper counts its launch here beside its own count
+wide_mma, wide_bwd_dq, wide_bwd_dkv = _Launches(), _Launches(), _Launches()
+
+
+def _wide(d: int, dtype: torch.dtype, what: str) -> bool:
+    """Whether a launch at head dim ``d`` (a multiple of 8) in ``dtype``
+    runs the bf16 tensor-core kernels above D = 128; raises above their
+    D."""
+    if dtype != torch.bfloat16 or d <= 128:
+        return False
+    if d > WIDE_MMA_MAX_D:
+        raise ValueError(f"{what} kernel in bf16 takes head dims up to {WIDE_MMA_MAX_D}, got {d}")
+    return True
 
 
 def block_head_dim(d: int) -> int:
     """The head dim DP of the attention_block core that serves head dim
     ``d``: the least of 32, 64 and 128 that is ≥ d, and above 128 the least
-    multiple of 128 (the D-tiled kernel's column tile), as JAX pads D."""
+    multiple of 128, as JAX pads D."""
     if d < 1:
         raise ValueError(f"head dim {d}")
     return next((dp for dp in BLOCK_HEAD_DIMS if d <= dp), -(-d // LANE) * LANE)
@@ -260,6 +294,7 @@ def attention_block(
     b, t, dm = x.shape
     bf16 = torch.bfloat16
     xp, mask_p, t_pad, dp = _block_checks(x, w_qkv, b_qkv, w_out, b_out, key_mask, num_heads, "attention_block", bf16)
+    wide = _wide(dp, bf16, "attention_block")
     dev, hd = x.device, num_heads * dp
     qkv = torch.empty((b * t_pad, 3 * hd), dtype=bf16, device=dev)
     attn = torch.empty((b * t_pad, hd), dtype=bf16, device=dev)
@@ -274,6 +309,7 @@ def attention_block(
     )
     build.check(rc, "attention_block")
     attention_block.launches += 1
+    wide_mma.launches += wide  # the core above D = 128, launched from C
     GB.gemm_bf16.launches += 2  # QKV and Wo, launched from C
     return out[:, :t]
 
@@ -366,6 +402,7 @@ def attention_block_int8(
         ("key_mask", mask_p, f32, (b, t_pad)),
     ):
         require(tens, name, dtype, shape, dev)
+    wide = _wide(dp, dt, "attention_block_int8")
     m = b * t_pad
     xq = torch.empty((m, dm), dtype=i8, device=dev)
     aq = torch.empty((m, hd), dtype=i8, device=dev)
@@ -390,6 +427,7 @@ def attention_block_int8(
         attention_block_int8.launches_f32 += 1
     else:
         attention_block_int8.launches += 1
+        wide_mma.launches += wide  # the core above D = 128, launched from C
     quantize_rows.launches += 2  # x and the attention output, launched from C
     GS.gemm_s8.launches += 2  # QKV and Wo, launched from C
     return out[:, :t]
@@ -479,7 +517,7 @@ def _pad_head_dim(*xs: torch.Tensor):
 def _launch_packed(entry: str, what: str, qkv: torch.Tensor, key_mask: torch.Tensor, dtype: torch.dtype):
     """Check the inputs of a packed-QKV kernel and launch it on the card:
     D zero-padded to a multiple of 8 where it is not one, the output sliced
-    back to D."""
+    back to D; a bf16 launch above D = 128 counted in :data:`wide_mma`."""
     b, t, three, h, d = qkv.shape
     if three != 3:
         raise ValueError(f"{what} kernel needs qkv [B, T, 3, H, D], got {tuple(qkv.shape)}")
@@ -488,6 +526,7 @@ def _launch_packed(entry: str, what: str, qkv: torch.Tensor, key_mask: torch.Ten
     dp = qkv_p.shape[-1]
     require(qkv_p, "qkv", dtype, (b, t, 3, h, dp), dev)
     require(key_mask, "key_mask", torch.float32, (b, t), dev)
+    wide = _wide(dp, dtype, what)
     o = torch.empty((b, t, h * dp), dtype=dtype, device=dev)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -495,6 +534,7 @@ def _launch_packed(entry: str, what: str, qkv: torch.Tensor, key_mask: torch.Ten
         qkv_p.data_ptr(), key_mask.data_ptr(), o.data_ptr(), lse.data_ptr(), b, t, h, dp, _scale(d), stream
     )
     build.check(rc, what)
+    wide_mma.launches += wide
     if dp != d:
         o = o.view(b, t, h, dp)[..., :d].reshape(b, t, h * d)
     return o, lse
@@ -608,6 +648,7 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: t
     for name, x in (("q", q), ("k", k), ("v", v)):
         require(x, name, dtype, (b, h, t, dp), dev)
     require(key_mask, "key_mask", torch.float32, (b, t), dev)
+    wide = _wide(dp, dtype, "mha_attention")
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -620,6 +661,7 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: t
         rc = build.library().msa_mha_attention(*ptrs, _scale(d), stream)
         build.check(rc, "mha_attention")
         mha_attention.launches += 1
+        wide_mma.launches += wide
     return (o if dp == d else o[..., :d]), lse
 
 
@@ -657,6 +699,7 @@ def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_m
         require(x, name, q.dtype, (b, h, t, d_pad), dev)
     key_mask = key_mask.float().contiguous()
     require(key_mask, "key_mask", torch.float32, (b, t), dev)
+    wide = _wide(d_pad, q.dtype, "fused_attention")
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -666,6 +709,7 @@ def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_m
     )
     build.check(rc, "fused_attention")
     fused_attention_lse.launches += 1
+    wide_mma.launches += wide
     return (o if d_pad == d else o[..., :d].contiguous()), lse
 
 
@@ -763,32 +807,37 @@ def _bwd_args(q, k, v, g, lse, delta, key_mask, outs, scale: float):
     return (*ptrs, b, t, h, d, *sx[:3], *strides(g)[:3], scale, stream)
 
 
-def _launch_bwd_kernel(fn, entry: str, q, k, v, g, lse, delta, key_mask, outs, scale) -> None:
+def _launch_bwd_kernel(fn, wide_count, entry: str, q, k, v, g, lse, delta, key_mask, outs, scale) -> None:
     """One backward kernel on the card: ``entry`` on bf16 operands,
     ``entry_f32`` (``csrc/attention_bwd_f32.cu``) on f32 ones, counted on
-    ``fn`` (``launches`` or ``launches_f32``)."""
+    ``fn`` (``launches`` or ``launches_f32``), and a bf16 launch above D =
+    128 (``csrc/attention_bwd_wide.cu``) on ``wide_count`` too."""
     scale = _scale(q.shape[-1]) if scale is None else scale
     f32 = q.dtype == torch.float32
     name = entry + "_f32" if f32 else entry
-    rc = getattr(build.library(), name)(*_bwd_args(q, k, v, g, lse, delta, key_mask, outs, scale))
+    args = _bwd_args(q, k, v, g, lse, delta, key_mask, outs, scale)
+    wide = _wide(q.shape[-1], q.dtype, fn.__name__)
+    rc = getattr(build.library(), name)(*args)
     build.check(rc, fn.__name__ + ("_f32" if f32 else ""))
     if f32:
         fn.launches_f32 += 1
     else:
         fn.launches += 1
+        wide_count.launches += wide
 
 
 def attention_bwd_dq(q, k, v, g, lse, delta, key_mask, dq, scale=None) -> None:
     """Launch row 3 on the card: dq ← scale·Σ_k [P∘(dO·Vᵀ − Δ)]·K, written
     into the view ``dq`` (arguments as :func:`_bwd_args` checks them;
     ``scale`` 1/√D of the unpadded D, by default q's)."""
-    _launch_bwd_kernel(attention_bwd_dq, "msa_attention_bwd_dq", q, k, v, g, lse, delta, key_mask, (dq,), scale)
+    _launch_bwd_kernel(attention_bwd_dq, wide_bwd_dq, "msa_attention_bwd_dq", q, k, v, g, lse, delta, key_mask, (dq,), scale)
 
 
 def attention_bwd_dkv(q, k, v, g, lse, delta, key_mask, dk, dv, scale=None) -> None:
     """Launch row 4 on the card: dv ← Σ_q Pᵀ·dO and dk ← scale·Σ_q
     [P∘(dO·Vᵀ − Δ)]ᵀ·Q, written into the views ``dk`` and ``dv``."""
-    _launch_bwd_kernel(attention_bwd_dkv, "msa_attention_bwd_dkv", q, k, v, g, lse, delta, key_mask, (dk, dv), scale)
+    _launch_bwd_kernel(attention_bwd_dkv, wide_bwd_dkv, "msa_attention_bwd_dkv", q, k, v, g, lse, delta, key_mask, (dk, dv),
+                       scale)
 
 
 def attention_bwd_onepass(q, k, v, g, lse, delta, key_mask, dq, dk, dv, scale=None, plan=None) -> None:

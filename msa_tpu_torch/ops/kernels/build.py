@@ -1,11 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
-One ``nvcc`` call compiles every ``msa_tpu_torch/csrc/*.cu`` (with the
-``*.cuh`` headers they include) into one shared
-library with a plain C interface, which is loaded with ``ctypes``:
+One ``nvcc`` for each ``msa_tpu_torch/csrc/*.cu`` (with the ``*.cuh``
+headers it includes), all started together, compiles it to an object, and
+one more links the objects into one shared library with a plain C
+interface, which is loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o msa_tpu_torch/_build/libmsa_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -c -o <obj dir>/<source>.o csrc/<source>.cu          (each source, in parallel)
+    nvcc -shared -o msa_tpu_torch/_build/libmsa_kernels_<hash>.so <obj dir>/*.o
 
 No PyTorch headers, no ``torch.utils.cpp_extension``, no ninja. The library
 name carries a hash of the sources and flags, so an unchanged tree reuses
@@ -28,7 +30,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -88,6 +90,12 @@ _SIGNATURES = {
     "msa_attention_bwd_onepass_f32": (_P,) * 11 + (_I,) * 11 + (_F, _P),
     # q, k, v, mask, o, lse, B, T, H, D, is_bf16, scale, stream
     "msa_fused_attention": (_P,) * 6 + (_I,) * 5 + (_F, _P),
+    # the bf16 forward above D = 128 alone: q, k, v, mask, o, lse, B, T, H,
+    # D, order, column tile, scale, stream
+    "msa_attention_wide_mma": (_P,) * 6 + (_I,) * 6 + (_F, _P),
+    # the bf16 backward kernels above D = 128 alone: q, k, v, dout, lse,
+    # delta, mask, dq, dk, dv, B, T, H, D, column tile, scale, stream
+    "msa_attention_bwd_wide": (_P,) * 10 + (_I,) * 5 + (_F, _P),
     # bf16: x, w, out, B, L, C, C', k, gelu, stream
     "msa_conv_stride2": (_P,) * 3 + (_I,) * 6 + (_P,),
 }
@@ -118,21 +126,37 @@ def _digest() -> str:
 
 def build(verbose: bool = False) -> Tuple[Path, str]:
     """Compile the library if this source tree has not been built yet.
-    Returns (library path, compiler output). ``verbose`` adds
-    ``-Xptxas -v`` (registers, shared memory and spills per kernel; the
-    binary is the same, so the name does not change)."""
+    Returns (library path, compiler output: the sources' logs in order).
+    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and spills per
+    kernel; the binary is the same, so the name does not change)."""
     extra = ("-Xptxas", "-v") if verbose else ()
     lib = BUILD_DIR / f"libmsa_kernels_{_digest()}.so"
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    objs = BUILD_DIR / f"obj.{os.getpid()}"
+    objs.mkdir(exist_ok=True)
+    nvcc = _nvcc()
+    try:
+        compiles = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(objs / f"{src.stem}.o"), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in _sources()
+        ]
+        logs = [proc.communicate()[0] for proc in compiles]  # waits for every one
+        failed = [f"{src.name} ({proc.returncode}):\n{log}" for src, proc, log in zip(_sources(), compiles, logs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed on " + "\n".join(failed))
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *sorted(map(str, objs.glob("*.o")))],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    return lib, proc.stdout + proc.stderr
+    return lib, "".join(logs) + link.stdout + link.stderr
 
 
 @functools.lru_cache(maxsize=1)

@@ -3,7 +3,7 @@
     python3 -m msa_tpu_torch.profile_slice [--tokens 512] [--batch 2] [--steps 3] [--quantize int8|none|f32|int8_f32]
                                            [--samples 80000]
                                            [--train | --conv | --asr | --gemm-s8 | --gemm-bf16 | --gemm-f32
-                                            | --f32-rows | --attn-bwd-f32]
+                                            | --f32-rows | --attn-bwd-f32 | --attn-wide | --attn-wide-tiles]
 
 Builds the full-width models (``PipelineModels.initialize``, by default in
 the int8 serving recipe; ``--quantize none`` for the bf16 one, ``f32``
@@ -73,7 +73,25 @@ off), each from the profiler's trace of ``--steps`` (at least 20) calls,
 with each plan's largest error against the plain version (relative to the
 largest |value|); then it profiles the f32 training step (``--train
 --quantize f32``) of the text model (B=8, 512 tokens) and of the audio
-model at 5 s (B=8) and 15 s (B=2). Needs a CUDA device.
+model at 5 s (B=8) and 15 s (B=2). ``--attn-wide`` times the bf16
+attention rows above head dim 128 through their public wrappers only, so
+that it times another tree too (``PYTHONPATH=<tree> python3 -P
+msa_tpu_torch/profile_slice.py --attn-wide``): rows 1, 2, 5 and row 8's
+core at B=2 T=512 H=4 D=192 and H=3 D=256, row 6 at B=2 T=749 H=4 D=192,
+rows 3 + 4 at B=8 T=512 H=4 D=192 and H=3 D=256 (dq and dk/dv apart), and
+the tiny shapes of the smoke's phase 22 (B=2 H=2 T=100, T=600 for row 6, D
+= 160, 192, 256): device ms of the attention kernels alone (the profiler's
+trace of ``--steps``, at least 20, calls) and call ms, with each call's
+largest error against its plain version. ``--attn-wide-tiles`` times the
+tensor-core forward above D = 128 (``msa_attention_wide_mma``) in each
+rounding order at each column tile (128, 192) and at the rule's, at
+the same shapes and at B=8 T=512 H=4 D=192, beside one
+``scaled_dot_product_attention`` call, then the backward's dQ kernel
+(``msa_attention_bwd_wide``) at each column tile (128, and 192 at D ≤
+192) and at the rule's, and its dK/dV kernel, at the backward's shapes
+beside SDPA's autograd backward, and prints the registers and spills of
+the new kernels' instances. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -109,6 +127,9 @@ def main(argv=None) -> int:
     ap.add_argument("--f32-rows", action="store_true", help="rows 10, 8 and 11 in f32 through their public wrappers")
     ap.add_argument("--attn-bwd-f32", action="store_true",
                     help="the one-pass f32 attention backward, each plan, beside the pair and f32 SDPA; then the f32 steps")
+    ap.add_argument("--attn-wide", action="store_true", help="the bf16 attention rows above D = 128 through their wrappers")
+    ap.add_argument("--attn-wide-tiles", action="store_true",
+                    help="the bf16 forward above D = 128 at each column tile and order, beside SDPA")
     args = ap.parse_args(argv)
     b = args.batch or (64 if args.conv else 8 if args.train or args.asr else 2)
     if not torch.cuda.is_available():
@@ -124,6 +145,10 @@ def main(argv=None) -> int:
         return gemm_f32_plans(max(args.steps, 20))
     if args.f32_rows:
         return f32_rows(max(args.steps, 20))
+    if args.attn_wide:
+        return attention_wide_rows(max(args.steps, 20))
+    if args.attn_wide_tiles:
+        return attention_wide_tiles(max(args.steps, 20))
     if args.attn_bwd_f32:
         rc = attention_bwd_f32_plans(max(args.steps, 20))
         for step in ([], ["--samples", "80000"], ["--samples", "240000", "--batch", "2"]):
@@ -291,22 +316,26 @@ def _device_ms(fn, reps: int, only: str = "") -> float:
     """Device ms per call of the kernels (whose name holds ``only``) that
     ``reps`` calls of ``fn`` ran, from the profiler's trace: each kernel's
     mean recorded duration times its launches per call (a trace can lose
-    a few kernels)."""
+    a few kernels). A trace that recorded none is taken again, up to three
+    times; then it is not measured (nan)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(
-        (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)) / e.count
-        * max(1, round(e.count / reps))
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and only in e.key and e.count
-    )
-    return us / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(
+            (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)) / e.count
+            * max(1, round(e.count / reps))
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and only in e.key and e.count
+        )
+        if us > 0:
+            return us / 1e3
+    return float("nan")
 
 
 def gemm_s8_plans(reps: int) -> int:
@@ -585,6 +614,187 @@ def attention_bwd_f32_plans(reps: int) -> int:
               f"{row['max_rel_err']:.2e}  | " + " ".join(f"{key} {ms:.4f}" for key, ms in row["all"].items()), flush=True)
         del leaves, lib_out
     print(json.dumps({"attention_bwd_f32": rows, "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+# the full-width shapes of the bf16 rows above D = 128: (B, T, H, D)
+WIDE_FWD = ((2, 512, 4, 192), (2, 512, 3, 256))
+WIDE_FLASH = ((2, 749, 4, 192),)
+WIDE_BWD = ((8, 512, 4, 192), (8, 512, 3, 256))
+WIDE_TINY = tuple((2, 100, 2, d) for d in (160, 192, 256))
+
+
+def _wide_mask(b: int, t: int) -> torch.Tensor:
+    mask = torch.ones(b, t, device="cuda")
+    mask[0, t * 3 // 4 :] = 0.0  # a ragged valid length
+    return mask
+
+
+def _rel_err(got, want) -> float:
+    got, want = (x if isinstance(x, (tuple, list)) else (x,) for x in (got, want))
+    return max(((a.float() - w.float()).abs().max() / w.float().abs().max()).item() for a, w in zip(got, want))
+
+
+def attention_wide_rows(reps: int) -> int:
+    """The bf16 attention rows above D = 128 through their public wrappers
+    (any tree of the package): the attention kernels' device ms, the call's
+    CUDA-event ms and the largest error against the plain version."""
+    import msa_tpu_torch
+    from msa_tpu_torch.ops.kernels import attention as A
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf16 = torch.bfloat16
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(bf16)
+
+    rows = []
+
+    def run(name, fn, plain, only, flop):
+        got, want = fn(), plain()
+        row = {"case": name, "device_ms": _device_ms(fn, reps, only), "call_ms": _event_ms(fn, reps),
+               "max_rel_err": _rel_err(got, want), "tflops": 0.0}
+        row["tflops"] = flop / row["device_ms"] / 1e9
+        rows.append(row)
+        print(f"{name}: {row['device_ms']:.4f} ms (device, {row['tflops']:.1f} TFLOP/s of the function), "
+              f"{row['call_ms']:.4f} ms (call), max rel err {row['max_rel_err']:.2e}", flush=True)
+
+    # the attention kernels' names in either tree: wide_attention_kernel /
+    # wide_mma_kernel (forward), simt_d*_kernel / wide_bwd_d*_kernel
+    for b, t, h, d in WIDE_FWD + WIDE_TINY:
+        q, k, v = (rand(b, h, t, d) for _ in range(3))
+        mask = _wide_mask(b, t)
+        qkv = A._to_packed(q, k, v)
+        flop = 4 * b * h * t * t * d
+        tag = f"B={b} T={t} H={h} D={d}"
+        run(f"row 1 fused_attention {tag}", lambda: A.fused_attention_lse(q, k, v, mask),
+            lambda: A.fused_attention_plain(q, k, v, mask), "wide_", flop)
+        run(f"row 2 mha_attention {tag}", lambda: A.mha_attention(q, k, v, mask),
+            lambda: A.mha_attention_plain(q, k, v, mask), "wide_", flop)
+        run(f"row 5 packed_qkv_attention_lse {tag}", lambda: A.packed_qkv_attention_lse(qkv, mask),
+            lambda: A.packed_qkv_attention_lse_plain(qkv, mask), "wide_", flop)
+        dm = -(-h * d // 128) * 128
+        if dm == h * d:  # row 8 on d_model = H·D, weights padded to DP; its core alone
+            x = rand(b, t, dm)
+            wq, bq = rand(3 * dm, dm, scale=dm**-0.5), torch.randn(3 * dm, generator=g, device="cuda") * 0.02
+            wo, bo = rand(dm, dm, scale=dm**-0.5), torch.randn(dm, generator=g, device="cuda") * 0.02
+            pw, pb, po, _ = (t_ if t_ is None else t_.contiguous() for t_ in A.pad_block_weights(wq, bq, wo, h))
+            run(f"row 8 core (attention_block, DP {A.block_head_dim(d)}) {tag}",
+                lambda: A.attention_block(x, pw, pb, po, bo, mask, h, d),
+                lambda: A.attention_block_plain(x, wq, bq, wo, bo, mask, h), "wide_",
+                4 * b * h * t * t * A.block_head_dim(d))
+    for b, t, h, d in WIDE_FLASH + tuple((2, 600, 2, d) for d in (160, 192, 256)):
+        qkv = rand(b, t, 3, h, d)
+        mask = _wide_mask(b, t)
+        run(f"row 6 flash_attention_lse B={b} T={t} H={h} D={d}", lambda: A.flash_attention_lse(qkv, mask),
+            lambda: A.flash_attention_lse_plain(qkv, mask), "wide_", 4 * b * h * t * t * d)
+    for b, t, h, d in WIDE_BWD + WIDE_TINY:
+        q, k, v, go = (rand(b, h, t, d) for _ in range(4))
+        mask = _wide_mask(b, t)
+        o, lse = A.mha_attention(q, k, v, mask)
+        lse, delta = lse.contiguous(), A._delta(o, go)
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        want = A.attention_bwd_plain(q, k, v, mask, lse, o, go)
+        tag = f"B={b} T={t} H={h} D={d}"
+        run(f"row 3 attention_bwd_dq {tag}", lambda: A.attention_bwd_dq(q, k, v, go, lse, delta, mask, dq) or dq,
+            lambda: want[0], "dq_kernel", 6 * b * h * t * t * d)
+        run(f"row 4 attention_bwd_dkv {tag}",
+            lambda: A.attention_bwd_dkv(q, k, v, go, lse, delta, mask, dk, dv) or (dk, dv), lambda: want[1:],
+            "dkv_kernel", 8 * b * h * t * t * d)
+    print(json.dumps({"attention_wide": rows, "package": str(Path(msa_tpu_torch.__file__).parent),
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+def attention_wide_tiles(reps: int) -> int:
+    """The tensor-core forward above D = 128 alone, each rounding order at
+    each column tile and at the rule's, beside one SDPA call; then the
+    registers and spills of its instances and of the backward pair's."""
+    from msa_tpu_torch.ops.kernels import attention as A
+    from msa_tpu_torch.ops.kernels import build
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    _, log = build.build(verbose=True)
+    lib = build.library()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf16 = torch.bfloat16
+    rows = []
+    for b, t, h, d in WIDE_FWD + ((8, 512, 4, 192),) + WIDE_FLASH + WIDE_TINY:
+        q, k, v = (torch.randn(b, h, t, d, generator=g, device="cuda").to(bf16) for _ in range(3))
+        mask = _wide_mask(b, t)
+        qkv = A._to_packed(q, k, v)
+        scale = A._scale(d)
+        flat = qkv.float().reshape(b, t, 3 * h * d)
+        plain = {  # the plain version of each order on [B, H, T, D]
+            0: lambda: A.mha_attention_plain(q, k, v, mask)[0],
+            1: lambda: A._heads_first(A._attend(flat, mask, h, bf16, scale), h),
+            2: lambda: A._heads_first(A.flash_attention_lse_plain(qkv, mask)[0], h),
+        }
+        bias = torch.where(mask > 0, 0.0, -1e9).to(bf16)[:, None, None, :]
+        sdpa_ms = _device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias), reps)
+        flop = 4 * b * h * t * t * d
+        for order in (0, 1, 2):
+            want = plain[order]()
+            for nc in (0, 128, 192):
+                o = torch.empty_like(q)
+                lse = torch.empty(b, h, t, device="cuda")
+
+                def one(o=o, lse=lse, order=order, nc=nc):
+                    rc = lib.msa_attention_wide_mma(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                                                    o.data_ptr(), lse.data_ptr(), b, t, h, d, order, nc, scale,
+                                                    torch.cuda.current_stream().cuda_stream)
+                    build.check(rc, "msa_attention_wide_mma")
+                    return o
+
+                err = _rel_err(one(), want)
+                ms = _device_ms(one, reps, "wide_mma_kernel")
+                row = {"B": b, "T": t, "H": h, "D": d, "order": order, "nc": nc, "ms": ms, "sdpa_ms": sdpa_ms,
+                       "max_rel_err": err, "bound_ms": 1e3 * max(flop / 989e12, (4 * b * h * t * d * 2 + 4 * b * t) / 3.35e12)}
+                rows.append(row)
+                print(f"B={b} T={t} H={h} D={d} order {order} nc {nc or 'rule'}: {ms:.4f} ms "
+                      f"({flop / ms / 1e9:.1f} TFLOP/s of the function), sdpa {sdpa_ms:.4f}, bound {row['bound_ms']:.5f}, "
+                      f"max rel err {err:.2e}", flush=True)
+        del q, k, v, qkv, flat
+    for b, t, h, d in WIDE_BWD:  # the backward's kernels at each column tile, beside SDPA's backward
+        q, k, v, go = (torch.randn(b, h, t, d, generator=g, device="cuda").to(bf16) for _ in range(4))
+        mask = _wide_mask(b, t)
+        o, lse = (x.contiguous() for x in A.mha_attention(q, k, v, mask))
+        delta = A._delta(o, go)
+        want = A.attention_bwd_plain(q, k, v, mask, lse, o, go)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        bias = torch.where(mask > 0, 0.0, -1e9).to(bf16)[:, None, None, :]
+        lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=bias)
+        lib_ms = _device_ms(lambda: torch.autograd.grad(lib_out, leaves, go, retain_graph=True), reps)
+        for kernel, ops, outs in (("dq", 6, 1), ("dkv", 8, 2)):
+            for nc in ((0, 128) + ((192,) if d <= 192 else ())) if kernel == "dq" else (0,):
+                got = [torch.empty_like(q) for _ in range(outs)]
+                ptrs = [got[0].data_ptr(), 0, 0] if kernel == "dq" else [0, got[0].data_ptr(), got[1].data_ptr()]
+
+                def one(got=got, ptrs=ptrs, nc=nc):
+                    rc = lib.msa_attention_bwd_wide(q.data_ptr(), k.data_ptr(), v.data_ptr(), go.data_ptr(),
+                                                    lse.data_ptr(), delta.data_ptr(), mask.data_ptr(), *ptrs, b, t, h,
+                                                    d, nc, A._scale(d), torch.cuda.current_stream().cuda_stream)
+                    build.check(rc, "msa_attention_bwd_wide")
+                    return got
+
+                err = _rel_err(one(), want[:1] if kernel == "dq" else want[1:])
+                ms = _device_ms(one, reps, f"wide_bwd_{kernel}_kernel")
+                rows.append({"B": b, "T": t, "H": h, "D": d, "kernel": kernel, "nc": nc, "ms": ms, "sdpa_bwd_ms": lib_ms,
+                             "max_rel_err": err})
+                print(f"{kernel} B={b} T={t} H={h} D={d} nc {nc or 'rule'}: {ms:.4f} ms "
+                      f"({ops * b * h * t * t * d / ms / 1e9:.1f} TFLOP/s on {ops}·B·H·T²·D), sdpa backward (dq, dk, dv) "
+                      f"{lib_ms:.4f}, max rel err {err:.2e}", flush=True)
+        del leaves, lib_out
+    cur = None
+    for line in log.splitlines():  # -Xptxas -v: each entry's spill line, then its registers
+        if "Compiling entry function" in line:
+            cur = line.split("'")[1] if "wide_" in line else None
+        elif cur and ("spill" in line or "Used" in line):
+            print(f"  ptxas {cur}: {line.split('ptxas info    :')[-1].strip()}", flush=True)
+    print(json.dumps({"attention_wide_tiles": rows, "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 
 

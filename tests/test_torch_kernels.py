@@ -106,22 +106,23 @@ def test_polynomial_gelu_tracks_exact_gelu():
 
 
 def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
-    """One nvcc call over every csrc/*.cu, for sm_90a, into a C-ABI .so
-    (no PyTorch headers, no cpp_extension, no fast math); the library name
-    hashes every source, the included .cuh headers too."""
+    """One nvcc per csrc/*.cu, all started together, for sm_90a, then one
+    link into a C-ABI .so (no PyTorch headers, no cpp_extension, no fast
+    math); the library name hashes every source, the included .cuh headers
+    too."""
     from msa_tpu_torch.ops.kernels import build
 
     names = {p.name for p in build._sources()}
     assert names == {
-        "attention.cu", "attention_bwd.cu", "attention_bwd_f32.cu", "attention_flash.cu", "attention_fused.cu",
-        "attention_packed.cu", "attention_wide.cu", "conv_stride2.cu", "ffn.cu", "gemm_bf16.cu", "gemm_f32.cu",
-        "quant.cu",
+        "attention.cu", "attention_bwd.cu", "attention_bwd_f32.cu", "attention_bwd_wide.cu", "attention_flash.cu",
+        "attention_fused.cu", "attention_packed.cu", "attention_wide.cu", "attention_wide_mma.cu", "conv_stride2.cu",
+        "ffn.cu", "gemm_bf16.cu", "gemm_f32.cu", "quant.cu",
     }
     assert {p.name for p in build.CSRC.glob("*.cuh")} == {
         "gemm.cuh", "gemm_bf16.cuh", "gemm_s8.cuh", "gemm_f32.cuh", "wgmma.cuh", "attention_mma.cuh",
     }
     assert build.ARCH_FLAGS == ("-gencode", "arch=compute_90a,code=sm_90a")
-    assert "-shared" in build.NVCC_FLAGS and not any("fast_math" in f for f in build.NVCC_FLAGS)
+    assert "-fPIC" in build.NVCC_FLAGS and not any("fast_math" in f for f in build.NVCC_FLAGS)
     for p in build.CSRC.glob("*.cu*"):
         src = p.read_text()
         assert "torch/extension.h" not in src and "cublas" not in src.lower()
@@ -149,20 +150,36 @@ def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
         "msa_attention_bwd_dkv_f32",
         "msa_attention_bwd_onepass_f32",
         "msa_fused_attention",
+        "msa_attention_wide_mma",
+        "msa_attention_bwd_wide",
         "msa_conv_stride2",
     }
     for name in build._SIGNATURES:  # every bound entry point is defined in a source
         assert any(f'extern "C" int {name}(' in p.read_text() for p in build._sources()), name
 
-    # the one command: every .cu, and a name that moves with any .cu or .cuh
-    calls = []
+    # the commands: one compile a .cu, all started before any is waited
+    # for, one link of their objects; a name that moves with any .cu or .cuh
+    compiles, waited, links = [], [], []
+
+    class Compile(_Done):
+        def __init__(self, cmd, **kw):
+            compiles.append(cmd)
+
+        def communicate(self):
+            waited.append(len(compiles))
+            return "", None
+
     monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(build.subprocess, "run", lambda cmd, **kw: calls.append(cmd) or _Done())
+    monkeypatch.setattr(build.subprocess, "Popen", Compile)
+    monkeypatch.setattr(build.subprocess, "run", lambda cmd, **kw: links.append(cmd) or _Done())
     monkeypatch.setattr(build.os, "replace", lambda src, dst: None)
     lib, _ = build.build()
-    assert len(calls) == 1 and calls[0][0] == "nvcc"
-    assert sorted(a for a in calls[0] if a.endswith(".cu")) == sorted(str(p) for p in build._sources())
+    assert sorted(c[-1] for c in compiles) == sorted(str(p) for p in build._sources())
+    assert all(c[0] == "nvcc" and "-c" in c and c[-3] == "-o" and c[-2].endswith(".o") for c in compiles)
+    assert waited == [len(compiles)] * len(compiles)
+    assert len(links) == 1 and links[0][0] == "nvcc" and "-shared" in links[0]
+    assert not any(a.endswith(".cu") for a in links[0])
     digest = build._digest()
     assert lib.name == f"libmsa_kernels_{digest}.so"
     copy = tmp_path / "csrc"

@@ -2,24 +2,31 @@
 card path's routing.
 
 JAX's wrappers serve any head dim D (they pad D to 64 or 128), and so do
-the port's: above 128 every attention row runs the D-tiled kernels of
-``csrc/attention_wide.cu`` (rows 1, 2, 5, 6, 7 and 8) and
-``csrc/attention_bwd_f32.cu`` (rows 3 and 4), and rows 7 and 8 take weights
-padded once per head to the next multiple of 128 (``block_head_dim``,
+the port's: above 128 every bf16 attention row runs the tensor-core
+kernels of ``csrc/attention_wide_mma.cu`` (rows 1, 2, 5, 6, 7 and 8, D ≤
+512) and ``csrc/attention_bwd_wide.cu`` (rows 3 and 4), every f32 one the
+D-tiled kernels of ``csrc/attention_wide.cu`` and
+``csrc/attention_bwd_f32.cu``, and rows 7 and 8 take weights padded once
+per head to the next multiple of 128 (``block_head_dim``,
 ``pad_block_weights``). Here:
 
-- the plain versions of rows 5, 8 and 3 + 4 at D = 160 and 256 against
-  JAX's Pallas kernels in interpret mode, at T ≤ 40;
+- the plain versions of rows 5, 8 and 3 + 4 at D = 160 and 256, and of
+  rows 1, 2, 6 and 7 at D = 192 (row 6 at T = 130: two 128-key blocks),
+  against JAX's Pallas kernels in interpret mode, at T ≤ 40;
 - the padding of row 8's weights at D = 160 (DP 256);
 - the card path at D ≤ 512: each wrapper, given tensors on the ``meta``
   device and a stand-in for the kernel library that records its calls,
   raises nothing and calls its C entry point with the (8-padded) head dim
-  and the scale of the unpadded D. The kernels themselves run only on the
-  card (``chip_smoke.py`` phase 22).
+  and the scale of the unpadded D, and counts a bf16 launch above D = 128
+  in the tensor-core kernels' counters (``wide_mma``, ``wide_bwd_dq``,
+  ``wide_bwd_dkv``), refusing bf16 above D = 512. The kernels themselves
+  run only on the card (``chip_smoke.py`` phase 22).
 
 Tolerances are those of tests/test_torch_kernels.py (row 8: f32 5e-5),
-test_torch_head_dims.py (row 5: f32 2e-5; bf16 atol 0.15, rtol 0.1) and
-test_torch_attention_bwd.py (rows 3 and 4 in f32: 2e-4).
+test_torch_head_dims.py (rows 1, 2 and 5: f32 2e-5, row 6 3e-5; bf16 atol
+0.15, rtol 0.1; the lse 1e-3 in bf16), test_torch_int8.py (row 7: within 4
+bf16 steps of the largest output, the median error 0, at most 5% of the
+rows off) and test_torch_attention_bwd.py (rows 3 and 4 in f32: 2e-4).
 """
 
 from types import SimpleNamespace
@@ -29,7 +36,8 @@ import numpy as np
 import pytest
 import torch
 
-from msa_tpu.ops.pallas.attention import _mha_attention_lse, _packed_qkv_attention_lse
+from msa_tpu.ops.pallas.attention import _flash_attention_lse, _fused_attention_lse, _mha_attention_lse
+from msa_tpu.ops.pallas.attention import _packed_qkv_attention_lse
 from msa_tpu.ops.pallas.attention import attention_block as jax_attention_block
 from msa_tpu.ops.pallas.attention import attention_bwd as jax_attention_bwd
 from msa_tpu_torch.ops import quant as Q
@@ -103,6 +111,64 @@ def test_rows_3_and_4_plain_match_pallas_at_wide_heads(rng, d):
     for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
         assert tuple(gt.shape) == (2, 2, 40, d)
         np.testing.assert_allclose(f32(gt), f32(wt), atol=2e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("row", ["1", "2", "6"])
+def test_rows_1_2_6_plain_match_pallas_at_head_dim_192(rng, row, dtype):
+    """Rows 1 (fused_attention), 2 (mha_attention) and 6
+    (flash_attention_lse, at T = 130: two 128-key blocks of the online
+    order) at D = 192, the kernels' plain versions on the CPU against
+    JAX's."""
+    d, h, T = 192, 2, 130 if row == "6" else 40
+    q, k, v = (jnp.asarray(rng.normal(size=(2, h, T, d)).astype(np.float32)).astype(dtype) for _ in range(3))
+    mask = _mask(2, T)
+    tq, tk, tv = (t(x, TORCH_DTYPES[dtype]) for x in (q, k, v))
+    if row == "6":
+        want_o, want_lse = _flash_attention_lse(q, k, v, jnp.asarray(mask), interpret=True)
+        got_o, got_lse = A.flash_attention_lse(A._to_packed(tq, tk, tv), t(mask))
+        got_o = got_o.reshape(2, T, h, d).permute(0, 2, 1, 3)
+    elif row == "1":
+        want_o, want_lse = _fused_attention_lse(q, k, v, jnp.asarray(mask), interpret=True)
+        got_o, got_lse = A.fused_attention_lse(tq, tk, tv, t(mask))
+    else:
+        want_o, want_lse = _mha_attention_lse(q, k, v, jnp.asarray(mask), interpret=True)
+        got_o, got_lse = A.mha_attention(tq, tk, tv, t(mask))
+    assert tuple(got_o.shape) == (2, h, T, d) and got_o.dtype == TORCH_DTYPES[dtype]
+    if dtype == "float32":
+        atol = 3e-5 if row == "6" else 2e-5
+        np.testing.assert_allclose(f32(got_o), f32(want_o), atol=atol)
+        np.testing.assert_allclose(f32(got_lse), f32(want_lse), atol=atol)
+    else:
+        np.testing.assert_allclose(f32(got_o), f32(want_o), atol=0.15, rtol=0.1)
+        np.testing.assert_allclose(f32(got_lse), f32(want_lse), atol=1e-3)
+
+
+def test_row7_plain_matches_pallas_at_head_dim_192(rng):
+    """attention_block_int8 on bf16 x at D = 192 (d_model 768, 4 heads),
+    its int8 weights padded to DP = 256 (the card's layout), against JAX's
+    ``attention_block(int8=True)`` on the unpadded f32 masters."""
+    d, h = 192, 4
+    dm = h * d
+    x = rng.normal(size=(2, 40, dm)).astype(np.float32)
+    w_qkv = (rng.normal(size=(dm, 3 * dm)) / np.sqrt(dm)).astype(np.float32)  # flax's [in, out]
+    b_qkv = (0.1 * rng.normal(size=3 * dm)).astype(np.float32)
+    w_out = (rng.normal(size=(dm, dm)) / np.sqrt(dm)).astype(np.float32)
+    b_out = (0.1 * rng.normal(size=dm)).astype(np.float32)
+    mask = _mask(2, 40)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    want = f32(jax_attention_block(xj, w_qkv, b_qkv, w_out, b_out, mask, h, True, int8=True))
+    wq, sq = Q.quantize_weight_axis(t(w_qkv.T), axis=1)
+    wo, so = Q.quantize_weight_axis(t(w_out.T), axis=1)
+    sq, so = sq[:, 0].contiguous(), so[:, 0].contiguous()
+    pwq, pbq, pwo, psq = A.pad_block_weights(wq, t(b_qkv), wo, h, sq)
+    assert pwq.shape == (3 * h * 256, dm)
+    got = f32(A.attention_block_int8(t(f32(xj), torch.bfloat16), pwq, psq, pbq, pwo, so, t(b_out), t(mask), h, head_dim=d))
+    assert np.isfinite(got).all()
+    err = np.abs(got - want)
+    assert err.max() <= 4 * 2.0**-8 * np.abs(want).max(), err.max()
+    rows = (err > 0).reshape(-1, err.shape[-1]).any(-1)
+    assert np.median(err) == 0.0 and rows.mean() <= 0.05, rows.mean()
 
 
 def test_pad_block_weights_at_160(rng):
@@ -220,3 +286,51 @@ def test_attention_block_takes_wide_heads_on_the_card_path(card, recipe, d):
     assert tuple(out.shape) == (1, 40, dm)
     (name, args), = card.calls
     assert name == entry and args[at] == dp and args[-2] == float(np.float32(1.0 / np.sqrt(d)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [128, 136, 192, 512])
+def test_wide_kernel_counters_on_the_card_path(card, dtype, d):
+    """Each wrapper counts a bf16 launch above D = 128 in the tensor-core
+    kernels' counters (the forward in ``wide_mma``, rows 3 and 4 in
+    ``wide_bwd_dq`` and ``wide_bwd_dkv``), and nothing at D ≤ 128 or in f32;
+    rows 7 and 8 count their core there too."""
+    tdt = TORCH_DTYPES[dtype]
+    wide = dtype == "bfloat16" and d > 128
+    _, cases = _attend_calls(d, tdt)
+    for fn, call, entries, _ in cases:
+        before = [c.launches for c in (A.wide_mma, A.wide_bwd_dq, A.wide_bwd_dkv)]
+        call()
+        after = [c.launches for c in (A.wide_mma, A.wide_bwd_dq, A.wide_bwd_dkv)]
+        bwd = fn is A.attention_bwd_dq
+        assert [a - b_ for a, b_ in zip(after, before)] == ([0, wide, wide] if bwd else [wide, 0, 0]), fn.__name__
+    h, dp = 2, A.block_head_dim(d)
+    dm = -(-h * d // 128) * 128
+    x, mask = _meta(1, 40, dm, dtype=tdt), _meta(1, 40)
+    before = A.wide_mma.launches
+    A.attention_block(x, _meta(3 * h * dp, dm, dtype=tdt), _meta(3 * h * dp), _meta(dm, h * dp, dtype=tdt), _meta(dm), mask, h, d)
+    A.attention_block_int8(x, _meta(3 * h * dp, dm, dtype=torch.int8), _meta(3 * h * dp), _meta(3 * h * dp),
+                           _meta(dm, h * dp, dtype=torch.int8), _meta(dm), _meta(dm), mask, h, d)
+    assert A.wide_mma.launches == before + 2 * wide
+
+
+@pytest.mark.parametrize("what", ["packed", "flash", "mha", "fused", "bwd", "block"])
+def test_bf16_above_512_is_refused_on_the_card_path(card, what):
+    """The bf16 tensor-core kernels take D ≤ 512: a wider bf16 head raises
+    before any launch, and counts nothing."""
+    d, bf16 = 520, torch.bfloat16
+    q, k, v = (_meta(1, 2, 40, d, dtype=bf16) for _ in range(3))
+    mask = _meta(1, 40)
+    calls = {
+        "packed": lambda: A.packed_qkv_attention_lse(_meta(1, 40, 3, 2, d, dtype=bf16), mask),
+        "flash": lambda: A.flash_attention_lse(_meta(1, 600, 3, 2, d, dtype=bf16), _meta(1, 600)),
+        "mha": lambda: A.mha_attention(q, k, v, mask),
+        "fused": lambda: A.fused_attention_lse(q, k, v, mask),
+        "bwd": lambda: A.attention_bwd(q, k, v, mask, _meta(1, 2, 40), _meta(1, 2, 40, d, dtype=bf16),
+                                       _meta(1, 2, 40, d, dtype=bf16)),
+        "block": lambda: A.attention_block(_meta(1, 40, 1152, dtype=bf16), _meta(3 * 2 * 640, 1152, dtype=bf16),
+                                           _meta(3 * 2 * 640), _meta(1152, 2 * 640, dtype=bf16), _meta(1152), mask, 2, 576),
+    }
+    with pytest.raises(ValueError, match="up to 512"):
+        calls[what]()
+    assert card.calls == []
