@@ -18,10 +18,12 @@ Phases, one line each with its seconds:
      the bf16 GEMM's SASS must issue HGMMA (wgmma) on bf16, the f32 GEMM's
      FFMA and no tensor-core instruction, and no WMMA gemm_nt_kernel is
      left; the bf16 tensor-core kernels above head dim 128
-     (wide_mma_kernel<NC, ORDER>, wide_bwd_dq_kernel<NC>,
-     wide_bwd_dkv_kernel)
+     (wide_mma_kernel<NC, ORDER, QS>, wide_bwd_dq_kernel<NC, OS>,
+     wide_bwd_dkv_kernel<OS>: Q's or the owned tiles resident or streamed)
      must not spill and their SASS must issue bf16 HMMA, and no bf16
-     instance of the SIMT kernels is left;
+     instance of the SIMT kernels is left; row 11's conv_wgmma_kernel must
+     not spill and must issue HGMMA on bf16, and no WMMA conv_bf16_kernel
+     is left;
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, and time both with CUDA events: the bf16
      attention_block and ffn_fused, the row-quantize kernel (exactly: codes
@@ -118,10 +120,11 @@ Phases, one line each with its seconds:
      call, with the TFLOP/s on 4·B·H·T²·D; the mask ignored as the planted
      fault; one direct call launches it once;
  14. row 11, conv_stride2_fused, at the six stride-2 layers of the wav2vec2
-     extractor (B=64, 512 channels, bf16; tools/conv_bench.py's shapes) and
-     two f32 cases, against its plain version at JAX's tolerances, beside
-     cuDNN's bf16 conv1d (f32, TF32 off, for the f32 cases); tap 2
-     dropped as the planted fault;
+     extractor (B=64, 512 channels, bf16, on the persistent TMA-fed wgmma
+     kernel conv_wgmma_kernel; tools/conv_bench.py's shapes) and two f32
+     cases, against its plain version at JAX's tolerances, two bf16 calls
+     bit-equal, beside cuDNN's bf16 conv1d (f32, TF32 off, for the f32
+     cases) and the bound; tap 2 dropped as the planted fault;
  15. the default diarizer, make_diarizer("neural") on the shipped speaker
      net, on a 20 s two-voice meeting made here: segments and labels equal
      to the CPU's, embeddings within 1e-4, ms per diarize;
@@ -197,16 +200,19 @@ Phases, one line each with its seconds:
      and one parity run_host on the fine-tuned trunks, within 1e-3 of the
      plain f32 path;
  22. head dims above 128: rows 1, 2, 5, 6 (T=600) and 3 + 4 in bf16 and
-     f32, and rows 7, 8 and 8 f32, at D = 160, 192 and 256 (bf16 on the
-     tensor-core kernels of csrc/attention_wide_mma.cu and
-     csrc/attention_bwd_wide.cu, f32 on the D-tiled SIMT kernels of
-     csrc/attention_wide.cu and csrc/attention_bwd_f32.cu), one launch per
-     direct call, against their plain versions at the existing bounds; the
-     bf16 rows again at full width (rows 1, 2, 5 and rows 7/8 at B=2 T=512
-     H=4 D=192 and H=3 D=256, row 5 also at B=8, row 6 at B=2 T=749 H=4
-     D=192, rows 3 + 4 at B=8 T=512 H=4 D=192 and H=3 D=256, two backward
-     calls bit-equal), each timed beside its plain version, one SDPA call
-     (or SDPA's autograd backward) and its bound; 2-layer encoders at
+     f32, and rows 7, 8 and 8 f32, at D = 160, 192 and 256, and the bf16
+     ones at D = 640, 768 and 1024 (bf16 on the tensor-core kernels of
+     csrc/attention_wide_mma.cu and csrc/attention_bwd_wide.cu, which
+     stream their Q or owned tiles above D = 512; f32 on the D-tiled SIMT
+     kernels of csrc/attention_wide.cu and csrc/attention_bwd_f32.cu), one
+     launch per direct call, against their plain versions at the existing
+     bounds; the bf16 rows again at full width (rows 1, 2, 5 and rows 7/8
+     at B=2 T=512 H=4 D=192, H=3 D=256 and H=1 D=768, row 5 also at B=8,
+     row 6 at B=2 T=749 H=4 D=192, rows 3 + 4 at B=8 T=512 H=4 D=192, H=3
+     D=256 and H=1 D=768, two backward calls bit-equal), each timed beside
+     its plain version, one SDPA call (or SDPA's autograd backward; the
+     backend it picked named) and its bound, rows 7/8 also beside the
+     library's composite of the block; 2-layer encoders at
      d_model 768 / 4 heads (D=192, DP 256) and 512 / 2 heads (D=256)
      through rows 7, 8 and 8 f32; one bf16 and one f32 training step at
      D=192; then a 12-layer encoder at d_model 768, 4 heads, d_ff 3072
@@ -763,11 +769,19 @@ def main() -> int:
         print(f"  ptxas {kernel}: {used}", flush=True)
         if kernel.startswith(("gemm_s8_kernel", "gemm_bf16_kernel", "onepass_f32_kernel", "gemm_f32_kernel", "wide_mma_kernel")):
             check("0 bytes spill stores" in used, f"{kernel} spills: {used}")
-    wide_bwd = {**ptxas_usage(log, ("wide_bwd_dq_kernel",)), "wide_bwd_dkv_kernel": ptxas_plain(log, "wide_bwd_dkv_kernel")}
-    check(len(wide_bwd) == 3, f"the tensor-core backward's instances: {sorted(wide_bwd)}")
+    # each with its owned tiles resident (OS 0) and streamed (1)
+    wide_bwd = ptxas_usage(log, ("wide_bwd_dq_kernel", "wide_bwd_dkv_kernel"))
+    check(len(wide_bwd) == 6, f"the tensor-core backward's instances: {sorted(wide_bwd)}")
+    check(sum(k.startswith("wide_mma_kernel") for k in usage) == 12, f"the tensor-core forward's instances: {sorted(usage)}")
     for kernel, used in wide_bwd.items():
         print(f"  ptxas {kernel}: {used}", flush=True)
         check("0 bytes spill stores" in used, f"{kernel} spills: {used}")
+    # row 11's bf16 kernel: wgmma fed by TMA, no spill; the WMMA kernel gone
+    conv_used = ptxas_plain(log, "conv_wgmma_kernel")
+    print(f"  ptxas conv_wgmma_kernel: {conv_used}", flush=True)
+    check("0 bytes spill stores" in conv_used, f"conv_wgmma_kernel spills: {conv_used}")
+    check("conv_bf16_kernel" not in log, "the WMMA conv_bf16_kernel is still built")
+    print(f"  conv_wgmma_kernel SASS: {hgmma_of(lib_path, 'conv_wgmma_kernel')}", flush=True)
     check(not any(k.startswith(("wide_attention_kernel", "simt_d")) and "bf16" in k for k in usage),
           f"a bf16 instance of the SIMT kernels is still built: {sorted(usage)}")
     print(f"  wide_mma_kernel SASS: {hmma_of(lib_path, 'wide_mma_kernel')}", flush=True)
@@ -2026,6 +2040,7 @@ def main() -> int:
         check(tuple(got.shape) == (b, out_len, c) and bool(torch.isfinite(got).all()), f"{tag}: shape {tuple(got.shape)} or non-finite")
         err, rel = conv_err(got, want)
         check(rel < CONV_BF16_REL, f"{tag}: max abs err {rel:.3e} of the largest output ≥ {CONV_BF16_REL}")
+        check(torch.equal(got, KC.conv_stride2_fused(x, w)), f"{tag}: two calls differ")  # one owner an output, no split
         fault_txt = ""
         if k_ == 3:  # the planted fault: tap 2 dropped
             w_f = w.clone()
@@ -2041,8 +2056,8 @@ def main() -> int:
         flop = 2 * b * out_len * k_ * c * c
         bms, by = bound_ms(2 * (b * L_ * c + k_ * c * c + b * out_len * c), bf16=flop)
         print(
-            f"  {tag}: max_abs_err={err:.4e} rel={rel:.3e} (bound {CONV_BF16_REL}){fault_txt} {timing_text(tm, bms, by)} "
-            f"({flop / tm['ms'] / 1e9:.1f} TFLOP/s)",
+            f"  {tag}: max_abs_err={err:.4e} rel={rel:.3e} (bound {CONV_BF16_REL}), two calls bit-equal{fault_txt} "
+            f"{timing_text(tm, bms, by)} ({flop / tm['ms'] / 1e9:.1f} TFLOP/s)",
             flush=True,
         )
         print(f"    cudnn conv1d (library, bf16, NCW, no GELU) ms={lib_ms:.4f} (device) call_ms={lib_call_ms:.4f}", flush=True)
@@ -2872,6 +2887,19 @@ def main() -> int:
     # --- 22. head dims above 128 on every attention row ---------------------------------
     t0 = time.perf_counter()
 
+    def sdpa_backend(fn) -> str:
+        """The backend scaled_dot_product_attention picked for ``fn``'s call,
+        by the names of the kernels it ran (flash, efficient, cudnn, or the
+        math composite)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = " ".join(e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA).lower()
+        return ("flash" if "flash" in names else "efficient" if ("fmha" in names or "efficient" in names) else
+                "cudnn" if "cudnn" in names else "math")
+
     def wide_time(tag, kernel, plain, nbytes, ops, lib=None):
         """Time one D > 128 call beside its plain version (and the library
         where one call computes the same function); ``ops`` maps each
@@ -2883,9 +2911,29 @@ def main() -> int:
             lib_txt = f" library_ms={device_ms(lib):.4f} (device) library_call_ms={time_ms(lib):.4f}"
         print(f"    {tag}: {timing_text(tm, bms, by)}{lib_txt}", flush=True)
 
+    # every head dim D % 8 == 0 from 136 to 2048 in bf16: rows 2, 3 and 4
+    # at B=1 H=1 T=64 launch the tensor-core kernels (Q's or the owned tiles
+    # resident or streamed by their rules, shared memory within a block's)
+    # and hold their plain versions' bound
+    sweep_worst, n_sweep = (0.0, 0), 0
+    for d in range(136, 2049, 8):
+        q, k, v, go = (rand(1, 1, 64, d) for _ in range(4))
+        m_ = key_mask(1, 64)
+        o, lse = one_launch({"mha_attention": 1, "wide_mma": 1}, lambda: A.mha_attention(q, k, v, m_))
+        err = compare(f"mha_attention bf16 B=1 T=64 D={d}", o, A.mha_attention_plain(q, k, v, m_)[0])[1]
+        got = one_launch({"attention_bwd_dq": 1, "attention_bwd_dkv": 1, "wide_bwd_dq": 1, "wide_bwd_dkv": 1},
+                         lambda: A.attention_bwd(q, k, v, m_, lse, o, go))
+        for n, a_, w_ in zip(("dq", "dk", "dv"), got, A.attention_bwd_plain(q, k, v, m_, lse, o, go)):
+            err = max(err, compare(f"attention_bwd bf16 B=1 T=64 D={d} {n}", a_, w_)[1])
+        sweep_worst, n_sweep = max(sweep_worst, (err, d)), n_sweep + 1
+    print(f"  head dims 136–2048 (every multiple of 8, {n_sweep} of them), rows 2, 3 and 4 at B=1 H=1 T=64: one launch "
+          f"each, largest error {sweep_worst[0]:.3e} of the largest output (D={sweep_worst[1]})", flush=True)
+
     with G.exact_fp32():
-        for d in (160, 192, 256):
-            for dtype in (bf16, f32):
+        # above D = 512 the bf16 kernels stream what they held over all of D
+        # (the f32 rows there run the D-tiled SIMT kernels, held at 160–256)
+        for d in (160, 192, 256, 640, 768, 1024):
+            for dtype in (bf16, f32) if d <= 256 else (bf16,):
                 dn = str(dtype).split(".")[-1]
                 kind = "bf16" if dtype is bf16 else "f32"
                 es = 2 if dtype is bf16 else 4
@@ -2949,7 +2997,7 @@ def main() -> int:
             proj_flops, attn_flops = 2 * 2 * 100 * dm_w * 4 * dm_w, 4 * 2 * 4 * 100 * 100 * d
             for rec, counter in (("bf16", {"attention_block": 1, "gemm_bf16": 2, "wide_mma": 1}),
                                  ("int8", {"attention_block_int8": 1, "quantize_rows": 2, "gemm_s8": 2, "wide_mma": 1}),
-                                 ("f32", {"attention_block_f32": 1, "gemm_f32": 2})):
+                                 ("f32", {"attention_block_f32": 1, "gemm_f32": 2}))[: 3 if d <= 256 else 2]:
                 dt_w = f32 if rec == "f32" else bf16
                 x = rand(2, 100, dm_w, dtype=dt_w)
                 if rec == "int8":
@@ -2991,8 +3039,10 @@ def main() -> int:
                              f"cuBLAS {rec} QKV + scaled_dot_product_attention + cuBLAS {rec} Wo, 3 calls")
         # the bf16 rows at full width on the tensor-core kernels: rows 5, 1
         # and 2 at B=2 T=512 (row 5 also at B=8, the training step's shape,
-        # whose numbers the kernels line keeps), row 6 at B=2 T=749
-        for b, T_, h, d in ((2, 512, 4, 192), (2, 512, 3, 256), (8, 512, 4, 192), (2, 749, 4, 192)):
+        # whose numbers the kernels line keeps), row 6 at B=2 T=749; and at
+        # d_model 768 with one head (D = 768, Q streamed), which the kernels
+        # refused before
+        for b, T_, h, d in ((2, 512, 4, 192), (2, 512, 3, 256), (8, 512, 4, 192), (2, 749, 4, 192), (2, 512, 1, 768)):
             q, k, v = (rand(b, h, T_, d) for _ in range(3))
             mask = key_mask(b, T_)
             qkv = A._to_packed(q, k, v)
@@ -3019,21 +3069,24 @@ def main() -> int:
                 bms, by = bound_ms(3 * 2 * b * h * T_ * d + 2 * b * h * T_ * d + 4 * b * h * T_ + 4 * b * T_, bf16=flop)
                 lib_ms = device_ms(lib)
                 report(f"{tag} (tensor-core forward)", err, rel, bnd, tm, bms, by)
-                print(f"    {flop / tm['ms'] / 1e9:.1f} TFLOP/s on 4·B·H·T²·D; sdpa (library) ms={lib_ms:.4f} (device)", flush=True)
+                print(f"    {flop / tm['ms'] / 1e9:.1f} TFLOP/s on 4·B·H·T²·D; sdpa (library, {sdpa_backend(lib)} backend) "
+                      f"ms={lib_ms:.4f} (device)", flush=True)
                 main = (name, b) == ("packed_qkv_attention_lse", 8)  # the training step's forward
                 record("wide_mma", err, main, tm, bms, by)
                 if main:
                     results["wide_mma"]["library_ms"] = lib_ms
         # rows 8 and 7 at full width: d_model 768 = H·D, weights padded to
-        # DP; the block beside its plain version, its core alone beside one
-        # SDPA call on q, k and v of the core's shape
-        for h, d in ((4, 192), (3, 256)):
+        # DP; the block beside its plain version and the library's composite
+        # of it, its core alone beside one SDPA call on q, k and v of the
+        # core's shape; one head of 768 too
+        for h, d in ((4, 192), (3, 256), (1, 768)):
             dm_w, dp_w = h * d, A.block_head_dim(d)
             wq_h, bq_h = rand(3 * dm_w, dm_w, scale=dm_w**-0.5, dtype=f32), rand(3 * dm_w, scale=0.02, dtype=f32)
             wo_h, bo_h = rand(dm_w, dm_w, scale=dm_w**-0.5, dtype=f32), rand(dm_w, scale=0.02, dtype=f32)
             x, m_ = rand(2, 512, dm_w), key_mask(2, 512)
             core_q = [rand(2, h, 512, dp_w) for _ in range(3)]
             sdpa_core_ms = device_ms(lambda: sdpa_heads_first(*core_q, m_))
+            core_backend = sdpa_backend(lambda: sdpa_heads_first(*core_q, m_))
             wq_c, wo_c = wq_h.to(bf16), wo_h.to(bf16)
             pw, pb, po, _ = (t_ if t_ is None else t_.contiguous() for t_ in A.pad_block_weights(wq_c, bq_h, wo_c, h))
             wq_q, sq_ = Q.quantize_weight_axis(wq_h, axis=1)
@@ -3056,16 +3109,23 @@ def main() -> int:
                 bms, by = bound_ms(4 * 2 * 2 * h * 512 * dp_w + 4 * 2 * 512, bf16=flop)
                 print(f"  {tag}: max_abs_err={err:.4e} rel={rel:.3e} bound={bnd:.4e}; the core alone (tensor-core "
                       f"forward, unnormalised P) kernel_ms={core_ms:.4f} (device) {flop / core_ms / 1e9:.1f} TFLOP/s, "
-                      f"sdpa (library) ms={sdpa_core_ms:.4f}, bound_ms={bms:.5f} ({by})", flush=True)
+                      f"sdpa (library, {core_backend} backend) ms={sdpa_core_ms:.4f}, bound_ms={bms:.5f} ({by})", flush=True)
                 proj = 2 * 2 * 512 * dm_w * 4 * dm_w  # QKV and Wo
                 wide_time(tag, run_blk, plain_blk, 2 * (2 * 2 * 512 * dm_w + 4 * dm_w * dm_w) + 4 * 2 * 512,
                           {"bf16": proj + flop} if rec == "bf16" else {"int8": proj, "bf16": flop})
+                if rec == "int8":
+                    lib_text(lambda: block_w8a8_composite(x, m_, wq_q, sq_, bq_h, wo_q, so_, bo_h, h),
+                             W8A8_LIB.format("scaled_dot_product_attention"))
+                else:
+                    lib_text(lambda: block_composite(x, m_, wq_c, bq_h, wo_c, bo_h, h),
+                             "cuBLAS bf16 QKV + scaled_dot_product_attention + cuBLAS bf16 Wo, 3 calls")
                 record("wide_mma", err, False, None, 0, "")
             del core_q
         # rows 3 + 4 at full width on the tensor-core pair: each kernel
         # alone, the pair beside its plain version and SDPA's autograd
-        # backward, two calls bit-equal
-        for b, T_, h, d in ((8, 512, 4, 192), (8, 512, 3, 256)):
+        # backward, two calls bit-equal; one head of 768 too (the owned
+        # tiles streamed)
+        for b, T_, h, d in ((8, 512, 4, 192), (8, 512, 3, 256), (8, 512, 1, 768)):
             q, k, v, go = (rand(b, h, T_, d) for _ in range(4))
             mask = key_mask(b, T_)
             o, lse = A.mha_attention(q, k, v, mask)
@@ -3081,6 +3141,7 @@ def main() -> int:
             leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
             lib_out = sdpa_heads_first(*leaves, mask)
             lib_ms = device_ms(lambda: torch.autograd.grad(lib_out, leaves, go, retain_graph=True))
+            lib_backend = sdpa_backend(lambda: sdpa_heads_first(*leaves, mask))
             one = 2 * b * h * T_ * d  # bytes of one bf16 [B, H, T, D] tensor
             stats = 2 * 4 * b * h * T_ + 4 * b * T_  # lse, Δ and the key mask
             wide_time(f"{tag} (rows 3 + 4, bit-equal over two calls)", lambda: A.attention_bwd(q, k, v, mask, lse, o, go),
@@ -3097,7 +3158,7 @@ def main() -> int:
                 err, rel, bnd = max(errs[n] for n in outs)
                 report(f"{name} {tag} (plain ms: dq, dk and dv together)", err, rel, bnd, tm, bms, by)
                 print(f"    {name}: {ops * b * h * T_ * T_ * d / tm['ms'] / 1e9:.1f} TFLOP/s on {ops}·B·H·T²·D; sdpa backward "
-                      f"(library, dq, dk and dv) ms={lib_ms:.4f}", flush=True)
+                      f"(library, {lib_backend} backend, dq, dk and dv) ms={lib_ms:.4f}", flush=True)
                 main = (h, d) == (4, 192)
                 record(name, err, main, tm, bms, by)
                 if main:

@@ -38,7 +38,7 @@
 // in that layout, or take [B, H, T, D] throughout. lse and Δ are
 // [B, H, T] f32, the key mask [B, T] f32 (1 = attend). D is any multiple of
 // 8 up to 128, zero-padded to DP (32, 64 or 128) in shared memory; above
-// 128 (up to 512) the entries run the tensor-core pair of
+// 128 (any D) the entries run the tensor-core pair of
 // attention_bwd_wide.cu, which rounds at the same points.
 //
 // What bounds it on the card: per (row, head) the dQ kernel does 6·T²·D
@@ -337,7 +337,7 @@ bool bad_shape(int T, int D) { return T < 1 || D % 8 || D < 8; }
 
 // q, k, v, dq: bf16 with element strides (sx_b, sx_h, sx_t), D contiguous;
 // dout: bf16 with strides (so_b, so_h, so_t); lse, delta [B, H, T] f32;
-// mask [B, T] f32. Every row 16-byte aligned. Any T ≥ 1; D % 8 == 0, D ≤ 512
+// mask [B, T] f32. Every row 16-byte aligned. Any T ≥ 1; D % 8 == 0
 // (above 128 the tensor-core pair of attention_bwd_wide.cu).
 extern "C" int msa_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                                     const void* delta, const void* mask, void* dq, int B, int T, int H, int D,

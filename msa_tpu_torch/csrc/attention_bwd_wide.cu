@@ -1,5 +1,5 @@
 // The bf16 attention backward above head dim 128 on the tensor cores: rows
-// 3 (dQ) and 4 (dK, dV) at 128 < D ≤ 512. With L = lse, Δ = rowsum(dO∘O)
+// 3 (dQ) and 4 (dK, dV) at any D > 128 (D % 8 == 0). With L = lse, Δ = rowsum(dO∘O)
 // and P = exp(S·scale + bias − L) recomputed per tile (never stored):
 //   dV = Pᵀ·dO,   dS = P ∘ (dO·Vᵀ − Δ),   dQ = scale·dS·K,   dK = scale·dSᵀ·Q.
 // msa_attention_bwd_dq and msa_attention_bwd_dkv (attention_bwd.cu) call
@@ -32,10 +32,16 @@
 //
 // The design, on attention_mma.cuh's primitives: one block per (64-row
 // tile, column tile of the output, head, batch row), 4 warps of 16 owned
-// rows; the owned rows' operands stay in shared memory over all of D
-// (rows of DP + 8, DP = D rounded up to 64), the other side's come through
-// one ring of three stages filled by cp.async two steps ahead (one barrier
-// a step), 64 columns a stage.
+// rows; the other side's operands come through one ring of three stages
+// filled by cp.async two steps ahead (one barrier a step), 64 columns a
+// stage. The owned rows' operands (OS) either stay resident in shared
+// memory over all of D (rows of DP + 8, DP = D rounded up to 64), or are
+// streamed: their 64-column chunks ride in the ring beside the other
+// side's chunks of the same columns, read again from L2 at every step, so
+// that shared memory does not grow with D. They stream only where the
+// resident tiles do not fit (dQ above D = 640, dK/dV above 768): on an
+// H100 (profile_slice.py --attn-wide-tiles, PERF.md §6) resident read
+// 6–30% faster at every D where both ran (192, 256, 640, 768).
 // - dQ (wide_bwd_dq_kernel): owned rows are queries (Q and dO in shared
 //   memory); per step of 64 keys, D/64 ring steps bring K's and V's column
 //   chunks ([64 keys × 64] each) and S = Q·Kᵀ, dP = dO·Vᵀ accumulate in
@@ -58,8 +64,10 @@
 // that grid fills at most half of the SMs, else 128, as the forward picks
 // it. On an H100 at B=8 T=512 H=4 D=192 the 192 tile read 1.7× faster than
 // 128 (profile_slice.py --attn-wide-tiles, PERF.md §6).
-// Shared memory at D = 192: 106 KB (dQ) and 79 KB (dK/dV) a block, 2 blocks
-// an SM; at D = 512: 188 and 161 KB, 1.
+// Shared memory with the owned tiles resident, at D = 192: 106 KB (dQ) and
+// 79 KB (dK/dV) a block, 2 blocks an SM; at D = 512: 188 and 161 KB, 1; at
+// D = 640 (dQ) and 768 (dK/dV): 221 and 223 KB. Streamed: 109 KB and 82 KB
+// at any D, 2 blocks an SM.
 #include "attention_mma.cuh"
 
 namespace {
@@ -72,7 +80,7 @@ constexpr int WSTAGES = 3;     // ring stages; copies run two steps ahead
 constexpr int WTHREADS = 128;  // 4 warps of 16 owned rows
 constexpr int WKS = 64;        // keys a dQ step
 constexpr int WQS = 32;        // queries a dK/dV step
-constexpr int WMAX_D = 512;
+constexpr int WSMEM_MAX = 232448;  // the shared memory a block can have on an H100
 
 // the owned rows' Q, dO (or K, V) over all DP columns: rows [r0, r0 + WR)
 // of head h of batch row b, zeros past D and T, by cp.async
@@ -113,30 +121,40 @@ __device__ __forceinline__ void store_tile(const float (&acc)[NC / 8][4], float 
   }
 }
 
-size_t dq_smem(int dp) {
-  return (size_t)2 * WR * (dp + 8) * sizeof(bf16)               // sQ, sG
-         + (size_t)WSTAGES * 2 * WKS * WLD * sizeof(bf16)      // the ring: K and V chunks a stage
+// a ring stage of the dQ kernel: K's and V's chunks [WKS × WLD], and Q's
+// and dO's [WR × WLD] where streamed; of the dK/dV kernel: Q's and dO's
+// chunks [WQS × WLD], and K's and V's [WR × WLD] where streamed
+__host__ __device__ constexpr int dq_stage(bool os) { return (2 * WKS + (os ? 2 * WR : 0)) * WLD; }
+__host__ __device__ constexpr int dkv_stage(bool os) { return (2 * WQS + (os ? 2 * WR : 0)) * WLD; }
+
+size_t dq_smem(int dp, bool os) {
+  return (os ? 0 : (size_t)2 * WR * (dp + 8) * sizeof(bf16))    // sQ, sG, where resident
+         + (size_t)WSTAGES * dq_stage(os) * sizeof(bf16)       // the ring
          + (size_t)2 * WKS * sizeof(float);                    // the key mask of two steps
 }
 
-size_t dkv_smem(int dp) {
-  return (size_t)2 * WR * (dp + 8) * sizeof(bf16)               // sK, sV
-         + (size_t)WSTAGES * 2 * WQS * WLD * sizeof(bf16)      // the ring: Q and dO chunks a stage
+size_t dkv_smem(int dp, bool os) {
+  return (os ? 0 : (size_t)2 * WR * (dp + 8) * sizeof(bf16))    // sK, sV, where resident
+         + (size_t)WSTAGES * dkv_stage(os) * sizeof(bf16)      // the ring
          + (size_t)4 * WQS * sizeof(float);                    // L and Δ of two steps
 }
 
-template <int NC>
+// the owned tiles stream only where they do not fit resident
+bool wide_owned_streamed(int DP, bool dq) { return (dq ? dq_smem(DP, false) : dkv_smem(DP, false)) > WSMEM_MAX; }
+
+template <int NC, bool OS>
 __global__ void __launch_bounds__(WTHREADS)
 wide_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, Strides sx,
                    const bf16* __restrict__ dout, Strides so, const float* __restrict__ lse,
                    const float* __restrict__ delta, const float* __restrict__ mask, bf16* __restrict__ dq, int T,
                    int H, int D, int nct, float scale) {
-  constexpr int STAGE = 2 * WKS * WLD;  // K's chunk, then V's (or K's chunk of the tile alone)
+  // K's chunk, then V's (or K's chunk of the tile alone), then Q's and dO's where streamed
+  constexpr int STAGE = dq_stage(OS);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int DP = (D + WCH - 1) / WCH * WCH, LDO = DP + 8;
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);                  // [WR × LDO]
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);                  // [WR × LDO], where resident
   bf16* sG = sQ + WR * LDO;                                      // dO
-  bf16* sR = sG + WR * LDO;                                      // [WSTAGES][STAGE]
+  bf16* sR = OS ? sQ : sG + WR * LDO;                            // [WSTAGES][STAGE]
   float* sM = reinterpret_cast<float*>(sR + WSTAGES * STAGE);  // the key mask, [2][WKS]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -147,7 +165,8 @@ wide_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
   const int steps = nk * per;
 
   // step s: of key step j = s / per, K's and V's chunk c (c < nkc; the key
-  // mask with c = 0) or K's chunk of the block's columns c0 + 64(c − nkc).
+  // mask with c = 0; Q's and dO's chunk c where streamed) or K's chunk of
+  // the block's columns c0 + 64(c − nkc).
   // Keys past T arrive as zeros under the −1e9 bias: exact zeros (dS·K
   // with K = 0)
   auto issue = [&](int s) {
@@ -157,6 +176,10 @@ wide_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
       const int col = c < nkc ? c * WCH : c0 + (c - nkc) * WCH;
       load_tile_async<WKS, WCH, WTHREADS>(dst, k + col, sx, b, h, t0, T, D - col, tid);
       if (c < nkc) load_tile_async<WKS, WCH, WTHREADS>(dst + WKS * WLD, v + col, sx, b, h, t0, T, D - col, tid);
+      if (OS && c < nkc) {
+        load_tile_async<WR, WCH, WTHREADS>(dst + 2 * WKS * WLD, q + col, sx, b, h, q0, T, D - col, tid);
+        load_tile_async<WR, WCH, WTHREADS>(dst + (2 * WKS + WR) * WLD, dout + col, so, b, h, q0, T, D - col, tid);
+      }
       if (c == 0) load_vec_async<WKS, WTHREADS>(sM + (j & 1) * WKS, mrow, t0, T, tid);
     }
     cp_async_commit();
@@ -169,9 +192,11 @@ wide_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
     return sR + (step++ % WSTAGES) * STAGE;
   };
 
-  load_owned(sQ, q, sx, b, h, q0, T, D, DP, tid);
-  load_owned(sG, dout, so, b, h, q0, T, D, DP, tid);
-  issue(0);  // Q and dO land with the first step
+  if constexpr (!OS) {
+    load_owned(sQ, q, sx, b, h, q0, T, D, DP, tid);
+    load_owned(sG, dout, so, b, h, q0, T, D, DP, tid);
+  }
+  issue(0);  // resident Q and dO land with the first step
   issue(1);
 
   // L and Δ of the lane's rows g and g + 8; rows past T have q = dO = 0
@@ -179,7 +204,8 @@ wide_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
   const int r = q0 + warp * 16 + (lane >> 2);
   const float L[2] = {r < T ? lse[row0 + r] : 0.f, r + 8 < T ? lse[row0 + r + 8] : 0.f};
   const float Dl[2] = {r < T ? delta[row0 + r] : 0.f, r + 8 < T ? delta[row0 + r + 8] : 0.f};
-  const int frag = (warp * 16 + (lane & 15)) * LDO + ((lane >> 4) << 3);  // the lane's ldmatrix row
+  // the lane's ldmatrix row of the owned tiles: resident, or in a stage
+  const int frow = warp * 16 + (lane & 15), fcol = (lane >> 4) << 3, frag = frow * LDO + fcol;
 
   float acc[NC / 8][4] = {};
   for (int j = 0; j < nk; ++j) {
@@ -189,9 +215,9 @@ wide_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
     for (int c = 0; c < nkc; ++c) {
       const bf16* st = arrive();
       uint32_t f[WCH / 16][4];
-      chunk_frags(f, sQ + frag, c * WCH);
+      chunk_frags(f, OS ? st + (2 * WKS + frow) * WLD + fcol : sQ + frag, OS ? 0 : c * WCH);
       tile_dots_acc<WKS, WCH, WLD>(s, f, st, lane);
-      chunk_frags(f, sG + frag, c * WCH);
+      chunk_frags(f, OS ? st + (2 * WKS + WR + frow) * WLD + fcol : sG + frag, OS ? 0 : c * WCH);
       tile_dots_acc<WKS, WCH, WLD>(dp, f, st + WKS * WLD, lane);
     }
     score_epilogue<WKS>(s, sM + (j & 1) * WKS, scale, lane);
@@ -214,17 +240,19 @@ wide_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
   store_tile<NC>(acc, scale, dq, sx, b, h, q0 + warp * 16, c0, T, D, lane);
 }
 
+template <bool OS>
 __global__ void __launch_bounds__(WTHREADS)
 wide_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, Strides sx,
                     const bf16* __restrict__ dout, Strides so, const float* __restrict__ lse,
                     const float* __restrict__ delta, const float* __restrict__ mask, bf16* __restrict__ dk,
                     bf16* __restrict__ dv, int T, int H, int D, int nct, float scale) {
-  constexpr int STAGE = 2 * WQS * WLD;  // Q's chunk, then dO's (for the products dO's, then Q's)
+  // Q's chunk, then dO's (for the products dO's, then Q's), then K's and V's where streamed
+  constexpr int STAGE = dkv_stage(OS);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int DP = (D + WCH - 1) / WCH * WCH, LDO = DP + 8;
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);                  // [WR × LDO]
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);                  // [WR × LDO], where resident
   bf16* sV = sK + WR * LDO;
-  bf16* sR = sV + WR * LDO;                                      // [WSTAGES][STAGE]
+  bf16* sR = OS ? sK : sV + WR * LDO;                            // [WSTAGES][STAGE]
   float* sL = reinterpret_cast<float*>(sR + WSTAGES * STAGE);  // [2][WQS]
   float* sD = sL + 2 * WQS;                                      // Δ, [2][WQS]
 
@@ -235,7 +263,8 @@ wide_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
   const int steps = nq * per;
 
   // step s: of query step i = s / per, Q's and dO's chunk c (c < nkc; L
-  // and Δ with c = 0), or dO's and Q's chunk of the block's columns c0 +
+  // and Δ with c = 0; K's and V's chunk c where streamed), or dO's and
+  // Q's chunk of the block's columns c0 +
   // 64(c − nkc). Query rows past T arrive as zeros with L = Δ = 0: exact
   // zeros (P = exp(bias) on q = 0, dO = 0)
   auto issue = [&](int s) {
@@ -247,6 +276,10 @@ wide_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
                                           tid);
       load_tile_async<WQS, WCH, WTHREADS>(dst + WQS * WLD, (c < nkc ? dout : q) + col, c < nkc ? so : sx, b, h, t0, T,
                                           D - col, tid);
+      if (OS && c < nkc) {
+        load_tile_async<WR, WCH, WTHREADS>(dst + 2 * WQS * WLD, k + col, sx, b, h, k0, T, D - col, tid);
+        load_tile_async<WR, WCH, WTHREADS>(dst + (2 * WQS + WR) * WLD, v + col, sx, b, h, k0, T, D - col, tid);
+      }
       if (c == 0) {
         load_vec_async<WQS, WTHREADS>(sL + (i & 1) * WQS, lse + row0, t0, T, tid);
         load_vec_async<WQS, WTHREADS>(sD + (i & 1) * WQS, delta + row0, t0, T, tid);
@@ -262,16 +295,18 @@ wide_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
     return sR + (step++ % WSTAGES) * STAGE;
   };
 
-  load_owned(sK, k, sx, b, h, k0, T, D, DP, tid);
-  load_owned(sV, v, sx, b, h, k0, T, D, DP, tid);
-  issue(0);  // K and V land with the first step
+  if constexpr (!OS) {
+    load_owned(sK, k, sx, b, h, k0, T, D, DP, tid);
+    load_owned(sV, v, sx, b, h, k0, T, D, DP, tid);
+  }
+  issue(0);  // resident K and V land with the first step
   issue(1);
 
   // the key bias of the lane's rows g and g + 8 (keys past T: −1e9)
   const int kr = k0 + warp * 16 + (lane >> 2), c2 = (lane & 3) << 1;
   const float* mrow = mask + (size_t)b * T;
   const float kb[2] = {kr < T && mrow[kr] > 0.f ? 0.f : MASK_BIAS, kr + 8 < T && mrow[kr + 8] > 0.f ? 0.f : MASK_BIAS};
-  const int frag = (warp * 16 + (lane & 15)) * LDO + ((lane >> 4) << 3);
+  const int frow = warp * 16 + (lane & 15), fcol = (lane >> 4) << 3, frag = frow * LDO + fcol;
 
   float acc_k[WKV / 8][4] = {}, acc_v[WKV / 8][4] = {};
   for (int i = 0; i < nq; ++i) {
@@ -281,9 +316,9 @@ wide_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
     for (int c = 0; c < nkc; ++c) {
       const bf16* st = arrive();
       uint32_t f[WCH / 16][4];
-      chunk_frags(f, sK + frag, c * WCH);
+      chunk_frags(f, OS ? st + (2 * WQS + frow) * WLD + fcol : sK + frag, OS ? 0 : c * WCH);
       tile_dots_acc<WQS, WCH, WLD>(p, f, st, lane);
-      chunk_frags(f, sV + frag, c * WCH);
+      chunk_frags(f, OS ? st + (2 * WQS + WR + frow) * WLD + fcol : sV + frag, OS ? 0 : c * WCH);
       tile_dots_acc<WQS, WCH, WLD>(ds, f, st + WQS * WLD, lane);
     }
     // Pᵀ = exp(Sᵀ·scale + bias − L), dSᵀ = Pᵀ ∘ (dPᵀ − Δ)
@@ -316,16 +351,31 @@ wide_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
   store_tile<WKV>(acc_v, 1.f, dv, sx, b, h, k0 + warp * 16, c0, T, D, lane);
 }
 
-template <int NC>
+template <int NC, bool OS>
 cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v, Strides sx, const bf16* g, Strides so, const float* lse,
                       const float* delta, const float* mask, bf16* dq, int B, int T, int H, int D, float scale,
                       cudaStream_t s) {
   const int nct = (D + NC - 1) / NC;
-  const size_t smem = dq_smem((D + WCH - 1) / WCH * WCH);
-  cudaError_t e = cudaFuncSetAttribute(wide_bwd_dq_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = dq_smem((D + WCH - 1) / WCH * WCH, OS);
+  auto kernel = wide_bwd_dq_kernel<NC, OS>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  wide_bwd_dq_kernel<NC><<<dim3((T + WR - 1) / WR, H * nct, B), WTHREADS, smem, s>>>(q, k, v, sx, g, so, lse, delta, mask,
-                                                                                  dq, T, H, D, nct, scale);
+  kernel<<<dim3((T + WR - 1) / WR, H * nct, B), WTHREADS, smem, s>>>(q, k, v, sx, g, so, lse, delta, mask, dq, T, H, D,
+                                                                     nct, scale);
+  return cudaGetLastError();
+}
+
+template <bool OS>
+cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v, Strides sx, const bf16* g, Strides so,
+                       const float* lse, const float* delta, const float* mask, bf16* dk, bf16* dv, int B, int T, int H,
+                       int D, float scale, cudaStream_t s) {
+  const int nct = (D + WKV - 1) / WKV;
+  const size_t smem = dkv_smem((D + WCH - 1) / WCH * WCH, OS);
+  auto kernel = wide_bwd_dkv_kernel<OS>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3((T + WR - 1) / WR, H * nct, B), WTHREADS, smem, s>>>(q, k, v, sx, g, so, lse, delta, mask, dk, dv, T, H,
+                                                                     D, nct, scale);
   return cudaGetLastError();
 }
 
@@ -341,10 +391,13 @@ int dq_nc(int B, int T, int H, int D) {
 
 int attend_bwd_wide(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                     const void* delta, const void* mask, void* dq, void* dk, void* dv, int B, int T, int H, int D,
-                    int sx_b, int sx_h, int sx_t, int so_b, int so_h, int so_t, float scale, void* stream, int nc) {
+                    int sx_b, int sx_h, int sx_t, int so_b, int so_h, int so_t, float scale, void* stream, int nc,
+                    int omode) {
   if (nc == 0) nc = dq != nullptr ? dq_nc(B, T, H, D) : WKV;
-  const int nct = (D + nc - 1) / nc;
-  if (B < 1 || H < 1 || T < 1 || D <= 128 || D > WMAX_D || D % 8 || H * nct > 65535 ||
+  const int nct = (D + nc - 1) / nc, DP = (D + WCH - 1) / WCH * WCH;
+  const bool os = omode == 0 ? wide_owned_streamed(DP, dq != nullptr) : omode == 2;
+  if (B < 1 || H < 1 || T < 1 || D <= 128 || D % 8 || H * nct > 65535 || omode < 0 || omode > 2 ||
+      (dq != nullptr ? dq_smem(DP, os) : dkv_smem(DP, os)) > WSMEM_MAX ||
       (dq == nullptr) == (dk == nullptr || dv == nullptr) || (nc != 128 && (nc != 192 || D > 192 || dq == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides sx{sx_b, sx_h, sx_t}, so{so_b, so_h, so_t};
@@ -354,27 +407,29 @@ int attend_bwd_wide(const void* q, const void* k, const void* v, const void* dou
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dq != nullptr) {
     auto o = static_cast<bf16*>(dq);
-    const cudaError_t e = nc == 192 ? launch_dq<192>(qp, kp, vp, sx, gp, so, lp, dl, mp, o, B, T, H, D, scale, s)
-                                    : launch_dq<128>(qp, kp, vp, sx, gp, so, lp, dl, mp, o, B, T, H, D, scale, s);
+    const cudaError_t e =
+        nc == 192 ? (os ? launch_dq<192, true>(qp, kp, vp, sx, gp, so, lp, dl, mp, o, B, T, H, D, scale, s)
+                        : launch_dq<192, false>(qp, kp, vp, sx, gp, so, lp, dl, mp, o, B, T, H, D, scale, s))
+                  : (os ? launch_dq<128, true>(qp, kp, vp, sx, gp, so, lp, dl, mp, o, B, T, H, D, scale, s)
+                        : launch_dq<128, false>(qp, kp, vp, sx, gp, so, lp, dl, mp, o, B, T, H, D, scale, s));
     return static_cast<int>(e);
   }
-  const size_t smem = dkv_smem((D + WCH - 1) / WCH * WCH);
-  cudaError_t e = cudaFuncSetAttribute(wide_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  wide_bwd_dkv_kernel<<<dim3((T + WR - 1) / WR, H * nct, B), WTHREADS, smem, s>>>(
-      qp, kp, vp, sx, gp, so, lp, dl, mp, static_cast<bf16*>(dk), static_cast<bf16*>(dv), T, H, D, nct, scale);
-  return static_cast<int>(cudaGetLastError());
+  auto k_ = static_cast<bf16*>(dk), v_ = static_cast<bf16*>(dv);
+  const cudaError_t e = os ? launch_dkv<true>(qp, kp, vp, sx, gp, so, lp, dl, mp, k_, v_, B, T, H, D, scale, s)
+                           : launch_dkv<false>(qp, kp, vp, sx, gp, so, lp, dl, mp, k_, v_, B, T, H, D, scale, s);
+  return static_cast<int>(e);
 }
 
-// Either kernel on its own, with its column tile chosen by the caller
-// (profile_slice.py --attn-wide-tiles reads each): q, k, v, dout, dq, dk
-// and dv [B, H, T, D] bf16 (contiguous), lse and delta [B, H, T] f32, mask
-// [B, T] f32 (1 = attend); dq, or dk and dv, null; nc 128 (dK/dV's only
-// tile), 192 (dQ at D ≤ 192) or 0 (dq_nc's rule).
+// Either kernel on its own, with its column tile and the owned tiles'
+// place chosen by the caller (profile_slice.py --attn-wide-tiles reads
+// each): q, k, v, dout, dq, dk and dv [B, H, T, D] bf16 (contiguous), lse
+// and delta [B, H, T] f32, mask [B, T] f32 (1 = attend); dq, or dk and dv,
+// null; nc 128 (dK/dV's only tile), 192 (dQ at D ≤ 192) or 0 (dq_nc's
+// rule); omode 0 (the rule), 1 (resident) or 2 (streamed).
 extern "C" int msa_attention_bwd_wide(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                                       const void* delta, const void* mask, void* dq, void* dk, void* dv, int B, int T,
-                                      int H, int D, int nc, float scale, void* stream) {
+                                      int H, int D, int nc, int omode, float scale, void* stream) {
   const int sb = H * T * D, sh = T * D;
   return attend_bwd_wide(q, k, v, dout, lse, delta, mask, dq, dk, dv, B, T, H, D, sb, sh, D, sb, sh, D, scale, stream,
-                         nc);
+                         nc, omode);
 }

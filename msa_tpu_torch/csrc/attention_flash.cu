@@ -159,7 +159,7 @@ cudaError_t launch_flash(const bf16* q, const bf16* k, const bf16* v, Strides li
 }  // namespace
 
 // qkv [B, T, 3, H, D] bf16 (contiguous), mask [B, T] f32 (1 = attend);
-// out [B, T, H·D] bf16, lse [B, H, T] f32. Any T ≥ 1; D % 8 == 0, D ≤ 512
+// out [B, T, H·D] bf16, lse [B, H, T] f32. Any T ≥ 1; D % 8 == 0
 // (above 128 through attend_wide_mma, attention_wide_mma.cu).
 extern "C" int msa_flash_attention(const void* qkv, const void* mask, void* out, void* lse, int B, int T, int H,
                                    int D, float scale, void* stream) {

@@ -278,7 +278,7 @@ int attend_f32(const void* q, const void* k, const void* v, int sb, int sh, int 
 
 // q, k, v, out [B, H, T, D] (contiguous; bf16 when is_bf16, else f32),
 // mask [B, T] f32 (1 = attend); lse [B, H, T] f32. Any T ≥ 1; D % 8 == 0
-// (the wrapper zero-pads D; above 128 through attend_wide_mma in bf16, ≤ 512,
+// (the wrapper zero-pads D; above 128 through attend_wide_mma in bf16
 // and attend_wide in f32).
 extern "C" int msa_fused_attention(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse,
                                    int B, int T, int H, int D, int is_bf16, float scale, void* stream) {

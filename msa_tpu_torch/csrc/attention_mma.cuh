@@ -321,12 +321,14 @@ int attend_wide(const void* q, const void* k, const void* v, int sb, int sh, int
 // bf16 attention above head dim 128 on the tensor cores, the bf16 forward
 // rows' path there (attention_wide_mma.cu), rounding to bf16 in ``order``
 // (kNormBefore, kUnnormalised, kOnline128). q, k and v by element strides
-// (sb, sh, st), o by (ob, oh, ot); lse may be null. 128 < D ≤ 512, D % 8 ==
-// 0, any T. nc: the column tile of o (128 or 192; 0 picks it by D and the
-// grid, wide_nc). Returns a cudaError_t.
+// (sb, sh, st), o by (ob, oh, ot); lse may be null. D > 128, D % 8 == 0,
+// any T. nc: the column tile of o (128 or 192; 0 picks it by D and the
+// grid, wide_nc); qmode: Q's tile resident in shared memory (1) or
+// streamed through the ring (2), 0 picks it by D (wide_q_streamed).
+// Returns a cudaError_t.
 int attend_wide_mma(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out,
                     int ob, int oh, int ot, void* lse, int B, int T, int H, int D, float scale, int order, int nc,
-                    void* stream);
+                    void* stream, int qmode = 0);
 
 // The D-tiled SIMT backward on f32 operands (attention_bwd_f32.cu): rows 3
 // (dq non-null) and 4 (dk and dv non-null) at any D. Arguments as
@@ -337,10 +339,12 @@ int attend_bwd_simt(const void* q, const void* k, const void* v, const void* dou
 
 // The bf16 backward above head dim 128 on the tensor cores
 // (attention_bwd_wide.cu): row 3 (dq non-null) or row 4 (dk and dv
-// non-null). Arguments as msa_attention_bwd_dq/dkv; 128 < D ≤ 512, D % 8
-// == 0, any T; nc: the column tile (128, or 192 for dQ at D ≤ 192; 0
-// picks it by D and the grid, dq_nc). Returns a cudaError_t.
+// non-null). Arguments as msa_attention_bwd_dq/dkv; D > 128, D % 8 == 0,
+// any T; nc: the column tile (128, or 192 for dQ at D ≤ 192; 0 picks it
+// by D and the grid, dq_nc); omode: the owned rows' tiles resident in
+// shared memory (1) or streamed through the ring (2), 0 streams them only
+// where they do not fit (wide_owned_streamed). Returns a cudaError_t.
 int attend_bwd_wide(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                     const void* delta, const void* mask, void* dq, void* dk, void* dv, int B, int T, int H, int D,
                     int sx_b, int sx_h, int sx_t, int so_b, int so_h, int so_t, float scale, void* stream,
-                    int nc = 0);
+                    int nc = 0, int omode = 0);

@@ -38,18 +38,27 @@
 // operations, so the tensor cores have to be fed.
 //
 // The design: one block per (64-query tile, NC-column tile of o, head,
-// batch row), 4 warps of 16 query rows. Q's [64 × D] tile stays in shared
-// memory (rows of DP + 8, DP = D rounded up to 64: 65 KB at D = 512) and
-// gives each 64-column chunk's A fragments (ldmatrix) as the scores need
-// them. K and V come through ONE ring of three stages of [128 keys × 64
-// columns] (18 KB each), filled by cp.async two steps ahead: a key tile's
-// scores take D/64 steps (K's chunks; S accumulates in registers over
-// them), its P·V NC/64 steps (V's chunks of the block's column tile; P is
-// reused from the score registers as the A operand, FlashAttention-2's
-// register reuse). One barrier a step. The key mask of a tile comes with
-// its first K chunk, into a two-tile buffer. o stays in registers (NC/2
-// floats a thread) and leaves by 4-byte stores; the lse by the block of
-// column tile 0.
+// batch row), 4 warps of 16 query rows. K and V come through ONE ring of
+// three stages of [128 keys × 64 columns] (18 KB each), filled by cp.async
+// two steps ahead: a key tile's scores take D/64 steps (K's chunks; S
+// accumulates in registers over them), its P·V NC/64 steps (V's chunks of
+// the block's column tile; P is reused from the score registers as the A
+// operand, FlashAttention-2's register reuse). One barrier a step. Q's
+// [64 × D] tile is held one of two ways (QS):
+// - resident: in shared memory for the block's life (rows of DP + 8, DP =
+//   D rounded up to 64: 65 KB at D = 512, 99 KB at 768), giving each
+//   64-column chunk's A fragments (ldmatrix) as the scores need them;
+// - streamed: Q's 64-column chunk rides in the ring beside the K chunk of
+//   the same columns ([64 × 64] more a stage, 27 KB), read again from L2
+//   for every key tile; shared memory no longer grows with D, so any D.
+// wide_q_streamed picks one by D: resident up to D = 512, where it read
+// 2–7% faster in the two-pass orders at D = 192 and 256 on an H100
+// (profile_slice.py --attn-wide-tiles, PERF.md §6), streamed above, where
+// a resident tile leaves one block an SM: at B=2 T=512 H=2 D=640 (160
+// blocks) streamed read 1.5× faster in every order.
+// The key mask of a tile comes with its first K chunk, into a two-tile
+// buffer. o stays in registers (NC/2 floats a thread) and leaves by 4-byte
+// stores; the lse by the block of column tile 0.
 // The column tile NC (wide_nc): one tile of 192 columns for D ≤ 192, the
 // scores formed once a pass, unless that grid fills at most half of the
 // 132 SMs; else tiles of 128, which double the grid and form the scores
@@ -59,8 +68,8 @@
 // blocks at 192) 128 runs 1.1× faster. A 256-column tile (one tile up to D
 // = 256) held 128 accumulator floats a thread at 255 registers with
 // spills in two of the three orders, and read no faster than 192 at D =
-// 192: not built. Shared memory at D = 192: 80 KB a block (2 blocks an
-// SM); at D = 512: 121 KB (1).
+// 192: not built. Shared memory with Q resident: 80 KB a block at D = 192
+// (2 blocks an SM), 121 KB at D = 512 (1); streamed: 83 KB at any D (2).
 #include "attention_mma.cuh"
 
 namespace {
@@ -71,13 +80,21 @@ constexpr int MC = 64;         // columns a ring stage holds, of K or V
 constexpr int MLD = MC + 8;    // row of a ring stage: 8 distinct 16-byte bank groups for ldmatrix
 constexpr int MSTAGES = 3;     // ring stages; copies run two steps ahead
 constexpr int MTHREADS = 128;  // 4 warps
-constexpr int MAX_D = 512;
+constexpr int SMEM_MAX = 232448;  // the shared memory a block can have on an H100
+// Q stays resident up to this D and is streamed above it
+constexpr int WIDE_Q_RESIDENT_MAX_D = 512;
 
-size_t wide_mma_smem(int dp) {
-  return (size_t)MQ * (dp + 8) * sizeof(bf16)           // sQ
-         + (size_t)MSTAGES * MK * MLD * sizeof(bf16)    // the ring
-         + (size_t)2 * MK * sizeof(float);              // the key mask of two tiles
+// a ring stage: K's or V's chunk [MK × MLD], and Q's chunk [MQ × MLD]
+// beside each K chunk where Q is streamed
+__host__ __device__ constexpr int wide_stage(bool qs) { return (MK + (qs ? MQ : 0)) * MLD; }
+
+size_t wide_mma_smem(int dp, bool qs) {
+  return (qs ? 0 : (size_t)MQ * (dp + 8) * sizeof(bf16))       // sQ, where resident
+         + (size_t)MSTAGES * wide_stage(qs) * sizeof(bf16)     // the ring
+         + (size_t)2 * MK * sizeof(float);                     // the key mask of two tiles
 }
+
+bool wide_q_streamed(int D) { return D > WIDE_Q_RESIDENT_MAX_D; }
 
 // The column tile where the caller leaves it open: one tile of 192 columns
 // for D ≤ 192 (the scores formed once a pass), unless that grid would
@@ -87,18 +104,19 @@ int wide_nc(int B, int T, int H, int D) {
   return D <= 192 && 2 * one_tile > 132 ? 192 : 128;
 }
 
-template <int NC, int ORDER>
+template <int NC, int ORDER, bool QS>
 __global__ void __launch_bounds__(MTHREADS)
 wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, Strides lin,
                 const float* __restrict__ mask, bf16* __restrict__ out, Strides lout, float* __restrict__ lse, int T,
                 int H, int D, int nct, float scale) {
   constexpr int NPASS = ORDER == kOnline128 ? 1 : 2;
   constexpr int NVC = NC / MC;  // V chunks of a full column tile
+  constexpr int STAGE = wide_stage(QS);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int DP = (D + MC - 1) / MC * MC, LDQ = DP + 8;
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);                      // [MQ × LDQ]
-  bf16* sR = sQ + MQ * LDQ;                                          // [MSTAGES][MK × MLD]
-  float* sMask = reinterpret_cast<float*>(sR + MSTAGES * MK * MLD);  // [2][MK]
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);                    // [MQ × LDQ], where resident
+  bf16* sR = sQ + (QS ? 0 : MQ * LDQ);                             // [MSTAGES][STAGE]
+  float* sMask = reinterpret_cast<float*>(sR + MSTAGES * STAGE);  // [2][MK]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * MQ, h = blockIdx.y / nct, c0 = (blockIdx.y % nct) * NC, b = blockIdx.z;
@@ -109,8 +127,9 @@ wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
   const int per1 = nkc, per2 = nkc + nvc, steps1 = (NPASS - 1) * nkt * per1, steps = steps1 + nkt * per2;
 
   // step s's copy into stage s % MSTAGES: K's chunk c (columns 64c) of key
-  // tile j, with the tile's key mask at c = 0, or V's chunk of the block's
-  // columns c0 + 64(c − nkc); an empty group past the last step
+  // tile j, with the tile's key mask at c = 0 (and Q's chunk c, where
+  // streamed), or V's chunk of the block's columns c0 + 64(c − nkc); an
+  // empty group past the last step
   auto issue = [&](int s) {
     if (s < steps) {
       int g, c;  // g: the tile's index over both passes (its mask buffer g & 1)
@@ -122,8 +141,9 @@ wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
         c = (s - steps1) % per2;
       }
       const int t0 = (g % nkt) * MK, col = c < nkc ? c * MC : c0 + (c - nkc) * MC;
-      load_tile_async<MK, MC, MTHREADS>(sR + (s % MSTAGES) * MK * MLD, (c < nkc ? k : v) + col, lin, b, h, t0, T,
-                                        D - col, tid);
+      bf16* dst = sR + (s % MSTAGES) * STAGE;
+      load_tile_async<MK, MC, MTHREADS>(dst, (c < nkc ? k : v) + col, lin, b, h, t0, T, D - col, tid);
+      if (QS && c < nkc) load_tile_async<MQ, MC, MTHREADS>(dst + MK * MLD, q + col, lin, b, h, q0, T, D - col, tid);
       if (c == 0) load_vec_async<MK, MTHREADS>(sMask + (g & 1) * MK, mrow, t0, T, tid);
     }
     cp_async_commit();
@@ -136,18 +156,22 @@ wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
     cp_async_wait<1>();
     __syncthreads();
     issue(step + 2);
-    return sR + (step++ % MSTAGES) * MK * MLD;
+    return sR + (step++ % MSTAGES) * STAGE;
   };
 
-  for (int i = tid; i < MQ * (DP / 8); i += MTHREADS) {  // Q, zeros past D and T, lands with step 0
-    const int r = i / (DP / 8), c = (i % (DP / 8)) * 8, t = q0 + r;
-    const bool ok = t < T && c < D;
-    cp_async16(sQ + r * LDQ + c, ok ? q + lin.at(b, h, t) + c : q, ok);
+  if constexpr (!QS) {
+    for (int i = tid; i < MQ * (DP / 8); i += MTHREADS) {  // Q, zeros past D and T, lands with step 0
+      const int r = i / (DP / 8), c = (i % (DP / 8)) * 8, t = q0 + r;
+      const bool ok = t < T && c < D;
+      cp_async16(sQ + r * LDQ + c, ok ? q + lin.at(b, h, t) + c : q, ok);
+    }
   }
   issue(0);
   issue(1);
 
-  const bf16* sQw = sQ + warp * 16 * LDQ + (lane & 15) * LDQ + ((lane >> 4) << 3);  // the lane's ldmatrix row
+  // the lane's ldmatrix row of Q: in sQ, or in a stage's Q chunk
+  const int qrow = warp * 16 + (lane & 15), qcol = (lane >> 4) << 3;
+  const bf16* sQw = sQ + qrow * LDQ + qcol;
   // s = Q·Kᵀ·scale + bias over key tile g (the scores summed over D in
   // nkc steps, 64 columns each)
   auto scores = [&](float (&s)[MK / 8][4], int g) {
@@ -155,9 +179,10 @@ wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
     for (int n = 0; n < MK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
     for (int c = 0; c < nkc; ++c) {
       const bf16* st = arrive();
+      const bf16* qw = QS ? st + (MK + qrow) * MLD + qcol : sQw + c * MC;
       uint32_t qf[MC / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < MC / 16; ++kk) ldsm_x4(qf[kk], sQw + c * MC + kk * 16);
+      for (int kk = 0; kk < MC / 16; ++kk) ldsm_x4(qf[kk], qw + kk * 16);
       tile_dots_acc<MK, MC, MLD>(s, qf, st, lane);
     }
     score_epilogue<MK>(s, sMask + (g & 1) * MK, scale, lane);
@@ -276,12 +301,12 @@ wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
   }
 }
 
-template <int NC, int ORDER>
+template <int NC, int ORDER, bool QS>
 cudaError_t launch_wide_mma(const bf16* q, const bf16* k, const bf16* v, Strides lin, const float* mask, bf16* out,
                             Strides lout, float* lse, int B, int T, int H, int D, float scale, cudaStream_t s) {
   const int nct = (D + NC - 1) / NC;
-  const size_t smem = wide_mma_smem((D + MC - 1) / MC * MC);
-  auto kernel = wide_mma_kernel<NC, ORDER>;
+  const size_t smem = wide_mma_smem((D + MC - 1) / MC * MC, QS);
+  auto kernel = wide_mma_kernel<NC, ORDER, QS>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   kernel<<<dim3((T + MQ - 1) / MQ, H * nct, B), MTHREADS, smem, s>>>(q, k, v, lin, mask, out, lout, lse, T, H, D, nct,
@@ -289,22 +314,25 @@ cudaError_t launch_wide_mma(const bf16* q, const bf16* k, const bf16* v, Strides
   return cudaGetLastError();
 }
 
-template <int NC>
+template <int NC, bool QS>
 cudaError_t launch_order(int order, const bf16* q, const bf16* k, const bf16* v, Strides lin, const float* mask,
                          bf16* out, Strides lout, float* lse, int B, int T, int H, int D, float scale, cudaStream_t s) {
-  return order == kNormBefore      ? launch_wide_mma<NC, kNormBefore>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s)
-         : order == kUnnormalised ? launch_wide_mma<NC, kUnnormalised>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s)
-                                  : launch_wide_mma<NC, kOnline128>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s);
+  return order == kNormBefore      ? launch_wide_mma<NC, kNormBefore, QS>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s)
+         : order == kUnnormalised ? launch_wide_mma<NC, kUnnormalised, QS>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s)
+                                  : launch_wide_mma<NC, kOnline128, QS>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s);
 }
 
 }  // namespace
 
+// qmode: 0 wide_q_streamed's rule, 1 Q resident (where it fits), 2 streamed
 int attend_wide_mma(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out,
                     int ob, int oh, int ot, void* lse, int B, int T, int H, int D, float scale, int order, int nc,
-                    void* stream) {
+                    void* stream, int qmode) {
   if (nc == 0) nc = wide_nc(B, T, H, D);
-  if (B < 1 || H < 1 || T < 1 || D <= 128 || D > MAX_D || D % 8 || (nc != 128 && nc != 192) ||
-      H * ((D + nc - 1) / nc) > 65535 || order < kNormBefore || order > kOnline128)
+  const bool qs = qmode == 0 ? wide_q_streamed(D) : qmode == 2;
+  if (B < 1 || H < 1 || T < 1 || D <= 128 || D % 8 || (nc != 128 && nc != 192) || qmode < 0 || qmode > 2 ||
+      wide_mma_smem((D + MC - 1) / MC * MC, qs) > SMEM_MAX || H * ((D + nc - 1) / nc) > 65535 ||
+      order < kNormBefore || order > kOnline128)
     return static_cast<int>(cudaErrorInvalidValue);
   auto qp = static_cast<const bf16*>(q), kp = static_cast<const bf16*>(k), vp = static_cast<const bf16*>(v);
   auto m = static_cast<const float*>(mask);
@@ -312,19 +340,23 @@ int attend_wide_mma(const void* q, const void* k, const void* v, int sb, int sh,
   auto l = static_cast<float*>(lse);
   const Strides lin{sb, sh, st}, lout{ob, oh, ot};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = nc == 128 ? launch_order<128>(order, qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s)
-                                  : launch_order<192>(order, qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s);
+  const cudaError_t e =
+      nc == 128 ? (qs ? launch_order<128, true>(order, qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s)
+                      : launch_order<128, false>(order, qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s))
+                : (qs ? launch_order<192, true>(order, qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s)
+                      : launch_order<192, false>(order, qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s));
   return static_cast<int>(e);
 }
 
-// The kernel on its own, with its column tile chosen by the caller
-// (profile_slice.py --attn-wide-tiles reads each): q, k, v and o
+// The kernel on its own, with its column tile and Q's place chosen by the
+// caller (profile_slice.py --attn-wide-tiles reads each): q, k, v and o
 // [B, H, T, D] bf16 (contiguous), mask [B, T] f32 (1 = attend), lse
 // [B, H, T] f32 or null; order kNormBefore (0), kUnnormalised (1) or
-// kOnline128 (2); nc 128 or 192 (0: wide_nc's rule).
+// kOnline128 (2); nc 128 or 192 (0: wide_nc's rule); qmode 0 (the rule),
+// 1 (Q resident) or 2 (streamed).
 extern "C" int msa_attention_wide_mma(const void* q, const void* k, const void* v, const void* mask, void* out,
-                                      void* lse, int B, int T, int H, int D, int order, int nc, float scale,
+                                      void* lse, int B, int T, int H, int D, int order, int nc, int qmode, float scale,
                                       void* stream) {
   const int sb = H * T * D, sh = T * D;
-  return attend_wide_mma(q, k, v, sb, sh, D, mask, out, sb, sh, D, lse, B, T, H, D, scale, order, nc, stream);
+  return attend_wide_mma(q, k, v, sb, sh, D, mask, out, sb, sh, D, lse, B, T, H, D, scale, order, nc, stream, qmode);
 }

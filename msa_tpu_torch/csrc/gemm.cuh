@@ -1,29 +1,19 @@
 // Shared pieces of the port's CUDA kernels: the cp.async helpers (16 and 4
 // bytes, zero-filling where the predicate is false), the
 // A&S 7.1.26 erf that the TPU FFN kernel uses and its GELU, warp
-// reductions, the strides the attention kernels address q, k and v by,
-// and the WMMA tile constants of row 11's bf16 convolution
-// (conv_stride2.cu: 128 × 128 tiles, K in steps of 32, 8 warps of 64 × 32).
+// reductions and the strides the attention kernels address q, k and v by.
 // The bf16 GEMM of rows 8 and 10 is gemm_bf16.cuh (wgmma), the int8 one of
-// rows 7 and 9 gemm_s8.cuh, the f32 one gemm_f32.cuh.
+// rows 7 and 9 gemm_s8.cuh, the f32 one gemm_f32.cuh; row 11's bf16
+// convolution is conv_stride2.cu (wgmma fed by TMA, wgmma.cuh's helpers).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
-
-// row 11's WMMA tiles (conv_stride2.cu)
-constexpr int GBM = 128;          // block tile rows
-constexpr int GBN = 128;          // block tile columns
-constexpr int GBK = 32;           // k depth per stage
-constexpr int GLD = GBK + 8;      // padded smem row (bf16), 80 bytes
-constexpr int GTHREADS = 256;     // 8 warps as 2 (m) × 4 (n), 64×32 each
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));

@@ -11,7 +11,14 @@
 // descriptor's start address moves 32 bytes along a swizzle row per step,
 // and the same byte layout serves both types. Rows past M and chunks past
 // K are zero-filled (src-size 0): any M, and K a multiple of 16 bytes.
+//
+// The TMA and mbarrier pieces at the end feed the same descriptors from a
+// producer warp instead (row 11's convolution, conv_stride2.cu): a TMA
+// load in the 128-byte swizzle writes a box of 64 bf16 columns exactly as
+// load_k_tile does.
 #pragma once
+
+#include <cuda.h>  // CUtensorMap
 
 #include "gemm.cuh"
 
@@ -144,6 +151,72 @@ cudaError_t wg_smem_attr(Kernel kernel, int bytes, unsigned& done) {
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e == cudaSuccess) done |= 1u << dev;
   return e;
+}
+
+// --- TMA and mbarriers (sm_90) ---------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+// makes the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_fence_init() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// this thread's arrival, and `bytes` more of transactions the phase waits for
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// until the phase of parity `parity` has completed. A wait that outlasts
+// 2^34 cycles (about 9 s) traps: a lost arrival ends the launch with an
+// error instead of holding the card.
+__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(addr, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+// a box of the tensor map `map` (a __grid_constant__ kernel parameter) at
+// element coordinates (c0, c1[, c2]), innermost first, into shared memory
+// at dst, completing on bar; coordinates past the map's dims read zeros
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+// hand registers between warpgroups (every warp of the warpgroup runs it)
+template <int N>
+__device__ __forceinline__ void regs_dec() { asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N)); }
+template <int N>
+__device__ __forceinline__ void regs_inc() { asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N)); }
+// a barrier of `threads` threads (a warpgroup) on hardware barrier `id` (1–15; 0 is __syncthreads')
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 }  // namespace

@@ -71,9 +71,9 @@ all padded rows, as on the TPU; the lse is ``max + log(denom)`` in f32.
 Any D: a D that is not a multiple of 8 is zero-padded on the card
 (:func:`_pad_head_dim`), as JAX pads D, with the scale of the unpadded D.
 Above D = 128 every bf16 forward row (1, 2, 5, 6, 7, 8) runs the
-tensor-core kernel of ``csrc/attention_wide_mma.cu`` (D ≤ 512; Q's tile in
-shared memory, K and V through a ring of 64-column chunks, 128- or
-192-column tiles of o) and every f32 one the D-tiled SIMT kernel of
+tensor-core kernel of ``csrc/attention_wide_mma.cu`` (any D: Q's tile in
+shared memory up to D = 512 and streamed beside K above it, K and V
+through a ring of 64-column chunks, 128- or 192-column tiles of o) and every f32 one the D-tiled SIMT kernel of
 ``csrc/attention_wide.cu``; both round where each row's kernel rounds.
 Each wrapper counts such a bf16 launch in :data:`wide_mma` beside its own
 count.
@@ -102,7 +102,7 @@ f32 training step, ``compute_dtype="float32"``) the backward runs
 at D ≤ 64 (every served f32 shape) one pass computes dq, dk and dv in one
 launch, :func:`attention_bwd_onepass`, on the grid of
 :func:`attention_bwd_plan.plan`; above it the two entries run that file's
-D-tiled SIMT kernels. In bf16 above D = 128 (up to 512) the two entries
+D-tiled SIMT kernels. In bf16 above D = 128 (any D) the two entries
 run the tensor-core pair of ``csrc/attention_bwd_wide.cu``, counted in
 :data:`wide_bwd_dq` and :data:`wide_bwd_dkv` beside ``launches``. Two
 ``torch.autograd.Function`` wrappers run
@@ -131,7 +131,6 @@ from msa_tpu_torch.ops.kernels.quant import quantize_rows
 LANE = 128
 SINGLE_PASS_MAX_T = 512
 BLOCK_HEAD_DIMS = (32, 64, 128)  # the attention_block core's DP up to 128; above, multiples of 128
-WIDE_MMA_MAX_D = 512  # the bf16 tensor-core kernels above D = 128 take D ≤ 512 (their shared memory)
 
 
 class _Launches:
@@ -148,15 +147,10 @@ class _Launches:
 wide_mma, wide_bwd_dq, wide_bwd_dkv = _Launches(), _Launches(), _Launches()
 
 
-def _wide(d: int, dtype: torch.dtype, what: str) -> bool:
+def _wide(d: int, dtype: torch.dtype) -> bool:
     """Whether a launch at head dim ``d`` (a multiple of 8) in ``dtype``
-    runs the bf16 tensor-core kernels above D = 128; raises above their
-    D."""
-    if dtype != torch.bfloat16 or d <= 128:
-        return False
-    if d > WIDE_MMA_MAX_D:
-        raise ValueError(f"{what} kernel in bf16 takes head dims up to {WIDE_MMA_MAX_D}, got {d}")
-    return True
+    runs the bf16 tensor-core kernels above D = 128 (any D)."""
+    return dtype == torch.bfloat16 and d > 128
 
 
 def block_head_dim(d: int) -> int:
@@ -294,7 +288,7 @@ def attention_block(
     b, t, dm = x.shape
     bf16 = torch.bfloat16
     xp, mask_p, t_pad, dp = _block_checks(x, w_qkv, b_qkv, w_out, b_out, key_mask, num_heads, "attention_block", bf16)
-    wide = _wide(dp, bf16, "attention_block")
+    wide = _wide(dp, bf16)
     dev, hd = x.device, num_heads * dp
     qkv = torch.empty((b * t_pad, 3 * hd), dtype=bf16, device=dev)
     attn = torch.empty((b * t_pad, hd), dtype=bf16, device=dev)
@@ -402,7 +396,7 @@ def attention_block_int8(
         ("key_mask", mask_p, f32, (b, t_pad)),
     ):
         require(tens, name, dtype, shape, dev)
-    wide = _wide(dp, dt, "attention_block_int8")
+    wide = _wide(dp, dt)
     m = b * t_pad
     xq = torch.empty((m, dm), dtype=i8, device=dev)
     aq = torch.empty((m, hd), dtype=i8, device=dev)
@@ -526,7 +520,7 @@ def _launch_packed(entry: str, what: str, qkv: torch.Tensor, key_mask: torch.Ten
     dp = qkv_p.shape[-1]
     require(qkv_p, "qkv", dtype, (b, t, 3, h, dp), dev)
     require(key_mask, "key_mask", torch.float32, (b, t), dev)
-    wide = _wide(dp, dtype, what)
+    wide = _wide(dp, dtype)
     o = torch.empty((b, t, h * dp), dtype=dtype, device=dev)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -648,7 +642,7 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: t
     for name, x in (("q", q), ("k", k), ("v", v)):
         require(x, name, dtype, (b, h, t, dp), dev)
     require(key_mask, "key_mask", torch.float32, (b, t), dev)
-    wide = _wide(dp, dtype, "mha_attention")
+    wide = _wide(dp, dtype)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -699,7 +693,7 @@ def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_m
         require(x, name, q.dtype, (b, h, t, d_pad), dev)
     key_mask = key_mask.float().contiguous()
     require(key_mask, "key_mask", torch.float32, (b, t), dev)
-    wide = _wide(d_pad, q.dtype, "fused_attention")
+    wide = _wide(d_pad, q.dtype)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -816,7 +810,7 @@ def _launch_bwd_kernel(fn, wide_count, entry: str, q, k, v, g, lse, delta, key_m
     f32 = q.dtype == torch.float32
     name = entry + "_f32" if f32 else entry
     args = _bwd_args(q, k, v, g, lse, delta, key_mask, outs, scale)
-    wide = _wide(q.shape[-1], q.dtype, fn.__name__)
+    wide = _wide(q.shape[-1], q.dtype)
     rc = getattr(build.library(), name)(*args)
     build.check(rc, fn.__name__ + ("_f32" if f32 else ""))
     if f32:

@@ -91,13 +91,15 @@ _SIGNATURES = {
     # q, k, v, mask, o, lse, B, T, H, D, is_bf16, scale, stream
     "msa_fused_attention": (_P,) * 6 + (_I,) * 5 + (_F, _P),
     # the bf16 forward above D = 128 alone: q, k, v, mask, o, lse, B, T, H,
-    # D, order, column tile, scale, stream
-    "msa_attention_wide_mma": (_P,) * 6 + (_I,) * 6 + (_F, _P),
+    # D, order, column tile, Q's place (0 the rule, 1 resident, 2 streamed),
+    # scale, stream
+    "msa_attention_wide_mma": (_P,) * 6 + (_I,) * 7 + (_F, _P),
     # the bf16 backward kernels above D = 128 alone: q, k, v, dout, lse,
-    # delta, mask, dq, dk, dv, B, T, H, D, column tile, scale, stream
-    "msa_attention_bwd_wide": (_P,) * 10 + (_I,) * 5 + (_F, _P),
-    # bf16: x, w, out, B, L, C, C', k, gelu, stream
-    "msa_conv_stride2": (_P,) * 3 + (_I,) * 6 + (_P,),
+    # delta, mask, dq, dk, dv, B, T, H, D, column tile, the owned tiles'
+    # place (as Q's above), scale, stream
+    "msa_attention_bwd_wide": (_P,) * 10 + (_I,) * 6 + (_F, _P),
+    # bf16: x, wt [C', k·C], out, B, L, C, C', k, gelu, CTAs, stream
+    "msa_conv_stride2": (_P,) * 3 + (_I,) * 7 + (_P,),
 }
 
 

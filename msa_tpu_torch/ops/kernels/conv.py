@@ -5,7 +5,9 @@ Replaces the TPU kernel ``msa_tpu/ops/pallas/conv.py:conv_stride2_fused``
 (``pl.pallas_call`` at :111, body ``_conv_kernel`` :54-75). The CUDA
 kernel is ``msa_tpu_torch/csrc/conv_stride2.cu``; its note says why the
 conv is a GEMM over the input read with a row stride of 2C, and what
-bounds it on the card.
+bounds it on the card. In bf16 it is a persistent ``wgmma`` kernel fed by
+TMA (one CTA an SM, the count passed in), the weight taken as ``wt [C',
+k·C]`` (one strided copy a call, which is also the cast).
 
 Layouts are JAX's: ``x [B, L, C]``, ``w [k, C, C']`` (``nn.Conv``'s
 kernel), out ``[B, (L − k)//2 + 1, C']`` in x's dtype. The weight is cast
@@ -58,7 +60,8 @@ def conv_stride2_reference(x: torch.Tensor, w: torch.Tensor, apply_gelu: bool = 
 def conv_stride2_fused(x: torch.Tensor, w: torch.Tensor, apply_gelu: bool = True) -> torch.Tensor:
     """x [B, L, C] (f32 or bf16), w [k, C, C'] → [B, (L − k)//2 + 1, C'] in
     x's dtype. CPU tensors take :func:`conv_stride2_reference`; CUDA
-    tensors launch the kernel: bf16 ``msa_conv_stride2``, f32 the f32 GEMM
+    tensors launch the kernel: bf16 ``msa_conv_stride2`` (on ``wt [C',
+    k·C]``, the weight cast and transposed by one copy), f32 the f32 GEMM
     (``msa_gemm_f32`` on its w [K, N] path and the planner's plan, also
     counted in ``gemm_f32.launches``)."""
     if x.device.type == "cpu":
@@ -70,17 +73,19 @@ def conv_stride2_fused(x: torch.Tensor, w: torch.Tensor, apply_gelu: bool = True
     k, _, cout = w.shape
     dev = x.device
     x = x.contiguous()
-    w = w.to(x.dtype).contiguous()
     require(x, "x", x.dtype, (b, length, c), dev)
-    require(w, "w", x.dtype, (k, c, cout), dev)
     out = torch.empty((b, out_len, cout), dtype=x.dtype, device=dev)
     if x.dtype == torch.float32:  # output row i's taps start at input row 2i: A's row stride is 2C
+        w = w.to(x.dtype).contiguous()
+        require(w, "w", x.dtype, (k, c, cout), dev)
         p = GP.plan_f32(out_len, cout, k * c, batch=b, w_nk=False)
         GF.launch(x, w, None, out, out_len, cout, k * c, p, lda=2 * c, w_nk=False, batch=b, a_batch=length * c,
                   c_batch=out_len * cout, gelu=apply_gelu)
-    else:
+    else:  # wgmma reads B K-major: wt [C', k·C], cast and transposed by one copy
+        wt = torch.empty((cout, k * c), dtype=x.dtype, device=dev).copy_(w.reshape(k * c, cout).t())
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count  # the persistent grid: one CTA an SM
         rc = build.library().msa_conv_stride2(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), b, length, c, cout, k, int(apply_gelu),
+            x.data_ptr(), wt.data_ptr(), out.data_ptr(), b, length, c, cout, k, int(apply_gelu), sms,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         build.check(rc, "conv_stride2_fused")

@@ -28,7 +28,11 @@ backward in f32, TF32 off). ``--conv`` times instead the counterpart of
 extractor's six stride-2 layers, 512 → 512 channels, bf16, at ``--batch``
 (default 64), beside its plain version and cuDNN's bf16 ``F.conv1d`` (on
 the channels-first input, transposed once outside the timing; without the
-GELU), each the median of ``--steps`` CUDA-event timings. ``--asr``
+GELU), each the median of ``--steps`` CUDA-event timings, and the device
+time of the row's kernel (with and without its GELU) and of cuDNN's from
+the profiler's trace; two calls compared bit for bit. It times another
+tree of the package too (``PYTHONPATH=<tree> python3 -P
+msa_tpu_torch/profile_slice.py --conv``). ``--asr``
 profiles instead one ``transcribe_batch`` of the shipped whisper ASR on
 ``--batch`` (default 8) windows of ``tests/data/asr_clips.npz``.
 ``--gemm-s8`` times instead the int8 GEMM of rows 7 and 9 alone
@@ -295,20 +299,30 @@ def conv_layers(b: int, reps: int) -> int:
         flop = 2 * b * out_len * k * 512 * 512
         row = {
             "L": length, "k": k, "batch": b, "rel_err": rel,
+            "bit_equal": bool(torch.equal(got, conv_stride2_fused(x, w))),
             "kernel_ms": _event_ms(lambda: conv_stride2_fused(x, w), reps),
+            "device_ms": _device_ms(lambda: conv_stride2_fused(x, w), reps, "conv"),
+            "device_ms_no_gelu": _device_ms(lambda: conv_stride2_fused(x, w, False), reps, "conv"),
             "plain_ms": _event_ms(lambda: conv_stride2_reference(x, w), reps),
             "cudnn_ms": _event_ms(lambda: F.conv1d(x_ncw, w_oik, stride=2), reps),
+            "cudnn_device_ms": _device_ms(lambda: F.conv1d(x_ncw, w_oik, stride=2), reps),
             "bound_ms": 1e3 * max(flop / 989e12, 2 * (b * length * 512 + k * 512 * 512 + b * out_len * 512) / 3.35e12),
         }
         rows.append(row)
-        print(f"L={length:6d} k={k}  kernel {row['kernel_ms']:8.3f} ms ({flop / row['kernel_ms'] / 1e9:6.1f} TFLOP/s)"
-              f"  plain {row['plain_ms']:8.3f}  cudnn {row['cudnn_ms']:8.3f} ms ({flop / row['cudnn_ms'] / 1e9:6.1f} TFLOP/s)"
-              f"  bound {row['bound_ms']:.4f}  rel_err {rel:.2e}", flush=True)
+        print(f"L={length:6d} k={k}  kernel {row['kernel_ms']:8.4f} ms (call; device {row['device_ms']:8.4f}, "
+              f"{flop / row['device_ms'] / 1e9:6.1f} TFLOP/s)  plain {row['plain_ms']:8.3f}  cudnn {row['cudnn_ms']:8.4f} ms "
+              f"(call; device {row['cudnn_device_ms']:8.4f}, {flop / row['cudnn_device_ms'] / 1e9:6.1f} TFLOP/s)"
+              f"  bound {row['bound_ms']:.4f}  rel_err {rel:.2e}  bit_equal {row['bit_equal']}  without the GELU: "
+              f"device {row['device_ms_no_gelu']:.4f}", flush=True)
         del x, w, got, want, x_ncw
-    total = {key: sum(r[key] for r in rows) for key in ("kernel_ms", "plain_ms", "cudnn_ms", "bound_ms")}
-    print(f"TOTAL stride-2 layers: kernel {total['kernel_ms']:.3f} ms  cudnn {total['cudnn_ms']:.3f} ms  "
-          f"bound {total['bound_ms']:.4f} ms", flush=True)
-    print(json.dumps({"conv": rows, "total": total, "device": torch.cuda.get_device_name(0)}), flush=True)
+    keys = ("kernel_ms", "device_ms", "device_ms_no_gelu", "plain_ms", "cudnn_ms", "cudnn_device_ms", "bound_ms")
+    total = {key: sum(r[key] for r in rows) for key in keys}
+    print(f"TOTAL stride-2 layers: kernel {total['kernel_ms']:.4f} ms (device {total['device_ms']:.4f})  cudnn "
+          f"{total['cudnn_ms']:.4f} ms (device {total['cudnn_device_ms']:.4f})  bound {total['bound_ms']:.4f} ms", flush=True)
+    import msa_tpu_torch
+
+    print(json.dumps({"conv": rows, "total": total, "package": str(Path(msa_tpu_torch.__file__).parent),
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 
 
@@ -622,6 +636,10 @@ WIDE_FWD = ((2, 512, 4, 192), (2, 512, 3, 256))
 WIDE_FLASH = ((2, 749, 4, 192),)
 WIDE_BWD = ((8, 512, 4, 192), (8, 512, 3, 256))
 WIDE_TINY = tuple((2, 100, 2, d) for d in (160, 192, 256))
+# above D = 512, where Q's (and the backward's owned) tiles stream by the
+# rule: d_model 1280 with 2 heads, 768 and 1024 with one
+WIDE_BIG_FWD = ((2, 512, 2, 640), (2, 512, 1, 768), (2, 512, 1, 1024))
+WIDE_BIG_BWD = tuple((8, t, h, d) for _, t, h, d in WIDE_BIG_FWD)
 
 
 def _wide_mask(b: int, t: int) -> torch.Tensor:
@@ -653,7 +671,13 @@ def attention_wide_rows(reps: int) -> int:
     rows = []
 
     def run(name, fn, plain, only, flop):
-        got, want = fn(), plain()
+        try:
+            got = fn()
+        except ValueError as e:  # a tree whose wrappers refuse this D
+            rows.append({"case": name, "refused": str(e)})
+            print(f"{name}: refused ({e})", flush=True)
+            return
+        want = plain()
         row = {"case": name, "device_ms": _device_ms(fn, reps, only), "call_ms": _event_ms(fn, reps),
                "max_rel_err": _rel_err(got, want), "tflops": 0.0}
         row["tflops"] = flop / row["device_ms"] / 1e9
@@ -663,7 +687,7 @@ def attention_wide_rows(reps: int) -> int:
 
     # the attention kernels' names in either tree: wide_attention_kernel /
     # wide_mma_kernel (forward), simt_d*_kernel / wide_bwd_d*_kernel
-    for b, t, h, d in WIDE_FWD + WIDE_TINY:
+    for b, t, h, d in WIDE_FWD + WIDE_TINY + WIDE_BIG_FWD:
         q, k, v = (rand(b, h, t, d) for _ in range(3))
         mask = _wide_mask(b, t)
         qkv = A._to_packed(q, k, v)
@@ -685,15 +709,20 @@ def attention_wide_rows(reps: int) -> int:
                 lambda: A.attention_block(x, pw, pb, po, bo, mask, h, d),
                 lambda: A.attention_block_plain(x, wq, bq, wo, bo, mask, h), "wide_",
                 4 * b * h * t * t * A.block_head_dim(d))
-    for b, t, h, d in WIDE_FLASH + tuple((2, 600, 2, d) for d in (160, 192, 256)):
+    for b, t, h, d in WIDE_FLASH + tuple((2, 600, 2, d) for d in (160, 192, 256, 640, 768, 1024)):
         qkv = rand(b, t, 3, h, d)
         mask = _wide_mask(b, t)
         run(f"row 6 flash_attention_lse B={b} T={t} H={h} D={d}", lambda: A.flash_attention_lse(qkv, mask),
             lambda: A.flash_attention_lse_plain(qkv, mask), "wide_", 4 * b * h * t * t * d)
-    for b, t, h, d in WIDE_BWD + WIDE_TINY:
+    for b, t, h, d in WIDE_BWD + WIDE_TINY + WIDE_BIG_BWD:
         q, k, v, go = (rand(b, h, t, d) for _ in range(4))
         mask = _wide_mask(b, t)
-        o, lse = A.mha_attention(q, k, v, mask)
+        try:
+            o, lse = A.mha_attention(q, k, v, mask)
+        except ValueError as e:
+            rows.append({"case": f"rows 3 + 4 B={b} T={t} H={h} D={d}", "refused": str(e)})
+            print(f"rows 3 + 4 B={b} T={t} H={h} D={d}: refused ({e})", flush=True)
+            continue
         lse, delta = lse.contiguous(), A._delta(o, go)
         dq, dk, dv = (torch.empty_like(q) for _ in range(3))
         want = A.attention_bwd_plain(q, k, v, mask, lse, o, go)
@@ -722,7 +751,15 @@ def attention_wide_tiles(reps: int) -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     bf16 = torch.bfloat16
     rows = []
-    for b, t, h, d in WIDE_FWD + ((8, 512, 4, 192),) + WIDE_FLASH + WIDE_TINY:
+
+    def launched(one):  # the launch's result, or None where the entry refuses the shape
+        try:
+            return one()
+        except RuntimeError as e:
+            print(f"  refused: {e}", flush=True)
+            return None
+
+    for b, t, h, d in WIDE_FWD + ((8, 512, 4, 192),) + WIDE_FLASH + WIDE_TINY + WIDE_BIG_FWD:
         q, k, v = (torch.randn(b, h, t, d, generator=g, device="cuda").to(bf16) for _ in range(3))
         mask = _wide_mask(b, t)
         qkv = A._to_packed(q, k, v)
@@ -738,27 +775,33 @@ def attention_wide_tiles(reps: int) -> int:
         flop = 4 * b * h * t * t * d
         for order in (0, 1, 2):
             want = plain[order]()
-            for nc in (0, 128, 192):
+            # each column tile with Q resident (1) and streamed (2); above
+            # D = 512 the rule's tile only
+            for nc, qmode in [(nc, qm) for nc in ((0, 128, 192) if d <= 512 else (0,)) for qm in (1, 2)]:
                 o = torch.empty_like(q)
                 lse = torch.empty(b, h, t, device="cuda")
 
-                def one(o=o, lse=lse, order=order, nc=nc):
+                def one(o=o, lse=lse, order=order, nc=nc, qmode=qmode):
                     rc = lib.msa_attention_wide_mma(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                                                    o.data_ptr(), lse.data_ptr(), b, t, h, d, order, nc, scale,
+                                                    o.data_ptr(), lse.data_ptr(), b, t, h, d, order, nc, qmode, scale,
                                                     torch.cuda.current_stream().cuda_stream)
                     build.check(rc, "msa_attention_wide_mma")
                     return o
 
+                q_at = "resident" if qmode == 1 else "streamed"
+                if launched(one) is None:
+                    rows.append({"B": b, "T": t, "H": h, "D": d, "order": order, "nc": nc, "q": q_at, "refused": True})
+                    continue
                 err = _rel_err(one(), want)
                 ms = _device_ms(one, reps, "wide_mma_kernel")
-                row = {"B": b, "T": t, "H": h, "D": d, "order": order, "nc": nc, "ms": ms, "sdpa_ms": sdpa_ms,
+                row = {"B": b, "T": t, "H": h, "D": d, "order": order, "nc": nc, "q": q_at, "ms": ms, "sdpa_ms": sdpa_ms,
                        "max_rel_err": err, "bound_ms": 1e3 * max(flop / 989e12, (4 * b * h * t * d * 2 + 4 * b * t) / 3.35e12)}
                 rows.append(row)
-                print(f"B={b} T={t} H={h} D={d} order {order} nc {nc or 'rule'}: {ms:.4f} ms "
+                print(f"B={b} T={t} H={h} D={d} order {order} nc {nc or 'rule'} Q {q_at}: {ms:.4f} ms "
                       f"({flop / ms / 1e9:.1f} TFLOP/s of the function), sdpa {sdpa_ms:.4f}, bound {row['bound_ms']:.5f}, "
                       f"max rel err {err:.2e}", flush=True)
         del q, k, v, qkv, flat
-    for b, t, h, d in WIDE_BWD:  # the backward's kernels at each column tile, beside SDPA's backward
+    for b, t, h, d in WIDE_BWD + WIDE_BIG_BWD:  # the backward's kernels at each column tile, beside SDPA's backward
         q, k, v, go = (torch.randn(b, h, t, d, generator=g, device="cuda").to(bf16) for _ in range(4))
         mask = _wide_mask(b, t)
         o, lse = (x.contiguous() for x in A.mha_attention(q, k, v, mask))
@@ -769,22 +812,27 @@ def attention_wide_tiles(reps: int) -> int:
         lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=bias)
         lib_ms = _device_ms(lambda: torch.autograd.grad(lib_out, leaves, go, retain_graph=True), reps)
         for kernel, ops, outs in (("dq", 6, 1), ("dkv", 8, 2)):
-            for nc in ((0, 128) + ((192,) if d <= 192 else ())) if kernel == "dq" else (0,):
+            tiles = ((0, 128) + ((192,) if d <= 192 else ())) if kernel == "dq" and d <= 512 else (0,)
+            for nc, omode in [(nc, om) for nc in tiles for om in (1, 2)]:
                 got = [torch.empty_like(q) for _ in range(outs)]
                 ptrs = [got[0].data_ptr(), 0, 0] if kernel == "dq" else [0, got[0].data_ptr(), got[1].data_ptr()]
 
-                def one(got=got, ptrs=ptrs, nc=nc):
+                def one(got=got, ptrs=ptrs, nc=nc, omode=omode):
                     rc = lib.msa_attention_bwd_wide(q.data_ptr(), k.data_ptr(), v.data_ptr(), go.data_ptr(),
                                                     lse.data_ptr(), delta.data_ptr(), mask.data_ptr(), *ptrs, b, t, h,
-                                                    d, nc, A._scale(d), torch.cuda.current_stream().cuda_stream)
+                                                    d, nc, omode, A._scale(d), torch.cuda.current_stream().cuda_stream)
                     build.check(rc, "msa_attention_bwd_wide")
                     return got
 
+                o_at = "resident" if omode == 1 else "streamed"
+                if launched(one) is None:
+                    rows.append({"B": b, "T": t, "H": h, "D": d, "kernel": kernel, "nc": nc, "owned": o_at, "refused": True})
+                    continue
                 err = _rel_err(one(), want[:1] if kernel == "dq" else want[1:])
                 ms = _device_ms(one, reps, f"wide_bwd_{kernel}_kernel")
-                rows.append({"B": b, "T": t, "H": h, "D": d, "kernel": kernel, "nc": nc, "ms": ms, "sdpa_bwd_ms": lib_ms,
-                             "max_rel_err": err})
-                print(f"{kernel} B={b} T={t} H={h} D={d} nc {nc or 'rule'}: {ms:.4f} ms "
+                rows.append({"B": b, "T": t, "H": h, "D": d, "kernel": kernel, "nc": nc, "owned": o_at, "ms": ms,
+                             "sdpa_bwd_ms": lib_ms, "max_rel_err": err})
+                print(f"{kernel} B={b} T={t} H={h} D={d} nc {nc or 'rule'} owned tiles {o_at}: {ms:.4f} ms "
                       f"({ops * b * h * t * t * d / ms / 1e9:.1f} TFLOP/s on {ops}·B·H·T²·D), sdpa backward (dq, dk, dv) "
                       f"{lib_ms:.4f}, max rel err {err:.2e}", flush=True)
         del leaves, lib_out

@@ -12,7 +12,14 @@ Pallas kernels in interpret mode, as its own tests do.
 - Row 11, ``conv_stride2_fused`` against ``conv_stride2_fused(interpret=
   True)`` at tests/test_pallas_conv.py:22-55's cases: f32 at 2e-4 (atol
   and rtol), bf16 within 2e-2 of the largest output.
+- Row 11's bf16 kernel runs only on the card (``csrc/conv_stride2.cu``,
+  ``chip_smoke.py`` phase 14); on ``meta`` tensors with a stand-in kernel
+  library, the wrapper passes ``msa_conv_stride2`` its argument list (the
+  shapes, k, the GELU flag and the persistent grid, one CTA an SM) and
+  counts one launch.
 """
+
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -95,3 +102,38 @@ def test_conv_stride2_refuses_what_jax_asserts(x_shape, w_shape):
     at least one output row."""
     with pytest.raises(ValueError):
         C.conv_stride2_fused(torch.zeros(x_shape), torch.zeros(w_shape))
+
+
+class _Library:
+    """Stands in for the kernel library: records each entry point's name and
+    arguments, returns 0 (no CUDA error)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("msa_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("b,length,k,cout,gelu", [(64, 15999, 3, 512, True), (2, 999, 2, 384, False)])
+def test_conv_stride2_argument_list_on_the_card_path(monkeypatch, b, length, k, cout, gelu):
+    """bf16 on the card: one call of msa_conv_stride2 with x, wt [C', k·C],
+    out, B, L, C, C', k, the GELU flag, the persistent grid (one CTA an SM;
+    the kernel takes fewer where there are fewer tiles) and the stream; one
+    launch counted."""
+    lib = _Library()
+    monkeypatch.setattr(C.build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device=None: SimpleNamespace(multi_processor_count=132))
+    x = torch.empty(b, length, 512, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(k, 512, cout, device="meta")
+    before = C.conv_stride2_fused.launches
+    out = C.conv_stride2_fused(x, w, apply_gelu=gelu)
+    out_len = (length - k) // 2 + 1
+    assert tuple(out.shape) == (b, out_len, cout) and out.dtype == torch.bfloat16
+    (name, args), = lib.calls
+    assert name == "msa_conv_stride2" and len(args) == len(C.build._SIGNATURES[name])
+    assert args[3:] == (b, length, 512, cout, k, int(gelu), 132, 7)
+    assert C.conv_stride2_fused.launches == before + 1

@@ -190,5 +190,20 @@ def test_kernel_sources_and_build_command(tmp_path, monkeypatch):
     assert build._digest() != digest
 
 
+
+def test_no_wmma_left_in_the_kernel_sources():
+    """Row 11's bf16 convolution was the last WMMA kernel: no source
+    includes <mma.h> or uses the WMMA API, and gemm.cuh keeps no WMMA tile
+    constants; the new kernel issues wgmma fed by TMA."""
+    from msa_tpu_torch.ops.kernels import build
+
+    for p in build.CSRC.glob("*.cu*"):
+        src = p.read_text()
+        assert "<mma.h>" not in src and "wmma::" not in src and "nvcuda" not in src, p.name
+    gemm = (build.CSRC / "gemm.cuh").read_text()
+    assert not any(f"constexpr int {c} " in gemm for c in ("GBM", "GBN", "GBK", "GLD", "GTHREADS"))
+    conv = (build.CSRC / "conv_stride2.cu").read_text()
+    assert "wgmma_bf16(" in conv and "tma_load_3d(" in conv and "__grid_constant__" in conv
+
 class _Done:
     returncode, stdout, stderr = 0, "", ""

@@ -3,24 +3,26 @@ card path's routing.
 
 JAX's wrappers serve any head dim D (they pad D to 64 or 128), and so do
 the port's: above 128 every bf16 attention row runs the tensor-core
-kernels of ``csrc/attention_wide_mma.cu`` (rows 1, 2, 5, 6, 7 and 8, D ≤
-512) and ``csrc/attention_bwd_wide.cu`` (rows 3 and 4), every f32 one the
+kernels of ``csrc/attention_wide_mma.cu`` (rows 1, 2, 5, 6, 7 and 8) and
+``csrc/attention_bwd_wide.cu`` (rows 3 and 4), at any D (above D = 512 the
+tiles held over all of D are streamed), every f32 one the
 D-tiled kernels of ``csrc/attention_wide.cu`` and
 ``csrc/attention_bwd_f32.cu``, and rows 7 and 8 take weights padded once
 per head to the next multiple of 128 (``block_head_dim``,
 ``pad_block_weights``). Here:
 
-- the plain versions of rows 5, 8 and 3 + 4 at D = 160 and 256, and of
-  rows 1, 2, 6 and 7 at D = 192 (row 6 at T = 130: two 128-key blocks),
-  against JAX's Pallas kernels in interpret mode, at T ≤ 40;
+- the plain versions of rows 5, 8 and 3 + 4 at D = 160 and 256, of rows
+  1, 2, 6 and 7 at D = 192 (row 6 at T = 130: two 128-key blocks), and of
+  rows 1 and 3 + 4 at D = 640 (one head), against JAX's Pallas kernels in
+  interpret mode, at T ≤ 40;
 - the padding of row 8's weights at D = 160 (DP 256);
-- the card path at D ≤ 512: each wrapper, given tensors on the ``meta``
-  device and a stand-in for the kernel library that records its calls,
-  raises nothing and calls its C entry point with the (8-padded) head dim
-  and the scale of the unpadded D, and counts a bf16 launch above D = 128
-  in the tensor-core kernels' counters (``wide_mma``, ``wide_bwd_dq``,
-  ``wide_bwd_dkv``), refusing bf16 above D = 512. The kernels themselves
-  run only on the card (``chip_smoke.py`` phase 22).
+- the card path at D up to 1024: each wrapper, given tensors on the
+  ``meta`` device and a stand-in for the kernel library that records its
+  calls, raises nothing and calls its C entry point with the (8-padded)
+  head dim and the scale of the unpadded D, and counts a bf16 launch above
+  D = 128 in the tensor-core kernels' counters (``wide_mma``,
+  ``wide_bwd_dq``, ``wide_bwd_dkv``), above D = 512 too. The kernels
+  themselves run only on the card (``chip_smoke.py`` phase 22).
 
 Tolerances are those of tests/test_torch_kernels.py (row 8: f32 5e-5),
 test_torch_head_dims.py (rows 1, 2 and 5: f32 2e-5, row 6 3e-5; bf16 atol
@@ -111,6 +113,39 @@ def test_rows_3_and_4_plain_match_pallas_at_wide_heads(rng, d):
     for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
         assert tuple(gt.shape) == (2, 2, 40, d)
         np.testing.assert_allclose(f32(gt), f32(wt), atol=2e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("row", ["1", "3 + 4"])
+def test_rows_1_and_3_4_plain_match_pallas_at_head_dim_640(rng, row, dtype):
+    """Row 1 (fused_attention) and rows 3 + 4 (attention_bwd) at D = 640,
+    one head, T = 40: above the old D ≤ 512 limit of the bf16 kernels,
+    their plain versions on the CPU against JAX's."""
+    d, h, T = 640, 1, 40
+    q, k, v, g = (jnp.asarray(rng.normal(size=(2, h, T, d)).astype(np.float32)).astype(dtype) for _ in range(4))
+    mask = _mask(2, T)
+    tq, tk, tv, tg = (t(x, TORCH_DTYPES[dtype]) for x in (q, k, v, g))
+    if row == "1":
+        want_o, want_lse = _fused_attention_lse(q, k, v, jnp.asarray(mask), interpret=True)
+        got_o, got_lse = A.fused_attention_lse(tq, tk, tv, t(mask))
+        assert tuple(got_o.shape) == (2, h, T, d) and got_o.dtype == TORCH_DTYPES[dtype]
+        if dtype == "float32":
+            np.testing.assert_allclose(f32(got_o), f32(want_o), atol=2e-5)
+            np.testing.assert_allclose(f32(got_lse), f32(want_lse), atol=2e-5)
+        else:
+            np.testing.assert_allclose(f32(got_o), f32(want_o), atol=0.15, rtol=0.1)
+            np.testing.assert_allclose(f32(got_lse), f32(want_lse), atol=1e-3)
+        return
+    o, lse = _mha_attention_lse(q, k, v, jnp.asarray(mask), interpret=True)
+    want = jax_attention_bwd(q, k, v, jnp.asarray(mask), lse, o, g, interpret=True)
+    to = t(o, TORCH_DTYPES[dtype])
+    got = A.attention_bwd(tq, tk, tv, t(mask), t(lse), to, tg)
+    for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
+        assert tuple(gt.shape) == (2, h, T, d) and gt.dtype == TORCH_DTYPES[dtype]
+        if dtype == "float32":
+            np.testing.assert_allclose(f32(gt), f32(wt), atol=2e-4, err_msg=name)
+        else:  # both round dS and Pᵀ to bf16 before the products: the row-2 bound
+            np.testing.assert_allclose(f32(gt), f32(wt), atol=0.15, rtol=0.1, err_msg=name)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -250,10 +285,10 @@ def _attend_calls(d, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [136, 160, 201, 256, 512])
+@pytest.mark.parametrize("d", [136, 160, 201, 256, 512, 768, 1024])
 def test_attention_wrappers_take_wide_heads_on_the_card_path(card, dtype, d):
-    """No NotImplementedError at any D ≤ 512: each wrapper calls its entry
-    point with D padded to a multiple of 8 and the unpadded D's scale."""
+    """No error at any D: each wrapper calls its entry point with D padded
+    to a multiple of 8 and the unpadded D's scale."""
     dp, cases = _attend_calls(d, TORCH_DTYPES[dtype])
     for fn, call, entries, counter in cases:
         before, card.calls[:] = getattr(fn, counter), []
@@ -314,23 +349,50 @@ def test_wide_kernel_counters_on_the_card_path(card, dtype, d):
     assert A.wide_mma.launches == before + 2 * wide
 
 
-@pytest.mark.parametrize("what", ["packed", "flash", "mha", "fused", "bwd", "block"])
-def test_bf16_above_512_is_refused_on_the_card_path(card, what):
-    """The bf16 tensor-core kernels take D ≤ 512: a wider bf16 head raises
-    before any launch, and counts nothing."""
-    d, bf16 = 520, torch.bfloat16
+def _reaches_wide_kernels(card, what, d):
+    """Above D = 512, where the kernels stream the tiles they held over all
+    of D, a bf16 head raises nothing: each entry point is called once with
+    D, and the tensor-core kernels count the launch (rows 7/8's block at
+    head dim d + 56, padded to DP = 640 or 1152)."""
+    bf16 = torch.bfloat16
     q, k, v = (_meta(1, 2, 40, d, dtype=bf16) for _ in range(3))
     mask = _meta(1, 40)
+    dh = d + 56
+    dp, dm = A.block_head_dim(dh), -(-2 * dh // 128) * 128
+    # (call, [(entry, index of D in its args)], launches of wide_mma, wide_bwd_dq, wide_bwd_dkv)
     calls = {
-        "packed": lambda: A.packed_qkv_attention_lse(_meta(1, 40, 3, 2, d, dtype=bf16), mask),
-        "flash": lambda: A.flash_attention_lse(_meta(1, 600, 3, 2, d, dtype=bf16), _meta(1, 600)),
-        "mha": lambda: A.mha_attention(q, k, v, mask),
-        "fused": lambda: A.fused_attention_lse(q, k, v, mask),
-        "bwd": lambda: A.attention_bwd(q, k, v, mask, _meta(1, 2, 40), _meta(1, 2, 40, d, dtype=bf16),
-                                       _meta(1, 2, 40, d, dtype=bf16)),
-        "block": lambda: A.attention_block(_meta(1, 40, 1152, dtype=bf16), _meta(3 * 2 * 640, 1152, dtype=bf16),
-                                           _meta(3 * 2 * 640), _meta(1152, 2 * 640, dtype=bf16), _meta(1152), mask, 2, 576),
+        "packed": (lambda: A.packed_qkv_attention_lse(_meta(1, 40, 3, 2, d, dtype=bf16), mask),
+                   [("msa_packed_qkv_attention", 7)], [1, 0, 0]),
+        "flash": (lambda: A.flash_attention_lse(_meta(1, 600, 3, 2, d, dtype=bf16), _meta(1, 600)),
+                  [("msa_flash_attention", 7)], [1, 0, 0]),
+        "mha": (lambda: A.mha_attention(q, k, v, mask), [("msa_mha_attention", 9)], [1, 0, 0]),
+        "fused": (lambda: A.fused_attention_lse(q, k, v, mask), [("msa_fused_attention", 9)], [1, 0, 0]),
+        "bwd": (lambda: A.attention_bwd(q, k, v, mask, _meta(1, 2, 40), _meta(1, 2, 40, d, dtype=bf16),
+                                        _meta(1, 2, 40, d, dtype=bf16)),
+                [("msa_attention_bwd_dq", 11), ("msa_attention_bwd_dkv", 12)], [0, 1, 1]),
+        "block": (lambda: A.attention_block(_meta(1, 40, dm, dtype=bf16), _meta(3 * 2 * dp, dm, dtype=bf16),
+                                            _meta(3 * 2 * dp), _meta(dm, 2 * dp, dtype=bf16), _meta(dm), mask, 2, dh),
+                  [("msa_attention_block", 15)], [1, 0, 0]),
     }
-    with pytest.raises(ValueError, match="up to 512"):
-        calls[what]()
-    assert card.calls == []
+    call, entries, wide = calls[what]
+    before = [c.launches for c in (A.wide_mma, A.wide_bwd_dq, A.wide_bwd_dkv)]
+    call()
+    after = [c.launches for c in (A.wide_mma, A.wide_bwd_dq, A.wide_bwd_dkv)]
+    assert [name for name, _ in card.calls] == [name for name, _ in entries]
+    for (name, args), (_, at) in zip(card.calls, entries):
+        assert args[at] == (dp if what == "block" else d), (name, args[at])
+    assert [a - b_ for a, b_ in zip(after, before)] == wide
+
+
+@pytest.mark.parametrize("what", ["packed", "flash", "mha", "fused", "bwd", "block"])
+def test_bf16_above_512_is_refused_on_the_card_path(card, what):
+    """bf16 at D = 520 (the block at head dim 576) is no longer refused:
+    it reaches the tensor-core kernels (:func:`_reaches_wide_kernels`)."""
+    _reaches_wide_kernels(card, what, 520)
+
+
+@pytest.mark.parametrize("what", ["packed", "flash", "mha", "fused", "bwd", "block"])
+def test_bf16_at_1024_reaches_the_wide_kernels_on_the_card_path(card, what):
+    """The same at D = 1024 (the block at head dim 1080, DP 1152), where
+    the backward's owned tiles no longer fit resident."""
+    _reaches_wide_kernels(card, what, 1024)
