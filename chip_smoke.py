@@ -405,8 +405,11 @@ ON_INT8 = "phase 5: run_host in the int8 recipe, B=2, one forward at bucket 512 
 ON_TRAIN = "phase 12: one text training step, B=8, bucket 512"
 ON_PARITY = "phase 18: run_host in the f32 parity mode (imported trunks), B=2, one forward at bucket 512 and one at bucket 32"
 ON_TRAIN_F32 = "phase 21: one f32 text training step of the imported BERT-base trunk, B=8, bucket 512"
-ON_WIDE_F32 = ("phase 22: one f32 training step of a 2-layer encoder at head dim 192 (the D-tiled pair serves f32 D > 64; "
-               "the f32 steps at D ≤ 64 take attention_bwd_onepass_f32)")
+ON_WIDE_F32 = ("phase 22: one f32 training step of the 12-layer d_model 768, 4-head (head dim 192) encoder, B=8 T=512 "
+               "(row 5 f32 forward on the wide f32 kernel, rows 3 and 4 in the one pass's wide kernel); its f32 forward at "
+               "B=2 T=512 launches the wide forward 12 times")
+ON_PAIR_F32 = ("phase 22: one direct call each at B=8 T=512 H=6 D=128; no wrapper path, forward or training step launches "
+               "the D-tiled pair (the f32 backward is the one pass at every D)")
 ON_WIDE = ("phase 22: one bf16 training step of the 12-layer d_model 768, 4-head (head dim 192) encoder, B=8 T=512 "
            "(row 5 forward, rows 3 and 4 backward); its bf16 and int8 forwards at B=2 T=512 launch the forward 12 times each")
 ON_INT8_F32 = "phase 23: run_host with W8A8 under f32 compute, B=2, one forward at bucket 512 and one at bucket 32"
@@ -744,6 +747,10 @@ def main() -> int:
         "wide_mma": (A.wide_mma, "launches"),
         "wide_bwd_dq": (A.wide_bwd_dq, "launches"),
         "wide_bwd_dkv": (A.wide_bwd_dkv, "launches"),
+        # the f32 kernels above head dim 128 (the forward) and 64 (the one
+        # pass's wide kernel), reached through the rows' entries likewise
+        "wide_f32": (A.wide_f32, "launches"),
+        "wide_onepass_f32": (A.wide_onepass_f32, "launches"),
     }
 
     def reset_counts():
@@ -762,12 +769,13 @@ def main() -> int:
             print("  ptxas:", line.strip().split("ptxas info    :")[-1].strip(), flush=True)
     usage = ptxas_usage(
         log, ("flash_kernel", "packed_qkv_kernel", "bwd_dq_kernel", "bwd_dkv_kernel", "fused_f32_kernel", "gemm_s8_kernel",
-              "gemm_bf16_kernel", "onepass_f32_kernel", "gemm_f32_kernel", "wide_mma_kernel", "wide_attention_kernel",
-              "simt_dq_kernel", "simt_dkv_kernel")
+              "gemm_bf16_kernel", "onepass_f32_kernel", "gemm_f32_kernel", "wide_mma_kernel", "wide_f32_kernel",
+              "wide_onepass_f32_kernel", "simt_dq_kernel", "simt_dkv_kernel")
     )
     for kernel, used in usage.items():
         print(f"  ptxas {kernel}: {used}", flush=True)
-        if kernel.startswith(("gemm_s8_kernel", "gemm_bf16_kernel", "onepass_f32_kernel", "gemm_f32_kernel", "wide_mma_kernel")):
+        if kernel.startswith(("gemm_s8_kernel", "gemm_bf16_kernel", "onepass_f32_kernel", "gemm_f32_kernel", "wide_mma_kernel",
+                              "wide_f32_kernel", "wide_onepass_f32_kernel")):
             check("0 bytes spill stores" in used, f"{kernel} spills: {used}")
     # each with its owned tiles resident (OS 0) and streamed (1)
     wide_bwd = ptxas_usage(log, ("wide_bwd_dq_kernel", "wide_bwd_dkv_kernel"))
@@ -782,8 +790,13 @@ def main() -> int:
     check("0 bytes spill stores" in conv_used, f"conv_wgmma_kernel spills: {conv_used}")
     check("conv_bf16_kernel" not in log, "the WMMA conv_bf16_kernel is still built")
     print(f"  conv_wgmma_kernel SASS: {hgmma_of(lib_path, 'conv_wgmma_kernel')}", flush=True)
-    check(not any(k.startswith(("wide_attention_kernel", "simt_d")) and "bf16" in k for k in usage),
+    check(not any(k.startswith(("wide_f32_kernel", "wide_onepass_f32_kernel", "simt_d")) and "bf16" in k for k in usage),
           f"a bf16 instance of the SIMT kernels is still built: {sorted(usage)}")
+    # the f32 forward above D = 128 at 64, 32 and 16 query rows, the one
+    # pass's wide kernel at 128 and 256 columns; PR 13's D-tiled forward gone
+    check(sum(k.startswith("wide_f32_kernel") for k in usage) == 3, f"the wide f32 forward's instances: {sorted(usage)}")
+    check(sum(k.startswith("wide_onepass_f32_kernel") for k in usage) == 2, f"the wide one pass's instances: {sorted(usage)}")
+    check("wide_attention_kernel" not in log, "the D-tiled wide_attention_kernel is still built")
     print(f"  wide_mma_kernel SASS: {hmma_of(lib_path, 'wide_mma_kernel')}", flush=True)
     print(f"  wide_bwd_dq_kernel, wide_bwd_dkv_kernel SASS: {hmma_of(lib_path, 'wide_bwd_d')}", flush=True)
     check(all(k in log for k in ("gemm_s8_kernel", "gemm_bf16_kernel", "gemm_f32_kernel")),
@@ -2893,10 +2906,14 @@ def main() -> int:
         math composite)."""
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = " ".join(e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA).lower()
+        names = ""
+        for _ in range(3):  # a trace that recorded no kernel is taken again
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            names = " ".join(e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA).lower()
+            if names:
+                break
         return ("flash" if "flash" in names else "efficient" if ("fmha" in names or "efficient" in names) else
                 "cudnn" if "cudnn" in names else "math")
 
@@ -2930,10 +2947,11 @@ def main() -> int:
           f"each, largest error {sweep_worst[0]:.3e} of the largest output (D={sweep_worst[1]})", flush=True)
 
     with G.exact_fp32():
-        # above D = 512 the bf16 kernels stream what they held over all of D
-        # (the f32 rows there run the D-tiled SIMT kernels, held at 160–256)
+        # above D = 512 the bf16 kernels stream what they held over all of D;
+        # the f32 forward forms S once a key block at D ≤ 256 and once a
+        # column tile of 256 above, the f32 backward is the one pass
         for d in (160, 192, 256, 640, 768, 1024):
-            for dtype in (bf16, f32) if d <= 256 else (bf16,):
+            for dtype in (bf16, f32):
                 dn = str(dtype).split(".")[-1]
                 kind = "bf16" if dtype is bf16 else "f32"
                 es = 2 if dtype is bf16 else 4
@@ -2944,7 +2962,7 @@ def main() -> int:
                 mask = key_mask(b, T_)
                 fwd_bytes = 4 * b * h * T_ * d * es + 4 * b * T_ + 4 * b * h * T_
                 errs = {}
-                wide = {"wide_mma": 1} if dtype is bf16 else {}  # the tensor-core forward, from the rows' entries
+                wide = {"wide_mma": 1} if dtype is bf16 else {"wide_f32": 1}  # the wide forward, from the rows' entries
                 for name, kernel, plain, counter in (
                     ("fused_attention", A.fused_attention_lse, A.fused_attention_plain, "fused_attention"),
                     ("mha_attention", A.mha_attention, A.mha_attention_plain, "mha_attention" + sfx),
@@ -2973,9 +2991,9 @@ def main() -> int:
                               4 * b * h * T_p * d * es + 4 * b * T_p + 4 * b * h * T_p, {kind: 4 * b * h * T_p * T_p * d},
                               lambda: sdpa(qkv, m_))
                 o, lse = A.mha_attention(q, k, v, mask)
-                wide_bwd = {"wide_bwd_dq": 1, "wide_bwd_dkv": 1} if dtype is bf16 else {}
-                got = one_launch({"attention_bwd_dq" + sfx: 1, "attention_bwd_dkv" + sfx: 1, **wide_bwd},
-                                 lambda: A.attention_bwd(q, k, v, mask, lse, o, go))
+                bwd = ({"attention_bwd_dq": 1, "attention_bwd_dkv": 1, "wide_bwd_dq": 1, "wide_bwd_dkv": 1} if dtype is bf16
+                       else {"attention_bwd_onepass_f32": 1, "wide_onepass_f32": 1})
+                got = one_launch(bwd, lambda: A.attention_bwd(q, k, v, mask, lse, o, go))
                 want = A.attention_bwd_plain(q, k, v, mask, lse, o, go)
                 for n, a_, w_ in zip(("dq", "dk", "dv"), got, want):
                     tag = f"attention_bwd {dn} D={d} {n}"
@@ -2997,7 +3015,7 @@ def main() -> int:
             proj_flops, attn_flops = 2 * 2 * 100 * dm_w * 4 * dm_w, 4 * 2 * 4 * 100 * 100 * d
             for rec, counter in (("bf16", {"attention_block": 1, "gemm_bf16": 2, "wide_mma": 1}),
                                  ("int8", {"attention_block_int8": 1, "quantize_rows": 2, "gemm_s8": 2, "wide_mma": 1}),
-                                 ("f32", {"attention_block_f32": 1, "gemm_f32": 2}))[: 3 if d <= 256 else 2]:
+                                 ("f32", {"attention_block_f32": 1, "gemm_f32": 2, "wide_f32": 1})):
                 dt_w = f32 if rec == "f32" else bf16
                 x = rand(2, 100, dm_w, dtype=dt_w)
                 if rec == "int8":
@@ -3188,6 +3206,7 @@ def main() -> int:
                 print(f"  {tag}: launches {c}; vs its plain versions max abs {err:.4e} (bound {bnd:.4e})", flush=True)
                 check(c[kname] == 2, f"{tag}: {c[kname]} launches of {kname}, expected 2")
                 check(c["wide_mma"] == (0 if dtype_c == "float32" else 2), f"{tag}: {c['wide_mma']} launches of wide_mma")
+                check(c["wide_f32"] == (2 if dtype_c == "float32" else 0), f"{tag}: {c['wide_f32']} launches of wide_f32")
                 check(c["gemm_bf16"] == 2 * (c["attention_block"] + c["ffn_fused"]), f"{tag}: {c['gemm_bf16']} bf16 GEMM launches")
                 check(c["gemm_f32"] == 2 * (c["attention_block_f32"] + c["ffn_fused_f32"]), f"{tag}: {c['gemm_f32']} f32 GEMM launches")
         # one bf16 and one f32 training step at D = 192: rows 5, 3 and 4 (f32 in f32)
@@ -3208,11 +3227,12 @@ def main() -> int:
                 for out, want_ in zip((dq, dk, dv), A.attention_bwd_plain(q, k, v, key_mask_, lse, o, g_)):
                     out.copy_(want_)
 
-            fwd = "packed_qkv_attention_lse" if dtype_c == "bfloat16" else "packed_qkv_attention_f32"
-            wide = {} if sfx else {"wide_mma": 2, "wide_bwd_dq": 2, "wide_bwd_dkv": 2}
-            g_k = one_launch({fwd: 2, "attention_bwd_dq" + sfx: 2, "attention_bwd_dkv" + sfx: 2, **wide}, step)
-            if sfx:  # the f32 pair's launches on a path: D = 192 > 64
-                wide_f32_train_counts = dict(launched)
+            if sfx:  # rows 3 and 4 in f32: the one pass's wide kernel
+                want_c = {"packed_qkv_attention_f32": 2, "attention_bwd_onepass_f32": 2, "wide_f32": 2, "wide_onepass_f32": 2}
+            else:
+                want_c = {"packed_qkv_attention_lse": 2, "attention_bwd_dq": 2, "attention_bwd_dkv": 2, "wide_mma": 2,
+                          "wide_bwd_dq": 2, "wide_bwd_dkv": 2}
+            g_k = one_launch(want_c, step)
             with swapped(A, packed_qkv_attention_lse=A.packed_qkv_attention_lse_plain, _attention_bwd_into=plain_bwd_into):
                 g_p = step()
             if dtype_c == "bfloat16":
@@ -3297,6 +3317,208 @@ def main() -> int:
         print(f"  12-layer head dim 192 bf16 training step B=8 T=512: 12 launches of rows 5, 3 and 4 and of the tensor-core "
               f"kernels; every gradient group within its bound, largest error {worst[0]:.4e} ({worst[1]}); "
               f"{step_ms:.3f} ms a step (host clock)", flush=True)
+        del enc, g_k, g_p
+
+        # the f32 rows above D = 128 (the wide forward, wide_f32_kernel) and
+        # above D = 64 (the one pass's wide_onepass_f32_kernel) at full
+        # width, beside their plain versions and one f32 SDPA call (TF32 off,
+        # its backend named): each called twice, bit-equal; their per-stream
+        # ticket buffers zero after every call
+        from msa_tpu_torch.ops.kernels import attention_wide_plan as WP
+
+        def tickets_at_rest(tag):
+            for buf in ("attention_wide_f32_tickets", "attention_bwd_f32_tickets"):
+                check(not bool(KC_.zeroed(buf, dev, 0).any()), f"{tag}: {buf} is not zero at rest")
+
+        for b, T_, h, d in ((2, 512, 4, 192), (2, 512, 3, 256), (8, 512, 4, 192), (2, 749, 4, 192)):
+            q, k, v = (rand(b, h, T_, d, dtype=f32) for _ in range(3))
+            mask = key_mask(b, T_)
+            qkv = A._to_packed(q, k, v)
+            if T_ > A.SINGLE_PASS_MAX_T:
+                cases = [("flash_attention_lse", "flash_attention_f32", lambda: A.flash_attention_lse(qkv, mask),
+                          lambda: A.flash_attention_lse_plain(qkv, mask), lambda: sdpa(qkv, mask))]
+            else:
+                cases = [("packed_qkv_attention_lse", "packed_qkv_attention_f32", lambda: A.packed_qkv_attention_lse(qkv, mask),
+                          lambda: A.packed_qkv_attention_lse_plain(qkv, mask), lambda: sdpa(qkv, mask))]
+            if b == 2 and T_ <= A.SINGLE_PASS_MAX_T:
+                cases += [("fused_attention", "fused_attention", lambda: A.fused_attention_lse(q, k, v, mask),
+                           lambda: A.fused_attention_plain(q, k, v, mask), lambda: sdpa_heads_first(q, k, v, mask)),
+                          ("mha_attention", "mha_attention_f32", lambda: A.mha_attention(q, k, v, mask),
+                           lambda: A.mha_attention_plain(q, k, v, mask), lambda: sdpa_heads_first(q, k, v, mask))]
+            plan = WP.plan(b, h, T_, d)
+            for name, counter, kernel, plain, lib in cases:
+                tag = f"{name} f32 B={b} T={T_} H={h} D={d}"
+                o, lse = one_launch({counter: 1, "wide_f32": 1}, kernel)
+                tickets_at_rest(tag)
+                o2, lse2 = kernel()
+                tickets_at_rest(tag)
+                check(torch.equal(o, o2) and torch.equal(lse, lse2), f"{tag}: two calls differ")
+                po, plse = plain()
+                err, rel, bnd = compare_f32(tag, o, po)
+                lse_err = compare_f32(f"{tag} lse", lse, plse)[0]
+                tm = timings(kernel, plain)
+                flop = 4 * b * h * T_ * T_ * d
+                bms, by = bound_ms(4 * (4 * b * h * T_ * d + b * h * T_ + b * T_), f32=flop)
+                lib_ms = device_ms(lib)
+                report(f"{tag} (wide f32 forward, plan bq={plan.bq} splits={plan.splits}, "
+                       f"{plan.blocks(b, h, T_, d)} blocks) lse_max_abs_err={lse_err:.3e}", err, rel, bnd, tm, bms, by)
+                print(f"    {flop / tm['ms'] / 1e9:.1f} TFLOP/s on 4·B·H·T²·D; two calls bit-equal; f32 sdpa (library, "
+                      f"{sdpa_backend(lib)} backend, TF32 off) ms={lib_ms:.4f} (device)", flush=True)
+                main = (name, b) == ("packed_qkv_attention_lse", 8)  # the 12-layer training step's forward
+                record("wide_f32", max(err, lse_err), main, tm, bms, by)
+                if main:
+                    results["wide_f32"]["library_ms"] = lib_ms
+        # rows 8 in f32 and 7 on f32 x at full width: d_model = H·D, weights
+        # padded to DP; the wide forward is their attention core
+        for h, d in ((4, 192), (3, 256)):
+            dm_w, dp_w = h * d, A.block_head_dim(d)
+            wq_h, bq_h = rand(3 * dm_w, dm_w, scale=dm_w**-0.5, dtype=f32), rand(3 * dm_w, scale=0.02, dtype=f32)
+            wo_h, bo_h = rand(dm_w, dm_w, scale=dm_w**-0.5, dtype=f32), rand(dm_w, scale=0.02, dtype=f32)
+            x, m_ = rand(2, 512, dm_w, dtype=f32), key_mask(2, 512)
+            pw, pb, po, _ = (t_ if t_ is None else t_.contiguous() for t_ in A.pad_block_weights(wq_h, bq_h, wo_h, h))
+            wq_q, sq_ = Q.quantize_weight_axis(wq_h, axis=1)
+            wo_q, so_ = Q.quantize_weight_axis(wo_h, axis=1)
+            sq_, so_ = sq_[:, 0].contiguous(), so_[:, 0].contiguous()
+            pwq, pbq, poq, psq = (t_.contiguous() for t_ in A.pad_block_weights(wq_q, bq_h, wo_q, h, sq_))
+            core_q = [rand(2, h, 512, dp_w, dtype=f32) for _ in range(3)]
+            sdpa_core_ms = device_ms(lambda: sdpa_heads_first(*core_q, m_))
+            for rec, counter, run_blk, plain_blk, cmp_ in (
+                ("f32", {"attention_block_f32": 1, "gemm_f32": 2, "wide_f32": 1},
+                 lambda: A.attention_block(x, pw, pb, po, bo_h, m_, h, d),
+                 lambda: A.attention_block_plain(x, wq_h, bq_h, wo_h, bo_h, m_, h), compare_gemm),
+                ("int8 on f32 x", {"attention_block_int8_f32": 1, "quantize_rows": 2, "gemm_s8": 2, "wide_f32": 1},
+                 lambda: A.attention_block_int8(x, pwq, psq, pbq, poq, so_, bo_h, m_, h, d),
+                 lambda: A.attention_block_int8_plain(x, wq_q, sq_, bq_h, wo_q, so_, bo_h, m_, h), compare),
+            ):
+                tag = f"attention_block {rec} B=2 T=512 H={h} head dim {d} (DP {dp_w})"
+                got = one_launch(counter, run_blk)
+                tickets_at_rest(tag)
+                check(torch.equal(got, run_blk()), f"{tag}: two calls differ")
+                err, rel, bnd = cmp_(tag, got, plain_blk())
+                core_ms = device_ms(run_blk, only="wide_f32_kernel")
+                flop = 4 * 2 * h * 512 * 512 * dp_w
+                bms, by = bound_ms(4 * (4 * 2 * h * 512 * dp_w + 2 * 512), f32=flop)
+                print(f"  {tag}: max_abs_err={err:.4e} rel={rel:.3e} bound={bnd:.4e}; the core alone (wide f32 forward) "
+                      f"kernel_ms={core_ms:.4f} (device) {flop / core_ms / 1e9:.1f} TFLOP/s, f32 sdpa (library) "
+                      f"ms={sdpa_core_ms:.4f}, bound_ms={bms:.5f} ({by}); two calls bit-equal", flush=True)
+                record("wide_f32", err if rec == "f32" else 0.0, False, None, 0, "")
+            del core_q
+        # rows 3 + 4 in f32 at full width: the one pass's wide kernel (64
+        # keys a block at D = 128, 32 above), two calls bit-equal, beside its
+        # plain version and SDPA's f32 autograd backward; the D-tiled pair
+        # once each on direct calls at D = 128 (no path launches it)
+        for b, T_, h, d in ((8, 512, 4, 192), (8, 512, 3, 256), (8, 512, 6, 128)):
+            q, k, v, go = (rand(b, h, T_, d, dtype=f32) for _ in range(4))
+            mask = key_mask(b, T_)
+            o, lse = A.mha_attention(q, k, v, mask)
+            lse = lse.contiguous()
+            plan = BP.plan(b, h, T_, d)
+            tag = f"attention_bwd f32 B={b} T={T_} H={h} D={d}"
+            got = one_launch({"attention_bwd_onepass_f32": 1, "wide_onepass_f32": 1},
+                             lambda: A.attention_bwd(q, k, v, mask, lse, o, go))
+            tickets_at_rest(tag)
+            again = A.attention_bwd(q, k, v, mask, lse, o, go)
+            tickets_at_rest(tag)
+            check(all(torch.equal(a_, b_) for a_, b_ in zip(got, again)), f"{tag}: two calls differ")
+            want = A.attention_bwd_plain(q, k, v, mask, lse, o, go)
+            err, rel, bnd = max(compare_bwd_f32(f"{tag} {n}", a_, w_) for n, a_, w_ in zip(("dq", "dk", "dv"), got, want))
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            lib_out = sdpa_heads_first(*leaves, mask)
+
+            def lib_bwd():
+                return torch.autograd.grad(lib_out, leaves, go, retain_graph=True)
+
+            lib_ms, lib_backend = device_ms(lib_bwd), sdpa_backend(lambda: sdpa_heads_first(*leaves, mask))
+            tm = timings(lambda: A.attention_bwd(q, k, v, mask, lse, o, go),
+                         lambda: A.attention_bwd_plain(q, k, v, mask, lse, o, go))
+            tm["ms"] = device_ms(lambda: A.attention_bwd(q, k, v, mask, lse, o, go), only="onepass_f32_kernel")
+            flop = 10 * b * h * T_ * T_ * d
+            bms, by = bound_ms(4 * (7 * b * h * T_ * d + 2 * b * h * T_ + b * T_), f32=flop)
+            report(f"{tag} (the one pass's wide kernel, plan bk={plan.bk} splits={plan.splits}, "
+                   f"{plan.blocks(b, h, T_, d)} blocks; kernel_ms its kernel alone)", err, rel, bnd, tm, bms, by)
+            print(f"    {flop / tm['ms'] / 1e9:.1f} TFLOP/s on 10·B·H·T²·D; two calls bit-equal; tickets zero at rest; "
+                  f"f32 sdpa backward (library, {lib_backend} backend, TF32 off) ms={lib_ms:.4f} (device)", flush=True)
+            main = (h, d) == (4, 192)
+            record("wide_onepass_f32", err, main, tm, bms, by)
+            if main:
+                results["wide_onepass_f32"]["library_ms"] = lib_ms
+            del leaves, lib_out
+            if d == 128:  # the D-tiled pair on direct calls: its launches for the kernels line
+                delta, pair = A._delta(o, go), [torch.empty_like(q) for _ in range(3)]
+                one_launch({"attention_bwd_dq_f32": 1}, lambda: A.attention_bwd_dq(q, k, v, go, lse, delta, mask, pair[0]))
+                one_launch({"attention_bwd_dkv_f32": 1},
+                           lambda: A.attention_bwd_dkv(q, k, v, go, lse, delta, mask, pair[1], pair[2]))
+                for n, a_, w_ in zip(("dq", "dk", "dv"), pair, want):
+                    compare_bwd_f32(f"{tag} the D-tiled pair {n}", a_, w_)
+                pair_counts = {**zero, "attention_bwd_dq_f32": 1, "attention_bwd_dkv_f32": 1}
+        # every f32 D % 8 == 0 from 72 to 2048 through rows 2, 3 and 4 at B=1
+        # H=1 T=64: the wide forward above D = 128, the one pass at every D
+        sweep_worst, n_sweep = (0.0, 0), 0
+        for d in range(72, 2049, 8):
+            q, k, v, go = (rand(1, 1, 64, d, dtype=f32) for _ in range(4))
+            m_ = key_mask(1, 64)
+            o, lse = one_launch({"mha_attention_f32": 1, **({"wide_f32": 1} if d > 128 else {})},
+                                lambda: A.mha_attention(q, k, v, m_))
+            po, plse = A.mha_attention_plain(q, k, v, m_)
+            err = max(compare_f32(f"mha_attention f32 B=1 T=64 D={d}", o, po)[1],
+                      compare_f32(f"mha_attention f32 B=1 T=64 D={d} lse", lse, plse)[1])
+            got = one_launch({"attention_bwd_onepass_f32": 1, "wide_onepass_f32": 1},
+                             lambda: A.attention_bwd(q, k, v, m_, lse, o, go))
+            tickets_at_rest(f"f32 D={d}")
+            for n, a_, w_ in zip(("dq", "dk", "dv"), got, A.attention_bwd_plain(q, k, v, m_, lse, o, go)):
+                err = max(err, compare_bwd_f32(f"attention_bwd f32 B=1 T=64 D={d} {n}", a_, w_)[1])
+            sweep_worst, n_sweep = max(sweep_worst, (err, d)), n_sweep + 1
+        print(f"  f32 head dims 72–2048 (every multiple of 8, {n_sweep} of them), rows 2, 3 and 4 at B=1 H=1 T=64: one "
+              f"launch each, largest error {sweep_worst[0]:.3e} of the largest output (D={sweep_worst[1]})", flush=True)
+        # the slice's f32 path at full width: the 12-layer d_model 768,
+        # 4-head encoder in f32 (JAX's flax init): its forward at B=2 T=512
+        # (row 8 f32) and one training step at B=8 T=512 (row 5 f32 forward,
+        # the one pass backward), against the same modules through the plain
+        # versions; 12 launches of each new kernel, none of the D-tiled pair
+        cfg = T.EncoderConfig(**wide_cfg, compute_dtype="float32")
+        with torch.device(dev):
+            enc = flax_init.init_module_(T.TransformerEncoder(cfg).eval().requires_grad_(False), 0)
+        x_c, mask_c = rand(2, 512, 768, dtype=f32), key_mask(2, 512, no_valid_key=False)
+        reset_counts()
+        with torch.inference_mode():
+            got = enc(x_c, mask_c)
+            torch.cuda.synchronize()
+            c = counts()
+            fwd_ms = host_ms(lambda: enc(x_c, mask_c))
+            with swapped(T, attention_block=A.attention_block_plain, ffn_fused=F.ffn_plain):
+                want = enc(x_c, mask_c)
+        tag = "12-layer encoder, head dim 192 (d_model 768, 4 heads, d_ff 3072) f32 B=2 T=512"
+        err, rel, bnd = compare_gemm(tag, got, want)
+        print(f"  {tag}: launches {({n: v for n, v in c.items() if v})}; vs its plain versions max abs {err:.4e} "
+              f"(bound {bnd:.4e}); {fwd_ms:.3f} ms a forward (host clock)", flush=True)
+        check(c["attention_block_f32"] == 12 and c["wide_f32"] == 12 and c["attention_bwd_dq_f32"] == 0,
+              f"{tag}: launches {c}, expected 12 of attention_block_f32 and of wide_f32")
+        del enc
+        cfg = T.EncoderConfig(**wide_cfg, compute_dtype="float32", dropout=0.0)
+        with torch.device(dev):
+            enc = flax_init.init_module_(T.TransformerEncoder(cfg).eval().requires_grad_(False), 0).requires_grad_(True)
+        x_c, w_c = rand(8, 512, 768, dtype=f32), rand(8, 512, 768, dtype=f32)
+        mask_c = key_mask(8, 512)
+        names, params = zip(*enc.named_parameters())
+
+        def wide_step_f32():
+            loss = (enc(x_c, mask_c, deterministic=False) * w_c).sum()
+            return torch.autograd.grad(loss, params)
+
+        g_k = one_launch({"packed_qkv_attention_f32": 12, "attention_bwd_onepass_f32": 12, "wide_f32": 12,
+                          "wide_onepass_f32": 12}, wide_step_f32)
+        wide_f32_train_counts = dict(launched)
+        step_ms = host_ms(wide_step_f32)
+        with swapped(A, packed_qkv_attention_lse=A.packed_qkv_attention_lse_plain, _attention_bwd_into=plain_bwd_into):
+            g_p = wide_step_f32()
+        worst = (0.0, "")
+        for n, a_, b_ in zip(names, g_k, g_p):
+            err, scale = (a_ - b_).abs().max().item(), b_.abs().max().item()
+            check(err <= F32_GRAD_RTOL * scale, f"12-layer f32 training step grad {n}: {err:.4e} > {F32_GRAD_RTOL} of {scale:.4e}")
+            worst = max(worst, (err / max(scale, 1e-30), n))
+        print(f"  12-layer head dim 192 f32 training step B=8 T=512: 12 launches of row 5 f32, the one pass and the wide "
+              f"f32 kernels, none of the D-tiled pair; every gradient within {F32_GRAD_RTOL} of its largest value, worst "
+              f"{worst[0]:.3e} of it ({worst[1]}); {step_ms:.3f} ms a step (host clock)", flush=True)
         del enc, g_k, g_p
     phase("wide_heads", t0)
 
@@ -3400,9 +3622,9 @@ def main() -> int:
                 "step launches it 0 times (the encoders take packed_qkv_attention)",
             ),
             ("attention_bwd_dq_f32", "msa_tpu_torch/csrc/attention_bwd_f32.cu", "msa_tpu/ops/pallas/attention.py:370",
-             wide_f32_train_counts, ON_WIDE_F32),
+             pair_counts, ON_PAIR_F32),
             ("attention_bwd_dkv_f32", "msa_tpu_torch/csrc/attention_bwd_f32.cu", "msa_tpu/ops/pallas/attention.py:395",
-             wide_f32_train_counts, ON_WIDE_F32),
+             pair_counts, ON_PAIR_F32),
             # both pallas_calls of attention_bwd (:370 dQ, :395 dK/dV) in one kernel
             ("attention_bwd_onepass_f32", "msa_tpu_torch/csrc/attention_bwd_f32.cu", "msa_tpu/ops/pallas/attention.py:370",
              f32_train_counts, ON_TRAIN_F32),
@@ -3418,6 +3640,13 @@ def main() -> int:
              wide_train_counts, ON_WIDE),
             ("wide_bwd_dkv", "msa_tpu_torch/csrc/attention_bwd_wide.cu", "msa_tpu/ops/pallas/attention.py:395",
              wide_train_counts, ON_WIDE),
+            # the f32 rows above head dim 128: the forward of rows 1, 2, 5, 6
+            # and 7/8's core (attention.py:206, 150, 489, 948, 779, 819); the
+            # one pass's kernel above D = 64 (both pallas_calls of attention_bwd)
+            ("wide_f32", "msa_tpu_torch/csrc/attention_wide.cu", "msa_tpu/ops/pallas/attention.py:489",
+             wide_f32_train_counts, ON_WIDE_F32),
+            ("wide_onepass_f32", "msa_tpu_torch/csrc/attention_bwd_f32.cu", "msa_tpu/ops/pallas/attention.py:370",
+             wide_f32_train_counts, ON_WIDE_F32),
         )
     ]
     phase("total", t_all)

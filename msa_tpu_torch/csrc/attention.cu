@@ -18,7 +18,7 @@
 //
 // Any head dim D: the core's head dim is DP ∈ {32, 64, 128} (above 128,
 // DP is a multiple of 128 and the tensor-core kernel of
-// attention_wide_mma.cu takes the bf16 core's place, the D-tiled SIMT
+// attention_wide_mma.cu takes the bf16 core's place, the wide f32
 // kernel of attention_wide.cu the f32 one's, in its order of rounding),
 // and a D below its DP
 // (24, 48, 96, ...) is served by
@@ -108,7 +108,8 @@ template <typename E>
 int attention_block_int8(const void* x, const void* wqkv, const void* sqkv, const void* bqkv, const void* wout,
                          const void* sout, const void* bout, const void* mask, void* xq, void* xs, void* qkv,
                          void* attn, void* lse, void* aq, void* as, void* out, void* ws, void* counters, int B, int T,
-                         int DM, int H, int DP, int plan_qkv, int plan_out, float scale, void* stream) {
+                         int DM, int H, int DP, int plan_qkv, int plan_out, int wplan, void* wtickets, void* wws,
+                         float scale, void* stream) {
   constexpr int is_bf16 = sizeof(E) == 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * T, HD = H * DP;
@@ -122,7 +123,7 @@ int attention_block_int8(const void* x, const void* wqkv, const void* sqkv, cons
   } else {  // the [B·T, 3·HD] buffer is the packed layout [B, T, 3, H, DP]
     const float* q = static_cast<const float*>(qkv);
     rc = attend_f32(q, q + HD, q + 2 * HD, 3 * T * HD, DP, 3 * HD, mask, attn, T * HD, DP, HD, lse, B, T, H, DP, scale,
-                    stream);
+                    wplan, wtickets, wws, stream);
   }
   if (rc) return rc;
   rc = msa_quantize_rows(attn, is_bf16, aq, as, M, HD, stream);
@@ -159,12 +160,14 @@ extern "C" int msa_attention_block(const void* x, const void* wqkv, const void* 
 // As msa_attention_block, all in f32 (x, weights, biases, scratch qkv,
 // attn and out), with the f32 core's lse [B, H, T] f32 scratch before out;
 // ws, counters and the plans are the f32 GEMM's (stream-K partials,
-// per-tile counters zero at rest, bm | bn << 10 | ctas << 20). DP 32, 64
-// or a multiple of 128, T % 128 == 0, DM % 128 == 0.
+// per-tile counters zero at rest, bm | bn << 10 | ctas << 20); wplan,
+// wtickets and wws the wide core's above DP = 128 (attend_wide's plan,
+// tickets and workspace). DP 32, 64 or a multiple of 128, T % 128 == 0,
+// DM % 128 == 0.
 extern "C" int msa_attention_block_f32(const void* x, const void* wqkv, const void* bqkv, const void* wout,
                                        const void* bout, const void* mask, void* qkv, void* attn, void* lse, void* out,
                                        void* ws, void* counters, int B, int T, int DM, int H, int DP, int plan_qkv,
-                                       int plan_out, float scale, void* stream) {
+                                       int plan_out, int wplan, void* wtickets, void* wws, float scale, void* stream) {
   if (bad_block_dp(DP)) return static_cast<int>(cudaErrorInvalidValue);
   const int M = B * T, HD = H * DP;
   int rc = msa_gemm_f32(x, wqkv, bqkv, qkv, ws, counters, M, 3 * HD, DM, DM, 1, 1, 0, 0, plan_qkv, 0, stream);
@@ -172,7 +175,7 @@ extern "C" int msa_attention_block_f32(const void* x, const void* wqkv, const vo
   const float* q = static_cast<const float*>(qkv);
   // the [B·T, 3·HD] buffer is the packed layout [B, T, 3, H, DP]
   rc = attend_f32(q, q + HD, q + 2 * HD, 3 * T * HD, DP, 3 * HD, mask, attn, T * HD, DP, HD, lse, B, T, H, DP, scale,
-                  stream);
+                  wplan, wtickets, wws, stream);
   if (rc) return rc;
   return msa_gemm_f32(attn, wout, bout, out, ws, counters, M, DM, HD, HD, 1, 1, 0, 0, plan_out, 0, stream);
 }
@@ -194,18 +197,21 @@ extern "C" int msa_attention_block_int8(const void* x, const void* wqkv, const v
                                         int plan_out, float scale, void* stream) {
   if (bad_block_dp(DP)) return static_cast<int>(cudaErrorInvalidValue);
   return attention_block_int8<bf16>(x, wqkv, sqkv, bqkv, wout, sout, bout, mask, xq, xs, qkv, attn, nullptr, aq, as,
-                                    out, ws, counters, B, T, DM, H, DP, plan_qkv, plan_out, scale, stream);
+                                    out, ws, counters, B, T, DM, H, DP, plan_qkv, plan_out, 0, nullptr, nullptr, scale,
+                                    stream);
 }
 
 // As msa_attention_block_int8 under f32 compute: x, the scratch qkv and
 // attn, and out f32, with the f32 core's lse [B, H, T] f32 scratch after
-// attn.
+// attn; wplan, wtickets and wws the wide core's, as msa_attention_block_f32's.
 extern "C" int msa_attention_block_int8_f32(const void* x, const void* wqkv, const void* sqkv, const void* bqkv,
                                             const void* wout, const void* sout, const void* bout, const void* mask,
                                             void* xq, void* xs, void* qkv, void* attn, void* lse, void* aq, void* as,
                                             void* out, void* ws, void* counters, int B, int T, int DM, int H, int DP,
-                                            int plan_qkv, int plan_out, float scale, void* stream) {
+                                            int plan_qkv, int plan_out, int wplan, void* wtickets, void* wws,
+                                            float scale, void* stream) {
   if (bad_block_dp(DP)) return static_cast<int>(cudaErrorInvalidValue);
   return attention_block_int8<float>(x, wqkv, sqkv, bqkv, wout, sout, bout, mask, xq, xs, qkv, attn, lse, aq, as, out,
-                                     ws, counters, B, T, DM, H, DP, plan_qkv, plan_out, scale, stream);
+                                     ws, counters, B, T, DM, H, DP, plan_qkv, plan_out, wplan, wtickets, wws, scale,
+                                     stream);
 }

@@ -12,12 +12,15 @@
 // training step in f32 (compute_dtype="float32", the parity mode's imported
 // trunks fine-tuned) runs this backward after rows 5 and 6 in f32.
 //
-// Two designs, dispatched by D (the wrapper's _launch_bwd picks the entry):
-// - D ≤ 64, f32 (every served f32 shape: D = 64, and 24 or 25 padded to
-//   32): ONE pass, msa_attention_bwd_onepass_f32 (onepass_f32_kernel, 32
-//   columns at D ≤ 32, else 64).
-// - any other D (D % 8 == 0): the D-tiled pair, msa_attention_bwd_dq_f32
-//   and msa_attention_bwd_dkv_f32 (simt_dq_kernel, simt_dkv_kernel).
+// The training path's backward is ONE pass at every D, dq, dk and dv in
+// one launch (msa_attention_bwd_onepass_f32, dispatched by D):
+// - D ≤ 64 (every served f32 shape: D = 64, and 24 or 25 padded to 32):
+//   onepass_f32_kernel, 32 columns at D ≤ 32, else 64;
+// - D > 64 (D % 8 == 0, any D): wide_onepass_f32_kernel, 128 columns and
+//   64 keys a block at D ≤ 128, 256 columns and 32 keys above.
+// The D-tiled pair (simt_dq_kernel, simt_dkv_kernel) stays behind the
+// direct entries msa_attention_bwd_dq_f32 and msa_attention_bwd_dkv_f32
+// only: no wrapper path launches it.
 //
 // Same rounding points in both as the TPU kernels and attention_bwd_plain:
 // S and dO·Vᵀ accumulate in f32; s = S·scale + bias with −1e9 on masked
@@ -667,6 +670,314 @@ onepass_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, con
   }
 }
 
+// --- the one pass above D = 64 ---------------------------------------------------
+
+constexpr int WQS = 32;        // queries a step
+constexpr int WBT = 256;       // 8 warps: group 0 (warps 0–3) and group 1 (warps 4–7)
+constexpr int WSPL = WQS + 4;  // row of Pᵀ and dSᵀ: ≡ 4 (mod 32) words
+constexpr int WFC = 16;        // D columns of a streamed chunk (D > 256)
+constexpr int WLF = WFC + 4;   // its rows
+
+template <int DC, int BK>
+constexpr size_t wide_onepass_smem_bytes() {
+  constexpr size_t LD = DC + 4;
+  return (2 * BK * LD        // sK, sV: the owned keys' column tile (sV the streamed chunks' ring above D = 256)
+          + 4 * WQS * LD     // sQ, sG: two stages of the step's queries and their dO
+          + 2 * BK * WSPL    // sP, sDS: Pᵀ and dSᵀ
+          + 4 * WQS) * sizeof(float)  // L, Δ: two stages
+         + 16;               // the work id
+}
+
+// t[i][j] += Σ_d a(row ak + KG·i)[d]·b(row bq + QG·j)[d] over d < dw, in
+// order of d: a the owned keys' rows (K or V), b the step's (Q or dO)
+template <int KG, int QF, int QG>
+__device__ __forceinline__ void dots_kq(float (&t)[4][QF], const float* a, const float* bt, int ld, int dw) {
+#pragma unroll 2
+  for (int d = 0; d < dw; d += 4) {
+    float4 av[4], bv[QF];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(a + KG * i * ld + d);
+#pragma unroll
+    for (int j = 0; j < QF; ++j) bv[j] = *reinterpret_cast<const float4*>(bt + QG * j * ld + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < QF; ++j) {
+        t[i][j] = fmaf(av[i].x, bv[j].x, t[i][j]);
+        t[i][j] = fmaf(av[i].y, bv[j].y, t[i][j]);
+        t[i][j] = fmaf(av[i].z, bv[j].z, t[i][j]);
+        t[i][j] = fmaf(av[i].w, bv[j].w, t[i][j]);
+      }
+    }
+  }
+}
+
+// The one pass at D > 64 (wide_onepass_f32_kernel<DC, BK>: DC = 128, BK =
+// 64 keys a block at D ≤ 128; DC = 256, BK = 32 above, so at D = 192 a
+// quarter of the products run on zero columns; a 192-column form on float2
+// columns read 4% slower there all the same: PERF.md §6): a block owns BK
+// keys of one (batch row, head) and a column tile of DC columns of dK, dV
+// and dQ (all of D at D ≤ 256), and walks its split of the query steps of
+// 32. Per step it forms Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ over the full D ONCE
+// (group 0 Sᵀ and Pᵀ, group 1 dPᵀ and dSᵀ, 4 keys × QF queries a thread),
+// then dV += Pᵀ·dO (group 0) and dK += dSᵀ·Q (group 1) into 8 keys × 8
+// columns a thread held in registers across the query loop (BK·DC = 8192:
+// 64 floats a thread), then the key tile's share of the step's dQ = dS·K,
+// summed into dq in key-tile order under the (b, h, column tile, query
+// step) ticket, as onepass_f32_kernel does. 10·T²·D operations a (row,
+// head) at D ≤ 256; above, each column tile of 256 forms Sᵀ and dPᵀ again
+// (⌈D/256⌉ times), from chunks of 16 columns of K, V, Q and dO streamed
+// through a two-stage ring in sV's place. At D ≤ 256 K and V stay in
+// shared memory for the block's life and the step's Q and dO come by
+// cp.async into a ring of two stages, the next step's in flight while this
+// one's FMAs run.
+template <int DC, int BK>
+__global__ void __launch_bounds__(WBT, 1)
+wide_onepass_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                        Strides sx, const float* __restrict__ dout, Strides so, const float* __restrict__ lse,
+                        const float* __restrict__ delta, const float* __restrict__ mask, float* dq, float* dk, float* dv,
+                        int* tickets, int H, int T, int D, int nkt, int nq, int nct, int splits, float scale) {
+  constexpr int LD = DC + 4, WARPS = WBT / 32;
+  constexpr int KG = BK / 4, QF = BK * WQS / 512, QG = WQS / QF;  // formation: keys fk + KG·i, queries fq + QG·j
+  constexpr int PKG = BK / 8, CG = DC / 8;                          // products: keys pk + PKG·i, columns 4pc + 4CG·u
+  constexpr int NCG = DC / 4, RPT = WQS * NCG / WBT;                // dQ share: rows RPT·qr + i, columns 4qc + e
+  static_assert(KG * QG == 128 && PKG * CG == 128 && RPT % 4 == 0, "each group's threads cover its tiles once");
+  constexpr int RSTAGE = (2 * BK + 2 * WQS) * WLF;  // a streamed chunk of K, V, Q and dO
+  static_assert(2 * RSTAGE <= BK * LD, "the streamed ring fits sV");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);  // [BK × LD]
+  float* sV = sK + BK * LD;                        // [BK × LD], or the streamed ring
+  float* sQ = sV + BK * LD;                        // 2 stages of [WQS × LD]
+  float* sG = sQ + 2 * WQS * LD;
+  float* sP = sG + 2 * WQS * LD;  // [BK × WSPL] Pᵀ
+  float* sDS = sP + BK * WSPL;    // dSᵀ
+  float* sL = sDS + BK * WSPL;    // 2 stages of L, then 2 of Δ
+  float* sDl = sL + 2 * WQS;
+  int* sWork = reinterpret_cast<int*>(sDl + 2 * WQS);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, grp = warp >> 2, gt = tid & 127;
+  const int fk = gt / QG, fq = gt % QG, pk = gt / CG, pc = gt % CG, qr = tid / NCG, qc = tid % NCG;
+  // the work item, in the order blocks start: key tile fastest, then the
+  // column tile, the split, (b, h)
+  if (tid == 0) *sWork = atomicAdd(tickets + TK_WORK, 1);
+  __syncthreads();
+  const int work = *sWork, kt = work % nkt, ct = work / nkt % nct, sp = work / nkt / nct % splits;
+  const int bh = work / nkt / nct / splits, b = bh / H, h = bh % H, k0 = kt * BK, c0 = ct * DC;
+  const int j0 = sp * nq / splits, j1 = (sp + 1) * nq / splits;  // the split's query steps
+  const bool streamed = nct > 1;
+  const size_t row0 = (size_t)bh * T;
+  const int bhc = bh * nct + ct;
+  int* dq_ticket = tickets + TK_DQ + (size_t)bhc * nq;
+  const float* mrow = mask + (size_t)b * T;
+  float kb[4];  // the key bias of the thread's formation keys (−1e9 past T): group 0's
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = k0 + fk + KG * i;
+    kb[i] = t < T && mrow[t] > 0.f ? 0.f : MASK_BIAS;
+  }
+
+  // query rows past T arrive as zeros with L = Δ = 0: exact zeros
+  auto load_step = [&](int j, int stage) {
+    load_rows_f32<WQS, DC, WBT>(sQ + stage * WQS * LD, LD, q, sx, b, h, j * WQS, T, c0, D, tid);
+    load_rows_f32<WQS, DC, WBT>(sG + stage * WQS * LD, LD, dout, so, b, h, j * WQS, T, c0, D, tid);
+    load_vec_async<WQS, WBT>(sL + stage * WQS, lse + row0, j * WQS, T, tid);
+    load_vec_async<WQS, WBT>(sDl + stage * WQS, delta + row0, j * WQS, T, tid);
+  };
+  // chunk c of the formation's columns (D > 256): K, V, Q, dO rows of 16
+  auto load_chunk = [&](int j, int c, float* st) {
+    load_rows_f32<BK, WFC, WBT>(st, WLF, k, sx, b, h, k0, T, c * WFC, D, tid);
+    load_rows_f32<BK, WFC, WBT>(st + BK * WLF, WLF, v, sx, b, h, k0, T, c * WFC, D, tid);
+    load_rows_f32<WQS, WFC, WBT>(st + 2 * BK * WLF, WLF, q, sx, b, h, j * WQS, T, c * WFC, D, tid);
+    load_rows_f32<WQS, WFC, WBT>(st + (2 * BK + WQS) * WLF, WLF, dout, so, b, h, j * WQS, T, c * WFC, D, tid);
+  };
+  load_rows_f32<BK, DC, WBT>(sK, LD, k, sx, b, h, k0, T, c0, D, tid);
+  if (!streamed) load_rows_f32<BK, DC, WBT>(sV, LD, v, sx, b, h, k0, T, 0, D, tid);
+  load_step(j0, 0);
+  cp_async_commit();
+
+  float acc[8][8] = {};  // dV (group 0) or dK (group 1): keys k0 + pk + PKG·i × columns c0 + 4pc + 4CG·u + e
+  const int nfc = (D + WFC - 1) / WFC;
+  for (int j = j0; j < j1; ++j) {
+    const int stage = (j - j0) & 1;
+    const float* sQs = sQ + stage * WQS * LD;
+    const float* sGs = sG + stage * WQS * LD;
+    cp_async_wait<0>();
+    // this step's tiles are in for every thread, and every warp is done
+    // with the last step's: only now may copies overwrite them
+    __syncthreads();
+    if (j + 1 < j1) {  // the next step's tiles, in flight during this step
+      load_step(j + 1, stage ^ 1);
+      cp_async_commit();
+    }
+    float t[4][QF] = {};
+    if (!streamed) {  // Sᵀ = K·Qᵀ (group 0) or dPᵀ = V·dOᵀ (group 1), once
+      if (grp == 0)
+        dots_kq<KG, QF, QG>(t, sK + fk * LD, sQs + fq * LD, LD, D);
+      else
+        dots_kq<KG, QF, QG>(t, sV + fk * LD, sGs + fq * LD, LD, D);
+    } else {  // the same over all of D, 16 columns at a time through the ring in sV
+      load_chunk(j, 0, sV);
+      cp_async_commit();
+      for (int c = 0; c < nfc; ++c) {
+        cp_async_wait<0>();
+        __syncthreads();  // chunk c is in, and every warp is done with chunk c − 1
+        if (c + 1 < nfc) {
+          load_chunk(j, c + 1, sV + ((c + 1) & 1) * RSTAGE);
+          cp_async_commit();
+        }
+        const float* st = sV + (c & 1) * RSTAGE;
+        const int dw = min(WFC, D - c * WFC);
+        if (grp == 0)
+          dots_kq<KG, QF, QG>(t, st + fk * WLF, st + (2 * BK + fq) * WLF, WLF, dw);
+        else
+          dots_kq<KG, QF, QG>(t, st + (BK + fk) * WLF, st + (2 * BK + WQS + fq) * WLF, WLF, dw);
+      }
+    }
+    if (grp == 0) {  // Pᵀ = exp(Sᵀ·scale + bias − L)
+      const float* sLs = sL + stage * WQS;
+#pragma unroll
+      for (int jj = 0; jj < QF; ++jj) {
+        const float Lj = sLs[fq + QG * jj];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          sP[(fk + KG * i) * WSPL + fq + QG * jj] = expf(__fsub_rn(__fadd_rn(__fmul_rn(t[i][jj], scale), kb[i]), Lj));
+      }
+    }
+    __syncthreads();  // Pᵀ in place
+    if (grp == 1) {  // dSᵀ = Pᵀ·(dPᵀ − Δ)
+      const float* sDls = sDl + stage * WQS;
+#pragma unroll
+      for (int jj = 0; jj < QF; ++jj) {
+        const float Dj = sDls[fq + QG * jj];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int at = (fk + KG * i) * WSPL + fq + QG * jj;
+          sDS[at] = __fmul_rn(sP[at], __fsub_rn(t[i][jj], Dj));
+        }
+      }
+    }
+    __syncthreads();  // dSᵀ in place
+    {  // dV += Pᵀ·dO (group 0) or dK += dSᵀ·Q (group 1), over the step's queries in order
+      const float* w = (grp == 0 ? sP : sDS) + pk * WSPL;
+      const float* x = (grp == 0 ? sGs : sQs) + 4 * pc;
+#pragma unroll 1
+      for (int jq0 = 0; jq0 < WQS; jq0 += 4) {
+        float4 wv[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) wv[i] = *reinterpret_cast<const float4*>(w + PKG * i * WSPL + jq0);
+#pragma unroll
+        for (int jq = 0; jq < 4; ++jq) {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float4 xv = *reinterpret_cast<const float4*>(x + (jq0 + jq) * LD + 4 * CG * u);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const float p = jq == 0 ? wv[i].x : jq == 1 ? wv[i].y : jq == 2 ? wv[i].z : wv[i].w;
+              acc[i][4 * u + 0] = fmaf(p, xv.x, acc[i][4 * u + 0]);
+              acc[i][4 * u + 1] = fmaf(p, xv.y, acc[i][4 * u + 1]);
+              acc[i][4 * u + 2] = fmaf(p, xv.z, acc[i][4 * u + 2]);
+              acc[i][4 * u + 3] = fmaf(p, xv.w, acc[i][4 * u + 3]);
+            }
+          }
+        }
+      }
+    }
+    // this key tile's share of the step's dQ: dS·K over the BK keys in order
+    float dqs[RPT][4] = {};
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float wr[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; i += 4) {
+        const float4 w4 = *reinterpret_cast<const float4*>(sDS + kk * WSPL + RPT * qr + i);
+        wr[i] = w4.x;
+        wr[i + 1] = w4.y;
+        wr[i + 2] = w4.z;
+        wr[i + 3] = w4.w;
+      }
+      const float4 x = *reinterpret_cast<const float4*>(sK + kk * LD + 4 * qc);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        dqs[i][0] = fmaf(wr[i], x.x, dqs[i][0]);
+        dqs[i][1] = fmaf(wr[i], x.y, dqs[i][1]);
+        dqs[i][2] = fmaf(wr[i], x.z, dqs[i][2]);
+        dqs[i][3] = fmaf(wr[i], x.w, dqs[i][3]);
+      }
+    }
+    // into dq in key-tile order, a warp at a time: the ticket counts the
+    // warps of the key tiles before this one that have added
+    float4* ptr[RPT];
+    float4 val[RPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int tq = j * WQS + RPT * qr + i, c = c0 + 4 * qc;
+      ptr[i] = tq < T && c < D ? reinterpret_cast<float4*>(dq + sx.at(b, h, tq) + c) : nullptr;
+      val[i] = make_float4(dqs[i][0], dqs[i][1], dqs[i][2], dqs[i][3]);
+    }
+    if (nkt > 1) {
+      if (lane == 0) {
+        while (ld_acquire(dq_ticket + j) < WARPS * kt) __nanosleep(32);
+      }
+      __syncwarp();
+    }
+    add_ordered<RPT>(ptr, val, kt == 0, kt == nkt - 1, scale);
+    if (nkt > 1) {
+      __threadfence();
+      __syncwarp();
+      if (lane == 0 && atomicAdd(dq_ticket + j, 1) == WARPS * nkt - 1) dq_ticket[j] = 0;  // the last warp: zero at rest
+    }
+  }
+
+  // dV (group 0) or dK (group 1, times scale) of the owned keys' column
+  // tile: the splits in order, under the (b, h, column tile, key tile)'s ticket
+  int* kv_ticket = tickets + TK_DQ + (size_t)(gridDim.x / (nkt * nct * splits)) * nct * nq + (size_t)bhc * nkt + kt;
+  if (splits > 1) {
+    if (tid == 0) {
+      while (ld_acquire(kv_ticket) != sp) __nanosleep(32);
+    }
+    __syncthreads();
+  }
+  float* out = grp == 0 ? dv : dk;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {  // a column half at a time: fewer values live at once
+    float4* ptr[8];
+    float4 val[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int t = k0 + pk + PKG * i, c = c0 + 4 * pc + 4 * CG * u;
+      ptr[i] = t < T && c < D ? reinterpret_cast<float4*>(out + sx.at(b, h, t) + c) : nullptr;
+      val[i] = make_float4(acc[i][4 * u], acc[i][4 * u + 1], acc[i][4 * u + 2], acc[i][4 * u + 3]);
+    }
+    add_ordered<8>(ptr, val, sp == 0, sp == splits - 1, grp == 0 ? 1.f : scale);
+  }
+  if (splits > 1) {
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) st_release(kv_ticket, sp == splits - 1 ? 0 : sp + 1);
+  }
+  if (tid == 0 && atomicAdd(tickets + TK_DONE, 1) == (int)gridDim.x - 1) {  // the last block: zero at rest
+    tickets[TK_WORK] = 0;
+    tickets[TK_DONE] = 0;
+  }
+}
+
+template <int DC, int BK>
+cudaError_t launch_wide_onepass(const float* q, const float* k, const float* v, Strides sx, const float* dout,
+                                Strides so, const float* lse, const float* delta, const float* mask, float* dq,
+                                float* dk, float* dv, int* tickets, int B, int T, int H, int D, int splits, float scale,
+                                cudaStream_t stream) {
+  constexpr size_t smem = wide_onepass_smem_bytes<DC, BK>();
+  const int nkt = (T + BK - 1) / BK, nq = (T + WQS - 1) / WQS, nct = (D + DC - 1) / DC;
+  const long long blocks = (long long)B * H * nkt * nct * splits;
+  if (blocks > 0x7fffffff || (DC == 128 && nct > 1)) return cudaErrorInvalidValue;
+  cudaError_t e =
+      cudaFuncSetAttribute(wide_onepass_f32_kernel<DC, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  wide_onepass_f32_kernel<DC, BK><<<(unsigned)blocks, WBT, smem, stream>>>(q, k, v, sx, dout, so, lse, delta, mask, dq, dk,
+                                                                          dv, tickets, H, T, D, nkt, nq, nct, splits, scale);
+  return cudaGetLastError();
+}
+
 template <int DC, int KH>
 cudaError_t launch_onepass(const float* q, const float* k, const float* v, Strides sx, const float* dout, Strides so,
                            const float* lse, const float* delta, const float* mask, float* dq, float* dk, float* dv,
@@ -742,8 +1053,8 @@ int attend_bwd_simt(const void* q, const void* k, const void* v, const void* dou
                    D,
                    scale,
                    static_cast<cudaStream_t>(stream)};
-  // column tiles (and D steps of the scores) of 64: the pair serves f32 at
-  // D > 64 (below, the one pass)
+  // column tiles (and D steps of the scores) of 64, at any D: the pair
+  // serves the direct entries only (the wrappers take the one pass)
   return static_cast<int>(launch_simt<64>(a));
 }
 
@@ -767,22 +1078,25 @@ extern "C" int msa_attention_bwd_dkv_f32(const void* q, const void* k, const voi
                          so_t, scale, stream);
 }
 
-// The one pass on f32 operands at D ≤ 64 (the dispatch by D: the wrapper
-// takes the pair above it): dq, dk and dv in one launch. Arguments as
+// The one pass on f32 operands at any D (onepass_f32_kernel at D ≤ 64,
+// wide_onepass_f32_kernel above): dq, dk and dv in one launch. Arguments as
 // msa_attention_bwd_dq_f32's, with dk and dv beside dq (the strides of q,
-// k and v); tickets the int32 buffer of the plan (2 + B·H·(nq + nkt)
-// elements, nq = ⌈T/64⌉, nkt = ⌈T/BK⌉), zero at rest: the kernel leaves it
-// so; plan = BK | splits << 10 (ops/kernels/attention_bwd_plan.py): BK 64 or
-// 128 keys a block, 1 ≤ splits ≤ nq. Returns cudaErrorInvalidValue on a
-// shape or plan the kernel cannot take.
+// k and v); tickets the int32 buffer of the plan (2 + B·H·nct·(nq + nkt)
+// elements: nq = ⌈T/64⌉ at D ≤ 64 and ⌈T/32⌉ above, nkt = ⌈T/BK⌉, nct =
+// ⌈D/256⌉ above D = 256, else 1), zero at rest: the kernel leaves it so;
+// plan = BK | splits << 10 (ops/kernels/attention_bwd_plan.py): BK 64 or
+// 128 keys a block at D ≤ 64, 64 at D ≤ 128, 32 above; 1 ≤ splits ≤ nq.
+// Returns cudaErrorInvalidValue on a shape or plan the kernel cannot take.
 extern "C" int msa_attention_bwd_onepass_f32(const void* q, const void* k, const void* v, const void* dout,
                                              const void* lse, const void* delta, const void* mask, void* dq, void* dk,
                                              void* dv, void* tickets, int B, int T, int H, int D, int sx_b, int sx_h,
                                              int sx_t, int so_b, int so_h, int so_t, int plan, float scale,
                                              void* stream) {
-  const int bk = plan & 1023, splits = plan >> 10, nq = (T + OQ - 1) / OQ;
-  if (B < 1 || H < 1 || T < 1 || D < 8 || D % 8 || D > ONEPASS_MAX_D || (bk != 64 && bk != 128) || splits < 1 ||
-      splits > nq || tickets == nullptr)
+  const int bk = plan & 1023, splits = plan >> 10;
+  const int nq = D > ONEPASS_MAX_D ? (T + WQS - 1) / WQS : (T + OQ - 1) / OQ;
+  // the key tile the kernel of this D takes: 64 or 128 at D ≤ 64, 64 at D ≤ 128, 32 above
+  const bool bk_ok = D <= ONEPASS_MAX_D ? bk == 64 || bk == 128 : bk == (D <= 128 ? 64 : 32);
+  if (B < 1 || H < 1 || T < 1 || D < 8 || D % 8 || !bk_ok || splits < 1 || splits > nq || tickets == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides sx{sx_b, sx_h, sx_t}, so{so_b, so_h, so_t};
   auto qf = static_cast<const float*>(q), kf = static_cast<const float*>(k), vf = static_cast<const float*>(v);
@@ -794,7 +1108,11 @@ extern "C" int msa_attention_bwd_onepass_f32(const void* q, const void* k, const
   // 32 columns at D ≤ 32 (the custom widths' D = 24 and 25 run faster than
   // on 64: PERF.md §6), else 64
   cudaError_t e;
-  if (D <= 32)
+  if (D > 128)
+    e = launch_wide_onepass<256, 32>(qf, kf, vf, sx, gf, so, lf, df, mf, dqf, dkf, dvf, tk, B, T, H, D, splits, scale, st);
+  else if (D > ONEPASS_MAX_D)
+    e = launch_wide_onepass<128, 64>(qf, kf, vf, sx, gf, so, lf, df, mf, dqf, dkf, dvf, tk, B, T, H, D, splits, scale, st);
+  else if (D <= 32)
     e = bk == 128 ? launch_onepass<32, 2>(qf, kf, vf, sx, gf, so, lf, df, mf, dqf, dkf, dvf, tk, B, T, H, D, splits, scale, st)
                   : launch_onepass<32, 1>(qf, kf, vf, sx, gf, so, lf, df, mf, dqf, dkf, dvf, tk, B, T, H, D, splits, scale, st);
   else

@@ -16,7 +16,7 @@
 // all T_pad keys, as on the TPU. D is a multiple of 8 (the wrapper
 // zero-pads other D, as JAX pads D; zeros add nothing), and DP (32, 64 or
 // 128) in shared memory; above 128 bf16 calls the tensor-core kernel of
-// attention_wide_mma.cu and f32 the D-tiled kernel of attention_wide.cu.
+// attention_wide_mma.cu and f32 the wide kernel of attention_wide.cu.
 //
 // bf16: that is rows 5 and 2's function, so it runs their two-pass
 // register-resident core (attention_packed.cu, attention_mma.cuh) through
@@ -257,10 +257,11 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, Strides l
 }  // namespace
 
 int attend_f32(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out, int ob,
-               int oh, int ot, void* lse, int B, int T, int H, int D, float scale, void* stream) {
+               int oh, int ot, void* lse, int B, int T, int H, int D, float scale, int plan, void* tickets, void* ws,
+               void* stream) {
   if (T < 1 || D % 8 || D < 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (D > 128)  // the D-tiled kernel (attention_wide.cu), one pass as here
-    return attend_wide(q, k, v, sb, sh, st, mask, out, ob, oh, ot, lse, B, T, H, D, scale, stream);
+  if (D > 128)  // the wide kernel (attention_wide.cu), one pass as here, on the wrapper's plan
+    return attend_wide(q, k, v, sb, sh, st, mask, out, ob, oh, ot, lse, B, T, H, D, scale, plan, tickets, ws, stream);
   auto qp = static_cast<const float*>(q);
   auto kp = static_cast<const float*>(k);
   auto vp = static_cast<const float*>(v);
@@ -279,23 +280,26 @@ int attend_f32(const void* q, const void* k, const void* v, int sb, int sh, int 
 // q, k, v, out [B, H, T, D] (contiguous; bf16 when is_bf16, else f32),
 // mask [B, T] f32 (1 = attend); lse [B, H, T] f32. Any T ≥ 1; D % 8 == 0
 // (the wrapper zero-pads D; above 128 through attend_wide_mma in bf16
-// and attend_wide in f32).
+// and attend_wide in f32, which takes plan, tickets and ws: attend_wide's).
 extern "C" int msa_fused_attention(const void* q, const void* k, const void* v, const void* mask, void* out, void* lse,
-                                   int B, int T, int H, int D, int is_bf16, float scale, void* stream) {
+                                   int B, int T, int H, int D, int is_bf16, int plan, void* tickets, void* ws,
+                                   float scale, void* stream) {
   if (T < 1 || D % 8 || D < 8) return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16) return attend_heads_first(q, k, v, mask, out, lse, B, T, H, D, scale, stream);
-  return attend_f32(q, k, v, H * T * D, T * D, D, mask, out, H * T * D, T * D, D, lse, B, T, H, D, scale, stream);
+  return attend_f32(q, k, v, H * T * D, T * D, D, mask, out, H * T * D, T * D, D, lse, B, T, H, D, scale, plan, tickets,
+                    ws, stream);
 }
 
 // Rows 5 and 6 in f32 (the parity mode's encoders at d_model % 128 ≠ 0,
 // and past T = 512): the one-pass f32 core on q, k and v strided out of
 // qkv [B, T, 3, H, D] (contiguous), writing out [B, T, H·D] and lse
 // [B, H, T], both f32; mask [B, T] f32 (1 = attend). Any T ≥ 1; D % 8 == 0
-// (the wrapper zero-pads D; above 128 through attend_wide).
+// (the wrapper zero-pads D; above 128 through attend_wide, on plan, tickets
+// and ws).
 extern "C" int msa_packed_attention_f32(const void* qkv, const void* mask, void* out, void* lse, int B, int T, int H,
-                                        int D, float scale, void* stream) {
+                                        int D, int plan, void* tickets, void* ws, float scale, void* stream) {
   const float* q = static_cast<const float*>(qkv);
   const int HD = H * D;
   return attend_f32(q, q + HD, q + 2 * HD, 3 * T * HD, D, 3 * HD, mask, out, T * HD, D, HD, lse, B, T, H, D, scale,
-                    stream);
+                    plan, tickets, ws, stream);
 }

@@ -306,17 +306,25 @@ int attend_unnormalised(const void* q, const void* k, const void* v, int sb, int
 
 // The one-pass f32 core of row 1 (attention_fused.cu) on q, k, v and o
 // addressed by element strides (batch, head, time; D contiguous): rows 1,
-// 5, 6 and 8 in f32. D % 8 == 0 (above 128 through attend_wide), any T;
-// returns a cudaError_t.
+// 5, 6 and 8 in f32. D % 8 == 0 (above 128 through attend_wide, with its
+// plan, tickets and workspace; ignored at D ≤ 128), any T; returns a
+// cudaError_t.
 int attend_f32(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out, int ob,
-               int oh, int ot, void* lse, int B, int T, int H, int D, float scale, void* stream);
+               int oh, int ot, void* lse, int B, int T, int H, int D, float scale, int plan, void* tickets, void* ws,
+               void* stream);
 
 // f32 attention at any head dim D (a multiple of 8), the f32 forward rows'
-// path above D = 128 (attention_wide.cu): the D-tiled f32 SIMT kernel, in
-// row 6's one-pass order (every rounding to f32 is the identity). lse may
-// be null. Any T; returns a cudaError_t.
+// path above D = 128 (attention_wide.cu): S formed once per key block at
+// D ≤ 256, in row 6's one-pass order (every rounding to f32 is the
+// identity). lse may be null. plan = BQ | splits << 10
+// (ops/kernels/attention_wide_plan.py): BQ 64, 32 or 16 query rows a block,
+// 1 ≤ splits ≤ ⌈T/128⌉ runs of the key loop; above one split, tickets (the
+// int32 buffer of the plan, zero at rest) and ws (f32 partials) are
+// required. Any T; returns a cudaError_t (cudaErrorInvalidValue on a plan
+// it cannot take).
 int attend_wide(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out,
-                int ob, int oh, int ot, void* lse, int B, int T, int H, int D, float scale, void* stream);
+                int ob, int oh, int ot, void* lse, int B, int T, int H, int D, float scale, int plan, void* tickets,
+                void* ws, void* stream);
 
 // bf16 attention above head dim 128 on the tensor cores, the bf16 forward
 // rows' path there (attention_wide_mma.cu), rounding to bf16 in ``order``

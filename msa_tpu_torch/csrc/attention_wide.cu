@@ -13,95 +13,147 @@
 // attention of attention_block (:779, :819; body _attn_block_body
 // :574-695). JAX pads D to 64 or 128 there and serves any D.
 //
-// The D tile: one block per (64-query tile, 128-column tile of the output,
-// head, batch row). Each block computes the scores over the full D, with Q
-// and K stepped through shared memory 32 columns at a time, and then runs
-// P·V into its own 128 output columns, V stepped through shared memory 32
-// keys at a time. Only the column-tile-0 block writes the lse. Columns past
-// D are zero-filled by the copies, so D is any multiple of 8.
-//
-// Everything is computed in f32 on the CUDA cores with exact FMA (no TF32),
-// in row 6's one pass over 128-key blocks: m_cur = max(m, rowmax(s)), α =
-// exp(m − m_cur), p = exp(s − m_cur), l = α·l + Σp, o = o·α + P·V (the plain
-// version sums the block's P·V on its own first: an f32 rounding apart); o
-// / max(l, 1e-30) and lse = m + log(max(l, 1e-30)). Every rounding to f32
-// is the identity, so this one order serves every f32 row (4·T²·D
-// operations where two passes take 6). s = S·scale + bias, the product and
-// the sum each rounded on its own, bias −1e9 on masked keys and on keys
+// What it computes: row 6's one pass over 128-key blocks, in f32 on the
+// CUDA cores with exact FMA (no TF32): m_cur = max(m, rowmax(s)), α =
+// exp(m − m_cur), p = exp(s − m_cur), l = α·l + Σp, o = o·α + P·V (the
+// plain version sums the block's P·V on its own first: an f32 rounding
+// apart); o / max(l, 1e-30) and lse = m + log(max(l, 1e-30)). Every
+// rounding to f32 is the identity, so this one order serves every f32 row.
+// s = S·scale + bias, the product and the sum each rounded on its own, the
+// dot an FMA chain over d in order; bias −1e9 on masked keys and on keys
 // past T: T is padded to a multiple of 128, so a row with no valid key
 // averages V over all T_pad keys, as on the TPU.
 //
-// What bounds it on the card: 4·T²·D operations per (row, head) at the
-// CUDA cores' 67 TFLOP/s, which at these head dims no path of the system
-// runs (the encoders' D is 64, the configs' widest 128). Speed is not this
-// kernel's aim: it is the simple D-tiled design, one block per output tile,
-// copies waited for before each step, 80 KB of shared memory a block.
+// The design (wide_f32_kernel<RPW>): a block owns BQ = 8·RPW query rows
+// (64, 32 or 16) and a column tile of up to 256 columns of o, and walks its
+// split of the 128-key blocks. Per key block it forms S = Q·Kᵀ over the
+// full D ONCE, then o += P·V into all the tile's columns: 4·T²·D operations
+// a (row, head) at D ≤ 256. Above D = 256 the column tiles of 256 each
+// form S again: ⌈D/256⌉ times.
+// - 8 warps; warp w owns query rows RPW·w .. RPW·w + RPW − 1 whole: its
+//   lanes hold each row's keys lane + 32j (j < 4) of S and columns 2·lane +
+//   64u (u < 4, float2) of o, so a row's max and sum are warp reductions,
+//   P goes through the warp's own rows of shared memory (no block barrier),
+//   and o (RPW × 8 a thread) stays in registers across the key loop.
+// - One cp.async ring of NS = 3 stages of 64 KB carries the work items in
+//   order: per key block ⌈D/64⌉ chunks of 64 columns of Q and K, then 2
+//   steps of 64 keys of V's column tile; the item NS − 1 ahead is in
+//   flight while the FMAs of this one run (one barrier an item; items of
+//   32 columns and keys on 4 stages read 8% slower: PERF.md §6).
+// - The query tile and the split of the key loop come from the wrapper's
+//   planner (ops/kernels/attention_wide_plan.py), which fills the 132 SMs;
+//   the entry refuses a plan it cannot take. A split writes its o, m and l
+//   to a workspace; the last block of a (b, h, query tile, column tile) to
+//   count itself in a per-stream ticket (which it sets back to 0: zero at
+//   rest) combines them in split order, as the online softmax would:
+//   M = max(m, m_s), l = e^(m−M)·l + e^(m_s−M)·l_s, o = e^(m−M)·o +
+//   e^(m_s−M)·o_s. No float atomics: two calls are bit-equal.
+//
+// What bounds it on the card: 4·T²·D operations a (row, head) at the CUDA
+// cores' 67 TFLOP/s (B=2 T=512 H=4 D=192: 1.61 GFLOP, 0.0240 ms) over a
+// few MB. Shared memory: the ring 192 KB and P BQ × 132 floats (225 KB at
+// BQ = 64), one block of 8 warps an SM. Whole rows a lane for S, so Q's
+// loads are warp-wide broadcasts: lanes in row groups (2 rows × 16 keys a
+// lane) read 10–30% slower on the card.
 #include "attention_mma.cuh"
 
 namespace {
 
-constexpr int WQ = 64;         // query rows per block
-constexpr int WK = 128;        // keys per step: row 6's key block
-constexpr int WC = 128;        // output columns per block: the D tile
-constexpr int WDC = 32;        // D columns of Q and K per score step
-constexpr int WVK = 32;        // keys of V per P·V step
-constexpr int WTHREADS = 128;  // 4 warps of 16 query rows
-constexpr int WLC = WDC + 4;   // row of sQ, sK: ≡ 4 (mod 32) words, conflict-free float4 reads
-constexpr int WLV = WC + 4;    // row of sV
-constexpr int WPL = WK + 8;    // row of sP: ≡ 8 (mod 32) words
+constexpr int WK = 128;        // keys a step of the key loop: row 6's key block
+constexpr int WCT = 256;       // columns of o a block (the column tile above D = 256)
+constexpr int WDC = 64;        // D columns of Q and K a ring item
+constexpr int WVK = 64;        // keys of V a ring item
+constexpr int WNV = WK / WVK;  // V items a key block
+constexpr int WTHREADS = 256;  // 8 warps
+constexpr int WNS = 3;         // ring stages
+constexpr int WLC = WDC + 4;   // row of a Q or K chunk: ≡ 4 (mod 32) words, conflict-free float4 reads
+constexpr int WSTAGE = WVK * WCT;  // floats a stage: a V item (16384), or a Q and a K chunk ((BQ + 128) · 68 ≤ 13056)
+constexpr int WPL = WK + 4;    // row of sP
 
-constexpr size_t wide_smem_bytes() {
-  return ((size_t)WQ * WLC + (size_t)WK * WLC + (size_t)WVK * WLV + (size_t)WQ * WPL + WK) * sizeof(float);
+template <int RPW>
+constexpr size_t wide_f32_smem_bytes() {
+  return ((size_t)WNS * WSTAGE + (size_t)8 * RPW * WPL) * sizeof(float) + 16;
 }
 
-// In a warp, lane = 8·rg + kg: the thread holds query rows 16w + rg + 4i
-// (i < 4) × keys kg + 8j (j < 16) of the 64 × 128 score tile, and the same
-// rows × output columns 4kg + 32u + (0..3) (u < 4) of the block's D tile; a
-// row's max and sum are reduced over its 8 lanes (xor 1, 2, 4).
-__global__ void __launch_bounds__(WTHREADS)
-wide_attention_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, Strides lin,
-                      const float* __restrict__ mask, float* __restrict__ out, Strides lout, float* __restrict__ lse,
-                      int H, int nct, int T, int T_pad, int D, float scale) {
+template <int RPW>
+__global__ void __launch_bounds__(WTHREADS, 1)
+wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v, Strides lin,
+                const float* __restrict__ mask, float* __restrict__ out, Strides lout, float* __restrict__ lse,
+                float* ws, int* tickets, int H, int T, int D, int nqt, int nct, int nkb, int splits, float scale) {
+  constexpr int BQ = 8 * RPW, PART = BQ * WCT + 2 * BQ;
+  static_assert((BQ + WK) * WLC <= WSTAGE, "a Q and a K chunk fit a stage");
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);  // [WQ × WLC]
-  float* sK = sQ + WQ * WLC;                       // [WK × WLC]
-  float* sV = sK + WK * WLC;                       // [WVK × WLV]
-  float* sP = sV + WVK * WLV;                      // [WQ × WPL]
-  float* sMask = sP + WQ * WPL;                    // [WK]
+  float* ring = reinterpret_cast<float*>(smem_raw);  // [WNS × WSTAGE]
+  float* sP = ring + WNS * WSTAGE;                    // [BQ × WPL]
+  int* sFlag = reinterpret_cast<int*>(sP + BQ * WPL);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, rg = lane >> 3, kg = lane & 7;
-  const int q0 = blockIdx.x * WQ, h = blockIdx.y / nct, c0 = (blockIdx.y % nct) * WC, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the block: split fastest, then the column tile, the query tile, (b, h)
+  const int sp = blockIdx.x % splits, grp = blockIdx.x / splits;
+  const int ct = grp % nct, qt = grp / nct % nqt, bh = grp / nct / nqt, b = bh / H, h = bh % H;
+  const int q0 = qt * BQ, c0 = ct * WCT;
+  const int kb0 = sp * nkb / splits, kb1 = (sp + 1) * nkb / splits;
+  const int nd = (D + WDC - 1) / WDC, per_kb = nd + WNV, items = (kb1 - kb0) * per_kb;
+  const int nu = (min(D - c0, WCT) + 63) / 64;  // float2 column groups of o that hold columns < D
   const float* mrow = mask + (size_t)b * T;
-  const int ndc = (D + WDC - 1) / WDC, nkb = T_pad / WK;
-  const float* sQt = sQ + (warp * 16 + rg) * WLC;  // the thread's row i: + 4i·WLC
-  float* sPt = sP + (warp * 16 + rg) * WPL;
+  const int r0 = warp * RPW;  // the warp's first query row in the tile
+  float* sPw = sP + r0 * WPL;
 
-  // s = (q·k)·scale + bias over the keys [k0, k0 + WK), the dot an f32 FMA
-  // chain over d in order
-  auto scores = [&](int k0, float (&s)[4][16]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) s[i][j] = 0.f;
+  // item i of the block: per key block, nd Q/K chunks then WNV V steps
+  auto load_item = [&](int i, float* st) {
+    const int k0 = (kb0 + i / per_kb) * WK, r = i % per_kb;
+    if (r < nd) {
+      load_rows_f32<BQ, WDC, WTHREADS>(st, WLC, q, lin, b, h, q0, T, r * WDC, D, tid);
+      load_rows_f32<WK, WDC, WTHREADS>(st + BQ * WLC, WLC, k, lin, b, h, k0, T, r * WDC, D, tid);
+    } else {
+      load_rows_f32<WVK, WCT, WTHREADS>(st, WCT, v, lin, b, h, k0 + (r - nd) * WVK, T, c0, D, tid);
     }
-    for (int dc = 0; dc < ndc; ++dc) {
-      __syncthreads();  // every warp is done with the last chunk (and the last block's mask)
-      load_rows_f32<WQ, WDC, WTHREADS>(sQ, WLC, q, lin, b, h, q0, T, dc * WDC, D, tid);
-      load_rows_f32<WK, WDC, WTHREADS>(sK, WLC, k, lin, b, h, k0, T, dc * WDC, D, tid);
-      if (dc == 0) load_vec_async<WK, WTHREADS>(sMask, mrow, k0, T, tid);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
+  };
+
+  float o[RPW][8], m[RPW], l[RPW], s[RPW][4];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+    m[i] = -1e30f;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) o[i][c] = 0.f;
+  }
+
+#pragma unroll
+  for (int st = 0; st < WNS - 1; ++st) {
+    if (st < items) load_item(st, ring + st * WSTAGE);
+    cp_async_commit();
+  }
+  for (int it = 0; it < items; ++it) {
+    cp_async_wait<WNS - 2>();
+    // item it is in for every thread, and every warp is done with item
+    // it − 1, whose stage the next copy overwrites
+    __syncthreads();
+    if (it + WNS - 1 < items) load_item(it + WNS - 1, ring + (it + WNS - 1) % WNS * WSTAGE);
+    cp_async_commit();
+    const float* st = ring + it % WNS * WSTAGE;
+    const int r = it % per_kb;
+    if (r < nd) {  // s += Q·Kᵀ over this chunk's columns, in order of d
+      if (r == 0) {
+#pragma unroll
+        for (int i = 0; i < RPW; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+        }
+      }
+      const float* sQ = st + r0 * WLC;
+      const float* sK = st + BQ * WLC + lane * WLC;
+      const int dw = min(WDC, D - r * WDC);
 #pragma unroll 2
-      for (int d = 0; d < WDC; d += 4) {
-        float4 qv[4];
+      for (int d = 0; d < dw; d += 4) {
+        float4 qv[RPW];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(sQt + 4 * i * WLC + d);
+        for (int i = 0; i < RPW; ++i) qv[i] = *reinterpret_cast<const float4*>(sQ + i * WLC + d);
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const float4 kv = *reinterpret_cast<const float4*>(sK + (kg + 8 * j) * WLC + d);
+        for (int j = 0; j < 4; ++j) {
+          const float4 kv = *reinterpret_cast<const float4*>(sK + 32 * j * WLC + d);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < RPW; ++i) {
             s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
             s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
             s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
@@ -109,125 +161,170 @@ wide_attention_kernel(const float* __restrict__ q, const float* __restrict__ k, 
           }
         }
       }
-    }
+      if (r == nd - 1) {  // the key block's scores are whole: the online softmax step
+        const int k0 = (kb0 + it / per_kb) * WK;
+        float bias[4];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float bias = sMask[kg + 8 * j] > 0.f ? 0.f : MASK_BIAS;
+        for (int j = 0; j < 4; ++j) {
+          const int t = k0 + lane + 32 * j;
+          bias[j] = t < T && mrow[t] > 0.f ? 0.f : MASK_BIAS;
+        }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[i][j] = __fadd_rn(__fmul_rn(s[i][j], scale), bias);
-    }
-  };
-
-  float o[4][16];
+        for (int i = 0; i < RPW; ++i) {
+          float mx = -1e30f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = __fadd_rn(__fmul_rn(s[i][j], scale), bias[j]);
+            mx = fmaxf(mx, s[i][j]);
+          }
 #pragma unroll
-    for (int c = 0; c < 16; ++c) o[i][c] = 0.f;
-  }
-  // o += P·V over the keys [k0, k0 + WK), P in the warp's rows of sP; V's D
-  // tile stepped through shared memory WVK keys at a time
-  auto pv = [&](int k0) {
-    for (int kv0 = 0; kv0 < WK; kv0 += WVK) {
-      __syncthreads();  // every warp is done with the last V step; sP is whole
-      load_rows_f32<WVK, WC, WTHREADS>(sV, WLV, v, lin, b, h, k0 + kv0, T, c0, D, tid);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
+          for (int x = 1; x < 32; x <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+          const float m_cur = fmaxf(m[i], mx), alpha = expf(m[i] - m_cur);
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float p = expf(s[i][j] - m_cur);
+            sum += p;
+            sPw[i * WPL + lane + 32 * j] = p;
+          }
+#pragma unroll
+          for (int x = 1; x < 32; x <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, x);
+          l[i] = __fadd_rn(__fmul_rn(alpha, l[i]), sum);
+          m[i] = m_cur;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) o[i][c] = __fmul_rn(o[i][c], alpha);
+        }
+        __syncwarp();  // the warp's P rows are whole
+      }
+    } else {  // o += P·V over this item's 64 keys, an FMA chain over the keys in order
+      const int kv0 = (r - nd) * WVK;
+      const float* sV = st + 2 * lane;
 #pragma unroll 2
       for (int j0 = 0; j0 < WVK; j0 += 4) {
-        float4 pq[4];
+        float4 pq[RPW];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) pq[i] = *reinterpret_cast<const float4*>(sPt + 4 * i * WPL + kv0 + j0);
+        for (int i = 0; i < RPW; ++i) pq[i] = *reinterpret_cast<const float4*>(sPw + i * WPL + kv0 + j0);
 #pragma unroll
         for (int jq = 0; jq < 4; ++jq) {
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
-            const float4 vv = *reinterpret_cast<const float4*>(sV + (j0 + jq) * WLV + 4 * kg + 32 * u);
+            if (u >= nu) continue;  // warp-uniform: columns past D
+            const float2 vv = *reinterpret_cast<const float2*>(sV + (j0 + jq) * WCT + 64 * u);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
+            for (int i = 0; i < RPW; ++i) {
               const float p = jq == 0 ? pq[i].x : jq == 1 ? pq[i].y : jq == 2 ? pq[i].z : pq[i].w;
-              o[i][4 * u + 0] = fmaf(p, vv.x, o[i][4 * u + 0]);
-              o[i][4 * u + 1] = fmaf(p, vv.y, o[i][4 * u + 1]);
-              o[i][4 * u + 2] = fmaf(p, vv.z, o[i][4 * u + 2]);
-              o[i][4 * u + 3] = fmaf(p, vv.w, o[i][4 * u + 3]);
+              o[i][2 * u] = fmaf(p, vv.x, o[i][2 * u]);
+              o[i][2 * u + 1] = fmaf(p, vv.y, o[i][2 * u + 1]);
             }
           }
         }
       }
     }
-  };
-  auto row_max = [&](const float (&s)[16]) {
-    float mx = -1e30f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) mx = fmaxf(mx, s[j]);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    return fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-  };
-  auto row_sum = [&](float x) {
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    x += __shfl_xor_sync(0xffffffffu, x, 2);
-    return x + __shfl_xor_sync(0xffffffffu, x, 4);
-  };
-
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -1e30f;
-    l[i] = 0.f;
   }
-  float s[4][16];
-  for (int kb = 0; kb < nkb; ++kb) {
-    scores(kb * WK, s);
+  cp_async_wait<0>();
+
+  if (splits > 1) {
+    // this split's o, m and l into the workspace; the last block of the
+    // group to count itself combines the splits in split order
+    float* part = ws + ((size_t)grp * splits + sp) * PART;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float m_cur = fmaxf(m[i], row_max(s[i])), alpha = expf(m[i] - m_cur);
-      float sum = 0.f;
+    for (int i = 0; i < RPW; ++i) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float p = expf(s[i][j] - m_cur);
-        sum += p;
-        sPt[4 * i * WPL + kg + 8 * j] = p;
+      for (int u = 0; u < 4; ++u)
+        __stcg(reinterpret_cast<float2*>(part + (r0 + i) * WCT + 2 * lane + 64 * u), make_float2(o[i][2 * u], o[i][2 * u + 1]));
+      if (lane == 0) {
+        __stcg(part + BQ * WCT + r0 + i, m[i]);
+        __stcg(part + BQ * WCT + BQ + r0 + i, l[i]);
       }
-      l[i] = __fadd_rn(__fmul_rn(alpha, l[i]), row_sum(sum));
-      m[i] = m_cur;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) o[i][c] = __fmul_rn(o[i][c], alpha);
     }
-    pv(kb * WK);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      const bool last = atomicAdd(tickets + grp, 1) == splits - 1;
+      if (last) tickets[grp] = 0;  // zero at rest
+      *sFlag = last;
+    }
+    __syncthreads();
+    if (!*sFlag) return;
+    __threadfence();
+    const float* base = ws + (size_t)grp * splits * PART;
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int row = r0 + i;
+      float mm = __ldcg(base + BQ * WCT + row), ll = __ldcg(base + BQ * WCT + BQ + row);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float2 x = __ldcg(reinterpret_cast<const float2*>(base + row * WCT + 2 * lane + 64 * u));
+        o[i][2 * u] = x.x;
+        o[i][2 * u + 1] = x.y;
+      }
+      for (int s2 = 1; s2 < splits; ++s2) {
+        const float* p2 = base + (size_t)s2 * PART;
+        const float ms = __ldcg(p2 + BQ * WCT + row), ls = __ldcg(p2 + BQ * WCT + BQ + row);
+        const float mn = fmaxf(mm, ms), a = expf(mm - mn), bb = expf(ms - mn);
+        ll = __fadd_rn(__fmul_rn(a, ll), __fmul_rn(bb, ls));
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float2 x = __ldcg(reinterpret_cast<const float2*>(p2 + row * WCT + 2 * lane + 64 * u));
+          o[i][2 * u] = __fadd_rn(__fmul_rn(a, o[i][2 * u]), __fmul_rn(bb, x.x));
+          o[i][2 * u + 1] = __fadd_rn(__fmul_rn(a, o[i][2 * u + 1]), __fmul_rn(bb, x.y));
+        }
+        mm = mn;
+      }
+      m[i] = mm;
+      l[i] = ll;
+    }
   }
 
-  // o / max(l, 1e-30) at rows < T and columns < D; the lse from the
-  // column-tile-0 block
+  // o / max(l, 1e-30) at rows < T and columns < D; the lse from column tile 0
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + warp * 16 + rg + 4 * i;
+  for (int i = 0; i < RPW; ++i) {
+    const int t = q0 + r0 + i;
     if (t >= T) continue;
     const float lc = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const int c = c0 + 4 * kg + 32 * u;
-      if (c < D) {
-        const float* oc = o[i] + 4 * u;
-        *reinterpret_cast<float4*>(out + lout.at(b, h, t) + c) = make_float4(oc[0] / lc, oc[1] / lc, oc[2] / lc, oc[3] / lc);
-      }
+      const int c = c0 + 2 * lane + 64 * u;
+      if (c < D) *reinterpret_cast<float2*>(out + lout.at(b, h, t) + c) = make_float2(o[i][2 * u] / lc, o[i][2 * u + 1] / lc);
     }
-    if (lse != nullptr && c0 == 0 && kg == 0) lse[((size_t)b * H + h) * T + t] = m[i] + logf(lc);
+    if (lse != nullptr && ct == 0 && lane == 0) lse[((size_t)b * H + h) * T + t] = m[i] + logf(lc);
   }
+}
+
+template <int RPW>
+cudaError_t launch_wide_f32(const float* q, const float* k, const float* v, Strides lin, const float* mask, float* out,
+                            Strides lout, float* lse, float* ws, int* tickets, int B, int T, int H, int D, int splits,
+                            float scale, cudaStream_t stream) {
+  constexpr int BQ = 8 * RPW;
+  constexpr size_t smem = wide_f32_smem_bytes<RPW>();
+  const int nqt = (T + BQ - 1) / BQ, nct = (D + WCT - 1) / WCT, nkb = (T + WK - 1) / WK;
+  const long long blocks = (long long)B * H * nqt * nct * splits;
+  if (splits < 1 || splits > nkb || blocks > 0x7fffffff || (splits > 1 && (ws == nullptr || tickets == nullptr)))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(wide_f32_kernel<RPW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  wide_f32_kernel<RPW><<<(unsigned)blocks, WTHREADS, smem, stream>>>(q, k, v, lin, mask, out, lout, lse, ws, tickets, H,
+                                                                    T, D, nqt, nct, nkb, splits, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 int attend_wide(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out,
-                int ob, int oh, int ot, void* lse, int B, int T, int H, int D, float scale, void* stream) {
-  const int nct = (D + WC - 1) / WC;
-  if (T < 1 || D < 8 || D % 8 || H * nct > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr size_t smem = wide_smem_bytes();
-  cudaError_t e = cudaFuncSetAttribute(wide_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  wide_attention_kernel<<<dim3((T + WQ - 1) / WQ, H * nct, B), WTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), Strides{sb, sh, st},
-      static_cast<const float*>(mask), static_cast<float*>(out), Strides{ob, oh, ot}, static_cast<float*>(lse), H, nct,
-      T, (T + WK - 1) / WK * WK, D, scale);
-  return static_cast<int>(cudaGetLastError());
+                int ob, int oh, int ot, void* lse, int B, int T, int H, int D, float scale, int plan, void* tickets,
+                void* ws, void* stream) {
+  const int bq = plan & 1023, splits = plan >> 10;
+  if (B < 1 || H < 1 || T < 1 || D < 8 || D % 8 || (bq != 64 && bq != 32 && bq != 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto qf = static_cast<const float*>(q), kf = static_cast<const float*>(k), vf = static_cast<const float*>(v);
+  auto mf = static_cast<const float*>(mask);
+  auto of = static_cast<float*>(out), lf = static_cast<float*>(lse), wf = static_cast<float*>(ws);
+  auto tk = static_cast<int*>(tickets);
+  auto s = static_cast<cudaStream_t>(stream);
+  const Strides lin{sb, sh, st}, lout{ob, oh, ot};
+  const cudaError_t e =
+      bq == 64   ? launch_wide_f32<8>(qf, kf, vf, lin, mf, of, lout, lf, wf, tk, B, T, H, D, splits, scale, s)
+      : bq == 32 ? launch_wide_f32<4>(qf, kf, vf, lin, mf, of, lout, lf, wf, tk, B, T, H, D, splits, scale, s)
+                 : launch_wide_f32<2>(qf, kf, vf, lin, mf, of, lout, lf, wf, tk, B, T, H, D, splits, scale, s);
+  return static_cast<int>(e);
 }

@@ -55,7 +55,8 @@ identity), rows 5/6 run their f32 forward and rows 3 and 4 their f32
 backward (``csrc/attention_bwd_f32.cu``), and the dense FFN takes cuBLAS's
 f32 GEMMs, with TF32 off under :func:`msa_tpu_torch.precision.exact_fp32`.
 Head dims above 128 train as well (in bf16 on the tensor-core backward of
-``csrc/attention_bwd_wide.cu``, in f32 on the D-tiled one).
+``csrc/attention_bwd_wide.cu``, in f32 in the one pass of
+``csrc/attention_bwd_f32.cu``).
 ``remat=True`` recomputes each layer in the backward pass, as ``nn.remat``.
 Flax's dropout masks are not ported: ``deterministic=False`` with
 ``dropout > 0`` raises.

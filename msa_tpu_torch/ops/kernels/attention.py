@@ -18,7 +18,7 @@ padded to a multiple of 128 inside, as the TPU wrapper does, and must be
 :func:`flash_attention_lse`). Any head dim D: the kernels' head dim DP is
 32, 64, 128 or, above 128, a multiple of 128 (the tensor-core kernel of
 ``csrc/attention_wide_mma.cu`` takes the bf16 core's place there, the
-D-tiled kernel of ``csrc/attention_wide.cu`` the f32 one's), and weights of
+wide f32 kernel of ``csrc/attention_wide.cu`` the f32 one's), and weights of
 another D are padded to the next DP once, by :func:`pad_block_weights`
 (zero rows of ``w_qkv``/``b_qkv`` per head, zero columns of ``w_out``);
 ``head_dim`` then names the unpadded D, whose 1/√D the scores take.
@@ -73,10 +73,12 @@ Any D: a D that is not a multiple of 8 is zero-padded on the card
 Above D = 128 every bf16 forward row (1, 2, 5, 6, 7, 8) runs the
 tensor-core kernel of ``csrc/attention_wide_mma.cu`` (any D: Q's tile in
 shared memory up to D = 512 and streamed beside K above it, K and V
-through a ring of 64-column chunks, 128- or 192-column tiles of o) and every f32 one the D-tiled SIMT kernel of
-``csrc/attention_wide.cu``; both round where each row's kernel rounds.
-Each wrapper counts such a bf16 launch in :data:`wide_mma` beside its own
-count.
+through a ring of 64-column chunks, 128- or 192-column tiles of o) and every f32 one the wide f32 kernel of
+``csrc/attention_wide.cu`` (S formed once per 128-key block at D ≤ 256, o
+in registers, the query tile and a split of the key loop from
+:func:`attention_wide_plan.plan`); both round where each row's kernel
+rounds. Each wrapper counts such a bf16 launch in :data:`wide_mma`, an
+f32 one in :data:`wide_f32`, beside its own count.
 
 JAX's public names keep JAX's contracts: :func:`packed_qkv_attention`
 (qkv → o, differentiable: ``attention.py:510-540``) and
@@ -98,11 +100,12 @@ the two kernels of ``csrc/attention_bwd.cu``, :func:`attention_bwd_dq` and
 :func:`attention_bwd_dkv`; :func:`attention_bwd_plain` is their plain
 version, 128×128 blocks in the TPU kernels' order. On f32 operands (the
 f32 training step, ``compute_dtype="float32"``) the backward runs
-``csrc/attention_bwd_f32.cu`` (exact f32 FMA, no rounding in f32), by D:
-at D ≤ 64 (every served f32 shape) one pass computes dq, dk and dv in one
-launch, :func:`attention_bwd_onepass`, on the grid of
-:func:`attention_bwd_plan.plan`; above it the two entries run that file's
-D-tiled SIMT kernels. In bf16 above D = 128 (any D) the two entries
+``csrc/attention_bwd_f32.cu`` (exact f32 FMA, no rounding in f32): one
+pass computes dq, dk and dv in one launch at every D,
+:func:`attention_bwd_onepass`, on the grid of
+:func:`attention_bwd_plan.plan` (above D = 64 its wide kernel, counted in
+:data:`wide_onepass_f32` too); the two f32 entries, which run that file's
+D-tiled SIMT pair, serve direct calls only. In bf16 above D = 128 (any D) the two entries
 run the tensor-core pair of ``csrc/attention_bwd_wide.cu``, counted in
 :data:`wide_bwd_dq` and :data:`wide_bwd_dkv` beside ``launches``. Two
 ``torch.autograd.Function`` wrappers run
@@ -120,6 +123,7 @@ import torch.nn.functional as F
 
 from msa_tpu_torch.ops import quant as Q
 from msa_tpu_torch.ops.kernels import attention_bwd_plan as BP
+from msa_tpu_torch.ops.kernels import attention_wide_plan as WP
 from msa_tpu_torch.ops.kernels import build
 from msa_tpu_torch.ops.kernels import gemm_bf16 as GB
 from msa_tpu_torch.ops.kernels import gemm_f32 as GF
@@ -145,12 +149,26 @@ class _Launches:
 # entries, and the backward pair (csrc/attention_bwd_wide.cu), from rows 3
 # and 4's; each wrapper counts its launch here beside its own count
 wide_mma, wide_bwd_dq, wide_bwd_dkv = _Launches(), _Launches(), _Launches()
+# the f32 kernels above head dim 128 (the forward, csrc/attention_wide.cu,
+# from the f32 rows 1, 2, 5, 6, 7 and 8) and above 64 (the one-pass
+# backward's wide_onepass_f32_kernel, from attention_bwd_onepass), counted
+# likewise beside each wrapper's own count
+wide_f32, wide_onepass_f32 = _Launches(), _Launches()
 
 
 def _wide(d: int, dtype: torch.dtype) -> bool:
     """Whether a launch at head dim ``d`` (a multiple of 8) in ``dtype``
     runs the bf16 tensor-core kernels above D = 128 (any D)."""
     return dtype == torch.bfloat16 and d > 128
+
+
+def _wide_f32_args(dev: torch.device, b: int, h: int, t: int, d: int) -> tuple:
+    """(plan code, tickets, workspace) of the f32 core's launch at head dim
+    ``d``: the wide kernel's (:func:`attention_wide_plan.plan`) above D =
+    128, zeros (unused) at or below it."""
+    if d <= 128:
+        return 0, 0, 0
+    return WP.launch_args(dev, WP.plan(b, h, t, d), b, h, t, d)
 
 
 def block_head_dim(d: int) -> int:
@@ -327,14 +345,16 @@ def _attention_block_f32(x, w_qkv, b_qkv, w_out, b_out, key_mask, num_heads: int
     out = torch.empty((b, t_pad, dm), dtype=f32, device=dev)
     m = b * t_pad
     ws, cnt, plan_qkv, plan_out = GP.launch_args(dev, (m, 3 * hd, dm), (m, dm, hd), dtype=f32)
+    wide = _wide_f32_args(dev, b, num_heads, t_pad, dp)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = build.library().msa_attention_block_f32(
         xp.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
         mask_p.data_ptr(), qkv.data_ptr(), attn.data_ptr(), lse.data_ptr(), out.data_ptr(), ws, cnt,
-        b, t_pad, dm, num_heads, dp, plan_qkv, plan_out, _block_scale(w_qkv, num_heads, head_dim), stream,
+        b, t_pad, dm, num_heads, dp, plan_qkv, plan_out, *wide, _block_scale(w_qkv, num_heads, head_dim), stream,
     )
     build.check(rc, "attention_block_f32")
     attention_block.launches_f32 += 1
+    wide_f32.launches += dp > 128  # the core above D = 128, launched from C
     GF.gemm_f32.launches += 2  # QKV and Wo, launched from C
     return out[:, :t]
 
@@ -409,16 +429,18 @@ def attention_block_int8(
         scratch.append(torch.empty((b, num_heads, t_pad), dtype=f32, device=dev))
     entry = "msa_attention_block_int8_f32" if dt == f32 else "msa_attention_block_int8"
     ws, cnt, plan_qkv, plan_out = GP.launch_args(dev, (m, 3 * hd, dm), (m, dm, hd), dtype=i8)
+    wide_args = _wide_f32_args(dev, b, num_heads, t_pad, dp) if dt == f32 else ()  # the f32 core's
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(build.library(), entry)(
         xp.data_ptr(), w_qkv_q.data_ptr(), s_qkv.data_ptr(), b_qkv.data_ptr(), w_out_q.data_ptr(),
         s_out.data_ptr(), b_out.data_ptr(), mask_p.data_ptr(), *(t.data_ptr() for t in scratch), aq.data_ptr(),
-        as_.data_ptr(), out.data_ptr(), ws, cnt, b, t_pad, dm, num_heads, dp, plan_qkv, plan_out,
+        as_.data_ptr(), out.data_ptr(), ws, cnt, b, t_pad, dm, num_heads, dp, plan_qkv, plan_out, *wide_args,
         _block_scale(w_qkv_q, num_heads, head_dim), stream,
     )
     build.check(rc, entry)
     if dt == f32:
         attention_block_int8.launches_f32 += 1
+        wide_f32.launches += dp > 128  # the core above D = 128, launched from C
     else:
         attention_block_int8.launches += 1
         wide_mma.launches += wide  # the core above D = 128, launched from C
@@ -523,12 +545,15 @@ def _launch_packed(entry: str, what: str, qkv: torch.Tensor, key_mask: torch.Ten
     wide = _wide(dp, dtype)
     o = torch.empty((b, t, h * dp), dtype=dtype, device=dev)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
+    f32 = dtype == torch.float32
+    wide_args = _wide_f32_args(dev, b, h, t, dp) if f32 else ()  # the f32 core's
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(build.library(), entry)(
-        qkv_p.data_ptr(), key_mask.data_ptr(), o.data_ptr(), lse.data_ptr(), b, t, h, dp, _scale(d), stream
+        qkv_p.data_ptr(), key_mask.data_ptr(), o.data_ptr(), lse.data_ptr(), b, t, h, dp, *wide_args, _scale(d), stream
     )
     build.check(rc, what)
     wide_mma.launches += wide
+    wide_f32.launches += f32 and dp > 128
     if dp != d:
         o = o.view(b, t, h, dp)[..., :d].reshape(b, t, h * d)
     return o, lse
@@ -648,9 +673,10 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_mask: t
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), o.data_ptr(), lse.data_ptr(), b, t, h, dp)
     if dtype == torch.float32:
-        rc = build.library().msa_fused_attention(*ptrs, 0, _scale(d), stream)
+        rc = build.library().msa_fused_attention(*ptrs, 0, *_wide_f32_args(dev, b, h, t, dp), _scale(d), stream)
         build.check(rc, "mha_attention_f32")
         mha_attention.launches_f32 += 1
+        wide_f32.launches += dp > 128
     else:
         rc = build.library().msa_mha_attention(*ptrs, _scale(d), stream)
         build.check(rc, "mha_attention")
@@ -694,16 +720,18 @@ def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_m
     key_mask = key_mask.float().contiguous()
     require(key_mask, "key_mask", torch.float32, (b, t), dev)
     wide = _wide(d_pad, q.dtype)
+    f32 = q.dtype == torch.float32
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = build.library().msa_fused_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, t, h, d_pad, int(q.dtype == torch.bfloat16), _scale(d), stream,
+        b, t, h, d_pad, int(not f32), *(_wide_f32_args(dev, b, h, t, d_pad) if f32 else (0, 0, 0)), _scale(d), stream,
     )
     build.check(rc, "fused_attention")
     fused_attention_lse.launches += 1
     wide_mma.launches += wide
+    wide_f32.launches += f32 and d_pad > 128
     return (o if d_pad == d else o[..., :d].contiguous()), lse
 
 
@@ -835,11 +863,13 @@ def attention_bwd_dkv(q, k, v, g, lse, delta, key_mask, dk, dv, scale=None) -> N
 
 
 def attention_bwd_onepass(q, k, v, g, lse, delta, key_mask, dq, dk, dv, scale=None, plan=None) -> None:
-    """Launch rows 3 and 4 on f32 operands at D ≤ 64 as one kernel
-    (``msa_attention_bwd_onepass_f32``): dq, dk and dv written into the
-    views (arguments as :func:`_bwd_args` checks them), on ``plan`` (by
-    default :func:`attention_bwd_plan.plan`'s), with the current stream's
-    ticket buffer."""
+    """Launch rows 3 and 4 on f32 operands as one kernel at any D
+    (``msa_attention_bwd_onepass_f32``: ``onepass_f32_kernel`` at D ≤ 64,
+    ``wide_onepass_f32_kernel`` above, counted in :data:`wide_onepass_f32`
+    too): dq, dk and dv written into the views (arguments as
+    :func:`_bwd_args` checks them), on ``plan`` (by default
+    :func:`attention_bwd_plan.plan`'s), with the current stream's ticket
+    buffer."""
     if q.dtype != torch.float32:
         raise ValueError(f"the one-pass attention backward takes f32, got {q.dtype}")
     b, h, t, d = q.shape
@@ -847,11 +877,12 @@ def attention_bwd_onepass(q, k, v, g, lse, delta, key_mask, dq, dk, dv, scale=No
     BP.validate(plan, b, h, t, d)
     scale = _scale(d) if scale is None else scale
     args = _bwd_args(q, k, v, g, lse, delta, key_mask, (dq, dk, dv), scale)
-    tickets, code = BP.launch_args(q.device, plan, b, h, t)
+    tickets, code = BP.launch_args(q.device, plan, b, h, t, d)
     # (10 pointers, tickets, B, T, H, D, 6 strides, plan, scale, stream)
     rc = build.library().msa_attention_bwd_onepass_f32(*args[:10], tickets, *args[10:20], code, *args[20:])
     build.check(rc, "attention_bwd_onepass")
     attention_bwd_onepass.launches += 1
+    wide_onepass_f32.launches += d > BP.NARROW_MAX_D
 
 
 # kernel launches since the last reset, bf16 and f32 (the smoke reads them)
@@ -881,13 +912,13 @@ def _attention_bwd_into(q, k, v, key_mask, lse, o, g, dq, dk, dv) -> None:
 
 
 def _launch_bwd(q, k, v, key_mask, lse, o, g, dq, dk, dv, scale: float) -> None:
-    """The backward's launches, by dtype and D: f32 at D ≤ 64 one pass
-    (:func:`attention_bwd_onepass`), else the dQ and the dK/dV entries."""
+    """The backward's launches, by dtype: f32 one pass at every D
+    (:func:`attention_bwd_onepass`), bf16 the dQ and the dK/dV entries."""
     if g.stride(-1) != 1:
         g = g.contiguous()
     lse = lse.contiguous()  # a caller's lse may be a slice of a padded one
     delta = _delta(o, g)
-    if q.dtype == torch.float32 and q.shape[-1] <= BP.MAX_D:
+    if q.dtype == torch.float32:
         attention_bwd_onepass(q, k, v, g, lse, delta, key_mask, dq, dk, dv, scale)
         return
     attention_bwd_dq(q, k, v, g, lse, delta, key_mask, dq, scale)
@@ -899,7 +930,7 @@ def attention_bwd(q, k, v, key_mask, lse, o, g):
     [B, T], its lse [B, H, T] and o, and the gradient g of o → (dq, dk,
     dv) in the operands' dtypes. CPU tensors take
     :func:`attention_bwd_plain`; CUDA tensors launch rows 3 and 4 (bf16, or
-    f32: one pass at D ≤ 64)."""
+    f32: one pass)."""
     if q.device.type != "cpu":
         q, k, v = (x.contiguous() for x in (q, k, v))
     dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (q, k, v))

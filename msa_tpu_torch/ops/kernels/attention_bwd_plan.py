@@ -1,10 +1,20 @@
 """The grid of the one-pass f32 attention backward, and its tickets.
 
-``msa_tpu_torch/csrc/attention_bwd_f32.cu``'s ``onepass_f32_kernel``
-(``msa_attention_bwd_onepass_f32``; f32, D ≤ 64) gives each block ``bk``
-keys of one (batch row, head), 64 or 128, and one of ``splits`` runs of
-the query loop's steps of :data:`QUERY_STEP` queries: split ``s`` of
-``nq = ⌈T/64⌉`` steps takes steps ``s·nq/S`` to ``(s+1)·nq/S``. One block
+``msa_tpu_torch/csrc/attention_bwd_f32.cu``'s one pass
+(``msa_attention_bwd_onepass_f32``, f32 at any D % 8 == 0) gives each block
+``bk`` keys of one (batch row, head) and one of ``splits`` runs of the
+query loop's steps: split ``s`` of ``nq`` steps takes steps ``s·nq/S`` to
+``(s+1)·nq/S``. Two kernels, by D:
+
+- D ≤ 64, ``onepass_f32_kernel``: ``bk`` 64 or 128, steps of
+  :data:`QUERY_STEP` = 64 queries;
+- D > 64, ``wide_onepass_f32_kernel``: ``bk`` 64 at D ≤ 128 and 32 above
+  (:func:`key_tiles_for`: dK and dV of the block's keys, 8192 values of a
+  column tile, stay in registers), steps of :data:`WIDE_QUERY_STEP` = 32
+  queries, and above D = 256 column tiles of :data:`COL_TILE`
+  (:func:`col_tiles`), each a block of its own.
+
+For D ≤ 64: one block
 runs on an SM at a time (its shared memory and 8 warps at ``bk`` = 128, 4
 at 64), so the grid's ``B·H·⌈T/bk⌉·splits`` blocks run in waves of
 :data:`SMS`. :func:`plan` picks the pair of least modelled time
@@ -26,6 +36,13 @@ shapes (H = 12, D = 64):
   waves; without a split 144, 1.09);
 - B=2 T=40 H=4 (the custom widths): 64 keys, 8 blocks.
 
+Above D = 64 the key tile follows from D and the plan picks the split
+alone, on the same model with a step of 32 queries as its unit. At B=8
+T=512 (H=4 D=192, H=3 D=256, H=6 D=128): no split, 512, 384 and 384
+blocks; at B=2 H=2 T=100 D=192: 4 splits, 64 blocks. On the card
+(``--attn-wide-f32-plans``) no split read 1.07–1.09× faster than 2 at
+those full-width shapes, and 4 splits 1.63× faster than none at T=100.
+
 The C entry takes a plan as one int (:attr:`BwdPlan.code`) and refuses one
 it cannot take; :func:`launch_args` gives it with the per-stream ticket
 buffer (``attention_bwd_f32_tickets``, zero at rest: the kernel leaves it
@@ -45,7 +62,9 @@ from msa_tpu_torch.ops.kernels._common import zeroed
 SMS = 132  # streaming multiprocessors of an H100 SXM
 QUERY_STEP = 64  # queries a step of a block's loop
 KEY_TILES = (128, 64)  # the keys a block owns, as the kernel is built
-MAX_D = 64  # the one pass takes D ≤ 64 (above it the D-tiled pair)
+NARROW_MAX_D = 64  # onepass_f32_kernel's D; above it wide_onepass_f32_kernel
+WIDE_QUERY_STEP = 32  # queries a step of the wide kernel's loop
+COL_TILE = 256  # columns of dK, dV and dQ a wide block above D = 256
 STEP_OVERHEAD = 1.0  # a block's set-up and ordered sums, in steps
 HALF_TILE_COST = 1.4  # a 64-key step over half a 128-key one's time
 
@@ -66,31 +85,47 @@ class BwdPlan:
     def key_tiles(self, t: int) -> int:
         return -(-t // self.bk)
 
-    def blocks(self, b: int, h: int, t: int) -> int:
-        return b * h * self.key_tiles(t) * self.splits
+    def blocks(self, b: int, h: int, t: int, d: int = NARROW_MAX_D) -> int:
+        return b * h * self.key_tiles(t) * col_tiles(d) * self.splits
 
-    def ticket_elems(self, b: int, h: int, t: int) -> int:
+    def ticket_elems(self, b: int, h: int, t: int, d: int = NARROW_MAX_D) -> int:
         """int32 tickets the kernel takes: its work and finished-block
-        counters, one a (b, h, query step) for dQ and one a (b, h, key tile)
-        for dK/dV."""
-        return 2 + b * h * (query_steps(t) + self.key_tiles(t))
+        counters, one a (b, h, column tile, query step) for dQ and one a
+        (b, h, column tile, key tile) for dK/dV."""
+        return 2 + b * h * col_tiles(d) * (query_steps(t, d) + self.key_tiles(t))
 
 
-def query_steps(t: int) -> int:
-    return -(-t // QUERY_STEP)
+def query_step(d: int) -> int:
+    """Queries a step of the loop of the kernel of head dim ``d``."""
+    return QUERY_STEP if d <= NARROW_MAX_D else WIDE_QUERY_STEP
+
+
+def query_steps(t: int, d: int = NARROW_MAX_D) -> int:
+    return -(-t // query_step(d))
+
+
+def key_tiles_for(d: int) -> Tuple[int, ...]:
+    """The key tiles the kernel of head dim ``d`` is built for."""
+    return KEY_TILES if d <= NARROW_MAX_D else (64,) if d <= 128 else (32,)
+
+
+def col_tiles(d: int) -> int:
+    """Column tiles of dK, dV and dQ: one at D ≤ 256, each forming S and
+    dP again above."""
+    return 1 if d <= COL_TILE else -(-d // COL_TILE)
 
 
 def _check(b: int, h: int, t: int, d: int) -> None:
-    if b < 1 or h < 1 or t < 1 or d < 8 or d % 8 or d > MAX_D:
-        raise ValueError(f"the one-pass f32 backward takes B, H, T ≥ 1 and D % 8 == 0, 8 ≤ D ≤ {MAX_D}; "
-                         f"got B={b} H={h} T={t} D={d}")
+    if b < 1 or h < 1 or t < 1 or d < 8 or d % 8:
+        raise ValueError(f"the one-pass f32 backward takes B, H, T ≥ 1 and D % 8 == 0, D ≥ 8; got B={b} H={h} T={t} D={d}")
 
 
-def cost(p: BwdPlan, b: int, h: int, t: int) -> float:
-    """The modelled time of a plan, in 128-key steps (the module's note)."""
-    waves = -(-p.blocks(b, h, t) // SMS)
-    steps = -(-query_steps(t) // p.splits)
-    per_step = p.bk / 128 * (1.0 if p.bk == 128 else HALF_TILE_COST)
+def cost(p: BwdPlan, b: int, h: int, t: int, d: int = NARROW_MAX_D) -> float:
+    """The modelled time of a plan, in 128-key steps (the module's note);
+    above D = 64 in steps of the one key tile that D takes."""
+    waves = -(-p.blocks(b, h, t, d) // SMS)
+    steps = -(-query_steps(t, d) // p.splits)
+    per_step = 1.0 if d > NARROW_MAX_D else p.bk / 128 * (1.0 if p.bk == 128 else HALF_TILE_COST)
     return waves * (steps + STEP_OVERHEAD) * per_step
 
 
@@ -99,36 +134,46 @@ def plan(b: int, h: int, t: int, d: int) -> BwdPlan:
     """The key tile and query split for the backward of q [b, h, t, d]
     (the module's rule); raises on a shape the kernel does not take."""
     _check(b, h, t, d)
-    cands = [BwdPlan(bk, s) for bk in KEY_TILES for s in range(1, query_steps(t) + 1)]
-    return min(cands, key=lambda p: (cost(p, b, h, t), p.blocks(b, h, t)))
+    cands = [BwdPlan(bk, s) for bk in key_tiles_for(d) for s in range(1, query_steps(t, d) + 1)]
+    return min(cands, key=lambda p: (cost(p, b, h, t, d), p.blocks(b, h, t, d)))
 
 
 def validate(p: BwdPlan, b: int, h: int, t: int, d: int) -> None:
     """Raise unless the kernel takes plan ``p`` at this shape."""
     _check(b, h, t, d)
-    if p.bk not in KEY_TILES or not 1 <= p.splits <= query_steps(t) or p.blocks(b, h, t) >= 2**31:
-        raise ValueError(f"the one-pass f32 backward has no plan {p} at B={b} H={h} T={t}")
+    if p.bk not in key_tiles_for(d) or not 1 <= p.splits <= query_steps(t, d) or p.blocks(b, h, t, d) >= 2**31:
+        raise ValueError(f"the one-pass f32 backward has no plan {p} at B={b} H={h} T={t} D={d}")
 
 
-def wave_fill(p: BwdPlan, b: int, h: int, t: int) -> float:
+def wave_fill(p: BwdPlan, b: int, h: int, t: int, d: int = NARROW_MAX_D) -> float:
     """The share of the last wave's SMs that hold a block."""
-    blocks = p.blocks(b, h, t)
+    blocks = p.blocks(b, h, t, d)
     return (blocks - (-(-blocks // SMS) - 1) * SMS) / SMS
 
 
-def work_items(p: BwdPlan, b: int, h: int, t: int) -> Iterator[Tuple[int, int, range, range]]:
+def tiles(p: BwdPlan, b: int, h: int, t: int, d: int) -> Iterator[Tuple[int, int, range, range, range]]:
     """What each block computes, by the kernel's own index arithmetic (its
-    work id w: key tile w % nkt, split (w / nkt) % splits, (b, h) w / nkt /
-    splits): (batch row, head, its keys, its queries)."""
-    nkt, nq = p.key_tiles(t), query_steps(t)
-    for w in range(p.blocks(b, h, t)):
-        kt, sp, bh = w % nkt, w // nkt % p.splits, w // nkt // p.splits
+    work id w: key tile w % nkt, column tile (w / nkt) % nct, split
+    (w / nkt / nct) % splits, (b, h) w / nkt / nct / splits): (batch row,
+    head, its keys, its queries, its columns of dK, dV and dQ)."""
+    nkt, nq, nct, step = p.key_tiles(t), query_steps(t, d), col_tiles(d), query_step(d)
+    width = d if nct == 1 else COL_TILE
+    for w in range(p.blocks(b, h, t, d)):
+        kt, ct, sp, bh = w % nkt, w // nkt % nct, w // nkt // nct % p.splits, w // nkt // nct // p.splits
         j0, j1 = sp * nq // p.splits, (sp + 1) * nq // p.splits
-        yield bh // h, bh % h, range(kt * p.bk, min((kt + 1) * p.bk, t)), range(j0 * QUERY_STEP, min(j1 * QUERY_STEP, t))
+        yield (bh // h, bh % h, range(kt * p.bk, min((kt + 1) * p.bk, t)), range(j0 * step, min(j1 * step, t)),
+               range(ct * width, min((ct + 1) * width, d)))
 
 
-def launch_args(device: torch.device, p: BwdPlan, b: int, h: int, t: int) -> Tuple[int, int]:
+def work_items(p: BwdPlan, b: int, h: int, t: int, d: int = NARROW_MAX_D) -> Iterator[Tuple[int, int, range, range]]:
+    """:func:`tiles` without the columns: (batch row, head, its keys, its
+    queries)."""
+    for bi, hi, keys, queries, _ in tiles(p, b, h, t, d):
+        yield bi, hi, keys, queries
+
+
+def launch_args(device: torch.device, p: BwdPlan, b: int, h: int, t: int, d: int = NARROW_MAX_D) -> Tuple[int, int]:
     """(the ticket buffer's pointer, the plan's code) for a launch on the
     current stream: the buffer ``attention_bwd_f32_tickets`` grown to the
     plan's need before use."""
-    return zeroed("attention_bwd_f32_tickets", device, p.ticket_elems(b, h, t)).data_ptr(), p.code
+    return zeroed("attention_bwd_f32_tickets", device, p.ticket_elems(b, h, t, d)).data_ptr(), p.code

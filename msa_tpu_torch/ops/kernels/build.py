@@ -45,8 +45,9 @@ _SIGNATURES = {
     # msa_ffn_fused's)
     "msa_attention_block": (_P,) * 11 + (_I,) * 7 + (_F, _P),
     # as above with the f32 core's lse scratch before out (ws, counters and
-    # plans the f32 GEMM's)
-    "msa_attention_block_f32": (_P,) * 12 + (_I,) * 7 + (_F, _P),
+    # plans the f32 GEMM's), and the wide f32 core's plan, tickets and
+    # workspace before scale (used above DP = 128)
+    "msa_attention_block_f32": (_P,) * 12 + (_I,) * 7 + (_I, _P, _P) + (_F, _P),
     # x, x_is_bf16, q, scale, rows, cols, stream
     "msa_quantize_rows": (_P, _I, _P, _P, _I, _I, _P),
     # x, amax, q, scale, rows, cols, stream (f32 x whose row amax is known)
@@ -60,8 +61,9 @@ _SIGNATURES = {
     # x, wqkv, sqkv, bqkv, wout, sout, bout, mask, xq, xs, qkv, attn, aq, as,
     # out, ws, counters, B, T, DM, H, DP, plan_qkv, plan_out, scale, stream
     "msa_attention_block_int8": (_P,) * 17 + (_I,) * 7 + (_F, _P),
-    # under f32 compute, with the f32 core's lse scratch after attn
-    "msa_attention_block_int8_f32": (_P,) * 18 + (_I,) * 7 + (_F, _P),
+    # under f32 compute, with the f32 core's lse scratch after attn and the
+    # wide f32 core's plan, tickets and workspace before scale
+    "msa_attention_block_int8_f32": (_P,) * 18 + (_I,) * 7 + (_I, _P, _P) + (_F, _P),
     # the int8 GEMM alone: a, w, rs, cs, bias, c, ws, counters, amax (or
     # null: no GELU), M, N, K, plan, stream
     "msa_gemm_s8": (_P,) * 9 + (_I,) * 4 + (_P,),
@@ -71,9 +73,10 @@ _SIGNATURES = {
     # the f32 GEMM alone (and row 11 on f32): a, w, bias (or null), c, ws,
     # counters, M, N, K, lda, w_nk, batch, a_batch, c_batch, plan, gelu, stream
     "msa_gemm_f32": (_P,) * 6 + (_I,) * 10 + (_P,),
-    # qkv, mask, o, lse, B, T, H, D, scale, stream (rows 5 and 6 in bf16; both in f32)
+    # qkv, mask, o, lse, B, T, H, D, scale, stream (rows 5 and 6 in bf16; both
+    # in f32, with the wide f32 core's plan, tickets and workspace before scale)
     "msa_packed_qkv_attention": (_P,) * 4 + (_I,) * 4 + (_F, _P),
-    "msa_packed_attention_f32": (_P,) * 4 + (_I,) * 4 + (_F, _P),
+    "msa_packed_attention_f32": (_P,) * 4 + (_I,) * 4 + (_I, _P, _P) + (_F, _P),
     "msa_flash_attention": (_P,) * 4 + (_I,) * 4 + (_F, _P),
     # q, k, v, mask, o, lse, B, T, H, D, scale, stream
     "msa_mha_attention": (_P,) * 6 + (_I,) * 4 + (_F, _P),
@@ -85,11 +88,12 @@ _SIGNATURES = {
     # the same two on f32 operands (csrc/attention_bwd_f32.cu)
     "msa_attention_bwd_dq_f32": (_P,) * 8 + (_I,) * 10 + (_F, _P),
     "msa_attention_bwd_dkv_f32": (_P,) * 9 + (_I,) * 10 + (_F, _P),
-    # the one pass on f32 at D ≤ 64: q, k, v, dout, lse, delta, mask, dq,
+    # the one pass on f32 at any D: q, k, v, dout, lse, delta, mask, dq,
     # dk, dv, tickets, B, T, H, D, the 6 strides, plan, scale, stream
     "msa_attention_bwd_onepass_f32": (_P,) * 11 + (_I,) * 11 + (_F, _P),
-    # q, k, v, mask, o, lse, B, T, H, D, is_bf16, scale, stream
-    "msa_fused_attention": (_P,) * 6 + (_I,) * 5 + (_F, _P),
+    # q, k, v, mask, o, lse, B, T, H, D, is_bf16, the wide f32 core's plan,
+    # tickets and workspace (f32 above D = 128), scale, stream
+    "msa_fused_attention": (_P,) * 6 + (_I,) * 5 + (_I, _P, _P) + (_F, _P),
     # the bf16 forward above D = 128 alone: q, k, v, mask, o, lse, B, T, H,
     # D, order, column tile, Q's place (0 the rule, 1 resident, 2 streamed),
     # scale, stream

@@ -3,7 +3,8 @@
     python3 -m msa_tpu_torch.profile_slice [--tokens 512] [--batch 2] [--steps 3] [--quantize int8|none|f32|int8_f32]
                                            [--samples 80000]
                                            [--train | --conv | --asr | --gemm-s8 | --gemm-bf16 | --gemm-f32
-                                            | --f32-rows | --attn-bwd-f32 | --attn-wide | --attn-wide-tiles]
+                                            | --f32-rows | --attn-bwd-f32 | --attn-wide | --attn-wide-tiles
+                                            | --attn-wide-f32 | --attn-wide-f32-plans]
 
 Builds the full-width models (``PipelineModels.initialize``, by default in
 the int8 serving recipe; ``--quantize none`` for the bf16 one, ``f32``
@@ -94,8 +95,29 @@ the same shapes and at B=8 T=512 H=4 D=192, beside one
 (``msa_attention_bwd_wide``) at each column tile (128, and 192 at D ≤
 192) and at the rule's, and its dK/dV kernel, at the backward's shapes
 beside SDPA's autograd backward, and prints the registers and spills of
-the new kernels' instances. Needs a CUDA
-device.
+the new kernels' instances. ``--attn-wide-f32`` times the f32 attention
+rows above head dim 64 / 128 through their public wrappers only, so that
+it times another tree too (``PYTHONPATH=<tree> python3 -P
+msa_tpu_torch/profile_slice.py --attn-wide-f32``): rows 1, 2, 5, row 8's
+core and row 7 on f32 x at B=2 T=512 H=4 D=192 and H=3 D=256, row 5 at B=8
+T=512 H=4 D=192, row 6 at B=2 T=749 H=4 D=192, rows 3 + 4 (dq, dk and dv
+together) at B=8 T=512 H=4 D=192, H=3 D=256 and H=6 D=128, and phase 22's
+small shapes (B=2 H=2 T=100, T=600 for row 6, D = 160, 192, 256, 640,
+768, 1024; rows 8 and 7 at B=2 T=100 H=4 D = 160, 192, 256, their core
+alone by device ms, the whole block by call ms), with row 5 at B=2 T=512
+H=12 D=64 and rows 3 + 4 at B=8
+(D = 64, the f32 kernels the wide ones leave alone) as the control: the
+attention kernels' device ms (the f32 forward's and
+backward's kernels of either tree, by name), the call's CUDA-event ms, the
+largest error against the plain version, one f32
+``scaled_dot_product_attention`` call (or its autograd backward; TF32 off)
+with the backend it picked, and the exact-f32 bound (max(bytes / 3.35
+TB/s, FLOP at 67 TFLOP/s)). ``--attn-wide-f32-plans`` times every plan
+of the two f32 kernels at those shapes: the forward
+(``msa_fused_attention`` on f32, each query tile at each split of the key
+loop) and the one-pass backward above D = 64 (``attention_bwd_onepass``,
+each split of the query loop), the planner's plan marked: where the
+planners' constants come from. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -132,6 +154,10 @@ def main(argv=None) -> int:
     ap.add_argument("--attn-bwd-f32", action="store_true",
                     help="the one-pass f32 attention backward, each plan, beside the pair and f32 SDPA; then the f32 steps")
     ap.add_argument("--attn-wide", action="store_true", help="the bf16 attention rows above D = 128 through their wrappers")
+    ap.add_argument("--attn-wide-f32", action="store_true",
+                    help="the f32 attention rows above D = 64 / 128 through their wrappers, beside f32 SDPA")
+    ap.add_argument("--attn-wide-f32-plans", action="store_true",
+                    help="every plan of the f32 forward above D = 128 and the one-pass backward above D = 64")
     ap.add_argument("--attn-wide-tiles", action="store_true",
                     help="the bf16 forward above D = 128 at each column tile and order, beside SDPA")
     args = ap.parse_args(argv)
@@ -153,6 +179,10 @@ def main(argv=None) -> int:
         return attention_wide_rows(max(args.steps, 20))
     if args.attn_wide_tiles:
         return attention_wide_tiles(max(args.steps, 20))
+    if args.attn_wide_f32:
+        return attention_wide_f32_rows(max(args.steps, 20))
+    if args.attn_wide_f32_plans:
+        return attention_wide_f32_plans(max(args.steps, 20))
     if args.attn_bwd_f32:
         rc = attention_bwd_f32_plans(max(args.steps, 20))
         for step in ([], ["--samples", "80000"], ["--samples", "240000", "--batch", "2"]):
@@ -330,8 +360,10 @@ def _device_ms(fn, reps: int, only: str = "") -> float:
     """Device ms per call of the kernels (whose name holds ``only``) that
     ``reps`` calls of ``fn`` ran, from the profiler's trace: each kernel's
     mean recorded duration times its launches per call (a trace can lose
-    a few kernels). A trace that recorded none is taken again, up to three
-    times; then it is not measured (nan)."""
+    a few kernels; ``only`` may be a tuple of names, any of which counts).
+    A trace that recorded none is taken again, up to three times; then it
+    is not measured (nan)."""
+    names = only if isinstance(only, tuple) else (only,)
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -345,7 +377,7 @@ def _device_ms(fn, reps: int, only: str = "") -> float:
             (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)) / e.count
             * max(1, round(e.count / reps))
             for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and only in e.key and e.count
+            if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.key for n in names) and e.count
         )
         if us > 0:
             return us / 1e3
@@ -734,6 +766,209 @@ def attention_wide_rows(reps: int) -> int:
             "dkv_kernel", 8 * b * h * t * t * d)
     print(json.dumps({"attention_wide": rows, "package": str(Path(msa_tpu_torch.__file__).parent),
                       "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+def _sdpa_backend(fn) -> str:
+    """The backend scaled_dot_product_attention picked for ``fn``'s call,
+    by the names of the kernels it ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ""
+    for _ in range(3):  # a trace that recorded no kernel is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = " ".join(e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA).lower()
+        if names:
+            break
+    return ("flash" if "flash" in names else "efficient" if ("fmha" in names or "efficient" in names) else
+            "cudnn" if "cudnn" in names else "math")
+
+
+# the f32 kernels above D = 64 / 128 in either tree: the forward's
+# (wide_attention_kernel, then wide_f32_kernel) and the backward's (the
+# pair simt_dq/dkv_kernel, then the one pass's kernels)
+F32_FWD_KERNELS = ("wide_attention_kernel", "wide_f32_kernel", "fused_f32_kernel")
+F32_BWD_KERNELS = ("simt_dq_kernel", "simt_dkv_kernel", "onepass_f32_kernel")
+WIDE_F32_BWD = ((8, 512, 4, 192), (8, 512, 3, 256), (8, 512, 6, 128))
+# the f32 rows at D = 64 (row 1's f32 core forward, the narrow one pass
+# backward), which the wide kernels leave as they were: the control
+F32_CONTROL = (2, 512, 12, 64), (8, 512, 12, 64)
+WIDE_F32_SMALL = (160, 192, 256, 640, 768, 1024)
+
+
+def attention_wide_f32_rows(reps: int) -> int:
+    """The f32 attention rows above D = 64 / 128 through their public
+    wrappers (any tree of the package), beside one f32 SDPA call: the
+    attention kernels' device ms, the call's CUDA-event ms, the largest
+    error against the plain version and the exact-f32 bound."""
+    import torch.nn.functional as F
+
+    import msa_tpu_torch
+    from msa_tpu_torch.ops.kernels import attention as A
+    from msa_tpu_torch.pipeline import graph as G
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    def bound(nbytes, flop):
+        return max(nbytes / 3.35e12, flop / 67e12) * 1e3
+
+    rows = []
+
+    def run(name, fn, plain, only, flop, nbytes, lib=None):
+        try:
+            got = fn()
+        except ValueError as e:  # a tree whose wrappers refuse this D
+            rows.append({"case": name, "refused": str(e)})
+            print(f"{name}: refused ({e})", flush=True)
+            return
+        want = plain()
+        row = {"case": name, "device_ms": _device_ms(fn, reps, only), "call_ms": _event_ms(fn, reps),
+               "max_rel_err": _rel_err(got, want), "bound_ms": bound(nbytes, flop)}
+        row["tflops"] = flop / row["device_ms"] / 1e9
+        text = ""
+        if lib is not None:
+            row["sdpa_ms"], row["sdpa_backend"] = _device_ms(lib, reps), _sdpa_backend(lib)
+            text = f", f32 sdpa ({row['sdpa_backend']} backend) {row['sdpa_ms']:.4f} ms"
+        rows.append(row)
+        print(f"{name}: {row['device_ms']:.4f} ms (device, {row['tflops']:.1f} TFLOP/s of the function), "
+              f"{row['call_ms']:.4f} ms (call), max rel err {row['max_rel_err']:.2e}, bound {row['bound_ms']:.5f} ms"
+              f"{text}", flush=True)
+
+    def sdpa(q, k, v, mask):
+        bias = torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+
+    with G.exact_fp32():
+        fwd = [(b, t, h, d, "all") for b, t, h, d in WIDE_FWD] + [(8, 512, 4, 192, "5"), (*F32_CONTROL[0], "5")]
+        fwd += [(2, 100, 2, d, "1, 2, 5") for d in WIDE_F32_SMALL] + [(2, 100, 4, d, "8") for d in (160, 192, 256)]
+        for b, t, h, d, which in fwd:
+            q, k, v = (rand(b, h, t, d) for _ in range(3))
+            mask = _wide_mask(b, t)
+            qkv = A._to_packed(q, k, v)
+            flop, nbytes = 4 * b * h * t * t * d, 4 * (4 * b * h * t * d + b * h * t + b * t)
+            tag = f"B={b} T={t} H={h} D={d}"
+            lib = lambda: sdpa(q, k, v, mask)  # noqa: E731
+            if which != "8":
+                run(f"row 5 packed_qkv_attention_lse f32 {tag}", lambda: A.packed_qkv_attention_lse(qkv, mask),
+                    lambda: A.packed_qkv_attention_lse_plain(qkv, mask), F32_FWD_KERNELS, flop, nbytes, lib)
+            if which in ("all", "1, 2, 5"):
+                run(f"row 1 fused_attention f32 {tag}", lambda: A.fused_attention_lse(q, k, v, mask),
+                    lambda: A.fused_attention_plain(q, k, v, mask), F32_FWD_KERNELS, flop, nbytes, lib)
+                run(f"row 2 mha_attention f32 {tag}", lambda: A.mha_attention(q, k, v, mask),
+                    lambda: A.mha_attention_plain(q, k, v, mask), F32_FWD_KERNELS, flop, nbytes, lib)
+            dm = h * d
+            if which in ("all", "8"):  # rows 8 and 7 on d_model = H·D, weights padded to DP
+                dp = A.block_head_dim(d)
+                x = rand(b, t, dm)
+                wq, bq = rand(3 * dm, dm, scale=dm**-0.5), rand(3 * dm, scale=0.02)
+                wo, bo = rand(dm, dm, scale=dm**-0.5), rand(dm, scale=0.02)
+                pw, pb, po, _ = (t_ if t_ is None else t_.contiguous() for t_ in A.pad_block_weights(wq, bq, wo, h))
+                t_pad = -(-t // 128) * 128
+                core_flop = 4 * b * h * t_pad * t_pad * dp
+                run(f"row 8 f32 core (attention_block, DP {dp}) {tag}",
+                    lambda: A.attention_block(x, pw, pb, po, bo, mask, h, d),
+                    lambda: A.attention_block_plain(x, wq, bq, wo, bo, mask, h), F32_FWD_KERNELS, core_flop,
+                    4 * (4 * b * h * t_pad * dp + b * t_pad))
+                from msa_tpu_torch.ops import quant as Q
+
+                wq_q, sq = Q.quantize_weight_axis(wq, axis=1)
+                wo_q, so = Q.quantize_weight_axis(wo, axis=1)
+                sq, so = sq[:, 0].contiguous(), so[:, 0].contiguous()
+                pwq, pbq, poq, psq = (t_.contiguous() for t_ in A.pad_block_weights(wq_q, bq, wo_q, h, sq))
+                run(f"row 7 core on f32 x (attention_block_int8, DP {dp}) {tag}",
+                    lambda: A.attention_block_int8(x, pwq, psq, pbq, poq, so, bo, mask, h, d),
+                    lambda: A.attention_block_int8_plain(x, wq_q, sq, bq, wo_q, so, bo, mask, h), F32_FWD_KERNELS,
+                    core_flop, 4 * (4 * b * h * t_pad * dp + b * t_pad))
+        for b, t, h, d in WIDE_FLASH + tuple((2, 600, 2, d) for d in WIDE_F32_SMALL):
+            qkv = rand(b, t, 3, h, d)
+            mask = _wide_mask(b, t)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            run(f"row 6 flash_attention_lse f32 B={b} T={t} H={h} D={d}", lambda: A.flash_attention_lse(qkv, mask),
+                lambda: A.flash_attention_lse_plain(qkv, mask), F32_FWD_KERNELS, 4 * b * h * t * t * d,
+                4 * (4 * b * h * t * d + b * h * t + b * t), lambda: sdpa(q, k, v, mask))
+        for b, t, h, d in WIDE_F32_BWD + tuple((2, 100, 2, d) for d in WIDE_F32_SMALL) + F32_CONTROL[1:]:
+            q, k, v, go = (rand(b, h, t, d) for _ in range(4))
+            mask = _wide_mask(b, t)
+            o, lse = A.mha_attention_plain(q, k, v, mask)
+            want = A.attention_bwd_plain(q, k, v, mask, lse, o, go)
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            lib_out = sdpa(*leaves, mask)
+            run(f"rows 3 + 4 attention_bwd f32 B={b} T={t} H={h} D={d}", lambda: A.attention_bwd(q, k, v, mask, lse, o, go),
+                lambda: want, F32_BWD_KERNELS, 10 * b * h * t * t * d, 4 * (7 * b * h * t * d + 2 * b * h * t + b * t),
+                lambda: torch.autograd.grad(lib_out, leaves, go, retain_graph=True))
+            del leaves, lib_out
+    print(json.dumps({"attention_wide_f32": rows, "package": str(Path(msa_tpu_torch.__file__).parent),
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+def attention_wide_f32_plans(reps: int) -> int:
+    """Every plan of the f32 forward above D = 128 (through
+    ``msa_fused_attention``) and of the one-pass backward above D = 64,
+    device ms each, the planner's marked, each checked against the plain
+    version."""
+    from msa_tpu_torch.ops.kernels import attention as A
+    from msa_tpu_torch.ops.kernels import attention_bwd_plan as BP
+    from msa_tpu_torch.ops.kernels import attention_wide_plan as WP
+    from msa_tpu_torch.ops.kernels import build
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    lib = build.library()
+    rows = []
+    fwd = WIDE_FWD + ((8, 512, 4, 192),) + tuple((2, 100, 2, d) for d in (160, 192, 256, 640)) + ((2, 600, 2, 192),)
+    for b, t, h, d in fwd + WIDE_FLASH:
+        q, k, v = (torch.randn(b, h, t, d, generator=g, device="cuda") for _ in range(3))
+        mask = _wide_mask(b, t)
+        want = A.fused_attention_plain(q, k, v, mask)
+        o, lse = torch.empty_like(q), torch.empty(b, h, t, device="cuda")
+        chosen = WP.plan(b, h, t, d)
+        stream = torch.cuda.current_stream().cuda_stream
+        for p in (WP.WidePlan(bq, s) for bq in WP.QUERY_TILES for s in range(1, WP.key_blocks(t) + 1)):
+            def one(p=p):
+                code, tickets, ws = WP.launch_args(q.device, p, b, h, t, d)
+                build.check(lib.msa_fused_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                                                    o.data_ptr(), lse.data_ptr(), b, t, h, d, 0, code, tickets, ws,
+                                                    A._scale(d), stream), "wide f32 forward")
+                return o, lse
+
+            err = _rel_err(one(), want)
+            ms = _device_ms(one, reps, "wide_f32_kernel")
+            rows.append({"kernel": "forward", "shape": [b, t, h, d], "bq": p.bq, "splits": p.splits, "device_ms": ms,
+                         "chosen": p == chosen, "max_rel_err": err})
+            print(f"forward B={b} T={t} H={h} D={d} bq={p.bq} splits={p.splits} blocks={p.blocks(b, h, t, d)}: "
+                  f"{ms:.4f} ms{' (plan)' if p == chosen else ''} err {err:.1e}", flush=True)
+    for b, t, h, d in WIDE_F32_BWD + ((2, 100, 2, 192), (2, 100, 2, 640), (2, 749, 4, 192)):
+        q, k, v, go = (torch.randn(b, h, t, d, generator=g, device="cuda") for _ in range(4))
+        mask = _wide_mask(b, t)
+        o, lse = A.mha_attention_plain(q, k, v, mask)
+        lse, delta = lse.contiguous(), A._delta(o, go)
+        want = A.attention_bwd_plain(q, k, v, mask, lse, o, go)
+        outs = [torch.empty_like(q) for _ in range(3)]
+        chosen = BP.plan(b, h, t, d)
+        for p in (BP.BwdPlan(bk, s) for bk in BP.key_tiles_for(d) for s in range(1, BP.query_steps(t, d) + 1)):
+            if p.splits > 8 and p != chosen:
+                continue
+
+            def one(p=p):
+                A.attention_bwd_onepass(q, k, v, go, lse, delta, mask, *outs, plan=p)
+                return outs
+
+            err = _rel_err(one(), want)
+            ms = _device_ms(one, reps, "onepass_f32_kernel")
+            rows.append({"kernel": "backward", "shape": [b, t, h, d], "bk": p.bk, "splits": p.splits, "device_ms": ms,
+                         "chosen": p == chosen, "max_rel_err": err})
+            print(f"backward B={b} T={t} H={h} D={d} bk={p.bk} splits={p.splits} blocks={p.blocks(b, h, t, d)}: "
+                  f"{ms:.4f} ms{' (plan)' if p == chosen else ''} err {err:.1e}", flush=True)
+    print(json.dumps({"attention_wide_f32_plans": rows, "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 
 

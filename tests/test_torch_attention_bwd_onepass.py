@@ -176,7 +176,7 @@ def test_plan_fills_the_card(b, h, t, d):
 
 
 def test_plan_refuses_what_the_kernel_cannot_take():
-    for shape in ((2, 4, 40, 72), (2, 4, 40, 20), (2, 4, 0, 32), (0, 4, 40, 32), (2, 4, 40, 4)):
+    for shape in ((2, 4, 40, 68), (2, 4, 40, 20), (2, 4, 0, 32), (0, 4, 40, 32), (2, 4, 40, 4)):
         with pytest.raises(ValueError):
             BP.plan(*shape)
     for p in (BP.BwdPlan(32, 1), BP.BwdPlan(64, 0), BP.BwdPlan(128, 2), BP.BwdPlan(256, 1)):

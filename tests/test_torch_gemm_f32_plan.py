@@ -317,10 +317,11 @@ def test_rows_8_and_10_pass_the_planners_codes_on_the_card_path(card):
                       _meta(2, 512), heads)
     (ffn_name, ffn), (att_name, att) = card.calls
     assert (ffn_name, att_name) == ("msa_ffn_fused_f32", "msa_attention_block_f32")
-    assert len(ffn) == 9 + 5 + 1 and len(att) == 12 + 7 + 2
+    # the block: 12 pointers, 7 ints, the wide f32 core's plan, tickets and workspace (zeros at DP 64), scale, stream
+    assert len(ffn) == 9 + 5 + 1 and len(att) == 12 + 7 + 3 + 2
     assert ffn[-6:-1] == (500, dm, dff, GP.plan_f32(500, dff, dm).code, GP.plan_f32(500, dm, dff).code)
     assert att[12:17] == (2, 512, dm, heads, 64)
-    assert att[-4:-2] == (GP.plan_f32(1024, 3 * dm, dm).code, GP.plan_f32(1024, dm, dm).code)
+    assert att[-7:-5] == (GP.plan_f32(1024, 3 * dm, dm).code, GP.plan_f32(1024, dm, dm).code) and att[-5:-2] == (0, 0, 0)
     assert GF.gemm_f32.launches == before + 4
     assert (F.ffn_fused.launches_f32, A.attention_block.launches_f32) == (before_f[0] + 1, before_f[1] + 1)
 

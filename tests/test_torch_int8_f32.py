@@ -143,9 +143,13 @@ def test_int8_wrappers_take_the_entry_of_x_dtype_on_the_card_path(card, dtype):
     sfx = "_f32" if is_f32 else ""
     assert [name for name, _ in card.calls] == ["msa_attention_block_int8" + sfx, "msa_ffn_fused_int8" + sfx]
     (_, att), (_, ffn) = card.calls
-    assert len(att) == (18 if is_f32 else 17) + 9  # pointers, then B, T, DM, H, DP, the two plans, scale, stream
-    assert att[-9:-4] == (b, 128, dm, h, dm // h) and att[-2] == float(np.float32(1.0 / np.sqrt(dm // h)))
-    assert att[-4:-2] == (GS.plan(b * 128, 3 * dm, dm).code, GS.plan(b * 128, dm, dm).code)
+    # pointers, then B, T, DM, H, DP, the two plans, (f32: the wide f32 core's plan, tickets and
+    # workspace, zeros at DP ≤ 128), scale, stream
+    wide = 3 if is_f32 else 0
+    assert len(att) == (18 if is_f32 else 17) + 9 + wide
+    assert att[-9 - wide : -4 - wide] == (b, 128, dm, h, dm // h) and att[-2] == float(np.float32(1.0 / np.sqrt(dm // h)))
+    assert att[-4 - wide : -2 - wide] == (GS.plan(b * 128, 3 * dm, dm).code, GS.plan(b * 128, dm, dm).code)
+    assert att[-2 - wide : -2] == (0, 0, 0)[:wide]
     assert ffn[-6:-1] == (b * t, dm, dff, GS.plan(b * t, dff, dm).code, GS.plan(b * t, dm, dff).code)
     assert (getattr(A.attention_block_int8, counter), getattr(F.ffn_fused_int8, counter), KQ.quantize_rows.launches) == (
         before[0] + 1, before[1] + 1, before[2] + 4)

@@ -21,8 +21,10 @@ per head to the next multiple of 128 (``block_head_dim``,
   calls, raises nothing and calls its C entry point with the (8-padded)
   head dim and the scale of the unpadded D, and counts a bf16 launch above
   D = 128 in the tensor-core kernels' counters (``wide_mma``,
-  ``wide_bwd_dq``, ``wide_bwd_dkv``), above D = 512 too. The kernels
-  themselves run only on the card (``chip_smoke.py`` phase 22).
+  ``wide_bwd_dq``, ``wide_bwd_dkv``), above D = 512 too; in f32 the
+  forward above 128 passes the wide kernel's plan (``wide_f32``) and the
+  backward is the one pass at every D (``wide_onepass_f32`` above 64). The
+  kernels themselves run only on the card (``chip_smoke.py`` phase 22).
 
 Tolerances are those of tests/test_torch_kernels.py (row 8: f32 5e-5),
 test_torch_head_dims.py (rows 1, 2 and 5: f32 2e-5, row 6 3e-5; bf16 atol
@@ -278,17 +280,19 @@ def _attend_calls(d, dtype):
          [("msa_flash_attention" if bf else "msa_packed_attention_f32", 7)], sfx),
         (A.mha_attention, lambda: A.mha_attention(q, k, v, mask), [("msa_mha_attention" if bf else "msa_fused_attention", 9)], sfx),
         (A.fused_attention_lse, lambda: A.fused_attention_lse(q, k, v, mask), [("msa_fused_attention", 9)], "launches"),
-        (A.attention_bwd_dq, lambda: A.attention_bwd(q, k, v, mask, _meta(1, 2, 40), _meta(1, 2, 40, d, dtype=dtype),
-                                                      _meta(1, 2, 40, d, dtype=dtype)),
-         [("msa_attention_bwd_dq" + ("" if bf else "_f32"), 11), ("msa_attention_bwd_dkv" + ("" if bf else "_f32"), 12)], sfx),
+        (A.attention_bwd_dq if bf else A.attention_bwd_onepass,
+         lambda: A.attention_bwd(q, k, v, mask, _meta(1, 2, 40), _meta(1, 2, 40, d, dtype=dtype), _meta(1, 2, 40, d, dtype=dtype)),
+         [("msa_attention_bwd_dq", 11), ("msa_attention_bwd_dkv", 12)] if bf else [("msa_attention_bwd_onepass_f32", 14)],
+         sfx if bf else "launches"),
     ]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [136, 160, 201, 256, 512, 768, 1024])
+@pytest.mark.parametrize("d", [96, 128, 136, 160, 201, 256, 512, 768, 1024])
 def test_attention_wrappers_take_wide_heads_on_the_card_path(card, dtype, d):
     """No error at any D: each wrapper calls its entry point with D padded
-    to a multiple of 8 and the unpadded D's scale."""
+    to a multiple of 8 and the unpadded D's scale; the f32 backward is the
+    one pass at every D (rows 3 and 4 in one launch)."""
     dp, cases = _attend_calls(d, TORCH_DTYPES[dtype])
     for fn, call, entries, counter in cases:
         before, card.calls[:] = getattr(fn, counter), []
@@ -328,25 +332,29 @@ def test_attention_block_takes_wide_heads_on_the_card_path(card, recipe, d):
 def test_wide_kernel_counters_on_the_card_path(card, dtype, d):
     """Each wrapper counts a bf16 launch above D = 128 in the tensor-core
     kernels' counters (the forward in ``wide_mma``, rows 3 and 4 in
-    ``wide_bwd_dq`` and ``wide_bwd_dkv``), and nothing at D ≤ 128 or in f32;
-    rows 7 and 8 count their core there too."""
+    ``wide_bwd_dq`` and ``wide_bwd_dkv``), an f32 forward above 128 in
+    ``wide_f32`` and an f32 backward above 64 in ``wide_onepass_f32``, and
+    nothing else; rows 7 and 8 count their core there too."""
     tdt = TORCH_DTYPES[dtype]
     wide = dtype == "bfloat16" and d > 128
+    wide_f32, wide_bwd_f32 = dtype == "float32" and d > 128, dtype == "float32" and d > 64
+    counters = (A.wide_mma, A.wide_bwd_dq, A.wide_bwd_dkv, A.wide_f32, A.wide_onepass_f32)
     _, cases = _attend_calls(d, tdt)
     for fn, call, entries, _ in cases:
-        before = [c.launches for c in (A.wide_mma, A.wide_bwd_dq, A.wide_bwd_dkv)]
+        before = [c.launches for c in counters]
         call()
-        after = [c.launches for c in (A.wide_mma, A.wide_bwd_dq, A.wide_bwd_dkv)]
-        bwd = fn is A.attention_bwd_dq
-        assert [a - b_ for a, b_ in zip(after, before)] == ([0, wide, wide] if bwd else [wide, 0, 0]), fn.__name__
+        after = [c.launches for c in counters]
+        bwd = fn in (A.attention_bwd_dq, A.attention_bwd_onepass)
+        want = [0, wide, wide, 0, wide_bwd_f32] if bwd else [wide, 0, 0, wide_f32, 0]
+        assert [a - b_ for a, b_ in zip(after, before)] == want, fn.__name__
     h, dp = 2, A.block_head_dim(d)
     dm = -(-h * d // 128) * 128
     x, mask = _meta(1, 40, dm, dtype=tdt), _meta(1, 40)
-    before = A.wide_mma.launches
+    before = A.wide_mma.launches, A.wide_f32.launches
     A.attention_block(x, _meta(3 * h * dp, dm, dtype=tdt), _meta(3 * h * dp), _meta(dm, h * dp, dtype=tdt), _meta(dm), mask, h, d)
     A.attention_block_int8(x, _meta(3 * h * dp, dm, dtype=torch.int8), _meta(3 * h * dp), _meta(3 * h * dp),
                            _meta(dm, h * dp, dtype=torch.int8), _meta(dm), _meta(dm), mask, h, d)
-    assert A.wide_mma.launches == before + 2 * wide
+    assert (A.wide_mma.launches, A.wide_f32.launches) == (before[0] + 2 * wide, before[1] + 2 * wide_f32)
 
 
 def _reaches_wide_kernels(card, what, d):
@@ -385,7 +393,7 @@ def _reaches_wide_kernels(card, what, d):
 
 
 @pytest.mark.parametrize("what", ["packed", "flash", "mha", "fused", "bwd", "block"])
-def test_bf16_above_512_is_refused_on_the_card_path(card, what):
+def test_bf16_at_520_reaches_the_wide_kernels_on_the_card_path(card, what):
     """bf16 at D = 520 (the block at head dim 576) is no longer refused:
     it reaches the tensor-core kernels (:func:`_reaches_wide_kernels`)."""
     _reaches_wide_kernels(card, what, 520)
@@ -396,3 +404,38 @@ def test_bf16_at_1024_reaches_the_wide_kernels_on_the_card_path(card, what):
     """The same at D = 1024 (the block at head dim 1080, DP 1152), where
     the backward's owned tiles no longer fit resident."""
     _reaches_wide_kernels(card, what, 1024)
+
+
+@pytest.mark.parametrize("d", [128, 192, 256, 640])
+def test_f32_forward_passes_the_wide_plan_on_the_card_path(card, d):
+    """Every f32 forward entry gets the wide kernel's plan, tickets and
+    workspace just before the scale: the planner's code above D = 128 (the
+    buffers null without a split, live with one), zeros at or below it."""
+    from msa_tpu_torch.ops.kernels import attention_wide_plan as WP
+
+    q, k, v = (_meta(2, 2, 100, d) for _ in range(3))
+    mask = _meta(2, 100)
+    h, dp = 2, A.block_head_dim(d)
+    dm = -(-h * d // 128) * 128
+    x = _meta(2, 100, dm)
+    calls = [
+        (lambda: A.mha_attention(q, k, v, mask), 2, 100, d),
+        (lambda: A.fused_attention_lse(q, k, v, mask), 2, 100, d),
+        (lambda: A.packed_qkv_attention_lse(_meta(2, 100, 3, 2, d), mask), 2, 100, d),
+        (lambda: A.flash_attention_lse(_meta(2, 600, 3, 2, d), _meta(2, 600)), 2, 600, d),
+        (lambda: A.attention_block(x, _meta(3 * h * dp, dm), _meta(3 * h * dp), _meta(dm, h * dp), _meta(dm), mask, h, d),
+         2, 128, dp),
+        (lambda: A.attention_block_int8(x, _meta(3 * h * dp, dm, dtype=torch.int8), _meta(3 * h * dp), _meta(3 * h * dp),
+                                        _meta(dm, h * dp, dtype=torch.int8), _meta(dm), _meta(dm), mask, h, d), 2, 128, dp),
+    ]
+    for call, b, t_, dk in calls:
+        card.calls.clear()
+        call()
+        (name, args), = card.calls
+        code, tickets, ws = args[-5:-2]
+        if dk <= 128:
+            assert (code, tickets, ws) == (0, 0, 0), name
+            continue
+        p = WP.plan(b, h, t_, dk)
+        assert code == p.code, (name, code, p)
+        assert (tickets, ws) == (0, 0) if p.splits == 1 else True, name
