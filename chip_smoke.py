@@ -23,11 +23,15 @@ Phases, one line each with its seconds:
      must not spill and their SASS must issue bf16 HMMA, and no bf16
      instance of the SIMT kernels is left; row 11's conv_wgmma_kernel must
      not spill and must issue HGMMA on bf16, and no WMMA conv_bf16_kernel
-     is left;
+     is left; the row quantization's four instances (quant.cu: one read
+     a row, bf16 at 1 or 3 groups of 8 a thread, f32 at 1, and the amax
+     form) must not spill;
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes, and time both with CUDA events: the bf16
      attention_block and ffn_fused, the row-quantize kernel (exactly: codes
-     and scales equal), the int8 GEMM of rows 7 and 9 alone (gemm_s8:
+     and scales equal, zero rows and rounding ties included; bf16 and f32
+     up to [32768, 768], beside its bound, and at 8 to 40000 columns), the
+     int8 GEMM of rows 7 and 9 alone (gemm_s8:
      scales 1, bias 0, f32 out) against torch._int_mm exactly, timed beside
      it, at a layer's four GEMMs (QKV, Wo, fc_in, fc_out) and M = 1024,
      500, 256, 128, 64 on the planner's tile and split, every tile with
@@ -39,7 +43,10 @@ Phases, one line each with its seconds:
      splits 1 to 48 at one shape, a ragged K and an M off the 64-row grid,
      two calls bit-equal wherever K is split, and with a bf16 bias and
      fc_in's GELU against its plain version; attention_block_int8 and ffn_fused_int8 on bf16 x
-     and on f32 x (W8A8 under f32 compute: the f32 entries), and the
+     and on f32 x (W8A8 under f32 compute: the f32 entries; both chains
+     under programmatic dependent launch: ffn_fused_int8 bit-equal to its
+     four kernels called one by one, CHAIN_REPEATS calls of each back to
+     back bit-equal, the scratch they share zero at rest), and the
      attention-only kernels packed_qkv_attention_lse (also at the text and 5 s
      audio training steps' shapes, B=8) and flash_attention_lse (o and lse,
      with a ragged T and a row with no valid key), beside one
@@ -212,7 +219,9 @@ Phases, one line each with its seconds:
      D=256 and H=1 D=768, two backward calls bit-equal), each timed beside
      its plain version, one SDPA call (or SDPA's autograd backward; the
      backend it picked named) and its bound, rows 7/8 also beside the
-     library's composite of the block; 2-layer encoders at
+     library's composite of the block, row 7 (the int8 chain, on bf16 x
+     and on f32 x) two calls bit-equal at D = 160–256 and at full width,
+     its shared scratch zero at rest; 2-layer encoders at
      d_model 768 / 4 heads (D=192, DP 256) and 512 / 2 heads (D=256)
      through rows 7, 8 and 8 f32; one bf16 and one f32 training step at
      D=192; then a 12-layer encoder at d_model 768, 4 heads, d_ff 3072
@@ -364,6 +373,10 @@ F32_BWD_RTOL = 1e-5
 # step's and the 15 s audio step's shapes (phase 20): its ordered sums and
 # copy ring must not race
 BWD_F32_REPEATS = 200
+# calls of rows 7 and 9 back to back, each held bit-equal to the first
+# (phase 3): the int8 chains under programmatic dependent launch must not
+# read a buffer before the kernel that writes it has finished
+CHAIN_REPEATS = 201
 # the f32 training step (phases 20-22): each gradient group of the kernel
 # path against the plain f32 einsum path (or the kernels' plain versions),
 # within this share of the group's largest |gradient|; fixed before the
@@ -416,9 +429,12 @@ ON_INT8_F32 = "phase 23: run_host with W8A8 under f32 compute, B=2, one forward 
 
 # the previous design's device ms at the recorded shape (PERF.md, NVIDIA H100
 # 80GB HBM3 at 700 W: rows 7 and 9 on the mma.sync int8 GEMM, rows 8 and 10
-# on the WMMA bf16 GEMM), printed beside the new reading
+# on the WMMA bf16 GEMM, the row quantization's two-pass kernel), printed
+# beside the new reading
 PREVIOUS_MS = {"attention_block_int8": 0.0679, "ffn_fused_int8": 0.0753, "attention_block_int8_f32": 0.1090,
-               "ffn_fused_int8_f32": 0.0728, "attention_block": 0.0899, "ffn_fused": 0.1293}
+               "ffn_fused_int8_f32": 0.0728, "attention_block": 0.0899, "ffn_fused": 0.1293,
+               # the two-pass row quantization at bf16 [1024, 768] (PERF.md §6)
+               "quantize_rows": 0.0052}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -559,6 +575,28 @@ def ptxas_usage(log: str, kernels) -> dict:
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             name = next((f"{k}<{template_args(mangled, k)}>" for k in kernels if f"{len(k)}{k}IL" in mangled), None)
+        elif name and "spill" in line:
+            usage[name] = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            usage[name] = f"{regs} registers, {usage.get(name, 'no spill line')}"
+            name = None
+    return usage
+
+
+def quant_usage(log: str) -> dict:
+    """Registers and spills of each instance of quant.cu's kernels, from the
+    ``-Xptxas -v`` log: {"quantize_rows_kernel<bf16, 1>": "31 registers,
+    ...", "quantize_rows_amax_kernel": ...} (the type comes first in the
+    mangled name, so :func:`ptxas_usage` does not take them)."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled, name = line.split("'")[1], None
+            if "25quantize_rows_amax_kernel" in mangled:
+                name = "quantize_rows_amax_kernel"
+            elif (m := re.search(r"20quantize_rows_kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled)):
+                name = f"quantize_rows_kernel<{'f32' if m.group(1) == 'f' else 'bf16'}, {m.group(2)}>"
         elif name and "spill" in line:
             usage[name] = line.strip()
         elif name and "Used" in line and "registers" in line:
@@ -757,6 +795,14 @@ def main() -> int:
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
 
+    def int8_scratch_at_rest(tag):
+        """The scratch the int8 chains share, zero again after a chain: the
+        int8 GEMM's split-K sums and counters, the hidden rows' amax, the
+        wide f32 core's tickets."""
+        torch.cuda.synchronize()
+        for buf in ("gemm_s8_ws", "gemm_s8_counters", "row_amax", "attention_wide_f32_tickets"):
+            check(not bool(KC_.zeroed(buf, dev, 0).any()), f"{tag}: {buf} is not zero at rest")
+
     def counts():
         return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
@@ -805,6 +851,13 @@ def main() -> int:
           "the WMMA gemm_nt_kernel or the f32 GEMM's split_reduce_kernel is still built")
     print(f"  gemm_bf16_kernel SASS: {hgmma_of(lib_path, 'gemm_bf16_kernel')}", flush=True)
     print(f"  gemm_f32_kernel SASS: {fma_only(lib_path, 'gemm_f32_kernel')}", flush=True)
+    # the row quantization: one read a row, bf16 at 1 or 3 groups of 8 a
+    # thread and f32 at 1, and the amax form; no spill
+    quant_used = quant_usage(log)
+    for kernel, used in quant_used.items():
+        print(f"  ptxas {kernel}: {used}", flush=True)
+        check("0 bytes spill stores" in used, f"{kernel} spills: {used}")
+    check(len(quant_used) == 4, f"the row quantization's instances: {sorted(quant_used)}")
     phase("build", t0, library=lib_path.name)
 
     # --- 3. kernels against their plain versions --------------------------------
@@ -1023,12 +1076,15 @@ def main() -> int:
           f"M=1 K=8, within {GEMM_BF16_RTOL} of the largest output; its split-K counters zero at rest", flush=True)
 
     # the row-quantize kernel, exactly: every x the int8 kernels quantize
-    # (bf16 [B·T, 768], padded rows zero) and the FFN's f32 hidden tile
-    for rows, cols, dtype in [(r, dm, bf16) for r in (64, 128, 250, 256, 500, 512, 1024)] + [
-        (r, dff, f32) for r in (64, 128, 250, 500, 1024)
+    # (bf16 [B·T, 768], padded rows zero; f32 under f32 compute, at B=2
+    # T=512 and at B=64 bucket 512) and the FFN's f32 hidden tile; rounding
+    # ties (a row of amax 127, so x / scale falls on or beside k + 0.5) in every one
+    for rows, cols, dtype in [(r, dm, bf16) for r in (64, 128, 250, 256, 500, 512, 1024, 32768)] + [
+        (r, dm, f32) for r in (1024, 32768)] + [(r, dff, f32) for r in (64, 128, 250, 500, 1024)
     ]:
         x = rand(rows, cols, dtype=dtype)
         x[rows // 2 :: 7] = 0  # rows of padding: the 1e-8 floor
+        x[1, :8] = torch.tensor([127.0, 0.5, 1.5, 2.5, -2.5, -0.5, 63.5, -126.5], device=dev).to(dtype)
         q, s = KQ.quantize_rows(x)
         pq, ps = Q.quantize_rows(x)
         torch.cuda.synchronize()
@@ -1038,10 +1094,15 @@ def main() -> int:
         tm = timings(lambda: KQ.quantize_rows(x), lambda: Q.quantize_rows(x))
         bms, by = bound_ms(rows * cols * (x.element_size() + 1) + 4 * rows, f32=2 * rows * cols)
         print(
-            f"  quantize_rows {rows}x{cols} {str(dtype).split('.')[-1]}: codes and scales equal {timing_text(tm, bms, by)}",
+            f"  quantize_rows {rows}x{cols} {str(dtype).split('.')[-1]}: codes and scales equal {timing_text(tm, bms, by)} "
+            f"({100 * bms / tm['ms']:.0f}% of the bound)",
             flush=True,
         )
-        if dtype == f32:  # the FFN hidden tile's form: each row's amax given (as fc_in's epilogue leaves it)
+        if (rows, cols) == (1024, dm) and dtype == bf16:  # the main path's shape, kept apart from the kernels line
+            print(f"  quantize_rows main path bf16 [1024, 768]: kernel_ms={tm['ms']:.4f} (device) bound_ms={bms:.5f}; the "
+                  f"two-pass kernel it replaced read {PREVIOUS_MS['quantize_rows']} ms (device) here; the kernels line "
+                  "records f32 [1024, 3072]", flush=True)
+        if cols == dff:  # the FFN hidden tile's form: each row's amax given (as fc_in's epilogue leaves it)
             amax = x.abs().amax(dim=1).view(torch.int32).contiguous()
             q, s = KQ.quantize_rows(x, amax)
             torch.cuda.synchronize()
@@ -1050,6 +1111,21 @@ def main() -> int:
             ms_amax = device_ms(lambda: KQ.quantize_rows(x, x.abs().amax(dim=1).view(torch.int32)), only="quantize_rows_amax")
             print(f"    with the row amax given: codes and scales equal; kernel_ms={ms_amax:.4f} (device)", flush=True)
         record("quantize_rows", 0.0, (rows, cols) == (1024, dff), tm, bms, by)
+        del x, q, s, pq, ps
+    # the other forms of the row kernel, exactly: rows of 8 to 40 values (a
+    # segment of a warp), 8200 and 40000 (past 1024 threads a row: read
+    # again to quantize), and 300 rows of 40000 (bf16 at 3 groups a thread,
+    # past them as well)
+    for rows, cols in ((1, 8), (3, 16), (7, 40), (33, 8200), (5, 40000), (300, 40000)):
+        for dtype in (bf16, f32):
+            x = rand(rows, cols, scale=3.0, dtype=dtype)
+            x[rows // 2] = 0
+            (q, s), (pq, ps) = KQ.quantize_rows(x), Q.quantize_rows(x)
+            torch.cuda.synchronize()
+            n_diff = (q != pq).sum().item() + (s != ps).sum().item()
+            check(n_diff == 0, f"quantize_rows {rows}x{cols} {dtype}: {n_diff} codes or scales differ")
+    print("  quantize_rows at 8, 16, 40, 8200 and 40000 columns (and 300 rows of 40000), bf16 and f32: codes and "
+          "scales equal", flush=True)
 
     # the int8 GEMM of rows 7 and 9 alone (gemm_s8: scales 1, bias 0, f32
     # out) against torch._int_mm (cuBLASLt, int8 x int8 -> int32; never on the
@@ -1189,6 +1265,39 @@ def main() -> int:
                              "cuBLAS f32 fc_in (TF32 off) + F.gelu + cuBLAS f32 fc_out, 3 calls (no W8A8 call)")
                 lib_text(lambda: ffn_w8a8_composite(*args), W8A8_LIB.format("F.gelu"))
             record(name, err, n == 1024, tm, bms, by)
+        # the chains under programmatic dependent launch: row 9 bit-equal to
+        # its four kernels called one by one through the wrappers (each in
+        # plain stream order; fc_out's f32 result rounded to x's dtype), the
+        # one ordering check that needs no switch in the entry
+        for n in (64, 500, 1024):
+            x = rand(n, dm, dtype=dtype)
+            got = F.ffn_fused_int8(x, w1_q, s1, b1f, w2_q, s2, b2f)
+            xq_, xs_ = KQ.quantize_rows(x)
+            h_, amax_ = GS.gemm_s8(xq_, w1_q, xs_[:, 0].contiguous(), s1, b1f, gelu=True)
+            hq_, hs_ = KQ.quantize_rows(h_, amax_)
+            one_by_one = GS.gemm_s8(hq_, w2_q, hs_[:, 0].contiguous(), s2, b2f).to(dtype)
+            torch.cuda.synchronize()
+            check(torch.equal(got, one_by_one), f"{name} N={n}: the chain differs from its four kernels one by one "
+                  f"({(got != one_by_one).sum().item()} values)")
+        # rows 7 and 9, 201 calls back to back, each bit-equal to the first
+        for b, T_ in ((1, 128), (2, 512)):
+            x = rand(b, T_, dm, dtype=dtype)
+            mask = torch.ones(b, T_, device=dev)
+            mask[0, T_ * 2 // 3 :] = 0.0  # a ragged row
+            args7 = (x, wqkv_q, s_qkv, b_qkv, wout_q, s_out, b_out, mask, heads)
+            args9 = (x.view(b * T_, dm), w1_q, s1, b1f, w2_q, s2, b2f)
+            for label, fn, args in (("attention_block_int8", A.attention_block_int8, args7),
+                                    ("ffn_fused_int8", F.ffn_fused_int8, args9)):
+                first = fn(*args)
+                runs = [fn(*args) for _ in range(CHAIN_REPEATS - 1)]
+                torch.cuda.synchronize()
+                n_diff = sum(not torch.equal(first, r) for r in runs)
+                check(n_diff == 0, f"{label} {dtype} B={b} T={T_}: {n_diff} of {CHAIN_REPEATS - 1} repeated calls differ")
+                del runs
+        int8_scratch_at_rest(f"rows 7 and 9 on {dtype} x")
+        print(f"  rows 7 / 9 on {str(dtype).split('.')[-1]} x: row 9 at N = 64, 500, 1024 bit-equal to its four kernels one "
+              f"by one; {CHAIN_REPEATS} calls back to back bit-equal at B=1 T=128 and B=2 T=512; the shared scratch zero "
+              "at rest", flush=True)
         # the buffers the int8 kernels keep zero at rest: the split-K sums and
         # counters, the hidden rows' amax (fc_out restores it)
         for buf in ("gemm_s8_ws", "gemm_s8_counters", "row_amax", "gemm_bf16_counters"):
@@ -3046,6 +3155,9 @@ def main() -> int:
                 got = one_launch(counter, run_blk)
                 want = plain_blk()
                 tag = f"attention_block {rec} B=2 T=100 H=4 head dim {d} (DP {A.block_head_dim(d)})"
+                if rec == "int8":  # the chain under programmatic dependent launch at DP above 128
+                    check(torch.equal(got, run_blk()), f"{tag}: two calls differ")
+                    int8_scratch_at_rest(tag)
                 err, rel, bnd = (compare_gemm if rec == "f32" else compare)(tag, got, want)
                 print(f"  {tag}: max_abs_err={err:.4e} rel={rel:.3e} bound={bnd:.4e}", flush=True)
                 wide_time(tag, run_blk, plain_blk, nbytes + 4 * 2 * 100, ops)
@@ -3121,6 +3233,9 @@ def main() -> int:
             ):
                 tag = f"attention_block {rec} B=2 T=512 H={h} head dim {d} (DP {dp_w})"
                 got = one_launch(counter, run_blk)
+                if rec == "int8":  # the chain under programmatic dependent launch at DP above 128
+                    check(torch.equal(got, run_blk()), f"{tag}: two calls differ")
+                    int8_scratch_at_rest(tag)
                 err, rel, bnd = compare(tag, got, plain_blk())
                 core_ms = device_ms(run_blk, only="wide_mma_kernel")
                 flop = 4 * 2 * h * 512 * 512 * dp_w
@@ -3394,6 +3509,7 @@ def main() -> int:
                 got = one_launch(counter, run_blk)
                 tickets_at_rest(tag)
                 check(torch.equal(got, run_blk()), f"{tag}: two calls differ")
+                int8_scratch_at_rest(tag)
                 err, rel, bnd = cmp_(tag, got, plain_blk())
                 core_ms = device_ms(run_blk, only="wide_f32_kernel")
                 flop = 4 * 2 * h * 512 * 512 * dp_w

@@ -61,7 +61,9 @@
 //
 // msa_attention_block_int8 replaces the W8A8 variant (attention_block(
 // int8=True), pallas_call at :779, body _attn_block_body :574-695, wrapper
-// :760-815) with five launches: quantize the rows of x (quant.cu); the int8
+// :760-815) with a chain of five launches, the last four under
+// programmatic dependent launch (attention_block_int8 below says how each
+// waits): quantize the rows of x (quant.cu); the int8
 // QKV GEMM of gemm_s8.cuh with the epilogue acc·xs·s + b (acc·s·xs + b for
 // K, as on the TPU), rounded to bf16, on the tile and K split the planner
 // picked (ops/kernels/gemm_s8.py); the same attention core as above
@@ -93,17 +95,24 @@
 namespace {
 
 // the core at the head dim DP the (padded) weights give, on qkv
-// [B·T, 3·H·DP] → attn [B·T, H·DP]
+// [B·T, 3·H·DP] → attn [B·T, H·DP]; pdl: launched under programmatic
+// dependent launch (the int8 chain)
 cudaError_t launch_core(const void* qkv, const void* mask, void* attn, int B, int T, int H, int DP, float scale,
-                        cudaStream_t s) {
+                        cudaStream_t s, bool pdl = false) {
   const int HD = H * DP;
   auto q = static_cast<const bf16*>(qkv);
   return static_cast<cudaError_t>(attend_unnormalised(q, q + HD, q + 2 * HD, 3 * T * HD, DP, 3 * HD, mask, attn,
-                                                      T * HD, DP, HD, B, T, H, DP, scale, s));
+                                                      T * HD, DP, HD, B, T, H, DP, scale, s, pdl));
 }
 
 // the W8A8 block in the compute dtype E of x, qkv, attn and out (bf16, or
-// f32 with the f32 core, which writes lse)
+// f32 with the f32 core, which writes lse), a chain of five launches: the
+// first in plain stream order behind whatever came before, the other four
+// under programmatic dependent launch (gemm.cuh). Each of those waits
+// (pdl_wait) before its first read of its predecessor's output and before
+// any touch of the scratch the chain shares: the QKV and Wo GEMMs' split-K
+// workspace and counters, and above DP = 128 the f32 core's tickets and
+// workspace. Only the GEMMs' first k-tiles of W come before the wait.
 template <typename E>
 int attention_block_int8(const void* x, const void* wqkv, const void* sqkv, const void* bqkv, const void* wout,
                          const void* sout, const void* bout, const void* mask, void* xq, void* xs, void* qkv,
@@ -113,22 +122,23 @@ int attention_block_int8(const void* x, const void* wqkv, const void* sqkv, cons
   constexpr int is_bf16 = sizeof(E) == 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * T, HD = H * DP;
-  int rc = msa_quantize_rows(x, is_bf16, xq, xs, M, DM, stream);
+  int rc = quantize_rows_launch(x, is_bf16, xq, xs, M, DM, s, false);
   if (rc) return rc;
   cudaError_t e = launch_gemm_s8<false, E>(xq, wqkv, xs, sqkv, bqkv, qkv, M, 3 * HD, DM, plan_qkv, ws, counters, s, HD,
-                                           2 * HD);
+                                           2 * HD, nullptr, true);
   if (e != cudaSuccess) return static_cast<int>(e);
   if constexpr (is_bf16) {
-    rc = static_cast<int>(launch_core(qkv, mask, attn, B, T, H, DP, scale, s));
+    rc = static_cast<int>(launch_core(qkv, mask, attn, B, T, H, DP, scale, s, true));
   } else {  // the [B·T, 3·HD] buffer is the packed layout [B, T, 3, H, DP]
     const float* q = static_cast<const float*>(qkv);
     rc = attend_f32(q, q + HD, q + 2 * HD, 3 * T * HD, DP, 3 * HD, mask, attn, T * HD, DP, HD, lse, B, T, H, DP, scale,
-                    wplan, wtickets, wws, stream);
+                    wplan, wtickets, wws, stream, true);
   }
   if (rc) return rc;
-  rc = msa_quantize_rows(attn, is_bf16, aq, as, M, HD, stream);
+  rc = quantize_rows_launch(attn, is_bf16, aq, as, M, HD, s, true);
   if (rc) return rc;
-  e = launch_gemm_s8<false, E>(aq, wout, as, sout, bout, out, M, DM, HD, plan_out, ws, counters, s);
+  e = launch_gemm_s8<false, E>(aq, wout, as, sout, bout, out, M, DM, HD, plan_out, ws, counters, s, 0, 0, nullptr,
+                               true);
   return static_cast<int>(e);
 }
 

@@ -59,7 +59,11 @@
 // softmax step run, chunk i+1's K copy (with its key mask) while its P·V
 // runs. 69 KB of shared memory a block at DP = 64 and 168 registers a
 // thread, so 3 blocks share an SM: at B=2 H=12 T=749 the 288 blocks fit in
-// one round of the 132 SMs.
+// one round of the 132 SMs. In the int8 chain of row 7 on f32 x it is
+// launched under programmatic dependent launch (gemm.cuh): pdl_wait comes
+// before its first read of q, k and v, pdl_trigger after its last load;
+// launched without the attribute (rows 1, 2, 5, 6 and 8 in f32) both pass
+// at once.
 #include "attention_mma.cuh"
 
 namespace {
@@ -114,6 +118,7 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const
   const float* mrow = mask + (size_t)b * T;
   const int nt = T_pad / FK;
 
+  pdl_wait();  // in row 7's chain on f32 x, q, k and v are the QKV GEMM's output
   load_f32_tile_async<FQ, DP>(sQ, q, lin, b, h, q0, T, D, tid);
   load_f32_tile_async<FK, DP>(sK, k, lin, b, h, 0, T, D, tid);
   load_vec_async<FK, FTHREADS>(sMask, mrow, 0, T, tid);
@@ -225,6 +230,7 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const
       }
     }
   }
+  pdl_trigger();  // every load is in
 
   // o / l at rows < T and columns < D (16-byte stores); lse per row
 #pragma unroll
@@ -244,24 +250,24 @@ fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const
 
 template <int DP>
 cudaError_t launch_f32(const float* q, const float* k, const float* v, Strides lin, const float* mask, float* out,
-                       Strides lout, float* lse, int B, int H, int T, int D, float scale, cudaStream_t s) {
+                       Strides lout, float* lse, int B, int H, int T, int D, float scale, cudaStream_t s, bool pdl) {
   const int T_pad = (T + 127) / 128 * 128;
   constexpr size_t smem = f32_smem_bytes<DP>();
   cudaError_t e = cudaFuncSetAttribute(fused_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  fused_f32_kernel<DP><<<dim3((T + FQ - 1) / FQ, H, B), FTHREADS, smem, s>>>(q, k, v, lin, mask, out, lout, lse, H, T,
-                                                                            T_pad, D, scale);
-  return cudaGetLastError();
+  return launch_k(pdl, fused_f32_kernel<DP>, dim3((T + FQ - 1) / FQ, H, B), dim3(FTHREADS), smem, s, q, k, v, lin, mask,
+                  out, lout, lse, H, T, T_pad, D, scale);
 }
 
 }  // namespace
 
 int attend_f32(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out, int ob,
                int oh, int ot, void* lse, int B, int T, int H, int D, float scale, int plan, void* tickets, void* ws,
-               void* stream) {
+               void* stream, bool pdl) {
   if (T < 1 || D % 8 || D < 8) return static_cast<int>(cudaErrorInvalidValue);
   if (D > 128)  // the wide kernel (attention_wide.cu), one pass as here, on the wrapper's plan
-    return attend_wide(q, k, v, sb, sh, st, mask, out, ob, oh, ot, lse, B, T, H, D, scale, plan, tickets, ws, stream);
+    return attend_wide(q, k, v, sb, sh, st, mask, out, ob, oh, ot, lse, B, T, H, D, scale, plan, tickets, ws, stream,
+                       pdl);
   auto qp = static_cast<const float*>(q);
   auto kp = static_cast<const float*>(k);
   auto vp = static_cast<const float*>(v);
@@ -271,9 +277,9 @@ int attend_f32(const void* q, const void* k, const void* v, int sb, int sh, int 
   const Strides lin{sb, sh, st}, lout{ob, oh, ot};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // D is zero-padded to 32, 64 or 128 columns in shared memory
-  const cudaError_t e = D <= 32   ? launch_f32<32>(qp, kp, vp, lin, m, o, lout, l, B, H, T, D, scale, s)
-                        : D <= 64 ? launch_f32<64>(qp, kp, vp, lin, m, o, lout, l, B, H, T, D, scale, s)
-                                  : launch_f32<128>(qp, kp, vp, lin, m, o, lout, l, B, H, T, D, scale, s);
+  const cudaError_t e = D <= 32   ? launch_f32<32>(qp, kp, vp, lin, m, o, lout, l, B, H, T, D, scale, s, pdl)
+                        : D <= 64 ? launch_f32<64>(qp, kp, vp, lin, m, o, lout, l, B, H, T, D, scale, s, pdl)
+                                  : launch_f32<128>(qp, kp, vp, lin, m, o, lout, l, B, H, T, D, scale, s, pdl);
   return static_cast<int>(e);
 }
 

@@ -300,18 +300,20 @@ int attend_heads_first(const void* q, const void* k, const void* v, const void* 
 // and o addressed by element strides (batch, head, time; D contiguous):
 // the attention core of attention.cu. T ≤ 512, D % 8 == 0 (above 128
 // through attend_wide_mma in the same order, D ≤ 512); returns a
-// cudaError_t.
+// cudaError_t. pdl: launched with the programmatic-serialization attribute
+// (row 7's chain: the kernel waits for the QKV GEMM before it reads q, k, v).
 int attend_unnormalised(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask,
-                        void* out, int ob, int oh, int ot, int B, int T, int H, int D, float scale, void* stream);
+                        void* out, int ob, int oh, int ot, int B, int T, int H, int D, float scale, void* stream,
+                        bool pdl = false);
 
 // The one-pass f32 core of row 1 (attention_fused.cu) on q, k, v and o
 // addressed by element strides (batch, head, time; D contiguous): rows 1,
 // 5, 6 and 8 in f32. D % 8 == 0 (above 128 through attend_wide, with its
 // plan, tickets and workspace; ignored at D ≤ 128), any T; returns a
-// cudaError_t.
+// cudaError_t. pdl as attend_unnormalised's (row 7 on f32 x).
 int attend_f32(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out, int ob,
                int oh, int ot, void* lse, int B, int T, int H, int D, float scale, int plan, void* tickets, void* ws,
-               void* stream);
+               void* stream, bool pdl = false);
 
 // f32 attention at any head dim D (a multiple of 8), the f32 forward rows'
 // path above D = 128 (attention_wide.cu): S formed once per key block at
@@ -321,10 +323,10 @@ int attend_f32(const void* q, const void* k, const void* v, int sb, int sh, int 
 // 1 ≤ splits ≤ ⌈T/128⌉ runs of the key loop; above one split, tickets (the
 // int32 buffer of the plan, zero at rest) and ws (f32 partials) are
 // required. Any T; returns a cudaError_t (cudaErrorInvalidValue on a plan
-// it cannot take).
+// it cannot take). pdl as attend_unnormalised's.
 int attend_wide(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out,
                 int ob, int oh, int ot, void* lse, int B, int T, int H, int D, float scale, int plan, void* tickets,
-                void* ws, void* stream);
+                void* ws, void* stream, bool pdl = false);
 
 // bf16 attention above head dim 128 on the tensor cores, the bf16 forward
 // rows' path there (attention_wide_mma.cu), rounding to bf16 in ``order``
@@ -333,10 +335,10 @@ int attend_wide(const void* q, const void* k, const void* v, int sb, int sh, int
 // any T. nc: the column tile of o (128 or 192; 0 picks it by D and the
 // grid, wide_nc); qmode: Q's tile resident in shared memory (1) or
 // streamed through the ring (2), 0 picks it by D (wide_q_streamed).
-// Returns a cudaError_t.
+// Returns a cudaError_t. pdl as attend_unnormalised's.
 int attend_wide_mma(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out,
                     int ob, int oh, int ot, void* lse, int B, int T, int H, int D, float scale, int order, int nc,
-                    void* stream, int qmode = 0);
+                    void* stream, int qmode = 0, bool pdl = false);
 
 // The D-tiled SIMT backward on f32 operands (attention_bwd_f32.cu): rows 3
 // (dq non-null) and 4 (dk and dv non-null) at any D. Arguments as

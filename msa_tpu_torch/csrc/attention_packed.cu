@@ -63,7 +63,10 @@
 // The kernel's template parameter UNNORM picks that order; the rest is
 // shared. There q, k and v come strided out of the [B·T, 3·H·DP]
 // projection buffer and o goes to [B·T, H·DP], so the shared memory a
-// block takes does not grow with T.
+// block takes does not grow with T. In row 7's int8 chain the kernel is
+// launched under programmatic dependent launch (gemm.cuh): pdl_wait comes
+// before its first read of q, k and v, pdl_trigger after its last load;
+// launched without the attribute (rows 1, 2, 5 and 8) both pass at once.
 #include <climits>
 
 #include "attention_mma.cuh"
@@ -119,6 +122,7 @@ packed_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const 
     return step & 1;
   };
 
+  pdl_wait();  // in row 7's chain q, k and v are the QKV GEMM's output
   load_tile_async<PQ, DP, PTHREADS>(sQ, q, lin, b, h, q0, T, D, tid);
   issue(0);  // Q lands with the first K tile
 
@@ -165,6 +169,7 @@ packed_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const 
     p_frags<PK>(pf, s);
     tile_pv<PK, DP, LD>(o, pf, sV + st * PK * LD, lane);
   }
+  pdl_trigger();  // every load is in
   if constexpr (UNNORM) {
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
@@ -179,24 +184,23 @@ packed_qkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const 
 
 template <int DP, bool UNNORM>
 cudaError_t launch_packed(const bf16* q, const bf16* k, const bf16* v, Strides lin, const float* mask, bf16* out,
-                          Strides lout, float* lse, int B, int T, int H, int D, float scale, cudaStream_t s) {
+                          Strides lout, float* lse, int B, int T, int H, int D, float scale, cudaStream_t s, bool pdl) {
   const int T_pad = (T + 127) / 128 * 128;
   constexpr size_t smem = packed_smem_bytes<DP>();
   cudaError_t e =
       cudaFuncSetAttribute(packed_qkv_kernel<DP, UNNORM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  packed_qkv_kernel<DP, UNNORM><<<dim3(T_pad / PQ, H, B), PTHREADS, smem, s>>>(q, k, v, lin, mask, out, lout, lse, T,
-                                                                               T_pad, H, D, scale);
-  return cudaGetLastError();
+  return launch_k(pdl, packed_qkv_kernel<DP, UNNORM>, dim3(T_pad / PQ, H, B), dim3(PTHREADS), smem, s, q, k, v, lin,
+                  mask, out, lout, lse, T, T_pad, H, D, scale);
 }
 
 template <bool UNNORM>
 cudaError_t launch_order(const bf16* q, const bf16* k, const bf16* v, Strides lin, const float* mask, bf16* out,
-                         Strides lout, float* lse, int B, int T, int H, int D, float scale, cudaStream_t s) {
+                         Strides lout, float* lse, int B, int T, int H, int D, float scale, cudaStream_t s, bool pdl) {
   // D is zero-padded to 32, 64 or 128 columns in shared memory
-  return D <= 32   ? launch_packed<32, UNNORM>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s)
-         : D <= 64 ? launch_packed<64, UNNORM>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s)
-                   : launch_packed<128, UNNORM>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s);
+  return D <= 32   ? launch_packed<32, UNNORM>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s, pdl)
+         : D <= 64 ? launch_packed<64, UNNORM>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s, pdl)
+                   : launch_packed<128, UNNORM>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s, pdl);
 }
 
 // max_t: 512 for rows 5, 2, 7 and 8, which mirror JAX's dispatch (longer
@@ -204,11 +208,11 @@ cudaError_t launch_order(const bf16* q, const bf16* k, const bf16* v, Strides li
 // order: kNormBefore (rows 1, 2, 5) or kUnnormalised (rows 7, 8; lse null).
 int attend(const void* q, const void* k, const void* v, Strides lin, const void* mask, void* out, Strides lout,
            void* lse, int B, int T, int H, int D, float scale, void* stream, int max_t = 512,
-           int order = kNormBefore) {
+           int order = kNormBefore, bool pdl = false) {
   if (T < 1 || T > max_t || D % 8 || D < 8) return static_cast<int>(cudaErrorInvalidValue);
   if (D > 128)  // the tensor-core kernel above 128, in the same order
     return attend_wide_mma(q, k, v, lin.b, lin.h, lin.t, mask, out, lout.b, lout.h, lout.t, lse, B, T, H, D, scale,
-                           order, 0, stream);
+                           order, 0, stream, 0, pdl);
   auto qp = static_cast<const bf16*>(q);
   auto kp = static_cast<const bf16*>(k);
   auto vp = static_cast<const bf16*>(v);
@@ -217,8 +221,8 @@ int attend(const void* q, const void* k, const void* v, Strides lin, const void*
   auto l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e = order == kUnnormalised
-                            ? launch_order<true>(qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s)
-                            : launch_order<false>(qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s);
+                            ? launch_order<true>(qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s, pdl)
+                            : launch_order<false>(qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s, pdl);
   return static_cast<int>(e);
 }
 
@@ -231,9 +235,10 @@ int attend_heads_first(const void* q, const void* k, const void* v, const void* 
 }
 
 int attend_unnormalised(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask,
-                        void* out, int ob, int oh, int ot, int B, int T, int H, int D, float scale, void* stream) {
+                        void* out, int ob, int oh, int ot, int B, int T, int H, int D, float scale, void* stream,
+                        bool pdl) {
   return attend(q, k, v, Strides{sb, sh, st}, mask, out, Strides{ob, oh, ot}, nullptr, B, T, H, D, scale, stream, 512,
-                kUnnormalised);
+                kUnnormalised, pdl);
 }
 
 // qkv [B, T, 3, H, D] bf16 (contiguous), mask [B, T] f32 (1 = attend);

@@ -55,6 +55,12 @@
 // BQ = 64), one block of 8 warps an SM. Whole rows a lane for S, so Q's
 // loads are warp-wide broadcasts: lanes in row groups (2 rows × 16 keys a
 // lane) read 10–30% slower on the card.
+//
+// In the int8 chain of row 7 on f32 x it is launched under programmatic
+// dependent launch (gemm.cuh): pdl_wait comes before its first read of q,
+// k and v and before any touch of the workspace and tickets, which the
+// chain's kernels share; pdl_trigger after its last load. Launched without
+// the attribute (the other f32 rows) both pass at once.
 #include "attention_mma.cuh"
 
 namespace {
@@ -119,6 +125,7 @@ wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const 
     for (int c = 0; c < 8; ++c) o[i][c] = 0.f;
   }
 
+  pdl_wait();  // in row 7's chain on f32 x, q, k and v are the QKV GEMM's output
 #pragma unroll
   for (int st = 0; st < WNS - 1; ++st) {
     if (st < items) load_item(st, ring + st * WSTAGE);
@@ -222,6 +229,7 @@ wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const 
     }
   }
   cp_async_wait<0>();
+  pdl_trigger();  // every load is in
 
   if (splits > 1) {
     // this split's o, m and l into the workspace; the last block of the
@@ -294,7 +302,7 @@ wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const 
 template <int RPW>
 cudaError_t launch_wide_f32(const float* q, const float* k, const float* v, Strides lin, const float* mask, float* out,
                             Strides lout, float* lse, float* ws, int* tickets, int B, int T, int H, int D, int splits,
-                            float scale, cudaStream_t stream) {
+                            float scale, cudaStream_t stream, bool pdl) {
   constexpr int BQ = 8 * RPW;
   constexpr size_t smem = wide_f32_smem_bytes<RPW>();
   const int nqt = (T + BQ - 1) / BQ, nct = (D + WCT - 1) / WCT, nkb = (T + WK - 1) / WK;
@@ -303,16 +311,15 @@ cudaError_t launch_wide_f32(const float* q, const float* k, const float* v, Stri
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(wide_f32_kernel<RPW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  wide_f32_kernel<RPW><<<(unsigned)blocks, WTHREADS, smem, stream>>>(q, k, v, lin, mask, out, lout, lse, ws, tickets, H,
-                                                                    T, D, nqt, nct, nkb, splits, scale);
-  return cudaGetLastError();
+  return launch_k(pdl, wide_f32_kernel<RPW>, dim3((unsigned)blocks), dim3(WTHREADS), smem, stream, q, k, v, lin, mask,
+                  out, lout, lse, ws, tickets, H, T, D, nqt, nct, nkb, splits, scale);
 }
 
 }  // namespace
 
 int attend_wide(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out,
                 int ob, int oh, int ot, void* lse, int B, int T, int H, int D, float scale, int plan, void* tickets,
-                void* ws, void* stream) {
+                void* ws, void* stream, bool pdl) {
   const int bq = plan & 1023, splits = plan >> 10;
   if (B < 1 || H < 1 || T < 1 || D < 8 || D % 8 || (bq != 64 && bq != 32 && bq != 16))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -323,8 +330,8 @@ int attend_wide(const void* q, const void* k, const void* v, int sb, int sh, int
   auto s = static_cast<cudaStream_t>(stream);
   const Strides lin{sb, sh, st}, lout{ob, oh, ot};
   const cudaError_t e =
-      bq == 64   ? launch_wide_f32<8>(qf, kf, vf, lin, mf, of, lout, lf, wf, tk, B, T, H, D, splits, scale, s)
-      : bq == 32 ? launch_wide_f32<4>(qf, kf, vf, lin, mf, of, lout, lf, wf, tk, B, T, H, D, splits, scale, s)
-                 : launch_wide_f32<2>(qf, kf, vf, lin, mf, of, lout, lf, wf, tk, B, T, H, D, splits, scale, s);
+      bq == 64   ? launch_wide_f32<8>(qf, kf, vf, lin, mf, of, lout, lf, wf, tk, B, T, H, D, splits, scale, s, pdl)
+      : bq == 32 ? launch_wide_f32<4>(qf, kf, vf, lin, mf, of, lout, lf, wf, tk, B, T, H, D, splits, scale, s, pdl)
+                 : launch_wide_f32<2>(qf, kf, vf, lin, mf, of, lout, lf, wf, tk, B, T, H, D, splits, scale, s, pdl);
   return static_cast<int>(e);
 }

@@ -70,6 +70,10 @@
 // spills in two of the three orders, and read no faster than 192 at D =
 // 192: not built. Shared memory with Q resident: 80 KB a block at D = 192
 // (2 blocks an SM), 121 KB at D = 512 (1); streamed: 83 KB at any D (2).
+// In row 7's int8 chain (kUnnormalised) the kernel is launched under
+// programmatic dependent launch (gemm.cuh): pdl_wait comes before its
+// first read of q, k and v, pdl_trigger after its last load; launched
+// without the attribute (every other row) both pass at once.
 #include "attention_mma.cuh"
 
 namespace {
@@ -159,6 +163,7 @@ wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
     return sR + (step++ % MSTAGES) * STAGE;
   };
 
+  pdl_wait();  // in row 7's chain q, k and v are the QKV GEMM's output
   if constexpr (!QS) {
     for (int i = tid; i < MQ * (DP / 8); i += MTHREADS) {  // Q, zeros past D and T, lands with step 0
       const int r = i / (DP / 8), c = (i % (DP / 8)) * 8, t = q0 + r;
@@ -269,6 +274,7 @@ wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
       }
     }
   }
+  pdl_trigger();  // every load is in
 
   float row_lse[2];
 #pragma unroll
@@ -303,23 +309,23 @@ wide_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
 
 template <int NC, int ORDER, bool QS>
 cudaError_t launch_wide_mma(const bf16* q, const bf16* k, const bf16* v, Strides lin, const float* mask, bf16* out,
-                            Strides lout, float* lse, int B, int T, int H, int D, float scale, cudaStream_t s) {
+                            Strides lout, float* lse, int B, int T, int H, int D, float scale, cudaStream_t s, bool pdl) {
   const int nct = (D + NC - 1) / NC;
   const size_t smem = wide_mma_smem((D + MC - 1) / MC * MC, QS);
   auto kernel = wide_mma_kernel<NC, ORDER, QS>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3((T + MQ - 1) / MQ, H * nct, B), MTHREADS, smem, s>>>(q, k, v, lin, mask, out, lout, lse, T, H, D, nct,
-                                                                     scale);
-  return cudaGetLastError();
+  return launch_k(pdl, kernel, dim3((T + MQ - 1) / MQ, H * nct, B), dim3(MTHREADS), smem, s, q, k, v, lin, mask, out,
+                  lout, lse, T, H, D, nct, scale);
 }
 
 template <int NC, bool QS>
 cudaError_t launch_order(int order, const bf16* q, const bf16* k, const bf16* v, Strides lin, const float* mask,
-                         bf16* out, Strides lout, float* lse, int B, int T, int H, int D, float scale, cudaStream_t s) {
-  return order == kNormBefore      ? launch_wide_mma<NC, kNormBefore, QS>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s)
-         : order == kUnnormalised ? launch_wide_mma<NC, kUnnormalised, QS>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s)
-                                  : launch_wide_mma<NC, kOnline128, QS>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s);
+                         bf16* out, Strides lout, float* lse, int B, int T, int H, int D, float scale, cudaStream_t s,
+                         bool pdl) {
+  return order == kNormBefore      ? launch_wide_mma<NC, kNormBefore, QS>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s, pdl)
+         : order == kUnnormalised ? launch_wide_mma<NC, kUnnormalised, QS>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s, pdl)
+                                  : launch_wide_mma<NC, kOnline128, QS>(q, k, v, lin, mask, out, lout, lse, B, T, H, D, scale, s, pdl);
 }
 
 }  // namespace
@@ -327,7 +333,7 @@ cudaError_t launch_order(int order, const bf16* q, const bf16* k, const bf16* v,
 // qmode: 0 wide_q_streamed's rule, 1 Q resident (where it fits), 2 streamed
 int attend_wide_mma(const void* q, const void* k, const void* v, int sb, int sh, int st, const void* mask, void* out,
                     int ob, int oh, int ot, void* lse, int B, int T, int H, int D, float scale, int order, int nc,
-                    void* stream, int qmode) {
+                    void* stream, int qmode, bool pdl) {
   if (nc == 0) nc = wide_nc(B, T, H, D);
   const bool qs = qmode == 0 ? wide_q_streamed(D) : qmode == 2;
   if (B < 1 || H < 1 || T < 1 || D <= 128 || D % 8 || (nc != 128 && nc != 192) || qmode < 0 || qmode > 2 ||
@@ -341,10 +347,10 @@ int attend_wide_mma(const void* q, const void* k, const void* v, int sb, int sh,
   const Strides lin{sb, sh, st}, lout{ob, oh, ot};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      nc == 128 ? (qs ? launch_order<128, true>(order, qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s)
-                      : launch_order<128, false>(order, qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s))
-                : (qs ? launch_order<192, true>(order, qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s)
-                      : launch_order<192, false>(order, qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s));
+      nc == 128 ? (qs ? launch_order<128, true>(order, qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s, pdl)
+                      : launch_order<128, false>(order, qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s, pdl))
+                : (qs ? launch_order<192, true>(order, qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s, pdl)
+                      : launch_order<192, false>(order, qp, kp, vp, lin, m, o, lout, l, B, T, H, D, scale, s, pdl));
   return static_cast<int>(e);
 }
 

@@ -17,7 +17,8 @@
 // round trip through device memory (L2 holds it at these sizes).
 //
 // msa_ffn_fused_int8 replaces msa_tpu/ops/pallas/ffn.py:ffn_fused_int8
-// (pallas_call at :166, body _ffn_int8_kernel :106-133) with four launches:
+// (pallas_call at :166, body _ffn_int8_kernel :106-133) with a chain of
+// four launches, the last three under programmatic dependent launch:
 // quantize the rows of x (quant.cu); the int8 fc_in GEMM of gemm_s8.cuh
 // with the epilogue acc·xs·s1 + b1 and the GELU, writing an f32 hidden tile
 // (the TPU kernel quantizes the f32 GELU output, not a bf16 rounding of
@@ -80,21 +81,27 @@ extern "C" int msa_ffn_fused_f32(const void* x, const void* w1, const void* b1, 
 
 namespace {
 
-// the W8A8 FFN with x and out in E (bf16, or f32 under f32 compute)
+// the W8A8 FFN with x and out in E (bf16, or f32 under f32 compute), a
+// chain of four launches: the first in plain stream order, the other three
+// under programmatic dependent launch (gemm.cuh), each waiting (pdl_wait)
+// before its first read of its predecessor's output and before any touch
+// of the scratch the chain shares (the GEMMs' split-K workspace and
+// counters, and amax, which fc_out zeroes after the quantization before it
+// has read it); only the GEMMs' first k-tiles of W come before the wait
 template <typename E>
 int ffn_int8(const void* x, const void* w1, const void* s1, const void* b1, const void* w2, const void* s2,
              const void* b2, void* xq, void* xs, void* hidden, void* hq, void* hs, void* out, void* ws, void* counters,
              void* amax, int M, int D, int F, int plan_in, int plan_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = msa_quantize_rows(x, sizeof(E) == 2, xq, xs, M, D, stream);
+  int rc = quantize_rows_launch(x, sizeof(E) == 2, xq, xs, M, D, s, false);
   if (rc) return rc;
   cudaError_t e =
-      launch_gemm_s8<true, float>(xq, w1, xs, s1, b1, hidden, M, F, D, plan_in, ws, counters, s, 0, 0, amax);
+      launch_gemm_s8<true, float>(xq, w1, xs, s1, b1, hidden, M, F, D, plan_in, ws, counters, s, 0, 0, amax, true);
   if (e != cudaSuccess) return static_cast<int>(e);
-  rc = msa_quantize_rows_amax(hidden, amax, hq, hs, M, F, stream);
+  rc = quantize_rows_amax_launch(hidden, amax, hq, hs, M, F, s, true);
   if (rc) return rc;
   // fc_out zeroes amax for the next call (the quantization above has read it)
-  e = launch_gemm_s8<false, E>(hq, w2, hs, s2, b2, out, M, D, F, plan_out, ws, counters, s, 0, 0, amax);
+  e = launch_gemm_s8<false, E>(hq, w2, hs, s2, b2, out, M, D, F, plan_out, ws, counters, s, 0, 0, amax, true);
   return static_cast<int>(e);
 }
 

@@ -65,4 +65,34 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Programmatic dependent launch (sm_90), for the int8 chains of rows 7 and
+// 9 (attention.cu, ffn.cu): a kernel launched with the attribute (launch_k
+// with pdl) may start while the kernel before it in the stream finishes,
+// and pdl_wait() holds its threads until that kernel has completed and its
+// writes are visible; pdl_trigger() lets the next kernel start before this
+// one ends (it only schedules: correctness rests on the waits). A kernel
+// launched without the attribute passes both at once, so every other
+// launch of the same kernels keeps plain stream order.
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+__device__ __forceinline__ void pdl_trigger() { asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory"); }
+
+// kernel<<<grid, block, smem, s>>>(args...), with the programmatic-
+// serialization attribute where pdl; returns the launch's error
+template <typename... P, typename... A>
+cudaError_t launch_k(bool pdl, void (*kernel)(P...), dim3 grid, dim3 block, size_t smem, cudaStream_t s, A... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, static_cast<P>(args)...);
+  const cudaError_t last = cudaGetLastError();  // also clears a refused launch's error
+  return e != cudaSuccess ? e : last;
+}
+
 }  // namespace

@@ -50,6 +50,10 @@
 //   ≥ 0), so that the hidden tile's row quantization (quant.cu,
 //   msa_quantize_rows_amax) runs no reduction; fc_out's launch (no GELU,
 //   row_amax given) zeroes those rows again for the next call.
+// - In the int8 chains of rows 7 and 9 the GEMMs launch under
+//   programmatic dependent launch (gemm.cuh): the first k-tile of W, the
+//   layer's constant, is copied before pdl_wait; A, the scales, the
+//   split-K workspace and counters and row_amax only after it.
 //
 // The wrappers check what the kernel takes: N % 128 == 0, K % 16 == 0,
 // A and W 16-byte aligned, any M; the entry points check the plan.
@@ -111,20 +115,28 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W, const
   const int m0 = (tile / n_tiles) * BM, n0 = (tile % n_tiles) * BN;
   const int nk = (K + WG_BK - 1) / WG_BK;
   const int kt0 = split * nk / splits, nkt = (split + 1) * nk / splits - kt0;
-  if (!GELU && row_amax && n0 == 0 && split == 0 && tid < BM && m0 + tid < M) row_amax[m0 + tid] = 0;
 
   int acc[NREG];
 #pragma unroll
   for (int r = 0; r < NREG; ++r) acc[r] = 0;
 
+  // W's first k-tile comes in before pdl_wait, A (the last kernel's codes) after it
   auto a8 = reinterpret_cast<const uint8_t*>(A), w8 = reinterpret_cast<const uint8_t*>(W);
-  wg_k_loop<Cfg, 0>(smem, sbase, a8 + (size_t)m0 * K, M - m0, w8 + (size_t)n0 * K, K, kt0, nkt, tid,
-                    [&](uint32_t sa, uint32_t sb) {
+  wg_k_loop<Cfg, 0, true>(smem, sbase, a8 + (size_t)m0 * K, M - m0, w8 + (size_t)n0 * K, K, kt0, nkt, tid,
+                          [&](uint32_t sa, uint32_t sb) {
 #pragma unroll
-                      for (int kk = 0; kk < WG_BK / 32; ++kk)  // 32-byte k steps inside the swizzle row
-                        wgmma_s8(acc, wg_desc(sa + wg * 64 * WG_BK + kk * 32), wg_desc(sb + kk * 32));
-                    });
+                            for (int kk = 0; kk < WG_BK / 32; ++kk)  // 32-byte k steps inside the swizzle row
+                              wgmma_s8(acc, wg_desc(sa + wg * 64 * WG_BK + kk * 32), wg_desc(sb + kk * 32));
+                          });
   fence_regs(acc);
+  // fc_in lets the hidden tile's quantization (elementwise, small blocks)
+  // start now; QKV's dependent, the attention core, starts when the GEMM
+  // ends: begun beside the GEMM's last wave, the core's blocks crowded the
+  // SMs that wave had left (1.4x the core's time inside the chain on an
+  // H100 at B=2 T=512)
+  if constexpr (GELU) pdl_trigger();
+  // fc_out: the hidden rows' amax, which the quantization before it has read, zero again
+  if (!GELU && row_amax && n0 == 0 && split == 0 && tid < BM && m0 + tid < M) row_amax[m0 + tid] = 0;
 
   if (splits > 1) {  // exact split-K: int32 atomic sums, read back by the tile's last CTA
     int* sum = ws + (size_t)tile * (BM * BN) + tid;
@@ -183,27 +195,28 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W, const
 template <int BM, int BN, bool GELU, typename OutT>
 cudaError_t launch_s8(const int8_t* A, const int8_t* W, const float* rs, const float* cs, const float* bias, OutT* C,
                       int M, int N, int K, int splits, int* ws, int* counters, int* row_amax, cudaStream_t stream,
-                      int swap_lo, int swap_hi) {
+                      int swap_lo, int swap_hi, bool pdl) {
   using Cfg = WgCfg<BM, BN>;
   auto kernel = gemm_s8_kernel<BM, BN, GELU, OutT>;
   static unsigned attr_set = 0;  // one bit per device: shared memory above 48 KB is opted into once
   const cudaError_t e = wg_smem_attr(kernel, Cfg::SMEM, attr_set);
   if (e != cudaSuccess) return e;
   const dim3 grid(((M + BM - 1) / BM) * (N / BN), splits);
-  kernel<<<grid, Cfg::THREADS, Cfg::SMEM, stream>>>(A, W, rs, cs, bias, C, M, N, K, swap_lo, swap_hi, splits, ws,
-                                                    counters, row_amax);
-  return cudaGetLastError();
+  return launch_k(pdl, kernel, grid, dim3(Cfg::THREADS), Cfg::SMEM, stream, A, W, rs, cs, bias, C, M, N, K, swap_lo,
+                  swap_hi, splits, ws, counters, row_amax);
 }
 
 // C = epilogue(A·Wᵀ) on the planned tile and split; ws and counters are the
 // split-K workspace (the padded M × N int32) and the per-tile counters, both
 // zero at rest and both from the wrapper; row_amax (int32 [M], or null):
 // with GELU each row's max |h| is merged into it as f32 bits (it is zero
-// before), without GELU it is zeroed (fc_out restores fc_in's buffer)
+// before), without GELU it is zeroed (fc_out restores fc_in's buffer);
+// pdl: launched with the programmatic-serialization attribute (in a chain,
+// after the kernel that writes A)
 template <bool GELU, typename OutT>
 cudaError_t launch_gemm_s8(const void* A, const void* W, const void* rs, const void* cs, const void* bias, void* C,
                            int M, int N, int K, int plan_code, void* ws, void* counters, cudaStream_t stream,
-                           int swap_lo = 0, int swap_hi = 0, void* row_amax = nullptr) {
+                           int swap_lo = 0, int swap_hi = 0, void* row_amax = nullptr, bool pdl = false) {
   const WgPlan p(plan_code);
   const int nk = (K + WG_BK - 1) / WG_BK;
   if ((p.bm != 64 && p.bm != 128) || p.bn != p.bm || N % p.bn || K % 16 || M < 1 || p.splits < 1 || p.splits > nk ||
@@ -214,16 +227,18 @@ cudaError_t launch_gemm_s8(const void* A, const void* W, const void* rs, const v
   auto out = static_cast<OutT*>(C);
   auto wsp = static_cast<int*>(ws), cnt = static_cast<int*>(counters), amax = static_cast<int*>(row_amax);
   if (p.bm == 128)
-    return launch_s8<128, 128, GELU>(a, w, r, c, b, out, M, N, K, p.splits, wsp, cnt, amax, stream, swap_lo, swap_hi);
-  return launch_s8<64, 64, GELU>(a, w, r, c, b, out, M, N, K, p.splits, wsp, cnt, amax, stream, swap_lo, swap_hi);
+    return launch_s8<128, 128, GELU>(a, w, r, c, b, out, M, N, K, p.splits, wsp, cnt, amax, stream, swap_lo, swap_hi,
+                                     pdl);
+  return launch_s8<64, 64, GELU>(a, w, r, c, b, out, M, N, K, p.splits, wsp, cnt, amax, stream, swap_lo, swap_hi, pdl);
 }
 
 }  // namespace
 
-// Row quantization, defined in quant.cu (the same C entries the wrapper of
-// msa_tpu_torch/ops/kernels/quant.py calls): from x alone, and from f32 x
-// with each row's amax already reduced (fc_in's epilogue above).
-extern "C" int msa_quantize_rows(const void* x, int x_is_bf16, void* q, void* scale, int rows, int cols,
-                                 void* stream);
-extern "C" int msa_quantize_rows_amax(const void* x, const void* amax, void* q, void* scale, int rows, int cols,
-                                      void* stream);
+// Row quantization, defined in quant.cu (behind the C entries the wrapper
+// of msa_tpu_torch/ops/kernels/quant.py calls): from x alone, and from f32
+// x with each row's amax already reduced (fc_in's epilogue above); pdl as
+// launch_gemm_s8's. Each returns a cudaError_t.
+int quantize_rows_launch(const void* x, int x_is_bf16, void* q, void* scale, int rows, int cols, cudaStream_t s,
+                         bool pdl);
+int quantize_rows_amax_launch(const void* x, const void* amax, void* q, void* scale, int rows, int cols,
+                              cudaStream_t s, bool pdl);

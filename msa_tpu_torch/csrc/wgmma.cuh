@@ -93,19 +93,38 @@ __device__ __forceinline__ void load_k_tile(uint8_t* s, const uint8_t* src, int 
 // barrier), so the ring runs STAGES − 1 − LAG k-tiles ahead: a slot is
 // refilled only once every warpgroup's group that read it has completed.
 // Every thread copies; a CTA barrier and cp.async groups guard the ring.
-template <typename Cfg, int LAG, typename Mma>
+// W_FIRST (the int8 GEMM, which runs in the int8 chains under programmatic
+// dependent launch): the first k-tile of W, constant for the call, is
+// copied before pdl_wait, A's after it, in the same group. (All of the
+// ring's first k-tiles of W before the wait put them in the first group,
+// which the first wgmma then waited for: 3–7% on direct calls below M =
+// 512 on an H100.)
+template <typename Cfg, int LAG, bool W_FIRST = false, typename Mma>
 __device__ __forceinline__ void wg_k_loop(uint8_t* smem, uint32_t sbase, const uint8_t* a, int rows_a,
                                           const uint8_t* w, int row_bytes, int kt0, int nkt, int tid, Mma mma) {
   constexpr int BM = Cfg::TILE_M, BN = Cfg::TILE_N, NT = Cfg::THREADS, STAGES = Cfg::STAGES;
   constexpr int AHEAD = STAGES - 1 - LAG;
   static_assert(AHEAD >= 1, "the ring needs a k-tile in flight");
-  auto load_stage = [&](int slot, int kt) {
-    uint8_t* sa = smem + slot * Cfg::STAGE_BYTES;
-    load_k_tile<BM, NT>(sa, a, rows_a, row_bytes, kt * WG_BK, tid);
-    load_k_tile<BN, NT>(sa + BM * WG_BK, w, BN, row_bytes, kt * WG_BK, tid);
+  auto load_a = [&](int slot, int kt) {
+    load_k_tile<BM, NT>(smem + slot * Cfg::STAGE_BYTES, a, rows_a, row_bytes, kt * WG_BK, tid);
   };
+  auto load_w = [&](int slot, int kt) {
+    load_k_tile<BN, NT>(smem + slot * Cfg::STAGE_BYTES + BM * WG_BK, w, BN, row_bytes, kt * WG_BK, tid);
+  };
+  auto load_stage = [&](int slot, int kt) {
+    load_a(slot, kt);
+    load_w(slot, kt);
+  };
+  if constexpr (W_FIRST) {
+    if (nkt > 0) load_w(0, kt0);
+    pdl_wait();
+    if (nkt > 0) load_a(0, kt0);
+  } else {
+    if (nkt > 0) load_stage(0, kt0);
+  }
+  cp_async_commit();
 #pragma unroll
-  for (int s = 0; s < AHEAD; ++s) {
+  for (int s = 1; s < AHEAD; ++s) {
     if (s < nkt) load_stage(s, kt0 + s);
     cp_async_commit();
   }

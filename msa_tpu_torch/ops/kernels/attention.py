@@ -397,7 +397,10 @@ def attention_block_int8(
     :func:`attention_block_int8_plain`; CUDA tensors launch the kernel
     (weights padded by :func:`pad_block_weights`): on bf16 x
     ``msa_attention_block_int8``, on f32 x (f32 compute)
-    ``msa_attention_block_int8_f32``, counted in ``launches_f32``."""
+    ``msa_attention_block_int8_f32``, counted in ``launches_f32``. The
+    entry launches its five kernels as one chain, the last four under
+    programmatic dependent launch (``csrc/attention.cu``); the counters
+    below count each launch once, as before."""
     if x.device.type == "cpu":
         return attention_block_int8_plain(x, w_qkv_q, s_qkv, b_qkv, w_out_q, s_out, b_out, key_mask, num_heads, head_dim)
     b, t, dm = x.shape

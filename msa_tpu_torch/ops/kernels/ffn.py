@@ -124,7 +124,8 @@ def ffn_fused_int8(x, w1_q, s1, b1, w2_q, s2, b2) -> torch.Tensor:
     CUDA tensors launch the kernel (d % 128 == 0, d_ff % 128 == 0): on bf16
     x ``msa_ffn_fused_int8``, on f32 x (f32 compute) ``msa_ffn_fused_int8_f32``,
     counted in ``launches_f32``; each GEMM on :func:`gemm_s8.plan`'s tile and
-    K split."""
+    K split. The entry launches its four kernels as one chain, the last
+    three under programmatic dependent launch (``csrc/ffn.cu``)."""
     if x.device.type == "cpu":
         return ffn_int8_plain(x, w1_q, s1, b1, w2_q, s2, b2)
     n, d = x.shape

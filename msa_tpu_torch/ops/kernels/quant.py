@@ -4,16 +4,20 @@ Replaces ``msa_tpu/ops/quant.py:quantize_rows`` where the TPU W8A8 kernels
 run it: on their input in XLA (``ops/pallas/attention.py:776``,
 ``ffn.py:160``) and inside the kernel on the attention output
 (``attention.py:677``) and on the FFN hidden tile (``ffn.py:126``). The CUDA
-kernel is ``msa_tpu_torch/csrc/quant.cu``; its note says what bounds it.
-Its plain version is :func:`msa_tpu_torch.ops.quant.quantize_rows`, and the
-two are bit-equal (codes and scales).
+kernel is ``msa_tpu_torch/csrc/quant.cu``; its note says what bounds it
+(bytes: it reads each row once, cols / 8 threads a row, 8 values a thread
+in registers). Its plain version is
+:func:`msa_tpu_torch.ops.quant.quantize_rows`, and the two are bit-equal
+(codes and scales).
 
 The int8 attention and FFN entries launch a row quantization twice each
 from C (input and inner activation); their wrappers add those launches to
 ``quantize_rows.launches``. The FFN's inner one is the kernel's second
 form: on f32 rows whose amax the fc_in GEMM's epilogue has already
 reduced (``quantize_rows(x, amax)``), elementwise, no reduction; the
-codes and scales are the same.
+codes and scales are the same. Inside those entries the inner one runs
+under programmatic dependent launch (it waits for the kernel before it);
+a call from here launches in plain stream order.
 """
 
 from __future__ import annotations

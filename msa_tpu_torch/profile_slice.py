@@ -4,7 +4,7 @@
                                            [--samples 80000]
                                            [--train | --conv | --asr | --gemm-s8 | --gemm-bf16 | --gemm-f32
                                             | --f32-rows | --attn-bwd-f32 | --attn-wide | --attn-wide-tiles
-                                            | --attn-wide-f32 | --attn-wide-f32-plans]
+                                            | --attn-wide-f32 | --attn-wide-f32-plans | --int8-chains]
 
 Builds the full-width models (``PipelineModels.initialize``, by default in
 the int8 serving recipe; ``--quantize none`` for the bf16 one, ``f32``
@@ -17,8 +17,13 @@ the flash kernel), warms
 ``SegmentPipeline.run_host`` up, then records ``--steps`` forwards with
 ``torch.profiler`` (CPU + CUDA activities) and prints: the wall time per
 forward (host clock around work that ends in ``synchronize``), the device's
-busy time per forward (sum of kernel durations, from the trace) and its idle
-share, and the kernels ranked by device time. ``--train`` profiles instead
+busy time per forward (the union of the device activities' intervals in
+the trace, so that a kernel that starts under programmatic dependent
+launch while its predecessor runs, and whose duration holds its wait,
+counts once; the plain sum of durations is printed beside it) and its
+idle share, the kernels ranked by device time, and the int8 chains of rows
+7 and 9 in the forward (each chain's span, from its first kernel's start
+to its last one's end, summed). ``--train`` profiles instead
 one training step of the text model (``msa_tpu_torch.training``: bf16,
 kernel attention, dropout 0; forward, backward and AdamW) at ``--batch``
 (default 8) × ``--tokens``, or with ``--samples`` that of the audio model
@@ -117,7 +122,28 @@ of the two f32 kernels at those shapes: the forward
 (``msa_fused_attention`` on f32, each query tile at each split of the key
 loop) and the one-pass backward above D = 64 (``attention_bwd_onepass``,
 each split of the query loop), the planner's plan marked: where the
-planners' constants come from. Needs a CUDA device.
+planners' constants come from. ``--int8-chains`` reads the int8 chains of
+rows 7 and 9 (``attention_block_int8``: quantize, QKV GEMM, core,
+quantize, Wo GEMM; ``ffn_fused_int8``: quantize, fc_in, the hidden tile's
+quantization, fc_out) through their public wrappers only, so that it reads
+another tree too (``PYTHONPATH=<tree> python3 -P
+msa_tpu_torch/profile_slice.py --int8-chains``), on bf16 x and f32 x at
+B=2 T=512, B=2 T=250 (pad 256), B=1 T=128 (the stream) and B=64 T=512
+(d_model 768, 12 heads), and row 7 at B=2 T=512 with 4 heads (head dim
+192): each call enqueued behind a spin kernel (``torch.cuda._sleep``) so
+that all its launches are queued before its first kernel runs, then the
+chain's span on the card, the union of its kernels' busy intervals and its
+kernels' count, medians over the profiler's trace of ``--steps`` (at
+least 20) calls; beside them each kernel timed alone on a direct call, launched in
+plain stream order (``gemm_s8`` at the chains' GEMMs, the cores inside
+row 8's ``attention_block``, the row quantization from x at 768 and 3072
+columns and from the hidden tile's amax). It starts with the row quantization (bf16 [128 |
+1024, 768], f32 [1024, 3072], the amax form at [1024, 3072]; normal
+values, and with the smoke's zero rows) in three states of the card, each
+beside the SM clock read from spin kernels of known cycles: on direct
+calls launched one by one (as ``chip_smoke.py`` times it) after 1 s idle
+and right after 100 ms of spin, and queued back to back behind a spin.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -158,6 +184,8 @@ def main(argv=None) -> int:
                     help="the f32 attention rows above D = 64 / 128 through their wrappers, beside f32 SDPA")
     ap.add_argument("--attn-wide-f32-plans", action="store_true",
                     help="every plan of the f32 forward above D = 128 and the one-pass backward above D = 64")
+    ap.add_argument("--int8-chains", action="store_true",
+                    help="rows 7 and 9's int8 chains (span, union busy) and their kernels alone, on any tree")
     ap.add_argument("--attn-wide-tiles", action="store_true",
                     help="the bf16 forward above D = 128 at each column tile and order, beside SDPA")
     args = ap.parse_args(argv)
@@ -183,6 +211,8 @@ def main(argv=None) -> int:
         return attention_wide_f32_rows(max(args.steps, 20))
     if args.attn_wide_f32_plans:
         return attention_wide_f32_plans(max(args.steps, 20))
+    if args.int8_chains:
+        return int8_chains(max(args.steps, 20))
     if args.attn_bwd_f32:
         rc = attention_bwd_f32_plans(max(args.steps, 20))
         for step in ([], ["--samples", "80000"], ["--samples", "240000", "--batch", "2"]):
@@ -272,7 +302,11 @@ def main(argv=None) -> int:
         if dev_us > 0:
             rows.append((dev_us / args.steps, e.count // args.steps, e.key))
     rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
+    sum_ms = sum(r[0] for r in rows) / 1e3
+    intervals = _device_intervals(prof)
+    busy_ms = _union_us(intervals) / 1e3 / args.steps
+    chains = _chains(intervals)
+    spans = {kind: sum(c["span_us"] for c in cs) / 1e3 / args.steps for kind, cs in chains.items()}
     wall_ms = 1e3 * float(np.median(walls))
     what = (
         "whisper batch" if args.asr
@@ -280,12 +314,68 @@ def main(argv=None) -> int:
         else f"quantize={args.quantize} samples={samples} forward"
     )
     print(f"{what} B={b} tokens={tokens}: wall {wall_ms:.3f} ms (median of {args.steps}), "
-          f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
+          f"device busy {busy_ms:.3f} ms (union of intervals; sum of durations {sum_ms:.3f}), "
+          f"idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
+    for kind, cs in chains.items():
+        print(f"  int8 chains of {kind}: {len(cs) // args.steps} a forward, spans summed {spans[kind]:.4f} ms", flush=True)
     for us, n, key in rows[: args.top]:
-        print(f"  {us / 1e3:9.4f} ms  {n:5d}x  {100 * us / 1e3 / busy_ms:5.1f}%  {key[:90]}", flush=True)
+        print(f"  {us / 1e3:9.4f} ms  {n:5d}x  {100 * us / 1e3 / sum_ms:5.1f}%  {key[:90]}", flush=True)
     print(json.dumps({"train": args.train, "asr": args.asr, "quantize": args.quantize, "batch": b, "tokens": tokens, "samples": samples, "wall_ms": wall_ms,
-                      "device_busy_ms": busy_ms, "device": torch.cuda.get_device_name(0)}), flush=True)
+                      "device_busy_ms": busy_ms, "device_sum_ms": sum_ms,
+                      "chains": {kind: {"per_forward": len(cs) // args.steps, "span_ms": spans[kind]} for kind, cs in chains.items()},
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
+
+
+def _device_intervals(prof):
+    """(start µs, end µs, name) of every device activity the trace recorded
+    (kernels, copies, sets; annotated ranges left out), by start."""
+    out = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    return sorted(out)
+
+
+def _union_us(intervals) -> float:
+    """The time covered by the intervals: busy time that counts a stretch
+    once, however many kernels ran in it (under programmatic dependent
+    launch a waiting kernel's duration holds its wait)."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e, _ in intervals:
+        if cur_e is None or s > cur_e:
+            total += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + (0.0 if cur_e is None else cur_e - cur_s)
+
+
+# the kernels of the int8 chains, by name: the row quantization (Q), the
+# hidden tile's from its amax (A), the int8 GEMM (G), the cores of row 7 (C)
+_CHAIN_KERNELS = (("quantize_rows_amax_kernel", "A"), ("quantize_rows_kernel", "Q"), ("gemm_s8_kernel", "G"),
+                  ("packed_qkv_kernel", "C"), ("fused_f32_kernel", "C"), ("wide_mma_kernel", "C"),
+                  ("wide_f32_kernel", "C"))
+_CHAINS = {"row 7": "QGCQG", "row 9": "QGAG"}
+
+
+def _chains(intervals):
+    """The int8 chains among the intervals (one stream, by start): for each
+    of rows 7 and 9 a list of {span_us, busy_us, kernels, durations_us},
+    the span from the first kernel's start to the last one's end."""
+    marked = [(s, e, next((c for k, c in _CHAIN_KERNELS if k in name), "")) for s, e, name in intervals]
+    marked = [m for m in marked if m[2]]
+    code = "".join(m[2] for m in marked)
+    found = {kind: [] for kind in _CHAINS}
+    i = 0
+    while i < len(code):
+        kind = next((k for k, pat in _CHAINS.items() if code.startswith(pat, i)), None)
+        if kind is None:
+            i += 1
+            continue
+        ks = marked[i : i + len(_CHAINS[kind])]
+        found[kind].append({"span_us": max(e for _, e, _ in ks) - ks[0][0], "busy_us": _union_us(ks),
+                            "kernels": len(ks), "durations_us": [e - s for s, e, _ in ks]})
+        i += len(ks)
+    return found
 
 
 # 8 windows of 5 s of synthetic speech, int16 (tests/test_torch_whisper.py)
@@ -1079,6 +1169,190 @@ def attention_wide_tiles(reps: int) -> int:
             print(f"  ptxas {cur}: {line.split('ptxas info    :')[-1].strip()}", flush=True)
     print(json.dumps({"attention_wide_tiles": rows, "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
+
+
+# the chains' shapes: (B, T, heads) at d_model 768 (row 9 at N = B·T rows)
+CHAIN_SHAPES = ((2, 512, 12), (2, 250, 12), (1, 128, 12), (64, 512, 12), (2, 512, 4))
+CHAIN_SPIN_CYCLES = 1_000_000  # about 0.5 ms of spin before each call: its launches all queue behind it
+
+
+def int8_chains(reps: int) -> int:
+    """Rows 7 and 9's int8 chains through their public wrappers (any tree
+    of the package): each call queued behind a spin kernel, its span on the
+    card, the union of its kernels' busy intervals, its kernels' count; then
+    each kernel of the chains timed alone on a direct call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import msa_tpu_torch
+    from msa_tpu_torch.ops import quant as Q
+    from msa_tpu_torch.ops.kernels import attention as A
+    from msa_tpu_torch.ops.kernels import ffn as F
+    from msa_tpu_torch.ops.kernels import gemm_s8 as GS
+    from msa_tpu_torch.ops.kernels import quant as KQ
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dm, dff = 768, 3072
+
+    def rand(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(dtype)
+
+    def int8_weight(n, k):
+        w, s = Q.quantize_weight_axis(rand(n, k, scale=k**-0.5), axis=1)
+        return w, s[:, 0].contiguous()
+
+    def chain_reading(fn, kind):
+        """The chains of ``reps`` calls, each behind a spin kernel."""
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):  # a trace that lost a kernel of a chain is taken again
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    torch.cuda._sleep(CHAIN_SPIN_CYCLES)
+                    fn()
+                torch.cuda.synchronize()
+            cs = _chains(_device_intervals(prof))[kind]
+            if len(cs) == reps:
+                break
+        if not cs:
+            return {"calls": 0}
+        n = len(cs)  # medians over the calls: a call the host or the card held up once moves no reading
+        return {"calls": n, "span_ms": float(np.median([c["span_us"] for c in cs])) / 1e3,
+                "busy_ms": float(np.median([c["busy_us"] for c in cs])) / 1e3,
+                "kernels": round(sum(c["kernels"] for c in cs) / n, 2),
+                "durations_ms": [round(float(np.median([c["durations_us"][j] for c in cs])) / 1e3, 5)
+                                 for j in range(len(_CHAINS[kind]))]}
+
+    rows = []
+
+    def show(row):
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    for row in _quant_card_state(KQ, reps):  # first, while the card is as idle as the smoke leaves it
+        show(row)
+    w1, s1 = int8_weight(dff, dm)
+    w2, s2 = int8_weight(dm, dff)
+    b1, b2 = rand(dff, scale=0.02), rand(dm, scale=0.02)
+    for b, t, h in CHAIN_SHAPES:
+        d = dm // h
+        wq_f, wo_f = rand(3 * dm, dm, scale=dm**-0.5), rand(dm, dm, scale=dm**-0.5)
+        bq, bo = rand(3 * dm, scale=0.02), rand(dm, scale=0.02)
+        (wq, sq), (wo, so) = (Q.quantize_weight_axis(w, axis=1) for w in (wq_f, wo_f))
+        sq, so = sq[:, 0].contiguous(), so[:, 0].contiguous()
+        pw, pb, po, ps = (x.contiguous() for x in A.pad_block_weights(wq, bq, wo, h, sq))
+        mask = torch.ones(b, t, device="cuda")
+        for dt in (torch.bfloat16, torch.float32):
+            dn = "bf16" if dt == torch.bfloat16 else "f32"
+            x = rand(b, t, dm, dtype=dt)
+            row = {"row": 7, "x": dn, "B": b, "T": t, "H": h, "D": d,
+                   **chain_reading(lambda: A.attention_block_int8(x, pw, ps, pb, po, so, bo, mask, h, d), "row 7")}
+            # the core alone: inside row 8's attention_block, launched in plain order
+            wq_c, wo_c = wq_f.to(dt), wo_f.to(dt)
+            p8w, p8b, p8o, _ = (x_ if x_ is None else x_.contiguous() for x_ in A.pad_block_weights(wq_c, bq, wo_c, h))
+            row["core_alone_ms"] = _device_ms(lambda: A.attention_block(x, p8w, p8b, p8o, bo, mask, h, d), reps, _CORES)
+            show(row)
+            if h != 12:
+                continue
+            n = b * t
+            xf = rand(n, dm, dtype=dt)
+            show({"row": 9, "x": dn, "N": n,
+                  **chain_reading(lambda: F.ffn_fused_int8(xf, w1, s1, b1, w2, s2, b2), "row 9")})
+    # the kernels alone, each on a direct call in plain stream order
+    for n in sorted({b * t for b, t, _ in CHAIN_SHAPES} | {b * (-(-t // 128) * 128) for b, t, _ in CHAIN_SHAPES}):
+        for dt in (torch.bfloat16, torch.float32):
+            x = rand(n, dm, dtype=dt)
+            show({"kernel": "quantize_rows", "x": "bf16" if dt == torch.bfloat16 else "f32", "shape": [n, dm],
+                  "ms": _device_ms(lambda: KQ.quantize_rows(x), reps, "quantize_rows"),
+                  "bound_ms": (n * dm * (x.element_size() + 1) + 4 * n) / 3.35e9})
+        h_ = rand(n, dff)
+        # the row kernel from x at the hidden tile's width (the shape chip_smoke.py's kernels line records)
+        show({"kernel": "quantize_rows", "x": "f32", "shape": [n, dff],
+              "ms": _device_ms(lambda: KQ.quantize_rows(h_), reps, "quantize_rows"),
+              "bound_ms": (n * dff * 5 + 4 * n) / 3.35e9})
+        amax = h_.abs().amax(dim=1).view(torch.int32).contiguous()
+        show({"kernel": "quantize_rows_amax", "shape": [n, dff],
+              "ms": _device_ms(lambda: KQ.quantize_rows(h_, amax), reps, "quantize_rows_amax"),
+              "bound_ms": (n * dff * 5 + 8 * n) / 3.35e9})
+        ones_m = torch.ones(n, device="cuda")
+        for name, nn, k in (("QKV", 3 * dm, dm), ("Wo", dm, dm), ("fc_in", dff, dm), ("fc_out", dm, dff)):
+            a = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
+            w = torch.randint(-127, 128, (nn, k), generator=g, device="cuda", dtype=torch.int8)
+            args = (a, w, ones_m, torch.ones(nn, device="cuda"), torch.zeros(nn, device="cuda"))
+            gelu = name == "fc_in"
+            show({"kernel": "gemm_s8", "gemm": name, "M": n, "N": nn, "K": k,
+                  "ms": _device_ms(lambda: GS.gemm_s8(*args, gelu=gelu), reps, "gemm_s8_kernel")})
+    print(json.dumps({"int8_chains": rows, "package": str(Path(msa_tpu_torch.__file__).parent), "card": smi,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+_CORES = ("packed_qkv_kernel", "fused_f32_kernel", "wide_mma_kernel", "wide_f32_kernel")
+# spin kernels of these many SM cycles (torch.cuda._sleep counts clock64):
+# two short ones whose durations give the SM clock, and about 100 ms
+CLOCK_PROBE_CYCLES = (20_000, 120_000)
+SPIN_100MS_CYCLES = 200_000_000
+
+
+def _sm_mhz(reps: int = 5) -> float:
+    """The SM clock now, in MHz: the cycles between the two probes over
+    the µs between their median durations, each probe launched alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    med = []
+    for cycles in CLOCK_PROBE_CYCLES:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                torch.cuda._sleep(cycles)
+                torch.cuda.synchronize()
+        med.append(float(np.median([end - start for start, end, _ in _device_intervals(prof)])))
+    return (CLOCK_PROBE_CYCLES[1] - CLOCK_PROBE_CYCLES[0]) / (med[1] - med[0])
+
+
+def _quant_card_state(KQ, reps: int):
+    """The row kernel at bf16 [128 | 1024, 768] and f32 [1024, 3072], and
+    the hidden tile's amax form at [1024, 3072], in three states of the
+    card, the SM clock read just after each reading: on direct calls each
+    launched by the host after the last, as chip_smoke.py times it, after
+    the host left the card idle 1 s and right after 100 ms of spin; and
+    every call queued behind a spin kernel, so that they run back to back.
+    Each on normal values and with every 7th row of the second half zero
+    (chip_smoke.py's padding rows)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cases = []
+    for dt, n, cols, form in ((torch.bfloat16, 128, 768, "x"), (torch.bfloat16, 1024, 768, "x"),
+                              (torch.float32, 1024, 3072, "x"), (torch.float32, 1024, 3072, "amax")):
+        for data in ("normal", "zero rows"):
+            x = torch.randn(n, cols, device="cuda").to(dt)
+            if data == "zero rows":
+                x[n // 2 :: 7] = 0
+            amax = x.abs().amax(dim=1).view(torch.int32).contiguous() if form == "amax" else None
+            cases.append(({"x": "bf16" if dt == torch.bfloat16 else "f32", "shape": [n, cols], "form": form,
+                           "data": data}, lambda x=x, amax=amax: KQ.quantize_rows(x, amax)))
+    out = []
+    for state in ("idle 1 s", "after 100 ms of spin", "queued behind a spin"):
+        for case, fn in cases:
+            fn()
+            torch.cuda.synchronize()
+            if state == "queued behind a spin":
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    torch.cuda._sleep(CHAIN_SPIN_CYCLES)
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                ms = float(np.mean([e - s for s, e, name in _device_intervals(prof) if "quantize_rows" in name])) / 1e3
+            else:
+                if state == "idle 1 s":
+                    time.sleep(1.0)
+                else:
+                    torch.cuda._sleep(SPIN_100MS_CYCLES)
+                    torch.cuda.synchronize()
+                ms = _device_ms(fn, reps, "quantize_rows")
+            out.append({"quantize_rows_state": state, **case, "ms": ms, "sm_mhz": _sm_mhz()})
+    return out
 
 
 if __name__ == "__main__":
