@@ -238,8 +238,26 @@ Phases, one line each with its seconds:
      modules through the int8 kernels' plain versions, with the f32 einsum
      path as yardstick and the last head's V rows zeroed as the fault, at
      the int8 path's bounds; ms per forward.
+ 24. process_video end to end: a 20 s clip made here in a temporary
+     directory (phase 15's meeting as the sidecar WAV, 100 frames of
+     480×640 at 5 fps in a frame archive, deleted afterwards) through
+     OfflineProcessor(SystemConfig()) on phase 5's int8 default models,
+     the default neural diarizer and make_transcriber("auto"), warmup on;
+     the grouped schema with finite vectors and probabilities that sum to
+     1, the native host runtime built, the speaker net and whisper on the
+     card, 24 / 24 / 96 launches of rows 7 / 9 / quantize_rows per forward
+     (warmup's included) and no other encoder kernel; a second, warm run
+     equal to the first; then the same clip on the int8 kernels' plain
+     versions, the f32 einsum path and phase 5's fault: the same segments,
+     speakers and transcripts, each hostpack group of each segment at
+     phase 5's bounds (text_probs_raw by its median over 24 further B=2
+     draws), the same labels but where the plain run's top two values are
+     within that group's bound, and the fault caught; each StageTimer
+     stage's seconds, the wall seconds and video-seconds per second of the
+     first and the warm call.
 Phases 4, 5, 8, 18 and 23 also time run_host per forward, phase 7 run_stream per
-window. Counts are set to 0 just before each path runs and read just after.
+window, phase 24 process_video. Counts are set to 0 just before each path runs
+and read just after.
 The line before the last is a JSON object with each kernel's numbers; the
 last line is the JSON contract line. Any failure exits nonzero.
 """
@@ -255,6 +273,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 from pathlib import Path
@@ -406,6 +425,8 @@ SR = 16_000
 # 8 windows of 5 s of synthetic speech (int16) and JAX's transcripts of
 # them, written by tests/test_torch_whisper.py, which holds them to JAX
 ASR_FIXTURE = Path(__file__).resolve().parent / "tests" / "data" / "asr_clips.npz"
+# phase 24's clip: phase 15's meeting and a frame archive of 480×640 frames
+CLIP_SECONDS, CLIP_FPS = 20.0, 5
 
 
 class SmokeFailure(RuntimeError):
@@ -1420,6 +1441,59 @@ def main() -> int:
 
         return e_p, over(rms(k - r)), {label: over(rms(f - r)) for label, f in faulty.items()}
 
+    def hold_hostpack(label, k_pack, p_pack, r_pack, f_packs, extra, fault_key, pack_bound):
+        """Hold the kernel path's hostpack ``k_pack`` against the plain
+        path's ``p_pack``, column group by column group, in units of the
+        plain path's error against the f32 run ``r_pack``; each fault of
+        ``f_packs`` (name → hostpack) must fail where a group is downstream
+        of an encoder. ``extra``: further draws (kernel, plain, f32,
+        {fault: ...}) for the median of MEDIAN_GROUPS. → {group: the bound
+        on its kernel-path RMS error}."""
+        bounds = {}
+        for name, cols in G.PACK_SLICES.items():
+            k, p, r = k_pack[:, cols], p_pack[:, cols], r_pack[:, cols]
+            e_p, ratio, fault_ratio = noise_ratios(k, p, r, {n: f[:, cols] for n, f in f_packs.items()})
+            checked = e_p <= HOSTPACK_NOISE_SHARE * rms(r)
+            bound = bounds[name] = pack_bound * e_p + 1e-4 * rms(r)
+            median = None
+            if extra and name in MEDIAN_GROUPS:
+                drawn = [(ratio, fault_ratio)] + [
+                    noise_ratios(k_i[:, cols], p_i[:, cols], r_i[:, cols], {n: f[:, cols] for n, f in f_i.items()})[1:]
+                    for k_i, p_i, r_i, f_i in extra
+                ]
+                median = (
+                    statistics.median(d[0] for d in drawn),
+                    {n: statistics.median(d[1][n] for d in drawn) for n in fault_ratio},
+                )
+            print(
+                f"  {label} hostpack {name:15s} rms(f32)={rms(r):.4e} rms_err_vs_f32 plain={e_p:.4e} "
+                f"kernel/plain={ratio:.4f} "
+                + " ".join(f"fault:{n}/plain={v:.4f}" for n, v in fault_ratio.items())
+                + (f" bound={pack_bound}" if checked else " not checked: plain-path noise over 10% of the values")
+                + (
+                    f"; over {len(drawn)} draws: kernel/plain {' '.join(f'{d[0]:.2f}' for d in drawn)}, median {median[0]:.4f} "
+                    + " ".join(f"fault:{n} median {v:.4f}" for n, v in median[1].items())
+                    + (f" (held: the median, bound={pack_bound})" if checked else " (not held: the run's own group is not checked)")
+                    if median else ""
+                ),
+                flush=True,
+            )
+            if checked and median:
+                expect(median[0] <= pack_bound, f"{label} hostpack {name}: median kernel/plain {median[0]:.4f} > {pack_bound}")
+                expect(
+                    median[1][fault_key] > pack_bound,
+                    f"{label} hostpack {name}: the planted fault passes the median check ({median[1][fault_key]:.4f})",
+                )
+                continue
+            if checked:
+                expect(rms(k - r) <= bound, f"{label} hostpack {name}: kernel path rms err {rms(k - r):.4e} > {bound:.4e}")
+            if checked and e_p:  # downstream of an encoder
+                expect(
+                    fault_ratio[fault_key] > pack_bound,
+                    f"{label} hostpack {name}: the planted fault passes the check ({fault_ratio[fault_key]:.4f})",
+                )
+        return bounds
+
     def vs_plain(label, runs, kern, plain, exact, faults, fault_key, enc_bound, pack_bound, draws=0):
         """Hold the kernel path against the plain path, each encoder and each
         hostpack group, in units of the plain path's error against f32.
@@ -1460,48 +1534,10 @@ def main() -> int:
                     fault_ratio[fault_key] > enc_bound,
                     f"{label} bucket {tokens} {enc}: the planted fault passes the check ({fault_ratio[fault_key]:.4f})",
                 )
-            for name, cols in G.PACK_SLICES.items():
-                k, p, r = k_run["hostpack"][:, cols], p_run["hostpack"][:, cols], r_run["hostpack"][:, cols]
-                e_p, ratio, fault_ratio = noise_ratios(k, p, r, {n: f["hostpack"][:, cols] for n, f in f_runs.items()})
-                checked = e_p <= HOSTPACK_NOISE_SHARE * rms(r)
-                bound = pack_bound * e_p + 1e-4 * rms(r)
-                median = None
-                if extra and name in MEDIAN_GROUPS:
-                    drawn = [(ratio, fault_ratio)] + [
-                        noise_ratios(k_i[:, cols], p_i[:, cols], r_i[:, cols], {n: f[:, cols] for n, f in f_i.items()})[1:]
-                        for k_i, p_i, r_i, f_i in extra
-                    ]
-                    median = (
-                        statistics.median(d[0] for d in drawn),
-                        {n: statistics.median(d[1][n] for d in drawn) for n in fault_ratio},
-                    )
-                print(
-                    f"  {label} bucket{tokens} hostpack {name:15s} rms(f32)={rms(r):.4e} rms_err_vs_f32 plain={e_p:.4e} "
-                    f"kernel/plain={ratio:.4f} "
-                    + " ".join(f"fault:{n}/plain={v:.4f}" for n, v in fault_ratio.items())
-                    + (f" bound={pack_bound}" if checked else " not checked: plain-path noise over 10% of the values")
-                    + (
-                        f"; over {len(drawn)} draws: kernel/plain {' '.join(f'{d[0]:.2f}' for d in drawn)}, median {median[0]:.4f} "
-                        + " ".join(f"fault:{n} median {v:.4f}" for n, v in median[1].items())
-                        + f" (held: the median, bound={pack_bound})"
-                        if median else ""
-                    ),
-                    flush=True,
-                )
-                if checked and median:
-                    expect(median[0] <= pack_bound, f"{label} bucket {tokens} hostpack {name}: median kernel/plain {median[0]:.4f} > {pack_bound}")
-                    expect(
-                        median[1][fault_key] > pack_bound,
-                        f"{label} bucket {tokens} hostpack {name}: the planted fault passes the median check ({median[1][fault_key]:.4f})",
-                    )
-                    continue
-                if checked:
-                    expect(rms(k - r) <= bound, f"{label} bucket {tokens} hostpack {name}: kernel path rms err {rms(k - r):.4e} > {bound:.4e}")
-                if checked and e_p:  # downstream of an encoder
-                    expect(
-                        fault_ratio[fault_key] > pack_bound,
-                        f"{label} bucket {tokens} hostpack {name}: the planted fault passes the check ({fault_ratio[fault_key]:.4f})",
-                    )
+            hold_hostpack(
+                f"{label} bucket{tokens}", k_run["hostpack"], p_run["hostpack"], r_run["hostpack"],
+                {n: f["hostpack"] for n, f in f_runs.items()}, extra, fault_key, pack_bound,
+            )
         return errs
 
     def time_forwards(label, pipe, runs):
@@ -3672,6 +3708,164 @@ def main() -> int:
     phase("int8_f32_forward_timing", t1)
     phase("int8_f32_main_path", t0)
     del pipe_q, exact_q, models_q
+
+    # --- 24. process_video end to end on the card: the offline processor -------------------------
+    t0 = time.perf_counter()
+    from msa_tpu_torch.core import emotions
+    from msa_tpu_torch.core.config import DirectoryConfig
+    from msa_tpu_torch.host.audio_io import save_wav
+    from msa_tpu_torch.processors import offline as PO
+    from msa_tpu_torch.runtime import native_available
+
+    clip_dir = Path(tempfile.mkdtemp(prefix="msa_smoke_clip_"))
+    try:
+        # the clip: phase 15's meeting as the sidecar WAV, and a frame archive
+        # of CLIP_FPS frames a second at 480×640 (BGR, as cv2 decodes them)
+        wav = meeting_waveform(CLIP_SECONDS)
+        save_wav(str(clip_dir / "meeting.wav"), wav, SR)
+        n_frames = int(CLIP_SECONDS * CLIP_FPS)
+        frames = np.random.default_rng(24).integers(0, 256, (n_frames, 480, 640, 3), dtype=np.uint8)
+        clip = clip_dir / "meeting.npz"
+        np.savez(clip, frames=frames, fps=np.float64(CLIP_FPS))
+        del frames
+        clip_mb = clip.stat().st_size / 2**20
+        # the default config, its working directories in the clip's folder
+        cfg24 = SystemConfig(dirs=DirectoryConfig(*(str(clip_dir / k) for k in ("data", "checkpoints", "output", "temp"))))
+        check(cfg24.pipeline.should_precompile(), "the full-scale default config does not ask for warmup")
+        proc = PO.OfflineProcessor(cfg24, models=models8, device=dev)  # phase 5's int8 default models
+        check(native_available(), "the native host runtime (msa_runtime.cpp) did not build")
+        check(isinstance(proc.diarizer, HD.NeuralDiarizer) and proc.diarizer.device.type == "cuda",
+              f"the default diarizer is {type(proc.diarizer).__name__}, not the speaker net on the card")
+        check(isinstance(proc.transcriber, HT.WhisperTranscriber) and proc.transcriber.device.type == "cuda",
+              f"the default transcriber is {type(proc.transcriber).__name__}, not the shipped whisper on the card")
+        phase("offline_setup", t0, clip_mb=f"{clip_mb:.1f}", frames=n_frames)
+
+        dispatched = []  # (SegmentInputs, hostpack) of each run_host, warmup's included
+        real_run_host = G.SegmentPipeline.run_host
+
+        def recording(self, inputs):
+            out, carry = real_run_host(self, inputs)
+            dispatched.append((inputs, out["hostpack"].clone()))
+            return out, carry
+
+        def video(p, patch=None):
+            """One process_video through ``p`` (``patch`` swapped into the
+            encoders' module) → (grouped, per-segment results, progress,
+            wall s, the real rows' hostpack, the dispatched batches'
+            SegmentInputs)."""
+            dispatched.clear()
+            per_segment, progress = [], []
+            t1 = time.perf_counter()
+            with swapped(T, **(patch or {})), swapped(G.SegmentPipeline, run_host=recording):
+                grouped = p.process_video(str(clip), on_result=per_segment.append, on_progress=progress.append)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            n_batches = -(-len(per_segment) // p.batch_size)
+            batches = dispatched[len(dispatched) - n_batches:]
+            pack = torch.cat([hp[: min(p.batch_size, len(per_segment) - i * p.batch_size)] for i, (_, hp) in enumerate(batches)])
+            return grouped, per_segment, progress, wall, pack.float(), [inp for inp, _ in batches]
+
+        # the first run: warmup's forwards (one per token bucket) and the batches
+        reset_counts()
+        grouped, segs, progress, wall_first, k_pack, k_inputs = video(proc)
+        got = counts()
+        n_fwd = len(dispatched)
+        n_seg, n_batch = len(segs), len(k_inputs)
+        stages_first = proc.timer.summary()
+        phase("process_video_first", t0, segments=n_seg, forwards=n_fwd, **{k: v for k, v in got.items() if v})
+        expected = {**zero, "attention_block_int8": 24 * n_fwd, "ffn_fused_int8": 24 * n_fwd,
+                    "quantize_rows": 96 * n_fwd, "gemm_s8": 96 * n_fwd}
+        check(got == expected, f"process_video launches {got}, expected {expected} ({n_fwd} forwards)")
+        check(proc.timer.counts["precompile"] == 1 and n_fwd == 3 + n_batch,
+              f"{n_fwd} forwards: expected warmup's 3 token buckets and {n_batch} batches")
+        offline_counts = got
+
+        # the schema
+        check(n_seg >= 2 and set(s["speaker"] for s in segs) == set(g["person"] for g in grouped),
+              f"{n_seg} segments in {len(grouped)} speakers")
+        check(progress and progress[-1] == 1.0, f"progress ends at {progress[-1:]}")
+        for g in grouped:
+            check(set(g) == {"person", "segments", "dominant_emotion", "emotion_segments", "patterns", "raw_analysis"},
+                  f"grouped keys {sorted(g)}")
+            check(g["dominant_emotion"] in emotions.PT_UI, f"dominant emotion {g['dominant_emotion']!r}")
+        for s in segs:
+            for key, n in (("face_vec", 27), ("audio_vec", 31), ("text_vec", 783), ("fused_vec", 7)):
+                v = np.asarray(s[key])
+                check(v.shape == (n,) and np.isfinite(v).all(), f"segment {s['start']:.2f}: {key} {v.shape}, finite {np.isfinite(v).all()}")
+            for key in ("face_probs", "audio_probs", "text_probs"):
+                pr = np.asarray(s[key])
+                check(pr.shape == (7,) and (pr >= 0).all() and abs(pr.sum() - 1.0) <= 1e-5, f"{key} sums to {pr.sum()}")
+            check(s["fused_emotion"] in emotions.PT_UI, f"label {s['fused_emotion']!r}")
+
+        # a second, warm run: the steady-state reading
+        proc.timer.reset()
+        _, segs_warm, _, wall_warm, k_pack2, _ = video(proc)
+        stages_warm = proc.timer.summary()
+        check([(s["start"], s["end"], s["speaker"], s["transcript"]) for s in segs_warm]
+              == [(s["start"], s["end"], s["speaker"], s["transcript"]) for s in segs], "a second run gave other segments")
+        check(torch.equal(k_pack2, k_pack), f"a second run's hostpack differs by {(k_pack2 - k_pack).abs().max().item():.3e}")
+        print(f"  {smi}: process_video on a {CLIP_SECONDS:.0f} s clip ({n_frames} frames of 480×640 at {CLIP_FPS} fps, "
+              f"{n_seg} segments in {n_batch} batch(es) of {proc.batch_size}, speakers "
+              f"{sorted(g['person'] for g in grouped)}): first call {wall_first:.3f} s wall "
+              f"({CLIP_SECONDS / wall_first:.2f} video-s/s, warmup included), warm call {wall_warm:.3f} s wall "
+              f"({CLIP_SECONDS / wall_warm:.2f} video-s/s; host clock, ending in a synchronize)", flush=True)
+        for label, stages in (("first", stages_first), ("warm", stages_warm)):
+            print(f"    {label} call, StageTimer: " + ", ".join(
+                f"{k} {v['total_s']:.4f} s/{v['count']}" for k, v in stages.items()), flush=True)
+        print(f"    transcripts: {[s['transcript'] for s in segs]}", flush=True)
+        print(f"    labels: {[s['fused_emotion'] for s in segs]}, modalities {[s['modalities'] for s in segs]}", flush=True)
+        phase("process_video_warm", t0, wall_s=f"{wall_warm:.3f}", video_s_per_s=f"{CLIP_SECONDS / wall_warm:.3f}")
+
+        # the same clip on the int8 kernels' plain versions, the f32 yardstick
+        # and phase 5's fault, held as phase 5 holds run_host
+        t1 = time.perf_counter()
+        plain_patch = {"attention_block_int8": A.attention_block_int8_plain, "ffn_fused_int8": F.ffn_int8_plain}
+        fault_patch = {"attention_block_int8": zero_last_head_v}
+        cfg_once = dataclasses.replace(cfg24, pipeline=dataclasses.replace(cfg24.pipeline, precompile=False))
+        proc_exact = PO.OfflineProcessor(
+            cfg_once, models=models8.with_encoders(attention_impl="einsum", ffn_impl="dense", compute_dtype="float32"),
+            device=dev, diarizer=proc.diarizer, transcriber=proc.transcriber,
+        )
+        _, segs_p, _, wall_plain, p_pack, _ = video(proc, plain_patch)
+        _, segs_r, _, _, r_pack, _ = video(proc_exact)
+        _, segs_f, _, _, f_pack, _ = video(proc, fault_patch)
+        rows = lambda ss: [(s["start"], s["end"], s["speaker"], s["transcript"]) for s in ss]  # noqa: E731
+        for name, other in (("plain", segs_p), ("f32", segs_r), ("fault", segs_f)):
+            check(rows(other) == rows(segs), f"the {name} run's segments, speakers or transcripts differ: {rows(other)}")
+        # text_probs_raw by phase 5's median rule: further B=2 draws at the
+        # bucket the processor dispatched
+        tokens = k_inputs[0].token_ids.shape[1]
+        kern_pipe, exact_pipe = proc._pipeline, proc_exact._pipeline
+        extra = []
+        for i in range(MEDIAN_DRAWS):
+            inp_i = inputs(models8, tokens, cfg24.pipeline.segment_samples, rng=np.random.default_rng(2400 + i))
+            k_i, p_i, r_i, f_i = (
+                traced_run(pp, inp_i, patch)["hostpack"]
+                for pp, patch in ((kern_pipe, None), (kern_pipe, plain_patch), (exact_pipe, None), (kern_pipe, fault_patch))
+            )
+            extra.append((k_i, p_i, r_i, {"zero_last_head_v": f_i}))
+        bounds = hold_hostpack(
+            f"process_video bucket{tokens}", k_pack, p_pack, r_pack, {"zero_last_head_v": f_pack}, extra,
+            "zero_last_head_v", INT8_HOSTPACK_RATIO,
+        )
+        # the labels: equal, except where the plain run's top two values of
+        # the vector the label comes from are within that group's bound
+        flips = []
+        for i, (sk, sp) in enumerate(zip(segs, segs_p)):
+            if sk["fused_emotion"] == sp["fused_emotion"]:
+                continue
+            group = {0b100: "face_probs_raw", 0b010: "audio_probs_raw", 0b001: "text_probs_raw"}.get(sp["modalities"], "fused")
+            top2 = torch.topk(p_pack[i, G.PACK_SLICES[group]], 2).values
+            flips.append((i, sk["fused_emotion"], sp["fused_emotion"], (top2[0] - top2[1]).item(), bounds[group]))
+        print(f"  process_video kernel vs plain: labels equal in {n_seg - len(flips)} of {n_seg} segments, "
+              f"flips (segment, kernel, plain, plain's top-2 gap, bound) {flips}; plain-path call {wall_plain:.3f} s wall", flush=True)
+        for i, _, _, gap, bnd in flips:
+            expect(gap <= bnd, f"process_video segment {i}: the label flipped where the plain run's top-2 gap {gap:.4e} > {bnd:.4e}")
+        phase("process_video_vs_plain", t1)
+        del proc_exact, extra
+    finally:
+        shutil.rmtree(clip_dir, ignore_errors=True)
+    phase("offline_processor", t0)
 
     kernels = [
         {

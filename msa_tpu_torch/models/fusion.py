@@ -92,3 +92,10 @@ class FusionMLP(nn.Module):
         """Softmaxed modality weights (audio, text, face)."""
         w = torch.softmax(torch.stack([self.audio_weight, self.text_weight, self.face_weight]), dim=0)
         return {"audio": w[0], "text": w[1], "face": w[2]}
+
+
+def get_weights(model: FusionMLP) -> Dict[str, float]:
+    """The softmaxed modality weights as host floats (JAX's
+    ``msa_tpu/models/fusion.py:get_weights``; the reference reports them and
+    does not apply them)."""
+    return {name: float(w) for name, w in model.weights_dict().items()}

@@ -1,12 +1,13 @@
 """Text model: one BERT trunk, four heads and coherence (port of
-``msa_tpu/models/text.py``; the tokenizer and the host text heuristics wait
-for the processor slice), and :func:`params_from_hf_bert`, the importer of
-a pretrained BERT trunk."""
+``msa_tpu/models/text.py``), the host-side pieces the processors run before
+it (the completeness and relevance heuristics and
+:class:`WordPieceTokenizer`), and :func:`params_from_hf_bert`, the importer
+of a pretrained BERT trunk."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -101,6 +102,135 @@ class TextModel(nn.Module):
             "intensity": intensity,
             "coherence": coherence,
         }
+
+
+# --- host-side text quality heuristics (string ops stay on the host) ---------
+
+
+def completeness(text: str) -> float:
+    """Subject/verb-suffix/punctuation heuristic, the reference's formula
+    (Portuguese verb endings -ar/-er/-ir)."""
+    try:
+        words = text.split()
+        has_subject = len([t for t in words if t.isalpha()]) > 0
+        has_verb = len([t for t in words if t.endswith(("ar", "er", "ir"))]) > 0
+        has_punct = any(c in text for c in (".", "!", "?"))
+        return float(0.4 * has_subject + 0.4 * has_verb + 0.2 * has_punct)
+    except Exception:
+        return 0.0
+
+
+RELEVANT_WORDS = ("emoção", "sentimento", "expressão", "reação", "comportamento")
+
+
+def relevance(text: str) -> float:
+    """Keyword density, the reference's formula."""
+    try:
+        count = sum(1 for w in RELEVANT_WORDS if w in text.lower())
+        total = len(text.split())
+        if total == 0:
+            return 0.0
+        return float(min(count / total, 1.0))
+    except Exception:
+        return 0.0
+
+
+def text_quality(coherence: float, completeness_: float, relevance_: float) -> float:
+    """0.4·coherence + 0.3·completeness + 0.3·relevance."""
+    return 0.4 * coherence + 0.3 * completeness_ + 0.3 * relevance_
+
+
+# --- tokenizer ---------------------------------------------------------------
+
+
+class WordPieceTokenizer:
+    """Minimal WordPiece tokenizer compatible with BERT vocab files.
+
+    Loads a ``vocab.txt`` when given (one token per line, HF format);
+    without one it falls back to a deterministic FNV-1a hashing tokenizer
+    over ``vocab_size``, as JAX's does, so the ids match the JAX package's
+    bit for bit. Truncates to ``max_length`` (512 by default)."""
+
+    CLS = "[CLS]"
+    SEP = "[SEP]"
+    PAD = "[PAD]"
+    UNK = "[UNK]"
+
+    def __init__(self, vocab_file: Optional[str] = None, vocab_size: int = 29794, do_lower_case: bool = False):
+        # the reference's BERT is cased; case is kept unless a lowercase
+        # vocab asks otherwise
+        self.do_lower_case = do_lower_case
+        self.vocab: Optional[Dict[str, int]] = None
+        self.vocab_size = vocab_size
+        if vocab_file:
+            vocab = {}
+            with open(vocab_file, encoding="utf-8") as f:
+                for i, line in enumerate(f):
+                    vocab[line.rstrip("\n")] = i
+            self.vocab = vocab
+            self.vocab_size = len(vocab)
+        # special ids: HF BERT's when hashing
+        self.pad_id = self._tok_id(self.PAD, 0)
+        self.unk_id = self._tok_id(self.UNK, 100)
+        self.cls_id = self._tok_id(self.CLS, 101)
+        self.sep_id = self._tok_id(self.SEP, 102)
+
+    def _tok_id(self, token: str, default: int) -> int:
+        if self.vocab is not None:
+            return self.vocab.get(token, default)
+        return default
+
+    def _hash_id(self, token: str) -> int:
+        # FNV-1a over the UTF-8 bytes; the low ids stay reserved for
+        # specials (1000, HF BERT's unused range, for a big vocab; else 104)
+        lo = 1000 if self.vocab_size > 2000 else 104
+        h = 2166136261
+        for ch in token.encode("utf-8"):
+            h = ((h ^ ch) * 16777619) & 0xFFFFFFFF
+        return lo + h % (self.vocab_size - lo)
+
+    def _wordpiece(self, word: str):
+        """Greedy longest-match-first WordPiece (BERT's algorithm)."""
+        if len(word) > 100:
+            return [self.unk_id]
+        out, start = [], 0
+        while start < len(word):
+            end = len(word)
+            cur = None
+            while start < end:
+                sub = word[start:end]
+                if start > 0:
+                    sub = "##" + sub
+                if sub in self.vocab:
+                    cur = self.vocab[sub]
+                    break
+                end -= 1
+            if cur is None:
+                return [self.unk_id]
+            out.append(cur)
+            start = end
+        return out
+
+    def encode(self, text: str, max_length: int = 512) -> Tuple[np.ndarray, np.ndarray]:
+        """→ (input_ids[max_length], attention_mask[max_length]) int32,
+        padded or truncated to the static length."""
+        # hash mode lowers case for determinism; vocab mode keeps it
+        words = text.lower().split() if self.do_lower_case or self.vocab is None else text.split()
+        ids = [self.cls_id]
+        for w in words:
+            w = "".join(ch for ch in w if ch.isalnum() or ch in "#'-")
+            if not w:
+                continue
+            if self.vocab is not None:
+                ids.extend(self._wordpiece(w))
+            else:
+                ids.append(self._hash_id(w))
+            if len(ids) >= max_length - 1:
+                break
+        ids = ids[: max_length - 1] + [self.sep_id]
+        mask = [1] * len(ids)
+        pad = max_length - len(ids)
+        return np.asarray(ids + [self.pad_id] * pad, np.int32), np.asarray(mask + [0] * pad, np.int32)
 
 
 # --- HF weight import --------------------------------------------------------

@@ -23,7 +23,8 @@ MLP stay f32 with TF32 off.
 Two entry points run the graph: :meth:`SegmentPipeline.run_host` on a
 batch of :class:`SegmentInputs`, and :meth:`SegmentPipeline.run_stream` on
 one streaming window packed by :func:`pack_stream_inputs` into a single
-uint8 buffer.
+uint8 buffer. :meth:`SegmentPipeline.warmup` runs every static shape a
+processor will dispatch once, on zeros.
 
 Movement state: landmarks are shifted by one segment along the batch, with
 an explicit carry for the first row, so B=1 streaming and B=n offline share
@@ -55,8 +56,9 @@ from msa_tpu_torch.models.face import (
     bilinear_crop_resize,
     rgb_to_gray,
 )
+from msa_tpu_torch.models import fusion as fusion_lib
 from msa_tpu_torch.models.fusion import FusionMLP
-from msa_tpu_torch.models.text import TextModel, TextModelConfig
+from msa_tpu_torch.models.text import TextModel, TextModelConfig, WordPieceTokenizer
 from msa_tpu_torch.models.transformer import EncoderConfig
 from msa_tpu_torch.ops import audio_features as AF
 from msa_tpu_torch.ops import face_features as FF
@@ -135,6 +137,9 @@ class PipelineModels:
     audio: AudioEmotionModel
     text: TextModel
     fusion: FusionMLP
+    # the hashing WordPiece tokenizer over the text model's vocabulary, as
+    # JAX's (msa_tpu/pipeline/graph.py:283)
+    tokenizer: WordPieceTokenizer
     device: torch.device
     # shipped checkpoints that were loaded: component → path
     loaded: Dict[str, str] = dataclasses.field(default_factory=dict)
@@ -163,6 +168,7 @@ class PipelineModels:
                 audio=AudioEmotionModel(audio_cfg),
                 text=TextModel(text_cfg),
                 fusion=FusionMLP(**fusion_dims),
+                tokenizer=WordPieceTokenizer(vocab_size=text_cfg.vocab_size),
                 device=device,
             )
         for m in models.modules():
@@ -403,8 +409,11 @@ def pad_segment_inputs(inp: SegmentInputs, multiple: int, to: int = 0) -> Tuple[
         return inp, real
     kwargs = {}
     for f in _BATCH_FIELDS:
-        x = np.asarray(getattr(inp, f))
-        kwargs[f] = x if x.shape[0] == padded else np.pad(x, [(0, padded - real)] + [(0, 0)] * (x.ndim - 1))
+        x = getattr(inp, f)
+        if x.shape[0] != padded:  # a field the caller padded already (a tensor on the card) stays where it is
+            x = np.asarray(x)
+            x = np.pad(x, [(0, padded - real)] + [(0, 0)] * (x.ndim - 1))
+        kwargs[f] = x
     return dataclasses.replace(inp, **kwargs), real
 
 
@@ -482,6 +491,7 @@ class SegmentPipeline:
         self.models = models
         self.config = config or SystemConfig()
         self.original_frame_hw = original_frame_hw
+        self._weights_cache: Optional[Dict[str, float]] = None
 
     # --- modality branches -------------------------------------------------
 
@@ -663,3 +673,44 @@ class SegmentPipeline:
             has_prev=has_prev,
         )
         return self.run_host(inp)
+
+    def warmup(
+        self,
+        batch_sizes: Tuple[int, ...] = (1,),
+        token_buckets: Tuple[int, ...] = (32, 128, 512),
+        samples: int = 80_000,
+        stream: bool = False,
+    ) -> int:
+        """Run every (batch, token-bucket) shape a processor will dispatch
+        once on zeros (JAX's ``warmup``, ``msa_tpu/pipeline/graph.py:833``):
+        :meth:`run_host`, or :meth:`run_stream` at B=1 with ``stream``,
+        then a synchronise. The buckets are those of ``token_buckets`` under
+        the processors' token cap (the config's text limit and the model's
+        positions) and the cap itself. → the number of shapes run."""
+        token_cap = min(self.config.text.max_length, self.models.text.cfg.max_positions)
+        buckets = tuple(dict.fromkeys([t for t in token_buckets if t <= token_cap] + [token_cap]))
+        lc = self.models.landmark.cfg.landmark_count
+        s = self.models.landmark.cfg.frame_size
+        n = 0
+        for b in batch_sizes:
+            for t in buckets:
+                if stream and b == 1:
+                    packed = pack_stream_inputs(
+                        np.zeros((s, s, 3), np.uint8), np.zeros(samples, np.int16),
+                        np.zeros(t, np.int32), np.zeros(t, np.int32), True, True, True, 0.0, 0.0,
+                    )
+                    self.run_stream(packed, torch.zeros(lc, 3, device=self.models.device),
+                                    torch.zeros((), dtype=torch.bool, device=self.models.device))
+                else:
+                    self.run_host(SegmentInputs.zeros(self.models, b, samples=samples, tokens=t))
+                n += 1
+        if self.models.device.type == "cuda":
+            torch.cuda.synchronize(self.models.device)
+        return n
+
+    def weights(self) -> Dict[str, float]:
+        """The fusion MLP's softmaxed modality weights as host floats,
+        computed once (the parameters are frozen in serving)."""
+        if self._weights_cache is None:
+            self._weights_cache = fusion_lib.get_weights(self.models.fusion)
+        return self._weights_cache

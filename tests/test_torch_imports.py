@@ -42,5 +42,9 @@ def test_the_port_is_there():
         "msa_tpu_torch/ops/kernels/quant.py",
         "msa_tpu_torch/ops/quant.py",
         "msa_tpu_torch/pipeline/graph.py",
+        "msa_tpu_torch/processors/offline.py",
+        "msa_tpu_torch/host/video.py",
+        "msa_tpu_torch/runtime/native_lib.py",
+        "msa_tpu_torch/utils/profiling.py",
     ):
         assert want in names
