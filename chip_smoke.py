@@ -240,7 +240,7 @@ Phases, one line each with its seconds:
      the int8 path's bounds; ms per forward.
  24. process_video end to end: a 20 s clip made here in a temporary
      directory (phase 15's meeting as the sidecar WAV, 100 frames of
-     480×640 at 5 fps in a frame archive, deleted afterwards) through
+     480×640 at 5 fps in a frame archive, deleted after phase 25) through
      OfflineProcessor(SystemConfig()) on phase 5's int8 default models,
      the default neural diarizer and make_transcriber("auto"), warmup on;
      the grouped schema with finite vectors and probabilities that sum to
@@ -255,9 +255,31 @@ Phases, one line each with its seconds:
      within that group's bound, and the fault caught; each StageTimer
      stage's seconds, the wall seconds and video-seconds per second of the
      first and the warm call.
+ 25. the streaming processor end to end: StreamingProcessor(SystemConfig())
+     on phase 5's int8 default models and the default neural diarizer,
+     warmup (the B=1 window at buckets 32, 128 and 512) in the
+     constructor's background thread, joined and timed before any window;
+     then run() twice on SyntheticFrameSource (480×640) and phase 15's
+     meeting as PCM16 (80,000 samples a drain): 4 windows of 30 frames with
+     live transcription off, 4 with it on (phase 24's whisper on the card).
+     Each window has the reference schema, finite vectors, the hostpack's
+     probabilities summing to 1, weights summing to 1, text exactly where
+     the transcript is not empty, and is not the empty dict; the packed
+     dispatch holds and the movement carry stays on the card; 24 / 24 / 96
+     / 96 launches of rows 7 / 9 / quantize_rows / gemm_s8 per
+     process_segment (the run's own warmup window included) and no other
+     encoder kernel. The same windows then run on the int8 kernels' plain
+     versions, the f32 einsum path and phase 5's fault: the same
+     transcripts and speakers, each encoder and hostpack group at phase 5's
+     bounds, the fault caught, equal top labels but where the plain run's
+     top two values are within the group's bound; wall ms per window (the
+     first, p50 and p90 of the rest) and each StageTimer stage. Last, the
+     CLI: python3 -m msa_tpu_torch.main --mode offline on phase 24's frame
+     archive in a process and a working directory of its own: exit 0, as
+     many speakers as phase 24 found, one results.json line per segment.
 Phases 4, 5, 8, 18 and 23 also time run_host per forward, phase 7 run_stream per
-window, phase 24 process_video. Counts are set to 0 just before each path runs
-and read just after.
+window, phase 24 process_video, phase 25 process_segment. Counts are set to 0
+just before each path runs and read just after.
 The line before the last is a JSON object with each kernel's numbers; the
 last line is the JSON contract line. Any failure exits nonzero.
 """
@@ -268,6 +290,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import re
 import shutil
 import statistics
@@ -427,6 +450,10 @@ SR = 16_000
 ASR_FIXTURE = Path(__file__).resolve().parent / "tests" / "data" / "asr_clips.npz"
 # phase 24's clip: phase 15's meeting and a frame archive of 480×640 frames
 CLIP_SECONDS, CLIP_FPS = 20.0, 5
+# phase 25: windows a run (each MAX_VIDEO_BUFFER synthetic 480×640 frames and
+# STREAM_DRAIN samples of phase 15's meeting: the 20 s meeting is 4 drains)
+STREAM_WINDOWS, STREAM_DRAIN = 4, 80_000
+ROOT = Path(__file__).resolve().parent
 
 
 class SmokeFailure(RuntimeError):
@@ -569,6 +596,27 @@ def meeting_waveform(seconds: float = 20.0) -> np.ndarray:
         x *= 0.25 * (1 + 0.4 * np.sin(2 * np.pi * rng.uniform(2.5, 4.5) * t))
         out[pos : pos + m] += x.astype(np.float32)
         pos, turn = pos + m + int(0.8 * SR), turn + 1
+
+
+class MeetingAudioSource:
+    """An AudioSource for the streaming processor: a waveform as PCM16,
+    ``drain_samples`` samples a drain, then nothing."""
+
+    def __init__(self, waveform: np.ndarray, drain_samples: int):
+        self._pcm = np.clip(np.asarray(waveform) * 32768.0, -32768, 32767).astype(np.int16)
+        self._n = drain_samples
+        self._pos = 0
+
+    def start(self) -> None:
+        pass
+
+    def drain(self) -> bytes:
+        chunk = self._pcm[self._pos : self._pos + self._n]
+        self._pos += self._n
+        return chunk.tobytes()
+
+    def close(self) -> None:
+        pass
 
 
 def template_args(mangled: str, kernel: str) -> str:
@@ -3863,9 +3911,239 @@ def main() -> int:
             expect(gap <= bnd, f"process_video segment {i}: the label flipped where the plain run's top-2 gap {gap:.4e} > {bnd:.4e}")
         phase("process_video_vs_plain", t1)
         del proc_exact, extra
+        phase("offline_processor", t0)
+
+        # --- 25. the streaming processor end to end: StreamingProcessor.run over run_stream ----------
+        t0 = time.perf_counter()
+        from msa_tpu_torch.core.schema import EMPTY_STREAMING_OUTPUT
+        from msa_tpu_torch.processors import streaming as PSP
+
+        def per_forward(n):
+            return {**zero, "attention_block_int8": 24 * n, "ffn_fused_int8": 24 * n, "quantize_rows": 96 * n, "gemm_s8": 96 * n}
+
+        # the constructor: the default neural diarizer, and warmup (the B=1
+        # window at buckets 32, 128 and 512) in its background thread
+        reset_counts()
+        sproc = PSP.StreamingProcessor(cfg24, models=models8, device=dev)  # phase 5's int8 default models
+        check(sproc._warmup_thread is not None, "the full-scale default config started no warmup thread")
+        sproc._warmup_thread.join(timeout=300)
+        check(not sproc._warmup_thread.is_alive(), "the constructor's warmup did not finish")
+        torch.cuda.synchronize()
+        ctor_s = time.perf_counter() - t0
+        warm_counts = counts()
+        check(sproc.timer.counts["precompile"] == 1, f"warmup ran {sproc.timer.counts['precompile']} times")
+        check(warm_counts == per_forward(3), f"the constructor's warmup launched {warm_counts}, expected 3 forwards")
+        check(isinstance(sproc.diarizer, HD.NeuralDiarizer) and sproc.diarizer.device.type == "cuda",
+              f"the default diarizer is {type(sproc.diarizer).__name__}, not the speaker net on the card")
+        precompile_s = sproc.timer.totals["precompile"]
+        phase("streaming_setup", t0, constructor_s=f"{ctor_s:.3f}", warmup_s=f"{precompile_s:.3f}",
+              **{k: v for k, v in warm_counts.items() if v})
+        sproc.transcriber = proc.transcriber  # phase 24's make_transcriber("auto"): the shipped whisper on the card
+        real_run_stream = G.SegmentPipeline.run_stream
+        schema = {"face", "audio", "text", "fused_emotion", "weights", "speaker_id"}
+
+        def stream(p, live, patch=None):
+            """One run() of STREAM_WINDOWS windows through ``p`` (``patch``
+            swapped into the encoders' module), live transcription on or off:
+            each window STREAM_DRAIN samples of the meeting and
+            MAX_VIDEO_BUFFER synthetic 480×640 frames, the same for every
+            call. → the results, and for every process_segment (the run's
+            own warmup window first) its text, wall s, hostpack, whether the
+            packed dispatch held and the carry is on the card, and each
+            encoder's last hidden state."""
+            p.frame_source = PSP.SyntheticFrameSource(STREAM_WINDOWS * p.MAX_VIDEO_BUFFER, 480, 640, seed=25)
+            p.audio_source = MeetingAudioSource(wav, STREAM_DRAIN)
+            p.config = dataclasses.replace(p.config, streaming=dataclasses.replace(p.config.streaming, live_transcription=live))
+            rec = {k: [] for k in ("results", "texts", "walls", "live_s", "packs", "packed", "on_card", "text", "audio")}
+            segment, live_text = p.process_segment, p._live_text
+
+            def timed_segment(frames, audio, text):
+                t = time.perf_counter()
+                out = segment(frames, audio, text)
+                rec["walls"].append(time.perf_counter() - t)
+                rec["texts"].append(text)
+                rec["packed"].append(p._use_packed)
+                rec["on_card"].append(p._prev_landmarks.device == dev and p._has_prev.device == dev)
+                return out
+
+            def timed_text(audio):
+                t = time.perf_counter()
+                text = live_text(audio)
+                rec["live_s"].append(time.perf_counter() - t)
+                return text
+
+            def recording(self, packed, prev_landmarks, has_prev):
+                out, carry = real_run_stream(self, packed, prev_landmarks, has_prev)
+                rec["packs"].append(out["hostpack"].clone())
+                return out, carry
+
+            encoders = (("text", p.models.text.encoder), ("audio", p.models.audio.encoder))
+            hooks = [enc.register_forward_hook(lambda _m, _i, out, key=key: rec[key].append(out.float())) for key, enc in encoders]
+            p.process_segment, p._live_text = timed_segment, timed_text
+            try:
+                with swapped(T, **(patch or {})), swapped(G.SegmentPipeline, run_stream=recording):
+                    p.run(duration=3600.0, callback=rec["results"].append, max_segments=STREAM_WINDOWS)
+                torch.cuda.synchronize()
+            finally:
+                del p.process_segment, p._live_text
+                for h in hooks:
+                    h.remove()
+            return rec
+
+        # the kernel path: 4 windows with live transcription off, 4 with it on
+        runs25 = {}
+        for live in (False, True):
+            t1 = time.perf_counter()
+            sproc.timer.reset()
+            reset_counts()
+            rec = runs25[live] = stream(sproc, live)
+            got = counts()
+            n_fwd = len(rec["packs"])
+            label = f"stream_live_{'on' if live else 'off'}"
+            phase(label, t1, windows=len(rec["results"]), forwards=n_fwd, **{k: v for k, v in got.items() if v})
+            check(len(rec["results"]) == STREAM_WINDOWS and n_fwd == STREAM_WINDOWS + 1 == len(rec["walls"]),
+                  f"{label}: {len(rec['results'])} windows in {n_fwd} forwards, expected {STREAM_WINDOWS} and the run's warmup window")
+            check(got == per_forward(n_fwd), f"{label}: launches {got}, expected {per_forward(n_fwd)} ({n_fwd} forwards)")
+            check(all(rec["packed"]), f"{label}: the packed dispatch failed and process_segment fell back to run()")
+            check(all(rec["on_card"]), f"{label}: the movement carry left the card")
+            for i, (r, text, pack) in enumerate(zip(rec["results"], rec["texts"][1:], rec["packs"][1:])):
+                tag = f"{label} window {i}"
+                check(r != EMPTY_STREAMING_OUTPUT and r["fused_emotion"] is not None, f"{tag} came back empty")
+                check(set(r) == schema, f"{tag}: keys {sorted(r)}")
+                check(r["face"] is not None and r["audio"] is not None, f"{tag}: face or audio missing")
+                check((r["text"] is not None) == bool(text.strip()), f"{tag}: text {r['text'] is not None} for transcript {text!r}")
+                for m in ("face", "audio", "text"):
+                    for k, v in (r[m] or {}).items():
+                        if isinstance(v, np.ndarray):
+                            check(bool(np.isfinite(v).all()), f"{tag}: {m}.{k} is not finite")
+                check(r["fused_emotion"].shape == (7,) and np.isfinite(r["fused_emotion"]).all(), f"{tag}: fused_emotion {r['fused_emotion']}")
+                w = r["weights"]
+                check(set(w) == {"face", "audio", "text"} and abs(sum(w.values()) - 1.0) <= 1e-6, f"{tag}: weights {w}")
+                check(isinstance(r["speaker_id"], str) and r["speaker_id"], f"{tag}: speaker {r['speaker_id']!r}")
+                # the window dict's emotion vectors are LayerNorm'd (the
+                # reference's schema); the probabilities are the hostpack's
+                check(tuple(pack.shape) == (1, 1715) and bool(torch.isfinite(pack).all()), f"{tag}: hostpack")
+                for key in ("face_probs_raw", "audio_probs_raw", "text_probs_raw"):
+                    pr = pack[0, G.PACK_SLICES[key]]
+                    check(bool((pr >= 0).all()) and abs(pr.sum().item() - 1.0) <= 1e-5, f"{tag}: {key} sums to {pr.sum().item()}")
+            if live:
+                check(any(t.strip() for t in rec["texts"][1:]), "live transcription gave no text in any window")
+            else:
+                check(not any(rec["texts"]), "live transcription off, and yet a window carried text")
+            walls = [1e3 * x for x in rec["walls"]]
+            rest = walls[2:]
+            print(f"  {smi}: {label}: process_segment wall ms (host clock; a window ends in its hostpack's fetch): "
+                  f"the run's warmup window {walls[0]:.3f}, first window {walls[1]:.3f}, the other {len(rest)}: "
+                  f"p50 {np.percentile(rest, 50):.3f} p90 {np.percentile(rest, 90):.3f} ({', '.join(f'{x:.3f}' for x in rest)})"
+                  + (f"; live transcription s per window {', '.join(f'{x:.4f}' for x in rec['live_s'])}" if live else ""),
+                  flush=True)
+            print(f"    StageTimer over the {n_fwd} process_segment calls: " + ", ".join(
+                f"{k} {v['total_s']:.4f} s/{v['count']}" for k, v in sproc.timer.summary().items()), flush=True)
+            print(f"    transcripts {rec['texts'][1:]}; speakers {[r['speaker_id'] for r in rec['results']]}; "
+                  f"buckets {[int(x.shape[1]) for x in rec['text']]}", flush=True)
+
+        # the same windows on the int8 kernels' plain versions, the f32
+        # yardstick and phase 5's fault
+        t1 = time.perf_counter()
+        sproc_exact = PSP.StreamingProcessor(
+            cfg_once, models=models8.with_encoders(attention_impl="einsum", ffn_impl="dense", compute_dtype="float32"),
+            device=dev, diarizer=sproc.diarizer, transcriber=proc.transcriber,
+        )
+        others = {
+            name: {live: stream(p, live, patch) for live in (False, True)}
+            for name, p, patch in (("plain", sproc, plain_patch), ("f32", sproc_exact, None), ("fault", sproc, fault_patch))
+        }
+        keyed = lambda rs: [(t, r["speaker_id"]) for live in (False, True) for t, r in zip(rs[live]["texts"][1:], rs[live]["results"])]  # noqa: E731
+        for name, rs in others.items():
+            check(keyed(rs) == keyed(runs25), f"the {name} run's transcripts or speakers differ: {keyed(rs)}")
+        windows = lambda rs: torch.cat([p_ for live in (False, True) for p_ in rs[live]["packs"][1:]]).float()  # noqa: E731
+        k_pack, p_pack, r_pack, f_pack = windows(runs25), windows(others["plain"]), windows(others["f32"]), windows(others["fault"])
+
+        def states(rs, enc):
+            """The encoder's last hidden states of the windows, flattened;
+            the text encoder's only where the window has a transcript (with
+            no valid key the kernels and the einsum path differ by design,
+            and the graph discards the row)."""
+            keep = [
+                s for live in (False, True) for s, text in zip(rs[live][enc][1:], rs[live]["texts"][1:])
+                if enc == "audio" or text.strip()
+            ]
+            return torch.cat([s.flatten() for s in keep])
+
+        for enc in ("text", "audio"):
+            k, pl, r = states(runs25, enc), states(others["plain"], enc), states(others["f32"], enc)
+            e_p, ratio, fault_ratio = noise_ratios(k, pl, r, {"zero_last_head_v": states(others["fault"], enc)})
+            print(f"  streaming {enc} encoder over the windows: rms(f32)={rms(r):.4e} rms_err_vs_f32 plain={e_p:.4e} "
+                  f"kernel/plain={ratio:.4f} fault:zero_last_head_v/plain={fault_ratio['zero_last_head_v']:.4f} "
+                  f"bound={INT8_ENCODER_RATIO}", flush=True)
+            expect(ratio <= INT8_ENCODER_RATIO, f"streaming {enc} encoder: kernel/plain {ratio:.4f} > {INT8_ENCODER_RATIO}")
+            expect(fault_ratio["zero_last_head_v"] > INT8_ENCODER_RATIO,
+                   f"streaming {enc} encoder: the planted fault passes the check ({fault_ratio['zero_last_head_v']:.4f})")
+        # text_probs_raw by phase 5's median rule: further B=2 draws at the
+        # bucket of the last window
+        tokens = int(runs25[True]["text"][-1].shape[1])
+        kern_pipe, exact_pipe = sproc._pipeline, sproc_exact._pipeline
+        extra = []
+        for i in range(MEDIAN_DRAWS):
+            inp_i = inputs(models8, tokens, cfg24.pipeline.segment_samples, rng=np.random.default_rng(2500 + i))
+            k_i, p_i, r_i, f_i = (
+                traced_run(pp, inp_i, patch)["hostpack"]
+                for pp, patch in ((kern_pipe, None), (kern_pipe, plain_patch), (exact_pipe, None), (kern_pipe, fault_patch))
+            )
+            extra.append((k_i, p_i, r_i, {"zero_last_head_v": f_i}))
+        bounds = hold_hostpack(
+            "streaming windows", k_pack, p_pack, r_pack, {"zero_last_head_v": f_pack}, extra, "zero_last_head_v", INT8_HOSTPACK_RATIO,
+        )
+        # the top labels: equal, except where the plain run's top two values
+        # of the vector shown are within that group's bound
+        group_of_len = {7: "fused", 27: "face27", 31: "audio31", 783: "text783"}
+        flips = []
+        k_res = [r for live in (False, True) for r in runs25[live]["results"]]
+        p_res = [r for live in (False, True) for r in others["plain"][live]["results"]]
+        for i, (rk, rp) in enumerate(zip(k_res, p_res)):
+            lk, lp = int(np.argmax(rk["fused_emotion"][:7])), int(np.argmax(rp["fused_emotion"][:7]))
+            if lk == lp:
+                continue
+            group = group_of_len[rp["fused_emotion"].shape[0]]
+            top2 = torch.topk(p_pack[i, G.PACK_SLICES[group]][:7], 2).values
+            flips.append((i, lk, lp, (top2[0] - top2[1]).item(), bounds[group]))
+        print(f"  streaming kernel vs plain: top labels equal in {len(k_res) - len(flips)} of {len(k_res)} windows, "
+              f"flips (window, kernel, plain, plain's top-2 gap, bound) {flips}", flush=True)
+        for i, _, _, gap, bnd in flips:
+            expect(gap <= bnd, f"streaming window {i}: the label flipped where the plain run's top-2 gap {gap:.4e} > {bnd:.4e}")
+        phase("stream_vs_plain", t1)
+        del sproc_exact, extra, others
+
+        # the command line: offline mode on phase 24's frame archive, in a
+        # process of its own with a working directory of its own
+        t1 = time.perf_counter()
+        cli_dir = Path(tempfile.mkdtemp(prefix="msa_smoke_cli_"))
+        try:
+            env = {k: v for k, v in os.environ.items() if k not in ("MSA_PRECOMPILE", "MSA_MODEL_SCALE")}
+            env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")]))
+            cli = subprocess.run(
+                [sys.executable, "-m", "msa_tpu_torch.main", "--mode", "offline", "--video", str(clip),
+                 "--output-dir", str(cli_dir / "out")],
+                cwd=cli_dir, env=env, capture_output=True, text=True, timeout=600,
+            )
+            if cli.returncode != 0:
+                print(cli.stderr[-4000:], file=sys.stderr, flush=True)
+            check(cli.returncode == 0, f"python3 -m msa_tpu_torch.main --mode offline exited {cli.returncode}")
+            said = json.loads(cli.stdout.strip().splitlines()[-1])
+            lines = [json.loads(x) for x in (cli_dir / "out" / "results.json").read_text().splitlines()]
+            cli_s = time.perf_counter() - t1
+            print(f"  CLI: {said}; {len(lines)} lines in results.json; {cli_s:.3f} s wall for the process "
+                  f"(start, initialize, warmup, process_video)", flush=True)
+            check(said["speakers"] == len(grouped), f"the CLI found {said['speakers']} speakers, phase 24 {len(grouped)}")
+            check(len(lines) == n_seg and all(set(x) == set(segs[0]) for x in lines),
+                  f"results.json: {len(lines)} lines, expected one per segment ({n_seg})")
+        finally:
+            shutil.rmtree(cli_dir, ignore_errors=True)
+        phase("cli_offline", t1, speakers=said["speakers"], lines=len(lines))
+        del sproc
+        phase("streaming_processor", t0)
     finally:
         shutil.rmtree(clip_dir, ignore_errors=True)
-    phase("offline_processor", t0)
 
     kernels = [
         {

@@ -2,7 +2,7 @@
 
     python3 -m msa_tpu_torch.profile_slice [--tokens 512] [--batch 2] [--steps 3] [--quantize int8|none|f32|int8_f32]
                                            [--samples 80000]
-                                           [--train | --conv | --asr | --gemm-s8 | --gemm-bf16 | --gemm-f32
+                                           [--train | --stream | --conv | --asr | --gemm-s8 | --gemm-bf16 | --gemm-f32
                                             | --f32-rows | --attn-bwd-f32 | --attn-wide | --attn-wide-tiles
                                             | --attn-wide-f32 | --attn-wide-f32-plans | --int8-chains]
 
@@ -29,7 +29,11 @@ kernel attention, dropout 0; forward, backward and AdamW) at ``--batch``
 (default 8) × ``--tokens``, or with ``--samples`` that of the audio model
 at ``--samples`` per clip; ``--train --quantize f32`` the same step in f32
 (the parity mode's encoders fine-tuned: rows 5/6 forward and rows 3 and 4
-backward in f32, TF32 off). ``--conv`` times instead the counterpart of
+backward in f32, TF32 off). ``--stream`` profiles instead one streaming
+window, ``StreamingProcessor.process_segment`` (one 480×640 frame, 5 s of
+synthetic PCM16, no text: bucket 32; the default neural diarizer), and
+prints the processor's ``StageTimer`` over the profiled windows beside the
+trace. ``--conv`` times instead the counterpart of
 ``tools/conv_bench.py``: ``conv_stride2_fused`` (row 11) at the wav2vec2
 extractor's six stride-2 layers, 512 → 512 channels, bf16, at ``--batch``
 (default 64), beside its plain version and cuDNN's bf16 ``F.conv1d`` (on
@@ -171,6 +175,7 @@ def main(argv=None) -> int:
     ap.add_argument("--quantize", choices=("int8", "none", "f32", "int8_f32"), default="int8")
     ap.add_argument("--samples", type=int, default=None, help="audio samples a segment (with --train: the audio step's clip)")
     ap.add_argument("--train", action="store_true", help="one text (with --samples: audio) training step instead of a forward")
+    ap.add_argument("--stream", action="store_true", help="one StreamingProcessor.process_segment window instead of a forward")
     ap.add_argument("--conv", action="store_true", help="row 11 at the wav2vec2 stride-2 layers instead of a forward")
     ap.add_argument("--asr", action="store_true", help="one batch of the shipped whisper ASR instead of a forward")
     ap.add_argument("--gemm-s8", action="store_true", help="the int8 GEMM of rows 7 and 9 alone, each plan, beside torch._int_mm")
@@ -189,7 +194,7 @@ def main(argv=None) -> int:
     ap.add_argument("--attn-wide-tiles", action="store_true",
                     help="the bf16 forward above D = 128 at each column tile and order, beside SDPA")
     args = ap.parse_args(argv)
-    b = args.batch or (64 if args.conv else 8 if args.train or args.asr else 2)
+    b = args.batch or (64 if args.conv else 8 if args.train or args.asr else 1 if args.stream else 2)
     if not torch.cuda.is_available():
         print("profile_slice: needs a CUDA device", file=sys.stderr)
         return 2
@@ -265,6 +270,21 @@ def main(argv=None) -> int:
         def run():
             training.train_step(model, loss, opt, *batch)
 
+    elif args.stream:
+        from msa_tpu_torch.processors.streaming import StreamingProcessor, SyntheticAudioSource, SyntheticFrameSource
+
+        models = G.PipelineModels.initialize(seed=0, quantize=args.quantize, device="cuda")
+        cfg = SystemConfig(pipeline=PipelineConfig(segment_samples=samples, precompile=False))
+        proc = StreamingProcessor(cfg, models=models, device="cuda")
+        tokens = 32  # no transcript: the shortest bucket
+        frames = [SyntheticFrameSource(1, 480, 640).read()]
+        pcm = SyntheticAudioSource(chunk_seconds=samples / 16_000).drain()
+
+        def run():
+            out = proc.process_segment(frames, pcm, "")
+            if out["fused_emotion"] is None or not proc._use_packed:
+                raise RuntimeError("the streaming window failed")
+
     else:
         if args.quantize in ("f32", "int8_f32"):  # f32 compute: the parity mode's encoders, or W8A8 under f32
             quantize = "none" if args.quantize == "f32" else "int8"
@@ -284,6 +304,8 @@ def main(argv=None) -> int:
     for _ in range(2):
         run()
     torch.cuda.synchronize()
+    if args.stream:
+        proc.timer.reset()
 
     walls = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -310,6 +332,7 @@ def main(argv=None) -> int:
     wall_ms = 1e3 * float(np.median(walls))
     what = (
         "whisper batch" if args.asr
+        else f"quantize={args.quantize} samples={samples} streaming window (process_segment)" if args.stream
         else f"quantize={args.quantize} {'audio' if args.samples else 'text'} training step" if args.train
         else f"quantize={args.quantize} samples={samples} forward"
     )
@@ -318,13 +341,53 @@ def main(argv=None) -> int:
           f"idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
     for kind, cs in chains.items():
         print(f"  int8 chains of {kind}: {len(cs) // args.steps} a forward, spans summed {spans[kind]:.4f} ms", flush=True)
+    if args.stream:
+        print("  StageTimer under the profiler: " + ", ".join(
+            f"{k} {v['mean_ms']:.3f} ms" for k, v in proc.timer.summary().items()), flush=True)
     for us, n, key in rows[: args.top]:
         print(f"  {us / 1e3:9.4f} ms  {n:5d}x  {100 * us / 1e3 / sum_ms:5.1f}%  {key[:90]}", flush=True)
-    print(json.dumps({"train": args.train, "asr": args.asr, "quantize": args.quantize, "batch": b, "tokens": tokens, "samples": samples, "wall_ms": wall_ms,
+    print(json.dumps({"train": args.train, "stream": args.stream, "asr": args.asr, "quantize": args.quantize, "batch": b, "tokens": tokens, "samples": samples, "wall_ms": wall_ms,
                       "device_busy_ms": busy_ms, "device_sum_ms": sum_ms,
                       "chains": {kind: {"per_forward": len(cs) // args.steps, "span_ms": spans[kind]} for kind, cs in chains.items()},
                       "device": torch.cuda.get_device_name(0)}), flush=True)
+    if args.stream:
+        stream_dispatch(proc, frames, pcm, max(args.steps, 10))
     return 0
+
+
+def stream_dispatch(proc, frames, pcm, reps: int) -> None:
+    """Without the profiler, in turns: the window's ``dispatch`` stage
+    (``run_stream`` inside ``process_segment``), a bare ``run_stream`` on the
+    same packed buffer, and a bare one after the frame's resize (the host
+    work that comes before it in a window): the host's time to issue each,
+    median of ``reps``; the card is idle when each starts."""
+    from msa_tpu_torch.host.video import preprocess_frame
+    from msa_tpu_torch.pipeline.graph import pack_stream_inputs
+
+    size = proc.models.landmark.cfg.frame_size
+    frame_u8 = preprocess_frame(frames[0], size)
+    pcm16 = np.frombuffer(pcm, np.int16)
+    packed = pack_stream_inputs(frame_u8, pcm16, np.zeros(32, np.int32), np.zeros(32, np.int32), True, True, False, 0.0, 0.0)
+    pipe = proc._pipeline
+    readings = {"window dispatch": [], "bare run_stream": [], "run_stream after the resize": []}
+
+    def bare(resize: bool) -> float:
+        if resize:
+            preprocess_frame(frames[0], size)
+        t0 = time.perf_counter()
+        pipe.run_stream(packed, proc._prev_landmarks, proc._has_prev)
+        issued = time.perf_counter()
+        torch.cuda.synchronize()
+        return 1e3 * (issued - t0)
+
+    for _ in range(reps):
+        proc.timer.reset()
+        proc.process_segment(frames, pcm, "")
+        readings["window dispatch"].append(1e3 * proc.timer.totals["dispatch"])
+        readings["bare run_stream"].append(bare(False))
+        readings["run_stream after the resize"].append(bare(True))
+    print("  without the profiler, ms (median of %d, host clock): " % reps + ", ".join(
+        f"{k} {np.median(v):.3f} (min {min(v):.3f})" for k, v in readings.items()), flush=True)
 
 
 def _device_intervals(prof):

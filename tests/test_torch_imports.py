@@ -46,5 +46,11 @@ def test_the_port_is_there():
         "msa_tpu_torch/host/video.py",
         "msa_tpu_torch/runtime/native_lib.py",
         "msa_tpu_torch/utils/profiling.py",
+        "msa_tpu_torch/core/schema.py",
+        "msa_tpu_torch/processors/streaming.py",
+        "msa_tpu_torch/visualizers/overlay.py",
+        "msa_tpu_torch/utils/logging_config.py",
+        "msa_tpu_torch/utils/misc.py",
+        "msa_tpu_torch/main.py",
     ):
         assert want in names
