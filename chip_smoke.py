@@ -277,6 +277,40 @@ Phases, one line each with its seconds:
      CLI: python3 -m msa_tpu_torch.main --mode offline on phase 24's frame
      archive in a process and a working directory of its own: exit 0, as
      many speakers as phase 24 found, one results.json line per segment.
+ 26. the model options: the package namespaces imported in a process of
+     their own (no kernel library loaded, no JAX-side module);
+     make_transcriber("openai/whisper-tiny") on the card (the stub where
+     transformers is missing, offline in any case); the DeepFace CNN
+     (cnn_arch="deepface") on a Keras FER npz made here from a seed,
+     through initialize and run_host at B=2, 5 s, bucket 512 on the int8
+     default: conv_0 equal to the npz's, 24 / 24 / 96 / 96 launches, its
+     probabilities on the graph's crops against the CPU within
+     DEEPFACE_ATOL with a tap fault over it, every hostpack group against
+     the int8 kernels' plain versions (phase 5's checks); the matmul
+     extractor (extractor_impl="matmul") in the int8, bf16 and f32 parity
+     recipes at 5 s and 15 s (B=2, bucket 512): six more launches of row
+     11 a forward than the conv path (six more of the f32 GEMM in f32),
+     the extractor against cuDNN's and against row 11's plain version (in
+     units of cuDNN's error against the f32 extractor; in f32 within
+     EXTRACTOR_F32_RTOL of the largest output), tap 2 dropped as its
+     fault, every hostpack group against the plain path (phase 5's and 4's
+     checks; f32 within PARITY_ATOL); the extractor's device ms, matmul
+     against conv, at B=2 and B=64, and row 11 at the 5 s forward's six
+     layers (B=2) beside cuDNN, its plain version and the bound; one text
+     (B=8, bucket 512) and one 5 s audio (B=8) training step with dropout
+     0.1 in bf16 and f32: no port kernel launched (the einsum attention,
+     as JAX's), a dropout-0 step still launching rows 5, 3 and 4, loss and
+     gradients equal to the plain path's, each mask of the first and last
+     layer equal at both ends to the CPU's draw of the same key; one 5 s
+     audio (B=8) training step with the matmul extractor in bf16 and f32,
+     whose GEMM layers take JAX's matmuls (row 11 has no backward): the
+     conv step's launches and none of row 11, every front-end gradient
+     nonzero and the group held against the conv extractor's (bf16 by
+     its error against the f32 step, GRAD_NOISE_RATIO; f32 within
+     EXTRACTOR_GRAD_F32_RTOL of the group's largest); the
+     HF-whisper importer on an HF-named state dict made here at the
+     shipped ASR's config, its first-step logits at B=8 against the CPU's
+     and its tokens printed.
 Phases 4, 5, 8, 18 and 23 also time run_host per forward, phase 7 run_stream per
 window, phase 24 process_video, phase 25 process_segment. Counts are set to 0
 just before each path runs and read just after.
@@ -289,6 +323,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib.util
 import json
 import os
 import re
@@ -454,6 +489,22 @@ CLIP_SECONDS, CLIP_FPS = 20.0, 5
 # STREAM_DRAIN samples of phase 15's meeting: the 20 s meeting is 4 drains)
 STREAM_WINDOWS, STREAM_DRAIN = 4, 80_000
 ROOT = Path(__file__).resolve().parent
+# phase 26. The matmul extractor (row 11 in bf16) against cuDNN's bf16 conv
+# and the plain version, in units of cuDNN's error against the f32
+# extractor of the same masters (row 11 rounds once a layer after an f32
+# GELU, cuDNN's path twice); in f32 both within this share of the largest
+# output (sums of 1536 products in another order, A&S erf against the
+# exact one: both ~1e-6)
+EXTRACTOR_NOISE_RATIO, EXTRACTOR_F32_RTOL = 1.25, 1e-5
+# the DeepFace CNN's probabilities, card against CPU (f32 on both, TF32 off)
+DEEPFACE_ATOL = 1e-5
+# an f32 training step's front-end gradients, the matmul extractor against
+# the "conv" one, over the group's largest (the same function summed in
+# another order, through 12 layers' backward)
+EXTRACTOR_GRAD_F32_RTOL = 1e-4
+# the dropout key of phase 26's training steps (JAX's PRNGKey(seed)), and
+# the flat elements of each mask held against the CPU's draw at each end
+DROPOUT_SEED, MASK_SPAN = 11, 1 << 18
 
 
 class SmokeFailure(RuntimeError):
@@ -806,6 +857,7 @@ def main() -> int:
     from msa_tpu_torch import flax_init
     from msa_tpu_torch import training as TR
     from msa_tpu_torch.core.config import PipelineConfig, SystemConfig
+    from msa_tpu_torch.models import audio as MA
     from msa_tpu_torch.models import transformer as T
     from msa_tpu_torch.ops import quant as Q
     from msa_tpu_torch.ops.kernels import attention as A
@@ -1472,7 +1524,9 @@ def main() -> int:
             for key, enc in (("text", ms.text.encoder), ("audio", ms.audio.encoder))
         ]
         try:
-            with swapped(T, **(patch or {})):
+            patch = patch or {}  # the extractor's row 11 lives in the audio module, every other wrapper in T
+            conv = {k: v for k, v in patch.items() if k == "conv_stride2_fused"}
+            with swapped(T, **{k: v for k, v in patch.items() if k not in conv}), swapped(MA, **conv):
                 got["hostpack"] = pipeline.run_host(inp)[0]["hostpack"]
         finally:
             for h in hooks:
@@ -3086,7 +3140,7 @@ def main() -> int:
         expect(bool(torch.isfinite(k_pack).all()) and err <= PARITY_ATOL, f"fine-tuned parity hostpack {err:.4e} from the plain f32 path")
         expect(moved > 0.0, "the fine-tuned masters did not reach the served hostpack")
         phase("tuned_parity", t1)
-    del kern_p, plain_pp, trained, tuned, models_p
+    del kern_p, plain_pp, trained, tuned  # models_p serves phase 26's f32 matmul extractor
     torch.cuda.empty_cache()
     phase("f32_training", t0)
 
@@ -4145,6 +4199,432 @@ def main() -> int:
     finally:
         shutil.rmtree(clip_dir, ignore_errors=True)
 
+    # --- 26. the model options -------------------------------------------------------------
+    t0 = time.perf_counter()
+    from msa_tpu_torch import weights as WT
+    from msa_tpu_torch.models import face as MF
+    from msa_tpu_torch.models import text as MT
+
+    # the package namespaces, in a process of their own: no kernel is built or loaded
+    t1 = time.perf_counter()
+    ns_code = (
+        "import sys\n"
+        "from msa_tpu_torch.processors import OfflineProcessor, StreamingProcessor\n"
+        "from msa_tpu_torch.utils import setup_logging, create_directories\n"
+        "from msa_tpu_torch.pipeline import PipelineModels, SegmentInputs, SegmentPipeline\n"
+        "from msa_tpu_torch.host import (load_wav, resample, Diarizer, EnergyVADDiarizer, FixedWindowDiarizer, make_diarizer,\n"
+        "    StubTranscriber, Transcriber, make_transcriber, VideoReader, extract_audio_track)\n"
+        "from msa_tpu_torch.models import FusionMLP, FusionModel\n"
+        "from msa_tpu_torch.visualizers import StreamingVisualizer\n"
+        "from msa_tpu_torch.core import config, emotions, schema\n"
+        "from msa_tpu_torch import config, emotions, schema\n"
+        "from msa_tpu_torch.ops import normalization\n"
+        "from msa_tpu_torch.ops.kernels import build\n"
+        "print(build.library.cache_info().currsize, sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msa_tpu')))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
+    ns = subprocess.run([sys.executable, "-c", ns_code], cwd=tempfile.gettempdir(), env=env, capture_output=True, text=True,
+                        timeout=300)
+    print(f"  namespaces: exit {ns.returncode}, kernel libraries loaded and JAX-side modules: {ns.stdout.strip()!r}", flush=True)
+    check(ns.returncode == 0 and ns.stdout.strip() == "0 []", f"the namespace imports: {ns.stdout.strip()!r} {ns.stderr[-2000:]}")
+    phase("namespaces", t1)
+
+    # an HF model name: the card's machine has no transformers, so JAX's fallback, the stub, serves
+    has_transformers = importlib.util.find_spec("transformers") is not None
+    os.environ["HF_HUB_OFFLINE"] = os.environ["TRANSFORMERS_OFFLINE"] = "1"  # never a download
+    hf_tr = HT.make_transcriber("openai/whisper-tiny", device=dev)
+    print(f"  make_transcriber('openai/whisper-tiny', device='cuda') → {type(hf_tr).__name__} "
+          f"(transformers {'installed, offline' if has_transformers else 'not installed'})", flush=True)
+    check(isinstance(hf_tr, (HT.StubTranscriber, HT.HFTranscriber)), f"make_transcriber gave {type(hf_tr).__name__}")
+    check(has_transformers or isinstance(hf_tr, HT.StubTranscriber), "without transformers an HF name must give the stub")
+
+    # the DeepFace CNN on Keras FER weights made here, through initialize and run_host
+    t1 = time.perf_counter()
+    fer_rng = np.random.default_rng(26)
+    fer = {}
+    for name, shape in (("conv2d", (5, 5, 1, 64)), ("conv2d_1", (3, 3, 64, 64)), ("conv2d_2", (3, 3, 64, 64)),
+                        ("conv2d_3", (3, 3, 64, 128)), ("conv2d_4", (3, 3, 128, 128)), ("dense", (128, 1024)),
+                        ("dense_1", (1024, 1024)), ("dense_2", (1024, 7))):
+        fan_in = int(np.prod(shape[:-1]))  # He's scale: the ReLU stack keeps its size
+        fer[f"{name}/kernel"] = ((2.0 / fan_in) ** 0.5 * fer_rng.standard_normal(shape)).astype(np.float32)
+        fer[f"{name}/bias"] = (0.01 * fer_rng.standard_normal(shape[-1])).astype(np.float32)
+    fer_dir = Path(tempfile.mkdtemp(prefix="msa_smoke_fer_"))
+    try:
+        np.savez(fer_dir / "fer.npz", **fer)
+        models_df = G.PipelineModels.initialize(
+            seed=0, face_cfg=MF.FaceModelConfig(cnn_arch="deepface", emotion_weights=str(fer_dir / "fer.npz")), device=dev)
+    finally:
+        shutil.rmtree(fer_dir, ignore_errors=True)
+    cnn = models_df.face_cnn
+    check(isinstance(cnn, MF.DeepFaceEmotionCNN) and "face_cnn" in models_df.loaded,
+          f"cnn_arch='deepface': {type(cnn).__name__}, loaded {sorted(models_df.loaded)}")
+    check(np.array_equal(WT.flax_tree(cnn)["conv_0"]["kernel"], fer["conv2d/kernel"]), "the loaded conv_0 kernel is not the npz's")
+    phase("initialize_deepface", t1, loaded=",".join(sorted(models_df.loaded)))
+    pipe_df = G.SegmentPipeline(models_df)
+    runs_df = [(512, inputs(models_df, 512))]
+    int8_expect = {**zero, "attention_block_int8": 24, "ffn_fused_int8": 24, "quantize_rows": 96, "gemm_s8": 96}
+    drive("deepface", pipe_df, runs_df, int8_expect)
+    crops = []
+    hook = cnn.register_forward_hook(lambda _m, args, out: crops.append((args[0].detach(), out.detach())))
+    try:
+        k_pack = pipe_df.run_host(runs_df[0][1])[0]["hostpack"]
+    finally:
+        hook.remove()
+    cnn_cpu = copy.deepcopy(cnn).cpu()
+    w0 = cnn.conv_0.weight
+    with torch.inference_mode(), G.exact_fp32():
+        crops_in, p_card = crops[0]
+        p_cpu = cnn_cpu(crops_in.cpu())
+        saved = w0.clone()
+        w0[:, :, :, -1] = 0  # the planted fault: conv_0's last column of taps dropped
+        p_fault = cnn(crops_in).cpu()
+        f_pack = pipe_df.run_host(runs_df[0][1])[0]["hostpack"]
+        w0.copy_(saved)
+    df_err, df_fault = (p_card.cpu() - p_cpu).abs().max().item(), (p_fault - p_cpu).abs().max().item()
+    face_sl = G.PACK_SLICES["face_probs_raw"]
+    pack_fault = (f_pack[:, face_sl] - k_pack[:, face_sl]).abs().max().item()
+    print(f"  DeepFace CNN on the graph's {tuple(crops_in.shape)} crops: card vs CPU max abs {df_err:.3e} (bound {DEEPFACE_ATOL}), "
+          f"fault:conv0_last_taps {df_fault:.3e}; face_probs_raw moved by the fault {pack_fault:.3e}; "
+          f"probabilities {[f'{v:.4f}' for v in p_card[0].tolist()]}", flush=True)
+    expect(df_err <= DEEPFACE_ATOL and bool(torch.isfinite(p_card).all()), f"DeepFace probabilities card vs CPU {df_err:.3e}")
+    expect(df_fault > DEEPFACE_ATOL and pack_fault > DEEPFACE_ATOL, f"the DeepFace fault passes ({df_fault:.3e}, {pack_fault:.3e})")
+    exact_df = G.SegmentPipeline(models_df.with_encoders(attention_impl="einsum", ffn_impl="dense", compute_dtype="float32"))
+    int8_plain = {"attention_block_int8": A.attention_block_int8_plain, "ffn_fused_int8": F.ffn_int8_plain}
+    vs_plain("deepface", runs_df, (pipe_df, None), (pipe_df, int8_plain), (exact_df, None),
+             {"zero_last_head_v": (pipe_df, {"attention_block_int8": zero_last_head_v})},
+             "zero_last_head_v", INT8_ENCODER_RATIO, INT8_HOSTPACK_RATIO, draws=MEDIAN_DRAWS)
+    del pipe_df, exact_df, models_df, cnn_cpu, crops
+    phase("deepface", t1)
+
+    # extractor_impl="matmul": the six stride-2 layers on row 11
+    real_conv = KC.conv_stride2_fused
+
+    def drop_tap2(x, w, apply_gelu=True):
+        w = w.clone()
+        w[-1] = 0  # the planted fault: the last tap dropped
+        return real_conv(x, w, apply_gelu)
+
+    def with_extractor(ms, impl):
+        """``ms`` with its audio model on ``extractor_impl=impl``, sharing every parameter."""
+        with torch.device("meta"):
+            audio = type(ms.audio)(dataclasses.replace(ms.audio.cfg, extractor_impl=impl))
+        audio.load_state_dict(ms.audio.state_dict(), assign=True)
+        WT.derive_weights_(audio)
+        return dataclasses.replace(ms, audio=audio.eval().requires_grad_(False))
+
+    matmul_counts = {}
+    for recipe, mods in (("int8", models8), ("bf16", models), ("f32", models_p)):
+        mods_mm = with_extractor(mods, "matmul")
+        for secs, sys_cfg in ((5, SystemConfig()), (15, long_cfg)):
+            t1 = time.perf_counter()
+            label = f"matmul_{recipe}_{secs}s"
+            pipe_c, pipe_m = G.SegmentPipeline(mods, sys_cfg), G.SegmentPipeline(mods_mm, sys_cfg)
+            runs_m = [(512, inputs(mods, 512, sys_cfg.pipeline.segment_samples))]
+            reset_counts()
+            pipe_c.run_host(runs_m[0][1])
+            torch.cuda.synchronize()
+            want = {**counts(), "conv_stride2_fused": 6}  # the conv path's launches, and six of row 11
+            if recipe == "f32":
+                want["gemm_f32"] += 6  # row 11 in f32 runs the f32 GEMM
+            got = drive(label, pipe_m, runs_m, want)
+            if (recipe, secs) == ("int8", 5):
+                matmul_counts = got
+            # the extractor alone: row 11 against cuDNN (the "conv" extractor) and its plain version
+            wav = torch.as_tensor(runs_m[0][1].audio, device=dev)
+            fx_m, fx_c = mods_mm.audio.feature_extractor, mods.audio.feature_extractor
+            fx_r = None if recipe == "f32" else mods.with_encoders(compute_dtype="float32").audio.feature_extractor
+            with torch.inference_mode(), G.exact_fp32():
+                e_m, e_c = fx_m(wav).float(), fx_c(wav).float()
+                with swapped(MA, conv_stride2_fused=KC.conv_stride2_reference):
+                    e_p = fx_m(wav).float()
+                with swapped(MA, conv_stride2_fused=drop_tap2):
+                    e_f = fx_m(wav).float()
+                if recipe == "f32":
+                    scale = e_c.abs().max().item()
+                    errs = {n: (e_m - e_).abs().max().item() / scale for n, e_ in (("conv", e_c), ("plain", e_p))}
+                    f_err = (e_f - e_c).abs().max().item() / scale
+                    print(f"  {label} extractor {tuple(e_m.shape)}: max abs err over the largest output, matmul vs "
+                          f"cudnn {errs['conv']:.3e} vs plain {errs['plain']:.3e} fault:drop_tap2 {f_err:.3e} "
+                          f"(bound {EXTRACTOR_F32_RTOL})", flush=True)
+                    expect(max(errs.values()) <= EXTRACTOR_F32_RTOL, f"{label} extractor: {errs}")
+                    expect(f_err > EXTRACTOR_F32_RTOL, f"{label} extractor: the planted fault passes ({f_err:.3e})")
+                else:
+                    e_r = fx_r(wav)  # the same masters' extractor in f32, on cuDNN
+                    e_cr = rms(e_c - e_r)
+                    ratios = {n: rms(e_ - e_r) / e_cr for n, e_ in (("matmul", e_m), ("plain", e_p), ("fault", e_f))}
+                    print(f"  {label} extractor {tuple(e_m.shape)}: rms err vs the f32 extractor cudnn={e_cr:.4e}; over it "
+                          + " ".join(f"{n}={v:.4f}" for n, v in ratios.items())
+                          + f" (bound {EXTRACTOR_NOISE_RATIO}); matmul vs cudnn max abs {(e_m - e_c).abs().max().item():.4e}",
+                          flush=True)
+                    expect(ratios["matmul"] <= EXTRACTOR_NOISE_RATIO and ratios["plain"] <= EXTRACTOR_NOISE_RATIO,
+                           f"{label} extractor: {ratios}")
+                    expect(ratios["fault"] > EXTRACTOR_NOISE_RATIO, f"{label} extractor: the planted fault passes ({ratios})")
+            # every hostpack group against the plain path
+            plain_conv = {"conv_stride2_fused": KC.conv_stride2_reference}
+            if recipe == "f32":
+                plain_m = G.SegmentPipeline(mods_mm.with_encoders(attention_impl="einsum", ffn_impl="dense"), sys_cfg)
+                for tokens, inp in runs_m:
+                    with G.exact_fp32():
+                        k_ = traced_run(pipe_m, inp)["hostpack"]
+                        p_ = traced_run(plain_m, inp, plain_conv)["hostpack"]
+                        f_ = traced_run(pipe_m, inp, {"conv_stride2_fused": drop_tap2})["hostpack"]
+                    worst = {n: (k_[:, sl] - p_[:, sl]).abs().max().item() for n, sl in G.PACK_SLICES.items()}
+                    f_err = (f_ - p_).abs().max().item()
+                    print(f"  {label} bucket{tokens}: hostpack vs the plain f32 path max abs {max(worst.values()):.4e} "
+                          f"(bound {PARITY_ATOL}) fault:drop_tap2 {f_err:.4e}; "
+                          + " ".join(f"{n}={e:.3e}" for n, e in worst.items()), flush=True)
+                    expect(bool(torch.isfinite(k_).all()) and max(worst.values()) <= PARITY_ATOL, f"{label}: hostpack {worst}")
+                    expect(f_err > PARITY_ATOL, f"{label}: the planted fault passes ({f_err:.4e})")
+                del plain_m
+            else:
+                exact_m = G.SegmentPipeline(
+                    mods_mm.with_encoders(attention_impl="einsum", ffn_impl="dense", compute_dtype="float32"), sys_cfg)
+                if recipe == "int8":
+                    plain = (pipe_m, {**int8_plain, **plain_conv, "flash_attention_lse": A.flash_attention_lse_plain})
+                    fault_key, bounds = "zero_last_head_v", (INT8_ENCODER_RATIO, INT8_HOSTPACK_RATIO)
+                    fault = {"attention_block_int8": zero_last_head_v, "flash_attention_lse": flash_skip_last_head}
+                else:
+                    plain = (G.SegmentPipeline(mods_mm.with_encoders(attention_impl="einsum", ffn_impl="dense"), sys_cfg), plain_conv)
+                    fault_key, bounds = "skip_last_head", (ENCODER_NOISE_RATIO, HOSTPACK_NOISE_RATIO)
+                    fault = {"attention_block": skip_last_head, "flash_attention_lse": flash_skip_last_head}
+                vs_plain(label, runs_m, (pipe_m, None), plain, (exact_m, plain_conv),
+                         {fault_key: (pipe_m, fault), "drop_tap2": (pipe_m, {"conv_stride2_fused": drop_tap2})},
+                         fault_key, *bounds, draws=MEDIAN_DRAWS if recipe == "int8" else 0)
+                del exact_m, plain
+            del pipe_c, pipe_m, e_m, e_c, e_p, e_f, fx_r
+            torch.cuda.empty_cache()
+            phase(label, t1)
+        # the extractor's device time, matmul against conv, with a 5 s segment
+        if recipe != "int8":  # int8's extractor is bf16's
+            for b in (2, 64):
+                wav = torch.from_numpy((0.1 * rng.standard_normal((b, 80_000))).astype(np.float32)).to(dev)
+                with torch.inference_mode(), G.exact_fp32():
+                    ms_m = device_ms(lambda: mods_mm.audio.feature_extractor(wav), reps=5)
+                    ms_c = device_ms(lambda: mods.audio.feature_extractor(wav), reps=5)
+                print(f"  {smi}: {recipe} extractor B={b} at 5 s: matmul (row 11) {ms_m:.4f} ms, conv (cuDNN) {ms_c:.4f} ms "
+                      f"of device time (profiler), matmul/conv {ms_m / ms_c:.3f}", flush=True)
+        # row 11 at the 5 s forward's own six layers (B=2), beside cuDNN's conv, its plain version and the bound
+        if recipe != "int8":
+            seen = []
+            wav = torch.from_numpy((0.1 * rng.standard_normal((2, 80_000))).astype(np.float32)).to(dev)
+            with torch.inference_mode(), G.exact_fp32(), swapped(MA, conv_stride2_fused=lambda x, w: seen.append((x, w)) or real_conv(x, w)):
+                mods_mm.audio.feature_extractor(wav)
+            sums = dict.fromkeys(("ms", "plain_ms", "cudnn_ms", "bound_ms"), 0.0)
+            for x, w in seen:
+                k_, c_, cout = w.shape
+                out_len = (x.shape[1] - k_) // 2 + 1
+                w_c = w.to(x.dtype).contiguous()
+                x_ncw, w_oik = x.transpose(1, 2).contiguous(), w_c.permute(2, 1, 0).contiguous()
+                with torch.inference_mode(), G.exact_fp32():
+                    lay = {
+                        "ms": device_ms(lambda: real_conv(x, w_c), reps=10),
+                        "plain_ms": device_ms(lambda: KC.conv_stride2_reference(x, w_c), reps=10),
+                        "cudnn_ms": device_ms(lambda: F_.conv1d(x_ncw, w_oik, stride=2), reps=10),
+                    }
+                nbytes = x.element_size() * (x.numel() + w_c.numel() + x.shape[0] * out_len * cout)
+                flop = 2 * x.shape[0] * out_len * k_ * c_ * cout
+                lay["bound_ms"], by = bound_ms(nbytes, **{"f32" if recipe == "f32" else "bf16": flop})
+                for k2 in sums:
+                    sums[k2] += lay[k2]
+                print(f"    row 11 {recipe} B={x.shape[0]} L={x.shape[1]} k={k_} C={c_}: kernel {lay['ms']:.4f} plain "
+                      f"{lay['plain_ms']:.4f} cudnn conv1d {lay['cudnn_ms']:.4f} bound {lay['bound_ms']:.5f} ({by}) ms", flush=True)
+            check(len(seen) == 6, f"the {recipe} matmul extractor called row 11 {len(seen)} times")
+            print(f"  {smi}: row 11 {recipe} over the 5 s forward's six layers at B=2: "
+                  + " ".join(f"{k2}={v:.4f}" for k2, v in sums.items()), flush=True)
+            del seen
+        del mods_mm
+    del models_p
+    torch.cuda.empty_cache()
+
+    # dropout in training: the einsum attention and the dense FFN, flax's masks
+    t1 = time.perf_counter()
+    drawn = []  # (scope, index, shape) of each mask a step draws
+    real_dropout = T.dropout
+
+    def recording_dropout(x, rate, deterministic, rng_, index):
+        if not deterministic and rate > 0:
+            drawn.append((rng_, index, tuple(x.shape)))
+        return real_dropout(x, rate, deterministic, rng_, index)
+
+    for dt_name, want0 in (
+        ("bfloat16", {"packed_qkv_attention_lse": 12, "attention_bwd_dq": 12, "attention_bwd_dkv": 12}),
+        ("float32", {"packed_qkv_attention_f32": 12, "attention_bwd_onepass_f32": 12}),
+    ):
+        kern_d = trainable(models.with_encoders(dropout=0.1, compute_dtype=dt_name))
+        plain_d = trainable(models.with_encoders(attention_impl="einsum", ffn_impl="dense", dropout=0.1, compute_dtype=dt_name))
+        kern_0 = trainable(models.with_encoders(dropout=0.0, compute_dtype=dt_name))
+        for label, attr, loss_fn, batch in (
+            ("text B=8 bucket512", "text", TR.text_loss, text_batch),
+            ("audio 5s B=8", "audio", TR.audio_loss, audio_batch(8, 80_000)),
+        ):
+            tag = f"dropout {dt_name} {label}"
+
+            def with_key(m, *b, _fn=loss_fn):
+                return _fn(m, *b, dropout_rng=DROPOUT_SEED)
+
+            with G.exact_fp32():
+                drawn.clear()
+                reset_counts()
+                with swapped(T, dropout=recording_dropout), swapped(MT, dropout=recording_dropout):
+                    loss_k, g_k = step_grads(getattr(kern_d, attr), with_key, batch)
+                torch.cuda.synchronize()
+                c_drop = counts()
+                loss_p, g_p = step_grads(getattr(plain_d, attr), with_key, batch)
+                _, g_k2 = step_grads(getattr(kern_d, attr), with_key, batch)  # the same step again: the library's spread
+                rerun = max((g_k2[n].float() - g_.float()).abs().max().item() / max(g_p[n].float().abs().max().item(), 1e-30)
+                            for n, g_ in g_k.items())
+                del g_k2
+                reset_counts()
+                loss_0, _ = step_grads(getattr(kern_0, attr), loss_fn, batch)
+                torch.cuda.synchronize()
+                c_zero = counts()
+            n_sites = 3 * 12 + (attr == "text")
+            group_errs = {}
+            for name, gk in g_k.items():
+                grp = group_of(name)
+                err, top = (gk.float() - g_p[name].float()).abs().max().item(), g_p[name].float().abs().max().item()
+                e0, t0_ = group_errs.get(grp, (0.0, 0.0))
+                group_errs[grp] = (max(e0, err), max(t0_, top))
+            worst_group, worst = max(((g_, e / max(t_, 1e-30)) for g_, (e, t_) in group_errs.items()), key=lambda r: r[1])
+            # the same code on both sides; the library's backward (cuDNN's weight gradients, the embeddings'
+            # atomics) sums in an order that changes from run to run: a few bf16 steps of the group's largest
+            grad_rtol = KERNEL_RTOL if dt_name == "bfloat16" else 1e-5
+            # each site's mask on the card against the CPU's draw of the same key, at both ends of the mask
+            keep_share = T.dropout_mask(drawn[0][0].dropout_key(drawn[0][1]), drawn[0][2], 0.1, dev).float().mean().item()
+            mask_bad = []
+            for rng_, index, shape in drawn[: 4 if attr == "text" else 3] + drawn[-3:]:
+                key = rng_.dropout_key(index)
+                card = T.dropout_mask(key, shape, 0.1, dev).flatten().cpu()
+                n = card.numel()
+                for start in (0, max(0, n - MASK_SPAN)):
+                    count = min(MASK_SPAN, n - start)
+                    if not torch.equal(card[start : start + count], T.keep_mask(key, start, count, 0.1, "cpu")):
+                        mask_bad.append(("/".join(rng_.path) + f"/Dropout_{index}", start))
+            print(
+                f"  {tag}: loss {loss_k:.6f} (plain {loss_p:.6f}, dropout 0 {loss_0:.6f}); {len(drawn)} masks drawn "
+                f"(keep share of the first, {drawn[0][2]}: {keep_share:.4f}); "
+                f"launches under dropout {dict((k, v) for k, v in c_drop.items() if v)}, under dropout 0 "
+                f"{dict((k, v) for k, v in c_zero.items() if v)}; gradient groups vs the plain path: worst max abs over the "
+                f"group's largest {worst:.3e} ({worst_group}; bound {grad_rtol}), the same step run twice {rerun:.3e}; "
+                f"masks card vs CPU differ at {mask_bad}",
+                flush=True,
+            )
+            check(np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-6 * abs(loss_p), f"{tag}: loss {loss_k} vs plain {loss_p}")
+            check(len(drawn) == n_sites, f"{tag}: {len(drawn)} masks drawn, expected {n_sites}")
+            check(c_drop == zero, f"{tag}: launches under dropout {c_drop}")
+            check(c_zero == {**zero, **want0}, f"{tag}: launches under dropout 0 {c_zero}, expected {want0}")
+            check(worst <= grad_rtol, f"{tag}: gradient groups vs the plain path {worst:.3e} > {grad_rtol}")
+            check(not mask_bad, f"{tag}: masks differ between the card and the CPU at {mask_bad}")
+            del g_k, g_p
+        del kern_d, plain_d, kern_0
+        torch.cuda.empty_cache()
+    phase("dropout", t1)
+
+    # extractor_impl="matmul" in training: row 11 has no backward, so the GEMM layers take JAX's
+    # differentiable matmuls and the front end trains as under "conv" (the kernel's forward there
+    # would leave conv_1…conv_6 and the GroupNorm without gradients)
+    t1 = time.perf_counter()
+    batch = audio_batch(8, 80_000)
+    with G.exact_fp32():
+        ref_a = trainable(models.with_encoders(dropout=0.0, compute_dtype="float32")).audio
+        reset_counts()
+        loss_r, g_r = step_grads(ref_a, TR.audio_loss, batch)
+        c_r = counts()
+        for dt_name in ("bfloat16", "float32"):
+            tag = f"matmul extractor {dt_name} audio 5s B=8 step"
+            if dt_name == "float32":
+                conv_a, loss_c, g_c, c_c = ref_a, loss_r, g_r, c_r
+            else:
+                conv_a = trainable(models.with_encoders(dropout=0.0, compute_dtype=dt_name)).audio
+                reset_counts()
+                loss_c, g_c = step_grads(conv_a, TR.audio_loss, batch)
+                c_c = counts()
+            with torch.device("meta"):
+                mm_a = type(conv_a)(dataclasses.replace(conv_a.cfg, extractor_impl="matmul"))
+            mm_a.load_state_dict(conv_a.state_dict(), assign=True)
+            WT.derive_weights_(mm_a)
+            mm_a.requires_grad_(True)
+            reset_counts()
+            loss_m, g_m = step_grads(mm_a, TR.audio_loss, batch)
+            torch.cuda.synchronize()
+            c_m = counts()
+            front = [n for n in g_m if group_of(n) == "front_end"]
+            silent = [n for n in front if not bool(g_m[n].abs().max() > 0)]
+            zeros = {n: torch.zeros_like(g_) for n, g_ in g_m.items()}
+            if dt_name == "float32":
+                top = max(g_c[n].abs().max().item() for n in front)
+                err = max((g_m[n] - g_c[n]).abs().max().item() for n in front) / top
+                fault = max(g_c[n].abs().max().item() for n in front) / top  # the gradients dropped
+                bound = EXTRACTOR_GRAD_F32_RTOL
+                what = "max abs over the group's largest, matmul vs conv"
+            else:
+                e_c = group_rms(g_c, "front_end", g_r)
+                err, fault = group_rms(g_m, "front_end", g_r) / e_c, group_rms(zeros, "front_end", g_r) / e_c
+                bound = GRAD_NOISE_RATIO
+                what = "rms err vs the f32 conv step, matmul/conv"
+            print(f"  {tag}: loss matmul {loss_m:.6f} conv {loss_c:.6f}; front_end gradients ({len(front)} tensors, "
+                  f"{len(silent)} zero): {what} {err:.4e} (bound {bound}), fault:gradients_dropped {fault:.4e}; launches "
+                  f"matmul {dict((k, v) for k, v in c_m.items() if v)} conv {dict((k, v) for k, v in c_c.items() if v)}",
+                  flush=True)
+            check(np.isfinite(loss_m) and not silent, f"{tag}: loss {loss_m}, front-end gradients zero at {silent}")
+            check(c_m == c_c and c_m["conv_stride2_fused"] == 0, f"{tag}: launches {c_m}, the conv step's {c_c}")
+            expect(err <= bound, f"{tag}: front_end gradients matmul vs conv {err:.4e} > {bound}")
+            expect(fault > bound, f"{tag}: dropped gradients pass the check ({fault:.4e})")
+            del mm_a, g_m, zeros
+            if conv_a is not ref_a:
+                del conv_a, g_c
+        del ref_a, g_r
+        torch.cuda.empty_cache()
+    phase("matmul_extractor_training", t1)
+
+    # the HF whisper importer at the shipped ASR's config, on the card
+    t1 = time.perf_counter()
+    from msa_tpu_torch.models import whisper as W  # phase 21 bound W to the weights module; phase 16's helper reads W
+    wr = np.random.default_rng(27)
+
+    def wn(*shape, std=0.02):
+        return (std * wr.standard_normal(shape)).astype(np.float32)
+
+    dw, fw = cfg_w.d_model, cfg_w.d_ff
+    hf_sd = {
+        "encoder.conv1.weight": wn(dw, cfg_w.n_mels, 3, std=(1.0 / (3 * cfg_w.n_mels)) ** 0.5), "encoder.conv1.bias": wn(dw),
+        "encoder.conv2.weight": wn(dw, dw, 3, std=(1.0 / (3 * dw)) ** 0.5), "encoder.conv2.bias": wn(dw),
+        "decoder.embed_tokens.weight": wn(cfg_w.vocab_size, dw), "decoder.embed_positions.weight": wn(cfg_w.max_target_positions, dw),
+    }
+    for side, n_layers, attns in (("encoder", cfg_w.encoder_layers, ("self_attn",)),
+                                  ("decoder", cfg_w.decoder_layers, ("self_attn", "encoder_attn"))):
+        hf_sd[f"{side}.layer_norm.weight"], hf_sd[f"{side}.layer_norm.bias"] = 1.0 + wn(dw), wn(dw)
+        for i in range(n_layers):
+            pre = f"{side}.layers.{i}."
+            for at in attns:
+                for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                    hf_sd[pre + f"{at}.{proj}.weight"] = wn(dw, dw, std=dw**-0.5)
+                    if proj != "k_proj":
+                        hf_sd[pre + f"{at}.{proj}.bias"] = wn(dw)
+                hf_sd[pre + f"{at}_layer_norm.weight"], hf_sd[pre + f"{at}_layer_norm.bias"] = 1.0 + wn(dw), wn(dw)
+            hf_sd[pre + "fc1.weight"], hf_sd[pre + "fc1.bias"] = wn(fw, dw, std=dw**-0.5), wn(fw)
+            hf_sd[pre + "fc2.weight"], hf_sd[pre + "fc2.bias"] = wn(dw, fw, std=fw**-0.5), wn(dw)
+            hf_sd[pre + "final_layer_norm.weight"], hf_sd[pre + "final_layer_norm.bias"] = 1.0 + wn(dw), wn(dw)
+    tree_w = W.params_from_hf_whisper(hf_sd, cfg_w)
+    tr_hf = HT.WhisperTranscriber(cfg_w, W.whisper_from_flax(cfg_w, tree_w, dev), tr.tokenizer)
+    tr_hf_cpu = HT.WhisperTranscriber(cfg_w, W.whisper_from_flax(cfg_w, tree_w, "cpu"), tr.tokenizer)
+    check(torch.equal(tr_hf.model.encoder.conv2.weight.cpu(), torch.from_numpy(hf_sd["encoder.conv2.weight"])),
+          "the imported conv2 weight is not HF's [out, in, k]")
+    _, lg_card = mel_and_first_logits(tr_hf, waves_dev)
+    _, lg_cpu = mel_and_first_logits(tr_hf_cpu, torch.from_numpy(waves))
+    lg_err = (lg_card.cpu() - lg_cpu).abs().max().item()
+    reset_counts()
+    packed_hf = tr_hf.graph(waves_dev, torch.ones(nb, dtype=torch.bool, device=dev)).cpu().numpy()
+    torch.cuda.synchronize()
+    print(f"  imported HF-named whisper ({len(hf_sd)} tensors, {dw}d, {cfg_w.encoder_layers}+{cfg_w.decoder_layers} layers) "
+          f"at B={nb}: first-step logits card vs CPU max abs {lg_err:.3e} (bound {WHISPER_LOGITS_ATOL}); lengths "
+          f"{packed_hf[:, -1].tolist()}; tokens of row 0 {packed_hf[0, :12].tolist()}", flush=True)
+    check(lg_err <= WHISPER_LOGITS_ATOL and bool(torch.isfinite(lg_card).all()), f"imported whisper logits card vs CPU {lg_err:.3e}")
+    check(counts() == zero, f"the imported whisper launched port kernels: {counts()}")
+    del tr_hf, tr_hf_cpu, tree_w, hf_sd
+    phase("whisper_importer", t1)
+    phase("model_options", t0)
+
     kernels = [
         {
             "name": name,
@@ -4187,9 +4667,10 @@ def main() -> int:
                 "launch it 0 times (phases 4, 5, 12)",
             ),
             (
-                "conv_stride2_fused", "msa_tpu_torch/csrc/conv_stride2.cu", "msa_tpu/ops/pallas/conv.py:111", conv_counts,
-                "phase 14: one conv_stride2_fused call at B=64 L=15999 k=3 C=512, bf16; a run_host forward and a training "
-                "step launch it 0 times (the extractor convolves in cuDNN, as JAX's in XLA)",
+                "conv_stride2_fused", "msa_tpu_torch/csrc/conv_stride2.cu", "msa_tpu/ops/pallas/conv.py:111", matmul_counts,
+                "phase 26: one run_host at 5 s (B=2, bucket 512) of the int8 default with extractor_impl='matmul' (its six "
+                "stride-2 layers); its ms, plain_ms, bound_ms and library_ms are phase 14's, at B=64 L=15999 k=3 C=512, "
+                "bf16; the default extractor ('conv', cuDNN) launches it 0 times",
             ),
             ("attention_block_f32", "msa_tpu_torch/csrc/attention.cu", "msa_tpu/ops/pallas/attention.py:819", parity_counts, ON_PARITY),
             ("ffn_fused_f32", "msa_tpu_torch/csrc/ffn.cu", "msa_tpu/ops/pallas/ffn.py:89", parity_counts, ON_PARITY),

@@ -17,3 +17,5 @@ the CPU when no GPU is found.
 """
 
 __version__ = "0.1.0"
+
+from msa_tpu_torch.core import config, emotions, schema  # noqa: F401,E402

@@ -1,0 +1,1 @@
+from msa_tpu_torch.core import config, emotions, schema  # noqa: F401

@@ -6,8 +6,10 @@ BPE vocabulary and weights are there; else, for full-scale pipelines, the
 shipped ASR (``msa_tpu/checkpoints/whisper_asr``, trained on synthetic
 Portuguese speech over the text heads' lexicon) if its recorded held-out
 eval (``eval.json``) passes :data:`SHIPPED_WER_BAR`; else the stub, whose
-transcripts are empty. A named HF model needs a download, so the port takes
-JAX's fallback for it, the stub.
+transcripts are empty. Any other name is an HF model: :class:`HFTranscriber`
+builds a ``transformers`` ASR pipeline for it on the port's device, and
+where that cannot be built (no ``transformers``, no weights in the local
+cache and no network) the factory takes JAX's fallback, the stub.
 
 :class:`WhisperTranscriber` is the counterpart of ``JaxWhisperTranscriber``
 (the factory gives that name as an alias): int16 windows padded to the
@@ -47,6 +49,25 @@ class StubTranscriber:
 
     def transcribe(self, waveform: np.ndarray, sample_rate: int) -> str:
         return ""
+
+
+class HFTranscriber:
+    """A ``transformers`` ASR pipeline, built once on ``device``
+    (``msa_tpu/host/transcription.py:51-68``); a failed transcription gives
+    "". ``transformers`` is imported here, not with the module. ``language``
+    is taken for JAX's signature; its pipeline does not read it either."""
+
+    def __init__(self, model: str = "openai/whisper-medium", language: str = "pt", device="cuda"):
+        from transformers import pipeline
+
+        self._pipe = pipeline("automatic-speech-recognition", model=model, device=torch.device(device))
+
+    def transcribe(self, waveform: np.ndarray, sample_rate: int) -> str:
+        try:
+            out = self._pipe({"raw": np.asarray(waveform, np.float32), "sampling_rate": sample_rate})
+            return out.get("text", "")
+        except Exception:
+            return ""
 
 
 class SyllableTokenizer:
@@ -219,8 +240,8 @@ def make_transcriber(name: str, language: str = "pt", scale: str = "full", devic
       recorded eval passes the bar (full scale) → the stub;
     - "jax-whisper"/"whisper-jax": the tiny whisper from JAX's init
       (random weights; text still flows);
-    - anything else (an HF model name): the stub, JAX's fallback where the
-      download is unavailable.
+    - anything else: an HF model name, served by :class:`HFTranscriber` on
+      ``device``, or the stub where that pipeline cannot be built.
     """
     if name in ("stub", "", None):
         return StubTranscriber()
@@ -240,7 +261,10 @@ def make_transcriber(name: str, language: str = "pt", scale: str = "full", devic
         return StubTranscriber()
     if name in ("jax-whisper", "whisper-jax"):
         return WhisperTranscriber(device=device)
-    return StubTranscriber()
+    try:
+        return HFTranscriber(name, language, device)
+    except Exception:
+        return StubTranscriber()
 
 
 def _shipped_asr(device) -> Optional[WhisperTranscriber]:

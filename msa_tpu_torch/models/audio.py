@@ -13,6 +13,18 @@ as in JAX; tensors are NCW inside the convs and [B, T, C] elsewhere. Their
 weights are f32 masters cast to the compute dtype in the forward, as
 flax's ``nn.Conv(dtype=…)`` casts its f32 params, so an optimizer steps the
 f32 values as JAX's does.
+
+``extractor_impl="matmul"`` (JAX's option, ``msa_tpu/models/audio.py:
+98-126``, ``:165-170``) runs each layer after the first with stride 2 and
+kernel 2 or 3 as a GEMM over the input read in pairs of rows, with the
+GELU: in serving on the card, where C and C′ are multiples of 128 (the
+kernel's contract, the full-width 512 channels), the hand-written kernel
+``conv_stride2_fused`` (PERF.md row 11) with the GELU fused; elsewhere
+JAX's pair-reshaped matmuls in plain PyTorch, in JAX's order: on the CPU,
+at narrower widths, and in training, since row 11 has no backward (as
+training takes the dense FFN). The GEMM layers take [B, L, C], one layout
+change after layer 0. The parameter tree is the same as under ``"conv"``
+(the default, cuDNN on the card).
 """
 
 from __future__ import annotations
@@ -26,8 +38,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from msa_tpu_torch.core.emotions import duplicate_4_to_8
+from msa_tpu_torch.ops.kernels.conv import conv_stride2_fused
 from msa_tpu_torch.models.transformer import (
     AttentiveStatsPool,
+    DropoutRng,
     EncoderConfig,
     LayerNorm,
     TransformerEncoder,
@@ -44,6 +58,10 @@ class AudioModelConfig:
     positional: str = "conv"  # "conv" | "sinusoidal"
     pos_conv_kernel: int = 128
     pos_conv_groups: int = 16
+    # "conv" (cuDNN) | "matmul": the stride-2 layers after the first as
+    # GEMMs, in serving on the card through conv_stride2_fused where C and
+    # C' are multiples of 128
+    extractor_impl: str = "conv"
     # prosody-trained pool + head over the JAX package's deterministic trunk
     head_weights: Optional[str] = "checkpoints/audio_emotion_head.msgpack"
     encoder: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
@@ -100,17 +118,62 @@ class ConvFeatureExtractor(nn.Module):
         # wav2vec2: per-channel GroupNorm after conv0, exact variance, f32
         self.gn = nn.GroupNorm(cfg.conv_channels[0], cfg.conv_channels[0], eps=1e-5)
 
+    def as_matmul(self, i: int) -> bool:
+        """Whether layer ``i`` runs as a GEMM (JAX's gate, audio.py:165)."""
+        c = self.cfg
+        return c.extractor_impl == "matmul" and i > 0 and c.conv_strides[i] == 2 and c.conv_kernels[i] in (2, 3)
+
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         """[B, T] → [B, T', C] in the compute dtype."""
         dt = self.cfg.encoder.dtype
-        x = wav[:, None, :].to(dt)
+        x, nwc = wav[:, None, :].to(dt), False  # NCW through cuDNN; [B, L, C] for the GEMM layers
         for i in range(len(self.cfg.conv_channels)):
             conv = getattr(self, f"conv_{i}")
+            if self.as_matmul(i):
+                if not nwc:
+                    x, nwc = x.transpose(1, 2).contiguous(), True
+                x = strided_conv_gelu(x, conv.weight.permute(2, 1, 0))
+                continue
+            if nwc:
+                x, nwc = x.transpose(1, 2), False
             x = conv1d(x, conv.weight, None, dt, stride=conv.stride)
             if i == 0:
                 x = self.gn(x.float()).to(dt)
             x = F.gelu(x)
-        return x.transpose(1, 2)
+        return x if nwc else x.transpose(1, 2)
+
+
+def strided_conv_as_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """JAX's ``_strided_conv_as_matmul`` (``msa_tpu/models/audio.py:
+    98-126``): the VALID stride-2 conv of x [B, L, C] with w [k ∈ (2, 3),
+    C, C'] (both in the compute dtype) as matmuls over x read in pairs of
+    rows [B, L//2, 2C]: taps 0 and 1 against the stacked [2C, C'], tap 2
+    against the next pair's first half; f32 sums rounded once to x's
+    dtype."""
+    k, cin, cout = w.shape
+    b, length, _ = x.shape
+    out_len = (length - k) // 2 + 1
+    need = 2 * (out_len + 1)  # padded rows reach only discarded outputs or tap 2's zero tail
+    if need > length:
+        x = F.pad(x, (0, 0, 0, need - length))
+    pairs = x[:, :need].reshape(b, out_len + 1, 2 * cin).float()
+    out = pairs[:, :out_len] @ w[:2].reshape(2 * cin, cout).float()
+    if k == 3:
+        out = out + pairs[:, 1:, :cin] @ w[2].float()
+    return out.to(x.dtype)
+
+
+def strided_conv_gelu(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A GEMM layer of the matmul extractor with its exact GELU: x [B, L,
+    C], w [k, C, C'] (the f32 master, cast to x's dtype) → [B, (L − k)//2 +
+    1, C']. ``conv_stride2_fused`` serves CUDA tensors at C and C'
+    multiples of 128 (its contract) when no gradient is wanted, since it
+    has no backward; everywhere else JAX's matmuls, then the GELU in x's
+    dtype."""
+    wants_grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if x.is_cuda and x.shape[2] % 128 == 0 and w.shape[2] % 128 == 0 and not wants_grad:
+        return conv_stride2_fused(x, w)
+    return F.gelu(strided_conv_as_matmul(x, w.to(x.dtype)))
 
 
 class ConvPositionalEmbedding(nn.Module):
@@ -147,15 +210,20 @@ class AudioEmotionModel(nn.Module):
         self.pool = AttentiveStatsPool(d, cfg.pool_hidden)
         self.emotion_head = nn.Linear(2 * d, cfg.num_classes)
 
-    def forward(self, wav: torch.Tensor, deterministic: bool = True) -> Dict[str, torch.Tensor]:
-        """``deterministic=False`` is training mode (``dropout`` must be 0)."""
+    def forward(
+        self, wav: torch.Tensor, deterministic: bool = True, dropout_rng: "int | DropoutRng | None" = None
+    ) -> Dict[str, torch.Tensor]:
+        """``deterministic=False`` is training mode; with ``dropout > 0`` it
+        needs ``dropout_rng``, the seed of JAX's ``rngs={"dropout":
+        PRNGKey(seed)}`` (the encoder's masks)."""
         feats = self.post_extract_ln(self.feature_extractor(wav))  # f32
         x = self.proj(feats)
         if self.cfg.positional == "conv":
             x = self.encoder_pre_ln(x + self.pos_conv(x))
         else:
             x = x + torch.from_numpy(sinusoidal_positions(x.shape[1], x.shape[2])).to(x.device)
-        hidden = self.encoder(x, None, deterministic)
+        rng = DropoutRng.of(dropout_rng)
+        hidden = self.encoder(x, None, deterministic, rng and rng.child("encoder"))
         pooled = self.pool(hidden)
         logits = self.emotion_head(pooled.float())
         probs4 = torch.softmax(logits, dim=-1)

@@ -1,14 +1,16 @@
 """Face models (port of ``msa_tpu/models/face.py``): the landmark regressor
-with its integral-heatmap head, the 48×48 emotion CNN, grayscale and the
-fixed-size bilinear crop. All f32. Convs run NCHW; the heads and every
-reshape follow the JAX NHWC layout so flattened features line up with the
-flax weights."""
+with its integral-heatmap head, the two 48×48 emotion CNNs (the native one
+and the DeepFace FER-2013 clone that ``cnn_arch="deepface"`` selects, with
+the importer of its Keras weights), grayscale and the fixed-size bilinear
+crop. All f32. Convs run NCHW; the heads and every reshape follow the JAX
+NHWC layout so flattened features line up with the flax weights."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -22,6 +24,9 @@ class FaceModelConfig:
     backbone_channels: Tuple[int, ...] = (16, 32, 64, 128, 128)
     cnn_channels: Tuple[int, ...] = (32, 64, 128)
     min_detection_confidence: float = 0.5
+    # "native": FaceEmotionCNN; "deepface": DeepFace's FER-2013 architecture,
+    # whose Keras weights load through params_from_keras_fer
+    cnn_arch: str = "native"
     emotion_weights: Optional[str] = "checkpoints/face_emotion_cnn.msgpack"
     landmark_weights: Optional[str] = "checkpoints/landmark_net.msgpack"
 
@@ -174,3 +179,102 @@ class FaceEmotionCNN(nn.Module):
         x = F.gelu(self.fc(x))
         probs = torch.softmax(self.emotion_head(x), dim=-1)
         return probs / probs.sum(dim=-1, keepdim=True)
+
+
+class DeepFaceEmotionCNN(nn.Module):
+    """DeepFace's FER-2013 emotion CNN (``msa_tpu/models/face.py:203-239``),
+    so its published Keras weights drop in: conv 64@5×5 → max-pool 5×5/2 →
+    conv 64@3×3 ×2 → avg-pool 3×3/2 → conv 128@3×3 ×2 → avg-pool 3×3/2 →
+    dense 1024 ×2 → dense 7, ReLU throughout, VALID everywhere, f32; the
+    softmax renormalised as :class:`FaceEmotionCNN`'s. [B, 48, 48, 1] →
+    [B, 7], DeepFace order. At 48×48 the last map is 1×1×128, so the
+    flatten has one order in both layouts."""
+
+    def __init__(self, cfg: FaceModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        for i, (cin, cout, k) in enumerate(((1, 64, 5), (64, 64, 3), (64, 64, 3), (64, 128, 3), (128, 128, 3))):
+            self.add_module(f"conv_{i}", nn.Conv2d(cin, cout, k))
+        self.fc_0 = nn.Linear(128, 1024)
+        self.fc_1 = nn.Linear(1024, 1024)
+        self.emotion_head = nn.Linear(1024, 7)
+
+    def forward(self, crop: torch.Tensor) -> torch.Tensor:
+        if crop.shape[1] != 48 or crop.shape[2] != 48:
+            raise ValueError("deepface arch requires 48x48 crops")
+        x = F.relu(self.conv_0(crop.permute(0, 3, 1, 2)))
+        x = F.max_pool2d(x, 5, 2)
+        x = F.relu(self.conv_2(F.relu(self.conv_1(x))))
+        x = F.avg_pool2d(x, 3, 2)
+        x = F.relu(self.conv_4(F.relu(self.conv_3(x))))
+        x = F.avg_pool2d(x, 3, 2)
+        assert x.shape[2:] == (1, 1), x.shape
+        x = F.relu(self.fc_1(F.relu(self.fc_0(x.flatten(1)))))
+        probs = torch.softmax(self.emotion_head(x), dim=-1)
+        return probs / probs.sum(dim=-1, keepdim=True)
+
+
+# Keras layer names (the h5 file's order) → the flax names. Keras kernels
+# are flax's layouts, (kh, kw, in, out) and (in, out): a re-keying.
+_KERAS_FER_LAYERS = (
+    ("conv2d", "conv_0"),
+    ("conv2d_1", "conv_1"),
+    ("conv2d_2", "conv_2"),
+    ("conv2d_3", "conv_3"),
+    ("conv2d_4", "conv_4"),
+    ("dense", "fc_0"),
+    ("dense_1", "fc_1"),
+    ("dense_2", "emotion_head"),
+)
+
+
+def params_from_keras_fer(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """A Keras FER state dict → :class:`DeepFaceEmotionCNN`'s flax tree
+    (f32 numpy leaves), as ``msa_tpu/models/face.py:256`` converts it.
+    ``state`` maps Keras layer names to ``{"kernel", "bias"}``, or holds
+    flat ``"name/kernel"`` keys (an npz export of DeepFace's
+    ``facial_expression_model_weights.h5``)."""
+    flat: Dict[str, Dict[str, Any]] = {}
+    for k, v in state.items():
+        if isinstance(v, Mapping):
+            flat[k] = dict(v)
+        else:
+            name, _, part = k.rpartition("/")
+            flat.setdefault(name, {})[part] = v
+    return {
+        flax_name: {part: np.asarray(flat[keras_name][part], np.float32) for part in ("kernel", "bias")}
+        for keras_name, flax_name in _KERAS_FER_LAYERS
+    }
+
+
+def make_emotion_cnn(cfg: FaceModelConfig) -> nn.Module:
+    """The emotion CNN that ``cfg.cnn_arch`` names."""
+    return DeepFaceEmotionCNN(cfg) if cfg.cnn_arch == "deepface" else FaceEmotionCNN(cfg)
+
+
+def load_emotion_weights(model: nn.Module, path: str) -> Dict[str, Any]:
+    """The emotion CNN's flax tree from ``path`` (``msa_tpu/models/face.py:
+    292-366``): a ``.npz`` Keras FER export through
+    :func:`params_from_keras_fer`, which needs ``cnn_arch="deepface"``;
+    anything else a flax-msgpack params file. Every leaf of ``model`` must
+    be there at its shape, or ``ValueError`` says where it is not."""
+    from msa_tpu_torch import flax_init
+    from msa_tpu_torch.checkpoints import flax_msgpack
+
+    if str(path).endswith(".npz"):
+        if not isinstance(model, DeepFaceEmotionCNN):
+            raise ValueError("npz Keras FER exports require cnn_arch='deepface'")
+        with np.load(path) as z:
+            params = params_from_keras_fer(dict(z.items()))
+    else:
+        params = flax_msgpack.load(path)
+    for leaf, _ in flax_init.leaves(model):
+        node: Any = params
+        for name in leaf.path:
+            node = node.get(name) if isinstance(node, Mapping) else None
+        got = None if node is None else tuple(np.shape(node))
+        if got != leaf.shape:
+            raise ValueError(
+                f"emotion weights {path} don't fit the configured CNN at {'/'.join(leaf.path)}: {got} vs {leaf.shape}"
+            )
+    return params

@@ -94,6 +94,9 @@ class FusionMLP(nn.Module):
         return {"audio": w[0], "text": w[1], "face": w[2]}
 
 
+FusionModel = FusionMLP  # the reference's name (msa_tpu/models/fusion.py:283)
+
+
 def get_weights(model: FusionMLP) -> Dict[str, float]:
     """The softmaxed modality weights as host floats (JAX's
     ``msa_tpu/models/fusion.py:get_weights``; the reference reports them and

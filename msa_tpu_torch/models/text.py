@@ -13,7 +13,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from msa_tpu_torch.models.transformer import EncoderConfig, LayerNorm, TransformerEncoder, check_dropout
+from msa_tpu_torch.models.transformer import DropoutRng, EncoderConfig, LayerNorm, TransformerEncoder, dropout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,17 +42,18 @@ class BertEmbeddings(nn.Module):
         self.ln = LayerNorm(d, cfg.encoder.layer_norm_eps, fast=True)
         self.encoder_cfg = cfg.encoder
 
-    def forward(self, input_ids: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
-        """JAX applies ``nn.Dropout(encoder.dropout)`` to the result in
-        training; only dropout 0 is ported."""
-        check_dropout(self.encoder_cfg, deterministic)
+    def forward(
+        self, input_ids: torch.Tensor, deterministic: bool = True, dropout_rng: Optional[DropoutRng] = None
+    ) -> torch.Tensor:
+        """The embeddings' sum through the LayerNorm, then in training
+        ``nn.Dropout(encoder.dropout)`` (``Dropout_0``), as JAX's."""
         positions = torch.arange(input_ids.shape[-1], device=input_ids.device)[None, :]
         x = (
             self.word_embeddings(input_ids)
             + self.position_embeddings(positions)
             + self.token_type_embeddings(torch.zeros_like(input_ids))
         )
-        return self.ln(x)
+        return dropout(self.ln(x), self.encoder_cfg.dropout, deterministic, dropout_rng, 0)
 
 
 class TextModel(nn.Module):
@@ -72,11 +73,15 @@ class TextModel(nn.Module):
         self.sentiment_head = nn.Linear(d, 3)
 
     def forward(
-        self, input_ids: torch.Tensor, attention_mask: torch.Tensor, deterministic: bool = True
+        self, input_ids: torch.Tensor, attention_mask: torch.Tensor, deterministic: bool = True,
+        dropout_rng: "int | DropoutRng | None" = None,
     ) -> Dict[str, torch.Tensor]:
-        """``deterministic=False`` is training mode (``dropout`` must be 0)."""
-        x = self.embeddings(input_ids, deterministic)
-        hidden = self.encoder(x, attention_mask, deterministic).float()
+        """``deterministic=False`` is training mode; with ``dropout > 0`` it
+        needs ``dropout_rng``, the seed of JAX's ``rngs={"dropout":
+        PRNGKey(seed)}``."""
+        rng = DropoutRng.of(dropout_rng)
+        x = self.embeddings(input_ids, deterministic, rng and rng.child("embeddings"))
+        hidden = self.encoder(x, attention_mask, deterministic, rng and rng.child("encoder")).float()
         cls = hidden[:, 0, :]
         emotion_probs = torch.softmax(self.emotion_head(cls), dim=-1)
         sarcasm = torch.softmax(self.sarcasm_head(cls), dim=-1)[:, 1:2]

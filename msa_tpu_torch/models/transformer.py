@@ -58,20 +58,30 @@ Head dims above 128 train as well (in bf16 on the tensor-core backward of
 ``csrc/attention_bwd_wide.cu``, in f32 in the one pass of
 ``csrc/attention_bwd_f32.cu``).
 ``remat=True`` recomputes each layer in the backward pass, as ``nn.remat``.
-Flax's dropout masks are not ported: ``deterministic=False`` with
-``dropout > 0`` raises.
+
+Dropout (``deterministic=False`` with ``dropout > 0``) is flax's
+``nn.Dropout``, bit for bit, at JAX's three sites in a layer (the
+attention probabilities, the attention output, the FFN output; the text
+embeddings add a fourth): the keys come from :class:`DropoutRng`, which
+rebuilds ``make_rng("dropout")`` from the seed of JAX's
+``rngs={"dropout": PRNGKey(seed)}`` and the flax module path, and each
+mask is drawn on the tensor's device (:func:`dropout_mask`). As in JAX,
+dropout sends the attention to the einsum path, so no attention kernel
+runs; with ``dropout=0.0`` training keeps the kernels.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from msa_tpu_torch import flax_init
 from msa_tpu_torch.ops.kernels.attention import (
     SINGLE_PASS_MAX_T,
     attention_block,
@@ -93,7 +103,7 @@ class EncoderConfig:
     d_model: int = 768
     num_heads: int = 12
     d_ff: int = 3072
-    # read only in training (deterministic=False), where only 0.0 is ported
+    # read only in training (deterministic=False), as flax's nn.Dropout
     dropout: float = 0.1
     layer_norm_eps: float = 1e-12  # BERT default
     compute_dtype: str = "float32"
@@ -131,13 +141,71 @@ class EncoderConfig:
         return cls(num_layers=2, d_model=32, num_heads=2, d_ff=64)
 
 
-def check_dropout(cfg: EncoderConfig, deterministic: bool) -> None:
-    """Raise where JAX would draw dropout masks: they are not ported."""
-    if not deterministic and cfg.dropout > 0:
-        raise NotImplementedError(
-            f"training with dropout={cfg.dropout}: flax's dropout masks are not ported "
-            "(ROADMAP queue 1, encoder dropout in training); set dropout=0.0"
+_MASK_CHUNK = 1 << 24  # mask elements per pass of the threefry stream
+
+
+def keep_mask(key: Tuple[int, int], start: int, count: int, rate: float, device) -> torch.Tensor:
+    """Flat elements ``start … start+count-1`` of
+    ``jax.random.bernoulli(key, 1 − rate, shape)`` on ``device``: element i
+    keeps where ``uniform < keep`` in f32, the uniform from the 23 high
+    bits of ``threefry2x32(key, (0, i))`` (x0 ^ x1, JAX's partitionable
+    stream) as JAX forms it."""
+    bits = flax_init.random_bits(key, start, count, device)
+    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return u < torch.tensor(np.float32(1.0 - rate), device=device)
+
+
+def dropout_mask(key: Tuple[int, int], shape, rate: float, device) -> torch.Tensor:
+    """The whole mask of ``shape`` (row-major), drawn on ``device``."""
+    n = int(np.prod(shape))
+    mask = torch.empty(n, dtype=torch.bool, device=device)
+    for start in range(0, n, _MASK_CHUNK):
+        count = min(_MASK_CHUNK, n - start)
+        mask[start : start + count] = keep_mask(key, start, count, rate, device)
+    return mask.view(shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class DropoutRng:
+    """flax's ``make_rng("dropout")`` for the modules under ``path``: the
+    root key (``PRNGKey(seed)`` of JAX's ``rngs={"dropout": …}``) folded
+    with the module path and the scope's count of ``make_rng`` calls, as
+    flax's ``LazyRng`` does. Paths are the flax tree's; each
+    ``nn.Dropout`` is auto-named ``Dropout_0``, ``Dropout_1``, … in the
+    order its parent creates them, and draws once (count 1)."""
+
+    key: Tuple[int, int]
+    path: Tuple[str, ...] = ()
+
+    @classmethod
+    def of(cls, rng: "Union[int, DropoutRng, None]") -> "Optional[DropoutRng]":
+        """A seed → the root of its stream; a DropoutRng or None as given."""
+        return cls(flax_init.prng_key(rng)) if isinstance(rng, int) else rng
+
+    def child(self, name: str) -> "DropoutRng":
+        return DropoutRng(self.key, self.path + (name,))
+
+    def dropout_key(self, index: int) -> Tuple[int, int]:
+        """The key of this scope's ``Dropout_{index}``."""
+        return flax_init.fold_in_names(self.key, *self.path, f"Dropout_{index}", 1)
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool, rng: Optional[DropoutRng], index: int) -> torch.Tensor:
+    """flax's ``nn.Dropout(rate)`` named ``Dropout_{index}`` under ``rng``'s
+    scope: the identity when ``deterministic`` or ``rate == 0``; else
+    ``x / keep`` (keep = 1 − rate in x's dtype) where the mask keeps and 0
+    elsewhere, as ``lax.select`` does."""
+    if deterministic or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    if rng is None:
+        raise ValueError(
+            f"dropout={rate} in training needs a dropout key: pass dropout_rng (a seed, as JAX's "
+            "rngs={'dropout': PRNGKey(seed)}) or set dropout=0.0"
         )
+    mask = dropout_mask(rng.dropout_key(index), tuple(x.shape), rate, x.device)
+    return torch.where(mask, x / torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device), 0.0)
 
 
 def _dense(x: torch.Tensor, lin: nn.Linear, dt: torch.dtype) -> torch.Tensor:
@@ -233,12 +301,16 @@ class SelfAttention(nn.Module):
             return F.linear(y.to(self.cfg.dtype), getattr(self, f"w_{name}_c"), getattr(self, f"b_{name}_c"))
         return _dense(y, self.qkv if name == "qkv" else self.attn_out, self.cfg.dtype)
 
-    def forward(self, x: torch.Tensor, attention_mask: Optional[torch.Tensor], deterministic: bool = True) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, attention_mask: Optional[torch.Tensor], deterministic: bool = True,
+        dropout_rng: Optional[DropoutRng] = None,
+    ) -> torch.Tensor:
         cfg = self.cfg
         dt = cfg.dtype
         b, t, d = x.shape
         h, dh = cfg.num_heads, cfg.head_dim
-        if cfg.attention_impl == "kernel":
+        # dropout on the probabilities takes the einsum path, as JAX's
+        if cfg.attention_impl == "kernel" and (deterministic or cfg.dropout == 0.0):
             key_mask = (
                 torch.ones((b, t), dtype=torch.float32, device=x.device)
                 if attention_mask is None
@@ -265,7 +337,7 @@ class SelfAttention(nn.Module):
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (1.0 / float(dh) ** 0.5)
         if attention_mask is not None:
             logits = logits + torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9).float()
-        probs = torch.softmax(logits, dim=-1).to(dt)
+        probs = dropout(torch.softmax(logits, dim=-1).to(dt), cfg.dropout, deterministic, dropout_rng, 0)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, t, d)
         return self._project(out, "out", deterministic)
 
@@ -291,10 +363,16 @@ class EncoderLayer(nn.Module):
         int8 = cfg.ffn_kernel and cfg.quantize == "int8"
         _derive(self, (("in", self.fc_in), ("out", self.fc_out)), int8, not int8, cfg.dtype)
 
-    def forward(self, x: torch.Tensor, attention_mask: Optional[torch.Tensor], deterministic: bool = True) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, attention_mask: Optional[torch.Tensor], deterministic: bool = True,
+        dropout_rng: Optional[DropoutRng] = None,
+    ) -> torch.Tensor:
+        """In training, ``Dropout_0`` on the attention output and
+        ``Dropout_1`` on the FFN output, as JAX's layer creates them."""
         cfg = self.cfg
         dt = cfg.dtype
-        attn = self.attention(x, attention_mask, deterministic)
+        attn = self.attention(x, attention_mask, deterministic, dropout_rng and dropout_rng.child("attention"))
+        attn = dropout(attn, cfg.dropout, deterministic, dropout_rng, 0)
         x = self.attn_ln(x + attn).to(dt)
         b, t, d = x.shape
         if not deterministic:  # training takes the dense FFN on the masters
@@ -311,6 +389,7 @@ class EncoderLayer(nn.Module):
         else:
             h = F.gelu(F.linear(x, self.w_in_c, self.b_in_c))
             h = F.linear(h, self.w_out_c, self.b_out_c)
+        h = dropout(h, cfg.dropout, deterministic, dropout_rng, 1)
         return self.ffn_ln(x + h).to(dt)
 
 
@@ -322,18 +401,22 @@ class TransformerEncoder(nn.Module):
             self.add_module(f"layer_{i}", EncoderLayer(cfg))
 
     def forward(
-        self, x: torch.Tensor, attention_mask: Optional[torch.Tensor] = None, deterministic: bool = True
+        self, x: torch.Tensor, attention_mask: Optional[torch.Tensor] = None, deterministic: bool = True,
+        dropout_rng: "Union[int, DropoutRng, None]" = None,
     ) -> torch.Tensor:
         """x [b, t, d_model]; attention_mask [b, t], 1 = attend.
-        ``deterministic=False`` is training mode (``dropout`` must be 0)."""
-        check_dropout(self.cfg, deterministic)
+        ``deterministic=False`` is training mode; with ``dropout > 0`` it
+        needs ``dropout_rng``: a seed (this encoder applied alone, JAX's
+        ``rngs={"dropout": PRNGKey(seed)}``) or its parent's scope."""
+        rng = DropoutRng.of(dropout_rng)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for i in range(self.cfg.num_layers):
             layer = getattr(self, f"layer_{i}")
-            if remat:
-                x = torch.utils.checkpoint.checkpoint(layer, x, attention_mask, deterministic, use_reentrant=False)
+            layer_rng = rng and rng.child(f"layer_{i}")
+            if remat:  # the recomputation draws the same masks: the keys are pure functions of the path
+                x = torch.utils.checkpoint.checkpoint(layer, x, attention_mask, deterministic, layer_rng, use_reentrant=False)
             else:
-                x = layer(x, attention_mask, deterministic)
+                x = layer(x, attention_mask, deterministic, layer_rng)
         return x
 
 

@@ -15,8 +15,9 @@ kernel. On the card the f32 products must run without TF32
 
 Module and parameter names are the flax tree's, so :func:`load_asr` and
 :func:`msa_tpu_torch.weights.load_flax_tree` load a JAX parameter tree
-directly; :func:`init_whisper` rebuilds JAX's init. The importer of HF
-weights (``params_from_hf_whisper``) is not ported yet.
+directly; :func:`init_whisper` rebuilds JAX's init, and
+:func:`params_from_hf_whisper` turns a ``transformers`` WhisperModel state
+dict into that tree.
 """
 
 from __future__ import annotations
@@ -308,3 +309,69 @@ def whisper_from_flax(cfg: WhisperConfig, params, device="cuda") -> WhisperModel
     model = WhisperModel(cfg).to(device).eval()
     weights.load_flax_tree(model, params)
     return model
+
+
+# --- HF weight import -----------------------------------------------------------
+
+
+def _t(x) -> np.ndarray:
+    """A torch tensor (any device) or array-like → numpy."""
+    return np.asarray(x.detach().cpu().numpy() if hasattr(x, "detach") else x)
+
+
+def _attn(sd, p):
+    return {
+        "q_proj": {"kernel": _t(sd[p + "q_proj.weight"]).T, "bias": _t(sd[p + "q_proj.bias"])},
+        "k_proj": {"kernel": _t(sd[p + "k_proj.weight"]).T},
+        "v_proj": {"kernel": _t(sd[p + "v_proj.weight"]).T, "bias": _t(sd[p + "v_proj.bias"])},
+        "out_proj": {"kernel": _t(sd[p + "out_proj.weight"]).T, "bias": _t(sd[p + "out_proj.bias"])},
+    }
+
+
+def _lnp(sd, p):
+    return {"scale": _t(sd[p + "weight"]), "bias": _t(sd[p + "bias"])}
+
+
+def _mlp(sd, p):
+    return {"fc1": {"kernel": _t(sd[p + "fc1.weight"]).T, "bias": _t(sd[p + "fc1.bias"])},
+            "fc2": {"kernel": _t(sd[p + "fc2.weight"]).T, "bias": _t(sd[p + "fc2.bias"])}}
+
+
+def params_from_hf_whisper(state_dict, cfg: WhisperConfig) -> dict:
+    """A ``transformers`` WhisperModel state dict (torch tensors or numpy
+    arrays under HF's names) → this model's flax tree with numpy leaves
+    (the encoder's conv stem and blocks, the decoder's embeddings and
+    blocks), which :func:`whisper_from_flax` loads. A copy of
+    ``msa_tpu/models/whisper.py:381-421``: torch conv weights ``[out, in,
+    k]`` become flax's ``[k, in, out]``, Linear weights are transposed, and
+    ``k_proj`` has no bias."""
+    sd = state_dict
+    enc = {
+        "conv1": {"kernel": _t(sd["encoder.conv1.weight"]).transpose(2, 1, 0), "bias": _t(sd["encoder.conv1.bias"])},
+        "conv2": {"kernel": _t(sd["encoder.conv2.weight"]).transpose(2, 1, 0), "bias": _t(sd["encoder.conv2.bias"])},
+        "layer_norm": _lnp(sd, "encoder.layer_norm."),
+    }
+    for i in range(cfg.encoder_layers):
+        p = f"encoder.layers.{i}."
+        enc[f"layer_{i}"] = {
+            "self_attn": _attn(sd, p + "self_attn."),
+            "self_attn_layer_norm": _lnp(sd, p + "self_attn_layer_norm."),
+            **_mlp(sd, p),
+            "final_layer_norm": _lnp(sd, p + "final_layer_norm."),
+        }
+    dec = {
+        "embed_tokens": {"embedding": _t(sd["decoder.embed_tokens.weight"])},
+        "embed_positions": _t(sd["decoder.embed_positions.weight"]),
+        "layer_norm": _lnp(sd, "decoder.layer_norm."),
+    }
+    for i in range(cfg.decoder_layers):
+        p = f"decoder.layers.{i}."
+        dec[f"layer_{i}"] = {
+            "self_attn": _attn(sd, p + "self_attn."),
+            "self_attn_layer_norm": _lnp(sd, p + "self_attn_layer_norm."),
+            "encoder_attn": _attn(sd, p + "encoder_attn."),
+            "encoder_attn_layer_norm": _lnp(sd, p + "encoder_attn_layer_norm."),
+            **_mlp(sd, p),
+            "final_layer_norm": _lnp(sd, p + "final_layer_norm."),
+        }
+    return {"encoder": enc, "decoder": dec}

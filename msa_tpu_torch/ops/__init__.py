@@ -1,0 +1,1 @@
+from msa_tpu_torch.ops import normalization  # noqa: F401

@@ -14,8 +14,12 @@ kernel), out ``[B, (L − k)//2 + 1, C']`` in x's dtype. The weight is cast
 to x's dtype first. Products accumulate in f32, the GELU (the A&S erf form
 of the TPU kernel) runs in f32 and the result is rounded once.
 
-As in JAX, no path of the system reaches it: the audio extractor convolves
-in the library (``models/audio.py``), as JAX's production path does.
+The audio extractor's ``extractor_impl="matmul"`` option runs its six
+stride-2 layers through it at full width in serving on the card
+(``models/audio.py``: ``strided_conv_gelu``), six launches a forward; it
+has no backward, so training takes JAX's plain matmuls there. The default
+extractor, ``"conv"``, convolves in cuDNN, as JAX's default convolves in
+XLA.
 """
 
 from __future__ import annotations

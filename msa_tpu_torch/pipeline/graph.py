@@ -50,10 +50,11 @@ from msa_tpu_torch.core import emotions
 from msa_tpu_torch.core.config import SystemConfig
 from msa_tpu_torch.models.audio import AudioEmotionModel, AudioModelConfig
 from msa_tpu_torch.models.face import (
-    FaceEmotionCNN,
     FaceLandmarkNet,
     FaceModelConfig,
     bilinear_crop_resize,
+    load_emotion_weights,
+    make_emotion_cnn,
     rgb_to_gray,
 )
 from msa_tpu_torch.models import fusion as fusion_lib
@@ -100,18 +101,19 @@ def _read_fusion(rel: str):
     return path, dims, payload["params"]
 
 
-def _init_then_load(models: "PipelineModels", name: str, module: torch.nn.Module, seed: int, rel, shape_tree=None):
+def _init_then_load(models: "PipelineModels", name: str, module: torch.nn.Module, seed: int, rel, shape_tree=None,
+                    read=flax_msgpack.load):
     """JAX's init of ``module`` from ``seed`` (:mod:`msa_tpu_torch.flax_init`),
-    then the configured checkpoint ``rel`` on top. A checkpoint that is
-    missing or does not fit logs a warning and leaves the init, as
-    ``msa_tpu/pipeline/graph.py:161-271`` does; ``models.loaded`` records
-    only what loaded."""
+    then the configured checkpoint ``rel`` on top, as ``read(path)`` gives
+    its tree. A checkpoint that is missing or does not fit logs a warning
+    and leaves the init, as ``msa_tpu/pipeline/graph.py:161-271`` does;
+    ``models.loaded`` records only what loaded."""
     flax_init.init_module_(module, seed)
     if rel is None:  # configured without a checkpoint
         return
     try:
         path = resolve_asset(rel)
-        tree = flax_msgpack.load(path)
+        tree = read(path)
         weights.load_flax_tree(module, shape_tree(tree) if shape_tree else tree)
     except _LOAD_ERRORS as e:
         logger.warning("%s checkpoint %s does not fit this config (%s); keeping the init from seed %d", name, rel, e, seed)
@@ -133,7 +135,7 @@ class PipelineModels:
     """All modules of the pipeline, on one device, in eval mode."""
 
     landmark: FaceLandmarkNet
-    face_cnn: FaceEmotionCNN
+    face_cnn: torch.nn.Module  # FaceEmotionCNN, or DeepFaceEmotionCNN under cnn_arch="deepface"
     audio: AudioEmotionModel
     text: TextModel
     fusion: FusionMLP
@@ -164,7 +166,7 @@ class PipelineModels:
         with torch.device(device):
             models = cls(
                 landmark=FaceLandmarkNet(face_cfg),
-                face_cnn=FaceEmotionCNN(face_cfg),
+                face_cnn=make_emotion_cnn(face_cfg),
                 audio=AudioEmotionModel(audio_cfg),
                 text=TextModel(text_cfg),
                 fusion=FusionMLP(**fusion_dims),
@@ -281,7 +283,9 @@ class PipelineModels:
             return tree if "pool" in tree else {"emotion_head": tree}  # bare linear head format
 
         _init_then_load(models, "landmark", models.landmark, seed, face_cfg.landmark_weights)
-        _init_then_load(models, "face_cnn", models.face_cnn, seed + 1, face_cfg.emotion_weights)
+        # a flax-msgpack file, or under cnn_arch="deepface" a Keras FER npz
+        _init_then_load(models, "face_cnn", models.face_cnn, seed + 1, face_cfg.emotion_weights,
+                        read=lambda path: load_emotion_weights(models.face_cnn, path))
         if audio_params is not None:
             _load_whole("audio", models.audio, audio_params)
         else:

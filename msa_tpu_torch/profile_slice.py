@@ -2,7 +2,7 @@
 
     python3 -m msa_tpu_torch.profile_slice [--tokens 512] [--batch 2] [--steps 3] [--quantize int8|none|f32|int8_f32]
                                            [--samples 80000]
-                                           [--train | --stream | --conv | --asr | --gemm-s8 | --gemm-bf16 | --gemm-f32
+                                           [--train | --stream | --conv | --extractor | --asr | --gemm-s8 | --gemm-bf16 | --gemm-f32
                                             | --f32-rows | --attn-bwd-f32 | --attn-wide | --attn-wide-tiles
                                             | --attn-wide-f32 | --attn-wide-f32-plans | --int8-chains]
 
@@ -42,7 +42,11 @@ GELU), each the median of ``--steps`` CUDA-event timings, and the device
 time of the row's kernel (with and without its GELU) and of cuDNN's from
 the profiler's trace; two calls compared bit for bit. It times another
 tree of the package too (``PYTHONPATH=<tree> python3 -P
-msa_tpu_torch/profile_slice.py --conv``). ``--asr``
+msa_tpu_torch/profile_slice.py --conv``). ``--extractor`` times the
+full-width audio extractor at 5 s (B=2 and 64, bf16 and f32) with
+``extractor_impl="matmul"`` (row 11 in its stride-2 layers) and with
+``"conv"`` (cuDNN), kernel by kernel, and its layout change from [B, C, L]
+to the GEMM layers' [B, L, C] alone. ``--asr``
 profiles instead one ``transcribe_batch`` of the shipped whisper ASR on
 ``--batch`` (default 8) windows of ``tests/data/asr_clips.npz``.
 ``--gemm-s8`` times instead the int8 GEMM of rows 7 and 9 alone
@@ -178,6 +182,8 @@ def main(argv=None) -> int:
     ap.add_argument("--stream", action="store_true", help="one StreamingProcessor.process_segment window instead of a forward")
     ap.add_argument("--conv", action="store_true", help="row 11 at the wav2vec2 stride-2 layers instead of a forward")
     ap.add_argument("--asr", action="store_true", help="one batch of the shipped whisper ASR instead of a forward")
+    ap.add_argument("--extractor", action="store_true",
+                    help="the audio extractor, extractor_impl='matmul' (row 11) against 'conv' (cuDNN), kernel by kernel")
     ap.add_argument("--gemm-s8", action="store_true", help="the int8 GEMM of rows 7 and 9 alone, each plan, beside torch._int_mm")
     ap.add_argument("--gemm-bf16", action="store_true", help="the bf16 GEMM of rows 8 and 10 alone, each plan, beside torch.matmul")
     ap.add_argument("--gemm-f32", action="store_true", help="the f32 GEMM of rows 10, 8 and 11 alone, each plan, beside torch.addmm")
@@ -200,6 +206,8 @@ def main(argv=None) -> int:
         return 2
     if args.conv:
         return conv_layers(b, max(args.steps, 5))
+    if args.extractor:
+        return extractor_paths(max(args.steps, 5))
     if args.gemm_s8:
         return gemm_s8_plans(max(args.steps, 20))
     if args.gemm_bf16:
@@ -506,6 +514,58 @@ def conv_layers(b: int, reps: int) -> int:
 
     print(json.dumps({"conv": rows, "total": total, "package": str(Path(msa_tpu_torch.__file__).parent),
                       "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+def extractor_paths(reps: int) -> int:
+    """The full-width audio extractor (JAX's flax init, seed 2) at 5 s, B=2
+    and B=64, bf16 and f32 (TF32 off): ``extractor_impl="matmul"`` (row 11
+    in its six stride-2 layers) against ``"conv"`` (cuDNN), each path's
+    device ms per call from the profiler's trace and its kernels ranked,
+    and the matmul path's layout change after layer 0 ([B, C, L] → [B, L,
+    C]) timed alone."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from msa_tpu_torch import flax_init
+    from msa_tpu_torch.models.audio import AudioModelConfig, ConvFeatureExtractor
+    from msa_tpu_torch.models.transformer import EncoderConfig
+    from msa_tpu_torch.precision import exact_fp32
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    rng = np.random.default_rng(0)
+    for dtype in ("bfloat16", "float32"):
+        cfg = AudioModelConfig(encoder=EncoderConfig(compute_dtype=dtype))
+        with torch.device("cuda"):
+            conv = flax_init.init_module_(ConvFeatureExtractor(cfg).eval().requires_grad_(False), 2)
+            mm = ConvFeatureExtractor(dataclasses.replace(cfg, extractor_impl="matmul")).eval().requires_grad_(False)
+        mm.load_state_dict(conv.state_dict())
+        for b in (2, 64):
+            wav = torch.from_numpy((0.1 * rng.standard_normal((b, 80_000))).astype(np.float32)).cuda()
+            with torch.inference_mode(), exact_fp32():
+                for label, fx in (("conv", conv), ("matmul", mm)):
+                    fx(wav)
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(reps):
+                            fx(wav)
+                        torch.cuda.synchronize()
+                    rows = sorted(
+                        ((e.key, (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0))
+                          / reps / 1e3, e.count / reps)
+                         for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and e.count),
+                        key=lambda r: -r[1],
+                    )
+                    total = sum(r[1] for r in rows)
+                    print(f"{dtype} B={b} 5 s extractor {label}: {total:.4f} ms of device time per call; "
+                          + "; ".join(f"{k[:70]} {ms:.4f} ({n:g}/call)" for k, ms, n in rows[:8]), flush=True)
+                x0 = torch.empty(b, 512, 15999, dtype=conv.cfg.encoder.dtype, device="cuda")
+                ms = _device_ms(lambda: x0.transpose(1, 2).contiguous(), reps)
+                print(f"{dtype} B={b}: [B, 512, 15999] → [B, 15999, 512] alone {ms:.4f} ms "
+                      f"({2 * x0.numel() * x0.element_size() / ms / 1e6:.1f} GB/s)", flush=True)
+                del x0
     return 0
 
 

@@ -1,5 +1,6 @@
 """The encoders' training step: the text and audio models in training mode
-(``deterministic=False``, ``dropout=0.0``), the loss of the JAX package's
+(``deterministic=False``; with ``dropout > 0`` flax's masks from a seed,
+``train_step(..., dropout_seed=s)``), the loss of the JAX package's
 trainers, ``backward()`` through the attention kernels' backward (rows 3
 and 4), and optax's AdamW.
 
@@ -19,7 +20,7 @@ before serving: the serving paths read copies derived from the f32 masters.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Mapping
+from typing import Callable, Iterable, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -36,17 +37,19 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def text_loss(
-    model: nn.Module, input_ids: torch.Tensor, attention_mask: torch.Tensor, labels: Mapping[str, torch.Tensor]
+    model: nn.Module, input_ids: torch.Tensor, attention_mask: torch.Tensor, labels: Mapping[str, torch.Tensor],
+    dropout_rng: Optional[int] = None,
 ) -> torch.Tensor:
     """Σ over ``labels`` (head name → [B] classes) of each head's
-    cross-entropy on the [CLS] state, in training mode."""
-    cls = model(input_ids, attention_mask, deterministic=False)["context_embedding"]
+    cross-entropy on the [CLS] state, in training mode, the dropout masks
+    drawn from the seed ``dropout_rng``."""
+    cls = model(input_ids, attention_mask, deterministic=False, dropout_rng=dropout_rng)["context_embedding"]
     return sum(cross_entropy(getattr(model, head)(cls), y) for head, y in labels.items())
 
 
-def audio_loss(model: nn.Module, wav: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def audio_loss(model: nn.Module, wav: torch.Tensor, labels: torch.Tensor, dropout_rng: Optional[int] = None) -> torch.Tensor:
     """The emotion head's cross-entropy, in training mode."""
-    return cross_entropy(model(wav, deterministic=False)["logits"], labels)
+    return cross_entropy(model(wav, deterministic=False, dropout_rng=dropout_rng)["logits"], labels)
 
 
 def adamw(params: Iterable[torch.Tensor], lr: float = 1e-3, weight_decay: float = 1e-4) -> torch.optim.AdamW:
@@ -56,15 +59,21 @@ def adamw(params: Iterable[torch.Tensor], lr: float = 1e-3, weight_decay: float 
     return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
 
 
-def train_step(model: nn.Module, loss_fn: Callable[..., torch.Tensor], optimizer: torch.optim.Optimizer, *batch):
+def train_step(
+    model: nn.Module, loss_fn: Callable[..., torch.Tensor], optimizer: torch.optim.Optimizer, *batch,
+    dropout_seed: Optional[int] = None,
+):
     """One step: zero the gradients, ``loss_fn(model, *batch)``,
     ``backward()``, ``optimizer.step()``, with TF32 off
     (:func:`~msa_tpu_torch.precision.exact_fp32`: JAX's f32 is exact, and
-    the f32 step of the parity mode's trunks keeps it). Returns the loss
-    (detached)."""
+    the f32 step of the parity mode's trunks keeps it). With
+    ``dropout_seed`` the loss takes it as ``dropout_rng``: the step's
+    masks are those of JAX's ``rngs={"dropout": PRNGKey(dropout_seed)}``.
+    Returns the loss (detached)."""
+    extra = {} if dropout_seed is None else {"dropout_rng": dropout_seed}
     with exact_fp32():
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, *batch)
+        loss = loss_fn(model, *batch, **extra)
         loss.backward()
         optimizer.step()
     return loss.detach()

@@ -90,6 +90,12 @@ TINY = {
         1,
     ),
     "fusion": (lambda: PFus.FusionMLP(hidden_dim=64), lambda: JFus.init_params(JFus.FusionMLP(hidden_dim=64), 0), 0),
+    # cnn_arch="deepface": the FER-2013 clone's conv_0…conv_4, fc_0, fc_1, emotion_head
+    "face_cnn_deepface": (
+        lambda: PFace.DeepFaceEmotionCNN(PFace.FaceModelConfig(cnn_arch="deepface")),
+        lambda: JFace.init_emotion_params(JFace.DeepFaceEmotionCNN(JFace.FaceModelConfig(cnn_arch="deepface")), 1),
+        1,
+    ),
 }
 
 

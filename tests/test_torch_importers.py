@@ -12,6 +12,7 @@ JAX's: on the plain f32 path and on the f32 kernel path that the parity
 mode serves (the kernels' plain versions on the CPU).
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -23,30 +24,13 @@ from msa_tpu_torch import flax_init, weights
 from msa_tpu_torch.models import audio as PAudio
 from msa_tpu_torch.models import text as PText
 from msa_tpu_torch.models.transformer import EncoderConfig as PEncCfg
+from torch_parity import same_tree
 
 transformers = pytest.importorskip("transformers")
 
 IMPLS = {"plain": dict(attention_impl="einsum", ffn_impl="dense"), "kernel": dict(attention_impl="kernel", ffn_impl="kernel")}
 # d_model 128 so that the kernel path takes attention_block and ffn_fused
 ENC = dict(num_layers=2, d_model=128, num_heads=4, d_ff=256)
-
-
-def _flat(tree, prefix=""):
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flat(v, f"{prefix}{k}/"))
-        else:
-            out[prefix + k] = np.asarray(v)
-    return out
-
-
-def _same_tree(got, want):
-    got, want = _flat(got), _flat(want)
-    assert sorted(got) == sorted(want)
-    for k in want:
-        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
-        assert np.array_equal(got[k], want[k]), k
 
 
 def _bert():
@@ -101,10 +85,10 @@ def test_bert_tree_equals_jax_converters():
     sd = _bert().state_dict()
     jcfg = JText.TextModelConfig(vocab_size=128, max_positions=64, encoder=JEncCfg(**ENC))
     pcfg = PText.TextModelConfig(vocab_size=128, max_positions=64, head_weights=None, encoder=PEncCfg(**ENC))
-    _same_tree(PText.params_from_hf_bert(sd, pcfg), JText.params_from_hf_bert(sd, jcfg))
+    same_tree(PText.params_from_hf_bert(sd, pcfg), JText.params_from_hf_bert(sd, jcfg))
     # numpy leaves in, as JAX's converter also takes them
     as_np = {k: v.numpy() for k, v in sd.items()}
-    _same_tree(PText.params_from_hf_bert(as_np, pcfg), JText.params_from_hf_bert(sd, jcfg))
+    same_tree(PText.params_from_hf_bert(as_np, pcfg), JText.params_from_hf_bert(sd, jcfg))
 
 
 @pytest.mark.parametrize("pos_names", ["parametrizations", "weight_norm"])
@@ -117,7 +101,7 @@ def test_wav2vec2_tree_equals_jax_converters(pos_names):
     assert pc + ("weight_g" if pos_names == "weight_norm" else "parametrizations.weight.original0") in sd
     jcfg = JAudio.AudioModelConfig(encoder=JEncCfg(layer_norm_eps=1e-5, **ENC), **AUDIO)
     pcfg = PAudio.AudioModelConfig(encoder=PEncCfg(layer_norm_eps=1e-5, **ENC), **AUDIO)
-    _same_tree(PAudio.params_from_hf_wav2vec2(sd, pcfg), JAudio.params_from_hf_wav2vec2(sd, jcfg))
+    same_tree(PAudio.params_from_hf_wav2vec2(sd, pcfg), JAudio.params_from_hf_wav2vec2(sd, jcfg))
 
 
 @pytest.mark.parametrize("impl", sorted(IMPLS))
@@ -150,3 +134,44 @@ def test_audio_trunk_on_imported_wav2vec2_matches_hf(rng, impl):
         got = model(torch.from_numpy(wav))["hidden"]
     assert got.shape == want.shape
     assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_whisper_importer_matches_jax_and_hf():
+    """``params_from_hf_whisper`` on a tiny ``transformers.WhisperModel``
+    with random weights (tests/test_whisper.py:56-106's config): JAX's tree
+    leaf for leaf, from torch tensors and from numpy arrays alike, and the
+    port's teacher-forced logits on it within 2e-4 of HF's (its decoder
+    states through the tied embedding) and of JAX's."""
+    from msa_tpu.models import whisper as JW
+    from msa_tpu_torch.models import whisper as PW
+
+    cfg = PW.WhisperConfig.tiny()
+    torch.manual_seed(0)
+    hf = transformers.WhisperModel(
+        transformers.WhisperConfig(
+            vocab_size=cfg.vocab_size, num_mel_bins=cfg.n_mels, d_model=cfg.d_model,
+            encoder_layers=cfg.encoder_layers, decoder_layers=cfg.decoder_layers,
+            encoder_attention_heads=cfg.num_heads, decoder_attention_heads=cfg.num_heads,
+            encoder_ffn_dim=cfg.d_ff, decoder_ffn_dim=cfg.d_ff,
+            max_source_positions=cfg.max_source_positions, max_target_positions=cfg.max_target_positions,
+            dropout=0.0, attention_dropout=0.0, activation_dropout=0.0, activation_function="gelu",
+            pad_token_id=0, bos_token_id=1, eos_token_id=cfg.eos_token_id,
+            decoder_start_token_id=cfg.decoder_start_token_id,
+        )
+    ).eval()
+    sd = hf.state_dict()
+    tree = PW.params_from_hf_whisper(sd, cfg)
+    same_tree(tree, JW.params_from_hf_whisper(sd, JW.WhisperConfig.tiny()))
+    same_tree(PW.params_from_hf_whisper({k: v.numpy() for k, v in sd.items()}, cfg), tree)
+
+    rng = np.random.default_rng(0)
+    mel = rng.normal(size=(1, 2 * cfg.max_source_positions, cfg.n_mels)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab_size, size=(1, 5))
+    with torch.no_grad():
+        hidden = hf(input_features=torch.from_numpy(mel.transpose(0, 2, 1)),
+                    decoder_input_ids=torch.from_numpy(toks)).last_hidden_state
+        want = (hidden @ hf.decoder.embed_tokens.weight.T).numpy()
+        got = PW.whisper_from_flax(cfg, tree, "cpu")(torch.from_numpy(mel), torch.from_numpy(toks)).numpy()
+    jax_logits = np.asarray(jax.jit(JW.WhisperModel(JW.WhisperConfig.tiny()).apply)({"params": tree}, mel, toks.astype(np.int32)))
+    np.testing.assert_allclose(got, want, atol=2e-4)
+    np.testing.assert_allclose(got, jax_logits, atol=2e-4)

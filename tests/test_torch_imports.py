@@ -54,3 +54,30 @@ def test_the_port_is_there():
         "msa_tpu_torch/main.py",
     ):
         assert want in names
+
+
+# JAX's package namespaces and what each re-exports; evaluation/, parallel/
+# and training/ follow when their modules are ported
+NAMESPACES = ("", "core", "host", "models", "ops", "pipeline", "processors", "utils", "visualizers")
+
+
+def _exported(init: pathlib.Path):
+    """The names an ``__init__.py`` imports from its submodules."""
+    for node in ast.parse(init.read_text()).body:
+        if isinstance(node, ast.ImportFrom):
+            yield from (a.asname or a.name for a in node.names)
+
+
+@pytest.mark.parametrize("ns", NAMESPACES, ids=lambda n: n or "msa_tpu_torch")
+def test_namespaces_export_jax_names(ns):
+    """Each name that JAX's ``msa_tpu/<ns>/__init__.py`` exports is in the
+    port's namespace, and importing it builds no kernel."""
+    import importlib
+
+    from msa_tpu_torch.ops.kernels import build
+
+    want = sorted(_exported(ROOT / "msa_tpu" / ns / "__init__.py"))
+    assert want
+    port = importlib.import_module(f"msa_tpu_torch.{ns}" if ns else "msa_tpu_torch")
+    assert [n for n in want if not hasattr(port, n)] == []
+    assert build.library.cache_info().currsize == 0

@@ -27,6 +27,7 @@ within the 2·3·lr that three such steps allow.
 import dataclasses
 from typing import Mapping
 
+import flax.linen
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -93,14 +94,22 @@ def _shift_invariant(name: str, p: torch.Tensor) -> torch.Tensor:
 # --- the two models ---------------------------------------------------------------
 
 
-def _text(dtype, seed=0):
+def _rngs(dropout_seed):
+    """JAX's ``rngs`` argument for a dropout seed (None: no dropout key)."""
+    return {} if dropout_seed is None else {"rngs": {"dropout": jax.random.PRNGKey(dropout_seed)}}
+
+
+def _text(dtype, seed=0, dropout=0.0, dropout_seed=None):
     """(JAX model, params, loss of params; port model with the params, loss
-    of the port model): the text model, its four heads' cross-entropy."""
+    of the port model): the text model, its four heads' cross-entropy; with
+    ``dropout``, both draw their masks from ``dropout_seed``."""
     rng = np.random.default_rng(seed)
     jcfg = JText.TextModelConfig.tiny()
-    jm = JText.TextModel(dataclasses.replace(jcfg, encoder=dataclasses.replace(jcfg.encoder, compute_dtype=dtype, **JTRAIN)))
+    jm = JText.TextModel(dataclasses.replace(jcfg, encoder=dataclasses.replace(
+        jcfg.encoder, compute_dtype=dtype, **{**JTRAIN, "dropout": dropout})))
     pcfg = PText.TextModelConfig.tiny()
-    pm = PText.TextModel(dataclasses.replace(pcfg, encoder=dataclasses.replace(pcfg.encoder, compute_dtype=dtype, **TRAIN)))
+    pm = PText.TextModel(dataclasses.replace(pcfg, encoder=dataclasses.replace(
+        pcfg.encoder, compute_dtype=dtype, **{**TRAIN, "dropout": dropout})))
     ids = rng.integers(1, jcfg.vocab_size, size=(2, 24)).astype(np.int32)
     mask = np.ones((2, 24), np.int32)
     mask[1, 15:] = 0
@@ -108,7 +117,7 @@ def _text(dtype, seed=0):
     params = jm.init(jax.random.PRNGKey(seed), ids, mask)["params"]
 
     def jloss(p):
-        cls = jm.apply({"params": p}, ids, mask, deterministic=False)["context_embedding"]
+        cls = jm.apply({"params": p}, ids, mask, deterministic=False, **_rngs(dropout_seed))["context_embedding"]
         total = 0.0
         for head, y in labels.items():
             logp = jax.nn.log_softmax((cls @ p[head]["kernel"] + p[head]["bias"]).astype(jnp.float32))
@@ -117,28 +126,31 @@ def _text(dtype, seed=0):
 
     weights.load_flax_tree(pm, to_numpy(params))
     batch = (torch.from_numpy(ids).long(), torch.from_numpy(mask), {h: torch.from_numpy(y) for h, y in labels.items()})
-    return jm, params, jloss, pm, lambda m: training.text_loss(m, *batch)
+    return jm, params, jloss, pm, lambda m, seed=dropout_seed: training.text_loss(m, *batch, dropout_rng=seed)
 
 
-def _audio(dtype, seed=0):
+def _audio(dtype, seed=0, dropout=0.0, dropout_seed=None):
     """As :func:`_text` for the audio model (T = 398 frames) and its
     emotion head's cross-entropy."""
     rng = np.random.default_rng(seed)
     jcfg = JAud.AudioModelConfig.tiny()
-    jm = JAud.AudioEmotionModel(dataclasses.replace(jcfg, encoder=dataclasses.replace(jcfg.encoder, compute_dtype=dtype, **JTRAIN)))
+    jm = JAud.AudioEmotionModel(dataclasses.replace(jcfg, encoder=dataclasses.replace(
+        jcfg.encoder, compute_dtype=dtype, **{**JTRAIN, "dropout": dropout})))
     pcfg = PAud.AudioModelConfig.tiny()
-    pm = PAud.AudioEmotionModel(dataclasses.replace(pcfg, encoder=dataclasses.replace(pcfg.encoder, compute_dtype=dtype, **TRAIN)))
+    pm = PAud.AudioEmotionModel(dataclasses.replace(pcfg, encoder=dataclasses.replace(
+        pcfg.encoder, compute_dtype=dtype, **{**TRAIN, "dropout": dropout})))
     wav = (0.1 * rng.standard_normal((2, 8000))).astype(np.float32)
     y = rng.integers(0, 4, size=2)
     params = jm.init(jax.random.PRNGKey(seed), wav)["params"]
 
     def jloss(p):
-        logits = jm.apply({"params": p}, wav, deterministic=False)["logits"]
+        logits = jm.apply({"params": p}, wav, deterministic=False, **_rngs(dropout_seed))["logits"]
         logp = jax.nn.log_softmax(logits.astype(jnp.float32))
         return -jnp.mean(jnp.take_along_axis(logp, jnp.asarray(y)[:, None], axis=1))
 
     weights.load_flax_tree(pm, to_numpy(params))
-    return jm, params, jloss, pm, lambda m: training.audio_loss(m, torch.from_numpy(wav), torch.from_numpy(y))
+    return jm, params, jloss, pm, lambda m, seed=dropout_seed: training.audio_loss(
+        m, torch.from_numpy(wav), torch.from_numpy(y), dropout_rng=seed)
 
 
 MODELS = {"text": _text, "audio": _audio}
@@ -252,16 +264,121 @@ def test_bf16_audio_model_keeps_f32_conv_masters():
 
 
 def test_training_with_dropout_raises():
-    """Flax's dropout masks are not ported: training with dropout > 0
-    refuses; serving ignores dropout, as JAX does."""
+    """Training with dropout > 0 and no dropout key raises, as flax's
+    ``make_rng("dropout")`` does without ``rngs``; with a key it trains
+    (the parity with JAX is held below); serving ignores dropout and needs
+    no key, as JAX does."""
     cfg = PText.TextModelConfig.tiny()  # dropout 0.1, JAX's default
     model = PText.TextModel(cfg)
     ids, mask = torch.ones(1, 8, dtype=torch.long), torch.ones(1, 8)
     assert torch.isfinite(model(ids, mask)["emotion_probs"]).all()
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="dropout"):
         model(ids, mask, deterministic=False)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="dropout"):
         model.encoder(torch.zeros(1, 8, 32), mask, deterministic=False)
+    assert torch.isfinite(model(ids, mask, deterministic=False, dropout_rng=0)["emotion_probs"]).all()
+
+
+@pytest.fixture(scope="module")
+def dropout_models():
+    """``kind`` → the tiny f32 model of that kind with dropout 0.1, its
+    losses drawing from seed 7 (as :func:`_text`), each built once."""
+    built = {}
+
+    def get(kind):
+        if kind not in built:
+            built[kind] = MODELS[kind]("float32", dropout=0.1, dropout_seed=7)
+        return built[kind]
+
+    return get
+
+
+@pytest.mark.parametrize("kind", sorted(MODELS))
+def test_training_with_dropout_matches_jax(kind, dropout_models):
+    """The tiny f32 text and audio models with dropout 0.1 in training, on
+    the kernel configs (which dropout sends to the einsum attention, as
+    JAX's): the loss and every gradient within 1e-5 of JAX's
+    ``value_and_grad`` under ``rngs={"dropout": PRNGKey(7)}``; the seed 8
+    gives another loss."""
+    _, params, jloss, pm, ploss = dropout_models(kind)
+    want_loss, jgrads = jax.jit(jax.value_and_grad(jloss))(params)
+    pm.zero_grad(set_to_none=True)
+    loss = ploss(pm)
+    loss.backward()
+    assert abs(loss.item() - float(want_loss)) <= 1e-5, (loss.item(), float(want_loss))
+    for name, key, want, p in _leaves(pm, to_numpy(jgrads)):
+        err = np.abs(p.grad.numpy() - weights._convert(key, want, p).numpy()).max()
+        assert err <= 1e-5, (name, err)
+    with torch.no_grad():
+        assert ploss(pm, 8).item() != loss.item()
+
+
+def _sites(kind):
+    """(flax path of each dropout site's module) for the tiny models: the
+    text embeddings', then per layer the attention probabilities', the
+    attention output's and the FFN output's."""
+    layers = [("encoder", f"layer_{i}") for i in range(PT.EncoderConfig.tiny().num_layers)]
+    sites = [("embeddings", "Dropout_0")] if kind == "text" else []
+    for layer in layers:
+        sites += [layer + ("attention", "Dropout_0"), layer + ("Dropout_0",), layer + ("Dropout_1",)]
+    return sites
+
+
+@pytest.mark.parametrize("kind", sorted(MODELS))
+def test_dropout_masks_match_flax_at_every_site(kind, dropout_models):
+    """Each site's mask for a fixed key is flax's bit for bit: JAX's
+    intermediates of every ``nn.Dropout`` (zero where dropped; the text
+    batch has no padded key here, so no kept value is 0) against
+    ``dropout_mask`` under the port's ``DropoutRng`` of the same path, and
+    the port's own output at each site zero exactly there."""
+    jm, params, _, pm, _ = dropout_models(kind)
+    rng = np.random.default_rng(1)
+    if kind == "text":
+        ids = rng.integers(1, 128, size=(2, 24)).astype(np.int32)
+        args, pargs = (ids, np.ones((2, 24), np.int32)), (torch.from_numpy(ids).long(), torch.ones(2, 24))
+    else:
+        wav = (0.1 * rng.standard_normal((2, 8000))).astype(np.float32)
+        args, pargs = (wav,), (torch.from_numpy(wav),)
+    _, state = jm.apply({"params": params}, *args, deterministic=False, rngs={"dropout": jax.random.PRNGKey(3)},
+                        capture_intermediates=lambda mdl, _: isinstance(mdl, flax.linen.Dropout), mutable=["intermediates"])
+    got = {}
+    real = PT.dropout
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(PT, "dropout", lambda x, rate, det, rng_, i: got.setdefault(rng_.path + (f"Dropout_{i}",), real(x, rate, det, rng_, i)))
+        if kind == "text":
+            mp.setattr(PText, "dropout", PT.dropout)
+        pm(*pargs, deterministic=False, dropout_rng=3)
+    root = PT.DropoutRng.of(3)
+    assert sorted(got) == sorted(_sites(kind))
+    for path in _sites(kind):
+        node = state["intermediates"]
+        for name in path:
+            node = node[name]
+        dropped = np.asarray(node["__call__"][0]) == 0
+        scope = root
+        for name in path[:-1]:
+            scope = scope.child(name)
+        keep = PT.dropout_mask(scope.dropout_key(int(path[-1].split("_")[1])), dropped.shape, 0.1, "cpu").numpy()
+        assert np.array_equal(keep, ~dropped), path
+        assert np.array_equal(got[path].detach().numpy() == 0, dropped), path
+        assert 0.05 < dropped.mean() < 0.15, (path, dropped.mean())
+
+
+def test_dropout_keys_and_determinism():
+    """Two keys give two masks, one key the same mask twice; deterministic
+    ignores dropout and needs no key (the encoder's output equals that of
+    a dropout-0 twin)."""
+    x = torch.randn(2, 5, 32)
+    a, b = (PT.dropout(x, 0.1, False, PT.DropoutRng.of(s).child("layer_0"), 0) for s in (1, 2))
+    assert not torch.equal(a, b)
+    assert torch.equal(a, PT.dropout(x, 0.1, False, PT.DropoutRng.of(1).child("layer_0"), 0))
+    assert not torch.equal(a, PT.dropout(x, 0.1, False, PT.DropoutRng.of(1).child("layer_0"), 1))
+    assert PT.dropout(x, 0.1, True, None, 0) is x and PT.dropout(x, 0.0, False, None, 0) is x
+    enc = PT.TransformerEncoder(PT.EncoderConfig.tiny())
+    twin = PT.TransformerEncoder(dataclasses.replace(PT.EncoderConfig.tiny(), dropout=0.0))
+    twin.load_state_dict(enc.state_dict())
+    with torch.no_grad():
+        assert torch.equal(enc(x), twin(x, deterministic=False))
 
 
 def test_serving_after_a_step_needs_derive_weights(rng):

@@ -160,15 +160,50 @@ def test_shipped_asr_matches_jax_and_the_fixture(shipped):
     assert sum(a == b for a, b in zip(want, refs)) >= N_CLIPS - 1  # the shipped ASR's WER is 0.016
 
 
-def test_make_transcriber_resolves_like_jax(monkeypatch, tmp_path):
+def _stand_in_transformers(monkeypatch, pipeline):
+    """``transformers`` replaced in ``sys.modules`` by a module holding only
+    ``pipeline``: both transcribers import it in their constructor, and no
+    code of the real library (or of the hub) runs."""
+    import sys
+    import types
+
+    module = types.ModuleType("transformers")
+    module.pipeline = pipeline
+    monkeypatch.setitem(sys.modules, "transformers", module)
+
+
+@pytest.fixture
+def hub_offline(monkeypatch):
+    """The hub offline (``HF_HUB_OFFLINE=1``), a stand-in ``transformers``
+    whose pipeline fails as an offline one does for a model that is not in
+    the local cache, and name lookups and socket connects refused: no test
+    waits on the network."""
+    import socket
+
+    def refuse(*args, **kwargs):
+        raise OSError("no network in the tests")
+
+    def offline_pipeline(task, model, device=None):
+        raise OSError(f"{model} is not in the local cache and the hub is offline")
+
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    monkeypatch.setenv("TRANSFORMERS_OFFLINE", "1")
+    for name in ("getaddrinfo", "create_connection"):
+        monkeypatch.setattr(socket, name, refuse)
+    monkeypatch.setattr(socket.socket, "connect", refuse)
+    _stand_in_transformers(monkeypatch, offline_pipeline)
+
+
+def test_make_transcriber_resolves_like_jax(monkeypatch, tmp_path, hub_offline):
     monkeypatch.setenv("MSA_WHISPER_ASSETS", str(tmp_path / "absent"))
     assert isinstance(PT.make_transcriber("auto", scale="tiny", device="cpu"), PT.StubTranscriber)
     assert isinstance(JT.make_transcriber("auto", scale="tiny"), JT.StubTranscriber)
     for name in ("stub", "", None):
         assert isinstance(PT.make_transcriber(name, device="cpu"), PT.StubTranscriber)
-    # an HF model name: JAX tries a download and falls back to the stub;
-    # the port takes the fallback without trying
+    # an HF model name: both try the transformers pipeline, which cannot
+    # load offline, and fall back to the stub
     assert isinstance(PT.make_transcriber("openai/whisper-medium", device="cpu"), PT.StubTranscriber)
+    assert isinstance(JT.make_transcriber("openai/whisper-medium"), JT.StubTranscriber)
     rand = PT.make_transcriber("jax-whisper", device="cpu")
     assert isinstance(rand, PT.JaxWhisperTranscriber) and rand.cfg == PW.WhisperConfig.tiny()
     assert isinstance(rand.tokenizer, PT.SyllableTokenizer)
@@ -191,3 +226,45 @@ if __name__ == "__main__":
     transcripts = JT.make_transcriber("auto", scale="full").transcribe_batch(list(waves.astype(np.float32) / 32768.0), 16_000)
     np.savez_compressed(FIXTURE, waves=waves, refs=np.array(refs), transcripts=np.array(transcripts))
     print(f"wrote {FIXTURE}: {transcripts}")
+
+
+class _Pipe:
+    """A stand-in ``transformers.pipeline``: records its arguments and
+    answers with the clip's length, or raises from the call."""
+
+    def __init__(self, task, model, device=None, fail=False):
+        self.args, self.fail = (task, model, device), fail
+
+    def __call__(self, inputs):
+        if self.fail:
+            raise RuntimeError("decode failed")
+        return {"text": f"{inputs['raw'].dtype} {inputs['raw'].shape[0]} @ {inputs['sampling_rate']}"}
+
+
+def test_hf_transcriber_serves_an_hf_name_like_jax(monkeypatch, hub_offline):
+    """An HF name reaches a transformers ASR pipeline built once on the
+    port's device (JAX's ``HFTranscriber``, which the factory tries before
+    the stub); a failed transcription gives "", as JAX's."""
+    built = []
+
+    def pipeline(task, model, device=None):
+        built.append(_Pipe(task, model, device))
+        return built[-1]
+
+    _stand_in_transformers(monkeypatch, pipeline)
+    port = PT.make_transcriber("some/asr-model", language="en", device="cpu")
+    jax_side = JT.make_transcriber("some/asr-model", language="en")
+    assert isinstance(port, PT.HFTranscriber) and isinstance(jax_side, JT.HFTranscriber)
+    assert built[0].args == ("automatic-speech-recognition", "some/asr-model", torch.device("cpu"))
+    wave = np.zeros(1600, np.float64)
+    assert port.transcribe(wave, 16_000) == jax_side.transcribe(wave, 16_000) == "float32 1600 @ 16000"
+    for t in built:
+        t.fail = True
+    assert port.transcribe(wave, 16_000) == jax_side.transcribe(wave, 16_000) == ""
+
+
+def test_hf_pipeline_that_cannot_be_built_gives_the_stub(hub_offline):
+    assert isinstance(PT.make_transcriber("some/asr-model", device="cpu"), PT.StubTranscriber)
+    assert isinstance(JT.make_transcriber("some/asr-model"), JT.StubTranscriber)
+    with pytest.raises(OSError, match="local cache"):
+        PT.HFTranscriber("some/asr-model", device="cpu")

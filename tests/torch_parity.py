@@ -75,3 +75,23 @@ def bf16_bound(ref: np.ndarray) -> float:
     summation order flipping the last bit of a rounded value, which later
     layers carry forward."""
     return 5 * 2.0**-8 * float(np.abs(ref).max()) + 1e-3
+
+
+def flat_tree(tree, prefix=""):
+    """A nested dict of arrays → {"a/b/leaf": numpy array}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def same_tree(got, want):
+    """Two param trees with the same paths, dtypes and shapes, bit for bit."""
+    got, want = flat_tree(got), flat_tree(want)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        assert np.array_equal(got[k], want[k]), k
