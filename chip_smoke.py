@@ -311,6 +311,31 @@ Phases, one line each with its seconds:
      HF-whisper importer on an HF-named state dict made here at the
      shipped ASR's config, its first-step logits at B=8 against the CPU's
      and its tokens printed.
+ 27. fusion training and evaluation on the int8 default: AMI_MEETINGS
+     meetings made here (phase 24's clip, another seed each: a frame
+     archive and a sidecar WAV); AMIPreprocessor(...).process() over them
+     (the port's OfflineProcessor on phase 5's models): the split counts
+     (70/15/15), 24 / 24 / 96 / 96 launches of rows 7 / 9 / quantize_rows
+     / gemm_s8 per forward (warmup's included) and no other encoder
+     kernel, each record's vectors those of its segment and its target
+     numpy's pseudo_label of the segment's probabilities within
+     TARGET_ATOL; every meeting again on the int8 kernels' plain
+     versions, the f32 einsum path and phase 5's fault, each hostpack group
+     of the records at phase 24's bounds; train_fusion.train at full width (FusionMLP():
+     hidden 1024, dropout 0.3) for TRAIN_EPOCHS epochs on the card and the
+     same call on the CPU: per-epoch losses within TRAIN_LOSS_RTOL, every
+     dropout mask equal, no port kernel; two epochs then resume=True to
+     four against an uninterrupted four-epoch run within RESUME_ATOL (at
+     dropout 0: JAX's resume starts the dropout keys again from
+     PRNGKey(seed)); load_checkpoint(best_model.msgpack), its modality
+     weights summing to 1; save_pipeline → load_pipeline(device="cuda")
+     of phase 5's models with the trained fusion: every parameter and
+     derived buffer equal, one run_host batch's hostpack bit-equal;
+     ModelEvaluator over an OfflineProcessor on the loaded models on the
+     first meeting (ground truth keyed by its segments): metrics.json, the
+     four accuracies and the launches (without matplotlib: the four
+     modalities' _calculate_metrics and metrics.json, "plots: matplotlib
+     absent"); the seconds of each step.
 Phases 4, 5, 8, 18 and 23 also time run_host per forward, phase 7 run_stream per
 window, phase 24 process_video, phase 25 process_segment. Counts are set to 0
 just before each path runs and read just after.
@@ -505,6 +530,13 @@ EXTRACTOR_GRAD_F32_RTOL = 1e-4
 # the dropout key of phase 26's training steps (JAX's PRNGKey(seed)), and
 # the flat elements of each mask held against the CPU's draw at each end
 DROPOUT_SEED, MASK_SPAN = 11, 1 << 18
+# phase 27: the meeting corpus (each meeting phase 24's clip, another seed),
+# the fusion trainer's batch cap and epochs; the card's per-epoch losses
+# against the CPU's (both f32 with TF32 off: the same sums in another
+# order), a resumed run against an uninterrupted one on the card, and each
+# record's target against numpy's pseudo_label of its probabilities
+AMI_MEETINGS, AMI_BATCH, TRAIN_EPOCHS = 4, 4, 3
+TRAIN_LOSS_RTOL, RESUME_ATOL, TARGET_ATOL = 1e-4, 1e-6, 1e-6
 
 
 class SmokeFailure(RuntimeError):
@@ -628,11 +660,12 @@ def compare_f32(name, got, want):
     return err, err / want.abs().max().item(), ROW1_F32_ATOL
 
 
-def meeting_waveform(seconds: float = 20.0) -> np.ndarray:
+def meeting_waveform(seconds: float = 20.0, seed: int = 0) -> np.ndarray:
     """A deterministic meeting: two voices (harmonic stacks at 120 and 240
     Hz with their own spectral envelopes and syllabic modulation) taking
-    turns of 1.6–2.6 s with 0.8 s pauses, over a quiet noise floor."""
-    rng = np.random.default_rng(0)
+    turns of 1.6–2.6 s with 0.8 s pauses, over a quiet noise floor; another
+    ``seed`` gives another meeting."""
+    rng = np.random.default_rng(seed)
     n = int(seconds * SR)
     out = (3e-4 * rng.standard_normal(n)).astype(np.float32)
     voices = ((120.0, (1.0, 0.6, 0.3, 0.15, 0.08)), (240.0, (0.3, 1.0, 0.7, 0.2, 0.4)))
@@ -4624,6 +4657,273 @@ def main() -> int:
     del tr_hf, tr_hf_cpu, tree_w, hf_sd
     phase("whisper_importer", t1)
     phase("model_options", t0)
+
+    # --- 27. fusion training and evaluation: AMIPreprocessor → train_fusion → save/load_pipeline → ModelEvaluator --
+    t0 = time.perf_counter()
+    from msa_tpu_torch.core import emotions
+    from msa_tpu_torch.core.config import DirectoryConfig
+    from msa_tpu_torch.evaluation import ModelEvaluator
+    from msa_tpu_torch.evaluation import evaluator as EV
+    from msa_tpu_torch.host.audio_io import save_wav
+    from msa_tpu_torch.models import fusion as MFU
+    from msa_tpu_torch.pipeline import checkpoint as PCK
+    from msa_tpu_torch.processors import offline as PO
+    from msa_tpu_torch.training import preprocess_ami as PA
+    from msa_tpu_torch.training import train_fusion as TF
+
+    ami = Path(tempfile.mkdtemp(prefix="msa_smoke_ami_"))
+    try:
+        n_frames = int(CLIP_SECONDS * CLIP_FPS)
+        for m in range(AMI_MEETINGS):
+            d = ami / "raw" / f"meeting_{m}"
+            d.mkdir(parents=True)
+            save_wav(str(d / "clip.wav"), meeting_waveform(CLIP_SECONDS, seed=27 + m), SR)
+            frames = np.random.default_rng(2700 + m).integers(0, 256, (n_frames, 480, 640, 3), dtype=np.uint8)
+            np.savez(d / "clip.npz", frames=frames, fps=np.float64(CLIP_FPS))
+        del frames
+        cfg27 = SystemConfig(dirs=DirectoryConfig(*(str(ami / k) for k in ("data", "checkpoints", "output", "temp"))))
+        phase("ami_corpus", t0, meetings=AMI_MEETINGS, frames=n_frames)
+
+        dispatched, videos = [], []  # each run_host's (inputs, hostpack); each video's (path, segments, dispatch range, batch)
+        real_run_host, real_video = G.SegmentPipeline.run_host, PO.OfflineProcessor.process_video
+
+        def recording(self, inp):
+            out, carry = real_run_host(self, inp)
+            dispatched.append((inp, out["hostpack"].clone()))
+            return out, carry
+
+        def video_recording(self, path, *a, **k):
+            start = len(dispatched)
+            out = real_video(self, path, *a, **k)
+            videos.append((path, [s for sp in out for s in sp["raw_analysis"]], start, len(dispatched), self.batch_size))
+            return out
+
+        def recorded(patch=None):
+            """Record every run_host and video, with ``patch`` in the encoders' module."""
+            stack = contextlib.ExitStack()
+            for m in (swapped(T, **(patch or {})), swapped(G.SegmentPipeline, run_host=recording),
+                      swapped(PO.OfflineProcessor, process_video=video_recording)):
+                stack.enter_context(m)
+            return stack
+
+        def pack_of(v):
+            """The real rows' hostpack of a recorded video's batches."""
+            _, segs, _, stop, bs = v
+            n_b = -(-len(segs) // bs)
+            return torch.cat([hp[: min(bs, len(segs) - i * bs)] for i, (_, hp) in enumerate(dispatched[stop - n_b : stop])]).float()
+
+        # 1. the preprocessor over the corpus, on the int8 default
+        t1 = time.perf_counter()
+        reset_counts()
+        with recorded():
+            split_counts = PA.AMIPreprocessor(str(ami / "raw"), str(ami / "ami"), models=models8, config=cfg27,
+                                              device=dev).process()
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t1
+        got = counts()
+        n_fwd, n_rec = len(dispatched), sum(len(v[1]) for v in videos)
+        predicted = {**zero, "attention_block_int8": 96 * AMI_MEETINGS, "ffn_fused_int8": 96 * AMI_MEETINGS,
+                     "quantize_rows": 384 * AMI_MEETINGS, "gemm_s8": 384 * AMI_MEETINGS}
+        expected = {**zero, "attention_block_int8": 24 * n_fwd, "ffn_fused_int8": 24 * n_fwd,
+                    "quantize_rows": 96 * n_fwd, "gemm_s8": 96 * n_fwd}
+        print(f"  AMIPreprocessor over {AMI_MEETINGS} meetings of {CLIP_SECONDS:.0f} s: segments "
+              f"{[len(v[1]) for v in videos]}, splits {split_counts}, {n_fwd} forwards, launches "
+              f"{ {k: v for k, v in got.items() if v} } (predicted from phase 24's 4 forwards a clip: "
+              f"{ {k: v for k, v in predicted.items() if v} }, {'met' if got == predicted else 'missed'}); {pre_s:.3f} s",
+              flush=True)
+        check(len(videos) == AMI_MEETINGS and all(len(v[1]) >= 2 for v in videos),
+              f"the preprocessor processed {len(videos)} videos, segments {[len(v[1]) for v in videos]}")
+        check(got == expected, f"the preprocessor's launches {got}, expected {expected} ({n_fwd} forwards)")
+        want_splits = {"train": int(n_rec * 0.7), "val": int(n_rec * 0.15)}
+        want_splits["test"] = n_rec - want_splits["train"] - want_splits["val"]
+        check(split_counts == want_splits, f"splits {split_counts}, expected {want_splits} of {n_rec} segments")
+        by_key = {}
+        for _, segs, *_ in videos:
+            for sg in segs:
+                by_key[tuple(np.float32(sg["face_vec"] + sg["audio_vec"] + sg["text_vec"]).tolist())] = sg
+        check(len(by_key) == n_rec, f"{n_rec} segments, {len(by_key)} distinct vectors")
+        target_err = 0.0
+        for split in split_counts:
+            for r in json.loads((ami / "ami" / split / "data.json").read_text()):
+                sg = by_key[tuple(r["face_vec"] + r["audio_vec"] + r["text_vec"])]
+                want = PA.pseudo_label(*(np.asarray(sg[f"{k}_probs"], np.float32) for k in ("face", "audio", "text")))
+                target_err = max(target_err, float(np.abs(np.asarray(r["target"]) - want).max()))
+        print(f"  records: every target against numpy's pseudo_label of its segment's probabilities, max abs "
+              f"{target_err:.3e} (bound {TARGET_ATOL})", flush=True)
+        check(target_err <= TARGET_ATOL, f"a record's target is {target_err:.3e} off its pseudo-label")
+        phase("ami_preprocess", t1, seconds=f"{pre_s:.3f}", forwards=n_fwd, **split_counts)
+
+        # the records against the same clips through the int8 kernels' plain
+        # versions, the f32 einsum path and phase 5's fault (all the meetings:
+        # on meeting_0 alone the fault moved the audio groups 2.04x the plain
+        # path's noise, under the 3.0 bound)
+        t1 = time.perf_counter()
+        clips, segs_k = [v[0] for v in videos], [v[1] for v in videos]
+        path0, segs0 = clips[0], segs_k[0]
+        k_pack = torch.cat([pack_of(v) for v in videos])
+        tokens = dispatched[videos[0][3] - 1][0].token_ids.shape[1]
+        cfg_once = dataclasses.replace(cfg27, pipeline=dataclasses.replace(cfg27.pipeline, precompile=False))
+        proc_k = PO.OfflineProcessor(cfg_once, models=models8, device=dev)
+        proc_exact = PO.OfflineProcessor(
+            cfg_once, models=models8.with_encoders(attention_impl="einsum", ffn_impl="dense", compute_dtype="float32"),
+            device=dev, diarizer=proc_k.diarizer, transcriber=proc_k.transcriber,
+        )
+        plain_patch = {"attention_block_int8": A.attention_block_int8_plain, "ffn_fused_int8": F.ffn_int8_plain}
+        fault_patch = {"attention_block_int8": zero_last_head_v}
+        runs27 = {}
+        for name, p, patch in (("plain", proc_k, plain_patch), ("f32", proc_exact, None), ("fault", proc_k, fault_patch)):
+            dispatched.clear()
+            videos.clear()
+            with recorded(patch):
+                for clip in clips:
+                    p.process_video(clip)
+            runs27[name] = ([v[1] for v in videos], torch.cat([pack_of(v) for v in videos]))
+        rows = lambda ss: [(s["start"], s["end"], s["speaker"], s["transcript"]) for s in ss]  # noqa: E731
+        for name, (segs, _) in runs27.items():
+            check([rows(x) for x in segs] == [rows(x) for x in segs_k], f"the {name} run's segments, speakers or transcripts differ")
+        vec_err = max(float(np.abs(np.asarray(a[k]) - np.asarray(b[k])).max())
+                      for ka, pa in zip(segs_k, runs27["plain"][0]) for a, b in zip(ka, pa)
+                      for k in ("face_vec", "audio_vec", "text_vec", "fused_vec"))
+        print(f"  records, kernel against plain: {n_rec} segments of {len(clips)} meetings, vectors within {vec_err:.3e}",
+              flush=True)
+        extra = []
+        for i in range(MEDIAN_DRAWS):
+            inp_i = inputs(models8, tokens, cfg27.pipeline.segment_samples, rng=np.random.default_rng(2700 + i))
+            k_i, p_i, r_i, f_i = (
+                traced_run(pp, inp_i, patch)["hostpack"]
+                for pp, patch in ((proc_k._pipeline, None), (proc_k._pipeline, plain_patch), (proc_exact._pipeline, None),
+                                  (proc_k._pipeline, fault_patch))
+            )
+            extra.append((k_i, p_i, r_i, {"zero_last_head_v": f_i}))
+        hold_hostpack(f"preprocess records bucket{tokens}", k_pack, runs27["plain"][1], runs27["f32"][1],
+                      {"zero_last_head_v": runs27["fault"][1]}, extra, "zero_last_head_v", INT8_HOSTPACK_RATIO)
+        del proc_exact, extra, runs27
+        phase("ami_records_vs_plain", t1)
+
+        # 2. the fusion trainer at full width, on the card and on the CPU
+        t1 = time.perf_counter()
+        data = str(ami / "ami")
+        batch = max(1, min(AMI_BATCH, split_counts["train"], split_counts["val"]))
+        masks = {}
+
+        def fit(device, epochs, ckpt, tag=None, **kw):
+            real_mask = T.dropout_mask
+
+            def keep(key, shape, rate, device_):
+                mask = real_mask(key, shape, rate, device_)
+                masks.setdefault(tag, []).append(mask.cpu())
+                return mask
+
+            t2 = time.perf_counter()
+            with swapped(T, dropout_mask=keep) if tag else contextlib.ExitStack():
+                net, hist = TF.train(data, str(ami / ckpt), batch_size=batch, num_epochs=epochs, device=device, **kw)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            return net, hist, time.perf_counter() - t2
+
+        reset_counts()
+        net_card, h_card, card_s = fit(dev, TRAIN_EPOCHS, "fit_card", "card")
+        check(counts() == zero, f"the fusion trainer launched port kernels: {counts()}")
+        _, h_cpu, cpu_s = fit("cpu", TRAIN_EPOCHS, "fit_cpu", "cpu")
+        loss_err = max(abs(a - b) / abs(b) for k in h_cpu for a, b in zip(h_card[k], h_cpu[k]))
+        print(f"  train_fusion.train, FusionMLP() (hidden {net_card.hidden_dim}, dropout {net_card.dropout}), "
+              f"{split_counts['train']} / {split_counts['val']} records at batch {batch}, {TRAIN_EPOCHS} epochs: card "
+              f"{h_card}, CPU {h_cpu}; max relative difference {loss_err:.3e} (bound {TRAIN_LOSS_RTOL}); masks card / CPU "
+              f"{len(masks.get('card', []))} / {len(masks.get('cpu', []))}; {card_s / TRAIN_EPOCHS:.3f} / "
+              f"{cpu_s / TRAIN_EPOCHS:.3f} s an epoch (card / CPU, a process's first epochs)", flush=True)
+        check(net_card.hidden_dim == 1024 and net_card.dropout == 0.3, f"the trained model is {net_card.dims()}")
+        check(all(len(h_card[k]) == len(h_cpu[k]) == TRAIN_EPOCHS for k in h_cpu), f"histories {h_card} / {h_cpu}")
+        check(all(np.isfinite(h_card[k]).all() for k in h_card), f"non-finite losses {h_card}")
+        check(loss_err <= TRAIN_LOSS_RTOL, f"card losses {loss_err:.3e} off the CPU's")
+        check(len(masks.get("card", [])) == len(masks.get("cpu", [])) == 8 * TRAIN_EPOCHS * (split_counts["train"] // batch)
+              and all(torch.equal(a, b) for a, b in zip(masks["card"], masks["cpu"])),
+              "the card and the CPU drew other dropout masks")
+        dry = MFU.FusionMLP(dropout=0.0)
+        _, h_full, _ = fit(dev, 4, "fit_full", model=dry)
+        _, h_a, _ = fit(dev, 2, "fit_resumed", model=dry)
+        _, h_b, _ = fit(dev, 4, "fit_resumed", model=dry, resume=True)
+        resumed = {k: h_a[k] + h_b[k] for k in h_a}
+        resume_err = max(abs(a - b) for k in h_full for a, b in zip(resumed[k], h_full[k]))
+        print(f"  resume (dropout 0): 2 epochs + resume=True to 4 {resumed} against 4 at once {h_full}: max abs "
+              f"{resume_err:.3e} (bound {RESUME_ATOL})", flush=True)
+        check(all(len(resumed[k]) == 4 for k in resumed) and resume_err <= RESUME_ATOL, f"resume: {resume_err:.3e}")
+        best, best_w = MFU.load_checkpoint(str(ami / "fit_card" / "best_model.msgpack"), device=dev)
+        print(f"  best_model.msgpack: {best.dims()}, weights {best_w}", flush=True)
+        check(best.dims() == net_card.dims() and abs(sum(best_w.values()) - 1.0) <= 1e-6
+              and abs(sum(MFU.get_weights(best).values()) - 1.0) <= 1e-6, f"best_model.msgpack: {best_w}")
+        del best, masks
+        phase("fusion_training", t1, card_s_per_epoch=f"{card_s / TRAIN_EPOCHS:.3f}", cpu_s_per_epoch=f"{cpu_s / TRAIN_EPOCHS:.3f}")
+
+        # 3. the pipeline checkpoint: phase 5's models with the trained fusion
+        t1 = time.perf_counter()
+        models_t = dataclasses.replace(models8, fusion=net_card)
+        ckpt = ami / "pipeline.msgpack"
+        PCK.save_pipeline(str(ckpt), models_t)
+        save_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        loaded = PCK.load_pipeline(str(ckpt), device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t2
+        for name, a, b in zip(("landmark", "face_cnn", "audio", "text", "fusion"), models_t.modules(), loaded.modules()):
+            sa, sb = dict(a.named_parameters()), dict(b.named_parameters())
+            check(sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa), f"{name}: a parameter differs")
+            ba, bb = dict(a.named_buffers()), dict(b.named_buffers())
+            check(ba.keys() == bb.keys() and all(torch.equal(ba[k], bb[k]) for k in ba),
+                  f"{name}: a derived buffer differs or is missing: {sorted(set(ba) ^ set(bb))[:4]}")
+        check(loaded.text.cfg == models8.text.cfg and loaded.audio.cfg == models8.audio.cfg, "the loaded configs differ")
+        inp = inputs(models8, 512)
+        pack_a = G.SegmentPipeline(models_t).run_host(inp)[0]["hostpack"]
+        pack_b = G.SegmentPipeline(loaded).run_host(inp)[0]["hostpack"]
+        print(f"  save_pipeline {ckpt.stat().st_size / 2**20:.1f} MiB in {save_s:.3f} s, load_pipeline(device='cuda') "
+              f"{load_s:.3f} s; hostpack of one run_host (B=2, bucket 512) equal: {torch.equal(pack_a, pack_b)}", flush=True)
+        check(torch.equal(pack_a, pack_b), f"the reloaded pipeline's hostpack differs by {(pack_a - pack_b).abs().max().item():.3e}")
+        del models_t, pack_a, pack_b
+        phase("pipeline_checkpoint", t1, save_s=f"{save_s:.3f}", load_s=f"{load_s:.3f}")
+
+        # 4. the evaluator on the loaded models, the first meeting's segments as the ground truth's keys
+        t1 = time.perf_counter()
+        truth = {f"{s['start']:.1f}-{s['end']:.1f}": [emotions.PT_UI[i % len(emotions.PT_UI)]] for i, s in enumerate(segs0)}
+        has_mpl = importlib.util.find_spec("matplotlib") is not None
+        evaluator = ModelEvaluator(processor=PO.OfflineProcessor(cfg27, models=loaded, device=dev))
+        out_dir = ami / "evaluation"
+        dispatched.clear()
+        videos.clear()
+        reset_counts()
+        with recorded():
+            if has_mpl:
+                metrics = evaluator.evaluate_video(path0, truth, output_dir=str(out_dir))
+            else:
+                segments = [s for sp in evaluator.processor.process_video(path0) for s in sp["raw_analysis"]]
+                metrics = {m: evaluator._calculate_metrics(segments, truth, m) for m in EV.MODALITIES}
+                out_dir.mkdir(parents=True, exist_ok=True)
+                (out_dir / "metrics.json").write_text(json.dumps(metrics, indent=2))
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t1
+        got = counts()
+        n_fwd = len(dispatched)
+        expected = {**zero, "attention_block_int8": 24 * n_fwd, "ffn_fused_int8": 24 * n_fwd,
+                    "quantize_rows": 96 * n_fwd, "gemm_s8": 96 * n_fwd}
+        if not has_mpl:
+            print("plots: matplotlib absent", flush=True)
+        text = (out_dir / "metrics.json").read_text()
+        written = json.loads(text)
+        accuracy = {m: written[m]["accuracy"] for m in EV.MODALITIES}
+        print(f"  ModelEvaluator.evaluate_video on meeting_0 ({len(truth)} annotated segments): accuracy {accuracy}; "
+              f"metrics.json written ({len(json.dumps(written))} bytes, keys {sorted(written)}), plots "
+              f"{sorted(p.name for p in out_dir.glob('*.png'))}; {n_fwd} forwards, launches "
+              f"{ {k: v for k, v in got.items() if v} }; {eval_s:.3f} s", flush=True)
+        check(text == json.dumps(metrics, indent=2) and set(accuracy) == set(EV.MODALITIES)
+              and all(0.0 <= a <= 1.0 for a in accuracy.values()), f"metrics.json: {accuracy}")
+        check(got == expected and n_fwd >= 1, f"the evaluator's launches {got}, expected {expected} ({n_fwd} forwards)")
+        check(not has_mpl or len(list(out_dir.glob("*.png"))) == 5, "the evaluator wrote no plots")
+        del loaded, evaluator
+        phase("evaluator", t1, seconds=f"{eval_s:.3f}", forwards=n_fwd)
+        print(f"  {smi}: preprocessing {pre_s:.3f} s ({AMI_MEETINGS} meetings), a training epoch {card_s / TRAIN_EPOCHS:.3f} s "
+              f"on the card and {cpu_s / TRAIN_EPOCHS:.3f} s on the CPU, save_pipeline {save_s:.3f} s, load_pipeline "
+              f"{load_s:.3f} s, evaluation {eval_s:.3f} s", flush=True)
+        phase("fusion_training_evaluation", t0)
+    finally:
+        shutil.rmtree(ami, ignore_errors=True)
 
     kernels = [
         {

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 CANONICAL: Tuple[str, ...] = (
@@ -88,6 +89,16 @@ _IEMOCAP4_SLOTS: Tuple[int, ...] = tuple(
 def reorder(probs: torch.Tensor, perm: Tuple[int, ...]) -> torch.Tensor:
     """Apply a precomputed permutation along the last axis."""
     return probs[..., list(perm)]
+
+
+def reorder_np(probs, perm: Tuple[int, ...]) -> np.ndarray:
+    """:func:`reorder` on the host: numpy along the last axis."""
+    return np.take(np.asarray(probs), perm, axis=-1)
+
+
+def label_of(index: int, order: Sequence[str] = CANONICAL) -> str:
+    """The label of class ``index`` in ``order``."""
+    return order[int(index)]
 
 
 def duplicate_4_to_8(probs4: torch.Tensor) -> torch.Tensor:

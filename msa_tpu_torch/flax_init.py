@@ -78,6 +78,13 @@ def fold_in(key: Tuple[int, int], data: int) -> Tuple[int, int]:
     return threefry2x32(key[0], key[1], 0, data & _M32)
 
 
+def split(key: Tuple[int, int], num: int = 2) -> Tuple[Tuple[int, int], ...]:
+    """``jax.random.split(key, num)`` on JAX's partitionable threefry
+    stream: key i is threefry of the counter (0, i), both words — the same
+    as ``fold_in(key, i)``."""
+    return tuple(fold_in(key, i) for i in range(num))
+
+
 def fold_in_names(key: Tuple[int, int], *parts) -> Tuple[int, int]:
     """flax's ``_fold_in_static``: fold the first 4 bytes (big-endian) of
     the SHA-1 of the parts (strings as UTF-8, ints as minimal big-endian
@@ -261,7 +268,7 @@ def leaves(module: nn.Module) -> Iterator[Tuple[Leaf, torch.Tensor]]:
     """Every parameter of ``module`` with its flax leaf. Module names are
     the flax names; the leaf names and initializers follow the owning
     module's type. The fusion MLP's Dense layers take ``xavier_uniform``."""
-    from msa_tpu_torch.models.face import FlaxGroupNorm
+    from msa_tpu_torch.models.face import Conv1x1, FlaxGroupNorm
     from msa_tpu_torch.models.fusion import FusionMLP
     from msa_tpu_torch.models.transformer import LayerNorm
 
@@ -272,7 +279,8 @@ def leaves(module: nn.Module) -> Iterator[Tuple[Leaf, torch.Tensor]]:
             if pname == "bias":
                 yield Leaf(path + ("bias",), tuple(p.shape), "const", 0.0), p
             elif isinstance(owner, nn.Linear):
-                yield Leaf(path + ("kernel",), (p.shape[1], p.shape[0]), dense_init), p
+                one_by_one = (1, 1) if isinstance(owner, Conv1x1) else ()
+                yield Leaf(path + ("kernel",), (*one_by_one, p.shape[1], p.shape[0]), dense_init), p
             elif isinstance(owner, (nn.Conv1d, nn.Conv2d)):
                 yield Leaf(path + ("kernel",), (*p.shape[2:], p.shape[1], p.shape[0]), "lecun_normal"), p
             elif isinstance(owner, nn.Embedding):

@@ -110,6 +110,11 @@ def bilinear_crop_resize(image: torch.Tensor, bbox: torch.Tensor, out_size: int)
     return top * (1 - wy) + bot * wy
 
 
+class Conv1x1(nn.Linear):
+    """A 1×1 convolution applied as a Linear on NHWC features; its flax
+    kernel is ``[1, 1, in, out]``."""
+
+
 class FaceLandmarkNet(nn.Module):
     """[B, S, S, 3] f32 frames → landmarks [B, 478, 3] (x, y ∈ [0, 1]; small
     z) and a face-presence score [B]."""
@@ -123,9 +128,9 @@ class FaceLandmarkNet(nn.Module):
             self.add_module(f"gn_{i}", FlaxGroupNorm(min(ch, 8), ch))
             cin = ch
         L = cfg.landmark_count
-        self.heatmap_head = nn.Linear(cin, L)  # 1×1 convs, applied on NHWC
-        self.offset_head = nn.Linear(cin, 2 * L)
-        self.z_head = nn.Linear(cin, L)
+        self.heatmap_head = Conv1x1(cin, L)
+        self.offset_head = Conv1x1(cin, 2 * L)
+        self.z_head = Conv1x1(cin, L)
         self.presence_head = nn.Linear(2 * cin, 1)
 
     def forward(self, frame: torch.Tensor) -> Dict[str, torch.Tensor]:

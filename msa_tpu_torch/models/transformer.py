@@ -178,21 +178,36 @@ class DropoutRng:
     path: Tuple[str, ...] = ()
 
     @classmethod
-    def of(cls, rng: "Union[int, DropoutRng, None]") -> "Optional[DropoutRng]":
-        """A seed → the root of its stream; a DropoutRng or None as given."""
-        return cls(flax_init.prng_key(rng)) if isinstance(rng, int) else rng
+    def of(cls, rng: "Union[int, Tuple[int, int], DropoutRng, None]") -> "Optional[DropoutRng]":
+        """A seed → the root of its stream (``PRNGKey(seed)``); a key pair
+        (e.g. one of :func:`msa_tpu_torch.flax_init.split`) → the root it
+        is; a DropoutRng or None as given."""
+        if isinstance(rng, int):
+            return cls(flax_init.prng_key(rng))
+        if isinstance(rng, tuple):
+            return cls(rng)
+        return rng
 
     def child(self, name: str) -> "DropoutRng":
         return DropoutRng(self.key, self.path + (name,))
 
-    def dropout_key(self, index: int) -> Tuple[int, int]:
-        """The key of this scope's ``Dropout_{index}``."""
-        return flax_init.fold_in_names(self.key, *self.path, f"Dropout_{index}", 1)
+    def dropout_key(self, index: Union[int, str], count: int = 1) -> Tuple[int, int]:
+        """The key of the ``count``-th draw of this scope's ``Dropout_{index}``,
+        or of the dropout module named ``index`` where it is a string (one
+        that ``setup`` names, as the fusion MLP's ``drop``: flax counts the
+        ``make_rng`` calls of that one scope, so its n-th call draws with
+        count n)."""
+        name = index if isinstance(index, str) else f"Dropout_{index}"
+        return flax_init.fold_in_names(self.key, *self.path, name, count)
 
 
-def dropout(x: torch.Tensor, rate: float, deterministic: bool, rng: Optional[DropoutRng], index: int) -> torch.Tensor:
-    """flax's ``nn.Dropout(rate)`` named ``Dropout_{index}`` under ``rng``'s
-    scope: the identity when ``deterministic`` or ``rate == 0``; else
+def dropout(
+    x: torch.Tensor, rate: float, deterministic: bool, rng: Optional[DropoutRng], index: Union[int, str], count: int = 1,
+) -> torch.Tensor:
+    """flax's ``nn.Dropout(rate)`` named ``Dropout_{index}`` (or ``index``)
+    under ``rng``'s scope, at its ``count``-th call
+    (:meth:`DropoutRng.dropout_key`): the identity when ``deterministic``
+    or ``rate == 0``; else
     ``x / keep`` (keep = 1 − rate in x's dtype) where the mask keeps and 0
     elsewhere, as ``lax.select`` does."""
     if deterministic or rate == 0.0:
@@ -204,7 +219,7 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool, rng: Optional[Dro
             f"dropout={rate} in training needs a dropout key: pass dropout_rng (a seed, as JAX's "
             "rngs={'dropout': PRNGKey(seed)}) or set dropout=0.0"
         )
-    mask = dropout_mask(rng.dropout_key(index), tuple(x.shape), rate, x.device)
+    mask = dropout_mask(rng.dropout_key(index, count), tuple(x.shape), rate, x.device)
     return torch.where(mask, x / torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device), 0.0)
 
 

@@ -96,6 +96,8 @@ def _read_fusion(rel: str):
     payload = flax_msgpack.load(path)
     meta = json.loads(payload["meta_json"])
     dims = {k: meta[k] for k in _FUSION_DIMS}
+    if "dropout" in meta:  # JAX's FusionMLP field, kept for training
+        dims["dropout"] = meta["dropout"]
     with torch.device("cpu"):
         weights.load_flax_tree(FusionMLP(**dims), payload["params"])
     return path, dims, payload["params"]

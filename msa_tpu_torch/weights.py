@@ -75,15 +75,17 @@ def _load(module: nn.Module, tree: Mapping[str, Any], prefix: str) -> None:
         target.copy_(_convert(key, value, target))
 
 
-def flax_tree(module: nn.Module) -> dict:
+def flax_tree(module: nn.Module, of=None) -> dict:
     """Every parameter of ``module`` as a nested dict of f32 numpy arrays in
     flax's names and layouts (the leaves :func:`msa_tpu_torch.flax_init.leaves`
-    names): the inverse of :func:`load_flax_tree`."""
+    names): the inverse of :func:`load_flax_tree`. ``of(p)`` gives what to
+    store for parameter ``p`` in its layout (an optimizer's moment, say);
+    by default ``p`` itself."""
     from msa_tpu_torch import flax_init
 
     tree: dict = {}
     for leaf, p in flax_init.leaves(module):
-        v = p.detach().float().cpu()
+        v = (p if of is None else of(p)).detach().float().cpu()
         if leaf.path[-1] == "kernel":
             v = v.t() if v.dim() == 2 else v.permute(*range(2, v.dim()), 1, 0)
         node = tree

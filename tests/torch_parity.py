@@ -95,3 +95,25 @@ def same_tree(got, want):
     for k in want:
         assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
         assert np.array_equal(got[k], want[k]), k
+
+
+def jax_tiny_models(port_models):
+    """JAX's ``PipelineModels`` at JAX's tiny configs carrying the port's
+    tiny models' params (numpy leaves): JAX's own classes and graph without
+    JAX's init, which compiles op by op for half a minute on the CPU."""
+    from msa_tpu.models import audio as JA
+    from msa_tpu.models import face as JFace
+    from msa_tpu.models import fusion as JF
+    from msa_tpu.models import text as JT
+    from msa_tpu.pipeline import graph as JG
+
+    tree = port_models.params_tree()
+    face_cfg, audio_cfg, text_cfg = JFace.FaceModelConfig.tiny(), JA.AudioModelConfig.tiny(), JT.TextModelConfig.tiny()
+    return JG.PipelineModels(
+        landmark=JFace.FaceLandmarkNet(face_cfg), landmark_params=tree["landmark"],
+        face_cnn=JFace.make_emotion_cnn(face_cfg), face_cnn_params=tree["face_cnn"],
+        audio=JA.AudioEmotionModel(audio_cfg), audio_params=tree["audio"],
+        text=JT.TextModel(text_cfg), text_params=tree["text"],
+        fusion=JF.FusionMLP(**port_models.fusion.dims()), fusion_params=tree["fusion"],
+        tokenizer=JT.WordPieceTokenizer(vocab_size=text_cfg.vocab_size),
+    )
