@@ -336,6 +336,28 @@ Phases, one line each with its seconds:
      four accuracies and the launches (without matplotlib: the four
      modalities' _calculate_metrics and metrics.json, "plots: matplotlib
      absent"); the seconds of each step.
+ 28. the synthetic-supervision recipes: the generators timed on the host
+     (the crop batches' crop on the card); train_landmarks.train and
+     train_face_emotion.train at FaceModelConfig() and
+     train_speaker_embedder at SpeakerConfig() (8 speakers x 4
+     utterances), TRAINER_STEPS steps each on the card and the CPU from the
+     same seed: each loss within TRAINER_LOSS_RTOL of the CPU's, no port
+     kernel launched, each step's ms, each saved checkpoint reloaded
+     bit-equal; a control run on the card with TF32 on where the trainers
+     ask for exact f32, whose losses must fall outside the bound; train_audio_emotion.train(model=<phase 5's int8 audio
+     trunk>, mode="pool", speech_fraction=0.5) and
+     train_text_heads.train(model=<its text trunk>) at the AE_* and TH_*
+     sizes: rows 7 / 9 / quantize_rows / gemm_s8 12 / 12 / 48 / 48 times a
+     trunk batch (B=32 x 80,000 samples; B=64 x 64 tokens) and no other
+     kernel, the cached features equal to the kernel path's forward, which
+     is held against the int8 kernels' plain versions and phase 5's fault
+     by its noise ratio against the f32 einsum path (INT8_ENCODER_RATIO),
+     the heads saved and reloaded bit-equal; one synth_av meeting of
+     SYNTH_MEETING_SEGMENTS segments written as a frame archive and a WAV
+     (video="npz", the route of a machine without cv2) and, where cv2 is
+     installed, as the CLI's default mp4 (video="auto"), each through
+     OfflineProcessor.process_video on phase 5's models: its launches (24
+     / 24 / 96 / 96 a forward), segments and labels.
 Phases 4, 5, 8, 18 and 23 also time run_host per forward, phase 7 run_stream per
 window, phase 24 process_video, phase 25 process_segment. Counts are set to 0
 just before each path runs and read just after.
@@ -350,6 +372,7 @@ import copy
 import dataclasses
 import importlib.util
 import json
+import logging
 import os
 import re
 import shutil
@@ -537,6 +560,19 @@ DROPOUT_SEED, MASK_SPAN = 11, 1 << 18
 # record's target against numpy's pseudo_label of its probabilities
 AMI_MEETINGS, AMI_BATCH, TRAIN_EPOCHS = 4, 4, 3
 TRAIN_LOSS_RTOL, RESUME_ATOL, TARGET_ATOL = 1e-4, 1e-6, 1e-6
+# phase 28: the face and speaker trainers' steps at full width, and each
+# loss on the card within this share of the CPU's from the same seed. f32
+# with TF32 off on both sides: the same sums in other orders (cuDNN's
+# convolutions against the CPU's), read at most 7.7e-7 on an H100; TF32
+# keeps 10 bits of mantissa, and the control run with it on must read
+# above the bound
+TRAINER_STEPS, TRAINER_LOSS_RTOL = 3, 1e-5
+# the audio-emotion and text-heads recipes on phase 5's int8 trunks: clips
+# (training, held out) and fit steps; sentences a task and fit steps; the
+# synthetic meeting's segments
+AE_TRAIN, AE_EVAL, AE_STEPS = 64, 32, 20
+TH_TRAIN, TH_STEPS = 256, 20
+SYNTH_MEETING_SEGMENTS = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -4924,6 +4960,351 @@ def main() -> int:
         phase("fusion_training_evaluation", t0)
     finally:
         shutil.rmtree(ami, ignore_errors=True)
+
+    # --- 28. the synthetic-supervision recipes: generators, trainers, frozen-trunk heads, a synth_av meeting --
+    t0 = time.perf_counter()
+    from msa_tpu_torch import weights as WT
+    from msa_tpu_torch.checkpoints import flax_msgpack
+    from msa_tpu_torch.core.config import DirectoryConfig
+    from msa_tpu_torch.models import face as MF
+    from msa_tpu_torch.models import speaker as MS
+    from msa_tpu_torch.processors import offline as PO
+    from msa_tpu_torch.training import face_synth as FSY
+    from msa_tpu_torch.training import speech_synth as SSY
+    from msa_tpu_torch.training import synth_av as SAV
+    from msa_tpu_torch.training import text_synth as TSY
+    from msa_tpu_torch.training import train_audio_emotion as TAE
+    from msa_tpu_torch.training import train_face_emotion as TFE
+    from msa_tpu_torch.training import train_landmarks as TLM
+    from msa_tpu_torch.training import train_text_heads as TTH
+
+    def trees_equal(a, b) -> bool:
+        if isinstance(a, dict):
+            return isinstance(b, dict) and list(a) == list(b) and all(trees_equal(a[k], b[k]) for k in a)
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+
+    # 1. the generators, on the host (the crop batches crop on the card)
+    gen_s = {}
+
+    def host_timed(label, fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        gen_s[label] = time.perf_counter() - t1
+        return out
+
+    def seeded(i):
+        return np.random.default_rng(2800 + i)
+
+    tmpl = TLM.make_template()
+    tasks = (TSY.emotion_sentences, TSY.sentiment_sentences, TSY.sarcasm_sentences, TSY.humor_sentences)
+    host_timed("train_landmarks.render_batch, 32 faces 192x192", lambda: TLM.render_batch(seeded(0), 32, 192, tmpl, 0.25))
+    host_timed("face_synth.render_expression_batch, 64 faces 96x96",
+               lambda: FSY.render_expression_batch(seeded(1), 64, 96, template=tmpl))
+    host_timed("face_synth.render_crop_batch, 64 crops", lambda: FSY.render_crop_batch(seeded(2), 64, template=tmpl, device=dev))
+    host_timed("face_synth.adversarial_crop_batch, 64 crops",
+               lambda: FSY.adversarial_crop_batch(seeded(3), 64, template=tmpl, device=dev))
+    host_timed("speaker.synth_voice, 32 windows of 1.2 s",
+               lambda: [MS.synth_voice(seeded(4), MS.random_voice(seeded(5)), 1.2) for _ in range(32)])
+    host_timed("text_synth, 4 tasks x 256 sentences + OOV context",
+               lambda: [TSY.with_oov_context(seeded(6), gen(seeded(7), 256)[0]) for gen in tasks])
+    host_timed("speech_synth.synth_spoken_clip, 5 s",
+               lambda: SSY.synth_spoken_clip(seeded(8), MS.random_voice(seeded(9)), ["estou muito feliz hoje", "que dia triste"], 5.0))
+    host_timed("train_audio_emotion.make_dataset, 8 clips of 5 s, speech 0.5",
+               lambda: TAE.make_dataset(seeded(10), 8, speech_fraction=0.5))
+    host_timed(f"synth_av.render_meeting, {SYNTH_MEETING_SEGMENTS} segments",
+               lambda: SAV.render_meeting(seeded(11), n_segments=SYNTH_MEETING_SEGMENTS))
+    for label, sec in gen_s.items():
+        print(f"  generator {label}: {sec * 1e3:.1f} ms", flush=True)
+    phase("synthetic_generators", t0)
+
+    # 2. the face and speaker trainers at full width, card and CPU from one seed
+    t1 = time.perf_counter()
+
+    class StepLosses(logging.Handler):
+        """The loss of each per-step log record (its second argument)."""
+
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.losses = []
+
+        def emit(self, record):
+            if "step" in str(record.msg):
+                self.losses.append(float(record.args[1]))
+
+    @contextlib.contextmanager
+    def step_losses(module):
+        handler, level = StepLosses(), module.logger.level
+        module.logger.addHandler(handler)
+        module.logger.setLevel(logging.INFO)
+        try:
+            yield handler.losses
+        finally:
+            module.logger.removeHandler(handler)
+            module.logger.setLevel(level)
+
+    @contextlib.contextmanager
+    def timed_steps(module, times):
+        """Time each call of the step that ``module.make_train_step`` builds."""
+        real = module.make_train_step
+
+        def factory(model, optimizer):
+            step = real(model, optimizer)
+
+            def timed(*args):
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                out = step(*args)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t2)
+                return out
+
+            return timed
+
+        with swapped(module, make_train_step=factory):
+            yield
+
+    @contextlib.contextmanager
+    def tf32_on():
+        """The control's stand-in for exact_fp32: TF32 on in cuBLAS and cuDNN."""
+        prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+    def rel_err(got, want):
+        return max((abs(a - b) / abs(b) for a, b in zip(got, want)), default=float("inf"))
+
+    trainer_runs = {}
+    for name, module, run in (
+        ("train_landmarks", TLM, lambda d: TLM.train(MF.FaceModelConfig(), steps=TRAINER_STEPS, log_every=1, device=d)),
+        ("train_face_emotion", TFE, lambda d: TFE.train(MF.FaceModelConfig(), steps=TRAINER_STEPS, log_every=1, device=d)),
+        ("train_speaker_embedder", MS, lambda d: MS.train_speaker_embedder(MS.SpeakerConfig(), steps=TRAINER_STEPS, device=d)),
+    ):
+        got_runs = {}
+        for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            times = []
+            reset_counts()
+            t2 = time.perf_counter()
+            if module is MS:
+                out = run(device)
+                losses = out[2]["loss"]
+            else:
+                with step_losses(module) as losses, timed_steps(module, times):
+                    out = run(device)
+            torch.cuda.synchronize()
+            got_runs[side] = (list(losses), out, time.perf_counter() - t2, times)
+            if side == "card":
+                check(counts() == zero, f"{name} launched port kernels: { {k: v for k, v in counts().items() if v} }")
+        (card_l, card_out, card_s, card_t), (cpu_l, _, cpu_s, cpu_t) = got_runs["card"], got_runs["cpu"]
+        err = rel_err(card_l, cpu_l)
+        # the control: the same run on the card with TF32 on where the trainer asks for exact f32
+        with swapped(module, exact_fp32=tf32_on):
+            if module is MS:
+                tf32_l = run(dev)[2]["loss"]
+            else:
+                with step_losses(module) as tf32_l:
+                    run(dev)
+        tf32_err = rel_err(tf32_l, cpu_l)
+        step_ms = (
+            f"step ms (median of {len(card_t)}) card {statistics.median(card_t) * 1e3:.1f} / CPU {statistics.median(cpu_t) * 1e3:.1f}"
+            if card_t else f"a step with its voices {card_s / TRAINER_STEPS * 1e3:.1f} / {cpu_s / TRAINER_STEPS * 1e3:.1f} ms"
+        )
+        print(f"  {name}, {TRAINER_STEPS} steps: losses card {card_l} / CPU {cpu_l}, max relative difference {err:.3e} "
+              f"(bound {TRAINER_LOSS_RTOL}; the TF32-on control {tf32_l}, {tf32_err:.3e}); {step_ms}; "
+              f"the whole call {card_s:.3f} / {cpu_s:.3f} s", flush=True)
+        check(len(card_l) == len(cpu_l) == TRAINER_STEPS and all(np.isfinite(card_l)), f"{name}: losses {card_l} / {cpu_l}")
+        check(err <= TRAINER_LOSS_RTOL, f"{name}: card losses {err:.3e} off the CPU's")
+        check(len(tf32_l) == TRAINER_STEPS and tf32_err > TRAINER_LOSS_RTOL,
+              f"{name}: the TF32-on control's losses {tf32_err:.3e} off the CPU's, within the bound {TRAINER_LOSS_RTOL}")
+        trainer_runs[name] = card_out
+    ckpt28 = Path(tempfile.mkdtemp(prefix="msa_smoke_ckpt_"))
+    try:
+        lm_tree = trainer_runs["train_landmarks"][0]
+        flax_msgpack.dump(ckpt28 / "landmark_net.msgpack", lm_tree)  # the CLI's file
+        lm_net = MF.FaceLandmarkNet(MF.FaceModelConfig()).to(dev)
+        WT.load_flax_tree(lm_net, flax_msgpack.load(ckpt28 / "landmark_net.msgpack"))
+        fe_tree = trainer_runs["train_face_emotion"][0]
+        TFE.save_params(fe_tree, str(ckpt28 / "face_emotion_cnn.msgpack"))
+        fe_net = MF.FaceEmotionCNN(MF.FaceModelConfig()).to(dev)
+        WT.load_flax_tree(fe_net, flax_msgpack.load(ckpt28 / "face_emotion_cnn.msgpack"))
+        sp_net, sp_tree, _ = trainer_runs["train_speaker_embedder"]
+        MS.save_params(sp_tree, str(ckpt28 / "speaker_embedder.msgpack"))
+        sp_back = MS.load_params(MS.SpeakerEmbeddingNet(MS.SpeakerConfig()).to(dev), str(ckpt28 / "speaker_embedder.msgpack"))
+        reloaded = {
+            "landmark_net": trees_equal(WT.flax_tree(lm_net), lm_tree),
+            "face_emotion_cnn": trees_equal(WT.flax_tree(fe_net), fe_tree),
+            "speaker_embedder": trees_equal(WT.flax_tree(sp_back), WT.flax_tree(sp_net))
+            and all(torch.equal(a, b) for a, b in zip(sp_back.parameters(), sp_net.parameters())),
+        }
+        print(f"  checkpoints reloaded bit-equal: {reloaded}; the landmark net's metrics "
+              f"{trainer_runs['train_landmarks'][1]}, the emotion CNN's accuracy {trainer_runs['train_face_emotion'][1]['accuracy']}",
+              flush=True)
+        check(all(reloaded.values()), f"a trainer's checkpoint did not reload bit-equal: {reloaded}")
+    finally:
+        shutil.rmtree(ckpt28, ignore_errors=True)
+    del trainer_runs, lm_net, fe_net, sp_back
+    phase("face_speaker_trainers", t1)
+
+    # 3. the audio-emotion head over phase 5's int8 audio trunk
+    t1 = time.perf_counter()
+    stage_s = {}
+
+    def staged(stage, fn, keep=None):
+        """``fn`` timed into ``stage_s[stage]`` (its results kept in ``keep``)."""
+
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            stage_s[stage] = stage_s.get(stage, 0.0) + time.perf_counter() - t2
+            if keep is not None:
+                keep.append(out)
+            return out
+
+        return run
+
+    def per_batch(n_batches):
+        return {**zero, "attention_block_int8": 12 * n_batches, "ffn_fused_int8": 12 * n_batches,
+                "quantize_rows": 48 * n_batches, "gemm_s8": 48 * n_batches}
+
+    datasets = []
+    reset_counts()
+    with swapped(TAE, make_dataset=staged("audio data", TAE.make_dataset, datasets),
+                 _batched_forward=staged("audio trunk", TAE._batched_forward),
+                 train_pool_head=staged("audio fit", TAE.train_pool_head)):
+        t2 = time.perf_counter()
+        ae_head, ae_metrics = TAE.train(model=models8.audio, n_train=AE_TRAIN, n_eval=AE_EVAL, steps=AE_STEPS, mode="pool",
+                                        speech_fraction=0.5, device=dev)
+        torch.cuda.synchronize()
+        ae_s = time.perf_counter() - t2
+    got = counts()
+    ae_batches = -(-AE_TRAIN // 32) + -(-AE_EVAL // 32)
+    print(f"  train_audio_emotion.train(model=<int8 audio trunk>, mode='pool'), {AE_TRAIN} / {AE_EVAL} clips of 5 s, "
+          f"{AE_STEPS} steps: metrics {ae_metrics}; {ae_batches} trunk batches of 32, launches "
+          f"{ {k: v for k, v in got.items() if v} }; {ae_s:.3f} s: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in stage_s.items() if k.startswith("audio")), flush=True)
+    check(got == per_batch(ae_batches), f"the audio trunk's launches {got}, expected {per_batch(ae_batches)}")
+    check(sorted(ae_head) == ["emotion_head", "pool"] and ae_head["emotion_head"]["kernel"].shape == (1536, 4)
+          and all(np.isfinite(v).all() for v in (ae_head["emotion_head"]["kernel"], ae_head["emotion_head"]["bias"])),
+          f"the audio head: {sorted(ae_head)}")
+    check(0.0 <= ae_metrics["accuracy"] <= 1.0, f"audio metrics {ae_metrics}")
+
+    # the cached encoder states: the kernel path's forward, held against the
+    # int8 kernels' plain versions and phase 5's fault in units of the plain
+    # path's error against the f32 einsum path
+    exact28 = models8.with_encoders(attention_impl="einsum", ffn_impl="dense", compute_dtype="float32")
+    plain28 = {"attention_block_int8": A.attention_block_int8_plain, "ffn_fused_int8": F.ffn_int8_plain}
+    fault28 = {"attention_block_int8": zero_last_head_v}
+
+    def trunk_out(fn, patch=None):
+        with torch.no_grad(), G.exact_fp32(), swapped(T, **(patch or {})):
+            return fn()
+
+    def hold_trunk(label, run_k, run_p, run_f32, run_fault):
+        k, p, r, f = (trunk_out(fn, patch) for fn, patch in ((run_k, None), (run_p, plain28), (run_f32, None), (run_fault, fault28)))
+        e_p, ratio, fr = noise_ratios(k, p, r, {"zero_last_head_v": f})
+        print(f"  {label}: rms(f32)={rms(r):.4e} rms_err_vs_f32 plain={e_p:.4e} kernel={rms(k - r):.4e} "
+              f"kernel/plain={ratio:.4f} fault:zero_last_head_v/plain={fr['zero_last_head_v']:.4f} bound={INT8_ENCODER_RATIO}",
+              flush=True)
+        expect(ratio <= INT8_ENCODER_RATIO, f"{label}: kernel/plain noise ratio {ratio:.4f} > {INT8_ENCODER_RATIO}")
+        expect(fr["zero_last_head_v"] > INT8_ENCODER_RATIO,
+               f"{label}: the planted fault passes the check ({fr['zero_last_head_v']:.4f})")
+        return k
+
+    wav32 = torch.from_numpy(datasets[0][0][:32]).to(dev)
+    k_hidden = hold_trunk(
+        "audio trunk, the first batch of 32 clips, hidden",
+        *(lambda m=m: m(wav32)["hidden"].float() for m in (models8.audio, models8.audio, exact28.audio, models8.audio)),
+    )
+    cache = TAE._batched_forward(models8.audio, None, datasets[0][0][:32], "hidden", 32, device=True)
+    check(torch.equal(cache, k_hidden.to(torch.bfloat16)), "the trainer's bf16 cache is not the kernel path's hidden state")
+    with tempfile.TemporaryDirectory(prefix="msa_smoke_head_") as d:
+        TAE.save_head(ae_head, f"{d}/audio_emotion_head.msgpack")
+        check(trees_equal(TAE.load_head(f"{d}/audio_emotion_head.msgpack"), ae_head), "the audio head did not reload bit-equal")
+    del wav32, k_hidden, cache, datasets
+    phase("audio_emotion_trainer", t1, seconds=f"{ae_s:.3f}", batches=ae_batches)
+
+    # 4. the text heads over phase 5's int8 text trunk
+    t1 = time.perf_counter()
+    reset_counts()
+    with swapped(TTH, cls_features=staged("text trunk", TTH.cls_features), train_head=staged("text fit", TTH.train_head)):
+        t2 = time.perf_counter()
+        th_heads, th_metrics = TTH.train(model=models8.text, n_train=TH_TRAIN, steps=TH_STEPS, device=dev)
+        torch.cuda.synchronize()
+        th_s = time.perf_counter() - t2
+    got = counts()
+    th_batches = len(TTH.TASKS) * (-(-TH_TRAIN // 64) + -(-256 // 64))
+    print(f"  train_text_heads.train(model=<int8 text trunk>), {TH_TRAIN} sentences a task, {TH_STEPS} steps: metrics "
+          f"{th_metrics}; {th_batches} trunk batches of 64 x {TTH.TOKENS} tokens, launches "
+          f"{ {k: v for k, v in got.items() if v} }; {th_s:.3f} s: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in stage_s.items() if k.startswith("text")), flush=True)
+    check(got == per_batch(th_batches), f"the text trunk's launches {got}, expected {per_batch(th_batches)}")
+    check(list(th_heads) == [t[0] for t in TTH.TASKS]
+          and all(th_heads[n]["kernel"].shape == (768, c) and np.isfinite(th_heads[n]["kernel"]).all() for n, _, c in TTH.TASKS),
+          f"the text heads: {list(th_heads)}")
+    texts64, _ = TSY.emotion_sentences(seeded(12), 64)
+    ids, mask = (torch.from_numpy(x).to(dev) for x in TTH.encode_batch(models8.tokenizer, texts64))
+    k_text = hold_trunk(
+        "text trunk, a batch of 64 sentences at 64 tokens, last hidden state",
+        *(lambda m=m: m(ids.long(), mask)["last_hidden_state"].float() for m in (models8.text, models8.text, exact28.text, models8.text)),
+    )
+    cls = TTH.cls_features(models8.text, None, models8.tokenizer, texts64)
+    check(np.array_equal(cls, k_text[:, 0].cpu().numpy()), "the trainer's [CLS] features are not the kernel path's")
+    with tempfile.TemporaryDirectory(prefix="msa_smoke_heads_") as d:
+        TTH.save_heads(th_heads, f"{d}/text_heads.msgpack")
+        check(trees_equal(TTH.load_heads(f"{d}/text_heads.msgpack"), th_heads), "the text heads did not reload bit-equal")
+    del exact28, k_text, ids, mask
+    phase("text_heads_trainer", t1, seconds=f"{th_s:.3f}", batches=th_batches)
+
+    # 5. one synth_av meeting through process_video on the int8 default: the frame archive (the route of a
+    # machine without cv2) always, and where cv2 is installed also the CLI's default route, an mp4 through
+    # cv2's VideoWriter and VideoReader
+    t1 = time.perf_counter()
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    print(f"  cv2 on this machine: {has_cv2}", flush=True)
+    av = Path(tempfile.mkdtemp(prefix="msa_smoke_av_"))
+    try:
+        cfg28 = SystemConfig(dirs=DirectoryConfig(*(str(av / k) for k in ("data", "checkpoints", "output", "temp"))))
+        proc28 = PO.OfflineProcessor(cfg28, models=models8, device=dev)
+        for route, suffix in (("npz", ".npz"), *((("auto", ".mp4"),) if has_cv2 else ())):
+            t2 = time.perf_counter()
+            video = SAV.make_meeting(np.random.default_rng(28), av / route, n_segments=SYNTH_MEETING_SEGMENTS, video=route)
+            write_s = time.perf_counter() - t2
+            check(video.suffix == suffix and video.with_suffix(".wav").exists(),
+                  f"synth_av (video={route!r}) wrote {sorted(p.name for p in video.parent.iterdir())}")
+            reset_counts()
+            t2 = time.perf_counter()
+            out28 = proc28.process_video(str(video))
+            torch.cuda.synchronize()
+            pv_s = time.perf_counter() - t2
+            got = counts()
+            n_fwd = got["attention_block_int8"] // 24
+            expected = {**zero, "attention_block_int8": 24 * n_fwd, "ffn_fused_int8": 24 * n_fwd,
+                        "quantize_rows": 96 * n_fwd, "gemm_s8": 96 * n_fwd}
+            segs28 = [sg for sp in out28 for sg in sp["raw_analysis"]]
+            print(f"  synth_av meeting of {SYNTH_MEETING_SEGMENTS} segments, video={route!r}: {video.name} "
+                  f"({video.stat().st_size / 2**20:.1f} MiB) and {video.with_suffix('.wav').name}, written in {write_s:.3f} s; "
+                  f"process_video {pv_s:.3f} s, {n_fwd} forwards, launches { {k: v for k, v in got.items() if v} }; "
+                  f"{len(segs28)} segments (start, end, speaker, transcript, fused emotion): "
+                  f"{[(round(sg['start'], 2), round(sg['end'], 2), sg['speaker'], sg['transcript'], sg['fused_emotion']) for sg in segs28]}",
+                  flush=True)
+            check(got == expected and n_fwd >= 1, f"the meeting's launches ({route}) {got}, expected {expected}")
+            check(len(segs28) >= 1 and all(sg["fused_emotion"] for sg in segs28),
+                  f"the meeting ({route}) gave {len(segs28)} segments")
+            del out28
+        del proc28
+    finally:
+        shutil.rmtree(av, ignore_errors=True)
+    phase("synth_av_meeting", t1)
+    print(f"  {smi}: generators " + ", ".join(f"{k.split(',')[0]} {v:.3f} s" for k, v in gen_s.items())
+          + f"; audio-emotion recipe {ae_s:.3f} s, text-heads recipe {th_s:.3f} s", flush=True)
+    phase("synthetic_supervision", t0)
 
     kernels = [
         {

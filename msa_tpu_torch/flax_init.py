@@ -85,6 +85,21 @@ def split(key: Tuple[int, int], num: int = 2) -> Tuple[Tuple[int, int], ...]:
     return tuple(fold_in(key, i) for i in range(num))
 
 
+def randint(key: Tuple[int, int], count: int, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, (count,), minval, maxval)`` for int32, bit
+    for bit (``jax/_src/random.py`` ``_randint``): two 32-bit words from
+    ``split(key)``, each reduced modulo the span, combined with the
+    multiplier ``(2**16 mod span)² mod span``, in uint32 arithmetic that
+    wraps (as JAX's, also where the square reaches 2**32). An
+    int64 tensor on the CPU."""
+    k1, k2 = split(key)
+    hi, lo = random_bits(k1, 0, count, "cpu"), random_bits(k2, 0, count, "cpu")
+    span = (maxval - minval) & _M32 if maxval > minval else 1
+    mult = ((2**16 % span) ** 2 & _M32) % span
+    offset = (((hi % span) * mult) & _M32) + lo % span
+    return minval + (offset & _M32) % span
+
+
 def fold_in_names(key: Tuple[int, int], *parts) -> Tuple[int, int]:
     """flax's ``_fold_in_static``: fold the first 4 bytes (big-endian) of
     the SHA-1 of the parts (strings as UTF-8, ints as minimal big-endian

@@ -59,6 +59,13 @@ def adamw(params: Iterable[torch.Tensor], lr: float = 1e-3, weight_decay: float 
     return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
 
 
+def adam(params: Iterable[torch.Tensor], lr: float = 1e-3) -> torch.optim.Adam:
+    """``optax.adam(lr)`` with optax's defaults (b1 0.9, b2 0.999, eps 1e-8
+    outside the square root), the synthetic-supervision trainers'
+    optimizer. The same update as optax's in another order of operations."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
 def train_step(
     model: nn.Module, loss_fn: Callable[..., torch.Tensor], optimizer: torch.optim.Optimizer, *batch,
     dropout_seed: Optional[int] = None,

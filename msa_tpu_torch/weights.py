@@ -95,6 +95,11 @@ def flax_tree(module: nn.Module, of=None) -> dict:
     return tree
 
 
+def device_of(module: nn.Module) -> torch.device:
+    """The device of ``module``'s parameters."""
+    return next(module.parameters()).device
+
+
 def missing_leaves(module: nn.Module, tree: Mapping[str, Any]) -> list:
     """The flax paths of ``module``'s parameters that ``tree`` lacks."""
     from msa_tpu_torch import flax_init

@@ -38,6 +38,8 @@ from msa_tpu.ops.pallas.attention import attention_bwd as jax_attention_bwd
 from msa_tpu_torch.ops.kernels import attention as A
 from msa_tpu_torch.ops.kernels import attention_bwd_plan as BP
 
+import torch_parity  # noqa: F401  (its import shares the CPU among xdist workers)
+
 _SPEC = importlib.util.spec_from_file_location("chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
 _SMOKE = importlib.util.module_from_spec(_SPEC)
 _SPEC.loader.exec_module(_SMOKE)

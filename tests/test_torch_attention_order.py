@@ -45,6 +45,8 @@ import torch.nn.functional as F
 
 from msa_tpu_torch.ops.kernels import attention as A
 
+import torch_parity  # noqa: F401  (its import shares the CPU among xdist workers)
+
 _SPEC = importlib.util.spec_from_file_location("chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
 _SMOKE = importlib.util.module_from_spec(_SPEC)
 _SPEC.loader.exec_module(_SMOKE)

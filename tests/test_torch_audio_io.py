@@ -10,6 +10,8 @@ import pytest
 from msa_tpu.host import audio_io as J
 from msa_tpu_torch.host import audio_io as P
 
+import torch_parity  # noqa: F401  (its import shares the CPU among xdist workers)
+
 
 def _write(path, frames: np.ndarray, width: int, channels: int, rate: int = 22_050):
     with wave.open(str(path), "wb") as wf:

@@ -16,6 +16,8 @@ from msa_tpu_torch.models import face as PFace
 from msa_tpu_torch.models.fusion import FusionMLP
 from msa_tpu_torch.models.transformer import AttentiveStatsPool
 
+import torch_parity  # noqa: F401  (its import shares the CPU among xdist workers)
+
 CKPT = os.path.join(os.path.dirname(__file__), "..", "msa_tpu", "checkpoints")
 SHIPPED = sorted(
     os.path.relpath(p, CKPT) for p in glob.glob(os.path.join(CKPT, "**", "*.msgpack"), recursive=True)

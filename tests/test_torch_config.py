@@ -10,6 +10,8 @@ import pytest
 from msa_tpu.core import config as J
 from msa_tpu_torch.core import config as P
 
+import torch_parity  # noqa: F401  (its import shares the CPU among xdist workers)
+
 ENV = ("HF_TOKEN", "MODEL_DEVICE", "FACE_MODEL", "AUDIO_MODEL", "MSA_MODEL_SCALE", "MSA_PRECOMPILE")
 
 

@@ -23,6 +23,8 @@ from msa_tpu_torch.core import emotions
 from msa_tpu_torch.evaluation import ModelEvaluator
 from msa_tpu_torch.evaluation import metrics as M
 
+import torch_parity  # noqa: F401  (its import shares the CPU among xdist workers)
+
 PT = list(emotions.PT_UI)
 
 

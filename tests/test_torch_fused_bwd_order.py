@@ -38,6 +38,8 @@ from msa_tpu.ops.pallas.attention import _fused_attention_lse as jax_fused_lse
 from msa_tpu_torch.ops.kernels import attention as A
 from test_torch_attention_order import _check, _inputs, packed_order_model
 
+import torch_parity  # noqa: F401  (its import shares the CPU among xdist workers)
+
 _SPEC = importlib.util.spec_from_file_location("chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
 _SMOKE = importlib.util.module_from_spec(_SPEC)
 _SPEC.loader.exec_module(_SMOKE)

@@ -35,6 +35,8 @@ from msa_tpu_torch.ops.kernels import ffn as F
 from msa_tpu_torch.ops.kernels import gemm_bf16 as GB
 from msa_tpu_torch.ops.kernels import gemm_plan as GP
 
+import torch_parity  # noqa: F401  (its import shares the CPU among xdist workers)
+
 BF16 = torch.bfloat16
 K_VALUES = GP.K_TILE // 2  # bf16 values a k-tile holds
 # (N, K) of the encoders' four GEMMs at d_model 768, d_ff 3072, and of a

@@ -44,6 +44,8 @@ from msa_tpu_torch.ops.kernels import gemm_f32 as GF
 from msa_tpu_torch.ops.kernels import gemm_plan as GP
 from test_torch_wide_heads import card  # noqa: F401 (the stand-in kernel library, a fixture)
 
+import torch_parity  # noqa: F401  (its import shares the CPU among xdist workers)
+
 F32 = torch.float32
 STEP = GP.F32_K_STEP
 # the parity forward's GEMMs at B=2 (M, N, K): text at bucket 512, audio at

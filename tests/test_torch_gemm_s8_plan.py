@@ -29,6 +29,8 @@ from msa_tpu_torch.ops.kernels import ffn as F
 from msa_tpu_torch.ops.kernels import gemm_s8 as GS
 from msa_tpu_torch.ops.kernels import quant as KQ
 
+import torch_parity  # noqa: F401  (its import shares the CPU among xdist workers)
+
 # (N, K) of the encoders' four GEMMs at d_model 768, d_ff 3072 (any head dim
 # of 32, 64 or 128 gives H·DP = 768), and of a D = 192 block (DP 256, 4
 # heads: QKV N = 3072, Wo K = 1024)

@@ -7,6 +7,8 @@ import pathlib
 
 import pytest
 
+import torch_parity  # noqa: F401  (its import shares the CPU among xdist workers)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "msa_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 BANNED = {"jax", "jaxlib", "flax", "msgpack", "optax", "msa_tpu"}
@@ -59,6 +61,15 @@ def test_the_port_is_there():
         "msa_tpu_torch/training/preprocess_ami.py",
         "msa_tpu_torch/evaluation/evaluator.py",
         "msa_tpu_torch/evaluation/metrics.py",
+        "msa_tpu_torch/training/face_synth.py",
+        "msa_tpu_torch/training/text_synth.py",
+        "msa_tpu_torch/training/speech_synth.py",
+        "msa_tpu_torch/training/synth_av.py",
+        "msa_tpu_torch/training/train_landmarks.py",
+        "msa_tpu_torch/training/train_face_emotion.py",
+        "msa_tpu_torch/training/train_audio_emotion.py",
+        "msa_tpu_torch/training/train_text_heads.py",
+        "msa_tpu_torch/training/train_speaker.py",
     ):
         assert want in names
 

@@ -45,6 +45,8 @@ from msa_tpu_torch.pipeline import graph as PG
 from msa_tpu_torch.processors import offline as PO
 from msa_tpu_torch.runtime import native_lib as PN
 
+import torch_parity  # noqa: F401  (its import shares the CPU among xdist workers)
+
 cv2 = pytest.importorskip("cv2")
 
 SAMPLES = 4000  # the JAX processor tests' tiny window

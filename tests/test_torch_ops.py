@@ -18,6 +18,8 @@ from msa_tpu_torch.ops import audio_features as PA
 from msa_tpu_torch.ops import face_features as PF
 from msa_tpu_torch.ops import normalization as PN
 
+import torch_parity  # noqa: F401  (its import shares the CPU among xdist workers)
+
 SR = 16_000
 
 

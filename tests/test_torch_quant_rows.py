@@ -38,6 +38,8 @@ from msa_tpu_torch.ops.kernels import gemm_s8 as GS
 from msa_tpu_torch.ops.kernels import quant as KQ
 from test_torch_wide_heads import card  # noqa: F401 (the stand-in kernel library, a fixture)
 
+import torch_parity  # noqa: F401  (its import shares the CPU among xdist workers)
+
 _JAX_ROWS = jax.jit(JQ.quantize_rows)
 # the scale the quantizer takes for a row of amax 127: 127 · f32(1/127) = 1 − 2^-24
 _S127 = np.float32(np.float32(127.0) * np.float32(1.0 / 127.0))

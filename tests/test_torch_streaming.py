@@ -45,6 +45,8 @@ from msa_tpu_torch.processors import streaming as PSP
 from msa_tpu_torch.visualizers import overlay as POv
 from test_torch_offline import SAMPLES, VEC_ATOL, _configs, media, port_tiny  # noqa: F401 (media, port_tiny: fixtures)
 
+import torch_parity  # noqa: F401  (its import shares the CPU among xdist workers)
+
 cv2 = pytest.importorskip("cv2")
 
 WEIGHTS_ATOL = 1e-7  # the fusion's softmaxed modality weights, host floats on both sides

@@ -32,6 +32,8 @@ from msa_tpu_torch.host import bpe as PB
 from msa_tpu_torch.host import transcription as PT
 from msa_tpu_torch.models import whisper as PW
 
+import torch_parity  # noqa: F401  (its import shares the CPU among xdist workers)
+
 FIXTURE = Path(__file__).resolve().parent / "data" / "asr_clips.npz"
 CLIP_SEED, N_CLIPS = 777_003, 8  # a seed neither the trainer nor tests/test_shipped_assets.py uses
 LOGITS_ATOL = 1e-3

@@ -9,9 +9,27 @@ interpret mode on the CPU), unlike ``EncoderConfig.tiny()``.
 
 from __future__ import annotations
 
+import os
+
 import jax
 import numpy as np
 import torch
+
+
+def share_cpu_threads() -> None:
+    """Under pytest-xdist, give this worker's torch its share of the CPU's
+    cores (at least one thread): each worker's torch otherwise takes every
+    core, and the workers then oversubscribe the CPU several times over. In
+    one process torch keeps its default. Called once, at this module's
+    import, which each ``tests/test_torch_*.py`` makes before its first
+    torch op."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0") or 0)
+    if workers > 1:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+
+
+share_cpu_threads()
+
 
 ENC = dict(num_layers=2, d_model=128, num_heads=4, d_ff=256)
 FACE = dict(
